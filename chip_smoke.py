@@ -1,0 +1,484 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
+builds ``tclb_tpu_torch/csrc/d2q9.cu`` for sm_90a into ``build/``), and
+exits nonzero without printing a result when either the card or the
+package is missing.  Phases, each of which fails the run on its own:
+
+1. build the d2q9 kernels and print what ``ptxas`` reports for them;
+2. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it (the Karman state for ``d2q9_resident8``
+   and ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
+   ``d2q9_step``), at rtol 2e-5 / atol 2e-6;
+3. hold the card's f32 run of the two d2q9 golden cases
+   (``tests/goldens/karman.json``, ``poiseuille.json``) against the goldens
+   at rtol 1e-4 / atol 1e-6 (f32 against an f64 recording);
+4. the main path: ``example/karman.xml`` unchanged through ``run_config``
+   (10000 iterations, Log every 1000, VTK every 5000) on
+   ``cuda_d2q9_resident[d2q9,fuse=8]``, with the launch counts set to 0
+   just before and read just after;
+5. the band engine: the 1024x1024 d2q9 channel of ``bench.py``,
+   ``iterate(2002)`` on ``cuda_d2q9_band[d2q9,fuse=2]``, counted the same
+   way;
+6. kernel times (CUDA events over many launches), the plain versions'
+   times, each kernel's bound on this card, and the host time one call of
+   each wrapper takes;
+7. a torch.profiler trace of a karman ``iterate`` window: the card's
+   busy and idle share and its time by kernel.
+
+The line before the last is the JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+import time
+import xml.etree.ElementTree as ET
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
+GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
+KARMAN_XML = ROOT / "example" / "karman.xml"
+DEVICE = "cuda"
+TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
+    "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
+    "d2q9_step2": "tclb_tpu/ops/pallas_d2q9.py:756",
+    "d2q9_resident8": "tclb_tpu/ops/pallas_d2q9.py:302",
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------- #
+# states at the path's shapes
+# --------------------------------------------------------------------------- #
+
+
+def karman_lattice(dtype, device):
+    """example/karman.xml's painted and initialised lattice, without its
+    <Solve>, <Log> and <VTK>."""
+    from tclb_tpu_torch.control.solver import _run_root
+    from tclb_tpu_torch.models import get_model
+    root = ET.parse(KARMAN_XML).getroot()
+    for tag in ("Solve", "Log", "VTK"):
+        for el in root.findall(tag):
+            root.remove(el)
+    with tempfile.TemporaryDirectory() as out:
+        solver = _run_root(root, get_model(root.get("model")), None, dtype,
+                           out + "/", "karman_state", device=device)
+    return solver.lattice
+
+
+def channel_lattice(device, n=1024):
+    """bench.py's d2q9 channel (bench.py:154-167)."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d2q9")
+    lat = Lattice(m, (n, n), dtype=torch.float32, device=device,
+                  settings={"nu": 0.02, "Velocity": 0.01})
+    flags = np.full((n, n), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = m.flag_for("WVelocity", "MRT")
+    flags[:, -1] = m.flag_for("EPressure", "MRT")
+    flags[0, :] = m.flag_for("Wall")
+    flags[-1, :] = m.flag_for("Wall")
+    flags[n // 3:2 * n // 3, n // 10:n // 5] = m.flag_for("Wall")
+    flags[1:-1, 2] = m.flag_for("MRT", "Inlet")
+    flags[1:-1, -3] = m.flag_for("MRT", "Outlet")
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def eager_warm(lat, steps: int) -> None:
+    """Advance on the eager engine so the state carries flow, not just
+    the initial equilibrium."""
+    lat.state = lat._iterate(lat.state, lat.params, steps)
+    lat.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# phases
+# --------------------------------------------------------------------------- #
+
+
+def compare(got, want, what: str) -> dict:
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp_min(1e-30)).max())
+    ok = bool((err <= ATOL + RTOL * want.abs()).all())
+    finite = bool(torch.isfinite(got).all())
+    say(f"  {what}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+        f"(rtol {RTOL} atol {ATOL}) {'ok' if ok and finite else 'FAIL'}")
+    if not (ok and finite):
+        fail(f"{what} disagrees with its plain version")
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+def check_kernels(dk, karman, channel) -> dict:
+    """Each kernel against its plain version on the same inputs."""
+    say("phase 2: kernels against their plain versions on the card")
+    errs = {}
+    for lat, name in ((karman, "d2q9_resident8"), (karman, "d2q9_step"),
+                      (channel, "d2q9_step2"), (channel, "d2q9_step")):
+        fn, n = dk.WRAPPERS[name]
+        f, flags, vel, den, a = dk.kernel_inputs(lat.model, lat.state,
+                                                 lat.params)
+        got = fn(f, flags, vel, den, a)
+        want = dk.plain_steps(f, flags, vel, den, a, n)
+        torch.cuda.synchronize()
+        e = compare(got, want, f"{name} at {tuple(f.shape)}")
+        prev = errs.get(name)
+        if prev is None or e["max_abs_err"] > prev["max_abs_err"]:
+            errs[name] = e
+    return errs
+
+
+def check_goldens() -> None:
+    """The d2q9 goldens, run on the card in f32 through the kernels."""
+    from tclb_tpu_torch.control.solver import _run_root
+    from tclb_tpu_torch.models import get_model
+    say("phase 3: d2q9 goldens on the card (f32 kernels vs f64 recording)")
+    src = (ROOT / "tests" / "test_golden.py").read_text()
+    for name in ("karman", "poiseuille"):
+        tag = f'{name.upper()} = """'
+        start = src.index(tag) + len(tag)
+        xml = src[start:src.index('"""', start)]
+        golden = json.loads(
+            (ROOT / "tests" / "goldens" / f"{name}.json").read_text())
+        with tempfile.TemporaryDirectory() as out:
+            solver = _run_root(ET.fromstring(xml.format(out=out)),
+                               get_model("d2q9"), None, torch.float32,
+                               out + "/", name, device=DEVICE)
+            row = solver.log_row()
+            fields = solver.lattice.state.fields.double().cpu().numpy()
+        row["FieldsL1"] = float(np.abs(fields).sum())
+        row["FieldsSum"] = float(fields.sum())
+        engine = solver.lattice.engine_name
+        if not engine.startswith("cuda_d2q9"):
+            fail(f"golden {name} ran on {engine}, not a kernel engine")
+        worst = 0.0
+        for key, want in golden.items():
+            if key == "Walltime":
+                continue
+            got = row[key]
+            if not abs(got - want) <= GOLDEN_ATOL + GOLDEN_RTOL * abs(want):
+                fail(f"golden {name}:{key}: {got!r} vs {want!r}")
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+        say(f"  {name}: {len(golden) - 1} columns within rtol "
+            f"{GOLDEN_RTOL} (worst rel {worst:.2e}) on {engine}")
+
+
+def run_karman(dk) -> dict:
+    """The main path: example/karman.xml end to end on the card.  The case
+    writes into its own ``output/`` (the XML's ``output`` attribute), so it
+    runs from a temporary working directory."""
+    from tclb_tpu_torch.control.solver import run_config
+    from tclb_tpu_torch.models import get_model
+    say(f"phase 4: {KARMAN_XML.name} end to end")
+    root = ET.parse(KARMAN_XML).getroot()
+    niter = int(root.find("Solve").get("Iterations"))
+    log_every = int(root.find("Log").get("Iterations"))
+    vtk_every = int(root.find("VTK").get("Iterations"))
+    model = get_model(root.get("model"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            dk.reset_launches()
+            t0 = time.perf_counter()
+            solver = run_config(str(KARMAN_XML), model, dtype=torch.float32,
+                                device=DEVICE)
+            solver.lattice.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(dk.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+        out = os.path.join(tmp, root.get("output"))
+        files = sorted(os.listdir(out))
+        with open(os.path.join(out, "karman_Log.csv")) as f:
+            rows = f.read().strip().splitlines()[1:]
+    lat = solver.lattice
+    say(f"  engine {lat.engine_name}, {solver.iter} iterations, "
+        f"{wall:.3f} s wall, launches {launches}")
+    if lat.engine_name != "cuda_d2q9_resident[d2q9,fuse=8]":
+        fail(f"karman ran on {lat.engine_name}")
+    if solver.iter != niter or len(rows) != niter // log_every:
+        fail(f"karman: {solver.iter} iterations, {len(rows)} log rows")
+    for it in range(vtk_every, niter + 1, vtk_every):
+        for ext in ("vti", "pvti"):
+            if f"karman_VTK_{it:08d}.{ext}" not in files:
+                fail(f"karman: no VTK output {it} .{ext} in {files}")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail("karman: non-finite fields")
+    g = lat.get_globals()
+    if not all(math.isfinite(v) for v in g.values()) or g["InletFlux"] <= 0:
+        fail(f"karman: implausible globals {g}")
+    for name in ("d2q9_resident8", "d2q9_step"):
+        if launches[name] < 1:
+            fail(f"karman did not launch {name}")
+    # a pure iterate window on the run's own lattice, fenced by synchronize
+    nodes = float(np.prod(lat.shape))
+    window = 2000
+    lat.synchronize()
+    t0 = time.perf_counter()
+    lat.iterate(window)
+    host = time.perf_counter() - t0    # until iterate returns to the host
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    # the window's trailing eager step (the globals) on its own
+    t0 = time.perf_counter()
+    lat.state = lat._iterate(lat.state, lat.params, 1)
+    lat.synchronize()
+    eager = time.perf_counter() - t0
+    out = {"launches": launches, "wall_s": wall,
+           "mlups_end_to_end": nodes * niter / wall / 1e6,
+           "mlups_iterate": nodes * window / dt / 1e6,
+           "iterate_ms": dt * 1e3, "iterate_host_ms": host * 1e3,
+           "eager_step_ms": eager * 1e3, "globals": g}
+    say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end (XML, painting, "
+        f"Log and VTK included), {out['mlups_iterate']:.1f} in an "
+        f"iterate({window}) window ({dt * 1e3:.2f} ms, of which "
+        f"{host * 1e3:.2f} ms until iterate returned; one eager globals "
+        f"step alone {eager * 1e3:.2f} ms)")
+    return out
+
+
+def run_channel(dk, lat) -> dict:
+    """The band engine on the 1024x1024 channel."""
+    say("phase 5: 1024x1024 channel on the band engine")
+    niter = 2002
+    lat.synchronize()
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    lat.iterate(niter)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(dk.LAUNCHES)
+    say(f"  engine {lat.engine_name}, launches {launches}, "
+        f"{np.prod(lat.shape) * niter / dt / 1e6:.1f} MLUPS")
+    if lat.engine_name != "cuda_d2q9_band[d2q9,fuse=2]":
+        fail(f"channel ran on {lat.engine_name}")
+    for name in ("d2q9_step2", "d2q9_step"):
+        if launches[name] < 1:
+            fail(f"channel did not launch {name}")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail("channel: non-finite fields")
+    return {"launches": launches,
+            "mlups_iterate": float(np.prod(lat.shape)) * niter / dt / 1e6}
+
+
+def event_ms(fn, reps: int, warm: int = 5) -> float:
+    """Device ms per call of ``fn`` between two CUDA events.  A spin kernel
+    queued first keeps the card busy while the host enqueues the window,
+    so the launches run back to back and host launch cost is not timed."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(min(reps, 1000) * 50_000)   # ~25 us of cycles a call
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_kernels(dk, karman, channel) -> dict:
+    say("phase 6: times (CUDA events) and bounds")
+    out = {}
+    for name, lat, reps in (("d2q9_resident8", karman, 400),
+                            ("d2q9_step", karman, 1000),
+                            ("d2q9_step2", channel, 200)):
+        fn, steps = dk.WRAPPERS[name]
+        f, flags, vel, den, a = dk.kernel_inputs(lat.model, lat.state,
+                                                 lat.params)
+
+        def launch():
+            fn(f, flags, vel, den, a)
+        ms = event_ms(launch, reps)
+        plain_ms = event_ms(lambda: dk.plain_steps(
+            f, flags, vel, den, a, steps), 10, warm=2)
+        host_ms = wrapper_host_ms(launch)
+        nbytes = dk.launch_bytes(lat.model, lat.shape)
+        flops = steps * dk.node_step_flops(lat.model, lat.flags_numpy())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "bytes": nbytes, "flops": flops,
+                     "wrapper_host_ms": host_ms,
+                     "shape": list(lat.shape)}
+        say(f"  {name} at {tuple(lat.shape)}: {ms:.4f} ms/launch, plain "
+            f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({out[name]['bound_by']}: {nbytes} B, {flops} flop), "
+            f"wrapper {host_ms:.4f} ms of host time a call")
+    return out
+
+
+def wrapper_host_ms(launch, calls: int = 200) -> float:
+    """Host ms one call of a kernel's wrapper takes to enqueue its launch
+    (checks, output allocation, the ctypes call), timed with a host clock
+    and no synchronize inside the window."""
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        launch()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
+def device_busy(lat, window: int = 400) -> dict:
+    """Where the karman iterate window's time goes on the card: a
+    torch.profiler trace of ``iterate(window)``, the union of the kernels'
+    intervals against the host window, and device time by kernel name.
+    Where the trace shows no device activity the share is not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    say("phase 7: device busy share over a karman iterate window")
+    lat.iterate(window)            # warm: the engine and its statics
+    lat.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lat.iterate(window)
+        lat.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = {"window_steps": window, "wall_us": wall_us,
+           "device_busy_us": busy if spans else None,
+           "idle_share": 1.0 - busy / wall_us if spans else None,
+           "device_us_by_kernel": dict(sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:8])}
+    share = ("not measured (no device events in the trace)"
+             if out["idle_share"] is None
+             else f"{out['idle_share']:.3f}")
+    say(f"  iterate({window}) under the profiler: {wall_us:.0f} us wall, "
+        f"device busy {busy:.0f} us, idle share {share}")
+    for k, v in out["device_us_by_kernel"].items():
+        say(f"    {v:10.1f} us  {k[:90]}")
+    return out
+
+
+def main() -> int:
+    if not (ROOT / "tclb_tpu_torch" / "csrc" / "d2q9.cu").is_file():
+        print("chip_smoke: run from a checkout of the repository (no "
+              "tclb_tpu_torch/ beside this script)", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from tclb_tpu_torch.ops import d2q9_kernels as dk
+
+    say(card_line())
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    say("phase 1: build")
+    t0 = time.perf_counter()
+    lib_path, report = dk.build()
+    say(f"  built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say(f"  ptxas: {line.strip()}")
+
+    karman = karman_lattice(torch.float32, DEVICE)
+    eager_warm(karman, 200)
+    channel = channel_lattice(DEVICE)
+    eager_warm(channel, 20)
+    errs = check_kernels(dk, karman, channel)
+    check_goldens()
+    main_path = run_karman(dk)
+    band = run_channel(dk, channel)
+    times = time_kernels(dk, karman, channel)
+    busy = device_busy(karman)
+
+    kernels = []
+    for name in dk.KERNELS:
+        by_path = {"karman": main_path["launches"][name],
+                   "channel": band["launches"][name]}
+        if sum(by_path.values()) < 1:
+            fail(f"{name} was launched no time on the path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tclb_tpu_torch/csrc/d2q9.cu",
+            "replaces": TPU_KERNELS[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": errs[name]["max_abs_err"],
+            "max_rel_err": errs[name]["max_rel_err"],
+            "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+            "bound_ms": times[name]["bound_ms"],
+            "bound_by": times[name]["bound_by"],
+            "library_ms": None,
+            "wrapper_host_ms": times[name]["wrapper_host_ms"],
+            "shape": times[name]["shape"],
+        })
+    say(json.dumps({
+        "karman": {k: main_path[k] for k in (
+            "wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
+            "iterate_host_ms", "eager_step_ms")},
+        "channel_mlups_iterate": band["mlups_iterate"],
+        "karman_iterate_profile": busy}))
+    say(card_line())
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,376 @@
+"""XML handler tree — element name -> behavior.
+
+The port's counterpart of the JAX package's ``control/handlers.py``: the
+same scheduling (fractional intervals, Now/Next), the same recursive
+``GenericAction`` execution with callback stacking, and the handlers the
+main path and its goldens use.  Every other element of the JAX package's
+handler table raises ``NotImplementedError`` naming the ROADMAP item that
+ports it; an element neither package knows raises ``ValueError``.
+
+Handlers run on the host; everything device-bound goes through the Lattice.
+"""
+
+from __future__ import annotations
+
+import math
+import xml.etree.ElementTree as ET
+from typing import Optional
+
+import numpy as np
+
+from tclb_tpu_torch.control.solver import ITERATION_STOP, Solver
+from tclb_tpu_torch.utils import log
+
+
+class Handler:
+    """Base scheduling unit."""
+
+    kind = "action"   # action | callback | container
+
+    def __init__(self, node: ET.Element, solver: Solver):
+        self.node = node
+        self.solver = solver
+        self.start_iter = 0
+        self.every_iter = 0.0
+
+    # -- schedule ----------------------------------------------------------- #
+
+    def _parse_interval(self) -> None:
+        self.start_iter = self.solver.iter
+        attr = self.node.get("Iterations")
+        self.every_iter = self.solver.units.alt(attr) if attr else 0.0
+
+    def now(self, it: int) -> bool:
+        """True when ``it`` is a firing iteration (fractional intervals
+        fire by floor-crossing)."""
+        if not self.every_iter:
+            return False
+        it -= self.start_iter
+        return math.floor(it / self.every_iter) > \
+            math.floor((it - 1) / self.every_iter)
+
+    def next_it(self, it: int) -> int:
+        """Steps until the next firing."""
+        if not self.every_iter:
+            return -1
+        it -= self.start_iter
+        k = math.floor(it / self.every_iter)
+        return int(-math.floor(-(k + 1) * self.every_iter)) - it
+
+    # -- lifecycle ---------------------------------------------------------- #
+
+    def init(self) -> int:
+        self._parse_interval()
+        if self.node.get("output"):
+            self.solver.output_prefix = self.node.get("output")
+        return 0
+
+    def do_it(self) -> int:
+        return 0
+
+    def finish(self) -> int:
+        return 0
+
+
+class GenericAction(Handler):
+    """Container executing children immediately; periodic children stack
+    into ``solver.hands`` until this action completes."""
+
+    def init(self) -> int:
+        super().init()
+        return self.execute_internal()
+
+    def execute_internal(self) -> int:
+        self._stacked = 0
+        for child in self.node:
+            h = get_handler(child, self.solver)
+            if h is None:
+                continue
+            ret = h.init()
+            if ret not in (0, None):
+                return ret
+            if h.every_iter:
+                self.solver.hands.append(h)
+                self._stacked += 1
+        return 0
+
+    def unstack(self) -> None:
+        for _ in range(getattr(self, "_stacked", 0)):
+            h = self.solver.hands.pop()
+            h.finish()
+
+
+class MainContainer(GenericAction):
+    """The <CLBConfig> root."""
+
+    kind = "container"
+
+    def init(self) -> int:
+        self.start_iter = self.solver.iter
+        self.every_iter = 0.0
+        if self.node.get("output"):
+            self.solver.output_prefix = self.node.get("output")
+        self.solver.dump_config(self.node)
+        ret = self.execute_internal()
+        self.unstack()
+        return ret
+
+
+class acSolve(GenericAction):
+    """<Solve Iterations="N">: the main loop — lattice iterations batched
+    between due callbacks."""
+
+    def init(self) -> int:
+        Handler.init(self)
+        if not self.every_iter:
+            raise ValueError("<Solve> needs a positive Iterations attribute")
+        ret = self.execute_internal()
+        if ret not in (0, None):
+            return ret
+        s = self.solver
+        stop = False
+        while True:
+            next_it = self.next_it(s.iter)
+            for h in s.hands:
+                it = h.next_it(s.iter)
+                if 0 < it < next_it:
+                    next_it = it
+            s.iter += next_it
+            s.lattice.iterate(next_it)
+            s.progress(next_it)
+            for h in s.hands:
+                if h.now(s.iter):
+                    r = h.do_it()
+                    if r == ITERATION_STOP:
+                        stop = True
+                    elif r not in (0, None):
+                        return r
+            if stop or self.now(s.iter):
+                break
+        self.unstack()
+        return 0
+
+
+class acRepeat(GenericAction):
+    """<Repeat Times="N">: run the children N times."""
+
+    def init(self) -> int:
+        Handler.init(self)
+        for _ in range(int(self.node.get("Times", "1"))):
+            ret = self.execute_internal()
+            if ret not in (0, None):
+                return ret
+            self.unstack()
+        return 0
+
+
+class acGeometry(Handler):
+    """<Geometry>: run the painter and push the flags."""
+
+    def init(self) -> int:
+        super().init()
+        s = self.solver
+        s.geometry.load(self.node)
+        s.lattice.set_flags(s.geometry.result())
+        if self.node.get("export") == "vti":
+            s.write_geometry_vti()
+        return 0
+
+
+class acModel(GenericAction):
+    """<Model>: the children (Params), then the lattice's Init."""
+
+    def init(self) -> int:
+        Handler.init(self)
+        ret = self.execute_internal()
+        if ret not in (0, None):
+            return ret
+        self.solver.lattice.init()
+        self.unstack()
+        return 0
+
+
+class acInit(Handler):
+    """<Init/>: re-run the Init action."""
+
+    def init(self) -> int:
+        super().init()
+        self.solver.lattice.init()
+        return 0
+
+
+class acParams(Handler):
+    """<Params name="value" name-zone="value">: set (zonal) settings
+    through the units engine; unknown names are ignored with a warning."""
+
+    def init(self) -> int:
+        super().init()
+        s = self.solver
+        m = s.model
+        for name, raw in self.node.attrib.items():
+            if name in ("Iterations", "output"):
+                continue
+            zone: Optional[int] = None
+            par = name
+            if "-" in name:
+                par, zname = name.split("-", 1)
+                if zname not in s.geometry.setting_zones:
+                    log.warning(f"unknown zone {zname!r} (setting {par})")
+                    continue
+                zone = s.geometry.setting_zones[zname]
+            if par in m.setting_index:
+                s.lattice.set_setting(par, s.units.alt(raw), zone=zone)
+            else:
+                log.warning(f"Params: model {m.name} has no setting "
+                            f"{par!r} — ignored")
+        return 0
+
+
+class _Callback(Handler):
+    """A callback that fires once at init when it has no interval."""
+
+    kind = "callback"
+
+    def init(self) -> int:
+        super().init()
+        if not self.every_iter:
+            return self.do_it()
+        return 0
+
+
+class cbVTK(_Callback):
+    def do_it(self) -> int:
+        w = self.node.get("what")
+        compress = (self.node.get("compress", "") or "").lower() \
+            in ("1", "true", "yes")
+        self.solver.write_vtk(set(w.split(",")) if w else None,
+                              compress=compress)
+        return 0
+
+
+class cbLog(_Callback):
+    def do_it(self) -> int:
+        self.solver.write_log()
+        return 0
+
+
+class cbStop(Handler):
+    """<Stop GlobalChange="eps" Times="k">: stop when every watched Global
+    changed less than eps for k consecutive checks."""
+
+    kind = "callback"
+
+    def init(self) -> int:
+        super().init()
+        self.watch: list[tuple[str, float]] = []
+        for g in self.solver.model.globals_:
+            a = self.node.get(g.name + "Change")
+            if a is not None:
+                self.watch.append((g.name, float(a)))
+        if not self.watch:
+            raise ValueError("No *Change attribute in <Stop>")
+        self.times = int(self.node.get("Times", "1"))
+        self.old = {n: -12341234.0 for n, _ in self.watch}
+        self.score = 0
+        return 0
+
+    def do_it(self) -> int:
+        g = self.solver.lattice.get_globals()
+        any_change = 0
+        for name, eps in self.watch:
+            if abs(self.old[name] - g[name]) > eps:
+                any_change += 1
+            self.old[name] = g[name]
+        self.score = 0 if any_change else self.score + 1
+        if self.score >= self.times:
+            self.score = 0
+            for name, _ in self.watch:
+                self.old[name] = -12341234.0
+            return ITERATION_STOP
+        return 0
+
+
+class cbFailcheck(Handler):
+    """<Failcheck Iterations="N">: scan the quantities for non-finite
+    values; on failure run the child elements (a rescue dump), then
+    stop."""
+
+    kind = "callback"
+
+    def do_it(self) -> int:
+        s = self.solver
+        what = self.node.get("what")
+        names = set(what.split(",")) if what else {"all"}
+        bad = False
+        for q in s.model.quantities:
+            if q.adjoint:
+                continue
+            if "all" not in names and q.name not in names:
+                continue
+            arr = s.lattice.get_quantity(q.name).cpu().numpy()
+            finite = np.isfinite(arr)
+            if not finite.all():
+                log.warning(f"Failcheck: {q.name} has "
+                            f"{int(arr.size - finite.sum())} non-finite "
+                            f"values at iteration {s.iter}")
+                bad = True
+                break
+        if bad:
+            for child in self.node:
+                h = get_handler(child, self.solver)
+                if h is not None:
+                    h.init()
+                    h.do_it()
+            return ITERATION_STOP
+        return 0
+
+
+class acNop(Handler):
+    """Elements handled elsewhere (<Units> is read before the tree
+    runs)."""
+
+    def init(self) -> int:
+        return 0
+
+
+_HANDLERS = {
+    "CLBConfig": MainContainer,
+    "Solve": acSolve,
+    "Repeat": acRepeat,
+    "Geometry": acGeometry,
+    "Model": acModel,
+    "Init": acInit,
+    "Params": acParams,
+    "VTK": cbVTK,
+    "Log": cbLog,
+    "Stop": cbStop,
+    "Failcheck": cbFailcheck,
+    "Units": acNop,
+}
+
+# elements of the JAX package's handler table not ported yet -> the ROADMAP
+# queue 1 item that ports them
+_WAITING = {
+    "SyntheticTurbulence": 8,
+    "Average": 10, "Control": 10, "Sample": 10, "Keep": 10,
+    "Adjoint": 11, "FDTest": 11, "Threshold": 11, "ThresholdNow": 11,
+    "Optimize": 11, "OptSolve": 11, "InternalTopology": 11,
+    "OptimalControl": 11, "OptimalControlSecond": 11, "Fourier": 11,
+    "BSpline": 11, "RepeatControl": 11,
+    "BIN": 13, "SaveBinary": 13, "SaveMemoryDump": 13, "SaveCheckpoint": 13,
+    "LoadBinary": 13, "LoadMemoryDump": 13,
+    "TXT": 15, "Catalyst": 15, "DumpSettings": 15, "CallPython": 15,
+    "Container": 15, "FieldParameter": 15, "ControlParameter": 15,
+}
+
+
+def get_handler(node: ET.Element, solver: Solver) -> Optional[Handler]:
+    """Element name -> handler instance."""
+    cls = _HANDLERS.get(node.tag)
+    if cls is not None:
+        return cls(node, solver)
+    if node.tag in _WAITING:
+        raise NotImplementedError(
+            f"<{node.tag}> is not ported to PyTorch yet (ROADMAP queue 1, "
+            f"item {_WAITING[node.tag]})")
+    raise ValueError(f"unknown config element <{node.tag}>")

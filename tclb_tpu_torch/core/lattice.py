@@ -1,0 +1,568 @@
+"""Lattice engine on PyTorch: state, streaming, per-stage step, iteration.
+
+The port's counterpart of the JAX package's ``core/lattice.py``.  Same
+planar layout at every public function: fields ``(n_storage, *shape)``,
+flags with the registry's bit packing, globals and settings in registry
+order.  Inside, PyTorch idiom: dataclasses of tensors, an explicit
+``device``, and Python loops where the JAX package scans.
+
+Flags live on the device as an int32 copy (``torch.uint16`` has no shift on
+the CPU, and the zone id is ``flags >> zone_shift``); they cross to numpy as
+uint16 in ``set_flags``, ``flags_numpy`` and ``save``/``load``.
+
+Engines: the eager path below runs every model at any dtype.  For ``d2q9``
+at f32 the hand-written CUDA kernels of :mod:`tclb_tpu_torch.ops.d2q9_kernels`
+take ``niter - 1`` steps and one eager step computes the globals (the JAX
+package's hybrid).  The engine is chosen by ``supports()``; a kernel that
+fails to build or launch fails the run — nothing falls back to eager after
+a failure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tclb_tpu_torch.core.registry import Model
+from tclb_tpu_torch.utils import log
+
+FLAG_DTYPE = torch.int32     # device-side flag copy (uint16 at numpy seams)
+
+
+@dataclasses.dataclass
+class SimParams:
+    """Runtime settings: ``settings[s]`` for plain settings and
+    ``zone_table[s, z]`` for the value of setting ``s`` in zone ``z``.
+    Control time series wait for ROADMAP queue 1 item 10."""
+
+    settings: torch.Tensor       # (n_settings,)
+    zone_table: torch.Tensor     # (n_settings, zone_max)
+
+
+@dataclasses.dataclass
+class LatticeState:
+    """The complete per-step lattice state."""
+
+    fields: torch.Tensor         # (n_storage, *shape)
+    flags: torch.Tensor          # (*shape) int32 node-type bitfield
+    globals_: torch.Tensor       # (n_globals,) last step's integrals
+    iteration: int
+
+
+def resolve_device(device: Any = None) -> torch.device:
+    """``None`` means the card; asking for CUDA without one raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "eager engine on the host")
+    return dev
+
+
+# --------------------------------------------------------------------------- #
+# Streaming
+# --------------------------------------------------------------------------- #
+
+
+def pull_stream(model: Model, fields: torch.Tensor) -> torch.Tensor:
+    """Pull-scheme streaming with periodic wrap: plane ``i`` at node ``x``
+    receives the value stored at ``x - e_i``.  ``torch.roll(a, s)[x] ==
+    a[x - s]``, so rolling plane ``i`` by ``e_i`` is exactly the pull."""
+    ndim = model.ndim
+    out = []
+    for i in range(model.n_storage):
+        dx, dy, dz = (int(v) for v in model.ei[i])
+        shifts, dims = [], []
+        for shift, dim in ((dz, -3), (dy, -2), (dx, -1)):
+            if shift and ndim >= -dim:
+                shifts.append(shift)
+                dims.append(dim)
+        plane = fields[i]
+        out.append(torch.roll(plane, shifts, dims) if shifts else plane)
+    return torch.stack(out)
+
+
+class Streaming:
+    """Streaming strategy: the single-device periodic pull.  The sharded
+    strategy waits for ROADMAP queue 1 item 12."""
+
+    def __init__(self, model: Model):
+        self.model = model
+
+    def pull(self, fields: torch.Tensor) -> torch.Tensor:
+        return pull_stream(self.model, fields)
+
+
+# --------------------------------------------------------------------------- #
+# Node context — what a model's Run()/Init() sees
+# --------------------------------------------------------------------------- #
+
+
+class NodeCtx:
+    """The model-facing view of one lattice-wide step: every accessor
+    returns whole planes, and per-node dispatch is mask algebra."""
+
+    def __init__(self, model: Model, fields: torch.Tensor,
+                 raw: torch.Tensor, flags: torch.Tensor, params: SimParams,
+                 iteration: int = 0, present: Optional[set] = None,
+                 compute_globals: bool = True):
+        self.model = model
+        self._fields = fields      # pulled (streamed) storage
+        self._raw = raw            # un-streamed storage
+        self.flags = flags
+        self.params = params
+        self.iteration = iteration
+        self.present = present
+        self.compute_globals = compute_globals
+        self._globals: dict[str, torch.Tensor] = {}
+        self._zone_ids: Optional[torch.Tensor] = None
+
+    # -- field access ------------------------------------------------------- #
+
+    def group(self, name: str) -> torch.Tensor:
+        """Streamed stack of all densities in a group: (n, *shape)."""
+        idx = self.model.groups[name]
+        return self._fields[list(idx)]
+
+    def density(self, name: str) -> torch.Tensor:
+        return self._fields[self.model.storage_index[name]]
+
+    def store(self, groups: dict[str, torch.Tensor]) -> dict:
+        """Declare the stage's write set (group/plane name -> new stack);
+        unmentioned planes keep their un-streamed value."""
+        return groups
+
+    # -- settings ----------------------------------------------------------- #
+
+    def setting(self, name: str) -> torch.Tensor:
+        """Scalar for plain settings; per-node plane for zonal settings,
+        gathered through the flag's zone bits."""
+        i = self.model.setting_index[name]
+        if not self.model.settings[i].zonal:
+            return self.params.settings[i]
+        return self.params.zone_table[i][self._zones()]
+
+    def _zones(self) -> torch.Tensor:
+        if self._zone_ids is None:
+            self._zone_ids = (self.flags >> self.model.zone_shift).long()
+        return self._zone_ids
+
+    # -- node types --------------------------------------------------------- #
+
+    def nt_is(self, name: str) -> torch.Tensor:
+        """Bool plane: the node's group field equals this node type."""
+        t = self.model.node_types[name]
+        return (self.flags & t.mask) == t.value
+
+    def boundary_case(self, f: torch.Tensor,
+                      cases: dict[Any, Callable[[torch.Tensor],
+                                                torch.Tensor]]
+                      ) -> torch.Tensor:
+        """Vectorized ``switch (NodeType & NODE_<group>)``: nodes whose
+        group field equals a case's type select that case's result (a
+        tuple key shares one function between several types)."""
+        out = f
+        for names, fn in cases.items():
+            if isinstance(names, str):
+                names = (names,)
+            if self.present is not None:
+                names = tuple(n for n in names if n in self.present)
+                if not names:
+                    continue   # type not painted: skip the whole case
+            mask = self.nt_is(names[0])
+            for n in names[1:]:
+                mask = mask | self.nt_is(n)
+            out = torch.where(mask[None], fn(f), out)
+        return out
+
+    # -- globals ------------------------------------------------------------ #
+
+    def add_global(self, name: str, plane: torch.Tensor,
+                   where: Optional[torch.Tensor] = None) -> None:
+        """Accumulate a per-node contribution to a Global; ``where`` masks
+        the contributing nodes."""
+        if not self.compute_globals:
+            return
+        if where is not None:
+            plane = torch.where(where, plane, torch.zeros_like(plane))
+        if name in self._globals:
+            self._globals[name] = self._globals[name] + plane
+        else:
+            self._globals[name] = plane
+
+    def reduce_globals(self) -> torch.Tensor:
+        m = self.model
+        out = torch.zeros((m.n_globals,), dtype=self._fields.dtype,
+                          device=self._fields.device)
+        for name, plane in self._globals.items():
+            g = m.globals_[m.global_index[name]]
+            out[m.global_index[name]] = (torch.max(plane) if g.op == "MAX"
+                                         else torch.sum(plane))
+        return out
+
+
+# --------------------------------------------------------------------------- #
+# Step / iterate
+# --------------------------------------------------------------------------- #
+
+
+def make_stage_step(model: Model, stage_name: str,
+                    streaming: Optional[Streaming] = None,
+                    present: Optional[set] = None,
+                    compute_globals: bool = True) -> Callable:
+    """The step function of one stage.  ``present`` skips boundary cases
+    of absent node types; ``compute_globals=False`` is the NoGlobals
+    flavour (every reduction skipped)."""
+    stage = model.stages[stage_name]
+    fn = model.stage_fns[stage.main]
+    if fn is None:
+        raise ValueError(f"model {model.name}: stage {stage_name} has no "
+                         f"bound function {stage.main!r}")
+    streaming = streaming or Streaming(model)
+
+    def step(state: LatticeState, params: SimParams) -> LatticeState:
+        raw = state.fields
+        pulled = streaming.pull(raw) if stage.load_densities else raw
+        ctx = NodeCtx(model, pulled, raw, state.flags, params,
+                      iteration=state.iteration, present=present,
+                      compute_globals=compute_globals)
+        new_fields = fn(ctx)
+        if isinstance(new_fields, dict):
+            # only the stage's write set is saved; every other plane keeps
+            # its un-streamed storage
+            buf = raw.clone()
+            for name, stack in new_fields.items():
+                if name in model.groups:
+                    idx = list(model.groups[name])
+                    buf[idx] = stack.reshape((len(idx),) + buf.shape[1:])
+                else:
+                    buf[model.storage_index[name]] = stack
+            new_fields = buf
+        if not compute_globals:
+            return dataclasses.replace(state, fields=new_fields)
+        stage_globals = ctx.reduce_globals()
+        max_rows = [i for i, g in enumerate(model.globals_) if g.op == "MAX"]
+        combined = state.globals_ + stage_globals
+        if max_rows:
+            combined[max_rows] = torch.maximum(state.globals_[max_rows],
+                                               stage_globals[max_rows])
+        return dataclasses.replace(state, fields=new_fields,
+                                   globals_=combined)
+
+    return step
+
+
+def make_action_step(model: Model, action: str = "Iteration",
+                     streaming: Optional[Streaming] = None,
+                     present: Optional[set] = None,
+                     compute_globals: bool = True) -> Callable:
+    """Compose an action's stages into one step; the iteration counter
+    advances once per streaming action."""
+    steps = [make_stage_step(model, s, streaming, present=present,
+                             compute_globals=compute_globals)
+             for s in model.actions[action]]
+    advances = any(model.stages[s].load_densities
+                   for s in model.actions[action])
+
+    def step(state: LatticeState, params: SimParams) -> LatticeState:
+        if compute_globals:
+            state = dataclasses.replace(
+                state, globals_=torch.zeros_like(state.globals_))
+        for s in steps:
+            state = s(state, params)
+        if advances:
+            state = dataclasses.replace(state,
+                                        iteration=state.iteration + 1)
+        return state
+
+    return step
+
+
+def make_iterate(model: Model, action: str = "Iteration",
+                 streaming: Optional[Streaming] = None,
+                 present: Optional[set] = None) -> Callable:
+    """``niter``-step loop.  Its contract is "globals_ = the LAST step's
+    integrals", so the first ``niter - 1`` steps run the NoGlobals flavour
+    and only the final step reduces."""
+    step_ng = make_action_step(model, action, streaming, present=present,
+                               compute_globals=False)
+    step_full = make_action_step(model, action, streaming, present=present,
+                                 compute_globals=True)
+
+    def iterate(state: LatticeState, params: SimParams, niter: int
+                ) -> LatticeState:
+        if niter <= 0:
+            return state
+        with torch.no_grad():
+            for _ in range(niter - 1):
+                state = step_ng(state, params)
+            return step_full(state, params)
+
+    return iterate
+
+
+def _roadmap(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
+
+
+# --------------------------------------------------------------------------- #
+# Host-side Lattice wrapper
+# --------------------------------------------------------------------------- #
+
+
+class Lattice:
+    """Host-side wrapper: allocate, Init, Iterate, get/set densities,
+    quantities, settings, save/load.  ``device=None`` means the card."""
+
+    def __init__(self, model: Model, shape: Sequence[int],
+                 dtype: torch.dtype = torch.float32,
+                 settings: Optional[dict[str, float]] = None,
+                 device: Any = None,
+                 mesh: Any = None,
+                 storage_dtype: Any = None,
+                 storage_repr: Optional[str] = None):
+        if len(shape) != model.ndim:
+            raise ValueError(f"model {model.name} is {model.ndim}D; "
+                             f"got shape {shape}")
+        if mesh is not None:
+            raise _roadmap("a sharded (mesh) lattice", "item 12")
+        if (storage_dtype not in (None, dtype)
+                or storage_repr not in (None, "raw")):
+            raise _roadmap("the narrowed storage ladder", "item 9")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        self.model = model
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        vec = model.settings_vector(settings)
+        self.params = self._params_from(
+            vec, np.broadcast_to(vec[:, None], (len(vec), model.zone_max)))
+        self.state = LatticeState(
+            fields=torch.zeros((model.n_storage,) + self.shape, dtype=dtype,
+                               device=self.device),
+            flags=torch.zeros(self.shape, dtype=FLAG_DTYPE,
+                              device=self.device),
+            globals_=torch.zeros((model.n_globals,), dtype=dtype,
+                                 device=self.device),
+            iteration=0,
+        )
+        self._host_flags = np.zeros(self.shape, dtype=np.uint16)
+        self._init = make_action_step(model, "Init")
+        self._iterate_cached: Optional[Callable] = None
+        self._fast: Optional[Callable] = None
+        self._fast_name: Optional[str] = None
+        self._fast_tried = False
+
+    def _params_from(self, vec: np.ndarray, table: np.ndarray) -> SimParams:
+        return SimParams(
+            settings=torch.as_tensor(np.array(vec, dtype=np.float64),
+                                     dtype=self.dtype, device=self.device),
+            zone_table=torch.as_tensor(np.array(table, dtype=np.float64),
+                                       dtype=self.dtype, device=self.device))
+
+    # -- setup -------------------------------------------------------------- #
+
+    def set_flags(self, flags: np.ndarray) -> None:
+        """Overwrite the node-type field (uint16 bit packing)."""
+        flags = np.asarray(flags)
+        if flags.shape != self.shape:
+            raise ValueError(f"flags shape {flags.shape} != {self.shape}")
+        self._host_flags = flags.astype(np.uint16)
+        self.state = dataclasses.replace(
+            self.state, flags=torch.as_tensor(
+                self._host_flags.astype(np.int32), device=self.device))
+        self._fast_tried = False   # present node types may have changed
+        self._iterate_cached = None
+
+    def set_state(self, state: LatticeState, params: SimParams) -> None:
+        """Adopt a whole state and its params (e.g. from
+        :func:`tclb_tpu_torch.convert.state_from_numpy`)."""
+        self.set_flags(state.flags.cpu().numpy())
+        self.state = dataclasses.replace(
+            state, flags=self.state.flags,
+            fields=state.fields.to(self.device, self.dtype),
+            globals_=state.globals_.to(self.device, self.dtype))
+        self.params = SimParams(
+            settings=params.settings.to(self.device, self.dtype),
+            zone_table=params.zone_table.to(self.device, self.dtype))
+
+    def flags_numpy(self) -> np.ndarray:
+        """The flag field as the uint16 array the JAX package keeps."""
+        return self._host_flags.copy()
+
+    def set_setting(self, name: str, value: float, zone: Optional[int] = None
+                    ) -> None:
+        """Set a setting (with its derived settings), or one zone of a
+        zonal setting."""
+        m = self.model
+        vec = self.params.settings.cpu().numpy().astype(np.float64)
+        table = self.params.zone_table.cpu().numpy().astype(np.float64)
+        if zone is None:
+            m._set_with_derived(vec, name, float(value))
+            # un-touched zones keep following the scalar value
+            table[m.setting_index[name], :] = vec[m.setting_index[name]]
+        else:
+            table[m.setting_index[name], zone] = float(value)
+        self.params = self._params_from(vec, table)
+
+    def set_setting_series(self, name: str, values, zone: int = 0) -> None:
+        raise _roadmap("<Control> time series", "item 10")
+
+    def attach_sampler(self, sampler) -> None:
+        raise _roadmap("the point sampler", "item 10")
+
+    def init(self) -> None:
+        """Run the model's Init action."""
+        with torch.no_grad():
+            self.state = self._init(self.state, self.params)
+
+    # -- running ------------------------------------------------------------ #
+
+    @property
+    def _iterate(self) -> Callable:
+        """The eager engine, specialized on the painted node types."""
+        if self._iterate_cached is None:
+            from tclb_tpu_torch.ops.lbm import present_types
+            self._iterate_cached = make_iterate(
+                self.model, present=present_types(self.model,
+                                                  self._host_flags))
+        return self._iterate_cached
+
+    def _build_fast(self):
+        """Pick the kernel engine for this configuration, or none.
+
+        The kernels run on the card only, and ``TCLB_FASTPATH=0`` turns
+        them off.  Anything ``supports()`` rejects — another model, f64 —
+        runs eager by selection, not after a failure."""
+        from tclb_tpu_torch.ops import d2q9_kernels as dk
+        if os.environ.get("TCLB_FASTPATH") == "0" \
+                or self.device.type != "cuda":
+            return None, None
+        return dk.select_engine(self.model, self.shape, self.dtype)
+
+    def _fast_path(self) -> Optional[Callable]:
+        if not self._fast_tried:
+            self._fast_tried = True
+            self._fast, self._fast_name = self._build_fast()
+            if self._fast is not None:
+                log.info(f"engine: {self._fast_name} "
+                         "(+1 eager step per call for globals)")
+            else:
+                log.debug(f"engine: eager ({self.model.name} {self.shape} "
+                          f"{self.dtype} on {self.device})")
+        return self._fast
+
+    @property
+    def engine_name(self) -> str:
+        """Tag of the engine ``iterate`` runs on (``eager`` when no
+        kernel engine was selected)."""
+        self._fast_path()
+        return self._fast_name or "eager"
+
+    def iterate(self, niter: int) -> None:
+        """Advance ``niter`` steps: ``niter - 1`` on the kernel engine and
+        one eager step for the globals, or all eager."""
+        fast = self._fast_path()
+        if fast is not None and niter - 1 >= 1:
+            self.state = fast(self.state, self.params, niter - 1)
+            self.state = self._iterate(self.state, self.params, 1)
+        else:
+            self.state = self._iterate(self.state, self.params, niter)
+
+    def synchronize(self) -> None:
+        """Wait for the device (no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- inspection --------------------------------------------------------- #
+
+    def get_quantity(self, name: str) -> torch.Tensor:
+        """Evaluate a registered Quantity over the lattice."""
+        fn = self.model.quantity_fns[name]
+        f = self.state.fields
+        ctx = NodeCtx(self.model, f, f, self.state.flags, self.params,
+                      iteration=self.state.iteration)
+        with torch.no_grad():
+            return fn(ctx)
+
+    def get_density(self, name: str) -> torch.Tensor:
+        return self.state.fields[self.model.storage_index[name]]
+
+    def set_density_planes(self, values: dict) -> None:
+        fields = self.state.fields.clone()
+        for name, value in values.items():
+            fields[self.model.storage_index[name]] = torch.as_tensor(
+                np.asarray(value), dtype=self.dtype, device=self.device)
+        self.state = dataclasses.replace(self.state, fields=fields)
+
+    def set_density(self, name: str, value) -> None:
+        self.set_density_planes({name: value})
+
+    def fields_raw(self) -> np.ndarray:
+        """The field stack as a host float64 array."""
+        return self.state.fields.cpu().numpy().astype(np.float64)
+
+    def get_globals(self) -> dict[str, float]:
+        vals = self.state.globals_.cpu().numpy()
+        return {g.name: float(vals[i])
+                for i, g in enumerate(self.model.globals_)}
+
+    def get_objective(self) -> float:
+        """Weighted objective from the <Global>InObj settings."""
+        m = self.model
+        vals = self.state.globals_.cpu().numpy()
+        svec = self.params.settings.cpu().numpy()
+        return sum(float(svec[m.setting_index[g.name + "InObj"]])
+                   * float(vals[i]) for i, g in enumerate(m.globals_))
+
+    # -- checkpoint --------------------------------------------------------- #
+
+    def save(self, path: str) -> None:
+        """Full-state dump in the JAX package's legacy ``.npz`` format,
+        written atomically."""
+        from tclb_tpu_torch.checkpoint.writer import atomic_path, with_suffix
+        target = with_suffix(path, ".npz")
+        with atomic_path(target) as tmp:
+            with open(tmp, "wb") as f:
+                np.savez(f,
+                         fields=self.state.fields.cpu().numpy(),
+                         flags=self._host_flags,
+                         iteration=int(self.state.iteration),
+                         settings=self.params.settings.cpu().numpy(),
+                         zone_table=self.params.zone_table.cpu().numpy(),
+                         storage_dtype=str(np.dtype(
+                             str(self.dtype).replace("torch.", ""))),
+                         storage_repr="raw")
+
+    def load(self, path: str) -> None:
+        """Restore a ``.npz`` written by :meth:`save` or by the JAX
+        package's ``Lattice.save`` / ``<SaveBinary>`` (raw f32/f64)."""
+        from tclb_tpu_torch.checkpoint.writer import resolve_npz
+        with np.load(resolve_npz(path)) as d:
+            if "time_series" in d:
+                raise _roadmap("restoring <Control> time series", "item 10")
+            src_repr = str(d["storage_repr"]) if "storage_repr" in d \
+                else "raw"
+            src_dtype = str(d["storage_dtype"]) if "storage_dtype" in d \
+                else str(d["fields"].dtype)
+            if src_repr != "raw" or src_dtype not in ("float32", "float64"):
+                raise _roadmap(f"restoring {src_dtype}/{src_repr} storage",
+                               "item 9")
+            fields = np.asarray(d["fields"])
+            flags = np.asarray(d["flags"], dtype=np.uint16)
+            iteration = int(d["iteration"])
+            settings = np.asarray(d["settings"])
+            table = np.asarray(d["zone_table"])
+        self.set_flags(flags)
+        self.state = dataclasses.replace(
+            self.state,
+            fields=torch.as_tensor(fields, dtype=self.dtype,
+                                   device=self.device),
+            iteration=iteration)
+        self.params = self._params_from(settings, table)

@@ -1,0 +1,32 @@
+"""Model catalogue of the PyTorch port.  ``get_model`` builds (and caches)
+the frozen Model with physics bound.  This slice registers ``d2q9``; the
+other models of the JAX package follow ROADMAP queue 1 items 7, 8, 10 and
+11."""
+
+from __future__ import annotations
+
+import importlib
+
+from tclb_tpu_torch.core.registry import Model
+
+# model name -> module path ("module.path" uses its build())
+_REGISTRY: dict[str, str] = {
+    "d2q9": "tclb_tpu_torch.models.d2q9",
+}
+
+_CACHE: dict[str, Model] = {}
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def get_model(name: str) -> Model:
+    if name not in _CACHE:
+        if name not in _REGISTRY:
+            raise KeyError(
+                f"model {name!r} is not ported to PyTorch yet (ROADMAP "
+                f"queue 1, items 7-11); ported: {list_models()}")
+        mod = importlib.import_module(_REGISTRY[name])
+        _CACHE[name] = mod.build()
+    return _CACHE[name]

@@ -1,0 +1,141 @@
+"""Shared LBM math on PyTorch tensors — the port's counterpart of the JAX
+package's ``ops/lbm.py``, restricted to what model ``d2q9`` uses.
+
+Constants (velocity sets, weights, moment bases) are numpy arrays built on
+the host; everything that touches lattice planes is a plain function on
+tensors.  The JAX package's ``pin``/``optimization_barrier`` seams have no
+counterpart: they exist only to make XLA's fusion choices reproducible.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CS2 = 1.0 / 3.0  # lattice speed of sound squared
+
+
+def present_types(model, flags: np.ndarray) -> set:
+    """Node-type names actually present in a host flag field (the eager
+    engine skips absent boundary cases, as the reference specializes its
+    generated kernels on the model's boundary set)."""
+    flags = np.asarray(flags)
+    out = set()
+    for name, t in model.node_types.items():
+        if ((flags & np.uint16(t.mask)) == np.uint16(t.value)).any():
+            out.add(name)
+    return out
+
+
+def opposite(E: np.ndarray) -> np.ndarray:
+    """Index i -> index of -e_i (bounce-back pairing)."""
+    opp = np.zeros(len(E), dtype=np.int32)
+    for i, e in enumerate(E):
+        (j,) = np.where((E == -e).all(axis=1))
+        opp[i] = j[0]
+    return opp
+
+
+def weights(E: np.ndarray) -> np.ndarray:
+    """Standard lattice weights by speed shell."""
+    q, d = E.shape
+    table = {
+        (9, 2): {0: 4 / 9, 1: 1 / 9, 2: 1 / 36},
+        (19, 3): {0: 1 / 3, 1: 1 / 18, 2: 1 / 36},
+        (27, 3): {0: 8 / 27, 1: 2 / 27, 2: 1 / 54, 3: 1 / 216},
+        (5, 2): {0: 1 / 3, 1: 1 / 6},
+        (7, 3): {0: 1 / 4, 1: 1 / 8},
+    }[(q, d)]
+    return np.array([table[int((e * e).sum())] for e in E])
+
+
+def edot(vec, stack: torch.Tensor) -> torch.Tensor:
+    """``sum_i vec[i] * stack[i]`` over the leading (population) axis with
+    scalar coefficients, exact-zero terms skipped."""
+    acc = None
+    for i, v in enumerate(np.asarray(vec)):
+        v = float(v)
+        if v == 0.0:
+            continue
+        t = stack[i] if v == 1.0 else (-stack[i] if v == -1.0
+                                       else v * stack[i])
+        acc = t if acc is None else acc + t
+    return acc if acc is not None else torch.zeros_like(stack[0])
+
+
+def perm(stack: torch.Tensor, idx) -> torch.Tensor:
+    """Reorder the leading (population) axis by a constant permutation."""
+    return torch.stack([stack[int(k)] for k in np.asarray(idx)])
+
+
+def equilibrium(E: np.ndarray, W: np.ndarray, rho: torch.Tensor, u):
+    """Second-order Maxwell equilibrium
+    f_i = w_i rho (1 + e.u/cs2 + (e.u)^2/(2 cs4) - u^2/(2 cs2)).
+
+    ``u`` is a tuple of velocity planes; returns a (Q, *shape) stack."""
+    usq = sum(c * c for c in u)
+    out = []
+    for i in range(len(E)):
+        eu = sum(float(E[i, a]) * u[a] for a in range(len(u)) if E[i, a])
+        if isinstance(eu, int):  # rest population: e.u == 0
+            common = 1.0 - usq / (2 * CS2)
+        else:
+            common = 1.0 + eu / CS2 + eu * eu / (2 * CS2 * CS2) \
+                - usq / (2 * CS2)
+        out.append(float(W[i]) * rho * common)
+    return torch.stack(out)
+
+
+def mrt_basis_d2q9(E: np.ndarray) -> np.ndarray:
+    """Orthogonal d2q9 moment basis of Lallemand & Luo: rows = (rho, jx,
+    jy, e, eps, qx, qy, pxx, pxy) as integer polynomials of the velocity
+    set."""
+    ex, ey = E[:, 0].astype(np.float64), E[:, 1].astype(np.float64)
+    e2 = ex * ex + ey * ey
+    M = np.stack([
+        np.ones_like(ex),               # rho
+        ex,                             # jx
+        ey,                             # jy
+        3.0 * e2 - 4.0,                 # e (energy)
+        4.5 * e2 * e2 - 10.5 * e2 + 4.0,  # eps (energy squared)
+        (3.0 * e2 - 5.0) * ex,          # qx (energy flux)
+        (3.0 * e2 - 5.0) * ey,          # qy
+        ex * ex - ey * ey,              # pxx
+        ex * ey,                        # pxy
+    ])
+    g = M @ M.T
+    if not np.allclose(g - np.diag(np.diag(g)), 0.0):
+        raise ValueError("d2q9 moment basis is not orthogonal")
+    return M
+
+
+def inverse_basis(M: np.ndarray) -> np.ndarray:
+    """Inverse of an orthogonal (row) basis: ``(M / |row|^2).T``."""
+    norm = (M * M).sum(axis=1)
+    return (M / norm[:, None]).T
+
+
+def unrolled_matvec(mat: np.ndarray, f) -> torch.Tensor:
+    """``mat @ f`` over the leading axis, unrolled with scalar coefficients
+    (the matrices are tiny, with many 0/±1 entries)."""
+    rows = []
+    for row in np.asarray(mat):
+        acc = None
+        for c, p in zip(row, f):
+            c = float(c)
+            if c == 0.0:
+                continue
+            t = p if c == 1.0 else (-p if c == -1.0 else c * p)
+            acc = t if acc is None else acc + t
+        rows.append(acc if acc is not None else torch.zeros_like(f[0]))
+    return torch.stack(rows)
+
+
+def moments(M: np.ndarray, f: torch.Tensor) -> torch.Tensor:
+    """m = M f over the leading (population) axis."""
+    return unrolled_matvec(M, f)
+
+
+def from_moments(M: np.ndarray, m: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`moments` for an orthogonal (row) basis."""
+    return unrolled_matvec(inverse_basis(M), m)

@@ -1,0 +1,85 @@
+"""The d2q9 CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports neither JAX nor the JAX package, so it runs where only PyTorch is
+installed; ``tests/conftest.py`` imports JAX, so on such a machine run it
+without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from tclb_tpu_torch import Lattice, get_model
+from tclb_tpu_torch.ops import d2q9_kernels as dk
+from torch_cases import RICH_SETTINGS, paint_rich
+
+# the kernels contract multiply-adds and the plain version does not:
+# tests/test_fastpath.py's f32 tolerance
+FIELDS_TOL = dict(rtol=2e-5, atol=2e-6)
+
+
+@pytest.fixture
+def card_lattice():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(shape, seed):
+        lat = Lattice(get_model("d2q9"), shape, dtype=torch.float32,
+                      settings=RICH_SETTINGS, device="cuda")
+        return paint_rich(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 1024), (37, 53), (256, 256)])
+@pytest.mark.parametrize("name", dk.KERNELS)
+def test_kernel_matches_plain(card_lattice, name, shape):
+    lat = card_lattice(shape, seed=5)
+    f, flags, vel, den, args = dk.kernel_inputs(lat.model, lat.state,
+                                                lat.params)
+    fn, n = dk.WRAPPERS[name]
+    dk.reset_launches()
+    got = fn(f, flags, vel, den, args)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[name] == 1
+    want = dk.plain_steps(f, flags, vel, den, args, n)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    assert torch.equal(got[9:], f[9:])     # BC planes carried through
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(card_lattice):
+    lat = card_lattice((16, 16), seed=1)
+    f, flags, vel, den, args = dk.kernel_inputs(lat.model, lat.state,
+                                                lat.params)
+    with pytest.raises(ValueError, match="needs contiguous"):
+        dk.step(f, flags.to(torch.int64), vel, den, args)
+    with pytest.raises(ValueError, match="needs contiguous"):
+        dk.step2(f, flags, vel.t(), den, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,engine,kernels", [
+    ((100, 1024), "cuda_d2q9_resident[d2q9,fuse=8]",
+     ("d2q9_resident8", "d2q9_step")),
+    ((1024, 1024), "cuda_d2q9_band[d2q9,fuse=2]",
+     ("d2q9_step2", "d2q9_step")),
+])
+def test_lattice_engine_matches_eager(card_lattice, shape, engine, kernels):
+    lat = card_lattice(shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    dk.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == engine
+    for k in kernels:
+        assert dk.LAUNCHES[k] >= 1, k
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    got, want = lat.get_globals(), ref.get_globals()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k

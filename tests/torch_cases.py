@@ -1,0 +1,73 @@
+"""Flag fields and states shared by the port's tests (numpy only, so the
+tests that run on the card can use them without JAX)."""
+
+import numpy as np
+
+# tests/test_fastpath.py's settings for the Kármán flags below
+KARMAN_SETTINGS = {"nu": 0.05, "Velocity": 0.03}
+# a body force as well, so the kernels' forcing terms count
+RICH_SETTINGS = {"nu": 0.05, "Velocity": 0.03, "GravitationX": 2e-5,
+                 "GravitationY": -1e-5}
+
+
+def karman_flags(m, ny=64, nx=128):
+    """tests/test_fastpath.py's Kármán flags: W velocity inlet, E pressure
+    outlet, channel walls, a block obstacle and objective columns."""
+    flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = m.flag_for("WVelocity", "MRT")
+    flags[:, -1] = m.flag_for("EPressure", "MRT")
+    flags[0, :] = m.flag_for("Wall")
+    flags[-1, :] = m.flag_for("Wall")
+    flags[ny // 3:2 * ny // 3, nx // 8:nx // 4] = m.flag_for("Wall")
+    flags[1:-1, 2] = m.flag_for("MRT", "Inlet")
+    flags[1:-1, -3] = m.flag_for("MRT", "Outlet")
+    return flags
+
+
+def rich_flags(m, ny, nx):
+    """Every boundary case the kernels dispatch, zonal in/outlets (zone 1
+    velocity, zone 2 density), the objective columns, and a
+    painted-but-unhandled WPressureL node."""
+    flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = m.flag_for("WVelocity", "MRT", zone=1)
+    flags[:, -1] = m.flag_for("EPressure", "MRT", zone=2)
+    flags[: ny // 2, 1] = m.flag_for("WPressure", "MRT", zone=2)
+    flags[ny // 2:, -2] = m.flag_for("EVelocity", "MRT", zone=1)
+    flags[0, :] = m.flag_for("BottomSymmetry", "MRT")
+    flags[-1, :] = m.flag_for("TopSymmetry", "MRT")
+    flags[ny // 3:2 * ny // 3, nx // 8:nx // 4] = m.flag_for("Wall")
+    flags[ny // 3, nx // 2] = m.flag_for("Solid")
+    flags[ny // 2, nx // 2] = m.flag_for("WPressureL", "MRT")
+    flags[2:-2, 3] = m.flag_for("MRT", "Inlet")
+    flags[2:-2, -4] = m.flag_for("MRT", "Outlet")
+    return flags
+
+
+def random_planes(m, shape, seed):
+    """Populations near a flowing equilibrium plus noise, and nonzero BC
+    coupling planes (so the in-collision forcing counts)."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:9, :2].astype(np.float64)
+    w = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.03 + 0.01 * rng.standard_normal((2,) + shape)
+    planes = {}
+    for k in range(9):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+        feq = w[k] * rho * (1 + 3 * eu + 4.5 * eu * eu
+                            - 1.5 * (u * u).sum(0))
+        planes[f"f[{k}]"] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    planes["BC[0]"] = 1e-4 * rng.standard_normal(shape)
+    planes["BC[1]"] = 1e-4 * rng.standard_normal(shape)
+    return planes
+
+
+def paint_rich(lat, seed):
+    """``rich_flags`` with zonal Velocity/Density and ``random_planes`` on
+    a Lattice of either package."""
+    lat.set_flags(rich_flags(lat.model, *lat.shape))
+    lat.set_setting("Velocity", 0.04, zone=1)
+    lat.set_setting("Density", 1.002, zone=2)
+    lat.init()
+    lat.set_density_planes(random_planes(lat.model, lat.shape, seed))
+    return lat
