@@ -4,30 +4,39 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
-builds ``tclb_tpu_torch/csrc/d2q9.cu`` for sm_90a into ``build/``), and
-exits nonzero without printing a result when either the card or the
-package is missing.  Phases, each of which fails the run on its own:
+builds ``tclb_tpu_torch/csrc/d2q9.cu`` and ``d3q27.cu`` for sm_90a into
+``build/``, one ``nvcc`` each, started together), and exits nonzero
+without printing a result when either the card or the package is missing.
+Phases, each of which fails the run on its own:
 
-1. build the d2q9 kernels and print what ``ptxas`` reports for them;
+1. build the d2q9 and d3q27 kernels and print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (the Karman state for ``d2q9_resident8``
-   and ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
-   ``d2q9_step``), at rtol 2e-5 / atol 2e-6;
-3. hold the card's f32 run of the two d2q9 golden cases
-   (``tests/goldens/karman.json``, ``poiseuille.json``) against the goldens
-   at rtol 1e-4 / atol 1e-6 (f32 against an f64 recording);
-4. the main path: ``example/karman.xml`` unchanged through ``run_config``
-   (10000 iterations, Log every 1000, VTK every 5000) on
+   shapes the paths give it (the Karman state for ``d2q9_resident8`` and
+   ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
+   ``d2q9_step``, the warmed ``example/3d_channel.xml`` state and a
+   12x8x64 state that paints every d3q27 node type for ``d3q27_step`` and
+   ``d3q27_step2``, and after phase 6 the developed 3d_channel flow), at
+   rtol 2e-5 / atol 2e-6;
+3. hold the card's f32 run of the d2q9 golden cases
+   (``tests/goldens/karman.json``, ``poiseuille.json``) and of the
+   d3q27_cumulant channel (``channel3d.json``) against the goldens at rtol
+   1e-4 / atol 1e-6 (f32 against an f64 recording);
+4. the d2q9 main path: ``example/karman.xml`` unchanged through
+   ``run_config`` (10000 iterations, Log every 1000, VTK every 5000) on
    ``cuda_d2q9_resident[d2q9,fuse=8]``, with the launch counts set to 0
    just before and read just after;
-5. the band engine: the 1024x1024 d2q9 channel of ``bench.py``,
+5. the d2q9 band engine: the 1024x1024 d2q9 channel of ``bench.py``,
    ``iterate(2002)`` on ``cuda_d2q9_band[d2q9,fuse=2]``, counted the same
    way;
-6. kernel times (CUDA events over many launches), the plain versions'
+6. the 3D main path: ``example/3d_channel.xml`` unchanged through
+   ``run_config`` (48x48x256, 20000 iterations, Log every 2000, VTK every
+   10000) on ``cuda_d3q27_band[d3q27_cumulant,fuse=2]``, counted the same
+   way, with its MLUPS and the eager globals step's time;
+7. kernel times (CUDA events over many launches), the plain versions'
    times, each kernel's bound on this card, and the host time one call of
    each wrapper takes;
-7. a torch.profiler trace of a karman ``iterate`` window: the card's
-   busy and idle share and its time by kernel.
+8. torch.profiler traces of a karman and a 3d_channel ``iterate`` window:
+   the card's busy and idle share and its time by kernel.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +44,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -54,12 +64,17 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
 KARMAN_XML = ROOT / "example" / "karman.xml"
+CHANNEL3D_XML = ROOT / "example" / "3d_channel.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
     "d2q9_step2": "tclb_tpu/ops/pallas_d2q9.py:756",
     "d2q9_resident8": "tclb_tpu/ops/pallas_d2q9.py:302",
+    "d3q27_step": "tclb_tpu/ops/pallas_d3q.py:655",
+    "d3q27_step2": "tclb_tpu/ops/pallas_d3q.py:843",
 }
+GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
+                 "channel3d": "d3q27_cumulant"}
 
 
 def say(msg: str) -> None:
@@ -83,19 +98,35 @@ def card_line() -> str:
 # --------------------------------------------------------------------------- #
 
 
-def karman_lattice(dtype, device):
-    """example/karman.xml's painted and initialised lattice, without its
+def case_lattice(xml, dtype, device):
+    """An example case's painted and initialised lattice, without its
     <Solve>, <Log> and <VTK>."""
     from tclb_tpu_torch.control.solver import _run_root
     from tclb_tpu_torch.models import get_model
-    root = ET.parse(KARMAN_XML).getroot()
+    root = ET.parse(xml).getroot()
     for tag in ("Solve", "Log", "VTK"):
         for el in root.findall(tag):
             root.remove(el)
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as out:
-        solver = _run_root(root, get_model(root.get("model")), None, dtype,
-                           out + "/", "karman_state", device=device)
+        os.chdir(out)    # the XML's own output= prefix is relative
+        try:
+            solver = _run_root(root, get_model(root.get("model")), None,
+                               dtype, out + "/", "case_state", device=device)
+        finally:
+            os.chdir(cwd)
     return solver.lattice
+
+
+def rich3d_lattice(device):
+    """A 12x8x64 d3q27_cumulant state that paints every node type, with
+    nonzero SynthT planes and a Buffer layer (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import RICH3D_SETTINGS, SHAPE3D, paint_rich_3d
+    lat = Lattice(get_model("d3q27_cumulant"), SHAPE3D, dtype=torch.float32,
+                  device=device, settings=RICH3D_SETTINGS)
+    return paint_rich_3d(lat, seed=5)
 
 
 def channel_lattice(device, n=1024):
@@ -142,17 +173,17 @@ def compare(got, want, what: str) -> dict:
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
 
 
-def check_kernels(dk, karman, channel) -> dict:
-    """Each kernel against its plain version on the same inputs."""
-    say("phase 2: kernels against their plain versions on the card")
-    errs = {}
-    for lat, name in ((karman, "d2q9_resident8"), (karman, "d2q9_step"),
-                      (channel, "d2q9_step2"), (channel, "d2q9_step")):
+def check_kernels(cases, errs: dict, what: str) -> dict:
+    """Each kernel against its plain version on the same inputs;
+    ``cases`` lists (kernel module, lattice, kernel name).  ``errs`` keeps
+    each kernel's largest error over every call."""
+    say(f"{what}: kernels against their plain versions on the card")
+    for dk, lat, name in cases:
         fn, n = dk.WRAPPERS[name]
-        f, flags, vel, den, a = dk.kernel_inputs(lat.model, lat.state,
-                                                 lat.params)
-        got = fn(f, flags, vel, den, a)
-        want = dk.plain_steps(f, flags, vel, den, a, n)
+        *inputs, a = dk.kernel_inputs(lat.model, lat.state, lat.params)
+        got = fn(*inputs, a)
+        want = dk.plain_steps(*inputs, a, n)
+        f = inputs[0]
         torch.cuda.synchronize()
         e = compare(got, want, f"{name} at {tuple(f.shape)}")
         prev = errs.get(name)
@@ -162,12 +193,13 @@ def check_kernels(dk, karman, channel) -> dict:
 
 
 def check_goldens() -> None:
-    """The d2q9 goldens, run on the card in f32 through the kernels."""
+    """The d2q9 and channel3d goldens, run on the card in f32 through the
+    kernels."""
     from tclb_tpu_torch.control.solver import _run_root
     from tclb_tpu_torch.models import get_model
-    say("phase 3: d2q9 goldens on the card (f32 kernels vs f64 recording)")
+    say("phase 3: goldens on the card (f32 kernels vs f64 recording)")
     src = (ROOT / "tests" / "test_golden.py").read_text()
-    for name in ("karman", "poiseuille"):
+    for name, model in GOLDEN_MODELS.items():
         tag = f'{name.upper()} = """'
         start = src.index(tag) + len(tag)
         xml = src[start:src.index('"""', start)]
@@ -175,35 +207,41 @@ def check_goldens() -> None:
             (ROOT / "tests" / "goldens" / f"{name}.json").read_text())
         with tempfile.TemporaryDirectory() as out:
             solver = _run_root(ET.fromstring(xml.format(out=out)),
-                               get_model("d2q9"), None, torch.float32,
+                               get_model(model), None, torch.float32,
                                out + "/", name, device=DEVICE)
             row = solver.log_row()
             fields = solver.lattice.state.fields.double().cpu().numpy()
         row["FieldsL1"] = float(np.abs(fields).sum())
         row["FieldsSum"] = float(fields.sum())
         engine = solver.lattice.engine_name
-        if not engine.startswith("cuda_d2q9"):
+        if not engine.startswith("cuda_"):
             fail(f"golden {name} ran on {engine}, not a kernel engine")
-        worst = 0.0
+        worst, worst_key = 0.0, None
         for key, want in golden.items():
             if key == "Walltime":
                 continue
             got = row[key]
             if not abs(got - want) <= GOLDEN_ATOL + GOLDEN_RTOL * abs(want):
                 fail(f"golden {name}:{key}: {got!r} vs {want!r}")
-            worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+            rel = abs(got - want) / max(abs(want), 1e-30)
+            if rel >= worst:
+                worst, worst_key = rel, key
         say(f"  {name}: {len(golden) - 1} columns within rtol "
-            f"{GOLDEN_RTOL} (worst rel {worst:.2e}) on {engine}")
+            f"{GOLDEN_RTOL} (worst rel {worst:.2e}, {worst_key}) on "
+            f"{engine}")
 
 
-def run_karman(dk) -> dict:
-    """The main path: example/karman.xml end to end on the card.  The case
-    writes into its own ``output/`` (the XML's ``output`` attribute), so it
-    runs from a temporary working directory."""
+def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
+    """A main path: an example case end to end on the card, on ``engine``,
+    launching each of ``kernels``; ``check(lat)`` adds the case's own
+    plausibility checks.  The case writes into its own ``output/`` (the
+    XML's ``output`` attribute), so it runs from a temporary working
+    directory."""
     from tclb_tpu_torch.control.solver import run_config
     from tclb_tpu_torch.models import get_model
-    say(f"phase 4: {KARMAN_XML.name} end to end")
-    root = ET.parse(KARMAN_XML).getroot()
+    say(f"phase {phase}: {xml.name} end to end")
+    root = ET.parse(xml).getroot()
+    case = xml.stem
     niter = int(root.find("Solve").get("Iterations"))
     log_every = int(root.find("Log").get("Iterations"))
     vtk_every = int(root.find("VTK").get("Iterations"))
@@ -215,7 +253,7 @@ def run_karman(dk) -> dict:
             torch.cuda.synchronize()
             dk.reset_launches()
             t0 = time.perf_counter()
-            solver = run_config(str(KARMAN_XML), model, dtype=torch.float32,
+            solver = run_config(str(xml), model, dtype=torch.float32,
                                 device=DEVICE)
             solver.lattice.synchronize()
             wall = time.perf_counter() - t0
@@ -224,27 +262,28 @@ def run_karman(dk) -> dict:
             os.chdir(cwd)
         out = os.path.join(tmp, root.get("output"))
         files = sorted(os.listdir(out))
-        with open(os.path.join(out, "karman_Log.csv")) as f:
+        with open(os.path.join(out, f"{case}_Log.csv")) as f:
             rows = f.read().strip().splitlines()[1:]
     lat = solver.lattice
     say(f"  engine {lat.engine_name}, {solver.iter} iterations, "
         f"{wall:.3f} s wall, launches {launches}")
-    if lat.engine_name != "cuda_d2q9_resident[d2q9,fuse=8]":
-        fail(f"karman ran on {lat.engine_name}")
+    if lat.engine_name != engine:
+        fail(f"{case} ran on {lat.engine_name}")
     if solver.iter != niter or len(rows) != niter // log_every:
-        fail(f"karman: {solver.iter} iterations, {len(rows)} log rows")
+        fail(f"{case}: {solver.iter} iterations, {len(rows)} log rows")
     for it in range(vtk_every, niter + 1, vtk_every):
         for ext in ("vti", "pvti"):
-            if f"karman_VTK_{it:08d}.{ext}" not in files:
-                fail(f"karman: no VTK output {it} .{ext} in {files}")
+            if f"{case}_VTK_{it:08d}.{ext}" not in files:
+                fail(f"{case}: no VTK output {it} .{ext} in {files}")
     if not bool(torch.isfinite(lat.state.fields).all()):
-        fail("karman: non-finite fields")
+        fail(f"{case}: non-finite fields")
     g = lat.get_globals()
-    if not all(math.isfinite(v) for v in g.values()) or g["InletFlux"] <= 0:
-        fail(f"karman: implausible globals {g}")
-    for name in ("d2q9_resident8", "d2q9_step"):
+    if not all(math.isfinite(v) for v in g.values()):
+        fail(f"{case}: non-finite globals {g}")
+    check(lat)
+    for name in kernels:
         if launches[name] < 1:
-            fail(f"karman did not launch {name}")
+            fail(f"{case} did not launch {name}")
     # a pure iterate window on the run's own lattice, fenced by synchronize
     nodes = float(np.prod(lat.shape))
     window = 2000
@@ -263,13 +302,36 @@ def run_karman(dk) -> dict:
            "mlups_end_to_end": nodes * niter / wall / 1e6,
            "mlups_iterate": nodes * window / dt / 1e6,
            "iterate_ms": dt * 1e3, "iterate_host_ms": host * 1e3,
-           "eager_step_ms": eager * 1e3, "globals": g}
+           "eager_step_ms": eager * 1e3, "globals": g, "lattice": lat}
     say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end (XML, painting, "
         f"Log and VTK included), {out['mlups_iterate']:.1f} in an "
         f"iterate({window}) window ({dt * 1e3:.2f} ms, of which "
         f"{host * 1e3:.2f} ms until iterate returned; one eager globals "
         f"step alone {eager * 1e3:.2f} ms)")
     return out
+
+
+def check_karman(lat) -> None:
+    g = lat.get_globals()
+    if g["InletFlux"] <= 0:
+        fail(f"karman: implausible globals {g}")
+
+
+def check_channel3d(lat) -> None:
+    """The forced channel flows along +x: positive Flux, a mean x velocity
+    of the fluid between the walls that is positive and below 0.5, and
+    running averages that are finite and positive in x."""
+    g = lat.get_globals()
+    u = lat.get_quantity("U")
+    avg_u = lat.get_quantity("avgU")
+    ux = float(u[0, :, 1:-1, :].mean())
+    if not (g["Flux"] > 0 and 0 < ux < 0.5):
+        fail(f"3d_channel: implausible flow, Flux {g['Flux']}, mean ux {ux}")
+    if not bool(torch.isfinite(avg_u).all()) \
+            or float(avg_u[0, :, 1:-1, :].mean()) <= 0:
+        fail("3d_channel: implausible running averages")
+    say(f"  Flux {g['Flux']:.6g}, mean ux {ux:.6g}, mean avgU.x "
+        f"{float(avg_u[0, :, 1:-1, :].mean()):.6g}")
 
 
 def run_channel(dk, lat) -> dict:
@@ -314,21 +376,19 @@ def event_ms(fn, reps: int, warm: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def time_kernels(dk, karman, channel) -> dict:
-    say("phase 6: times (CUDA events) and bounds")
+def time_kernels(cases) -> dict:
+    """``cases`` lists (kernel module, kernel name, lattice, repeats)."""
+    say("phase 7: times (CUDA events) and bounds")
     out = {}
-    for name, lat, reps in (("d2q9_resident8", karman, 400),
-                            ("d2q9_step", karman, 1000),
-                            ("d2q9_step2", channel, 200)):
+    for dk, name, lat, reps in cases:
         fn, steps = dk.WRAPPERS[name]
-        f, flags, vel, den, a = dk.kernel_inputs(lat.model, lat.state,
-                                                 lat.params)
+        *inputs, a = dk.kernel_inputs(lat.model, lat.state, lat.params)
 
         def launch():
-            fn(f, flags, vel, den, a)
+            fn(*inputs, a)
         ms = event_ms(launch, reps)
-        plain_ms = event_ms(lambda: dk.plain_steps(
-            f, flags, vel, den, a, steps), 10, warm=2)
+        plain_ms = event_ms(lambda: dk.plain_steps(*inputs, a, steps), 10,
+                            warm=2)
         host_ms = wrapper_host_ms(launch)
         nbytes = dk.launch_bytes(lat.model, lat.shape)
         flops = steps * dk.node_step_flops(lat.model, lat.flags_numpy())
@@ -362,13 +422,13 @@ def wrapper_host_ms(launch, calls: int = 200) -> float:
     return dt / calls * 1e3
 
 
-def device_busy(lat, window: int = 400) -> dict:
-    """Where the karman iterate window's time goes on the card: a
-    torch.profiler trace of ``iterate(window)``, the union of the kernels'
-    intervals against the host window, and device time by kernel name.
-    Where the trace shows no device activity the share is not measured."""
+def device_busy(lat, window: int, what: str) -> dict:
+    """Where an iterate window's time goes on the card: a torch.profiler
+    trace of ``iterate(window)``, the union of the kernels' intervals
+    against the host window, and device time by kernel name.  Where the
+    trace shows no device activity the share is not measured."""
     from torch.profiler import ProfilerActivity, profile
-    say("phase 7: device busy share over a karman iterate window")
+    say(f"phase 8: device busy share over a {what} iterate window")
     lat.iterate(window)            # warm: the engine and its statics
     lat.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -409,7 +469,8 @@ def device_busy(lat, window: int = 400) -> dict:
 
 
 def main() -> int:
-    if not (ROOT / "tclb_tpu_torch" / "csrc" / "d2q9.cu").is_file():
+    if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
+               for src in ("d2q9.cu", "d3q27.cu")):
         print("chip_smoke: run from a checkout of the repository (no "
               "tclb_tpu_torch/ beside this script)", file=sys.stderr)
         return 2
@@ -419,6 +480,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from tclb_tpu_torch.ops import d2q9_kernels as dk
+    from tclb_tpu_torch.ops import d3q27_kernels as dk3
 
     say(card_line())
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -426,34 +488,66 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    say("phase 1: build")
+    say("phase 1: build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    lib_path, report = dk.build()
-    say(f"  built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda m: m.build(), (dk, dk3)))
+    say(f"  built {', '.join(p.name for p, _ in builds)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, report in builds:
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line \
+                    or "Compiling" in line:
+                say(f"  ptxas: {line.strip()}")
 
-    karman = karman_lattice(torch.float32, DEVICE)
+    karman = case_lattice(KARMAN_XML, torch.float32, DEVICE)
     eager_warm(karman, 200)
     channel = channel_lattice(DEVICE)
     eager_warm(channel, 20)
-    errs = check_kernels(dk, karman, channel)
+    channel3d = case_lattice(CHANNEL3D_XML, torch.float32, DEVICE)
+    eager_warm(channel3d, 4)
+    rich3d = rich3d_lattice(DEVICE)
+    errs = check_kernels([
+        (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
+        (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
+        (dk3, channel3d, "d3q27_step"), (dk3, channel3d, "d3q27_step2"),
+        (dk3, rich3d, "d3q27_step"), (dk3, rich3d, "d3q27_step2")], {},
+        "phase 2")
     check_goldens()
-    main_path = run_karman(dk)
+    main_path = run_case(dk, KARMAN_XML, "4",
+                         "cuda_d2q9_resident[d2q9,fuse=8]",
+                         ("d2q9_resident8", "d2q9_step"), check_karman)
     band = run_channel(dk, channel)
-    times = time_kernels(dk, karman, channel)
-    busy = device_busy(karman)
+    path3d = run_case(dk3, CHANNEL3D_XML, "6",
+                      "cuda_d3q27_band[d3q27_cumulant,fuse=2]",
+                      ("d3q27_step2", "d3q27_step"), check_channel3d)
+    # the developed flow the 3D path ends with (these launches come after
+    # the path's counts were read)
+    check_kernels([(dk3, path3d["lattice"], "d3q27_step"),
+                   (dk3, path3d["lattice"], "d3q27_step2")], errs,
+                  "phase 6b, 3d_channel after 20000 iterations")
+    times = time_kernels([
+        (dk, "d2q9_resident8", karman, 400), (dk, "d2q9_step", karman, 1000),
+        (dk, "d2q9_step2", channel, 200),
+        (dk3, "d3q27_step", channel3d, 400),
+        (dk3, "d3q27_step2", channel3d, 200)])
+    busy = device_busy(karman, 400, "karman")
+    busy3d = device_busy(channel3d, 200, "3d_channel")
 
+    launches = {name: {"karman": main_path["launches"][name],
+                       "channel": band["launches"][name]}
+                for name in dk.KERNELS}
+    launches.update({name: {"3d_channel": path3d["launches"][name]}
+                     for name in dk3.KERNELS})
     kernels = []
-    for name in dk.KERNELS:
-        by_path = {"karman": main_path["launches"][name],
-                   "channel": band["launches"][name]}
+    for name in dk.KERNELS + dk3.KERNELS:
+        by_path = launches[name]
         if sum(by_path.values()) < 1:
             fail(f"{name} was launched no time on the path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "tclb_tpu_torch/csrc/d2q9.cu",
+            "source": "tclb_tpu_torch/csrc/"
+                      + ("d2q9.cu" if name in dk.KERNELS else "d3q27.cu"),
             "replaces": TPU_KERNELS[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -466,12 +560,14 @@ def main() -> int:
             "wrapper_host_ms": times[name]["wrapper_host_ms"],
             "shape": times[name]["shape"],
         })
+    keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
+            "iterate_host_ms", "eager_step_ms")
     say(json.dumps({
-        "karman": {k: main_path[k] for k in (
-            "wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
-            "iterate_host_ms", "eager_step_ms")},
+        "karman": {k: main_path[k] for k in keys},
         "channel_mlups_iterate": band["mlups_iterate"],
-        "karman_iterate_profile": busy}))
+        "3d_channel": {k: path3d[k] for k in keys},
+        "karman_iterate_profile": busy,
+        "3d_channel_iterate_profile": busy3d}))
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -325,6 +325,21 @@ class cbFailcheck(Handler):
         return 0
 
 
+class cbAveraging(Handler):
+    """<Average>: reset the running averages (``average=True`` densities)
+    and restart their sample counter, at init and on every firing."""
+
+    kind = "callback"
+
+    def init(self) -> int:
+        super().init()
+        return self.do_it()
+
+    def do_it(self) -> int:
+        self.solver.lattice.reset_average()
+        return 0
+
+
 class acNop(Handler):
     """Elements handled elsewhere (<Units> is read before the tree
     runs)."""
@@ -345,6 +360,7 @@ _HANDLERS = {
     "Log": cbLog,
     "Stop": cbStop,
     "Failcheck": cbFailcheck,
+    "Average": cbAveraging,
     "Units": acNop,
 }
 
@@ -352,7 +368,7 @@ _HANDLERS = {
 # queue 1 item that ports them
 _WAITING = {
     "SyntheticTurbulence": 8,
-    "Average": 10, "Control": 10, "Sample": 10, "Keep": 10,
+    "Control": 10, "Sample": 10, "Keep": 10,
     "Adjoint": 11, "FDTest": 11, "Threshold": 11, "ThresholdNow": 11,
     "Optimize": 11, "OptSolve": 11, "InternalTopology": 11,
     "OptimalControl": 11, "OptimalControlSecond": 11, "Fourier": 11,

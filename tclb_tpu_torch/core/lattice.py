@@ -11,11 +11,12 @@ the CPU, and the zone id is ``flags >> zone_shift``); they cross to numpy as
 uint16 in ``set_flags``, ``flags_numpy`` and ``save``/``load``.
 
 Engines: the eager path below runs every model at any dtype.  For ``d2q9``
-at f32 the hand-written CUDA kernels of :mod:`tclb_tpu_torch.ops.d2q9_kernels`
-take ``niter - 1`` steps and one eager step computes the globals (the JAX
-package's hybrid).  The engine is chosen by ``supports()``; a kernel that
-fails to build or launch fails the run — nothing falls back to eager after
-a failure.
+and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
+:mod:`tclb_tpu_torch.ops.d2q9_kernels` and
+:mod:`tclb_tpu_torch.ops.d3q27_kernels` take ``niter - 1`` steps and one
+eager step computes the globals (the JAX package's hybrid).  The engine is
+chosen by each module's ``supports()``; a kernel that fails to build or
+launch fails the run — nothing falls back to eager after a failure.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ class NodeCtx:
 
     def __init__(self, model: Model, fields: torch.Tensor,
                  raw: torch.Tensor, flags: torch.Tensor, params: SimParams,
-                 iteration: int = 0, present: Optional[set] = None,
+                 iteration: int = 0, avg_start: int = 0,
+                 present: Optional[set] = None,
                  compute_globals: bool = True):
         self.model = model
         self._fields = fields      # pulled (streamed) storage
@@ -116,10 +118,18 @@ class NodeCtx:
         self.flags = flags
         self.params = params
         self.iteration = iteration
+        self.avg_start = avg_start
         self.present = present
         self.compute_globals = compute_globals
         self._globals: dict[str, torch.Tensor] = {}
         self._zone_ids: Optional[torch.Tensor] = None
+
+    def avg_samples(self) -> torch.Tensor:
+        """Iterations accumulated into the running averages since the last
+        <Average> reset (``iteration - avg_start``); at least 1."""
+        n = max(int(self.iteration) - int(self.avg_start), 1)
+        return torch.tensor(float(n), dtype=self._fields.dtype,
+                            device=self._fields.device)
 
     # -- field access ------------------------------------------------------- #
 
@@ -158,26 +168,20 @@ class NodeCtx:
         t = self.model.node_types[name]
         return (self.flags & t.mask) == t.value
 
+    def nt_in_group(self, group: str) -> torch.Tensor:
+        """Bool plane: any bit of the group's field is set."""
+        return (self.flags & self.model.group_masks[group]) != 0
+
     def boundary_case(self, f: torch.Tensor,
                       cases: dict[Any, Callable[[torch.Tensor],
                                                 torch.Tensor]]
                       ) -> torch.Tensor:
         """Vectorized ``switch (NodeType & NODE_<group>)``: nodes whose
         group field equals a case's type select that case's result (a
-        tuple key shares one function between several types)."""
-        out = f
-        for names, fn in cases.items():
-            if isinstance(names, str):
-                names = (names,)
-            if self.present is not None:
-                names = tuple(n for n in names if n in self.present)
-                if not names:
-                    continue   # type not painted: skip the whole case
-            mask = self.nt_is(names[0])
-            for n in names[1:]:
-                mask = mask | self.nt_is(n)
-            out = torch.where(mask[None], fn(f), out)
-        return out
+        tuple key shares one function between several types); cases of
+        types not painted are skipped."""
+        from tclb_tpu_torch.models.family import dispatch_boundary_cases
+        return dispatch_boundary_cases(cases, f, self.nt_is, self.present)
 
     # -- globals ------------------------------------------------------------ #
 
@@ -353,6 +357,7 @@ class Lattice:
             iteration=0,
         )
         self._host_flags = np.zeros(self.shape, dtype=np.uint16)
+        self.avg_start = 0    # iteration of the last <Average> reset
         self._init = make_action_step(model, "Init")
         self._iterate_cached: Optional[Callable] = None
         self._fast: Optional[Callable] = None
@@ -438,13 +443,19 @@ class Lattice:
         """Pick the kernel engine for this configuration, or none.
 
         The kernels run on the card only, and ``TCLB_FASTPATH=0`` turns
-        them off.  Anything ``supports()`` rejects — another model, f64 —
-        runs eager by selection, not after a failure."""
-        from tclb_tpu_torch.ops import d2q9_kernels as dk
+        them off.  Each kernel module is asked in turn and the first whose
+        ``supports()`` accepts is taken; anything every one rejects —
+        another model, f64 — runs eager by selection, not after a
+        failure."""
+        from tclb_tpu_torch.ops import d2q9_kernels, d3q27_kernels
         if os.environ.get("TCLB_FASTPATH") == "0" \
                 or self.device.type != "cuda":
             return None, None
-        return dk.select_engine(self.model, self.shape, self.dtype)
+        for mod in (d2q9_kernels, d3q27_kernels):
+            fast, tag = mod.select_engine(self.model, self.shape, self.dtype)
+            if fast is not None:
+                return fast, tag
+        return None, None
 
     def _fast_path(self) -> Optional[Callable]:
         if not self._fast_tried:
@@ -487,9 +498,20 @@ class Lattice:
         fn = self.model.quantity_fns[name]
         f = self.state.fields
         ctx = NodeCtx(self.model, f, f, self.state.flags, self.params,
-                      iteration=self.state.iteration)
+                      iteration=self.state.iteration,
+                      avg_start=self.avg_start)
         with torch.no_grad():
             return fn(ctx)
+
+    def reset_average(self) -> None:
+        """Zero the ``average=True`` storage planes and restart the sample
+        counter (the JAX package's ``Lattice.reset_average``)."""
+        idx = [i for i, d in enumerate(self.model.densities) if d.average]
+        if idx:
+            fields = self.state.fields.clone()
+            fields[idx] = 0.0
+            self.state = dataclasses.replace(self.state, fields=fields)
+        self.avg_start = int(self.state.iteration)
 
     def get_density(self, name: str) -> torch.Tensor:
         return self.state.fields[self.model.storage_index[name]]

@@ -1,0 +1,585 @@
+// d3q27 cumulant collide-stream kernels for Hopper (sm_90a).
+//
+// One node update of model d3q27_cumulant (pull, the boundary dispatch on the
+// node's flag, the cumulant collision with body force and Galilean correction
+// where the COLLISION group is set, the running averages) shared by two
+// kernels:
+//
+//   d3q27_step   one thread per node, one step: the 27 pulled populations are
+//                read straight from global memory with periodic indices,
+//                neighbouring threads on neighbouring x
+//                (replaces tclb_tpu/ops/pallas_d3q.py:make_pallas_iterate's
+//                single-step ring and block kernels);
+//   d3q27_step2  two steps per launch (replaces make_pallas_iterate's fused
+//                kernel at K=2).  A block owns a 32x8 (x, y) column of the
+//                lattice over a run of z planes and marches up z: for each
+//                plane it computes step 1 on the column extended by one node
+//                in x and y (one thread per extended node, pulls from global
+//                memory) into a ring of step-1 planes in shared memory, then
+//                step 2 of the plane below from that ring.  The ring keeps of
+//                each plane only the populations step 2 still reads: those
+//                moving down in z for one iteration, at rest in z for two,
+//                moving up for three.  The one-node ring of step 1 is
+//                recomputed by each block with the ring nodes' true flags,
+//                zonal values and SynthT planes.
+//
+// Both are bound by device-memory bytes on this card: a node reads 34 planes
+// and its flag and writes 34 planes (276 B) for about 550 flops.  Zonal
+// Velocity/Density/Turbulence are not read as planes: the kernels look them
+// up through the flag's zone bits in a (3, zone_max) table (768 B at
+// d3q27_cumulant's 64 zones), which stays in cache.
+//
+// The population order is the tensor-product order of
+// tclb_tpu_torch/ops/cumulant.py:velocity_set(3): k = 9i + 3j + l holds the
+// velocity (i-1, j-1, l-1), so the bounce-back partner of k is 26 - k and the
+// populations reshape to the (x, y, z) moment axes of the collision.  The
+// storage stack is f[0..26], SynthTX/Y/Z, avgP, avgUX/Y/Z (34 planes); the
+// wrapper checks both against the registry.  Node-type masks and values and
+// the settings arrive in D3q27Args.  No globals are computed
+// (the engine's trailing eager step does); SynthT planes are copied through.
+//
+// Plain C interface (loaded with ctypes); every entry returns the CUDA error
+// code of its launch.
+
+#include <cuda_runtime.h>
+
+#define Q 27
+#define P_SYNTH 27      // SynthTX, SynthTY, SynthTZ
+#define P_AVGP 30       // avgP, then avgUX, avgUY, avgUZ
+
+// boundary cases, in the order family.boundary_cases lists them
+enum {
+  CASE_WALL = 0, CASE_SOLID, CASE_WVELOCITY, CASE_WPRESSURE, CASE_EVELOCITY,
+  CASE_EPRESSURE, CASE_SVELOCITY, CASE_SPRESSURE, CASE_SSYMMETRY,
+  CASE_NVELOCITY, CASE_NPRESSURE, CASE_NSYMMETRY, CASE_WTURBULENT, N_CASES
+};
+
+struct D3q27Args {
+  int nz, ny, nx;
+  int zc;                      // z planes per d3q27_step2 block
+  int case_mask[N_CASES], case_val[N_CASES];
+  int coll_mask;               // COLLISION group mask
+  int buffer_mask, buffer_val;
+  int zone_shift, zone_max;
+  float omega, omega_buffer, omega_bulk, galilean;
+  float force[3];              // Force + Gravitation, per axis
+};
+
+__host__ __device__ constexpr int comp(int k, int axis) {
+  return axis == 0 ? k / 9 - 1 : (axis == 1 ? (k / 3) % 3 - 1 : k % 3 - 1);
+}
+
+__host__ __device__ constexpr int speed2(int k) {
+  return comp(k, 0) * comp(k, 0) + comp(k, 1) * comp(k, 1)
+         + comp(k, 2) * comp(k, 2);
+}
+
+// lattice weight by speed shell (lbm.weights for d3q27)
+__host__ __device__ constexpr float weight(int k) {
+  return speed2(k) == 0 ? 8.f / 27.f
+         : speed2(k) == 1 ? 2.f / 27.f
+         : speed2(k) == 2 ? 1.f / 54.f : 1.f / 216.f;
+}
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// the three periodic pull sources i - c for c = -1, 0, +1 (i in [0, n))
+__device__ __forceinline__ void sources(int i, int n, int* s) {
+  s[0] = i + 1 == n ? 0 : i + 1;
+  s[1] = i;
+  s[2] = i == 0 ? n - 1 : i - 1;
+}
+
+__device__ __forceinline__ bool is_type(const D3q27Args& a, int flag, int c) {
+  return (flag & a.case_mask[c]) == a.case_val[c];
+}
+
+// Non-equilibrium bounce-back on the face normal to AXIS, fluid toward
+// SIDE * +axis (lbm.nebb_boundary): `value` is the imposed +axis velocity
+// (velocity) or density (pressure); vt_lo/vt_hi the imposed tangential
+// velocities on the two other axes in increasing order.
+template <int AXIS, int SIDE>
+__device__ __forceinline__ void nebb(float* f, bool velocity, float value,
+                                     float vt_lo, float vt_hi, bool has_vt) {
+  float s_t = 0.f, s_o = 0.f;
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    if (comp(k, AXIS) == 0) s_t += f[k];
+    else if (comp(k, AXIS) == -SIDE) s_o += f[k];
+  }
+  float rho, un;
+  if (velocity) {
+    un = value;
+    rho = (s_t + 2.f * s_o) / (1.f - SIDE * un);
+  } else {
+    rho = value;
+    un = SIDE * (1.f - (s_t + 2.f * s_o) / rho);
+  }
+  float jt[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    if (t == AXIS) continue;
+    float qt = 0.f;
+#pragma unroll
+    for (int k = 0; k < Q; ++k)
+      if (comp(k, AXIS) == 0 && comp(k, t) != 0) qt += comp(k, t) * f[k];
+    jt[t] = -3.f * qt;
+  }
+  if (has_vt) {
+    const int lo = AXIS == 0 ? 1 : 0, hi = AXIS == 2 ? 1 : 2;
+    jt[lo] += 3.f * rho * vt_lo;
+    jt[hi] += 3.f * rho * vt_hi;
+  }
+  const float run = rho * un;
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    if (comp(k, AXIS) != SIDE) continue;
+    float corr = 6.f * weight(k) * comp(k, AXIS) * run;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      if (t != AXIS && comp(k, t) != 0)
+        corr += 6.f * weight(k) * comp(k, t) * jt[t];
+    f[k] = f[Q - 1 - k] + corr;   // the partner of an unknown is a known
+  }
+}
+
+// f[k] <- f[mirror(k)] with the y component mirrored
+__device__ __forceinline__ void mirror_y(float* f) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      const float t = f[9 * i + l];
+      f[9 * i + l] = f[9 * i + 6 + l];
+      f[9 * i + 6 + l] = t;
+    }
+}
+
+__device__ __forceinline__ void bounce_back(float* f) {
+#pragma unroll
+  for (int k = 0; k < Q / 2; ++k) {
+    const float t = f[k];
+    f[k] = f[Q - 1 - k];
+    f[Q - 1 - k] = t;
+  }
+}
+
+// The boundary case the node's flag selects (the cases are exclusive: all
+// are values of the BOUNDARY group).  `ztab` holds the zonal Velocity,
+// Density and Turbulence rows; SynthT is read only at turbulent-inlet nodes.
+__device__ __forceinline__ void boundary(const D3q27Args& a, float* f,
+                                         int flag,
+                                         const float* __restrict__ ztab,
+                                         const float* __restrict__ fin,
+                                         size_t n, size_t idx) {
+  const int zone = flag >> a.zone_shift;
+  const float* vel = ztab + zone;
+  const float* den = ztab + a.zone_max + zone;
+  if (is_type(a, flag, CASE_WALL) || is_type(a, flag, CASE_SOLID))
+    bounce_back(f);
+  else if (is_type(a, flag, CASE_WVELOCITY))
+    nebb<0, 1>(f, true, __ldg(vel), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_WPRESSURE))
+    nebb<0, 1>(f, false, __ldg(den), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_EVELOCITY))
+    nebb<0, -1>(f, true, __ldg(vel), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_EPRESSURE))
+    nebb<0, -1>(f, false, __ldg(den), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_SVELOCITY))
+    nebb<1, 1>(f, true, __ldg(vel), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_SPRESSURE))
+    nebb<1, 1>(f, false, __ldg(den), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_SSYMMETRY) || is_type(a, flag, CASE_NSYMMETRY))
+    mirror_y(f);
+  else if (is_type(a, flag, CASE_NVELOCITY))
+    nebb<1, -1>(f, true, __ldg(vel), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_NPRESSURE))
+    nebb<1, -1>(f, false, __ldg(den), 0.f, 0.f, false);
+  else if (is_type(a, flag, CASE_WTURBULENT)) {
+    const float turb = __ldg(ztab + 2 * a.zone_max + zone);
+    nebb<0, 1>(f, true, __ldg(vel) + turb * fin[P_SYNTH * n + idx],
+               turb * fin[(P_SYNTH + 1) * n + idx],
+               turb * fin[(P_SYNTH + 2) * n + idx], true);
+  }
+}
+
+// Cumulant collision (ops/cumulant.py:collide_d3q27, correlated, with force
+// and Galilean correction) where `collide`; rho and u (before the force
+// shift) for the averages everywhere.
+__device__ __forceinline__ void collide(const D3q27Args& a, float* f,
+                                        float omega, bool collide,
+                                        float& rho_o, float& ux_o,
+                                        float& uy_o, float& uz_o) {
+  // forward moments of order <= 2: contract x, then y, then z
+  float s0[9], s1[9], s2[9];
+#pragma unroll
+  for (int jl = 0; jl < 9; ++jl) {
+    const float x0 = f[jl], x1 = f[9 + jl], x2 = f[18 + jl];
+    s0[jl] = x0 + x1 + x2;
+    s1[jl] = x2 - x0;
+    s2[jl] = x2 + x0;
+  }
+  float m000, m001, m002, m010, m011, m020, m100, m101, m110, m200;
+  {
+    float t0[3], t1[3], t2[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      t0[l] = s0[l] + s0[3 + l] + s0[6 + l];
+      t1[l] = s0[6 + l] - s0[l];
+      t2[l] = s0[6 + l] + s0[l];
+    }
+    m000 = t0[0] + t0[1] + t0[2];
+    m001 = t0[2] - t0[0];
+    m002 = t0[2] + t0[0];
+    m010 = t1[0] + t1[1] + t1[2];
+    m011 = t1[2] - t1[0];
+    m020 = t2[0] + t2[1] + t2[2];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      t0[l] = s1[l] + s1[3 + l] + s1[6 + l];
+      t1[l] = s1[6 + l] - s1[l];
+    }
+    m100 = t0[0] + t0[1] + t0[2];
+    m101 = t0[2] - t0[0];
+    m110 = t1[0] + t1[1] + t1[2];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) t0[l] = s2[l] + s2[3 + l] + s2[6 + l];
+    m200 = t0[0] + t0[1] + t0[2];
+  }
+  const float rho = m000;
+  const float inv = 1.f / rho;
+  const float jx = m100, jy = m010, jz = m001;
+  const float ux = jx * inv, uy = jy * inv, uz = jz * inv;
+  rho_o = rho; ux_o = ux; uy_o = uy; uz_o = uz;
+  if (!collide) return;
+
+  const float kxx = m200 - jx * ux, kyy = m020 - jy * uy,
+              kzz = m002 - jz * uz;
+  const float kxy = m110 - jx * uy, kxz = m101 - jx * uz,
+              kyz = m011 - jy * uz;
+  const float ob = a.omega_bulk;
+  const float cxx = kxx * inv, cyy = kyy * inv, czz = kzz * inv;
+  float a_c = (1.f - omega) * (cxx - cyy);
+  float b_c = (1.f - omega) * (cxx - czz);
+  float cc_c = ob + (1.f - ob) * (cxx + cyy + czz);
+  {
+    const float uxh = ux + 0.5f * a.force[0];
+    const float uyh = uy + 0.5f * a.force[1];
+    const float uzh = uz + 0.5f * a.force[2];
+    const float dxu = -0.5f * omega * (2.f * cxx - cyy - czz)
+                      - 0.5f * ob * (cxx + cyy + czz - 1.f);
+    const float dyv = dxu + 1.5f * omega * (cxx - cyy);
+    const float dzw = dxu + 1.5f * omega * (cxx - czz);
+    const float gc1 = 3.f * (1.f - 0.5f * omega)
+                      * (uxh * uxh * dxu - uyh * uyh * dyv);
+    const float gc2 = 3.f * (1.f - 0.5f * omega)
+                      * (uxh * uxh * dxu - uzh * uzh * dzw);
+    const float gc3 = 3.f * (1.f - 0.5f * ob)
+                      * (uxh * uxh * dxu + uyh * uyh * dyv + uzh * uzh * dzw);
+    a_c = a_c - gc1 * a.galilean;
+    b_c = b_c - gc2 * a.galilean;
+    cc_c = cc_c - gc3 * a.galilean;
+  }
+  const float kxx_p = rho * (a_c + b_c + cc_c) / 3.f;
+  const float kyy_p = rho * (cc_c - 2.f * a_c + b_c) / 3.f;
+  const float kzz_p = rho * (cc_c - 2.f * b_c + a_c) / 3.f;
+  const float one_m = 1.f - omega;
+  const float kxy_p = one_m * kxy, kxz_p = one_m * kxz, kyz_p = one_m * kyz;
+
+  // Isserlis closure: every cumulant above second order vanishes
+  const float g220 = (kxx_p * kyy_p + 2.f * kxy_p * kxy_p) * inv;
+  const float g202 = (kxx_p * kzz_p + 2.f * kxz_p * kxz_p) * inv;
+  const float g022 = (kyy_p * kzz_p + 2.f * kyz_p * kyz_p) * inv;
+  const float g211 = (kxx_p * kyz_p + 2.f * kxy_p * kxz_p) * inv;
+  const float g121 = (kyy_p * kxz_p + 2.f * kxy_p * kyz_p) * inv;
+  const float g112 = (kzz_p * kxy_p + 2.f * kxz_p * kyz_p) * inv;
+  const float g222 = (kxx_p * kyy_p * kzz_p
+                      + 2.f * (kxx_p * kyz_p * kyz_p + kyy_p * kxz_p * kxz_p
+                               + kzz_p * kxy_p * kxy_p)
+                      + 8.f * kxy_p * kxz_p * kyz_p) * inv * inv;
+
+  // raw moments m[p][q][r]: the sparse x decentralize pass with the forced
+  // velocity, then y and z
+  const float u = ux + a.force[0], v = uy + a.force[1], w = uz + a.force[2];
+  const float uu = u * u;
+  float m[27];
+#define M(p, q, r) m[9 * (p) + 3 * (q) + (r)]
+#pragma unroll
+  for (int i = 0; i < 27; ++i) m[i] = 0.f;
+  M(0, 0, 0) = rho;            M(1, 0, 0) = u * rho;
+  M(2, 0, 0) = kxx_p + uu * rho;
+  M(1, 1, 0) = kxy_p;          M(2, 1, 0) = 2.f * u * kxy_p;
+  M(1, 0, 1) = kxz_p;          M(2, 0, 1) = 2.f * u * kxz_p;
+  M(0, 1, 1) = kyz_p;          M(1, 1, 1) = u * kyz_p;
+  M(2, 1, 1) = g211 + uu * kyz_p;
+  M(0, 2, 0) = kyy_p;          M(1, 2, 0) = u * kyy_p;
+  M(2, 2, 0) = g220 + uu * kyy_p;
+  M(0, 0, 2) = kzz_p;          M(1, 0, 2) = u * kzz_p;
+  M(2, 0, 2) = g202 + uu * kzz_p;
+  M(1, 2, 1) = g121;           M(2, 2, 1) = 2.f * u * g121;
+  M(1, 1, 2) = g112;           M(2, 1, 2) = 2.f * u * g112;
+  M(0, 2, 2) = g022;           M(1, 2, 2) = u * g022;
+  M(2, 2, 2) = g222 + uu * g022;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float k0 = M(p, 0, r), k1 = M(p, 1, r), k2 = M(p, 2, r);
+      M(p, 1, r) = k1 + v * k0;
+      M(p, 2, r) = k2 + 2.f * v * k1 + v * v * k0;
+    }
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float k0 = M(p, q, 0), k1 = M(p, q, 1), k2 = M(p, q, 2);
+      M(p, q, 1) = k1 + w * k0;
+      M(p, q, 2) = k2 + 2.f * w * k1 + w * w * k0;
+    }
+  // back to populations: the inverse Vandermonde of (-1, 0, 1) on each axis
+  // (f_-1 = (m2 - m1) / 2, f_0 = m0 - m2, f_+1 = (m1 + m2) / 2)
+#pragma unroll
+  for (int a0 = 0; a0 < 9; ++a0) {      // axis x: lines m[., q, r]
+    const float m0 = m[a0], m1 = m[9 + a0], m2 = m[18 + a0];
+    m[a0] = -0.5f * m1 + 0.5f * m2;
+    m[9 + a0] = m0 - m2;
+    m[18 + a0] = 0.5f * m1 + 0.5f * m2;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)           // axis y: lines m[i, ., r]
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float m0 = M(i, 0, r), m1 = M(i, 1, r), m2 = M(i, 2, r);
+      M(i, 0, r) = -0.5f * m1 + 0.5f * m2;
+      M(i, 1, r) = m0 - m2;
+      M(i, 2, r) = 0.5f * m1 + 0.5f * m2;
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)           // axis z: lines m[i, j, .]
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float m0 = M(i, j, 0), m1 = M(i, j, 1), m2 = M(i, j, 2);
+      f[9 * i + 3 * j] = -0.5f * m1 + 0.5f * m2;
+      f[9 * i + 3 * j + 1] = m0 - m2;
+      f[9 * i + 3 * j + 2] = 0.5f * m1 + 0.5f * m2;
+    }
+#undef M
+}
+
+// One node after its pull: boundary, then collision where the COLLISION
+// group is set (omega from the Buffer layer select).  Returns the averages'
+// increments (rho - 1) / 3 and u.
+__device__ __forceinline__ void node_update(const D3q27Args& a, float* f,
+                                            int flag,
+                                            const float* __restrict__ ztab,
+                                            const float* __restrict__ fin,
+                                            size_t n, size_t idx,
+                                            float* inc) {
+  boundary(a, f, flag, ztab, fin, n, idx);
+  const float omega = (flag & a.buffer_mask) == a.buffer_val
+                          ? a.omega_buffer : a.omega;
+  float rho;
+  collide(a, f, omega, (flag & a.coll_mask) != 0, rho, inc[1], inc[2],
+          inc[3]);
+  inc[0] = (rho - 1.f) / 3.f;
+}
+
+// f_k(z, y, x) <- fin_k(z - ez, y - ey, x - ex), periodic
+__device__ __forceinline__ void pull(const D3q27Args& a,
+                                     const float* __restrict__ fin, int z,
+                                     int y, int x, float* f) {
+  const size_t n = (size_t)a.nz * a.ny * a.nx;
+  int sz[3], sy[3], sx[3];
+  sources(z, a.nz, sz);
+  sources(y, a.ny, sy);
+  sources(x, a.nx, sx);
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const size_t g = ((size_t)sz[comp(k, 2) + 1] * a.ny + sy[comp(k, 1) + 1])
+                     * a.nx + sx[comp(k, 0) + 1];
+    f[k] = __ldg(fin + k * n + g);
+  }
+}
+
+// Write a node's populations, copy its SynthT planes, and add the averages'
+// increments (inc1 then inc2, as consecutive steps would).
+__device__ __forceinline__ void store(const float* __restrict__ fin,
+                                      float* __restrict__ fout, size_t n,
+                                      size_t idx, const float* f,
+                                      const float* inc1, const float* inc2) {
+#pragma unroll
+  for (int k = 0; k < Q; ++k) fout[k * n + idx] = f[k];
+#pragma unroll
+  for (int p = P_SYNTH; p < P_AVGP; ++p) fout[p * n + idx] = fin[p * n + idx];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float v = fin[(P_AVGP + c) * n + idx] + inc1[c];
+    if (inc2) v = v + inc2[c];
+    fout[(P_AVGP + c) * n + idx] = v;
+  }
+}
+
+#define STEP_TX 32
+#define STEP_TY 4
+
+__global__ void __launch_bounds__(STEP_TX * STEP_TY)
+d3q27_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+                  const int* __restrict__ flags,
+                  const float* __restrict__ ztab, const D3q27Args a) {
+  const int x = blockIdx.x * STEP_TX + threadIdx.x;
+  const int y = blockIdx.y * STEP_TY + threadIdx.y;
+  const int z = blockIdx.z;
+  if (x >= a.nx || y >= a.ny) return;
+  const size_t n = (size_t)a.nz * a.ny * a.nx;
+  const size_t idx = ((size_t)z * a.ny + y) * a.nx + x;
+  float f[Q], inc[4];
+  pull(a, fin, z, y, x, f);
+  node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
+  store(fin, fout, n, idx, f, inc, nullptr);
+}
+
+// d3q27_step2 tiling: a TX x TY output column, its step-1 extension by one
+// node on each side (EXT_N nodes, one thread each), a ring of step-1 planes
+// in shared memory.  Population k moves by ez = k % 3 - 1 in z; the 9 of
+// each ez form a group, j = k / 3 within it.
+#define TX 32
+#define TY 8
+#define EXT_X (TX + 2)
+#define EXT_Y (TY + 2)
+#define EXT_N (EXT_X * EXT_Y)
+#define STEP2_THREADS (((EXT_N + 31) / 32) * 32)
+#define GROUP (9 * EXT_N)             // one z-group of one plane
+
+// dynamic shared memory of one d3q27_step2 block: ez = +1 groups of the last
+// three planes, ez = 0 of the last two, ez = -1 of the last one, and the
+// averages' step-1 increments of the last two planes
+#define STEP2_SMEM \
+  ((size_t)(6 * GROUP + 2 * 4 * TX * TY) * sizeof(float))
+
+// where step 1 leaves population k of ring plane r
+__device__ __forceinline__ float* ring_slot(float* smem, int k, int r) {
+  const int ez = k % 3 - 1, j = k / 3;
+  const int g = ez == -1 ? 0 : (ez == 0 ? 1 + r % 2 : 3 + r % 3);
+  return smem + g * GROUP + j * EXT_N;
+}
+
+__global__ void __launch_bounds__(STEP2_THREADS, 2)
+d3q27_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+                   const int* __restrict__ flags,
+                   const float* __restrict__ ztab, const D3q27Args a) {
+  extern __shared__ float smem[];
+  float* sinc = smem + 6 * GROUP;                 // [2][4][TX * TY]
+  const size_t n = (size_t)a.nz * a.ny * a.nx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int zs = blockIdx.z * a.zc;
+  const int ze = min(zs + a.zc, a.nz);
+  const int tid = threadIdx.x;
+  // this thread's step-1 node (extended column) and step-2 node (column)
+  const int ly = tid / EXT_X, lx = tid - ly * EXT_X;
+  const int y1 = wrap(y0 - 1 + ly, a.ny), x1 = wrap(x0 - 1 + lx, a.nx);
+  const bool central1 = ly >= 1 && ly <= TY && lx >= 1 && lx <= TX;
+  const int cy = tid / TX, cx = tid - cy * TX;
+  const int y2 = y0 + cy, x2 = x0 + cx;
+  const bool active2 = tid < TX * TY && y2 < a.ny && x2 < a.nx;
+
+  // ring index r is z plane zs - 1 + r.  Iteration r computes step 1 of
+  // plane r, then (from r = 2 on) step 2 of plane r - 1 from the ez = +1
+  // group of plane r - 2, the ez = 0 group of plane r - 1 and the ez = -1
+  // group of plane r; each group's slot is free again by the time step 1
+  // of a later plane writes it (ring_slot).
+  for (int r = 0; r <= ze - zs + 1; ++r) {
+    if (tid < EXT_N) {
+      const int z1 = wrap(zs - 1 + r, a.nz);
+      const size_t idx = ((size_t)z1 * a.ny + y1) * a.nx + x1;
+      float f[Q], inc[4];
+      pull(a, fin, z1, y1, x1, f);
+      node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
+#pragma unroll
+      for (int k = 0; k < Q; ++k) ring_slot(smem, k, r)[tid] = f[k];
+      if (central1) {
+        float* si = sinc + (r % 2) * 4 * TX * TY + (ly - 1) * TX
+                    + (lx - 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) si[c * TX * TY] = inc[c];
+      }
+    }
+    if (r < 2) continue;          // uniform over the block
+    __syncthreads();
+    const int z = zs + r - 2;     // the output plane, ring index r - 1
+    if (active2) {
+      float f[Q], inc[4];
+#pragma unroll
+      for (int k = 0; k < Q; ++k)
+        f[k] = ring_slot(smem, k, r - 1 - comp(k, 2))[
+            (cy + 1 - comp(k, 1)) * EXT_X + (cx + 1 - comp(k, 0))];
+      const size_t idx = ((size_t)z * a.ny + y2) * a.nx + x2;
+      node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
+      float inc1[4];
+      const float* si = sinc + ((r - 1) % 2) * 4 * TX * TY + cy * TX + cx;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) inc1[c] = si[c * TX * TY];
+      store(fin, fout, n, idx, f, inc1, inc);
+    }
+    __syncthreads();              // before the next step 1 reuses slots
+  }
+}
+
+extern "C" {
+
+const char* d3q27_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Shared-memory bytes, threads and co-resident blocks per SM of one
+// d3q27_step2 block (the wrapper sizes the z runs from them).
+int d3q27_step2_config(int device, int* smem, int* threads,
+                       int* blocks_per_sm, int* sms) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(d3q27_step2_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)STEP2_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, d3q27_step2_kernel, STEP2_THREADS, STEP2_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  *smem = (int)STEP2_SMEM;
+  *threads = STEP2_THREADS;
+  return 0;
+}
+
+int d3q27_step(const float* fin, float* fout, const int* flags,
+               const float* ztab, const D3q27Args* a, int device,
+               void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 block(STEP_TX, STEP_TY);
+  const dim3 grid((a->nx + STEP_TX - 1) / STEP_TX,
+                  (a->ny + STEP_TY - 1) / STEP_TY, a->nz);
+  d3q27_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      fin, fout, flags, ztab, *a);
+  return (int)cudaGetLastError();
+}
+
+int d3q27_step2(const float* fin, float* fout, const int* flags,
+                const float* ztab, const D3q27Args* a, int device,
+                void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(d3q27_step2_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)STEP2_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY,
+                  (a->nz + a->zc - 1) / a->zc);
+  d3q27_step2_kernel<<<grid, STEP2_THREADS, STEP2_SMEM,
+                       (cudaStream_t)stream>>>(fin, fout, flags, ztab, *a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -38,11 +38,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Callable
 
 import numpy as np
@@ -51,7 +47,7 @@ import torch
 from tclb_tpu_torch.core.lattice import LatticeState, SimParams
 from tclb_tpu_torch.core.registry import Model
 from tclb_tpu_torch.models import d2q9
-from tclb_tpu_torch.ops import lbm
+from tclb_tpu_torch.ops import _cuda_build, lbm
 
 KERNELS = ("d2q9_step", "d2q9_step2", "d2q9_resident8")
 # launches per kernel; a wrapper adds one where it launches, nowhere else
@@ -62,12 +58,6 @@ L2_BYTES = 50 * 1024 * 1024     # H100 L2
 # boundary cases in the order the model applies them (csrc/d2q9.cu CASE_*)
 CASES = ("Wall", "Solid", "EVelocity", "WPressure", "WVelocity",
          "EPressure", "TopSymmetry", "BottomSymmetry")
-
-_SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "d2q9.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
-    / "tclb_tpu_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def reset_launches() -> None:
@@ -278,36 +268,11 @@ def plain_steps(fields, flags, vel, den, a: StepArgs, n: int
 _LIB: dict = {}    # the loaded library, once per process
 
 
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH)")
-    return found
-
-
 def build() -> tuple[pathlib.Path, str]:
     """Compile csrc/d2q9.cu for sm_90a into build/tclb_tpu_torch/ (once per
     source content).  Returns the library path and the compiler's report
     (``-Xptxas -v``: registers, shared memory, spills per kernel)."""
-    digest = hashlib.sha1(_SRC.read_bytes()
-                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libtclb_d2q9_{digest}.so"
-    report = _BUILD_DIR / f"libtclb_d2q9_{digest}.log"
-    if lib.exists():
-        return lib, report.read_text() if report.exists() else ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    report.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return _cuda_build.build("d2q9")
 
 
 def _lib() -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 """Shared LBM math on PyTorch tensors — the port's counterpart of the JAX
-package's ``ops/lbm.py``, restricted to what model ``d2q9`` uses.
+package's ``ops/lbm.py``, restricted to what the ported models (``d2q9``,
+``d3q27_cumulant``) use.
 
 Constants (velocity sets, weights, moment bases) are numpy arrays built on
 the host; everything that touches lattice planes is a plain function on
@@ -8,6 +9,8 @@ counterpart: they exist only to make XLA's fusion choices reproducible.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -66,6 +69,12 @@ def edot(vec, stack: torch.Tensor) -> torch.Tensor:
 def perm(stack: torch.Tensor, idx) -> torch.Tensor:
     """Reorder the leading (population) axis by a constant permutation."""
     return torch.stack([stack[int(k)] for k in np.asarray(idx)])
+
+
+def wstack(w, value) -> torch.Tensor:
+    """``(q, *shape)`` stack of ``w[i] * value`` with scalar weight
+    coefficients; ``value`` may be a plane or a 0-d tensor."""
+    return torch.stack([float(wi) * value for wi in np.asarray(w)])
 
 
 def equilibrium(E: np.ndarray, W: np.ndarray, rho: torch.Tensor, u):
@@ -139,3 +148,53 @@ def moments(M: np.ndarray, f: torch.Tensor) -> torch.Tensor:
 def from_moments(M: np.ndarray, m: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`moments` for an orthogonal (row) basis."""
     return unrolled_matvec(inverse_basis(M), m)
+
+
+def nebb_boundary(E: np.ndarray, W: np.ndarray, OPP: np.ndarray,
+                  f: torch.Tensor, axis: int, side: int, kind: str, value,
+                  vt: Optional[dict] = None) -> torch.Tensor:
+    """Straight-wall velocity/pressure boundary by non-equilibrium
+    bounce-back: Zou & He's closure generalized to any face of any velocity
+    set (the JAX package's ``ops/lbm.py:nebb_boundary``, op for op).
+
+    ``axis``: face normal axis (0=x, 1=y, 2=z); ``side``: +1 if the fluid
+    lies toward +axis (a low face), -1 for a high face; ``kind``:
+    'velocity' (``value`` = signed +axis velocity component) or 'pressure'
+    (``value`` = density).  Unknown populations (e.axis == side) get
+    ``f_opp + 6 w rho (e.u)`` for the normal velocity plus, per tangential
+    axis, ``6 w e_t J_t`` with ``J_t = -3 q_t`` (``q_t`` the tangential
+    momentum of the wall-parallel populations) and, where ``vt`` imposes
+    a tangential velocity ``{axis: value}``, ``+ 3 rho v_t``."""
+    q = len(E)
+    en = E[:, axis].astype(np.int64)
+    tang_k = [k for k in range(q) if en[k] == 0]
+    out_k = [k for k in range(q) if en[k] == -side]   # known, entering wall
+    s_t = sum(f[k] for k in tang_k)
+    s_o = sum(f[k] for k in out_k)
+    if kind == "velocity":
+        un = value
+        rho = (s_t + 2.0 * s_o) / (1.0 - side * un)
+    else:
+        rho = value
+        un = side * (1.0 - (s_t + 2.0 * s_o) / rho)
+    corr = [6.0 * float(W[k]) * float(en[k]) * rho * un
+            if en[k] else None for k in range(q)]
+    for t_ax in range(E.shape[1]):
+        if t_ax == axis:
+            continue
+        et = E[:, t_ax].astype(np.int64)
+        if not et.any():
+            continue
+        q_t = sum(float(et[k]) * f[k] for k in tang_k if et[k])
+        j_t = -3.0 * q_t
+        if vt and t_ax in vt:
+            j_t = j_t + 3.0 * rho * vt[t_ax]
+        for k in range(q):
+            if en[k] == side and et[k]:
+                add = 6.0 * float(W[k]) * float(et[k]) * j_t
+                corr[k] = add if corr[k] is None else corr[k] + add
+    return torch.stack([
+        f[int(OPP[k])] + (corr[k] if corr[k] is not None
+                          else torch.zeros_like(rho))
+        if en[k] == side else f[k]
+        for k in range(q)])

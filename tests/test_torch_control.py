@@ -1,6 +1,7 @@
 """The port's control plane against the JAX package's: geometry painting,
-units, CSV/VTI output, the handler tree and the CLI, and the slice as a
-whole — the d2q9 goldens reproduced through the port's ``_run_root``."""
+units, CSV/VTI output, the handler tree and the CLI, and each slice as a
+whole — the d2q9 and channel3d goldens reproduced through the port's
+``_run_root``."""
 
 # jax 0.9 turned batching.primitive_batchers into a proxy without ``in``,
 # which the JAX package's ops/lbm.py uses at import; give it one
@@ -75,6 +76,24 @@ POISEUILLE = """<?xml version="1.0"?>
     <Solve Iterations="500"/>
 </CLBConfig>
 """
+
+# tests/test_golden.py's d3q27_cumulant forced channel, verbatim
+CHANNEL3D = """<?xml version="1.0"?>
+<CLBConfig version="2.0" output="{out}/">
+    <Geometry nx="48" ny="16" nz="16">
+        <MRT><Box/></MRT>
+        <Wall mask="ALL"><Channel/></Wall>
+    </Geometry>
+    <Model>
+        <Params nu="0.02"/>
+        <Params ForceX="0.00001" ForceZ="-0.00003"/>
+    </Model>
+    <Solve Iterations="200"/>
+</CLBConfig>
+"""
+# the model each golden case runs
+GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
+                 "channel3d": "d3q27_cumulant"}
 
 # every handler of the slice on a small case: Log, VTK, Stop, Failcheck,
 # Repeat, Init and zonal Params, run through both packages
@@ -206,13 +225,15 @@ def test_unported_handler_names_its_roadmap_item(tmp_path, old, new):
 
 
 @pytest.mark.parametrize("name,xml", [("karman", KARMAN),
-                                      ("poiseuille", POISEUILLE)])
+                                      ("poiseuille", POISEUILLE),
+                                      ("channel3d", CHANNEL3D)])
 def test_golden_through_port(name, xml, tmp_path):
     """tests/goldens/<name>.json through the port's _run_root at f64 on
     the CPU: same column set, RTOL 1e-10 / ATOL 1e-12."""
     s = solver._run_root(ET.fromstring(xml.format(out=tmp_path)),
-                         get_model("d2q9"), None, torch.float64,
-                         str(tmp_path) + "/", name, device="cpu")
+                         get_model(GOLDEN_MODELS[name]), None,
+                         torch.float64, str(tmp_path) + "/", name,
+                         device="cpu")
     row = s.log_row()
     fields = s.lattice.state.fields.numpy()
     row["FieldsL1"] = float(np.abs(fields).sum())
@@ -236,7 +257,7 @@ def test_cli(tmp_path, capsys):
     assert "done: 16 iterations on cpu (engine eager)" in capsys.readouterr().out
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
-    assert capsys.readouterr().out.split() == ["d2q9"]
+    assert capsys.readouterr().out.split() == ["d2q9", "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

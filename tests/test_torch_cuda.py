@@ -1,4 +1,5 @@
-"""The d2q9 CUDA kernels against their plain PyTorch versions on the card.
+"""The d2q9 and d3q27 CUDA kernels against their plain PyTorch versions on
+the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -13,7 +14,9 @@ import torch
 
 from tclb_tpu_torch import Lattice, get_model
 from tclb_tpu_torch.ops import d2q9_kernels as dk
-from torch_cases import RICH_SETTINGS, paint_rich
+from tclb_tpu_torch.ops import d3q27_kernels as dk3
+from torch_cases import (RICH3D_SETTINGS, RICH_SETTINGS, paint_rich,
+                         paint_rich_3d)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -83,3 +86,65 @@ def test_lattice_engine_matches_eager(card_lattice, shape, engine, kernels):
     got, want = lat.get_globals(), ref.get_globals()
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+@pytest.fixture
+def card_lattice_3d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(shape, seed):
+        lat = Lattice(get_model("d3q27_cumulant"), shape,
+                      dtype=torch.float32, settings=RICH3D_SETTINGS,
+                      device="cuda")
+        return paint_rich_3d(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 8, 64), (7, 9, 40), (48, 48, 256)])
+@pytest.mark.parametrize("name", dk3.KERNELS)
+def test_d3q27_kernel_matches_plain(card_lattice_3d, name, shape):
+    """Every node type, the ragged edge of the 32x8 columns (7x9x40) and
+    3d_channel's shape."""
+    lat = card_lattice_3d(shape, seed=5)
+    f, flags, ztab, args = dk3.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+    fn, n = dk3.WRAPPERS[name]
+    dk3.reset_launches()
+    got = fn(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert dk3.LAUNCHES[name] == 1
+    want = dk3.plain_steps(f, flags, ztab, args, n)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    assert torch.equal(got[27:30], f[27:30])     # SynthT carried through
+
+
+@pytest.mark.cuda
+def test_d3q27_wrapper_rejects_what_the_kernel_does_not_take(
+        card_lattice_3d):
+    lat = card_lattice_3d((4, 8, 32), seed=1)
+    f, flags, ztab, args = dk3.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+    with pytest.raises(ValueError, match="needs contiguous"):
+        dk3.step(f, flags.to(torch.int64), ztab, args)
+    with pytest.raises(ValueError, match="needs contiguous"):
+        dk3.step2(f.double(), flags, ztab, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 8, 64), (48, 48, 256)])
+def test_d3q27_lattice_engine_matches_eager(card_lattice_3d, shape):
+    lat = card_lattice_3d(shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    dk3.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == "cuda_d3q27_band[d3q27_cumulant,fuse=2]"
+    assert dk3.LAUNCHES == {"d3q27_step2": 5, "d3q27_step": 1}
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    assert lat.get_globals()["Flux"] == pytest.approx(
+        ref.get_globals()["Flux"], rel=1e-4, abs=1e-6)

@@ -71,3 +71,76 @@ def paint_rich(lat, seed):
     lat.init()
     lat.set_density_planes(random_planes(lat.model, lat.shape, seed))
     return lat
+
+
+# d3q27_cumulant: a forced channel with every boundary case and a Buffer
+# layer, settings zone 1 velocity + turbulence, zone 2 density
+RICH3D_SETTINGS = {"nu": 0.05, "ForceX": 1e-5, "GravitationZ": -2e-6,
+                   "nubuffer": 0.08}
+SHAPE3D = (12, 8, 64)
+
+
+def rich_flags_3d(m, nz, ny, nx):
+    """Every node type ``d3q27_cumulant`` dispatches, painted on a
+    (nz, ny, nx) field: W/E velocity, pressure and the turbulent inlet on
+    the x faces, N/S velocity, pressure and symmetry on the y faces, walls,
+    a solid node, an unhandled WPressureL node, objective columns, BGK
+    collision nodes, and a Buffer layer (ADDITIONALS) over MRT nodes."""
+    f = m.flag_for
+    flags = np.full((nz, ny, nx), f("MRT"), dtype=np.uint16)
+    h = nz // 2
+    q = nz // 4
+    flags[:, :, 0] = f("WVelocity", "MRT", zone=1)
+    flags[:h, :, 1] = f("WPressure", "MRT", zone=2)
+    flags[h:, :, 1] = f("WVelocityTurbulent", "MRT", zone=1)
+    flags[:, :, -1] = f("EPressure", "MRT", zone=2)
+    flags[h:, :, -2] = f("EVelocity", "MRT", zone=1)
+    flags[:q, 0, 2:-2] = f("SSymmetry", "MRT")
+    flags[q:h, 0, 2:-2] = f("SVelocity", "MRT", zone=1)
+    flags[h:, 0, 2:-2] = f("SPressure", "MRT", zone=2)
+    flags[:q, -1, 2:-2] = f("NSymmetry", "MRT")
+    flags[q:h, -1, 2:-2] = f("NVelocity", "MRT", zone=1)
+    flags[h:, -1, 2:-2] = f("NPressure", "MRT", zone=2)
+    flags[q:q + 3, 3:5, nx // 4:nx // 4 + 4] = f("Wall")
+    flags[0, ny // 2, 3 * nx // 4] = f("Solid")
+    flags[h, ny // 2, nx // 2] = f("WPressureL", "MRT")
+    flags[1:-1, 2:-2, 4] = f("MRT", "Inlet")
+    flags[1:-1, 2:-2, -5] = f("MRT", "Outlet")
+    flags[:, 2:-2, 6:9] = f("BGK")
+    flags[:, 1:-1, nx - 12:nx - 8] |= np.uint16(f("Buffer"))
+    return flags
+
+
+def random_planes_3d(m, shape, seed):
+    """d3q27 populations near a flowing equilibrium plus noise, nonzero
+    SynthT planes (so the turbulent inlet counts) and nonzero averages."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:27].astype(np.float64)
+    w = np.array([{0: 8 / 27, 1: 2 / 27, 2: 1 / 54, 3: 1 / 216}[
+        int((e * e).sum())] for e in E])
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.02 * rng.standard_normal((3,) + shape)
+    u[0] += 0.03
+    usq = (u * u).sum(0)
+    planes = {}
+    for k in range(27):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1] + E[k, 2] * u[2]
+        feq = w[k] * rho * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+        planes[f"f[{k}]"] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    for name in ("SynthTX", "SynthTY", "SynthTZ"):
+        planes[name] = rng.standard_normal(shape)
+    for name in ("avgP", "avgUX", "avgUY", "avgUZ"):
+        planes[name] = 0.01 * rng.standard_normal(shape)
+    return planes
+
+
+def paint_rich_3d(lat, seed):
+    """``rich_flags_3d`` with zonal Velocity/Turbulence/Density and
+    ``random_planes_3d`` on a Lattice of either package."""
+    lat.set_flags(rich_flags_3d(lat.model, *lat.shape))
+    lat.set_setting("Velocity", 0.04, zone=1)
+    lat.set_setting("Turbulence", 0.05, zone=1)
+    lat.set_setting("Density", 1.002, zone=2)
+    lat.init()
+    lat.set_density_planes(random_planes_3d(lat.model, lat.shape, seed))
+    return lat
