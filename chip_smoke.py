@@ -4,23 +4,29 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
-builds ``tclb_tpu_torch/csrc/d2q9.cu`` and ``d3q27.cu`` for sm_90a into
-``build/``, one ``nvcc`` each, started together), and exits nonzero
-without printing a result when either the card or the package is missing.
-Phases, each of which fails the run on its own:
+builds ``tclb_tpu_torch/csrc/d2q9.cu``, ``d3q27.cu`` and ``generic2d.cu``
+for sm_90a into ``build/``, one ``nvcc`` each, started together), and
+exits nonzero without printing a result when either the card or the
+package is missing.  Phases, each of which fails the run on its own:
 
-1. build the d2q9 and d3q27 kernels and print what ``ptxas`` reports;
+1. build the d2q9, d3q27 and generic kernels and print what ``ptxas``
+   reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
    ``d2q9_step``, the warmed ``example/3d_channel.xml`` state and a
    12x8x64 state that paints every d3q27 node type for ``d3q27_step`` and
-   ``d3q27_step2``, and after phase 6 the developed 3d_channel flow), at
-   rtol 2e-5 / atol 2e-6;
+   ``d3q27_step2``, the warmed ``example/drop.xml`` state, bench.py's
+   1024x1024 drop and a walled 16x128 kuper state that paints every
+   d2q9_kuper node type and two Density zones for ``generic2d_step``, its
+   globals flavour and an 8-step ``generic2d_resident``, and after phases
+   6 and 9 the developed 3d_channel and drop flows), at rtol 2e-5 / atol
+   2e-6, and the globals flavour's WallForceX/Y at rtol 1e-4 / atol 1e-6;
 3. hold the card's f32 run of the d2q9 golden cases
-   (``tests/goldens/karman.json``, ``poiseuille.json``) and of the
-   d3q27_cumulant channel (``channel3d.json``) against the goldens at rtol
-   1e-4 / atol 1e-6 (f32 against an f64 recording);
+   (``tests/goldens/karman.json``, ``poiseuille.json``), of the
+   d3q27_cumulant channel (``channel3d.json``) and of the d2q9_kuper drop
+   (``drop.json``) against the goldens at rtol 1e-4 / atol 1e-6 (f32
+   against an f64 recording);
 4. the d2q9 main path: ``example/karman.xml`` unchanged through
    ``run_config`` (10000 iterations, Log every 1000, VTK every 5000) on
    ``cuda_d2q9_resident[d2q9,fuse=8]``, with the launch counts set to 0
@@ -35,8 +41,18 @@ Phases, each of which fails the run on its own:
 7. kernel times (CUDA events over many launches), the plain versions'
    times, each kernel's bound on this card, and the host time one call of
    each wrapper takes;
-8. torch.profiler traces of a karman and a 3d_channel ``iterate`` window:
-   the card's busy and idle share and its time by kernel.
+8. torch.profiler traces of a karman, a 3d_channel and a drop ``iterate``
+   window: the card's busy and idle share and its time by kernel;
+9. the generic main path: ``example/drop.xml`` unchanged through
+   ``run_config`` (128x128, 6000 iterations, Log every 500, VTK every
+   2000) on ``cuda_generic_resident[d2q9_kuper,fuse=N]``, launching both
+   generic kernels and no eager step, with its mass conserved to 1e-4 and
+   the vapour bubble still at the centre;
+10. the generic band engine: bench.py's drop physics at 1024x1024,
+   ``iterate(2000)`` on ``cuda_generic_band[d2q9_kuper,fuse=1]``, both
+   flavours of ``generic2d_step`` launched.
+
+Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -65,6 +81,7 @@ RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
 KARMAN_XML = ROOT / "example" / "karman.xml"
 CHANNEL3D_XML = ROOT / "example" / "3d_channel.xml"
+DROP_XML = ROOT / "example" / "drop.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
@@ -72,9 +89,12 @@ TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_resident8": "tclb_tpu/ops/pallas_d2q9.py:302",
     "d3q27_step": "tclb_tpu/ops/pallas_d3q.py:655",
     "d3q27_step2": "tclb_tpu/ops/pallas_d3q.py:843",
+    "generic2d_step": "tclb_tpu/ops/pallas_generic.py:796",
+    "generic2d_resident": "tclb_tpu/ops/pallas_generic.py:1105",
 }
+SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu"}
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
-                 "channel3d": "d3q27_cumulant"}
+                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper"}
 
 
 def say(msg: str) -> None:
@@ -148,6 +168,37 @@ def channel_lattice(device, n=1024):
     return lat
 
 
+def drop_lattice(device, n=1024):
+    """bench.py's drop physics (bench.py:290-306): a vapour disc of radius
+    n/5 (zone 1) in the liquid, periodic."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d2q9_kuper")
+    lat = Lattice(m, (n, n), dtype=torch.float32, device=device,
+                  settings={"omega": 1.0, "Temperature": 0.56, "FAcc": 1.0,
+                            "Magic": 0.01, "MagicA": -0.152,
+                            "MagicF": -2.0 / 3.0,
+                            "Density": 3.2600529440452366})
+    lat.set_setting("Density", 0.014500641645077492, zone=1)
+    flags = np.full((n, n), m.flag_for("MRT"), dtype=np.uint16)
+    yy, xx = np.mgrid[0:n, 0:n]
+    drop = (yy - n / 2) ** 2 + (xx - n / 2) ** 2 < (n / 5) ** 2
+    flags[drop] = m.flag_for("MRT", zone=1)
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def rich_kuper_lattice(device):
+    """A 16x128 d2q9_kuper state that paints every node type the model
+    dispatches and two Density zones (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import KUPER_SETTINGS, KUPER_SHAPE, paint_rich_kuper
+    lat = Lattice(get_model("d2q9_kuper"), KUPER_SHAPE, dtype=torch.float32,
+                  device=device, settings=KUPER_SETTINGS)
+    return paint_rich_kuper(lat, seed=5)
+
+
 def eager_warm(lat, steps: int) -> None:
     """Advance on the eager engine so the state carries flow, not just
     the initial equilibrium."""
@@ -186,9 +237,40 @@ def check_kernels(cases, errs: dict, what: str) -> dict:
         f = inputs[0]
         torch.cuda.synchronize()
         e = compare(got, want, f"{name} at {tuple(f.shape)}")
-        prev = errs.get(name)
-        if prev is None or e["max_abs_err"] > prev["max_abs_err"]:
-            errs[name] = e
+        keep_worst(errs, name, e)
+    return errs
+
+
+def keep_worst(errs: dict, name: str, e: dict) -> None:
+    prev = errs.get(name)
+    if prev is None or e["max_abs_err"] > prev["max_abs_err"]:
+        errs[name] = e
+
+
+def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
+    """``generic2d_step``'s globals flavour against its plain version: the
+    fields at rtol 2e-5 / atol 2e-6 (counted with the kernel's errors) and
+    the SUM globals at rtol 1e-4 / atol 1e-6."""
+    say(f"{what}: generic2d_step's globals flavour on the card")
+    for lat in lats:
+        *inputs, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+        got, g = gk.step_globals(*inputs, a)
+        want, wg = gk.plain_steps(*inputs, a, 1, with_globals=True)
+        torch.cuda.synchronize()
+        shape = tuple(inputs[0].shape)
+        keep_worst(errs, "generic2d_step",
+                   compare(got, want, f"generic2d_step (globals) at {shape}"))
+        gerr = (g - wg).abs()
+        ok = bool((gerr <= GOLDEN_ATOL + GOLDEN_RTOL * wg.abs()).all()) \
+            and bool(torch.isfinite(g).all())
+        say(f"  globals at {shape}: {g.tolist()} vs {wg.tolist()} (rtol "
+            f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"generic2d_step's globals at {shape} disagree")
+        keep_worst(errs, "generic2d_step globals",
+                   {"max_abs_err": float(gerr.max()),
+                    "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30))
+                                         .max())})
     return errs
 
 
@@ -234,9 +316,10 @@ def check_goldens() -> None:
 def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
     """A main path: an example case end to end on the card, on ``engine``,
     launching each of ``kernels``; ``check(lat)`` adds the case's own
-    plausibility checks.  The case writes into its own ``output/`` (the
-    XML's ``output`` attribute), so it runs from a temporary working
-    directory."""
+    plausibility checks.  An engine that sums the globals itself
+    (``full_globals``) must run no eager step.  The case writes into its
+    own ``output/`` (the XML's ``output`` attribute), so it runs from a
+    temporary working directory."""
     from tclb_tpu_torch.control.solver import run_config
     from tclb_tpu_torch.models import get_model
     say(f"phase {phase}: {xml.name} end to end")
@@ -265,10 +348,14 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
         with open(os.path.join(out, f"{case}_Log.csv")) as f:
             rows = f.read().strip().splitlines()[1:]
     lat = solver.lattice
+    full_globals = bool(getattr(lat._fast, "full_globals", False))
+    eager_steps = lat.eager_steps
     say(f"  engine {lat.engine_name}, {solver.iter} iterations, "
-        f"{wall:.3f} s wall, launches {launches}")
+        f"{wall:.3f} s wall, launches {launches}, eager steps {eager_steps}")
     if lat.engine_name != engine:
         fail(f"{case} ran on {lat.engine_name}")
+    if full_globals and eager_steps:
+        fail(f"{case} ran {eager_steps} eager steps on {engine}")
     if solver.iter != niter or len(rows) != niter // log_every:
         fail(f"{case}: {solver.iter} iterations, {len(rows)} log rows")
     for it in range(vtk_every, niter + 1, vtk_every):
@@ -293,21 +380,26 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
     host = time.perf_counter() - t0    # until iterate returns to the host
     lat.synchronize()
     dt = time.perf_counter() - t0
-    # the window's trailing eager step (the globals) on its own
-    t0 = time.perf_counter()
-    lat.state = lat._iterate(lat.state, lat.params, 1)
-    lat.synchronize()
-    eager = time.perf_counter() - t0
-    out = {"launches": launches, "wall_s": wall,
+    # the window's trailing eager step (the globals) on its own, where the
+    # engine has one
+    eager = None
+    if not full_globals:
+        t0 = time.perf_counter()
+        lat.state = lat._iterate(lat.state, lat.params, 1)
+        lat.synchronize()
+        eager = time.perf_counter() - t0
+    out = {"launches": launches, "wall_s": wall, "eager_steps": eager_steps,
            "mlups_end_to_end": nodes * niter / wall / 1e6,
            "mlups_iterate": nodes * window / dt / 1e6,
            "iterate_ms": dt * 1e3, "iterate_host_ms": host * 1e3,
-           "eager_step_ms": eager * 1e3, "globals": g, "lattice": lat}
+           "eager_step_ms": None if eager is None else eager * 1e3,
+           "globals": g, "lattice": lat}
     say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end (XML, painting, "
         f"Log and VTK included), {out['mlups_iterate']:.1f} in an "
         f"iterate({window}) window ({dt * 1e3:.2f} ms, of which "
-        f"{host * 1e3:.2f} ms until iterate returned; one eager globals "
-        f"step alone {eager * 1e3:.2f} ms)")
+        f"{host * 1e3:.2f} ms until iterate returned; "
+        + ("no eager step)" if eager is None
+           else f"one eager globals step alone {eager * 1e3:.2f} ms)"))
     return out
 
 
@@ -332,6 +424,54 @@ def check_channel3d(lat) -> None:
         fail("3d_channel: implausible running averages")
     say(f"  Flux {g['Flux']:.6g}, mean ux {ux:.6g}, mean avgU.x "
         f"{float(avg_u[0, :, 1:-1, :].mean()):.6g}")
+
+
+def check_drop(lat) -> None:
+    """The periodic drop: total mass within 1e-4 of the initial mass (the
+    zonal Density summed over the nodes), and the vapour bubble still at
+    the centre (Rho < 0.1 there, > 3 at a corner)."""
+    m = lat.model
+    zones = (lat.state.flags >> m.zone_shift).long()
+    mass0 = float(lat.params.zone_table[m.setting_index["Density"]][zones]
+                  .double().sum())
+    rho = lat.get_quantity("Rho")
+    mass = float(rho.double().sum())
+    ny, nx = lat.shape
+    centre, corner = float(rho[ny // 2, nx // 2]), float(rho[0, 0])
+    say(f"  mass {mass:.9g} (initial {mass0:.9g}, rel change "
+        f"{abs(mass - mass0) / mass0:.2e}), Rho centre {centre:.6g}, "
+        f"corner {corner:.6g}")
+    if abs(mass - mass0) > 1e-4 * mass0:
+        fail(f"drop: mass {mass} drifted from {mass0}")
+    if not (centre < 0.1 and corner > 3.0):
+        fail(f"drop: no vapour bubble (Rho centre {centre}, corner "
+             f"{corner})")
+
+
+def run_drop_band(gk, lat) -> dict:
+    """The generic band engine on bench.py's 1024x1024 drop."""
+    say("phase 10: 1024x1024 drop on the generic band engine")
+    niter = 2000
+    lat.synchronize()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    lat.iterate(niter)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    flavours = dict(gk.FLAVOUR_LAUNCHES)
+    say(f"  engine {lat.engine_name}, launches {launches} (flavours "
+        f"{flavours}), eager steps {lat.eager_steps}, "
+        f"{np.prod(lat.shape) * niter / dt / 1e6:.1f} MLUPS")
+    if lat.engine_name != "cuda_generic_band[d2q9_kuper,fuse=1]":
+        fail(f"1024^2 drop ran on {lat.engine_name}")
+    if flavours != {"plain": niter - 1, "globals": 1} or lat.eager_steps:
+        fail(f"1024^2 drop: generic2d_step flavours {flavours}, eager "
+             f"steps {lat.eager_steps}")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail("1024^2 drop: non-finite fields")
+    return {"launches": launches, "flavours": flavours,
+            "mlups_iterate": float(np.prod(lat.shape)) * niter / dt / 1e6}
 
 
 def run_channel(dk, lat) -> dict:
@@ -376,6 +516,27 @@ def event_ms(fn, reps: int, warm: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def time_one(name: str, launch, plain, nbytes: int, flops: int, shape,
+             reps: int, plain_reps: int = 10) -> dict:
+    """One kernel's time (CUDA events), its plain version's, its bound on
+    this card from ``nbytes`` and ``flops``, and its wrapper's host time."""
+    ms = event_ms(launch, reps)
+    plain_ms = event_ms(plain, plain_reps, warm=min(2, plain_reps))
+    host_ms = wrapper_host_ms(launch)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "flops": flops, "wrapper_host_ms": host_ms,
+           "shape": list(shape)}
+    say(f"  {name} at {tuple(shape)}: {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.3f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {nbytes} B, {flops} flop), "
+        f"wrapper {host_ms:.4f} ms of host time a call")
+    return out
+
+
 def time_kernels(cases) -> dict:
     """``cases`` lists (kernel module, kernel name, lattice, repeats)."""
     say("phase 7: times (CUDA events) and bounds")
@@ -383,28 +544,42 @@ def time_kernels(cases) -> dict:
     for dk, name, lat, reps in cases:
         fn, steps = dk.WRAPPERS[name]
         *inputs, a = dk.kernel_inputs(lat.model, lat.state, lat.params)
+        out[name] = time_one(
+            name, lambda: fn(*inputs, a),
+            lambda: dk.plain_steps(*inputs, a, steps),
+            dk.launch_bytes(lat.model, lat.shape),
+            steps * dk.node_step_flops(lat.model, lat.flags_numpy()),
+            lat.shape, reps)
+    return out
 
-        def launch():
-            fn(*inputs, a)
-        ms = event_ms(launch, reps)
-        plain_ms = event_ms(lambda: dk.plain_steps(*inputs, a, steps), 10,
-                            warm=2)
-        host_ms = wrapper_host_ms(launch)
-        nbytes = dk.launch_bytes(lat.model, lat.shape)
-        flops = steps * dk.node_step_flops(lat.model, lat.flags_numpy())
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations",
-                     "bytes": nbytes, "flops": flops,
-                     "wrapper_host_ms": host_ms,
-                     "shape": list(lat.shape)}
-        say(f"  {name} at {tuple(lat.shape)}: {ms:.4f} ms/launch, plain "
-            f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"({out[name]['bound_by']}: {nbytes} B, {flops} flop), "
-            f"wrapper {host_ms:.4f} ms of host time a call")
+
+def time_generic(gk, band_lat, drop_lat, resident_steps: int) -> dict:
+    """The generic kernels at their paths' launches: ``generic2d_step`` in
+    both flavours on the 1024x1024 drop, ``generic2d_resident`` on
+    drop.xml at the step count its path gives one launch."""
+    out = {}
+    for name, lat, reps in (("generic2d_step", band_lat, 400),
+                            ("generic2d_step globals", band_lat, 200)):
+        *inputs, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+        g = name.endswith("globals")
+        fn = gk.step_globals if g else gk.step
+        out[name] = time_one(
+            name, lambda: fn(*inputs, a),
+            lambda: gk.plain_steps(*inputs, a, 1, with_globals=g),
+            gk.launch_bytes(lat.model, lat.shape),
+            gk.node_step_flops(lat.model, lat.flags_numpy()), lat.shape,
+            reps)
+    *inputs, a = gk.kernel_inputs(drop_lat.model, drop_lat.state,
+                                  drop_lat.params)
+    out["generic2d_resident"] = time_one(
+        f"generic2d_resident ({resident_steps} steps)",
+        lambda: gk.resident(*inputs, a, resident_steps),
+        lambda: gk.plain_steps(*inputs, a, resident_steps),
+        gk.launch_bytes(drop_lat.model, drop_lat.shape),
+        resident_steps * gk.node_step_flops(drop_lat.model,
+                                            drop_lat.flags_numpy()),
+        drop_lat.shape, 50, plain_reps=2)
+    out["generic2d_resident"]["steps"] = resident_steps
     return out
 
 
@@ -470,7 +645,7 @@ def device_busy(lat, window: int, what: str) -> dict:
 
 def main() -> int:
     if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
-               for src in ("d2q9.cu", "d3q27.cu")):
+               for src in SOURCES.values()):
         print("chip_smoke: run from a checkout of the repository (no "
               "tclb_tpu_torch/ beside this script)", file=sys.stderr)
         return 2
@@ -481,6 +656,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from tclb_tpu_torch.ops import d2q9_kernels as dk
     from tclb_tpu_torch.ops import d3q27_kernels as dk3
+    from tclb_tpu_torch.ops import generic_kernels as gk
 
     say(card_line())
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -490,8 +666,8 @@ def main() -> int:
 
     say("phase 1: build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda m: m.build(), (dk, dk3)))
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = list(pool.map(lambda m: m.build(), (dk, dk3, gk)))
     say(f"  built {', '.join(p.name for p, _ in builds)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, report in builds:
@@ -507,12 +683,22 @@ def main() -> int:
     channel3d = case_lattice(CHANNEL3D_XML, torch.float32, DEVICE)
     eager_warm(channel3d, 4)
     rich3d = rich3d_lattice(DEVICE)
+    drop = case_lattice(DROP_XML, torch.float32, DEVICE)
+    eager_warm(drop, 100)
+    drop1024 = drop_lattice(DEVICE)
+    eager_warm(drop1024, 4)
+    rich_kuper = rich_kuper_lattice(DEVICE)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
         (dk3, channel3d, "d3q27_step"), (dk3, channel3d, "d3q27_step2"),
-        (dk3, rich3d, "d3q27_step"), (dk3, rich3d, "d3q27_step2")], {},
-        "phase 2")
+        (dk3, rich3d, "d3q27_step"), (dk3, rich3d, "d3q27_step2"),
+        (gk, drop, "generic2d_step"), (gk, drop, "generic2d_resident"),
+        (gk, drop1024, "generic2d_step"),
+        (gk, drop1024, "generic2d_resident"),
+        (gk, rich_kuper, "generic2d_step"),
+        (gk, rich_kuper, "generic2d_resident")], {}, "phase 2")
+    check_globals_flavour(gk, (drop, drop1024, rich_kuper), errs, "phase 2")
     check_goldens()
     main_path = run_case(dk, KARMAN_XML, "4",
                          "cuda_d2q9_resident[d2q9,fuse=8]",
@@ -526,28 +712,49 @@ def main() -> int:
     check_kernels([(dk3, path3d["lattice"], "d3q27_step"),
                    (dk3, path3d["lattice"], "d3q27_step2")], errs,
                   "phase 6b, 3d_channel after 20000 iterations")
+    path_drop = run_case(gk, DROP_XML, "9",
+                         "cuda_generic_resident[d2q9_kuper,fuse=N]",
+                         gk.KERNELS, check_drop)
+    drop_dev = path_drop["lattice"]
+    check_kernels([(gk, drop_dev, "generic2d_step"),
+                   (gk, drop_dev, "generic2d_resident")], errs,
+                  "phase 9b, drop.xml after 6000 iterations")
+    check_globals_flavour(gk, (drop_dev,), errs, "phase 9b")
+    band_drop = run_drop_band(gk, drop1024)
+    # one generic2d_resident launch of drop.xml's path: the even part of
+    # niter - 1 for its Log interval of 500 iterations
+    log_every = int(ET.parse(DROP_XML).getroot().find("Log")
+                    .get("Iterations"))
     times = time_kernels([
         (dk, "d2q9_resident8", karman, 400), (dk, "d2q9_step", karman, 1000),
         (dk, "d2q9_step2", channel, 200),
         (dk3, "d3q27_step", channel3d, 400),
         (dk3, "d3q27_step2", channel3d, 200)])
+    times.update(time_generic(gk, drop1024, drop_dev,
+                              (log_every - 1) // 2 * 2))
     busy = device_busy(karman, 400, "karman")
     busy3d = device_busy(channel3d, 200, "3d_channel")
+    busy_drop = device_busy(drop_dev, 2000, "drop")
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
                 for name in dk.KERNELS}
     launches.update({name: {"3d_channel": path3d["launches"][name]}
                      for name in dk3.KERNELS})
+    launches.update({name: {"drop": path_drop["launches"][name],
+                            "drop1024": band_drop["launches"][name]}
+                     for name in gk.KERNELS})
+    sources = {**{n: SOURCES["d2q9"] for n in dk.KERNELS},
+               **{n: SOURCES["d3q27"] for n in dk3.KERNELS},
+               **{n: SOURCES["generic"] for n in gk.KERNELS}}
     kernels = []
-    for name in dk.KERNELS + dk3.KERNELS:
+    for name in dk.KERNELS + dk3.KERNELS + gk.KERNELS:
         by_path = launches[name]
         if sum(by_path.values()) < 1:
             fail(f"{name} was launched no time on the path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "tclb_tpu_torch/csrc/"
-                      + ("d2q9.cu" if name in dk.KERNELS else "d3q27.cu"),
+            "source": "tclb_tpu_torch/csrc/" + sources[name],
             "replaces": TPU_KERNELS[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -560,14 +767,26 @@ def main() -> int:
             "wrapper_host_ms": times[name]["wrapper_host_ms"],
             "shape": times[name]["shape"],
         })
+    by_name = {k["name"]: k for k in kernels}
+    by_name["generic2d_step"]["globals_flavour"] = {
+        **{k: times["generic2d_step globals"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "wrapper_host_ms", "shape")},
+        "launches_by_path": {"drop1024": band_drop["flavours"]["globals"]},
+        "globals_max_abs_err": errs["generic2d_step globals"]["max_abs_err"]}
+    by_name["generic2d_resident"]["steps"] = \
+        times["generic2d_resident"]["steps"]
     keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
-            "iterate_host_ms", "eager_step_ms")
+            "iterate_host_ms", "eager_step_ms", "eager_steps")
     say(json.dumps({
         "karman": {k: main_path[k] for k in keys},
         "channel_mlups_iterate": band["mlups_iterate"],
         "3d_channel": {k: path3d[k] for k in keys},
+        "drop": {k: path_drop[k] for k in keys},
+        "drop1024_mlups_iterate": band_drop["mlups_iterate"],
         "karman_iterate_profile": busy,
-        "3d_channel_iterate_profile": busy3d}))
+        "3d_channel_iterate_profile": busy3d,
+        "drop_iterate_profile": busy_drop}))
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -14,9 +14,12 @@ Engines: the eager path below runs every model at any dtype.  For ``d2q9``
 and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
 :mod:`tclb_tpu_torch.ops.d2q9_kernels` and
 :mod:`tclb_tpu_torch.ops.d3q27_kernels` take ``niter - 1`` steps and one
-eager step computes the globals (the JAX package's hybrid).  The engine is
-chosen by each module's ``supports()``; a kernel that fails to build or
-launch fails the run — nothing falls back to eager after a failure.
+eager step computes the globals (the JAX package's hybrid); the generic
+kernels of :mod:`tclb_tpu_torch.ops.generic_kernels` (``d2q9_kuper``) sum
+the globals themselves (``full_globals``) and take all ``niter`` steps.
+The engine is chosen by each module's ``supports()``; a kernel that fails
+to build or launch fails the run — nothing falls back to eager after a
+failure.
 """
 
 from __future__ import annotations
@@ -97,6 +100,23 @@ class Streaming:
     def pull(self, fields: torch.Tensor) -> torch.Tensor:
         return pull_stream(self.model, fields)
 
+    def make_loader(self, raw: torch.Tensor) -> Callable:
+        """``load(index, dx, dy, dz)``: the value of storage plane
+        ``index`` at ``x + (dx, dy, dz)`` with periodic wrap, which is a
+        roll by ``-d`` (``torch.roll(a, s)[x] == a[x - s]``)."""
+        ndim = self.model.ndim
+
+        def load(index: int, dx: int, dy: int, dz: int) -> torch.Tensor:
+            shifts, dims = [], []
+            for shift, dim in ((dz, -3), (dy, -2), (dx, -1)):
+                if shift and ndim >= -dim:
+                    shifts.append(-shift)
+                    dims.append(dim)
+            plane = raw[index]
+            return torch.roll(plane, shifts, dims) if shifts else plane
+
+        return load
+
 
 # --------------------------------------------------------------------------- #
 # Node context — what a model's Run()/Init() sees
@@ -111,10 +131,12 @@ class NodeCtx:
                  raw: torch.Tensor, flags: torch.Tensor, params: SimParams,
                  iteration: int = 0, avg_start: int = 0,
                  present: Optional[set] = None,
-                 compute_globals: bool = True):
+                 compute_globals: bool = True,
+                 loader: Optional[Callable] = None):
         self.model = model
         self._fields = fields      # pulled (streamed) storage
-        self._raw = raw            # un-streamed storage
+        self._raw = raw            # un-streamed storage (for Field loads)
+        self._loader = loader or Streaming(model).make_loader(raw)
         self.flags = flags
         self.params = params
         self.iteration = iteration
@@ -140,6 +162,12 @@ class NodeCtx:
 
     def density(self, name: str) -> torch.Tensor:
         return self._fields[self.model.storage_index[name]]
+
+    def load(self, name: str, dx: int = 0, dy: int = 0, dz: int = 0
+             ) -> torch.Tensor:
+        """Neighbour access to a stored Field on the un-streamed storage:
+        the value at ``x + (dx, dy, dz)``, periodic."""
+        return self._loader(self.model.storage_index[name], dx, dy, dz)
 
     def store(self, groups: dict[str, torch.Tensor]) -> dict:
         """Declare the stage's write set (group/plane name -> new stack);
@@ -233,7 +261,8 @@ def make_stage_step(model: Model, stage_name: str,
         pulled = streaming.pull(raw) if stage.load_densities else raw
         ctx = NodeCtx(model, pulled, raw, state.flags, params,
                       iteration=state.iteration, present=present,
-                      compute_globals=compute_globals)
+                      compute_globals=compute_globals,
+                      loader=streaming.make_loader(raw))
         new_fields = fn(ctx)
         if isinstance(new_fields, dict):
             # only the stage's write set is saved; every other plane keeps
@@ -363,6 +392,7 @@ class Lattice:
         self._fast: Optional[Callable] = None
         self._fast_name: Optional[str] = None
         self._fast_tried = False
+        self.eager_steps = 0  # steps ``iterate`` ran on the eager engine
 
     def _params_from(self, vec: np.ndarray, table: np.ndarray) -> SimParams:
         return SimParams(
@@ -447,11 +477,13 @@ class Lattice:
         ``supports()`` accepts is taken; anything every one rejects —
         another model, f64 — runs eager by selection, not after a
         failure."""
-        from tclb_tpu_torch.ops import d2q9_kernels, d3q27_kernels
+        from tclb_tpu_torch.ops import (d2q9_kernels, d3q27_kernels,
+                                        generic_kernels)
         if os.environ.get("TCLB_FASTPATH") == "0" \
                 or self.device.type != "cuda":
             return None, None
-        for mod in (d2q9_kernels, d3q27_kernels):
+        # the tuned kernels first, the generic engine last
+        for mod in (d2q9_kernels, d3q27_kernels, generic_kernels):
             fast, tag = mod.select_engine(self.model, self.shape, self.dtype)
             if fast is not None:
                 return fast, tag
@@ -462,8 +494,10 @@ class Lattice:
             self._fast_tried = True
             self._fast, self._fast_name = self._build_fast()
             if self._fast is not None:
-                log.info(f"engine: {self._fast_name} "
-                         "(+1 eager step per call for globals)")
+                suffix = ("(in-kernel globals)"
+                          if getattr(self._fast, "full_globals", False)
+                          else "(+1 eager step per call for globals)")
+                log.info(f"engine: {self._fast_name} {suffix}")
             else:
                 log.debug(f"engine: eager ({self.model.name} {self.shape} "
                           f"{self.dtype} on {self.device})")
@@ -477,14 +511,21 @@ class Lattice:
         return self._fast_name or "eager"
 
     def iterate(self, niter: int) -> None:
-        """Advance ``niter`` steps: ``niter - 1`` on the kernel engine and
-        one eager step for the globals, or all eager."""
+        """Advance ``niter`` steps.  An engine that returns the last step's
+        globals itself (``full_globals``) takes all of them; the others
+        take ``niter - 1`` and one eager step computes the globals; without
+        an engine every step is eager."""
         fast = self._fast_path()
-        if fast is not None and niter - 1 >= 1:
-            self.state = fast(self.state, self.params, niter - 1)
-            self.state = self._iterate(self.state, self.params, 1)
+        full = bool(getattr(fast, "full_globals", False))
+        nfast = niter if full else niter - 1
+        if fast is not None and nfast >= 1:
+            self.state = fast(self.state, self.params, nfast)
+            eager = niter - nfast
         else:
-            self.state = self._iterate(self.state, self.params, niter)
+            eager = niter
+        if eager > 0:
+            self.state = self._iterate(self.state, self.params, eager)
+            self.eager_steps += eager
 
     def synchronize(self) -> None:
         """Wait for the device (no-op on the CPU)."""

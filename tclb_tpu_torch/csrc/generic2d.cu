@@ -1,0 +1,403 @@
+// Generic 2D kernels for Hopper (sm_90a): a model's whole Iteration action
+// per launch, the model's physics compiled in from its device header.
+//
+// The JAX package's generic engine traces a model's Python stage functions
+// inside a Pallas band kernel.  CUDA cannot trace Python, so this file does
+// what TCLB does with a model's Dynamics.c: a model-independent template
+// (streaming, the stage plan, node types, zonal settings, globals) around
+// one __device__ function per stage from csrc/models/<model>.cuh.  Today
+// that header is d2q9_kuper's; another model builds this template with its
+// own header.
+//
+//   generic2d_step      one Iteration per launch (replaces
+//                       tclb_tpu/ops/pallas_generic.py:make_pallas_iterate,
+//                       `call` and its in-kernel-globals flavour `call_g`).
+//                       A 32x16 block runs stage 0 on its 30x14 output tile
+//                       plus the one-node ring stage 1 pulls from, keeping
+//                       stage 0's output planes in shared memory, then
+//                       stage 1 on the tile.  Pulls and Field loads wrap
+//                       periodically by index arithmetic.  Bound by bytes:
+//                       a node reads its 10 planes and flag and writes 10
+//                       planes (84 B) for ~500 flops; stage 0 reads stay in
+//                       L1/L2 where the rings of neighbouring blocks
+//                       overlap.  The globals flavour (kGlobals) also sums
+//                       each SUM global over the output tiles: per-thread
+//                       double sums, a fixed-order block reduction into one
+//                       partial per block, and the last block to finish
+//                       adds the partials in block order -- no float
+//                       atomics, so a run is deterministic.
+//   generic2d_resident  an even number of Iterations in one cooperative
+//                       launch (replaces make_resident_iterate): every
+//                       thread walks the lattice with a grid stride, a
+//                       grid-wide barrier after each stage, and two global
+//                       buffers ping-pong.  For lattices that fit half the
+//                       50 MB L2 (drop.xml's 128x128 is 1.4 MB) the planes
+//                       stay in L2: device memory sees one read and one
+//                       write per launch, and the barriers set its time.
+//                       Planes written during the launch are read through
+//                       L2 only (__ldcg), never through the read-only path.
+//
+// Like the JAX engine, the stage plan runs on shrinking rings: stage s
+// computes its output on the tile plus model::stage_ext(s) nodes, and the
+// template supports the two-stage actions (stage 0 with a ring, stage 1 on
+// the tile) that d2q9_kuper has.  Nothing of the TPU's ghost rows or (8,128)
+// alignment is carried over: any ny, nx, ragged edges masked.
+//
+// Plain C interface (loaded with ctypes); every entry returns the CUDA error
+// code of its launch.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "models/d2q9_kuper.cuh"
+
+namespace cg = cooperative_groups;
+
+static_assert(model::N_STAGES == 2 && model::stage_ext(1) == 0,
+              "the template runs a stage with a ring, then one on the tile");
+
+constexpr int RING = model::stage_ext(0);
+constexpr int BX = 32, BY = 16;                    // threads of a step block
+constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
+constexpr int RESIDENT_THREADS = 256;
+constexpr unsigned ALL_WRITES = model::stage_writes(0) | model::stage_writes(1);
+constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
+
+struct Generic2dArgs {
+  int ny, nx;
+  int zone_shift, zone_max;
+  float setting[model::N_SETTINGS];          // registry order
+  int nt_mask[model::N_TYPES], nt_val[model::N_TYPES];
+  int group_mask[model::N_GROUPS];
+};
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+__device__ __forceinline__ bool writes(int s, int k) {
+  return (model::stage_writes(s) >> k) & 1u;
+}
+
+// ---------------------------------------------------------------------------
+// What a stage reads: plane k at an unwrapped (y, x)
+// ---------------------------------------------------------------------------
+
+// every plane from one buffer in device memory; kCoherent reads through L2
+// only (the resident kernel's buffers change during the launch)
+template <bool kCoherent>
+struct DeviceStorage {
+  const float* p;
+  int ny, nx;
+  __device__ float get(int k, int y, int x) const {
+    const float* q = p + ((size_t)k * ny + wrap(y, ny)) * nx + wrap(x, nx);
+    return kCoherent ? __ldcg(q) : __ldg(q);
+  }
+};
+
+// generic2d_step's stage 1: stage 0's planes from the block's shared tile
+// (origin at unwrapped (y0, x0)), the others from the launch's input
+struct TileStorage {
+  const float* tile;       // [N_STORAGE][BY][BX]
+  int y0, x0;
+  DeviceStorage<false> rest;
+  __device__ float get(int k, int y, int x) const {
+    if (writes(0, k)) return tile[(k * BY + (y - y0)) * BX + (x - x0)];
+    return rest.get(k, y, x);
+  }
+};
+
+// generic2d_resident's stage 1: stage 0's planes from this step's output,
+// the others from its input
+struct StepStorage {
+  DeviceStorage<true> fresh, rest;
+  __device__ float get(int k, int y, int x) const {
+    return writes(0, k) ? fresh.get(k, y, x) : rest.get(k, y, x);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Where a stage writes
+// ---------------------------------------------------------------------------
+
+struct TileOut {          // a plane of the shared tile
+  float* tile;
+  int ly, lx;
+  __device__ void operator()(int k, float v) const {
+    tile[(k * BY + ly) * BX + lx] = v;
+  }
+};
+
+struct DeviceOut {        // a plane in device memory at node `idx`
+  float* p;
+  size_t idx, n;
+  __device__ void operator()(int k, float v) const { p[k * n + idx] = v; }
+};
+
+// ---------------------------------------------------------------------------
+// The node context a model's stage function sees
+// ---------------------------------------------------------------------------
+
+template <class Storage, class Out, bool kGlobals>
+struct Node {
+  const Generic2dArgs& a;
+  const Storage& s;
+  const Out& out;
+  const float* ztab;       // [N_ZONAL][zone_max]
+  double* acc;             // [NG] this thread's global sums
+  int y, x, flag;
+  bool counts;             // the node's globals count (an output node)
+
+  __device__ float pulled(int k) const {
+    return s.get(k, y - model::ey(k), x - model::ex(k));
+  }
+  __device__ float load(int k, int dx, int dy) const {
+    return s.get(k, y + dy, x + dx);
+  }
+  __device__ float setting(int i) const { return a.setting[i]; }
+  __device__ float zonal(int j) const {
+    return __ldg(ztab + j * a.zone_max + (flag >> a.zone_shift));
+  }
+  __device__ bool nt_is(int t) const {
+    return (flag & a.nt_mask[t]) == a.nt_val[t];
+  }
+  __device__ bool nt_in_group(int g) const {
+    return (flag & a.group_mask[g]) != 0;
+  }
+  __device__ void add_global(int g, float v) const {
+    if (kGlobals && counts) acc[g] += (double)v;
+  }
+  __device__ void store(int k, float v) const { out(k, v); }
+};
+
+template <int S, bool kGlobals, class Storage, class Out>
+__device__ __forceinline__ void run_stage(const Generic2dArgs& a,
+                                          const Storage& s, const Out& out,
+                                          const float* ztab, double* acc,
+                                          int y, int x, int flag,
+                                          bool counts) {
+  Node<Storage, Out, kGlobals> c{a, s, out, ztab, acc, y, x, flag, counts};
+  model::stage<S>(c);
+}
+
+// ---------------------------------------------------------------------------
+// generic2d_step
+// ---------------------------------------------------------------------------
+
+__device__ unsigned int g_blocks_done = 0;   // globals flavour, per launch
+
+// Sum each thread's `acc` over the block in a fixed order (warp shuffles,
+// then the warps in order) into partials[block], and let the last block to
+// arrive add the partials in block order into gout.  One launch of the
+// globals flavour at a time (the arrival counter is shared).
+__device__ void finish_globals(const double* acc, double* partials,
+                               float* gout) {
+  __shared__ double warp_sum[NG][BX * BY / 32];
+  __shared__ bool last;
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nblocks = gridDim.x * gridDim.y;
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    double v = acc[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sum[g][warp] = v;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int g = 0; g < NG; ++g) {
+      double v = 0.0;
+      for (int w = 0; w < BX * BY / 32; ++w) v += warp_sum[g][w];
+      partials[(size_t)block * NG + g] = v;
+    }
+    __threadfence();
+    last = atomicAdd(&g_blocks_done, 1u) == (unsigned)nblocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int g = 0; g < NG; ++g) {
+    double v = 0.0;
+    for (int b = tid; b < nblocks; b += BX * BY)
+      v += __ldcg(partials + (size_t)b * NG + g);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    __syncthreads();
+    if (lane == 0) warp_sum[g][warp] = v;
+    __syncthreads();
+    if (tid == 0) {
+      double t = 0.0;
+      for (int w = 0; w < BX * BY / 32; ++w) t += warp_sum[g][w];
+      gout[g] = (float)t;
+    }
+  }
+  if (tid == 0) g_blocks_done = 0;
+}
+
+template <bool kGlobals>
+__global__ void __launch_bounds__(BX * BY)
+generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+                      const int* __restrict__ flags,
+                      const float* __restrict__ ztab, const Generic2dArgs a,
+                      double* partials, float* gout) {
+  __shared__ float tile[model::N_STORAGE * BY * BX];
+  const size_t n = (size_t)a.ny * a.nx;
+  const int ly = threadIdx.y, lx = threadIdx.x;
+  // this thread's stage-0 node, unwrapped: the block's ring starts RING
+  // nodes before its output tile
+  const int y0 = blockIdx.y * TY - RING, x0 = blockIdx.x * TX - RING;
+  const int y = y0 + ly, x = x0 + lx;
+  const bool out_node = ly >= RING && ly < BY - RING && lx >= RING
+                        && lx < BX - RING && y < a.ny && x < a.nx;
+  const int flag = __ldg(flags + (size_t)wrap(y, a.ny) * a.nx
+                         + wrap(x, a.nx));
+  double acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g] = 0.0;
+
+  const DeviceStorage<false> in{fin, a.ny, a.nx};
+  run_stage<0, kGlobals>(a, in, TileOut{tile, ly, lx}, ztab, acc, y, x, flag,
+                         out_node);
+  __syncthreads();
+  if (out_node) {
+    const size_t idx = (size_t)y * a.nx + x;
+    run_stage<1, kGlobals>(a, TileStorage{tile, y0, x0, in},
+                           DeviceOut{fout, idx, n}, ztab, acc, y, x, flag,
+                           true);
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k) {
+      if (writes(0, k) && !writes(1, k))
+        fout[k * n + idx] = tile[(k * BY + ly) * BX + lx];
+      else if (!((ALL_WRITES >> k) & 1u))   // no stage writes it
+        fout[k * n + idx] = fin[k * n + idx];
+    }
+  }
+  if constexpr (kGlobals) finish_globals(acc, partials, gout);
+}
+
+// ---------------------------------------------------------------------------
+// generic2d_resident
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(RESIDENT_THREADS)
+generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
+                          float* scratch, const int* __restrict__ flags,
+                          const float* __restrict__ ztab,
+                          const Generic2dArgs a, int nsteps) {
+  cg::grid_group grid = cg::this_grid();
+  const size_t n = (size_t)a.ny * a.nx;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  // planes no stage writes are the same in both buffers
+  for (int idx = first; idx < (int)n; idx += stride) {
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      if (!((ALL_WRITES >> k) & 1u))
+        scratch[k * n + idx] = fout[k * n + idx] = fin[k * n + idx];
+  }
+  // step 0 reads fin and writes scratch, odd steps write fout, even steps
+  // scratch: an even nsteps ends in fout
+  const float* src = fin;
+  float* dst = scratch;
+  for (int s = 0; s < nsteps; ++s) {
+    const DeviceStorage<true> in{src, a.ny, a.nx};
+    for (int idx = first; idx < (int)n; idx += stride) {
+      const int y = idx / a.nx, x = idx - y * a.nx;
+      run_stage<0, false>(a, in, DeviceOut{dst, (size_t)idx, n}, ztab,
+                          nullptr, y, x, __ldg(flags + idx), false);
+    }
+    grid.sync();
+    const StepStorage st{DeviceStorage<true>{dst, a.ny, a.nx}, in};
+    for (int idx = first; idx < (int)n; idx += stride) {
+      const int y = idx / a.nx, x = idx - y * a.nx;
+      run_stage<1, false>(a, st, DeviceOut{dst, (size_t)idx, n}, ztab,
+                          nullptr, y, x, __ldg(flags + idx), false);
+    }
+    grid.sync();
+    src = dst;
+    dst = (dst == scratch) ? fout : scratch;
+  }
+}
+
+extern "C" {
+
+const char* generic2d_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// The output tile of a generic2d_step block (its partials are one per block)
+// and the layout sizes this library was built with, for the wrapper's checks.
+void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
+                      int* n_settings, int* n_types, int* n_groups,
+                      int* n_zonal, int* n_globals) {
+  *tile_y = TY;
+  *tile_x = TX;
+  *n_storage = model::N_STORAGE;
+  *n_settings = model::N_SETTINGS;
+  *n_types = model::N_TYPES;
+  *n_groups = model::N_GROUPS;
+  *n_zonal = model::N_ZONAL;
+  *n_globals = model::N_GLOBALS;
+}
+
+// `partials` null: the plain flavour; else the globals flavour, with
+// `partials` holding one double per block and global and `gout` the
+// globals (n_globals floats).
+int generic2d_step(const float* fin, float* fout, const int* flags,
+                   const float* ztab, const Generic2dArgs* a,
+                   double* partials, float* gout, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
+  const dim3 block(BX, BY);
+  if (partials)
+    generic2d_step_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        fin, fout, flags, ztab, *a, partials, gout);
+  else
+    generic2d_step_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        fin, fout, flags, ztab, *a, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Whether the device can launch cooperative kernels, and how many blocks of
+// generic2d_resident can be resident at once (the largest cooperative grid).
+int generic2d_resident_capacity(int device, int* cooperative,
+                                int* max_blocks) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(cooperative, cudaDevAttrCooperativeLaunch,
+                             device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, generic2d_resident_kernel, RESIDENT_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  *max_blocks = per_sm * sms;
+  return 0;
+}
+
+int generic2d_resident(const float* fin, float* fout, float* scratch,
+                       const int* flags, const float* ztab,
+                       const Generic2dArgs* a, int nsteps, int blocks,
+                       int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  Generic2dArgs args = *a;
+  void* params[] = {(void*)&fin, (void*)&fout, (void*)&scratch,
+                    (void*)&flags, (void*)&ztab, (void*)&args,
+                    (void*)&nsteps};
+  e = cudaLaunchCooperativeKernel((const void*)generic2d_resident_kernel,
+                                  dim3(blocks), dim3(RESIDENT_THREADS),
+                                  params, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -3,10 +3,11 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``tclb_tpu_torch/csrc/`` builds once per content into
 ``build/tclb_tpu_torch/lib<name>_<digest>.so``; the digest covers the
-source and the compiler flags, and the compiler's report (``-Xptxas -v``:
-registers, shared memory and spills per kernel) is kept beside the
-library.  Nothing here runs at import: the kernel modules build at first
-use.
+source, every header it includes from ``csrc/`` (``#include "..."``,
+followed recursively) and the compiler flags, and the compiler's report
+(``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
+beside the library.  Nothing here runs at import: the kernel modules build
+at first use.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -22,6 +24,37 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "tclb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source besides NVCC_FLAGS: the generic kernels keep every
+# multiply and add apart, as the plain PyTorch versions compute them
+SOURCE_FLAGS = {"generic2d": ("--fmad=false",)}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and the headers it includes with ``#include "..."``,
+    recursively, resolved against the including file's directory (the
+    headers of the CUDA toolkit, included with ``<...>``, are not
+    followed)."""
+    seen: list[pathlib.Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / name).resolve())
+    return seen
+
+
+def digest(name: str) -> str:
+    """Content digest of ``csrc/<name>.cu``, its included headers and its
+    compiler flags."""
+    h = hashlib.sha1()
+    for path in included(CSRC / f"{name}.cu"):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
+    return h.hexdigest()[:12]
 
 
 def nvcc() -> str:
@@ -38,15 +71,15 @@ def build(name: str) -> tuple[pathlib.Path, str]:
     """Compile ``csrc/<name>.cu`` for sm_90a (once per source content).
     Returns the library path and the compiler's report."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libtclb_{name}_{digest}.so"
-    report = BUILD_DIR / f"libtclb_{name}_{digest}.log"
+    tag = digest(name)
+    lib = BUILD_DIR / f"libtclb_{name}_{tag}.so"
+    report = BUILD_DIR / f"libtclb_{name}_{tag}.log"
     if lib.exists():
         return lib, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()),
+                           "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"

@@ -1,0 +1,597 @@
+"""Hand-written CUDA kernels of the generic 2D engine, their plain PyTorch
+versions, and the engines ``Lattice`` builds from them.
+
+The JAX package's generic engine (``tclb_tpu/ops/pallas_generic.py``) traces
+a model's Python stage functions inside its Pallas kernels.  CUDA cannot
+trace Python, so a model reaches these kernels through its device physics:
+one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
+compiled into the model-independent template ``csrc/generic2d.cu``
+(streaming, the stage plan, node types, zonal settings, globals).
+``DEVICE_MODELS`` lists the models that have such a header (``d2q9_kuper``
+today) with the registry layout the header indexes by position.
+
+Two kernels; each wrapper launches its kernel for a CUDA tensor (or raises)
+and runs the plain version for a CPU tensor, and counts its launches in
+``LAUNCHES``:
+
+``step`` / ``step_globals`` (``generic2d_step``) replace
+    ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
+    ``call_g``: one whole Iteration per launch, stage 0 on the output tile
+    plus a one-node ring into shared memory, stage 1 on the tile.  Bound
+    by bytes (see ``launch_bytes`` and ``node_step_flops``).  The globals
+    flavour also returns the last step's SUM globals, reduced in a fixed
+    order (no float atomics).
+``resident`` (``generic2d_resident``) replaces ``make_resident_iterate``:
+    an even number of Iterations in one cooperative launch, a grid barrier
+    after each stage, two ping-pong buffers that stay in the L2 when the
+    lattice fits half of it.
+
+The plain versions are the port's eager action step (``make_action_step``)
+on the kernels' inputs.  f32 only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import pathlib
+from typing import Callable
+
+import numpy as np
+import torch
+
+from tclb_tpu_torch.core.lattice import (LatticeState, SimParams,
+                                         make_action_step)
+from tclb_tpu_torch.core.registry import Model
+from tclb_tpu_torch.ops import _cuda_build
+
+KERNELS = ("generic2d_step", "generic2d_resident")
+# launches per kernel; a wrapper adds one where it launches, nowhere else
+LAUNCHES = {name: 0 for name in KERNELS}
+# generic2d_step's launches by flavour (each also counts in LAUNCHES)
+FLAVOUR_LAUNCHES = {"plain": 0, "globals": 0}
+
+HALO = 2                        # action reach the step kernel's ring covers
+RESIDENT_CHECK_STEPS = 8        # steps of the resident launch WRAPPERS holds
+L2_BYTES = 50 * 1024 * 1024     # H100 L2
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceModel:
+    """The registry layout a model's device header is written against:
+    the names its enums list, in their order, and the stage plan it
+    implements (``action_plan`` of the Iteration action)."""
+
+    header: str
+    storage: tuple
+    settings: tuple
+    node_types: tuple
+    groups: tuple
+    zonal: tuple
+    globals_: tuple
+    plan: tuple
+
+
+DEVICE_MODELS = {
+    "d2q9_kuper": DeviceModel(
+        header="models/d2q9_kuper.cuh",
+        storage=tuple(f"f[{k}]" for k in range(9)) + ("phi",),
+        settings=("omega", "nu", "InletVelocity", "Temperature", "FAcc",
+                  "Magic", "MagicA", "MagicF", "GravitationX",
+                  "GravitationY", "MovingWallVelocity", "Density",
+                  "Wetting") + tuple(f"S{i}" for i in range(9))
+        + ("WallForceXInObj", "WallForceYInObj"),
+        node_types=("Wall", "Solid", "MovingWall", "NSymmetry",
+                    "SSymmetry"),
+        groups=("BOUNDARY", "COLLISION"),
+        zonal=("Density",),
+        globals_=("WallForceX", "WallForceY"),
+        plan=(("BaseIteration", 1), ("CalcPhi", 0))),
+}
+# the one model csrc/generic2d.cu is built with
+BUILT_MODEL = "d2q9_kuper"
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, FLAVOUR_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+# --------------------------------------------------------------------------- #
+# Registry-derived stage plan (pallas_generic.py:_stage_reach, action_plan)
+# --------------------------------------------------------------------------- #
+
+
+def stage_reach(model: Model, stage_name: str) -> int:
+    """Reach of one stage's reads along y: the pull distance of the
+    streamed densities (when the stage streams) and the declared Field
+    stencils."""
+    stage = model.stages[stage_name]
+    r = 0
+    if stage.load_densities:
+        r = max((abs(int(d.dy)) for d in model.densities), default=0)
+    for f in model.fields:
+        r = max(r, abs(f.dy_range[0]), abs(f.dy_range[1]))
+    return r
+
+
+def action_plan(model: Model, action: str = "Iteration", fuse: int = 1
+                ) -> tuple[list[tuple[str, int]], int]:
+    """``fuse`` repetitions of an action as ``[(stage, out_ext)]`` in
+    execution order, and the reach ``R`` of the input it needs: each stage
+    computes ``out_ext`` nodes beyond the output so that every later
+    stage's reads stay inside what was computed."""
+    names = list(model.actions[action]) * fuse
+    plan: list[tuple[str, int]] = [("", 0)] * len(names)
+    ext = 0
+    for i in range(len(names) - 1, -1, -1):
+        plan[i] = (names[i], ext)
+        ext += stage_reach(model, names[i])
+    return plan, ext
+
+
+def check_layout(model: Model) -> None:
+    """The model's registry layout and plan must be the ones its device
+    header indexes by position (raises otherwise)."""
+    dm = DEVICE_MODELS[model.name]
+    got = DeviceModel(
+        header=dm.header, storage=tuple(model.storage_names),
+        settings=tuple(s.name for s in model.settings),
+        node_types=tuple(n for n in dm.node_types if n in model.node_types),
+        groups=tuple(g for g in dm.groups if g in model.group_masks),
+        zonal=tuple(model.zonal_settings),
+        globals_=tuple(g.name for g in model.globals_),
+        plan=tuple(action_plan(model)[0]))
+    if got != dm:
+        raise ValueError(f"{model.name}: registry layout {got} is not the "
+                         f"one {dm.header} is written against: {dm}")
+    if any(g.op != "SUM" for g in model.globals_):
+        raise ValueError(f"{model.name}: the kernels sum SUM globals only")
+
+
+# --------------------------------------------------------------------------- #
+# Arguments: everything a kernel reads besides the planes and the zone table
+# --------------------------------------------------------------------------- #
+
+_BUILT = DEVICE_MODELS[BUILT_MODEL]
+
+
+class _CArgs(ctypes.Structure):
+    """Mirror of ``struct Generic2dArgs`` in csrc/generic2d.cu (field for
+    field), at the sizes of the built model's header."""
+
+    _fields_ = [
+        ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+        ("zone_shift", ctypes.c_int), ("zone_max", ctypes.c_int),
+        ("setting", ctypes.c_float * len(_BUILT.settings)),
+        ("nt_mask", ctypes.c_int * len(_BUILT.node_types)),
+        ("nt_val", ctypes.c_int * len(_BUILT.node_types)),
+        ("group_mask", ctypes.c_int * len(_BUILT.groups)),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepArgs:
+    """The step's constants, from the registry and the settings vector
+    (registry order, at the lattice's precision)."""
+
+    model: str
+    ny: int
+    nx: int
+    settings: tuple
+    node_types: tuple   # (mask, value) per DeviceModel.node_types entry
+    groups: tuple       # mask per DeviceModel.groups entry
+    zone_shift: int
+    zone_max: int
+
+    @functools.cached_property
+    def c_struct(self) -> _CArgs:
+        """The ``struct Generic2dArgs`` the kernels take (built once)."""
+        c = _CArgs()
+        c.ny, c.nx = self.ny, self.nx
+        c.zone_shift, c.zone_max = self.zone_shift, self.zone_max
+        c.setting[:] = [float(np.float32(v)) for v in self.settings]
+        c.nt_mask[:] = [mv[0] for mv in self.node_types]
+        c.nt_val[:] = [mv[1] for mv in self.node_types]
+        c.group_mask[:] = list(self.groups)
+        return c
+
+
+def step_args(model: Model, shape, settings: np.ndarray) -> StepArgs:
+    """Kernel constants for ``model`` at ``shape`` with the settings
+    vector ``settings`` (registry order)."""
+    check_layout(model)
+    dm = DEVICE_MODELS[model.name]
+    nt = model.node_types
+    return StepArgs(
+        model=model.name, ny=int(shape[0]), nx=int(shape[1]),
+        settings=tuple(float(v) for v in settings),
+        node_types=tuple((int(nt[n].mask), int(nt[n].value))
+                         for n in dm.node_types),
+        groups=tuple(int(model.group_masks[g]) for g in dm.groups),
+        zone_shift=int(model.zone_shift), zone_max=int(model.zone_max))
+
+
+# --------------------------------------------------------------------------- #
+# Bounds: operations and bytes
+# --------------------------------------------------------------------------- #
+
+
+def node_step_flops(model: Model, flags: np.ndarray) -> int:
+    """Floating-point operations one Iteration of d2q9_kuper needs over a
+    flag field: what the function takes (models/d2q9_kuper.py), not what
+    csrc/generic2d.cu executes (it recomputes stage 0 on the ring).
+
+    A collision node: rho and j (8 + 5 + 5), two divisions, two equilibria
+    (2 x 53), f - feq (9), ``M`` over its nonzeros, the nine keep factors,
+    the inverse basis over its nonzeros and the add of feq2 (9), the forced
+    velocity (2 x 3) and the force: per neighbour ``a phi_i^2 + (1 -
+    2a) phi_i phi_0`` (5; ``1 - 2a`` is a product of settings), the shell
+    weight on the four diagonals, ten adds into fx and fy, and the scale
+    (2).  A Wall node adds its momentum (10), two doublings and two adds
+    into the force and two into the globals; a MovingWall node the six
+    corrected populations.  Every node runs CalcPhi: rho (8), the van der
+    Waals pressure (17), and Magic, rho / 3, the difference, the clamp,
+    the root and FAcc (6)."""
+    from tclb_tpu_torch.models import d2q9_kuper as kuper
+    from tclb_tpu_torch.ops import lbm
+    from tclb_tpu_torch.ops.d2q9_kernels import (_combo_flops,
+                                                 _equilibrium_flops)
+    E, W, M = kuper.E, kuper.W, kuper.M
+    minv = lbm.inverse_basis(M)
+    eq = _equilibrium_flops(E, W)
+    diagonals = int((E.astype(bool).sum(axis=1) == 2).sum())
+    force = 5 * (len(E) - 1) + diagonals + 10 + 2
+    collide = (_combo_flops(np.ones(len(W))) + _combo_flops(E[:, 0])
+               + _combo_flops(E[:, 1]) + 2 + 2 * eq + len(W)
+               + sum(_combo_flops(row) for row in M) + len(M)
+               + sum(_combo_flops(row) for row in minv) + len(W) + 6
+               + force)
+    wall = _combo_flops(E[:, 0]) + _combo_flops(E[:, 1]) + 2 + 2 + 2
+    calc_phi = _combo_flops(np.ones(len(W))) + 17 + 6
+    flags = np.asarray(flags).astype(np.int64)
+    nt = model.node_types
+
+    def count(name):
+        t = nt[name]
+        return int(((flags & t.mask) == t.value).sum())
+
+    coll = int(((flags & model.group_masks["COLLISION"]) != 0).sum())
+    return (collide * coll + wall * count("Wall")
+            + int(np.count_nonzero(E[:, 0])) * count("MovingWall")
+            + calc_phi * flags.size)
+
+
+def launch_bytes(model: Model, shape) -> int:
+    """Device-memory bytes one launch of either kernel must move: the
+    field stack and the int32 flags read once, the zone table read once,
+    the field stack written once (the resident kernel's steps stay in the
+    L2)."""
+    n = int(np.prod(shape))
+    zonal = len(model.zonal_settings)
+    return (2 * model.n_storage + 1) * 4 * n + zonal * model.zone_max * 4
+
+
+# --------------------------------------------------------------------------- #
+# Plain PyTorch versions: the port's eager action step on the kernels' inputs
+# --------------------------------------------------------------------------- #
+
+
+def _get_model(name: str) -> Model:
+    from tclb_tpu_torch.models import get_model
+    return get_model(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _action_step(name: str, compute_globals: bool) -> Callable:
+    return make_action_step(_get_model(name), "Iteration",
+                            compute_globals=compute_globals)
+
+
+def _plain_params(ztab, a: StepArgs) -> SimParams:
+    """The settings vector and a zone table whose zonal rows are
+    ``ztab``."""
+    m = _get_model(a.model)
+    sett = torch.tensor(a.settings, dtype=ztab.dtype, device=ztab.device)
+    table = sett[:, None].expand(len(a.settings), a.zone_max).clone()
+    for j, name in enumerate(m.zonal_settings):
+        table[m.setting_index[name]] = ztab[j]
+    return SimParams(settings=sett, zone_table=table)
+
+
+def plain_steps(fields, flags, ztab, a: StepArgs, n: int,
+                with_globals: bool = False):
+    """``n`` Iterations on the whole lattice: what ``step`` (n=1) and
+    ``resident`` (n steps) compute, and with ``with_globals`` what
+    ``step_globals`` computes (n=1): then ``(fields, globals)``, the last
+    step's globals."""
+    m = _get_model(a.model)
+    params = _plain_params(ztab, a)
+    state = LatticeState(
+        fields=fields, flags=flags,
+        globals_=torch.zeros((m.n_globals,), dtype=fields.dtype,
+                             device=fields.device), iteration=0)
+    with torch.no_grad():
+        for i in range(n):
+            full = with_globals and i == n - 1
+            state = _action_step(a.model, full)(state, params)
+    return (state.fields, state.globals_) if with_globals else state.fields
+
+
+# --------------------------------------------------------------------------- #
+# Build and bind
+# --------------------------------------------------------------------------- #
+
+_LIB: dict = {}    # the loaded library and per-device resident grids
+
+
+def build() -> tuple[pathlib.Path, str]:
+    """Compile csrc/generic2d.cu (with its model header) for sm_90a into
+    build/tclb_tpu_torch/ (once per source content).  Returns the library
+    path and the compiler's report (``-Xptxas -v``)."""
+    return _cuda_build.build("generic2d")
+
+
+def _lib() -> ctypes.CDLL:
+    if "lib" not in _LIB:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(i)
+        argp = ctypes.POINTER(_CArgs)
+        lib.generic2d_layout.argtypes = [ip] * 8
+        lib.generic2d_layout.restype = None
+        lib.generic2d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
+        lib.generic2d_step.restype = i
+        lib.generic2d_resident.argtypes = [p, p, p, p, p, argp, i, i, i, p]
+        lib.generic2d_resident.restype = i
+        lib.generic2d_resident_capacity.argtypes = [i, ip, ip]
+        lib.generic2d_resident_capacity.restype = i
+        lib.generic2d_error_string.argtypes = [i]
+        lib.generic2d_error_string.restype = ctypes.c_char_p
+        vals = [ctypes.c_int(0) for _ in range(8)]
+        lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
+        tile_y, tile_x, *sizes = (v.value for v in vals)
+        want = [len(_BUILT.storage), len(_BUILT.settings),
+                len(_BUILT.node_types), len(_BUILT.groups),
+                len(_BUILT.zonal), len(_BUILT.globals_)]
+        if sizes != want:
+            raise RuntimeError(f"{path.name} was built with layout sizes "
+                               f"{sizes}, the wrapper expects {want}")
+        _LIB["tile"] = (tile_y, tile_x)
+        _LIB["lib"] = lib
+    return _LIB["lib"]
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.generic2d_error_string(rc).decode()})")
+
+
+def _validate(fields, flags, ztab, a: StepArgs) -> None:
+    if a.model != BUILT_MODEL:
+        raise ValueError(f"the generic kernels are built for {BUILT_MODEL},"
+                         f" not {a.model}")
+    shape = (a.ny, a.nx)
+    want = ((fields, torch.float32, (len(_BUILT.storage),) + shape),
+            (flags, torch.int32, shape),
+            (ztab, torch.float32, (len(_BUILT.zonal), a.zone_max)))
+    for t, dtype, sh in want:
+        if t.device != fields.device or t.dtype != dtype \
+                or tuple(t.shape) != sh or not t.is_contiguous():
+            raise ValueError(
+                f"generic2d kernel input {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}: needs contiguous {sh} {dtype} on "
+                f"{fields.device}")
+
+
+def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
+    dev = t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool):
+    _validate(fields, flags, ztab, a)
+    lib = _lib()
+    dev, stream = _device_and_stream(fields)
+    out = torch.empty_like(fields)
+    partials = gout = None
+    if with_globals:
+        ty, tx = _LIB["tile"]
+        blocks = -(-a.ny // ty) * -(-a.nx // tx)
+        partials = torch.empty((blocks, len(_BUILT.globals_)),
+                               dtype=torch.float64, device=fields.device)
+        gout = torch.empty((len(_BUILT.globals_),), dtype=torch.float32,
+                           device=fields.device)
+    rc = lib.generic2d_step(
+        fields.data_ptr(), out.data_ptr(), flags.data_ptr(), ztab.data_ptr(),
+        ctypes.byref(a.c_struct),
+        partials.data_ptr() if with_globals else None,
+        gout.data_ptr() if with_globals else None, dev, stream)
+    _check(lib, rc, "generic2d_step")
+    LAUNCHES["generic2d_step"] += 1
+    FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+    return (out, gout) if with_globals else out
+
+
+def step(fields, flags, ztab, a: StepArgs) -> torch.Tensor:
+    """One Iteration (kernel ``generic2d_step``)."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1)
+    return _launch_step(fields, flags, ztab, a, with_globals=False)
+
+
+def step_globals(fields, flags, ztab, a: StepArgs) -> tuple:
+    """One Iteration and its SUM globals (kernel ``generic2d_step``, the
+    globals flavour): ``(fields, globals)``."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1, with_globals=True)
+    return _launch_step(fields, flags, ztab, a, with_globals=True)
+
+
+def resident_grid(device: int, nodes: int) -> int:
+    """Blocks of one cooperative ``generic2d_resident`` launch: as many as
+    the device holds at once, no more than the lattice needs.  Raises
+    when the device cannot launch cooperative kernels."""
+    key = ("capacity", device)
+    if key not in _LIB:
+        lib = _lib()
+        coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _check(lib, lib.generic2d_resident_capacity(
+            device, ctypes.byref(coop), ctypes.byref(blocks)),
+            "generic2d_resident capacity query")
+        if not coop.value:
+            raise RuntimeError(f"CUDA device {device} cannot launch "
+                               "cooperative kernels (cudaDevAttr"
+                               "CooperativeLaunch is 0)")
+        if blocks.value < 1:
+            raise RuntimeError("generic2d_resident fits no block on device "
+                               f"{device}")
+        _LIB[key] = blocks.value
+    return min(_LIB[key], (nodes + 255) // 256)
+
+
+def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
+    """``nsteps`` Iterations (even, at least 2) in one cooperative launch
+    (kernel ``generic2d_resident``)."""
+    if nsteps < 2 or nsteps % 2:
+        raise ValueError(f"nsteps={nsteps}: the ping-pong needs an even "
+                         "count of at least 2")
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, nsteps)
+    _validate(fields, flags, ztab, a)
+    lib = _lib()
+    dev, stream = _device_and_stream(fields)
+    blocks = resident_grid(dev, a.ny * a.nx)
+    out = torch.empty_like(fields)
+    scratch = torch.empty_like(fields)
+    rc = lib.generic2d_resident(
+        fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
+        nsteps, blocks, dev, stream)
+    _check(lib, rc, "generic2d_resident")
+    LAUNCHES["generic2d_resident"] += 1
+    return out
+
+
+def _resident_checked(fields, flags, ztab, a: StepArgs) -> torch.Tensor:
+    return resident(fields, flags, ztab, a, RESIDENT_CHECK_STEPS)
+
+
+# kernel name -> (wrapper, steps one launch takes); the resident kernel at
+# the step count its checks use
+WRAPPERS = {"generic2d_step": (step, 1),
+            "generic2d_resident": (_resident_checked, RESIDENT_CHECK_STEPS)}
+
+
+# --------------------------------------------------------------------------- #
+# Engines
+# --------------------------------------------------------------------------- #
+
+
+def supports(model: Model, shape, dtype) -> bool:
+    """Whether the kernels run this configuration: a 2D model with device
+    physics (``DEVICE_MODELS``, built into the library), f32, whose
+    Iteration plan reaches no further than the step kernel's ring."""
+    return (model.name == BUILT_MODEL and model.ndim == 2
+            and len(shape) == 2 and dtype == torch.float32
+            and min(int(s) for s in shape) >= 1
+            and action_plan(model)[1] <= HALO)
+
+
+def supports_resident(model: Model, shape, dtype) -> bool:
+    """Whether the resident engine fits: the two ping-pong stacks plus
+    the flags within half of the L2."""
+    return (supports(model, shape, dtype)
+            and launch_bytes(model, shape) <= L2_BYTES // 2)
+
+
+def kernel_inputs(model: Model, state: LatticeState, params: SimParams
+                  ) -> tuple:
+    """``(fields, flags, ztab, args)`` as the engines hand them to a kernel
+    wrapper, once per ``iterate`` call: the field stack, the int32 flags,
+    the (n_zonal, zone_max) table of the zonal settings, and the
+    constants."""
+    si = model.setting_index
+    ztab = params.zone_table[[si[n] for n in model.zonal_settings]]
+    a = step_args(model, tuple(state.flags.shape),
+                  params.settings.cpu().numpy())
+    return (state.fields.contiguous(), state.flags.contiguous(),
+            ztab.contiguous(), a)
+
+
+def _band_steps(f, flags, ztab, a: StepArgs, n: int) -> tuple:
+    """``n >= 1`` Iterations on ``generic2d_step``: ``n - 1`` plain
+    launches, then the globals flavour.  Returns ``(fields, globals)``."""
+    for _ in range(n - 1):
+        f = step(f, flags, ztab, a)
+    return step_globals(f, flags, ztab, a)
+
+
+def _advanced(state: LatticeState, fields, globals_, niter: int
+              ) -> LatticeState:
+    return dataclasses.replace(state, fields=fields,
+                               globals_=globals_.to(state.globals_.dtype),
+                               iteration=state.iteration + niter)
+
+
+def make_band_iterate(model: Model, shape) -> Callable:
+    """``iterate(state, params, niter)`` on ``generic2d_step``: ``niter -
+    1`` plain launches, then one globals launch, so the state comes back
+    with the last step's globals (``full_globals``)."""
+    if not supports(model, shape, torch.float32):
+        raise ValueError(f"generic kernels unsupported: {model.name} "
+                         f"{shape}")
+
+    def iterate(state: LatticeState, params: SimParams, niter: int
+                ) -> LatticeState:
+        if niter <= 0:
+            return state
+        f, flags, ztab, a = kernel_inputs(model, state, params)
+        f, g = _band_steps(f, flags, ztab, a, niter)
+        return _advanced(state, f, g, niter)
+
+    iterate.full_globals = True
+    return iterate
+
+
+def make_resident_iterate(model: Model, shape) -> Callable:
+    """``iterate(state, params, niter)``: the even part of ``niter - 1``
+    steps in one ``generic2d_resident`` launch, the rest on the band
+    engine, whose last launch is the globals flavour
+    (pallas_generic.py:make_resident_iterate's composition)."""
+    if not supports_resident(model, shape, torch.float32):
+        raise ValueError(f"generic resident engine unsupported: "
+                         f"{model.name} {shape}")
+
+    def iterate(state: LatticeState, params: SimParams, niter: int
+                ) -> LatticeState:
+        if niter <= 0:
+            return state
+        f, flags, ztab, a = kernel_inputs(model, state, params)
+        main = (niter - 1) // 2 * 2
+        if main:
+            f = resident(f, flags, ztab, a, main)
+        f, g = _band_steps(f, flags, ztab, a, niter - main)
+        return _advanced(state, f, g, niter)
+
+    iterate.full_globals = True
+    return iterate
+
+
+def select_engine(model: Model, shape, dtype) -> tuple:
+    """``(iterate, tag)`` of the kernel engine ``supports()`` picks for
+    this configuration, or ``(None, None)``: resident where it fits (one
+    launch fuses the even part of each call's ``niter - 1`` steps: the tag's
+    ``fuse=N``), else the band engine."""
+    if supports_resident(model, shape, dtype):
+        return (make_resident_iterate(model, shape),
+                f"cuda_generic_resident[{model.name},fuse=N]")
+    if supports(model, shape, dtype):
+        return (make_band_iterate(model, shape),
+                f"cuda_generic_band[{model.name},fuse=1]")
+    return None, None

@@ -3,7 +3,7 @@
 Behavioral parity with the reference Geometry (reference
 src/Geometry.{h,cpp.Rt}): regions with the dx/fx/nx attribute algebra and
 negative-offset convention (src/Geometry.cpp.Rt:217-307), the primitives
-Box and Wedge and named Zone references (Draw, :636-886), paint modes
+Box, Wedge and Sphere and named Zone references (Draw, :636-886), paint modes
 overwrite/fill/change with a foreground mask (Dot, :310-322), the settings
 zone registry (setZone, :196-214), and the built-in default zones
 Inlet/Outlet/Channel/Tunnel (src/def.cpp.Rt:10-33).
@@ -32,8 +32,8 @@ _MODES = {"overwrite": MODE_OVERWRITE, "fill": MODE_FILL,
           "change": MODE_CHANGE}
 
 # primitives of the JAX package's painter that this port does not draw yet
-UNPORTED_PRIMITIVES = ("Sphere", "HalfSphere", "OffgridSphere", "Pipe",
-                       "OffgridPipe", "Sweep", "Text", "PythonInline", "STL")
+UNPORTED_PRIMITIVES = ("HalfSphere", "OffgridSphere", "Pipe", "OffgridPipe",
+                       "Sweep", "Text", "PythonInline", "STL")
 
 # default named zones (reference xml_definition, src/def.cpp.Rt:10-26):
 # each zone is a list of Box-attribute dicts
@@ -239,6 +239,14 @@ class Geometry:
                 if direction in ("LowerLeft", "LowerRight"):
                     ys = 1.0 - ys
                 self._paint((xs - ys) < 1e-10, reg)
+            elif tag == "Sphere":
+                # the ellipsoid inscribed in the region, tested at the
+                # node centres
+                z, y, x = self._grid(reg)
+                xs = 2 * (0.5 + x - reg.dx) / reg.nx - 1
+                ys = 2 * (0.5 + y - reg.dy) / reg.ny - 1
+                zs = 2 * (0.5 + z - reg.dz) / reg.nz - 1
+                self._paint(xs * xs + ys * ys + zs * zs < 1, reg)
             elif tag in UNPORTED_PRIMITIVES:
                 raise NotImplementedError(
                     f"<{tag}> geometry is not ported to PyTorch yet (ROADMAP "

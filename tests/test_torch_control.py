@@ -1,6 +1,6 @@
 """The port's control plane against the JAX package's: geometry painting,
 units, CSV/VTI output, the handler tree and the CLI, and each slice as a
-whole — the d2q9 and channel3d goldens reproduced through the port's
+whole — the d2q9, channel3d and drop goldens reproduced through the port's
 ``_run_root``."""
 
 # jax 0.9 turned batching.primitive_batchers into a proxy without ``in``,
@@ -91,9 +91,30 @@ CHANNEL3D = """<?xml version="1.0"?>
     <Solve Iterations="200"/>
 </CLBConfig>
 """
+# tests/test_golden.py's d2q9_kuper drop, verbatim
+DROP = """<?xml version="1.0"?>
+<CLBConfig version="2.0" output="{out}/">
+    <Geometry nx="64" ny="64">
+        <MRT><Box/></MRT>
+        <None name="zdrop">
+            <Sphere dx="20" nx="24" dy="20" ny="24"/>
+        </None>
+    </Geometry>
+    <Model>
+        <Params omega="1"/>
+        <!-- the REAL drop.xml parameters (225x density ratio), reduced
+             from 512^2/500k to 64^2/300 -->
+        <Params Density="3.2600529440452366"
+                Density-zdrop="0.014500641645077492"
+                Temperature="0.56" FAcc="1" Magic="0.01"
+                MagicA="-0.152" MagicF="-0.6666666666666"/>
+    </Model>
+    <Solve Iterations="300"/>
+</CLBConfig>
+"""
 # the model each golden case runs
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
-                 "channel3d": "d3q27_cumulant"}
+                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper"}
 
 # every handler of the slice on a small case: Log, VTK, Stop, Failcheck,
 # Repeat, Init and zonal Params, run through both packages
@@ -215,7 +236,7 @@ def test_handler_tree_matches(tmp_path):
 
 @pytest.mark.parametrize("old,new", [
     ('<Solve Iterations="200"/>', '<SaveBinary file="x"/>'),
-    ('<Channel/>', '<Sphere dx="20" nx="8" dy="10" ny="8"/>'),
+    ('<Channel/>', '<HalfSphere dx="20" nx="8" dy="10" ny="8"/>'),
 ])
 def test_unported_handler_names_its_roadmap_item(tmp_path, old, new):
     xml = KARMAN.format(out=tmp_path).replace(old, new)
@@ -226,7 +247,8 @@ def test_unported_handler_names_its_roadmap_item(tmp_path, old, new):
 
 @pytest.mark.parametrize("name,xml", [("karman", KARMAN),
                                       ("poiseuille", POISEUILLE),
-                                      ("channel3d", CHANNEL3D)])
+                                      ("channel3d", CHANNEL3D),
+                                      ("drop", DROP)])
 def test_golden_through_port(name, xml, tmp_path):
     """tests/goldens/<name>.json through the port's _run_root at f64 on
     the CPU: same column set, RTOL 1e-10 / ATOL 1e-12."""
@@ -257,7 +279,8 @@ def test_cli(tmp_path, capsys):
     assert "done: 16 iterations on cpu (engine eager)" in capsys.readouterr().out
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
-    assert capsys.readouterr().out.split() == ["d2q9", "d3q27_cumulant"]
+    assert capsys.readouterr().out.split() == ["d2q9", "d2q9_kuper",
+                                               "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

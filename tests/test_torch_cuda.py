@@ -1,5 +1,5 @@
-"""The d2q9 and d3q27 CUDA kernels against their plain PyTorch versions on
-the card.
+"""The d2q9, d3q27 and generic CUDA kernels against their plain PyTorch
+versions on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -15,8 +15,9 @@ import torch
 from tclb_tpu_torch import Lattice, get_model
 from tclb_tpu_torch.ops import d2q9_kernels as dk
 from tclb_tpu_torch.ops import d3q27_kernels as dk3
-from torch_cases import (RICH3D_SETTINGS, RICH_SETTINGS, paint_rich,
-                         paint_rich_3d)
+from tclb_tpu_torch.ops import generic_kernels as gk
+from torch_cases import (KUPER_SETTINGS, RICH3D_SETTINGS, RICH_SETTINGS,
+                         paint_rich, paint_rich_3d, paint_rich_kuper)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -148,3 +149,75 @@ def test_d3q27_lattice_engine_matches_eager(card_lattice_3d, shape):
                                **FIELDS_TOL)
     assert lat.get_globals()["Flux"] == pytest.approx(
         ref.get_globals()["Flux"], rel=1e-4, abs=1e-6)
+
+
+@pytest.fixture
+def card_lattice_kuper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(shape, seed):
+        lat = Lattice(get_model("d2q9_kuper"), shape, dtype=torch.float32,
+                      settings=KUPER_SETTINGS, device="cuda")
+        return paint_rich_kuper(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128), (37, 53), (128, 128),
+                                   (1024, 1024)])
+@pytest.mark.parametrize("name", gk.KERNELS)
+def test_generic_kernel_matches_plain(card_lattice_kuper, name, shape):
+    """Every d2q9_kuper node type, the ragged edge of the 30x14 tiles
+    (37x53), drop.xml's and bench.py's shapes."""
+    lat = card_lattice_kuper(shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    fn, n = gk.WRAPPERS[name]
+    gk.reset_launches()
+    got = fn(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES[name] == 1
+    torch.testing.assert_close(got, gk.plain_steps(f, flags, ztab, args, n),
+                               **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128), (37, 53), (1024, 1024)])
+def test_generic_globals_flavour_matches_plain(card_lattice_kuper, shape):
+    lat = card_lattice_kuper(shape, seed=7)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gk.reset_launches()
+    got, g = gk.step_globals(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert gk.FLAVOUR_LAUNCHES == {"plain": 0, "globals": 1}
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    assert abs(float(g[1])) > 0
+    # a fixed order of summation: the same inputs give the same bits
+    assert torch.equal(gk.step_globals(f, flags, ztab, args)[1], g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,engine", [
+    ((128, 128), "cuda_generic_resident[d2q9_kuper,fuse=N]"),
+    ((1024, 1024), "cuda_generic_band[d2q9_kuper,fuse=1]"),
+])
+def test_generic_lattice_engine_matches_eager(card_lattice_kuper, shape,
+                                              engine):
+    lat = card_lattice_kuper(shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    gk.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == engine and lat.eager_steps == 0
+    assert gk.FLAVOUR_LAUNCHES["globals"] == 1
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    got, want = lat.get_globals(), ref.get_globals()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k

@@ -144,3 +144,52 @@ def paint_rich_3d(lat, seed):
     lat.init()
     lat.set_density_planes(random_planes_3d(lat.model, lat.shape, seed))
     return lat
+
+
+# d2q9_kuper: example/drop.xml's liquid and vapour and its EOS, a wall and
+# a moving wall, the symmetry mirrors, a solid block, a colliding wall node
+# (the force's wall term) and a second density zone on the boundaries
+KUPER_SETTINGS = {"omega": 1.0, "Temperature": 0.56, "FAcc": 1.0,
+                  "Magic": 0.01, "MagicA": -0.152, "MagicF": -2.0 / 3.0,
+                  "Density": 3.2600529440452366, "MovingWallVelocity": 0.01,
+                  "GravitationX": 1e-5, "GravitationY": -2e-6}
+KUPER_SHAPE = (16, 128)
+KUPER_VAPOUR = 0.014500641645077492    # drop.xml's Density-zdrop
+KUPER_WALL_DENSITY = 2.0
+
+
+def rich_flags_kuper(m, ny, nx):
+    """Every node type ``d2q9_kuper`` dispatches on a (ny, nx) field: a
+    vapour drop (zone 1) in the liquid, a Wall row and a MovingWall row
+    (zone 2), SSymmetry and NSymmetry nodes, a Solid block and a Wall
+    node that keeps its MRT collision."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f("MRT"), dtype=np.uint16)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    # an ellipse clear of the colliding wall node at x = nx / 8, which the
+    # wall momentum term would blow up in the vapour
+    drop = ((yy - ny / 2) / (ny / 4)) ** 2 + ((xx - nx / 3) / (nx / 8)) ** 2 < 1
+    flags[drop] = f("MRT", zone=1)
+    flags[0, :] = f("Wall", zone=2)
+    flags[-1, :] = f("MovingWall", zone=2)
+    flags[1, nx // 2:] = f("SSymmetry", "MRT")
+    flags[-2, nx // 2:] = f("NSymmetry", "MRT")
+    flags[ny // 2 - 2:ny // 2 + 2, 3 * nx // 4:3 * nx // 4 + 4] = \
+        f("Solid", zone=2)
+    flags[ny // 2, nx // 8] = f("Wall", "MRT")
+    return flags
+
+
+def paint_rich_kuper(lat, seed):
+    """``rich_flags_kuper`` with the zonal densities on a Lattice of either
+    package, initialised, then its populations perturbed by 1% noise."""
+    lat.set_flags(rich_flags_kuper(lat.model, *lat.shape))
+    lat.set_setting("Density", KUPER_VAPOUR, zone=1)
+    lat.set_setting("Density", KUPER_WALL_DENSITY, zone=2)
+    lat.init()
+    rng = np.random.default_rng(seed)
+    f = lat.fields_raw()
+    lat.set_density_planes({
+        f"f[{k}]": f[k] * (1 + 0.01 * rng.standard_normal(lat.shape))
+        for k in range(9)})
+    return lat
