@@ -5,12 +5,14 @@
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
 builds ``tclb_tpu_torch/csrc/d2q9.cu``, ``d3q27.cu`` and ``generic2d.cu``
-for sm_90a into ``build/``, one ``nvcc`` each, started together), and
-exits nonzero without printing a result when either the card or the
-package is missing.  Phases, each of which fails the run on its own:
+once for each of d2q9_kuper and d2q9_heat_adj, the latter with the
+backward kernel of ``generic2d_adjoint.cuh``, for sm_90a into ``build/``,
+one ``nvcc`` each, started together), and exits nonzero without printing
+a result when either the card or the package is missing.  Phases, each of
+which fails the run on its own:
 
-1. build the d2q9, d3q27 and generic kernels and print what ``ptxas``
-   reports;
+1. build the d2q9, d3q27 and the two generic libraries and print what
+   ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
@@ -20,13 +22,21 @@ package is missing.  Phases, each of which fails the run on its own:
    1024x1024 drop and a walled 16x128 kuper state that paints every
    d2q9_kuper node type and two Density zones for ``generic2d_step``, its
    globals flavour and an 8-step ``generic2d_resident``, and after phases
-   6 and 9 the developed 3d_channel and drop flows), at rtol 2e-5 / atol
-   2e-6, and the globals flavour's WallForceX/Y at rtol 1e-4 / atol 1e-6;
+   6 and 9 the developed 3d_channel and drop flows), d2q9_heat_adj's
+   ``generic2d_step``, its globals flavour and an 8-step
+   ``generic2d_resident`` on a 64x32 state that paints every node type
+   the model reads and on bench.py's 512x1024 heat_adj channel, at rtol
+   2e-5 / atol 2e-6, and the globals flavour's globals at rtol 1e-4 /
+   atol 1e-6; ``generic2d_step_b`` against ``step_b_plain`` on the same two
+   d2q9_heat_adj states (and after phase 12 the developed channel),
+   lam_in at rtol 1e-4 / atol 1e-6 and the settings cotangent at rtol
+   1e-4;
 3. hold the card's f32 run of the d2q9 golden cases
    (``tests/goldens/karman.json``, ``poiseuille.json``), of the
-   d3q27_cumulant channel (``channel3d.json``) and of the d2q9_kuper drop
-   (``drop.json``) against the goldens at rtol 1e-4 / atol 1e-6 (f32
-   against an f64 recording);
+   d3q27_cumulant channel (``channel3d.json``), of the d2q9_kuper drop
+   (``drop.json``) and of d2q9_heat_adj (``heat_adj.json``, with its
+   gradient columns on ``cuda_adjoint``) against the goldens at rtol 1e-4
+   / atol 1e-6 (f32 against an f64 recording);
 4. the d2q9 main path: ``example/karman.xml`` unchanged through
    ``run_config`` (10000 iterations, Log every 1000, VTK every 5000) on
    ``cuda_d2q9_resident[d2q9,fuse=8]``, with the launch counts set to 0
@@ -50,9 +60,25 @@ package is missing.  Phases, each of which fails the run on its own:
    the vapour bubble still at the centre;
 10. the generic band engine: bench.py's drop physics at 1024x1024,
    ``iterate(2000)`` on ``cuda_generic_band[d2q9_kuper,fuse=1]``, both
-   flavours of ``generic2d_step`` launched.
+   flavours of ``generic2d_step`` launched;
+11. the adjoint main path: ``example/heat_adj.xml`` unchanged through
+   ``run_config`` (64x32, Solve 4000 on
+   ``cuda_generic_resident[d2q9_heat_adj,fuse=N]``, FDTest 8/3 and a
+   10-evaluation MMA Optimize of 100 iterations on
+   ``cuda_adjoint[d2q9_heat_adj,k=1]``, ThresholdNow, VTK): the launch
+   counts, the FDTest records (logged), each objective (finite), the
+   material constraint, a binary design; then the first evaluation's f32
+   kernel gradient against an f64 eager gradient on the card (relative L2
+   at most 1e-3);
+12. bench.py's heat_adj channel at 512x1024: ``iterate(2000)`` on
+   ``cuda_generic_band[d2q9_heat_adj,fuse=1]``, an 8-step kernel gradient
+   against f32 eager autograd at rtol 1e-4 / atol 1e-7, and a 1000-step
+   gradient with automatic checkpoint levels (2): its wall time, rate,
+   peak memory and launches.
 
-Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 7, 8.
+Phase 7 also times d2q9_heat_adj's kernels and ``generic2d_step_b``;
+phase 8 also profiles the 1000-step gradient.  Phases run in the order 1,
+2, 3, 4, 5, 6, 9, 10, 11, 12, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -79,9 +105,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
+# generic2d_step_b against its plain version (lam_in, settings cotangent)
+STEP_B_RTOL, STEP_B_ATOL, STEP_B_SETT_RTOL = 1e-4, 1e-6, 1e-4
+# a kernel gradient against eager autograd, both f32
+# (tests/test_pallas_adjoint.py:155)
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
+GRAD_F64_REL_L2 = 1e-3     # the f32 kernel gradient against f64 eager
 KARMAN_XML = ROOT / "example" / "karman.xml"
 CHANNEL3D_XML = ROOT / "example" / "3d_channel.xml"
 DROP_XML = ROOT / "example" / "drop.xml"
+HEAT_ADJ_XML = ROOT / "example" / "heat_adj.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
@@ -91,10 +124,14 @@ TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d3q27_step2": "tclb_tpu/ops/pallas_d3q.py:843",
     "generic2d_step": "tclb_tpu/ops/pallas_generic.py:796",
     "generic2d_resident": "tclb_tpu/ops/pallas_generic.py:1105",
+    "generic2d_step_b": "tclb_tpu/ops/pallas_adjoint.py:905",
 }
-SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu"}
+SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
+           "adjoint": "generic2d_adjoint.cuh"}
+GENERIC_MODELS = ("d2q9_kuper", "d2q9_heat_adj")
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
-                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper"}
+                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper",
+                 "heat_adj": "d2q9_heat_adj"}
 
 
 def say(msg: str) -> None:
@@ -118,13 +155,13 @@ def card_line() -> str:
 # --------------------------------------------------------------------------- #
 
 
-def case_lattice(xml, dtype, device):
-    """An example case's painted and initialised lattice, without its
-    <Solve>, <Log> and <VTK>."""
+def case_lattice(xml, dtype, device, drop=("Solve", "Log", "VTK")):
+    """An example case's lattice after running it without the elements
+    ``drop`` names (by default: painted and initialised)."""
     from tclb_tpu_torch.control.solver import _run_root
     from tclb_tpu_torch.models import get_model
     root = ET.parse(xml).getroot()
-    for tag in ("Solve", "Log", "VTK"):
+    for tag in drop:
         for el in root.findall(tag):
             root.remove(el)
     cwd = os.getcwd()
@@ -199,6 +236,37 @@ def rich_kuper_lattice(device):
     return paint_rich_kuper(lat, seed=5)
 
 
+def rich_heat_lattice(device):
+    """heat_adj.xml's 64x32 with every node type d2q9_heat_adj reads (W
+    velocity, E pressure, walls, a solid block, an Outlet column, a
+    DesignSpace block), a non-uniform design field and a ux == 0 node
+    (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import HEAT_SETTINGS, HEAT_SHAPE, paint_rich_heat
+    lat = Lattice(get_model("d2q9_heat_adj"), HEAT_SHAPE,
+                  dtype=torch.float32, device=device, settings=HEAT_SETTINGS)
+    return paint_rich_heat(lat, seed=5)
+
+
+def heat1024_lattice(device, ny=512, nx=1024):
+    """bench.py's heat_adj channel (bench.py:314-331) with a W velocity
+    inlet, an E pressure outlet and bench.py:357-361's DesignSpace block;
+    Drag is the objective (phase 12 sets w = 0.8 on the block)."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d2q9_heat_adj")
+    lat = Lattice(m, (ny, nx), dtype=torch.float32, device=device,
+                  settings={"nu": 0.05, "InletVelocity": 0.02,
+                            "FluidAlfa": 0.05, "DragInObj": 1.0})
+    flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = m.flag_for("WVelocity", "MRT")
+    flags[:, -1] = m.flag_for("EPressure", "MRT")
+    flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+    flags[128:384, 300:700] |= np.uint16(m.flag_for("DesignSpace"))
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
 def eager_warm(lat, steps: int) -> None:
     """Advance on the eager engine so the state carries flow, not just
     the initial equilibrium."""
@@ -211,14 +279,15 @@ def eager_warm(lat, steps: int) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def compare(got, want, what: str) -> dict:
+def compare(got, want, what: str, rtol: float = RTOL,
+            atol: float = ATOL) -> dict:
     err = (got - want).abs()
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp_min(1e-30)).max())
-    ok = bool((err <= ATOL + RTOL * want.abs()).all())
+    ok = bool((err <= atol + rtol * want.abs()).all())
     finite = bool(torch.isfinite(got).all())
     say(f"  {what}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-        f"(rtol {RTOL} atol {ATOL}) {'ok' if ok and finite else 'FAIL'}")
+        f"(rtol {rtol} atol {atol}) {'ok' if ok and finite else 'FAIL'}")
     if not (ok and finite):
         fail(f"{what} disagrees with its plain version")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
@@ -236,9 +305,17 @@ def check_kernels(cases, errs: dict, what: str) -> dict:
         want = dk.plain_steps(*inputs, a, n)
         f = inputs[0]
         torch.cuda.synchronize()
-        e = compare(got, want, f"{name} at {tuple(f.shape)}")
-        keep_worst(errs, name, e)
+        key = kernel_key(dk, name, lat)
+        e = compare(got, want, f"{key} at {tuple(f.shape)}")
+        keep_worst(errs, key, e)
     return errs
+
+
+def kernel_key(dk, name: str, lat) -> str:
+    """A kernel's name in the record: the generic kernels are built once
+    per model, so theirs carries the model."""
+    return f"{name}[{lat.model.name}]" \
+        if dk.__name__.endswith("generic_kernels") else name
 
 
 def keep_worst(errs: dict, name: str, e: dict) -> None:
@@ -258,8 +335,9 @@ def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
         want, wg = gk.plain_steps(*inputs, a, 1, with_globals=True)
         torch.cuda.synchronize()
         shape = tuple(inputs[0].shape)
-        keep_worst(errs, "generic2d_step",
-                   compare(got, want, f"generic2d_step (globals) at {shape}"))
+        key = kernel_key(gk, "generic2d_step", lat)
+        keep_worst(errs, key,
+                   compare(got, want, f"{key} (globals) at {shape}"))
         gerr = (g - wg).abs()
         ok = bool((gerr <= GOLDEN_ATOL + GOLDEN_RTOL * wg.abs()).all()) \
             and bool(torch.isfinite(g).all())
@@ -267,9 +345,45 @@ def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
             f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"generic2d_step's globals at {shape} disagree")
-        keep_worst(errs, "generic2d_step globals",
+        keep_worst(errs, f"{key} globals",
                    {"max_abs_err": float(gerr.max()),
                     "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30))
+                                         .max())})
+    return errs
+
+
+def check_step_b(ak, gk, lats, errs: dict, what: str) -> dict:
+    """``generic2d_step_b`` against ``step_b_plain`` (torch.func.vjp of the
+    plain step) on the same inputs: lam_out and lam_g of order one from a
+    seeded generator; lam_in at rtol 1e-4 / atol 1e-6, the settings
+    cotangent at rtol 1e-4."""
+    say(f"{what}: generic2d_step_b against its plain version on the card")
+    for lat in lats:
+        f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        lam = torch.randn(f.shape, generator=gen, device=DEVICE)
+        lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                            device=DEVICE)
+        got, gs = ak.step_b(f, flags, ztab, a, lam, lam_g)
+        want, ws = ak.step_b_plain(f, flags, ztab, a, lam, lam_g)
+        torch.cuda.synchronize()
+        shape = tuple(f.shape)
+        key = f"generic2d_step_b[{lat.model.name}]"
+        keep_worst(errs, key, compare(got, want, f"{key} lam_in at {shape}",
+                                      STEP_B_RTOL, STEP_B_ATOL))
+        serr = (gs - ws).abs()
+        ok = bool((serr <= STEP_B_SETT_RTOL * ws.abs()).all()) \
+            and bool(torch.isfinite(gs).all())
+        say(f"  settings cotangent at {shape}: {gs.tolist()} vs "
+            f"{ws.tolist()} (rtol {STEP_B_SETT_RTOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"generic2d_step_b's settings cotangent at {shape} "
+                 "disagrees")
+        keep_worst(errs, f"{key} settings",
+                   {"max_abs_err": float(serr.max()),
+                    "max_rel_err": float((serr / ws.abs().clamp_min(1e-30))
                                          .max())})
     return errs
 
@@ -295,6 +409,13 @@ def check_goldens() -> None:
             fields = solver.lattice.state.fields.double().cpu().numpy()
         row["FieldsL1"] = float(np.abs(fields).sum())
         row["FieldsSum"] = float(fields.sum())
+        if name == "heat_adj":
+            # tests/test_golden.py's gradient columns, on the card
+            from torch_cases import heat_adj_golden_columns
+            cols, adj_engine = heat_adj_golden_columns(solver)
+            if adj_engine != "cuda_adjoint[d2q9_heat_adj,k=1]":
+                fail(f"golden heat_adj's gradient ran on {adj_engine}")
+            row.update(cols)
         engine = solver.lattice.engine_name
         if not engine.startswith("cuda_"):
             fail(f"golden {name} ran on {engine}, not a kernel engine")
@@ -474,6 +595,200 @@ def run_drop_band(gk, lat) -> dict:
             "mlups_iterate": float(np.prod(lat.shape)) * niter / dt / 1e6}
 
 
+def heat_adj_solve_state(xml):
+    """heat_adj.xml's lattice after its <Solve>: the state the Optimize's
+    first evaluation starts from (FDTest leaves the state as it was)."""
+    return case_lattice(xml, torch.float32, DEVICE,
+                        drop=("FDTest", "Optimize", "ThresholdNow", "VTK"))
+
+
+def run_heat_adj(gk, ak) -> dict:
+    """The adjoint main path: example/heat_adj.xml unchanged through
+    ``run_config`` — the Solve on the resident engine, FDTest and the MMA
+    Optimize on ``cuda_adjoint``, ThresholdNow, VTK — counted from 0, then
+    the first Optimize evaluation's f32 kernel gradient against an f64
+    eager gradient on the card."""
+    from tclb_tpu_torch.adjoint import (InternalTopology,
+                                        make_unsteady_gradient)
+    from tclb_tpu_torch.control.solver import run_config
+    from tclb_tpu_torch.core.lattice import LatticeState, SimParams
+    from tclb_tpu_torch.models import get_model
+    say("phase 11: heat_adj.xml end to end (Solve, FDTest, MMA Optimize, "
+        "ThresholdNow, VTK)")
+    xml = HEAT_ADJ_XML
+    root = ET.parse(xml).getroot()
+    model = get_model(root.get("model"))
+    opt_el = root.find("Optimize")
+    niter = int(opt_el.get("Iterations"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            gk.reset_launches()
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            solver = run_config(str(xml), model, dtype=torch.float32,
+                                device=DEVICE)
+            solver.lattice.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**gk.LAUNCHES, **ak.LAUNCHES}
+            flavours = dict(gk.FLAVOUR_LAUNCHES)
+        finally:
+            os.chdir(cwd)
+        files = sorted(os.listdir(os.path.join(tmp, root.get("output"))))
+    lat = solver.lattice
+    say(f"  primal engine {lat.engine_name}, adjoint engine "
+        f"{solver.adjoint_engine}, {wall:.3f} s wall, launches {launches} "
+        f"(generic2d_step flavours {flavours}), eager steps "
+        f"{lat.eager_steps}")
+    for r in solver.fd_records:
+        say(f"  FDTest component {r['index']}: adjoint {r['adjoint']:.8g} "
+            f"fd {r['fd']:.8g} rel_err {r['rel_err']:.3e} (f32: logged, "
+            "not judged)")
+    for k, obj in enumerate(solver.opt_history):
+        say(f"  Optimize[MMA] evaluation {k}: objective {obj:.9g}")
+    mat = solver.opt_material
+    say(f"  material: start {mat['start']:.9g}, end {mat['end']:.9g} "
+        f"({mat['direction']})")
+    if lat.engine_name != "cuda_generic_resident[d2q9_heat_adj,fuse=N]":
+        fail(f"heat_adj.xml's Solve ran on {lat.engine_name}")
+    if solver.adjoint_engine != "cuda_adjoint[d2q9_heat_adj,k=1]":
+        fail(f"heat_adj.xml's gradients ran on {solver.adjoint_engine}")
+    if launches["generic2d_step_b"] < 1 or flavours["globals"] < 1 \
+            or launches["generic2d_resident"] < 1:
+        fail(f"heat_adj.xml launches {launches}, flavours {flavours}")
+    if len(solver.opt_history) != int(opt_el.get("MaxEvaluations")) \
+            or not all(math.isfinite(o) for o in solver.opt_history):
+        fail(f"heat_adj.xml objectives {solver.opt_history}")
+    if mat["end"] > mat["start"] * (1 + 1e-6):
+        fail(f"heat_adj.xml broke its material constraint: {mat}")
+    w = lat.get_quantity("W")
+    values = sorted(set(torch.unique(w).tolist()))
+    if not set(values) <= {0.0, 1.0}:
+        fail(f"heat_adj.xml's design is not binary after ThresholdNow: "
+             f"{values[:8]}")
+    if not any(f.endswith(".vti") for f in files) \
+            or not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"heat_adj.xml: output {files} or non-finite fields")
+    say(f"  design values after ThresholdNow {values}, "
+        f"{int((w == 0).sum())} solid nodes")
+
+    # the first Optimize evaluation: the same state, theta and horizon
+    start = heat_adj_solve_state(xml)
+    design = InternalTopology(model)
+    theta = design.get(start.state, start.params)
+    g32_fn = make_unsteady_gradient(model, design, niter, shape=start.shape,
+                                    device=DEVICE)
+    obj32, g32, _ = g32_fn(theta, start.state, start.params)
+    state64 = LatticeState(fields=start.state.fields.double(),
+                           flags=start.state.flags,
+                           globals_=start.state.globals_.double(),
+                           iteration=start.state.iteration)
+    params64 = SimParams(settings=start.params.settings.double(),
+                         zone_table=start.params.zone_table.double())
+    g64_fn = make_unsteady_gradient(model, design, niter, shape=start.shape,
+                                    dtype=torch.float64, device=DEVICE)
+    obj64, g64, _ = g64_fn(theta.double(), state64, params64)
+    rel_l2 = float((g32.double() - g64).norm() / g64.norm())
+    say(f"  first evaluation: {g32_fn.engine_name} objective "
+        f"{float(obj32):.9g} (Optimize logged "
+        f"{solver.opt_history[0]:.9g}), {g64_fn.engine_name} f64 "
+        f"{float(obj64):.9g}; gradient rel L2 {rel_l2:.3e} (limit "
+        f"{GRAD_F64_REL_L2})")
+    if g64_fn.engine_name != "eager" or not rel_l2 <= GRAD_F64_REL_L2:
+        fail(f"heat_adj.xml's f32 kernel gradient is {rel_l2} from f64")
+    if abs(float(obj32) - solver.opt_history[0]) \
+            > 1e-6 * abs(solver.opt_history[0]):
+        fail("the re-run first evaluation differs from the Optimize's")
+    return {"launches": launches, "flavours": flavours, "wall_s": wall,
+            "objectives": solver.opt_history, "material": mat,
+            "fd_records": solver.fd_records, "grad_rel_l2_f64": rel_l2,
+            "solid_nodes": int((w == 0).sum())}
+
+
+def run_heat1024(gk, ak, lat) -> dict:
+    """bench.py's heat_adj channel at 512x1024: (a) ``iterate(2000)`` on
+    the band engine; (b) an 8-step gradient on cuda_adjoint against eager
+    autograd on the card, f32; (c) a 1000-step unsteady gradient with
+    automatic checkpoint levels, counted from 0."""
+    from tclb_tpu_torch.adjoint import (InternalTopology, auto_levels,
+                                        make_unsteady_gradient)
+    say("phase 12: 512x1024 heat_adj channel: primal band engine and "
+        "gradients")
+    nodes = float(np.prod(lat.shape))
+    niter = 2000
+    lat.synchronize()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    lat.iterate(niter)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    flavours = dict(gk.FLAVOUR_LAUNCHES)
+    mlups = nodes * niter / dt / 1e6
+    say(f"  (a) engine {lat.engine_name}, launches {launches} (flavours "
+        f"{flavours}), {mlups:.1f} MLUPS")
+    if lat.engine_name != "cuda_generic_band[d2q9_heat_adj,fuse=1]":
+        fail(f"512x1024 heat_adj ran on {lat.engine_name}")
+    if flavours != {"plain": niter - 1, "globals": 1} or lat.eager_steps \
+            or not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"512x1024 heat_adj: flavours {flavours}, eager steps "
+             f"{lat.eager_steps}")
+    m = lat.model
+    design = InternalTopology(m)
+    # w = 0.8 on the design block: Drag = (1 - w)|ux| then depends on the
+    # flow, so the gradient runs through every step's field cotangents
+    theta = torch.full_like(design.get(lat.state, lat.params), 0.8)
+    got = {}
+    for engine in ("cuda", "eager"):
+        fn = make_unsteady_gradient(m, design, 8, levels=1, engine=engine,
+                                    shape=lat.shape, device=DEVICE)
+        got[engine] = fn(theta, lat.state, lat.params)
+    (oc, gc, _), (oe, ge, _) = got["cuda"], got["eager"]
+    err = (gc - ge).abs()
+    ok = bool((err <= GRAD_ATOL + GRAD_RTOL * ge.abs()).all()) \
+        and float(ge.abs().max()) > 0
+    say(f"  (b) 8-step gradient: cuda_adjoint objective {float(oc):.9g}, "
+        f"eager {float(oe):.9g}; max abs err {float(err.max()):.3e}, "
+        f"max |g| {float(ge.abs().max()):.3e} (rtol {GRAD_RTOL} atol "
+        f"{GRAD_ATOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the 8-step 512x1024 kernel gradient disagrees with eager")
+    horizon = 1000
+    levels = auto_levels(m, lat.shape, horizon)
+    if levels != 2:
+        fail(f"auto_levels chose {levels} for the 1000-step gradient")
+    grad_fn = make_unsteady_gradient(m, design, horizon, shape=lat.shape,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    obj, g, _ = grad_fn(theta, lat.state, lat.params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grad_launches = {**gk.LAUNCHES, **ak.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    rate = nodes * horizon / wall / 1e6
+    primal_s = horizon * nodes / (mlups * 1e6)
+    say(f"  (c) 1000-step gradient, levels {levels}: {wall:.3f} s wall, "
+        f"{rate:.1f} primal-equivalent MLUPS, {wall / primal_s:.2f}x the "
+        f"wall of 1000 primal steps, peak memory {peak / 2**30:.2f} GiB, "
+        f"launches {grad_launches}, objective {float(obj):.9g}")
+    if not (math.isfinite(float(obj)) and bool(torch.isfinite(g).all())):
+        fail("the 1000-step gradient is not finite")
+    return {"launches": launches, "flavours": flavours,
+            "mlups_iterate": mlups, "grad_launches": grad_launches,
+            "grad8_max_abs_err": float(err.max()),
+            "grad1000": {"levels": levels, "wall_s": wall,
+                         "mlups_primal_equivalent": rate,
+                         "wall_over_primal": wall / primal_s,
+                         "max_memory_allocated": peak},
+            "grad_fn": lambda: grad_fn(theta, lat.state, lat.params)}
+
+
 def run_channel(dk, lat) -> dict:
     """The band engine on the 1024x1024 channel."""
     say("phase 5: 1024x1024 channel on the band engine")
@@ -553,34 +868,54 @@ def time_kernels(cases) -> dict:
     return out
 
 
-def time_generic(gk, band_lat, drop_lat, resident_steps: int) -> dict:
-    """The generic kernels at their paths' launches: ``generic2d_step`` in
-    both flavours on the 1024x1024 drop, ``generic2d_resident`` on
-    drop.xml at the step count its path gives one launch."""
+def time_generic(gk, band_lat, res_lat, resident_steps: int,
+                 plain_reps: int = 2) -> dict:
+    """One model's generic kernels at their paths' launches:
+    ``generic2d_step`` in both flavours on ``band_lat`` (the band engine's
+    path), ``generic2d_resident`` on ``res_lat`` at the step count its
+    path gives one launch."""
     out = {}
+    model = band_lat.model.name
     for name, lat, reps in (("generic2d_step", band_lat, 400),
                             ("generic2d_step globals", band_lat, 200)):
         *inputs, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
         g = name.endswith("globals")
         fn = gk.step_globals if g else gk.step
-        out[name] = time_one(
-            name, lambda: fn(*inputs, a),
+        key = name.replace("generic2d_step", f"generic2d_step[{model}]")
+        out[key] = time_one(
+            key, lambda: fn(*inputs, a),
             lambda: gk.plain_steps(*inputs, a, 1, with_globals=g),
             gk.launch_bytes(lat.model, lat.shape),
             gk.node_step_flops(lat.model, lat.flags_numpy()), lat.shape,
             reps)
-    *inputs, a = gk.kernel_inputs(drop_lat.model, drop_lat.state,
-                                  drop_lat.params)
-    out["generic2d_resident"] = time_one(
-        f"generic2d_resident ({resident_steps} steps)",
+    *inputs, a = gk.kernel_inputs(res_lat.model, res_lat.state,
+                                  res_lat.params)
+    key = f"generic2d_resident[{model}]"
+    out[key] = time_one(
+        f"{key} ({resident_steps} steps)",
         lambda: gk.resident(*inputs, a, resident_steps),
         lambda: gk.plain_steps(*inputs, a, resident_steps),
-        gk.launch_bytes(drop_lat.model, drop_lat.shape),
-        resident_steps * gk.node_step_flops(drop_lat.model,
-                                            drop_lat.flags_numpy()),
-        drop_lat.shape, 50, plain_reps=2)
-    out["generic2d_resident"]["steps"] = resident_steps
+        gk.launch_bytes(res_lat.model, res_lat.shape),
+        resident_steps * gk.node_step_flops(res_lat.model,
+                                            res_lat.flags_numpy()),
+        res_lat.shape, 50, plain_reps=plain_reps)
+    out[key]["steps"] = resident_steps
     return out
+
+
+def time_step_b(ak, gk, lat) -> dict:
+    """``generic2d_step_b`` at the 512x1024 gradient's launch, against
+    ``step_b_plain`` on the same inputs."""
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    lam = torch.randn(f.shape, generator=gen, device=DEVICE)
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen, device=DEVICE)
+    key = f"generic2d_step_b[{lat.model.name}]"
+    return {key: time_one(
+        key, lambda: ak.step_b(f, flags, ztab, a, lam, lam_g),
+        lambda: ak.step_b_plain(f, flags, ztab, a, lam, lam_g),
+        ak.launch_bytes_b(lat.model, lat.shape),
+        ak.node_step_b_flops(lat.model, lat.flags_numpy()), lat.shape, 200)}
 
 
 def wrapper_host_ms(launch, calls: int = 200) -> float:
@@ -597,20 +932,21 @@ def wrapper_host_ms(launch, calls: int = 200) -> float:
     return dt / calls * 1e3
 
 
-def device_busy(lat, window: int, what: str) -> dict:
-    """Where an iterate window's time goes on the card: a torch.profiler
-    trace of ``iterate(window)``, the union of the kernels' intervals
-    against the host window, and device time by kernel name.  Where the
-    trace shows no device activity the share is not measured."""
+def device_busy(run, what: str) -> dict:
+    """Where a window's time goes on the card: a torch.profiler trace of
+    ``run()`` (an iterate or a gradient, run once before to warm), the
+    union of the kernels' intervals against the host window, and device
+    time by kernel name.  Where the trace shows no device activity the
+    share is not measured."""
     from torch.profiler import ProfilerActivity, profile
-    say(f"phase 8: device busy share over a {what} iterate window")
-    lat.iterate(window)            # warm: the engine and its statics
-    lat.synchronize()
+    say(f"phase 8: device busy share over {what}")
+    run()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lat.iterate(window)
-        lat.synchronize()
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -628,7 +964,7 @@ def device_busy(lat, window: int, what: str) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    out = {"window_steps": window, "wall_us": wall_us,
+    out = {"window": what, "wall_us": wall_us,
            "device_busy_us": busy if spans else None,
            "idle_share": 1.0 - busy / wall_us if spans else None,
            "device_us_by_kernel": dict(sorted(
@@ -636,7 +972,7 @@ def device_busy(lat, window: int, what: str) -> dict:
     share = ("not measured (no device events in the trace)"
              if out["idle_share"] is None
              else f"{out['idle_share']:.3f}")
-    say(f"  iterate({window}) under the profiler: {wall_us:.0f} us wall, "
+    say(f"  {what} under the profiler: {wall_us:.0f} us wall, "
         f"device busy {busy:.0f} us, idle share {share}")
     for k, v in out["device_us_by_kernel"].items():
         say(f"    {v:10.1f} us  {k[:90]}")
@@ -654,6 +990,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
     from tclb_tpu_torch.ops import d2q9_kernels as dk
     from tclb_tpu_torch.ops import d3q27_kernels as dk3
     from tclb_tpu_torch.ops import generic_kernels as gk
@@ -664,10 +1002,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    say("phase 1: build (one nvcc per source, started together)")
+    say("phase 1: build (one nvcc per library, started together)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        builds = list(pool.map(lambda m: m.build(), (dk, dk3, gk)))
+    jobs = [dk.build, dk3.build] + [
+        (lambda m=m: gk.build(m)) for m in GENERIC_MODELS]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        builds = list(pool.map(lambda job: job(), jobs))
     say(f"  built {', '.join(p.name for p, _ in builds)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, report in builds:
@@ -688,6 +1028,9 @@ def main() -> int:
     drop1024 = drop_lattice(DEVICE)
     eager_warm(drop1024, 4)
     rich_kuper = rich_kuper_lattice(DEVICE)
+    rich_heat = rich_heat_lattice(DEVICE)
+    heat1024 = heat1024_lattice(DEVICE)
+    eager_warm(heat1024, 20)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
@@ -697,8 +1040,14 @@ def main() -> int:
         (gk, drop1024, "generic2d_step"),
         (gk, drop1024, "generic2d_resident"),
         (gk, rich_kuper, "generic2d_step"),
-        (gk, rich_kuper, "generic2d_resident")], {}, "phase 2")
-    check_globals_flavour(gk, (drop, drop1024, rich_kuper), errs, "phase 2")
+        (gk, rich_kuper, "generic2d_resident"),
+        (gk, rich_heat, "generic2d_step"),
+        (gk, rich_heat, "generic2d_resident"),
+        (gk, heat1024, "generic2d_step"),
+        (gk, heat1024, "generic2d_resident")], {}, "phase 2")
+    check_globals_flavour(gk, (drop, drop1024, rich_kuper, rich_heat,
+                               heat1024), errs, "phase 2")
+    check_step_b(ak, gk, (rich_heat, heat1024), errs, "phase 2")
     check_goldens()
     main_path = run_case(dk, KARMAN_XML, "4",
                          "cuda_d2q9_resident[d2q9,fuse=8]",
@@ -721,10 +1070,20 @@ def main() -> int:
                   "phase 9b, drop.xml after 6000 iterations")
     check_globals_flavour(gk, (drop_dev,), errs, "phase 9b")
     band_drop = run_drop_band(gk, drop1024)
-    # one generic2d_resident launch of drop.xml's path: the even part of
-    # niter - 1 for its Log interval of 500 iterations
+    path_heat = run_heat_adj(gk, ak)
+    heat_band = run_heat1024(gk, ak, heat1024)
+    # the developed 512x1024 flow (after the gradients' counts were read)
+    check_kernels([(gk, heat1024, "generic2d_step")], errs,
+                  "phase 12b, the 512x1024 heat_adj channel after 2000 "
+                  "iterations")
+    check_step_b(ak, gk, (heat1024,), errs, "phase 12b")
+    # one generic2d_resident launch of each path: the even part of
+    # niter - 1 for drop.xml's Log interval of 500 iterations and for
+    # heat_adj.xml's one Solve of 4000
     log_every = int(ET.parse(DROP_XML).getroot().find("Log")
                     .get("Iterations"))
+    solve = int(ET.parse(HEAT_ADJ_XML).getroot().find("Solve")
+                .get("Iterations"))
     times = time_kernels([
         (dk, "d2q9_resident8", karman, 400), (dk, "d2q9_step", karman, 1000),
         (dk, "d2q9_step2", channel, 200),
@@ -732,61 +1091,89 @@ def main() -> int:
         (dk3, "d3q27_step2", channel3d, 200)])
     times.update(time_generic(gk, drop1024, drop_dev,
                               (log_every - 1) // 2 * 2))
-    busy = device_busy(karman, 400, "karman")
-    busy3d = device_busy(channel3d, 200, "3d_channel")
-    busy_drop = device_busy(drop_dev, 2000, "drop")
+    times.update(time_generic(gk, heat1024, heat_adj_solve_state(
+        HEAT_ADJ_XML), (solve - 1) // 2 * 2, plain_reps=1))
+    times.update(time_step_b(ak, gk, heat1024))
+    busy = device_busy(lambda: karman.iterate(400), "a karman iterate(400)")
+    busy3d = device_busy(lambda: channel3d.iterate(200),
+                         "a 3d_channel iterate(200)")
+    busy_drop = device_busy(lambda: drop_dev.iterate(2000),
+                            "a drop iterate(2000)")
+    busy_grad = device_busy(heat_band.pop("grad_fn"),
+                            "the 1000-step 512x1024 heat_adj gradient")
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
                 for name in dk.KERNELS}
     launches.update({name: {"3d_channel": path3d["launches"][name]}
                      for name in dk3.KERNELS})
-    launches.update({name: {"drop": path_drop["launches"][name],
-                            "drop1024": band_drop["launches"][name]}
-                     for name in gk.KERNELS})
+    launches.update({f"{name}[d2q9_kuper]": {
+        "drop": path_drop["launches"][name],
+        "drop1024": band_drop["launches"][name]} for name in gk.KERNELS})
+    launches.update({f"{name}[d2q9_heat_adj]": {
+        "heat_adj": path_heat["launches"][name],
+        "heat_adj1024": heat_band["launches"].get(name, 0),
+        "heat_adj1024_gradient": heat_band["grad_launches"][name]}
+        for name in gk.KERNELS + ak.KERNELS})
     sources = {**{n: SOURCES["d2q9"] for n in dk.KERNELS},
                **{n: SOURCES["d3q27"] for n in dk3.KERNELS},
-               **{n: SOURCES["generic"] for n in gk.KERNELS}}
+               **{n: SOURCES["generic"] for n in gk.KERNELS},
+               **{n: SOURCES["adjoint"] for n in ak.KERNELS}}
     kernels = []
-    for name in dk.KERNELS + dk3.KERNELS + gk.KERNELS:
-        by_path = launches[name]
+    for key, by_path in launches.items():
+        name = key.split("[")[0]
         if sum(by_path.values()) < 1:
-            fail(f"{name} was launched no time on the path")
+            fail(f"{key} was launched no time on the path")
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": key, "route": "cuda",
             "source": "tclb_tpu_torch/csrc/" + sources[name],
             "replaces": TPU_KERNELS[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": errs[name]["max_abs_err"],
-            "max_rel_err": errs[name]["max_rel_err"],
-            "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-            "bound_ms": times[name]["bound_ms"],
-            "bound_by": times[name]["bound_by"],
+            "max_abs_err": errs[key]["max_abs_err"],
+            "max_rel_err": errs[key]["max_rel_err"],
+            "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+            "bound_ms": times[key]["bound_ms"],
+            "bound_by": times[key]["bound_by"],
             "library_ms": None,
-            "wrapper_host_ms": times[name]["wrapper_host_ms"],
-            "shape": times[name]["shape"],
+            "wrapper_host_ms": times[key]["wrapper_host_ms"],
+            "shape": times[key]["shape"],
         })
     by_name = {k["name"]: k for k in kernels}
-    by_name["generic2d_step"]["globals_flavour"] = {
-        **{k: times["generic2d_step globals"][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "wrapper_host_ms", "shape")},
-        "launches_by_path": {"drop1024": band_drop["flavours"]["globals"]},
-        "globals_max_abs_err": errs["generic2d_step globals"]["max_abs_err"]}
-    by_name["generic2d_resident"]["steps"] = \
-        times["generic2d_resident"]["steps"]
+    for model, flavour_launches in (
+            ("d2q9_kuper", {"drop1024": band_drop["flavours"]["globals"]}),
+            ("d2q9_heat_adj",
+             {"heat_adj": path_heat["flavours"]["globals"],
+              "heat_adj1024": heat_band["flavours"]["globals"]})):
+        key = f"generic2d_step[{model}]"
+        by_name[key]["globals_flavour"] = {
+            **{k: times[f"{key} globals"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "wrapper_host_ms", "shape")},
+            "launches_by_path": flavour_launches,
+            "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
+        res = f"generic2d_resident[{model}]"
+        by_name[res]["steps"] = times[res]["steps"]
+    step_b = "generic2d_step_b[d2q9_heat_adj]"
+    by_name[step_b]["settings_max_rel_err"] = \
+        errs[f"{step_b} settings"]["max_rel_err"]
     keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
             "iterate_host_ms", "eager_step_ms", "eager_steps")
+    heat_keys = ("wall_s", "objectives", "material", "fd_records",
+                 "grad_rel_l2_f64", "solid_nodes")
     say(json.dumps({
         "karman": {k: main_path[k] for k in keys},
         "channel_mlups_iterate": band["mlups_iterate"],
         "3d_channel": {k: path3d[k] for k in keys},
         "drop": {k: path_drop[k] for k in keys},
         "drop1024_mlups_iterate": band_drop["mlups_iterate"],
+        "heat_adj": {k: path_heat[k] for k in heat_keys},
+        "heat_adj1024": {k: heat_band[k] for k in (
+            "mlups_iterate", "grad8_max_abs_err", "grad1000")},
         "karman_iterate_profile": busy,
         "3d_channel_iterate_profile": busy3d,
-        "drop_iterate_profile": busy_drop}))
+        "drop_iterate_profile": busy_drop,
+        "heat_adj1024_gradient_profile": busy_grad}))
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The port's counterpart of the JAX package's ``control/handlers.py``: the
 same scheduling (fractional intervals, Now/Next), the same recursive
 ``GenericAction`` execution with callback stacking, and the handlers the
-main path and its goldens use.  Every other element of the JAX package's
+main path and its goldens use; the adjoint and optimization handlers are
+in ``opt_handlers.py``.  Every other element of the JAX package's
 handler table raises ``NotImplementedError`` naming the ROADMAP item that
 ports it; an element neither package knows raises ``ValueError``.
 
@@ -369,10 +370,8 @@ _HANDLERS = {
 _WAITING = {
     "SyntheticTurbulence": 8,
     "Control": 10, "Sample": 10, "Keep": 10,
-    "Adjoint": 11, "FDTest": 11, "Threshold": 11, "ThresholdNow": 11,
-    "Optimize": 11, "OptSolve": 11, "InternalTopology": 11,
-    "OptimalControl": 11, "OptimalControlSecond": 11, "Fourier": 11,
-    "BSpline": 11, "RepeatControl": 11,
+    "OptSolve": 11, "OptimalControl": 10, "OptimalControlSecond": 10,
+    "Fourier": 10, "BSpline": 10, "RepeatControl": 10,
     "BIN": 13, "SaveBinary": 13, "SaveMemoryDump": 13, "SaveCheckpoint": 13,
     "LoadBinary": 13, "LoadMemoryDump": 13,
     "TXT": 15, "Catalyst": 15, "DumpSettings": 15, "CallPython": 15,
@@ -380,9 +379,14 @@ _WAITING = {
 }
 
 
+def _optimization_handlers() -> dict:
+    from tclb_tpu_torch.control.opt_handlers import HANDLERS
+    return HANDLERS
+
+
 def get_handler(node: ET.Element, solver: Solver) -> Optional[Handler]:
     """Element name -> handler instance."""
-    cls = _HANDLERS.get(node.tag)
+    cls = _HANDLERS.get(node.tag) or _optimization_handlers().get(node.tag)
     if cls is not None:
         return cls(node, solver)
     if node.tag in _WAITING:

@@ -43,6 +43,15 @@ class Solver:
         self.shape: tuple[int, ...] = ()
         self.iter = 0
         self.opt_iter = 0
+        # what the adjoint and optimization handlers record
+        self.designs: list = []      # <InternalTopology> and friends
+        self.design: Any = None
+        self.adjoint_engine: Optional[str] = None
+        self.objective: Optional[float] = None
+        self.gradient: Any = None
+        self.fd_records: list = []   # <FDTest>
+        self.opt_history: list = []  # <Optimize>: each evaluation's objective
+        self.opt_material: Optional[dict] = None
         self.hands: list = []        # stacked periodic callbacks
         self.log: Optional[CSVLog] = None
         self.start_walltime = time.time()

@@ -15,7 +15,8 @@ and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
 :mod:`tclb_tpu_torch.ops.d2q9_kernels` and
 :mod:`tclb_tpu_torch.ops.d3q27_kernels` take ``niter - 1`` steps and one
 eager step computes the globals (the JAX package's hybrid); the generic
-kernels of :mod:`tclb_tpu_torch.ops.generic_kernels` (``d2q9_kuper``) sum
+kernels of :mod:`tclb_tpu_torch.ops.generic_kernels` (``d2q9_kuper``,
+``d2q9_heat_adj``) sum
 the globals themselves (``full_globals``) and take all ``niter`` steps.
 The engine is chosen by each module's ``supports()``; a kernel that fails
 to build or launch fails the run — nothing falls back to eager after a

@@ -5,21 +5,26 @@
 // inside a Pallas band kernel.  CUDA cannot trace Python, so this file does
 // what TCLB does with a model's Dynamics.c: a model-independent template
 // (streaming, the stage plan, node types, zonal settings, globals) around
-// one __device__ function per stage from csrc/models/<model>.cuh.  Today
-// that header is d2q9_kuper's; another model builds this template with its
-// own header.
+// one __device__ function per stage from csrc/models/<model>.cuh.  The
+// build compiles this template once per model, with the model's header
+// pre-included (nvcc -include csrc/models/<model>.cuh), into a library of
+// its own.
 //
 //   generic2d_step      one Iteration per launch (replaces
 //                       tclb_tpu/ops/pallas_generic.py:make_pallas_iterate,
 //                       `call` and its in-kernel-globals flavour `call_g`).
-//                       A 32x16 block runs stage 0 on its 30x14 output tile
-//                       plus the one-node ring stage 1 pulls from, keeping
-//                       stage 0's output planes in shared memory, then
-//                       stage 1 on the tile.  Pulls and Field loads wrap
-//                       periodically by index arithmetic.  Bound by bytes:
-//                       a node reads its 10 planes and flag and writes 10
-//                       planes (84 B) for ~500 flops; stage 0 reads stay in
-//                       L1/L2 where the rings of neighbouring blocks
+//                       A two-stage action (d2q9_kuper): a 32x16 block runs
+//                       stage 0 on its 30x14 output tile plus the one-node
+//                       ring stage 1 pulls from, keeping stage 0's output
+//                       planes in shared memory, then stage 1 on the tile.
+//                       A one-stage action (d2q9_heat_adj) has no ring: the
+//                       stage writes straight to the 32x16 output tile.
+//                       Pulls and Field loads wrap periodically by index
+//                       arithmetic.  Bound by bytes: a d2q9_kuper node reads
+//                       its 10 planes and flag and writes 10 planes (84 B)
+//                       for ~500 flops, a d2q9_heat_adj node 19 planes and
+//                       a flag and writes 19 (156 B) for ~300 flops; stage 0
+//                       reads stay in L1/L2 where neighbouring blocks
 //                       overlap.  The globals flavour (kGlobals) also sums
 //                       each SUM global over the output tiles: per-thread
 //                       double sums, a fixed-order block reduction into one
@@ -36,12 +41,15 @@
 //                       write per launch, and the barriers set its time.
 //                       Planes written during the launch are read through
 //                       L2 only (__ldcg), never through the read-only path.
+//   generic2d_step_b    the reverse of one generic2d_step for models with a
+//                       hand-written reverse stage (csrc/generic2d_adjoint.cuh,
+//                       built where the header defines TCLB_MODEL_ADJOINT).
 //
 // Like the JAX engine, the stage plan runs on shrinking rings: stage s
-// computes its output on the tile plus model::stage_ext(s) nodes, and the
-// template supports the two-stage actions (stage 0 with a ring, stage 1 on
-// the tile) that d2q9_kuper has.  Nothing of the TPU's ghost rows or (8,128)
-// alignment is carried over: any ny, nx, ragged edges masked.
+// computes its output on the tile plus model::stage_ext(s) nodes; the
+// template runs one-stage actions and two-stage actions whose second stage
+// reads a one-node ring of the first.  Nothing of the TPU's ghost rows or
+// (8,128) alignment is carried over: any ny, nx, ragged edges masked.
 //
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
@@ -49,18 +57,20 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "models/d2q9_kuper.cuh"
-
 namespace cg = cooperative_groups;
 
-static_assert(model::N_STAGES == 2 && model::stage_ext(1) == 0,
-              "the template runs a stage with a ring, then one on the tile");
+static_assert((model::N_STAGES == 2 && model::stage_ext(1) == 0)
+                  || (model::N_STAGES == 1 && model::stage_ext(0) == 0),
+              "the template runs a stage with a ring, then one on the tile, "
+              "or one stage on the tile");
 
-constexpr int RING = model::stage_ext(0);
+constexpr bool TWO_STAGES = model::N_STAGES == 2;
+constexpr int RING = TWO_STAGES ? model::stage_ext(0) : 0;
 constexpr int BX = 32, BY = 16;                    // threads of a step block
 constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
 constexpr int RESIDENT_THREADS = 256;
-constexpr unsigned ALL_WRITES = model::stage_writes(0) | model::stage_writes(1);
+constexpr unsigned ALL_WRITES =
+    model::stage_writes(0) | (TWO_STAGES ? model::stage_writes(1) : 0u);
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
 struct Generic2dArgs {
@@ -187,20 +197,21 @@ __device__ __forceinline__ void run_stage(const Generic2dArgs& a,
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavour, per launch
 
-// Sum each thread's `acc` over the block in a fixed order (warp shuffles,
-// then the warps in order) into partials[block], and let the last block to
-// arrive add the partials in block order into gout.  One launch of the
-// globals flavour at a time (the arrival counter is shared).
-__device__ void finish_globals(const double* acc, double* partials,
-                               float* gout) {
-  __shared__ double warp_sum[NG][BX * BY / 32];
+// Sum each thread's `acc[N]` over the block in a fixed order (warp
+// shuffles, then the warps in order) into partials[block], and let the last
+// block to arrive add the partials in block order and hand each total to
+// `put(i, total)`.  One launch per arrival counter `done` at a time.
+template <int N, class Put>
+__device__ void finish_sums(const double* acc, double* partials,
+                            unsigned int* done, Put put) {
+  __shared__ double warp_sum[N][BX * BY / 32];
   __shared__ bool last;
   const int tid = threadIdx.y * BX + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int nblocks = gridDim.x * gridDim.y;
   const int block = blockIdx.y * gridDim.x + blockIdx.x;
 #pragma unroll
-  for (int g = 0; g < NG; ++g) {
+  for (int g = 0; g < N; ++g) {
     double v = acc[g];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -209,21 +220,21 @@ __device__ void finish_globals(const double* acc, double* partials,
   }
   __syncthreads();
   if (tid == 0) {
-    for (int g = 0; g < NG; ++g) {
+    for (int g = 0; g < N; ++g) {
       double v = 0.0;
       for (int w = 0; w < BX * BY / 32; ++w) v += warp_sum[g][w];
-      partials[(size_t)block * NG + g] = v;
+      partials[(size_t)block * N + g] = v;
     }
     __threadfence();
-    last = atomicAdd(&g_blocks_done, 1u) == (unsigned)nblocks - 1;
+    last = atomicAdd(done, 1u) == (unsigned)nblocks - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int g = 0; g < NG; ++g) {
+  for (int g = 0; g < N; ++g) {
     double v = 0.0;
     for (int b = tid; b < nblocks; b += BX * BY)
-      v += __ldcg(partials + (size_t)b * NG + g);
+      v += __ldcg(partials + (size_t)b * N + g);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
@@ -233,10 +244,10 @@ __device__ void finish_globals(const double* acc, double* partials,
     if (tid == 0) {
       double t = 0.0;
       for (int w = 0; w < BX * BY / 32; ++w) t += warp_sum[g][w];
-      gout[g] = (float)t;
+      put(g, t);
     }
   }
-  if (tid == 0) g_blocks_done = 0;
+  if (tid == 0) *done = 0;
 }
 
 template <bool kGlobals>
@@ -245,7 +256,6 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
                       const int* __restrict__ flags,
                       const float* __restrict__ ztab, const Generic2dArgs a,
                       double* partials, float* gout) {
-  __shared__ float tile[model::N_STORAGE * BY * BX];
   const size_t n = (size_t)a.ny * a.nx;
   const int ly = threadIdx.y, lx = threadIdx.x;
   // this thread's stage-0 node, unwrapped: the block's ring starts RING
@@ -261,23 +271,36 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
 
   const DeviceStorage<false> in{fin, a.ny, a.nx};
-  run_stage<0, kGlobals>(a, in, TileOut{tile, ly, lx}, ztab, acc, y, x, flag,
-                         out_node);
-  __syncthreads();
-  if (out_node) {
-    const size_t idx = (size_t)y * a.nx + x;
-    run_stage<1, kGlobals>(a, TileStorage{tile, y0, x0, in},
-                           DeviceOut{fout, idx, n}, ztab, acc, y, x, flag,
-                           true);
+  if constexpr (TWO_STAGES) {
+    __shared__ float tile[model::N_STORAGE * BY * BX];
+    run_stage<0, kGlobals>(a, in, TileOut{tile, ly, lx}, ztab, acc, y, x,
+                           flag, out_node);
+    __syncthreads();
+    if (out_node) {
+      const size_t idx = (size_t)y * a.nx + x;
+      run_stage<1, kGlobals>(a, TileStorage{tile, y0, x0, in},
+                             DeviceOut{fout, idx, n}, ztab, acc, y, x, flag,
+                             true);
 #pragma unroll
-    for (int k = 0; k < model::N_STORAGE; ++k) {
-      if (writes(0, k) && !writes(1, k))
-        fout[k * n + idx] = tile[(k * BY + ly) * BX + lx];
-      else if (!((ALL_WRITES >> k) & 1u))   // no stage writes it
-        fout[k * n + idx] = fin[k * n + idx];
+      for (int k = 0; k < model::N_STORAGE; ++k) {
+        if (writes(0, k) && !writes(1, k))
+          fout[k * n + idx] = tile[(k * BY + ly) * BX + lx];
+        else if (!((ALL_WRITES >> k) & 1u))   // no stage writes it
+          fout[k * n + idx] = fin[k * n + idx];
+      }
     }
+  } else if (out_node) {
+    // one stage, no ring: the stage writes the output tile itself
+    const size_t idx = (size_t)y * a.nx + x;
+    run_stage<0, kGlobals>(a, in, DeviceOut{fout, idx, n}, ztab, acc, y, x,
+                           flag, true);
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      if (!writes(0, k)) fout[k * n + idx] = fin[k * n + idx];
   }
-  if constexpr (kGlobals) finish_globals(acc, partials, gout);
+  if constexpr (kGlobals)
+    finish_sums<NG>(acc, partials, &g_blocks_done,
+                    [gout](int g, double t) { gout[g] = (float)t; });
 }
 
 // ---------------------------------------------------------------------------
@@ -312,13 +335,15 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
                           nullptr, y, x, __ldg(flags + idx), false);
     }
     grid.sync();
-    const StepStorage st{DeviceStorage<true>{dst, a.ny, a.nx}, in};
-    for (int idx = first; idx < (int)n; idx += stride) {
-      const int y = idx / a.nx, x = idx - y * a.nx;
-      run_stage<1, false>(a, st, DeviceOut{dst, (size_t)idx, n}, ztab,
-                          nullptr, y, x, __ldg(flags + idx), false);
+    if constexpr (TWO_STAGES) {
+      const StepStorage st{DeviceStorage<true>{dst, a.ny, a.nx}, in};
+      for (int idx = first; idx < (int)n; idx += stride) {
+        const int y = idx / a.nx, x = idx - y * a.nx;
+        run_stage<1, false>(a, st, DeviceOut{dst, (size_t)idx, n}, ztab,
+                            nullptr, y, x, __ldg(flags + idx), false);
+      }
+      grid.sync();
     }
-    grid.sync();
     src = dst;
     dst = (dst == scratch) ? fout : scratch;
   }
@@ -401,3 +426,7 @@ int generic2d_resident(const float* fin, float* fout, float* scratch,
 }
 
 }  // extern "C"
+
+#ifdef TCLB_MODEL_ADJOINT
+#include "generic2d_adjoint.cuh"
+#endif

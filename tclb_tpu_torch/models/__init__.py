@@ -1,7 +1,8 @@
 """Model catalogue of the PyTorch port.  ``get_model`` builds (and caches)
 the frozen Model with physics bound.  Ported so far: ``d2q9``,
-``d3q27_cumulant`` and ``d2q9_kuper``; the other models of the JAX package
-follow ROADMAP queue 1 items 7, 8, 10 and 11."""
+``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat`` and ``d2q9_heat_adj``;
+the other models of the JAX package follow ROADMAP queue 1 items 7, 8, 10
+and 11."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ _REGISTRY: dict[str, str] = {
     "d2q9": "tclb_tpu_torch.models.d2q9",
     "d3q27_cumulant": "tclb_tpu_torch.models.d3q27_cumulant",
     "d2q9_kuper": "tclb_tpu_torch.models.d2q9_kuper",
+    "d2q9_heat": "tclb_tpu_torch.models.d2q9_heat",
+    "d2q9_heat_adj": "tclb_tpu_torch.models.d2q9_heat_adj",
 }
 
 _CACHE: dict[str, Model] = {}

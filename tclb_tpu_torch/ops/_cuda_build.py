@@ -2,9 +2,13 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``tclb_tpu_torch/csrc/`` builds once per content into
-``build/tclb_tpu_torch/lib<name>_<digest>.so``; the digest covers the
-source, every header it includes from ``csrc/`` (``#include "..."``,
-followed recursively) and the compiler flags, and the compiler's report
+``build/tclb_tpu_torch/libtclb_<name>_<digest>.so``; a template built per
+model (``generic2d``) pre-includes the model's device header
+(``nvcc -include csrc/models/<model>.cuh``) into
+``libtclb_<name>_<model>_<digest>.so``.  The digest covers the source, the
+pre-included header, every header either includes from ``csrc/``
+(``#include "..."``, followed recursively) and the compiler flags, and the
+compiler's report
 (``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
 beside the library.  Nothing here runs at import: the kernel modules build
 at first use.
@@ -18,6 +22,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+from typing import Optional
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
@@ -47,13 +52,20 @@ def included(src: pathlib.Path) -> list[pathlib.Path]:
     return seen
 
 
-def digest(name: str) -> str:
-    """Content digest of ``csrc/<name>.cu``, its included headers and its
-    compiler flags."""
+def _flags(name: str, header: Optional[str]) -> tuple:
+    pre = () if header is None else ("-include", header)
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + pre
+
+
+def digest(name: str, header: Optional[str] = None) -> str:
+    """Content digest of ``csrc/<name>.cu`` built with the pre-included
+    ``csrc/<header>`` (if any), the headers both include and the compiler
+    flags."""
     h = hashlib.sha1()
-    for path in included(CSRC / f"{name}.cu"):
+    paths = [] if header is None else included(CSRC / header)
+    for path in paths + included(CSRC / f"{name}.cu"):
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
+    h.update(" ".join(_flags(name, header)).encode())
     return h.hexdigest()[:12]
 
 
@@ -67,19 +79,24 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str) -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/<name>.cu`` for sm_90a (once per source content).
-    Returns the library path and the compiler's report."""
+def build(name: str, header: Optional[str] = None
+          ) -> tuple[pathlib.Path, str]:
+    """Compile ``csrc/<name>.cu`` for sm_90a (once per source content),
+    with ``csrc/<header>`` pre-included where given (a model's device
+    header).  Returns the library path and the compiler's report."""
     src = CSRC / f"{name}.cu"
-    tag = digest(name)
-    lib = BUILD_DIR / f"libtclb_{name}_{tag}.so"
-    report = BUILD_DIR / f"libtclb_{name}_{tag}.log"
+    tag = digest(name, header)
+    stem = name if header is None else \
+        f"{name}_{pathlib.Path(header).stem}"
+    lib = BUILD_DIR / f"libtclb_{stem}_{tag}.so"
+    report = BUILD_DIR / f"libtclb_{stem}_{tag}.log"
     if lib.exists():
         return lib, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()),
-                           "-o", str(tmp), str(src)],
+    flags = [str(CSRC / f) if f == header else f
+             for f in _flags(name, header)]
+    proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"

@@ -6,9 +6,10 @@ a model's Python stage functions inside its Pallas kernels.  CUDA cannot
 trace Python, so a model reaches these kernels through its device physics:
 one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
 compiled into the model-independent template ``csrc/generic2d.cu``
-(streaming, the stage plan, node types, zonal settings, globals).
-``DEVICE_MODELS`` lists the models that have such a header (``d2q9_kuper``
-today) with the registry layout the header indexes by position.
+(streaming, the stage plan, node types, zonal settings, globals), built
+once per model into a library of its own.  ``DEVICE_MODELS`` lists the
+models that have such a header (``d2q9_kuper`` and ``d2q9_heat_adj``) with
+the registry layout the header indexes by position.
 
 Two kernels; each wrapper launches its kernel for a CUDA tensor (or raises)
 and runs the plain version for a CPU tensor, and counts its launches in
@@ -16,8 +17,9 @@ and runs the plain version for a CPU tensor, and counts its launches in
 
 ``step`` / ``step_globals`` (``generic2d_step``) replace
     ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
-    ``call_g``: one whole Iteration per launch, stage 0 on the output tile
-    plus a one-node ring into shared memory, stage 1 on the tile.  Bound
+    ``call_g``: one whole Iteration per launch (a two-stage action runs
+    stage 0 on the output tile plus a one-node ring into shared memory and
+    stage 1 on the tile, a one-stage action its stage on the tile).  Bound
     by bytes (see ``launch_bytes`` and ``node_step_flops``).  The globals
     flavour also returns the last step's SUM globals, reduced in a fixed
     order (no float atomics).
@@ -71,6 +73,7 @@ class DeviceModel:
     zonal: tuple
     globals_: tuple
     plan: tuple
+    adjoint: bool = False    # the header has a reverse stage_b
 
 
 DEVICE_MODELS = {
@@ -88,9 +91,21 @@ DEVICE_MODELS = {
         zonal=("Density",),
         globals_=("WallForceX", "WallForceY"),
         plan=(("BaseIteration", 1), ("CalcPhi", 0))),
+    "d2q9_heat_adj": DeviceModel(
+        header="models/d2q9_heat_adj.cuh",
+        storage=tuple(f"f[{k}]" for k in range(9))
+        + tuple(f"T[{k}]" for k in range(9)) + ("w",),
+        settings=("omega", "nu", "InletVelocity", "InletTemperature",
+                  "InitTemperature", "InletDensity", "FluidAlfa",
+                  "SolidAlfa", "HeatSource", "Porocity", "HeatFluxInObj",
+                  "HeatSourceTotalInObj", "MaterialInObj", "DragInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "EPressure", "Outlet"),
+        groups=("COLLISION", "DESIGNSPACE"),
+        zonal=("Porocity",),
+        globals_=("HeatFlux", "HeatSourceTotal", "Material", "Drag"),
+        plan=(("BaseIteration", 0),),
+        adjoint=True),
 }
-# the one model csrc/generic2d.cu is built with
-BUILT_MODEL = "d2q9_kuper"
 
 
 def reset_launches() -> None:
@@ -143,7 +158,7 @@ def check_layout(model: Model) -> None:
         groups=tuple(g for g in dm.groups if g in model.group_masks),
         zonal=tuple(model.zonal_settings),
         globals_=tuple(g.name for g in model.globals_),
-        plan=tuple(action_plan(model)[0]))
+        plan=tuple(action_plan(model)[0]), adjoint=dm.adjoint)
     if got != dm:
         raise ValueError(f"{model.name}: registry layout {got} is not the "
                          f"one {dm.header} is written against: {dm}")
@@ -155,21 +170,20 @@ def check_layout(model: Model) -> None:
 # Arguments: everything a kernel reads besides the planes and the zone table
 # --------------------------------------------------------------------------- #
 
-_BUILT = DEVICE_MODELS[BUILT_MODEL]
-
-
-class _CArgs(ctypes.Structure):
+@functools.lru_cache(maxsize=None)
+def c_args_type(model: str) -> type:
     """Mirror of ``struct Generic2dArgs`` in csrc/generic2d.cu (field for
-    field), at the sizes of the built model's header."""
-
-    _fields_ = [
-        ("ny", ctypes.c_int), ("nx", ctypes.c_int),
-        ("zone_shift", ctypes.c_int), ("zone_max", ctypes.c_int),
-        ("setting", ctypes.c_float * len(_BUILT.settings)),
-        ("nt_mask", ctypes.c_int * len(_BUILT.node_types)),
-        ("nt_val", ctypes.c_int * len(_BUILT.node_types)),
-        ("group_mask", ctypes.c_int * len(_BUILT.groups)),
-    ]
+    field), at the sizes of ``model``'s device header."""
+    dm = DEVICE_MODELS[model]
+    return type(f"Generic2dArgs_{model}", (ctypes.Structure,), {
+        "_fields_": [
+            ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+            ("zone_shift", ctypes.c_int), ("zone_max", ctypes.c_int),
+            ("setting", ctypes.c_float * len(dm.settings)),
+            ("nt_mask", ctypes.c_int * len(dm.node_types)),
+            ("nt_val", ctypes.c_int * len(dm.node_types)),
+            ("group_mask", ctypes.c_int * len(dm.groups)),
+        ]})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,9 +201,9 @@ class StepArgs:
     zone_max: int
 
     @functools.cached_property
-    def c_struct(self) -> _CArgs:
+    def c_struct(self) -> ctypes.Structure:
         """The ``struct Generic2dArgs`` the kernels take (built once)."""
-        c = _CArgs()
+        c = c_args_type(self.model)()
         c.ny, c.nx = self.ny, self.nx
         c.zone_shift, c.zone_max = self.zone_shift, self.zone_max
         c.setting[:] = [float(np.float32(v)) for v in self.settings]
@@ -219,10 +233,50 @@ def step_args(model: Model, shape, settings: np.ndarray) -> StepArgs:
 # --------------------------------------------------------------------------- #
 
 
+def count_types(model: Model, flags: np.ndarray, *names: str) -> int:
+    """Nodes of a flag field whose group field equals one of ``names``."""
+    flags = np.asarray(flags).astype(np.int64)
+    nt = model.node_types
+    return sum(int(((flags & nt[n].mask) == nt[n].value).sum())
+               for n in names)
+
+
+def count_group(model: Model, flags: np.ndarray, group: str) -> int:
+    """Nodes of a flag field with any bit of ``group`` set."""
+    flags = np.asarray(flags).astype(np.int64)
+    return int(((flags & model.group_masks[group]) != 0).sum())
+
+
 def node_step_flops(model: Model, flags: np.ndarray) -> int:
-    """Floating-point operations one Iteration of d2q9_kuper needs over a
-    flag field: what the function takes (models/d2q9_kuper.py), not what
-    csrc/generic2d.cu executes (it recomputes stage 0 on the ring).
+    """Floating-point operations one Iteration of a ``DEVICE_MODELS``
+    model needs over a flag field: what the function takes, not what
+    csrc/generic2d.cu executes (it recomputes stage 0 on the ring)."""
+    return {"d2q9_kuper": _kuper_flops,
+            "d2q9_heat_adj": _heat_adj_flops}[model.name](model, flags)
+
+
+def _heat_adj_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_heat_adj (models/d2q9_heat_adj.py), every node: rho and j
+    (8 + 5 + 5), two divisions, the equilibrium, 1 - w, the Brinkman
+    velocity (2), the second equilibrium, temp (8), alfa (4), om_t (3),
+    the source (1) and the temperature equilibrium (1 + 4 x 4 + 4 x 5); a
+    collision node adds the two collisions (5 x 9 each) and |ux| (1 - w)
+    (1); an Outlet node its heat flux (1); a WVelocity node its Zou/He
+    closure (22) and inlet temperature (9), an EPressure node its closure
+    (22)."""
+    from tclb_tpu_torch.models.d2q9 import E, W
+    from tclb_tpu_torch.ops.d2q9_kernels import _equilibrium_flops
+    eq = _equilibrium_flops(E, W)
+    every = 18 + 2 + eq + 1 + 2 + eq + 8 + 4 + 3 + 1 + (1 + 16 + 20)
+    coll = count_group(model, flags, "COLLISION")
+    return (every * int(np.asarray(flags).size) + (90 + 1) * coll
+            + count_types(model, flags, "Outlet")
+            + 31 * count_types(model, flags, "WVelocity")
+            + 22 * count_types(model, flags, "EPressure"))
+
+
+def _kuper_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_kuper (models/d2q9_kuper.py).
 
     A collision node: rho and j (8 + 5 + 5), two divisions, two equilibria
     (2 x 53), f - feq (9), ``M`` over its nonzeros, the nine keep factors,
@@ -251,17 +305,11 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
                + force)
     wall = _combo_flops(E[:, 0]) + _combo_flops(E[:, 1]) + 2 + 2 + 2
     calc_phi = _combo_flops(np.ones(len(W))) + 17 + 6
-    flags = np.asarray(flags).astype(np.int64)
-    nt = model.node_types
-
-    def count(name):
-        t = nt[name]
-        return int(((flags & t.mask) == t.value).sum())
-
-    coll = int(((flags & model.group_masks["COLLISION"]) != 0).sum())
-    return (collide * coll + wall * count("Wall")
-            + int(np.count_nonzero(E[:, 0])) * count("MovingWall")
-            + calc_phi * flags.size)
+    coll = count_group(model, flags, "COLLISION")
+    return (collide * coll + wall * count_types(model, flags, "Wall")
+            + int(np.count_nonzero(E[:, 0]))
+            * count_types(model, flags, "MovingWall")
+            + calc_phi * int(np.asarray(flags).size))
 
 
 def launch_bytes(model: Model, shape) -> int:
@@ -324,23 +372,28 @@ def plain_steps(fields, flags, ztab, a: StepArgs, n: int,
 # Build and bind
 # --------------------------------------------------------------------------- #
 
-_LIB: dict = {}    # the loaded library and per-device resident grids
+# model -> its loaded library, step tile and per-device resident grids
+_LIB: dict = {}
 
 
-def build() -> tuple[pathlib.Path, str]:
-    """Compile csrc/generic2d.cu (with its model header) for sm_90a into
-    build/tclb_tpu_torch/ (once per source content).  Returns the library
-    path and the compiler's report (``-Xptxas -v``)."""
-    return _cuda_build.build("generic2d")
+def build(model: str) -> tuple[pathlib.Path, str]:
+    """Compile csrc/generic2d.cu with ``model``'s device header for sm_90a
+    into build/tclb_tpu_torch/ (once per source content).  Returns the
+    library path and the compiler's report (``-Xptxas -v``)."""
+    return _cuda_build.build("generic2d", DEVICE_MODELS[model].header)
 
 
-def _lib() -> ctypes.CDLL:
-    if "lib" not in _LIB:
-        path, _ = build()
+def lib(model: str) -> ctypes.CDLL:
+    """``model``'s generic library, built and bound at first use; its
+    layout sizes are checked against ``DEVICE_MODELS``."""
+    entry = _LIB.setdefault(model, {})
+    if "lib" not in entry:
+        dm = DEVICE_MODELS[model]
+        path, _ = build(model)
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        argp = ctypes.POINTER(_CArgs)
+        argp = ctypes.POINTER(c_args_type(model))
         lib.generic2d_layout.argtypes = [ip] * 8
         lib.generic2d_layout.restype = None
         lib.generic2d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
@@ -351,34 +404,45 @@ def _lib() -> ctypes.CDLL:
         lib.generic2d_resident_capacity.restype = i
         lib.generic2d_error_string.argtypes = [i]
         lib.generic2d_error_string.restype = ctypes.c_char_p
+        if dm.adjoint:
+            lib.generic2d_step_b.argtypes = [p, p, p, argp, p, p, p, p, i, p]
+            lib.generic2d_step_b.restype = i
+            lib.generic2d_step_b_tile.argtypes = [ip, ip]
+            lib.generic2d_step_b_tile.restype = None
+            by, bx = ctypes.c_int(0), ctypes.c_int(0)
+            lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
+            entry["tile_b"] = (by.value, bx.value)
         vals = [ctypes.c_int(0) for _ in range(8)]
         lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
         tile_y, tile_x, *sizes = (v.value for v in vals)
-        want = [len(_BUILT.storage), len(_BUILT.settings),
-                len(_BUILT.node_types), len(_BUILT.groups),
-                len(_BUILT.zonal), len(_BUILT.globals_)]
+        want = [len(dm.storage), len(dm.settings), len(dm.node_types),
+                len(dm.groups), len(dm.zonal), len(dm.globals_)]
         if sizes != want:
             raise RuntimeError(f"{path.name} was built with layout sizes "
                                f"{sizes}, the wrapper expects {want}")
-        _LIB["tile"] = (tile_y, tile_x)
-        _LIB["lib"] = lib
-    return _LIB["lib"]
+        entry["tile"] = (tile_y, tile_x)
+        entry["lib"] = lib
+    return entry["lib"]
 
 
-def _check(lib, rc: int, what: str) -> None:
+def check(lib, rc: int, what: str) -> None:
+    """Raise on a nonzero CUDA error code from a launch."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error {rc} "
                            f"({lib.generic2d_error_string(rc).decode()})")
 
 
-def _validate(fields, flags, ztab, a: StepArgs) -> None:
-    if a.model != BUILT_MODEL:
-        raise ValueError(f"the generic kernels are built for {BUILT_MODEL},"
-                         f" not {a.model}")
+def validate(fields, flags, ztab, a: StepArgs) -> None:
+    """The kernels' inputs: contiguous f32 fields and zone table and int32
+    flags on one device, at the shapes of ``a.model``'s header."""
+    if a.model not in DEVICE_MODELS:
+        raise ValueError(f"no generic kernels for {a.model} (device "
+                         f"headers: {sorted(DEVICE_MODELS)})")
+    dm = DEVICE_MODELS[a.model]
     shape = (a.ny, a.nx)
-    want = ((fields, torch.float32, (len(_BUILT.storage),) + shape),
+    want = ((fields, torch.float32, (len(dm.storage),) + shape),
             (flags, torch.int32, shape),
-            (ztab, torch.float32, (len(_BUILT.zonal), a.zone_max)))
+            (ztab, torch.float32, (len(dm.zonal), a.zone_max)))
     for t, dtype, sh in want:
         if t.device != fields.device or t.dtype != dtype \
                 or tuple(t.shape) != sh or not t.is_contiguous():
@@ -388,31 +452,31 @@ def _validate(fields, flags, ztab, a: StepArgs) -> None:
                 f"{fields.device}")
 
 
-def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
+def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
 def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool):
-    _validate(fields, flags, ztab, a)
-    lib = _lib()
-    dev, stream = _device_and_stream(fields)
+    validate(fields, flags, ztab, a)
+    lb = lib(a.model)
+    dev, stream = device_and_stream(fields)
     out = torch.empty_like(fields)
     partials = gout = None
     if with_globals:
-        ty, tx = _LIB["tile"]
+        ty, tx = _LIB[a.model]["tile"]
         blocks = -(-a.ny // ty) * -(-a.nx // tx)
-        partials = torch.empty((blocks, len(_BUILT.globals_)),
-                               dtype=torch.float64, device=fields.device)
-        gout = torch.empty((len(_BUILT.globals_),), dtype=torch.float32,
-                           device=fields.device)
-    rc = lib.generic2d_step(
+        n_g = len(DEVICE_MODELS[a.model].globals_)
+        partials = torch.empty((blocks, max(n_g, 1)), dtype=torch.float64,
+                               device=fields.device)
+        gout = torch.empty((n_g,), dtype=torch.float32, device=fields.device)
+    rc = lb.generic2d_step(
         fields.data_ptr(), out.data_ptr(), flags.data_ptr(), ztab.data_ptr(),
         ctypes.byref(a.c_struct),
         partials.data_ptr() if with_globals else None,
         gout.data_ptr() if with_globals else None, dev, stream)
-    _check(lib, rc, "generic2d_step")
+    check(lb, rc, "generic2d_step")
     LAUNCHES["generic2d_step"] += 1
     FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
     return (out, gout) if with_globals else out
@@ -433,15 +497,17 @@ def step_globals(fields, flags, ztab, a: StepArgs) -> tuple:
     return _launch_step(fields, flags, ztab, a, with_globals=True)
 
 
-def resident_grid(device: int, nodes: int) -> int:
-    """Blocks of one cooperative ``generic2d_resident`` launch: as many as
-    the device holds at once, no more than the lattice needs.  Raises
-    when the device cannot launch cooperative kernels."""
+def resident_grid(model: str, device: int, nodes: int) -> int:
+    """Blocks of one cooperative ``generic2d_resident`` launch of
+    ``model``'s library: as many as the device holds at once, no more than
+    the lattice needs.  Raises when the device cannot launch cooperative
+    kernels."""
+    lb = lib(model)
+    entry = _LIB[model]
     key = ("capacity", device)
-    if key not in _LIB:
-        lib = _lib()
+    if key not in entry:
         coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        _check(lib, lib.generic2d_resident_capacity(
+        check(lb, lb.generic2d_resident_capacity(
             device, ctypes.byref(coop), ctypes.byref(blocks)),
             "generic2d_resident capacity query")
         if not coop.value:
@@ -451,8 +517,8 @@ def resident_grid(device: int, nodes: int) -> int:
         if blocks.value < 1:
             raise RuntimeError("generic2d_resident fits no block on device "
                                f"{device}")
-        _LIB[key] = blocks.value
-    return min(_LIB[key], (nodes + 255) // 256)
+        entry[key] = blocks.value
+    return min(entry[key], (nodes + 255) // 256)
 
 
 def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
@@ -463,17 +529,17 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
                          "count of at least 2")
     if fields.device.type == "cpu":
         return plain_steps(fields, flags, ztab, a, nsteps)
-    _validate(fields, flags, ztab, a)
-    lib = _lib()
-    dev, stream = _device_and_stream(fields)
-    blocks = resident_grid(dev, a.ny * a.nx)
+    validate(fields, flags, ztab, a)
+    lb = lib(a.model)
+    dev, stream = device_and_stream(fields)
+    blocks = resident_grid(a.model, dev, a.ny * a.nx)
     out = torch.empty_like(fields)
     scratch = torch.empty_like(fields)
-    rc = lib.generic2d_resident(
+    rc = lb.generic2d_resident(
         fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
         nsteps, blocks, dev, stream)
-    _check(lib, rc, "generic2d_resident")
+    check(lb, rc, "generic2d_resident")
     LAUNCHES["generic2d_resident"] += 1
     return out
 
@@ -495,9 +561,9 @@ WRAPPERS = {"generic2d_step": (step, 1),
 
 def supports(model: Model, shape, dtype) -> bool:
     """Whether the kernels run this configuration: a 2D model with device
-    physics (``DEVICE_MODELS``, built into the library), f32, whose
-    Iteration plan reaches no further than the step kernel's ring."""
-    return (model.name == BUILT_MODEL and model.ndim == 2
+    physics (``DEVICE_MODELS``), f32, whose Iteration plan reaches no
+    further than the step kernel's ring."""
+    return (model.name in DEVICE_MODELS and model.ndim == 2
             and len(shape) == 2 and dtype == torch.float32
             and min(int(s) for s in shape) >= 1
             and action_plan(model)[1] <= HALO)

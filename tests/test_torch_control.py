@@ -1,7 +1,7 @@
 """The port's control plane against the JAX package's: geometry painting,
 units, CSV/VTI output, the handler tree and the CLI, and each slice as a
-whole — the d2q9, channel3d and drop goldens reproduced through the port's
-``_run_root``."""
+whole — the d2q9, channel3d, drop and heat_adj goldens reproduced through
+the port's ``_run_root``."""
 
 # jax 0.9 turned batching.primitive_batchers into a proxy without ``in``,
 # which the JAX package's ops/lbm.py uses at import; give it one
@@ -29,6 +29,7 @@ from tclb_tpu_torch import __main__ as cli  # noqa: E402
 from tclb_tpu_torch.control import solver  # noqa: E402
 from tclb_tpu_torch.models import get_model  # noqa: E402
 from tclb_tpu_torch.utils import geometry, units, vtk  # noqa: E402
+from torch_cases import heat_adj_golden_columns  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_DIR = ROOT / "tests" / "goldens"
@@ -112,9 +113,28 @@ DROP = """<?xml version="1.0"?>
     <Solve Iterations="300"/>
 </CLBConfig>
 """
+# tests/test_golden.py's d2q9_heat_adj case, verbatim
+HEAT_ADJ = """<?xml version="1.0"?>
+<CLBConfig version="2.0" output="{out}/">
+    <Geometry nx="32" ny="16">
+        <MRT><Box/></MRT>
+        <WVelocity name="Inlet"><Box nx="1"/></WVelocity>
+        <EPressure name="Outlet"><Box dx="-1"/></EPressure>
+        <Wall mask="ALL"><Channel/></Wall>
+        <DesignSpace><Box dx="8" nx="16"/></DesignSpace>
+    </Geometry>
+    <Model>
+        <Params InletVelocity="0.02" nu="0.05"/>
+        <Params InletTemperature="1" InitTemperature="0"/>
+        <Params FluidAlfa="0.05" SolidAlfa="0.005"/>
+    </Model>
+    <Solve Iterations="150"/>
+</CLBConfig>
+"""
 # the model each golden case runs
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
-                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper"}
+                 "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper",
+                 "heat_adj": "d2q9_heat_adj"}
 
 # every handler of the slice on a small case: Log, VTK, Stop, Failcheck,
 # Repeat, Init and zonal Params, run through both packages
@@ -248,10 +268,12 @@ def test_unported_handler_names_its_roadmap_item(tmp_path, old, new):
 @pytest.mark.parametrize("name,xml", [("karman", KARMAN),
                                       ("poiseuille", POISEUILLE),
                                       ("channel3d", CHANNEL3D),
-                                      ("drop", DROP)])
+                                      ("drop", DROP),
+                                      ("heat_adj", HEAT_ADJ)])
 def test_golden_through_port(name, xml, tmp_path):
     """tests/goldens/<name>.json through the port's _run_root at f64 on
-    the CPU: same column set, RTOL 1e-10 / ATOL 1e-12."""
+    the CPU: same column set, RTOL 1e-10 / ATOL 1e-12; heat_adj adds the
+    gradient columns of tests/test_golden.py (the adjoint slice)."""
     s = solver._run_root(ET.fromstring(xml.format(out=tmp_path)),
                          get_model(GOLDEN_MODELS[name]), None,
                          torch.float64, str(tmp_path) + "/", name,
@@ -260,6 +282,10 @@ def test_golden_through_port(name, xml, tmp_path):
     fields = s.lattice.state.fields.numpy()
     row["FieldsL1"] = float(np.abs(fields).sum())
     row["FieldsSum"] = float(fields.sum())
+    if name == "heat_adj":
+        cols, engine = heat_adj_golden_columns(s)
+        assert engine == "eager"
+        row.update(cols)
     golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
     assert set(golden) == set(row), set(golden) ^ set(row)
     for key, want in golden.items():
@@ -279,8 +305,9 @@ def test_cli(tmp_path, capsys):
     assert "done: 16 iterations on cpu (engine eager)" in capsys.readouterr().out
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
-    assert capsys.readouterr().out.split() == ["d2q9", "d2q9_kuper",
-                                               "d3q27_cumulant"]
+    assert capsys.readouterr().out.split() == [
+        "d2q9", "d2q9_heat", "d2q9_heat_adj", "d2q9_kuper",
+        "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

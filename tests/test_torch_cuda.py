@@ -1,5 +1,5 @@
-"""The d2q9, d3q27 and generic CUDA kernels against their plain PyTorch
-versions on the card.
+"""The d2q9, d3q27, generic and adjoint CUDA kernels against their plain
+PyTorch versions on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -15,9 +15,11 @@ import torch
 from tclb_tpu_torch import Lattice, get_model
 from tclb_tpu_torch.ops import d2q9_kernels as dk
 from tclb_tpu_torch.ops import d3q27_kernels as dk3
+from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic_kernels as gk
-from torch_cases import (KUPER_SETTINGS, RICH3D_SETTINGS, RICH_SETTINGS,
-                         paint_rich, paint_rich_3d, paint_rich_kuper)
+from torch_cases import (HEAT_SETTINGS, KUPER_SETTINGS, RICH3D_SETTINGS,
+                         RICH_SETTINGS, heat_adj_golden_columns, paint_rich,
+                         paint_rich_3d, paint_rich_heat, paint_rich_kuper)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -221,3 +223,117 @@ def test_generic_lattice_engine_matches_eager(card_lattice_kuper, shape,
     got, want = lat.get_globals(), ref.get_globals()
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+@pytest.fixture
+def card_lattice_heat():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(shape, seed):
+        lat = Lattice(get_model("d2q9_heat_adj"), shape,
+                      dtype=torch.float32, settings=HEAT_SETTINGS,
+                      device="cuda")
+        return paint_rich_heat(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64), (37, 53), (512, 1024)])
+@pytest.mark.parametrize("name", gk.KERNELS)
+def test_heat_adj_kernel_matches_plain(card_lattice_heat, name, shape):
+    """d2q9_heat_adj's build of the generic kernels (one stage, no ring):
+    every node type the model reads, the ragged edge of the 32x16 tiles
+    (37x53), heat_adj.xml's and bench.py's shapes."""
+    lat = card_lattice_heat(shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    fn, n = gk.WRAPPERS[name]
+    gk.reset_launches()
+    got = fn(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES[name] == 1
+    torch.testing.assert_close(got, gk.plain_steps(f, flags, ztab, args, n),
+                               **FIELDS_TOL)
+    assert torch.equal(got[18], f[18])     # w carried through
+    got, g = gk.step_globals(f, flags, ztab, args)
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64), (37, 53), (512, 1024)])
+def test_step_b_matches_plain(card_lattice_heat, shape):
+    """generic2d_step_b against torch.func.vjp of the plain step: lam_in
+    at rtol 1e-4 / atol 1e-6, the settings cotangent at rtol 1e-4."""
+    lat = card_lattice_heat(shape, seed=6)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"generic2d_step_b": 1}
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=0.0)
+    # a fixed order of summation: the same inputs give the same bits
+    assert torch.equal(ak.step_b(f, flags, ztab, args, lam, lam_g)[1], gs)
+
+
+@pytest.mark.cuda
+def test_kernel_gradient_matches_eager(card_lattice_heat):
+    """An 8-step gradient on cuda_adjoint against the eager step's
+    autograd on the card, f32: rtol 1e-4 / atol 1e-7
+    (tests/test_pallas_adjoint.py:155)."""
+    from tclb_tpu_torch.adjoint import InternalTopology, \
+        make_unsteady_gradient
+    lat = card_lattice_heat((32, 64), seed=7)
+    design = InternalTopology(lat.model)
+    theta = design.get(lat.state, lat.params)
+    runs = {}
+    for engine in ("cuda", "eager"):
+        fn = make_unsteady_gradient(lat.model, design, 8, levels=1,
+                                    engine=engine, shape=lat.shape,
+                                    device="cuda")
+        runs[engine] = fn(theta, lat.state, lat.params)
+    assert fn.engine_name == "eager"
+    (oc, gc, _), (oe, ge, _) = runs["cuda"], runs["eager"]
+    assert float(oc) == pytest.approx(float(oe), rel=1e-5)
+    assert float(ge.abs().max()) > 0
+    torch.testing.assert_close(gc, ge, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_heat_adj_golden_on_the_card(tmp_path):
+    """tests/goldens/heat_adj.json in f32 on the card, gradient columns
+    on cuda_adjoint, against the f64 recording at rtol 1e-4 / atol 1e-6."""
+    import json
+    import pathlib
+    import xml.etree.ElementTree as ET
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from tclb_tpu_torch.control.solver import _run_root
+    root = pathlib.Path(__file__).resolve().parents[1]
+    src = (root / "tests" / "test_golden.py").read_text()
+    start = src.index('HEAT_ADJ = """') + len('HEAT_ADJ = """')
+    xml = src[start:src.index('"""', start)].format(out=tmp_path)
+    s = _run_root(ET.fromstring(xml), get_model("d2q9_heat_adj"), None,
+                  torch.float32, str(tmp_path) + "/", "heat_adj",
+                  device="cuda")
+    row = s.log_row()
+    fields = s.lattice.state.fields.double().cpu().numpy()
+    row["FieldsL1"] = float(abs(fields).sum())
+    row["FieldsSum"] = float(fields.sum())
+    cols, engine = heat_adj_golden_columns(s)
+    assert engine == "cuda_adjoint[d2q9_heat_adj,k=1]"
+    row.update(cols)
+    golden = json.loads((root / "tests" / "goldens" / "heat_adj.json")
+                        .read_text())
+    for key, want in golden.items():
+        if key != "Walltime":
+            assert abs(row[key] - want) <= 1e-6 + 1e-4 * abs(want), key

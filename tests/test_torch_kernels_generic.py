@@ -275,20 +275,34 @@ def test_device_header_matches_registry():
 
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
-    """Editing a header that generic2d.cu includes changes the library's
-    digest (a stale build is never reused); editing a file it does not
-    include does not."""
+    """generic2d.cu builds once per model, the model's header pre-included,
+    each library with its own digest.  Editing a model's header changes
+    that model's digest only (a stale build is never reused); editing the
+    adjoint header generic2d.cu includes changes both; editing a file
+    neither includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
     assert [p.name for p in _cuda_build.included(csrc / "generic2d.cu")] \
-        == ["generic2d.cu", "d2q9_kuper.cuh"]
-    before = _cuda_build.digest("generic2d")
+        == ["generic2d.cu", "generic2d_adjoint.cuh"]
+    headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()}
+    assert set(headers) == {"d2q9_kuper", "d2q9_heat_adj"}
+
+    def digests():
+        return {m: _cuda_build.digest("generic2d", h)
+                for m, h in headers.items()}
+
+    before = digests()
+    assert len(set(before.values())) == 2
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    edited = _cuda_build.digest("generic2d")
-    assert edited != before
+    edited = digests()
+    assert edited["d2q9_kuper"] != before["d2q9_kuper"]
+    assert edited["d2q9_heat_adj"] == before["d2q9_heat_adj"]
     assert _cuda_build.digest("d2q9") == d2q9
     (csrc / "d3q27.cu").write_text("// edited\n")
-    assert _cuda_build.digest("generic2d") == edited
+    assert digests() == edited
+    adj = csrc / "generic2d_adjoint.cuh"
+    adj.write_text(adj.read_text() + "\n// edited\n")
+    assert all(a != b for a, b in zip(digests().values(), edited.values()))

@@ -83,6 +83,7 @@ def test_globals_quantities_and_actions(pair):
 
 
 def test_catalogue_names_the_roadmap_for_models_not_ported():
-    assert list_models() == ["d2q9", "d2q9_kuper", "d3q27_cumulant"]
+    assert list_models() == ["d2q9", "d2q9_heat", "d2q9_heat_adj",
+                             "d2q9_kuper", "d3q27_cumulant"]
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model("d3q19")

@@ -193,3 +193,106 @@ def paint_rich_kuper(lat, seed):
         f"f[{k}]": f[k] * (1 + 0.01 * rng.standard_normal(lat.shape))
         for k in range(9)})
     return lat
+
+
+# d2q9_heat / d2q9_heat_adj: example/heat_adj.xml's settings with a heat
+# source and a drag weight, so every term of the step counts
+HEAT_SETTINGS = {"nu": 0.05, "InletVelocity": 0.02, "InletTemperature": 1.0,
+                 "InitTemperature": 0.0, "FluidAlfa": 0.05,
+                 "SolidAlfa": 0.005, "HeatSource": 1e-3,
+                 "HeatFluxInObj": 1.0, "DragInObj": 0.3,
+                 "MaterialInObj": 0.1}
+HEAT_SHAPE = (32, 64)       # example/heat_adj.xml's ny x nx
+HEAT_ZERO_UX = (12, 30)     # a collision node with ux == 0 and w < 1
+
+
+def rich_flags_heat(m, ny, nx):
+    """Every node type ``d2q9_heat_adj`` reads on a (ny, nx) field: a W
+    velocity inlet, an E pressure outlet, channel walls, a Solid block, an
+    Outlet column over MRT and a DesignSpace block; for ``d2q9_heat`` a
+    Heater patch in place of the design space."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f("MRT"), dtype=np.uint16)
+    flags[:, 0] = f("WVelocity", "MRT")
+    flags[:, -1] = f("EPressure", "MRT")
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[ny // 2 - 2:ny // 2 + 1, nx // 8:nx // 8 + 3] = f("Solid")
+    flags[1:-1, -3] = f("MRT", "Outlet")
+    extra = "Heater" if "Heater" in m.node_types else "DesignSpace"
+    flags[ny // 4:3 * ny // 4, nx // 4:3 * nx // 4] |= np.uint16(f(extra))
+    return flags
+
+
+def heat_planes(m, shape, seed):
+    """Populations of a flowing, warm state with 1% noise and, where the
+    model has one, a design field w in [0.1, 1] (1 off the design
+    space)."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:9, :2].astype(np.float64)
+    wt = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.02 + 0.01 * rng.standard_normal((2,) + shape)
+    temp = 0.5 + 0.3 * rng.random(shape)
+    planes = {}
+    for k in range(9):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+        feq = wt[k] * rho * (1 + 3 * eu + 4.5 * eu * eu
+                             - 1.5 * (u * u).sum(0))
+        planes[f"f[{k}]"] = feq * (1 + 0.01 * rng.standard_normal(shape))
+        planes[f"T[{k}]"] = wt[k] * temp * (1 + 3 * eu) \
+            * (1 + 0.01 * rng.standard_normal(shape))
+    if "w" in m.storage_index:
+        planes["w"] = 0.1 + 0.9 * rng.random(shape)
+    return planes
+
+
+def zero_ux_node(m, planes, node):
+    """Make the pulled x momentum at ``node`` exactly 0 (in any rounding):
+    f[1] and f[3] stream in equal, f[5..8] stream in equal."""
+    y, x = node
+    ny, nx = planes["f[0]"].shape
+    E = m.ei[:9, :2]
+    for k, value in ((1, 0.11), (3, 0.11), (5, 0.028), (6, 0.028),
+                     (7, 0.028), (8, 0.028)):
+        sy, sx = (y - int(E[k, 1])) % ny, (x - int(E[k, 0])) % nx
+        planes[f"f[{k}]"][sy, sx] = value
+    return planes
+
+
+def paint_rich_heat(lat, seed):
+    """``rich_flags_heat`` and ``heat_planes`` on a Lattice of either
+    package, initialised first; d2q9_heat_adj's ``HEAT_ZERO_UX`` node gets
+    ux == 0 and w == 0.5; a Heater zone pins 1.5 on d2q9_heat."""
+    m = lat.model
+    lat.set_flags(rich_flags_heat(m, *lat.shape))
+    if "HeaterTemperature" in m.setting_index:
+        lat.set_setting("HeaterTemperature", 1.5)
+    lat.init()
+    planes = heat_planes(m, lat.shape, seed)
+    if "w" in planes:
+        planes = zero_ux_node(m, planes, HEAT_ZERO_UX)
+        planes["w"][HEAT_ZERO_UX] = 0.5
+    lat.set_density_planes(planes)
+    return lat
+
+
+def heat_adj_golden_columns(solver):
+    """tests/test_golden.py's gradient columns of the heat_adj case, on a
+    port solver after its run: the 20-step unsteady gradient (levels 2) of
+    HeatFlux + 0.1 Material over the design, its L1 norm and two probes
+    in the design strip."""
+    from tclb_tpu_torch.adjoint import (InternalTopology,
+                                        make_unsteady_gradient)
+    lat = solver.lattice
+    lat.set_setting("HeatFluxInObj", 1.0)
+    lat.set_setting("MaterialInObj", 0.1)
+    design = InternalTopology(solver.model)
+    grad_fn = make_unsteady_gradient(solver.model, design, 20, levels=2,
+                                     shape=lat.shape, dtype=lat.dtype,
+                                     device=lat.device)
+    obj, g, _ = grad_fn(design.get(lat.state, lat.params), lat.state,
+                        lat.params)
+    g = g.double().cpu().numpy()
+    cols = {"AdjObjective": float(obj), "AdjGradL1": float(np.abs(g).sum()),
+            "AdjGradP1": float(g[0, 8, 12]), "AdjGradP2": float(g[0, 10, 20])}
+    return cols, grad_fn.engine_name
