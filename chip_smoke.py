@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
-builds ``tclb_tpu_torch/csrc/d2q9.cu``, ``d3q27.cu`` and ``generic2d.cu``
+builds ``tclb_tpu_torch/csrc/d2q9.cu``, ``d3q27.cu``, ``generic2d.cu``
 once for each of d2q9_kuper and d2q9_heat_adj, the latter with the
-backward kernel of ``generic2d_adjoint.cuh``, for sm_90a into ``build/``,
-one ``nvcc`` each, started together), and exits nonzero without printing
-a result when either the card or the package is missing.  Phases, each of
-which fails the run on its own:
+backward kernel of ``generic2d_adjoint.cuh``, and ``generic3d.cu`` for
+d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
+sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
+nonzero without printing a result when either the card or the package is
+missing.  Phases, each of which fails the run on its own:
 
-1. build the d2q9, d3q27 and the two generic libraries and print what
-   ``ptxas`` reports;
+1. build the d2q9, d3q27, the two generic 2D and the generic 3D libraries
+   and print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
@@ -30,7 +31,11 @@ which fails the run on its own:
    atol 1e-6; ``generic2d_step_b`` against ``step_b_plain`` on the same two
    d2q9_heat_adj states (and after phase 12 the developed channel),
    lam_in at rtol 1e-4 / atol 1e-6 and the settings cotangent at rtol
-   1e-4;
+   1e-4; d3q19_adj's ``generic3d_step`` (both flavours) and
+   ``generic3d_step_b`` at the same tolerances on an 8x16x32 state that
+   paints every node type the model reads, two zones and ``w`` in (0, 1),
+   on the 32x64x256 case state of phase 13, and after phase 13 on its
+   developed state after the Solve;
 3. hold the card's f32 run of the d2q9 golden cases
    (``tests/goldens/karman.json``, ``poiseuille.json``), of the
    d3q27_cumulant channel (``channel3d.json``), of the d2q9_kuper drop
@@ -74,11 +79,27 @@ which fails the run on its own:
    ``cuda_generic_band[d2q9_heat_adj,fuse=1]``, an 8-step kernel gradient
    against f32 eager autograd at rtol 1e-4 / atol 1e-7, and a 1000-step
    gradient with automatic checkpoint levels (2): its wall time, rate,
-   peak memory and launches.
+   peak memory and launches;
+13. the 3D adjoint path: the d3q19_adj case XML
+   (``tests/torch_cases.py:adj3d_case_xml`` at 32x64x256) through
+   ``run_config``: Solve 2000 on ``cuda_generic3d_band[d3q19_adj,fuse=1]``,
+   FDTest 8/3 and an MMA Optimize of 5 evaluations of 200 iterations on
+   ``cuda_adjoint3d[d3q19_adj,k=1]``, ThresholdNow, VTK; the launch
+   counts, each objective (finite), the material constraint, a binary
+   design block; then the first evaluation's f32 kernel gradient against
+   an f64 eager gradient on the card (relative L2 at most 1e-3) and an
+   8-step f64 central-difference check at three components inside the
+   design block;
+14. bench.py's 3D adjoint case (``bench_adjoint3d``, 32x64x256):
+   ``iterate(2000)`` on the band engine, an 8-step kernel gradient
+   against f32 eager autograd at rtol 1e-4 / atol 1e-7, the 200-step
+   gradient's wall time and rate, and a 1000-step gradient at 64x128x256
+   with automatic checkpoint levels (2): its wall time, rate, ratio to
+   1000 primal steps, peak memory and launches.
 
-Phase 7 also times d2q9_heat_adj's kernels and ``generic2d_step_b``;
-phase 8 also profiles the 1000-step gradient.  Phases run in the order 1,
-2, 3, 4, 5, 6, 9, 10, 11, 12, 7, 8.
+Phase 7 also times d2q9_heat_adj's kernels, ``generic2d_step_b`` and the
+two 3D kernels; phase 8 also profiles the two 1000-step gradients.
+Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -111,6 +132,11 @@ STEP_B_RTOL, STEP_B_ATOL, STEP_B_SETT_RTOL = 1e-4, 1e-6, 1e-4
 # (tests/test_pallas_adjoint.py:155)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
 GRAD_F64_REL_L2 = 1e-3     # the f32 kernel gradient against f64 eager
+# central differences (eps 1e-4, f64) against the f64 adjoint: the
+# truncation (eps^2 times the third derivative) stays below the relative
+# limit, the objective's f64 rounding over eps (|J| 1e-16 / 1e-4, about
+# 1e-10 for |J| ~ 100) below the absolute one
+FD_REL, FD_ATOL = 1e-4, 1e-9
 KARMAN_XML = ROOT / "example" / "karman.xml"
 CHANNEL3D_XML = ROOT / "example" / "3d_channel.xml"
 DROP_XML = ROOT / "example" / "drop.xml"
@@ -125,10 +151,15 @@ TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "generic2d_step": "tclb_tpu/ops/pallas_generic.py:796",
     "generic2d_resident": "tclb_tpu/ops/pallas_generic.py:1105",
     "generic2d_step_b": "tclb_tpu/ops/pallas_adjoint.py:905",
+    "generic3d_step": "tclb_tpu/ops/pallas_generic.py:1528",
+    "generic3d_step_b": "tclb_tpu/ops/pallas_adjoint.py:634",
 }
 SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
-           "adjoint": "generic2d_adjoint.cuh"}
-GENERIC_MODELS = ("d2q9_kuper", "d2q9_heat_adj")
+           "adjoint": "generic2d_adjoint.cuh", "generic3d": "generic3d.cu",
+           "adjoint3d": "generic3d_adjoint.cuh"}
+GENERIC_MODELS = ("d2q9_kuper", "d2q9_heat_adj", "d3q19_adj")
+# the 3D adjoint case's handlers (phase 13)
+ADJ3D_HANDLERS = ("Solve", "FDTest", "Optimize", "ThresholdNow", "VTK")
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
                  "channel3d": "d3q27_cumulant", "drop": "d2q9_kuper",
                  "heat_adj": "d2q9_heat_adj"}
@@ -315,7 +346,7 @@ def kernel_key(dk, name: str, lat) -> str:
     """A kernel's name in the record: the generic kernels are built once
     per model, so theirs carries the model."""
     return f"{name}[{lat.model.name}]" \
-        if dk.__name__.endswith("generic_kernels") else name
+        if "generic" in dk.__name__ else name
 
 
 def keep_worst(errs: dict, name: str, e: dict) -> None:
@@ -325,17 +356,19 @@ def keep_worst(errs: dict, name: str, e: dict) -> None:
 
 
 def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
-    """``generic2d_step``'s globals flavour against its plain version: the
-    fields at rtol 2e-5 / atol 2e-6 (counted with the kernel's errors) and
-    the SUM globals at rtol 1e-4 / atol 1e-6."""
-    say(f"{what}: generic2d_step's globals flavour on the card")
+    """``generic2d_step``'s (``generic3d_step``'s, with that module)
+    globals flavour against its plain version: the fields at rtol 2e-5 /
+    atol 2e-6 (counted with the kernel's errors) and the SUM globals at
+    rtol 1e-4 / atol 1e-6."""
+    name = gk.KERNELS[0]
+    say(f"{what}: {name}'s globals flavour on the card")
     for lat in lats:
         *inputs, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
         got, g = gk.step_globals(*inputs, a)
         want, wg = gk.plain_steps(*inputs, a, 1, with_globals=True)
         torch.cuda.synchronize()
         shape = tuple(inputs[0].shape)
-        key = kernel_key(gk, "generic2d_step", lat)
+        key = kernel_key(gk, name, lat)
         keep_worst(errs, key,
                    compare(got, want, f"{key} (globals) at {shape}"))
         gerr = (g - wg).abs()
@@ -344,7 +377,7 @@ def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
         say(f"  globals at {shape}: {g.tolist()} vs {wg.tolist()} (rtol "
             f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"generic2d_step's globals at {shape} disagree")
+            fail(f"{name}'s globals at {shape} disagree")
         keep_worst(errs, f"{key} globals",
                    {"max_abs_err": float(gerr.max()),
                     "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30))
@@ -353,11 +386,12 @@ def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
 
 
 def check_step_b(ak, gk, lats, errs: dict, what: str) -> dict:
-    """``generic2d_step_b`` against ``step_b_plain`` (torch.func.vjp of the
-    plain step) on the same inputs: lam_out and lam_g of order one from a
-    seeded generator; lam_in at rtol 1e-4 / atol 1e-6, the settings
-    cotangent at rtol 1e-4."""
-    say(f"{what}: generic2d_step_b against its plain version on the card")
+    """``generic2d_step_b`` (``generic3d_step_b`` for a 3D model) against
+    ``step_b_plain`` (torch.func.vjp of the plain step) on the same
+    inputs: lam_out and lam_g of order one from a seeded generator; lam_in
+    at rtol 1e-4 / atol 1e-6, the settings cotangent at rtol 1e-4."""
+    say(f"{what}: the backward kernel against its plain version on the "
+        "card")
     for lat in lats:
         f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state,
                                              lat.params)
@@ -369,7 +403,7 @@ def check_step_b(ak, gk, lats, errs: dict, what: str) -> dict:
         want, ws = ak.step_b_plain(f, flags, ztab, a, lam, lam_g)
         torch.cuda.synchronize()
         shape = tuple(f.shape)
-        key = f"generic2d_step_b[{lat.model.name}]"
+        key = f"generic{lat.model.ndim}d_step_b[{lat.model.name}]"
         keep_worst(errs, key, compare(got, want, f"{key} lam_in at {shape}",
                                       STEP_B_RTOL, STEP_B_ATOL))
         serr = (gs - ws).abs()
@@ -379,8 +413,7 @@ def check_step_b(ak, gk, lats, errs: dict, what: str) -> dict:
             f"{ws.tolist()} (rtol {STEP_B_SETT_RTOL}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"generic2d_step_b's settings cotangent at {shape} "
-                 "disagrees")
+            fail(f"{key}'s settings cotangent at {shape} disagrees")
         keep_worst(errs, f"{key} settings",
                    {"max_abs_err": float(serr.max()),
                     "max_rel_err": float((serr / ws.abs().clamp_min(1e-30))
@@ -462,6 +495,7 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
             solver.lattice.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(dk.LAUNCHES)
+            flavours = dict(getattr(dk, "FLAVOUR_LAUNCHES", {}))
         finally:
             os.chdir(cwd)
         out = os.path.join(tmp, root.get("output"))
@@ -509,7 +543,8 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
         lat.state = lat._iterate(lat.state, lat.params, 1)
         lat.synchronize()
         eager = time.perf_counter() - t0
-    out = {"launches": launches, "wall_s": wall, "eager_steps": eager_steps,
+    out = {"launches": launches, "flavours": flavours, "wall_s": wall,
+           "eager_steps": eager_steps,
            "mlups_end_to_end": nodes * niter / wall / 1e6,
            "mlups_iterate": nodes * window / dt / 1e6,
            "iterate_ms": dt * 1e3, "iterate_host_ms": host * 1e3,
@@ -770,6 +805,7 @@ def run_heat1024(gk, ak, lat) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grad_launches = {**gk.LAUNCHES, **ak.LAUNCHES}
+    grad_flavours = dict(gk.FLAVOUR_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rate = nodes * horizon / wall / 1e6
     primal_s = horizon * nodes / (mlups * 1e6)
@@ -781,12 +817,339 @@ def run_heat1024(gk, ak, lat) -> dict:
         fail("the 1000-step gradient is not finite")
     return {"launches": launches, "flavours": flavours,
             "mlups_iterate": mlups, "grad_launches": grad_launches,
+            "grad_flavours": grad_flavours,
             "grad8_max_abs_err": float(err.max()),
             "grad1000": {"levels": levels, "wall_s": wall,
                          "mlups_primal_equivalent": rate,
                          "wall_over_primal": wall / primal_s,
                          "max_memory_allocated": peak},
             "grad_fn": lambda: grad_fn(theta, lat.state, lat.params)}
+
+
+def adj3d_case_file(directory) -> pathlib.Path:
+    """The 3D adjoint case XML (tests/torch_cases.py:adj3d_case_xml) at
+    bench.py's 32x64x256, written into ``directory``."""
+    from torch_cases import adj3d_case_xml
+    path = pathlib.Path(directory) / "adj3d_case.xml"
+    path.write_text(adj3d_case_xml("chip"))
+    return path
+
+
+def rich_adj3d_lattice(device):
+    """An 8x16x32 d3q19_adj state that paints every node type the model
+    reads, two zones and a design field in (0.1, 0.9)
+    (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import ADJ3D_SETTINGS, ADJ3D_SHAPE, paint_rich_adj3d
+    lat = Lattice(get_model("d3q19_adj"), ADJ3D_SHAPE, dtype=torch.float32,
+                  device=device, settings=ADJ3D_SETTINGS)
+    return paint_rich_adj3d(lat, seed=5)
+
+
+def bench3d_lattice(device, shape=(32, 64, 256)):
+    """bench.py:bench_adjoint3d's d3q19_adj case (bench.py:418-428)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import bench_adjoint3d_lattice
+    return bench_adjoint3d_lattice(Lattice, get_model("d3q19_adj"),
+                                   torch.float32, shape, device=device)
+
+
+def f64_copy(lat):
+    """``(state, params)`` of a lattice in f64."""
+    from tclb_tpu_torch.core.lattice import LatticeState, SimParams
+    st, pa = lat.state, lat.params
+    return (LatticeState(fields=st.fields.double(), flags=st.flags,
+                         globals_=st.globals_.double(),
+                         iteration=st.iteration),
+            SimParams(settings=pa.settings.double(),
+                      zone_table=pa.zone_table.double()))
+
+
+def run_adj3d_case(g3, ak, xml) -> dict:
+    """The 3D adjoint path: the case XML through ``run_config`` -- the
+    Solve on the band engine, FDTest and the MMA Optimize on
+    ``cuda_adjoint3d``, ThresholdNow, VTK -- counted from 0; then the first
+    Optimize evaluation's f32 kernel gradient against an f64 eager
+    gradient on the card, and an 8-step f64 central-difference check at
+    three components inside the design block."""
+    from tclb_tpu_torch.adjoint import (InternalTopology, fd_test,
+                                        make_objective_run,
+                                        make_unsteady_gradient)
+    from tclb_tpu_torch.control.solver import run_config
+    from tclb_tpu_torch.models import get_model
+    from torch_cases import adj3d_design_block
+    say("phase 13: the 3D adjoint case at 32x64x256 end to end (Solve, "
+        "FDTest, MMA Optimize, ThresholdNow, VTK)")
+    root = ET.parse(xml).getroot()
+    model = get_model(root.get("model"))
+    opt_el = root.find("Optimize")
+    niter = int(opt_el.get("Iterations"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            g3.reset_launches()
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            solver = run_config(str(xml), model, dtype=torch.float32,
+                                device=DEVICE)
+            solver.lattice.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**g3.LAUNCHES, **ak.LAUNCHES}
+            flavours = dict(g3.FLAVOUR_LAUNCHES)
+        finally:
+            os.chdir(cwd)
+        files = sorted(os.listdir(os.path.join(tmp, root.get("output"))))
+    lat = solver.lattice
+    say(f"  primal engine {lat.engine_name}, adjoint engine "
+        f"{solver.adjoint_engine}, {wall:.3f} s wall, launches {launches} "
+        f"(generic3d_step flavours {flavours}), eager steps "
+        f"{lat.eager_steps}")
+    for r in solver.fd_records:
+        say(f"  FDTest component {r['index']}: adjoint {r['adjoint']:.8g} "
+            f"fd {r['fd']:.8g} rel_err {r['rel_err']:.3e} (f32: logged, "
+            "not judged)")
+    for k, obj in enumerate(solver.opt_history):
+        say(f"  Optimize[MMA] evaluation {k}: objective {obj:.9g}")
+    mat = solver.opt_material
+    say(f"  material: start {mat['start']:.9g}, end {mat['end']:.9g} "
+        f"({mat['direction']})")
+    if lat.engine_name != "cuda_generic3d_band[d3q19_adj,fuse=1]":
+        fail(f"the 3D case's Solve ran on {lat.engine_name}")
+    if solver.adjoint_engine != "cuda_adjoint3d[d3q19_adj,k=1]":
+        fail(f"the 3D case's gradients ran on {solver.adjoint_engine}")
+    if launches["generic3d_step_b"] < 1 or launches["generic2d_step_b"] \
+            or flavours["globals"] < 1 or flavours["plain"] < 1 \
+            or lat.eager_steps:
+        fail(f"the 3D case: launches {launches}, flavours {flavours}, "
+             f"eager steps {lat.eager_steps}")
+    if len(solver.opt_history) != int(opt_el.get("MaxEvaluations")) \
+            or not all(math.isfinite(o) for o in solver.opt_history):
+        fail(f"the 3D case's objectives {solver.opt_history}")
+    if mat["end"] > mat["start"] * (1 + 1e-6):
+        fail(f"the 3D case broke its material constraint: {mat}")
+    w = lat.get_quantity("W")
+    block = adj3d_design_block(lat.shape)
+    values = sorted(set(torch.unique(w[block]).tolist()))
+    if not set(values) <= {0.0, 1.0}:
+        fail(f"the 3D design block is not binary after ThresholdNow: "
+             f"{values[:8]}")
+    if not any(f.endswith(".vti") for f in files) \
+            or not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"the 3D case: output {files} or non-finite fields")
+    solid = int((w[block] == 0).sum())
+    say(f"  design block values after ThresholdNow {values}, {solid} "
+        "solid nodes")
+
+    # the first Optimize evaluation: the same state, theta and horizon
+    start = case_lattice(xml, torch.float32, DEVICE,
+                         drop=("FDTest", "Optimize", "ThresholdNow", "VTK"))
+    design = InternalTopology(model)
+    theta = design.get(start.state, start.params)
+    g32_fn = make_unsteady_gradient(model, design, niter, shape=start.shape,
+                                    device=DEVICE)
+    obj32, g32, _ = g32_fn(theta, start.state, start.params)
+    state64, params64 = f64_copy(start)
+    g64_fn = make_unsteady_gradient(model, design, niter, shape=start.shape,
+                                    dtype=torch.float64, device=DEVICE)
+    obj64, g64, _ = g64_fn(theta.double(), state64, params64)
+    rel_l2 = float((g32.double() - g64).norm() / g64.norm())
+    say(f"  first evaluation: {g32_fn.engine_name} objective "
+        f"{float(obj32):.9g} (Optimize logged "
+        f"{solver.opt_history[0]:.9g}), {g64_fn.engine_name} f64 "
+        f"{float(obj64):.9g}; gradient rel L2 {rel_l2:.3e} (limit "
+        f"{GRAD_F64_REL_L2})")
+    if g32_fn.engine_name != "cuda_adjoint3d[d3q19_adj,k=1]" \
+            or g64_fn.engine_name != "eager" \
+            or not rel_l2 <= GRAD_F64_REL_L2:
+        fail(f"the 3D case's f32 kernel gradient is {rel_l2} from f64")
+    if abs(float(obj32) - solver.opt_history[0]) \
+            > 1e-6 * abs(solver.opt_history[0]):
+        fail("the re-run first evaluation differs from the Optimize's")
+
+    # central differences inside the design block, f64 eager, against the
+    # f64 adjoint (judged) and the f32 kernel adjoint (logged)
+    fd_el = root.find("FDTest")
+    fd_iter, checks = int(fd_el.get("Iterations")), int(fd_el.get("Checks"))
+    quarters = ((2, 2, 2), (1, 3, 1), (3, 1, 3))
+    nodes = [tuple(sl.start + (sl.stop - sl.start) * q // 4
+                   for sl, q in zip(block, f)) for f in quarters]
+    idx = [int(np.ravel_multi_index((0,) + n, tuple(theta.shape)))
+           for n in nodes[:checks]]
+    fd64_fn = make_unsteady_gradient(model, design, fd_iter,
+                                     dtype=torch.float64, device=DEVICE)
+    _, gfd64, _ = fd64_fn(theta.double(), state64, params64)
+    fd32_fn = make_unsteady_gradient(model, design, fd_iter,
+                                     shape=start.shape, device=DEVICE)
+    _, gfd32, _ = fd32_fn(theta, start.state, start.params)
+    run = make_objective_run(model, fd_iter)
+
+    def loss(th):
+        return run(*design.put(th, state64, params64))[0]
+
+    records = fd_test(loss, gfd64, theta.double(), indices=idx, eps=1e-4)
+    flat32 = gfd32.reshape(-1)
+    for r in records:
+        r["kernel_f32"] = float(flat32[r["index"]])
+        say(f"  FD component {r['index']} (in the design block): f64 "
+            f"adjoint {r['adjoint']:.10g}, fd {r['fd']:.10g}, rel_err "
+            f"{r['rel_err']:.3e} (rtol {FD_REL} atol {FD_ATOL}); f32 kernel "
+            f"adjoint {r['kernel_f32']:.8g}")
+        if not (r["adjoint"] != 0 and abs(r["fd"] - r["adjoint"])
+                <= FD_ATOL + FD_REL * abs(r["adjoint"])):
+            fail(f"the 3D case's FD check at {r['index']}: {r}")
+    return {"launches": launches, "flavours": flavours, "wall_s": wall,
+            "objectives": solver.opt_history, "material": mat,
+            "fd_records": solver.fd_records, "fd_in_block": records,
+            "grad_rel_l2_f64": rel_l2, "solid_nodes": solid,
+            "start": start}
+
+
+def run_bench_adjoint3d(g3, ak, lat) -> dict:
+    """bench.py's 3D adjoint case (bench_adjoint3d) at 32x64x256: (a)
+    ``iterate(2000)`` on the band engine; (b) an 8-step gradient on
+    cuda_adjoint3d against eager autograd on the card, f32; (c) the
+    200-step gradient (bench.py:436-446), best of two timed runs; (d) a
+    1000-step gradient at 64x128x256 with automatic checkpoint levels,
+    counted from 0."""
+    from tclb_tpu_torch.adjoint import (InternalTopology, auto_levels,
+                                        make_unsteady_gradient)
+    say("phase 14: bench.py's 3D adjoint case: the band primal and "
+        "gradients")
+    nodes = float(np.prod(lat.shape))
+    niter = 2000
+    # the gradients start from the initialised state, as bench.py's do:
+    # with Porocity 0.5 everywhere and no inlet the flow dies out
+    state0, params0 = lat.state, lat.params
+    lat.synchronize()
+    g3.reset_launches()
+    t0 = time.perf_counter()
+    lat.iterate(niter)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(g3.LAUNCHES)
+    flavours = dict(g3.FLAVOUR_LAUNCHES)
+    mlups = nodes * niter / dt / 1e6
+    say(f"  (a) engine {lat.engine_name}, launches {launches} (flavours "
+        f"{flavours}), {mlups:.1f} MLUPS")
+    if lat.engine_name != "cuda_generic3d_band[d3q19_adj,fuse=1]":
+        fail(f"bench_adjoint3d ran on {lat.engine_name}")
+    if flavours != {"plain": niter - 1, "globals": 1} or lat.eager_steps \
+            or not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"bench_adjoint3d: flavours {flavours}, eager steps "
+             f"{lat.eager_steps}")
+    m = lat.model
+    design = InternalTopology(m)
+    theta = design.get(state0, params0)
+    got = {}
+    for engine in ("cuda", "eager"):
+        fn = make_unsteady_gradient(m, design, 8, levels=1, engine=engine,
+                                    shape=lat.shape, device=DEVICE)
+        got[engine] = fn(theta, state0, params0)
+    (oc, gc, _), (oe, ge, _) = got["cuda"], got["eager"]
+    err = (gc - ge).abs()
+    ok = bool((err <= GRAD_ATOL + GRAD_RTOL * ge.abs()).all()) \
+        and float(ge.abs().max()) > 0 and float(oc) != 0
+    say(f"  (b) 8-step gradient: cuda_adjoint3d objective {float(oc):.9g}, "
+        f"eager {float(oe):.9g}; max abs err {float(err.max()):.3e}, "
+        f"max |g| {float(ge.abs().max()):.3e} (rtol {GRAD_RTOL} atol "
+        f"{GRAD_ATOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the 8-step 3D kernel gradient disagrees with eager")
+    grad200 = make_unsteady_gradient(m, design, 200, shape=lat.shape,
+                                     device=DEVICE)
+    grad200(theta, state0, params0)
+    best = math.inf
+    for _ in range(2):
+        torch.cuda.synchronize()
+        g3.reset_launches()
+        ak.reset_launches()
+        t0 = time.perf_counter()
+        obj, g, _ = grad200(theta, state0, params0)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        if not (math.isfinite(float(obj)) and bool(torch.isfinite(g).all())):
+            fail("the 200-step 3D gradient is not finite")
+    g200_launches = {**g3.LAUNCHES, **ak.LAUNCHES}
+    g200_flavours = dict(g3.FLAVOUR_LAUNCHES)
+    levels200 = auto_levels(m, lat.shape, 200)
+    say(f"  (c) 200-step gradient, levels {levels200}: {best:.4f} s wall "
+        f"(best of 2), {nodes * 200 / best / 1e6:.1f} primal-equivalent "
+        f"MLUPS, launches {g200_launches}")
+
+    big = bench3d_lattice(DEVICE, (64, 128, 256))
+    big0 = big.state
+    nodes_big = float(np.prod(big.shape))
+    horizon = 1000
+    big.iterate(2)
+    big.synchronize()
+    t0 = time.perf_counter()
+    big.iterate(horizon)
+    big.synchronize()
+    primal_s = time.perf_counter() - t0
+    mlups_big = nodes_big * horizon / primal_s / 1e6
+    levels = auto_levels(m, big.shape, horizon)
+    if levels != 2:
+        fail(f"auto_levels chose {levels} for the 1000-step 3D gradient")
+    theta_big = design.get(big0, big.params)
+    grad_fn = make_unsteady_gradient(m, design, horizon, shape=big.shape,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g3.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    obj, g, _ = grad_fn(theta_big, big0, big.params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grad_launches = {**g3.LAUNCHES, **ak.LAUNCHES}
+    grad_flavours = dict(g3.FLAVOUR_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rate = nodes_big * horizon / wall / 1e6
+    say(f"  (d) 64x128x256: 1000 primal steps {primal_s:.4f} s "
+        f"({mlups_big:.1f} MLUPS); 1000-step gradient, levels {levels}: "
+        f"{wall:.3f} s wall, {rate:.1f} primal-equivalent MLUPS, "
+        f"{wall / primal_s:.2f}x the wall of 1000 primal steps, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches {grad_launches}, objective "
+        f"{float(obj):.9g}")
+    if not (math.isfinite(float(obj)) and float(obj) != 0
+            and bool(torch.isfinite(g).all())):
+        fail("the 1000-step 3D gradient is zero or not finite")
+    return {"launches": launches, "flavours": flavours,
+            "mlups_iterate": mlups,
+            "grad8_max_abs_err": float(err.max()),
+            "grad200": {"levels": levels200, "wall_s": best,
+                        "mlups_primal_equivalent": nodes * 200 / best / 1e6,
+                        "launches": g200_launches,
+                        "flavours": g200_flavours},
+            "grad1000": {"shape": list(big.shape), "levels": levels,
+                         "wall_s": wall, "primal_1000_s": primal_s,
+                         "primal_mlups": mlups_big,
+                         "mlups_primal_equivalent": rate,
+                         "wall_over_primal": wall / primal_s,
+                         "max_memory_allocated": peak,
+                         "launches": grad_launches,
+                         "flavours": grad_flavours},
+            "grad_fn": lambda: grad_fn(theta_big, big0, big.params)}
+
+
+def time_generic3d(g3, ak, lat) -> dict:
+    """d3q19_adj's ``generic3d_step`` (both flavours) and
+    ``generic3d_step_b`` at the 3D paths' launch (32x64x256)."""
+    out = {}
+    *inputs, a = g3.kernel_inputs(lat.model, lat.state, lat.params)
+    for g in (False, True):
+        key = f"generic3d_step[{lat.model.name}]" + (" globals" if g else "")
+        fn = g3.step_globals if g else g3.step
+        out[key] = time_one(
+            key, lambda: fn(*inputs, a),
+            lambda: g3.plain_steps(*inputs, a, 1, with_globals=g),
+            g3.launch_bytes(lat.model, lat.shape),
+            g3.node_step_flops(lat.model, lat.flags_numpy()), lat.shape,
+            200 if g else 400, plain_reps=3)
+    out.update(time_step_b(ak, g3, lat, plain_reps=3))
+    return out
 
 
 def run_channel(dk, lat) -> dict:
@@ -903,19 +1266,21 @@ def time_generic(gk, band_lat, res_lat, resident_steps: int,
     return out
 
 
-def time_step_b(ak, gk, lat) -> dict:
-    """``generic2d_step_b`` at the 512x1024 gradient's launch, against
-    ``step_b_plain`` on the same inputs."""
+def time_step_b(ak, gk, lat, plain_reps: int = 10) -> dict:
+    """The backward kernel at a gradient's launch (``generic2d_step_b`` at
+    512x1024, ``generic3d_step_b`` at 32x64x256), against ``step_b_plain``
+    on the same inputs."""
     f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     lam = torch.randn(f.shape, generator=gen, device=DEVICE)
     lam_g = torch.randn((lat.model.n_globals,), generator=gen, device=DEVICE)
-    key = f"generic2d_step_b[{lat.model.name}]"
+    key = f"generic{lat.model.ndim}d_step_b[{lat.model.name}]"
     return {key: time_one(
         key, lambda: ak.step_b(f, flags, ztab, a, lam, lam_g),
         lambda: ak.step_b_plain(f, flags, ztab, a, lam, lam_g),
         ak.launch_bytes_b(lat.model, lat.shape),
-        ak.node_step_b_flops(lat.model, lat.flags_numpy()), lat.shape, 200)}
+        ak.node_step_b_flops(lat.model, lat.flags_numpy()), lat.shape, 200,
+        plain_reps=plain_reps)}
 
 
 def wrapper_host_ms(launch, calls: int = 200) -> float:
@@ -994,6 +1359,7 @@ def main() -> int:
     from tclb_tpu_torch.ops import adjoint_kernels as ak
     from tclb_tpu_torch.ops import d2q9_kernels as dk
     from tclb_tpu_torch.ops import d3q27_kernels as dk3
+    from tclb_tpu_torch.ops import generic3d_kernels as g3
     from tclb_tpu_torch.ops import generic_kernels as gk
 
     say(card_line())
@@ -1031,6 +1397,13 @@ def main() -> int:
     rich_heat = rich_heat_lattice(DEVICE)
     heat1024 = heat1024_lattice(DEVICE)
     eager_warm(heat1024, 20)
+    case_dir = tempfile.TemporaryDirectory()
+    adj3d_xml = adj3d_case_file(case_dir.name)
+    rich_adj3d = rich_adj3d_lattice(DEVICE)
+    adj3d_init = case_lattice(adj3d_xml, torch.float32, DEVICE,
+                              drop=ADJ3D_HANDLERS)
+    eager_warm(adj3d_init, 4)
+    bench3d = bench3d_lattice(DEVICE)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
@@ -1044,10 +1417,14 @@ def main() -> int:
         (gk, rich_heat, "generic2d_step"),
         (gk, rich_heat, "generic2d_resident"),
         (gk, heat1024, "generic2d_step"),
-        (gk, heat1024, "generic2d_resident")], {}, "phase 2")
+        (gk, heat1024, "generic2d_resident"),
+        (g3, rich_adj3d, "generic3d_step"),
+        (g3, adj3d_init, "generic3d_step")], {}, "phase 2")
     check_globals_flavour(gk, (drop, drop1024, rich_kuper, rich_heat,
                                heat1024), errs, "phase 2")
-    check_step_b(ak, gk, (rich_heat, heat1024), errs, "phase 2")
+    check_globals_flavour(g3, (rich_adj3d, adj3d_init), errs, "phase 2")
+    check_step_b(ak, gk, (rich_heat, heat1024, rich_adj3d, adj3d_init), errs,
+                 "phase 2")
     check_goldens()
     main_path = run_case(dk, KARMAN_XML, "4",
                          "cuda_d2q9_resident[d2q9,fuse=8]",
@@ -1077,6 +1454,15 @@ def main() -> int:
                   "phase 12b, the 512x1024 heat_adj channel after 2000 "
                   "iterations")
     check_step_b(ak, gk, (heat1024,), errs, "phase 12b")
+    path3d_adj = run_adj3d_case(g3, ak, adj3d_xml)
+    # the developed state after the 3D case's Solve (its launches come after
+    # the path's counts were read)
+    adj3d_dev = path3d_adj.pop("start")
+    check_kernels([(g3, adj3d_dev, "generic3d_step")], errs,
+                  "phase 13b, the 3D case after its Solve of 2000")
+    check_globals_flavour(g3, (adj3d_dev,), errs, "phase 13b")
+    check_step_b(ak, g3, (adj3d_dev,), errs, "phase 13b")
+    bench_adj3d = run_bench_adjoint3d(g3, ak, bench3d)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -1094,6 +1480,7 @@ def main() -> int:
     times.update(time_generic(gk, heat1024, heat_adj_solve_state(
         HEAT_ADJ_XML), (solve - 1) // 2 * 2, plain_reps=1))
     times.update(time_step_b(ak, gk, heat1024))
+    times.update(time_generic3d(g3, ak, adj3d_dev))
     busy = device_busy(lambda: karman.iterate(400), "a karman iterate(400)")
     busy3d = device_busy(lambda: channel3d.iterate(200),
                          "a 3d_channel iterate(200)")
@@ -1101,6 +1488,8 @@ def main() -> int:
                             "a drop iterate(2000)")
     busy_grad = device_busy(heat_band.pop("grad_fn"),
                             "the 1000-step 512x1024 heat_adj gradient")
+    busy_grad3d = device_busy(bench_adj3d.pop("grad_fn"),
+                              "the 1000-step 64x128x256 d3q19_adj gradient")
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
@@ -1114,11 +1503,21 @@ def main() -> int:
         "heat_adj": path_heat["launches"][name],
         "heat_adj1024": heat_band["launches"].get(name, 0),
         "heat_adj1024_gradient": heat_band["grad_launches"][name]}
-        for name in gk.KERNELS + ak.KERNELS})
+        for name in gk.KERNELS + ("generic2d_step_b",)})
+    launches.update({f"{name}[d3q19_adj]": {
+        "adj3d_case": path3d_adj["launches"][name],
+        "bench_adjoint3d": bench_adj3d["launches"].get(name, 0),
+        "bench_adjoint3d_gradient200":
+            bench_adj3d["grad200"]["launches"][name],
+        "bench_adjoint3d_gradient1000":
+            bench_adj3d["grad1000"]["launches"][name]}
+        for name in g3.KERNELS + ("generic3d_step_b",)})
     sources = {**{n: SOURCES["d2q9"] for n in dk.KERNELS},
                **{n: SOURCES["d3q27"] for n in dk3.KERNELS},
                **{n: SOURCES["generic"] for n in gk.KERNELS},
-               **{n: SOURCES["adjoint"] for n in ak.KERNELS}}
+               "generic2d_step_b": SOURCES["adjoint"],
+               **{n: SOURCES["generic3d"] for n in g3.KERNELS},
+               "generic3d_step_b": SOURCES["adjoint3d"]}
     kernels = []
     for key, by_path in launches.items():
         name = key.split("[")[0]
@@ -1140,23 +1539,35 @@ def main() -> int:
             "shape": times[key]["shape"],
         })
     by_name = {k["name"]: k for k in kernels}
-    for model, flavour_launches in (
-            ("d2q9_kuper", {"drop1024": band_drop["flavours"]["globals"]}),
-            ("d2q9_heat_adj",
+    for key, flavour_launches in (
+            ("generic2d_step[d2q9_kuper]",
+             {"drop": path_drop["flavours"]["globals"],
+              "drop1024": band_drop["flavours"]["globals"]}),
+            ("generic2d_step[d2q9_heat_adj]",
              {"heat_adj": path_heat["flavours"]["globals"],
-              "heat_adj1024": heat_band["flavours"]["globals"]})):
-        key = f"generic2d_step[{model}]"
+              "heat_adj1024": heat_band["flavours"]["globals"],
+              "heat_adj1024_gradient":
+                  heat_band["grad_flavours"]["globals"]}),
+            ("generic3d_step[d3q19_adj]",
+             {"adj3d_case": path3d_adj["flavours"]["globals"],
+              "bench_adjoint3d": bench_adj3d["flavours"]["globals"],
+              "bench_adjoint3d_gradient200":
+                  bench_adj3d["grad200"]["flavours"]["globals"],
+              "bench_adjoint3d_gradient1000":
+                  bench_adj3d["grad1000"]["flavours"]["globals"]})):
         by_name[key]["globals_flavour"] = {
             **{k: times[f"{key} globals"][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                          "wrapper_host_ms", "shape")},
             "launches_by_path": flavour_launches,
             "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
-        res = f"generic2d_resident[{model}]"
-        by_name[res]["steps"] = times[res]["steps"]
-    step_b = "generic2d_step_b[d2q9_heat_adj]"
-    by_name[step_b]["settings_max_rel_err"] = \
-        errs[f"{step_b} settings"]["max_rel_err"]
+        res = key.replace("step", "resident")
+        if res in by_name:
+            by_name[res]["steps"] = times[res]["steps"]
+    for step_b in ("generic2d_step_b[d2q9_heat_adj]",
+                   "generic3d_step_b[d3q19_adj]"):
+        by_name[step_b]["settings_max_rel_err"] = \
+            errs[f"{step_b} settings"]["max_rel_err"]
     keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
             "iterate_host_ms", "eager_step_ms", "eager_steps")
     heat_keys = ("wall_s", "objectives", "material", "fd_records",
@@ -1170,10 +1581,16 @@ def main() -> int:
         "heat_adj": {k: path_heat[k] for k in heat_keys},
         "heat_adj1024": {k: heat_band[k] for k in (
             "mlups_iterate", "grad8_max_abs_err", "grad1000")},
+        "adj3d_case": {k: path3d_adj[k] for k in heat_keys + (
+            "fd_in_block",)},
+        "bench_adjoint3d": {k: bench_adj3d[k] for k in (
+            "mlups_iterate", "grad8_max_abs_err", "grad200", "grad1000")},
         "karman_iterate_profile": busy,
         "3d_channel_iterate_profile": busy3d,
         "drop_iterate_profile": busy_drop,
-        "heat_adj1024_gradient_profile": busy_grad}))
+        "heat_adj1024_gradient_profile": busy_grad,
+        "bench_adjoint3d_gradient1000_profile": busy_grad3d}))
+    case_dir.cleanup()
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

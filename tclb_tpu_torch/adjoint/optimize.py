@@ -158,19 +158,34 @@ def _mma(grad_fn, theta0, max_eval, lo, hi, material, callback):
         beta = np.minimum(xmax, np.minimum(upp - 0.1 * (upp - x),
                                            x + 0.5 * span))
 
-        def xa(lam):
-            """argmin of the separable Lagrangian on [alpha, beta] (its
-            derivative is increasing in x: vectorized bisection)."""
-            loj, hij = alpha.copy(), beta.copy()
+        def bisect(lam, sl):
+            """argmin of the separable Lagrangian on [alpha, beta] over
+            the coordinates ``sl`` (its derivative is increasing in x:
+            vectorized bisection)."""
+            loj, hij = alpha[sl].copy(), beta[sl].copy()
+            pj, qj, uj, lj = p0[sl], q0[sl], upp[sl], low[sl]
+            aj = None if a is None else a[sl]
             for _ in range(50):
                 mid = 0.5 * (loj + hij)
-                d = p0 / (upp - mid) ** 2 - q0 / (mid - low) ** 2
-                if a is not None:
-                    d = d + lam * a
+                d = pj / (uj - mid) ** 2 - qj / (mid - lj) ** 2
+                if aj is not None:
+                    d = d + lam * aj
                 up = d < 0.0
                 loj = np.where(up, mid, loj)
                 hij = np.where(up, hij, mid)
             return 0.5 * (loj + hij)
+
+        # the multiplier moves only the coordinates the constraint weighs
+        # (a design's material nodes): bisect the others once
+        x_free = bisect(0.0, slice(None))
+        weighed = None if a is None else np.flatnonzero(a)
+
+        def xa(lam):
+            if a is None or lam == 0.0:
+                return x_free
+            out = x_free.copy()
+            out[weighed] = bisect(lam, weighed)
+            return out
 
         if a is None or float(a @ xa(0.0)) <= b:
             x_new = xa(0.0)

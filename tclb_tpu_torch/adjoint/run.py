@@ -18,8 +18,9 @@ The port's counterpart of the JAX package's ``adjoint/run.py``:
 
 Engines: on a CUDA f32 lattice of a model whose device header has a
 reverse stage, every step runs forward on ``generic2d_step`` and backward
-on ``generic2d_step_b`` (``ops/adjoint_kernels.py``); otherwise the eager
-step is differentiated by ``torch.autograd``.  The choice is made from
+on ``generic2d_step_b`` (``generic3d_step`` and ``generic3d_step_b`` for
+a 3D model; ``ops/adjoint_kernels.py``); otherwise the eager step is
+differentiated by ``torch.autograd``.  The choice is made from
 what can be observed, never after a failure.  The spilled gradient and
 revolve wait for ROADMAP queue 1 item 11.
 """
@@ -317,12 +318,13 @@ def make_steady_gradient(model: Model, design, n_adjoint: int = 100,
 
 
 def fd_test(loss: Callable, grad: Any, theta: Any, n_checks: int = 5,
-            eps: float = 1e-5, seed: int = 0) -> list[dict]:
+            eps: float = 1e-5, seed: int = 0,
+            indices: Optional[Any] = None) -> list[dict]:
     """Central-difference check of an adjoint gradient at ``n_checks``
-    random components (reference acFDTest, src/Handlers.cpp.Rt:1944-2099):
-    ``loss(theta) -> scalar``, ``grad`` in ``theta``'s structure.  One
-    record per probed component with the analytic value, the FD value
-    and the relative error."""
+    random components (reference acFDTest, src/Handlers.cpp.Rt:1944-2099),
+    or at the flat ``indices`` given: ``loss(theta) -> scalar``, ``grad``
+    in ``theta``'s structure.  One record per probed component with the
+    analytic value, the FD value and the relative error."""
     parts = leaves(theta)
     flat = torch.cat([t.detach().reshape(-1) for t in parts])
     gflat = torch.cat([g.detach().reshape(-1) for g in leaves(grad)])
@@ -332,9 +334,12 @@ def fd_test(loss: Callable, grad: Any, theta: Any, n_checks: int = 5,
         return like(theta, [c.reshape(t.shape)
                             for c, t in zip(torch.split(v, sizes), parts)])
 
-    rng = np.random.default_rng(seed)
-    idx = rng.choice(flat.numel(), size=min(n_checks, flat.numel()),
-                     replace=False)
+    if indices is None:
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(flat.numel(), size=min(n_checks, flat.numel()),
+                         replace=False)
+    else:
+        idx = np.asarray(indices)
     out = []
     with torch.no_grad():
         for i in idx:

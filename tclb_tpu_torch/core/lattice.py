@@ -479,12 +479,13 @@ class Lattice:
         another model, f64 — runs eager by selection, not after a
         failure."""
         from tclb_tpu_torch.ops import (d2q9_kernels, d3q27_kernels,
-                                        generic_kernels)
+                                        generic3d_kernels, generic_kernels)
         if os.environ.get("TCLB_FASTPATH") == "0" \
                 or self.device.type != "cuda":
             return None, None
-        # the tuned kernels first, the generic engine last
-        for mod in (d2q9_kernels, d3q27_kernels, generic_kernels):
+        # the tuned kernels first, the generic engines last
+        for mod in (d2q9_kernels, d3q27_kernels, generic3d_kernels,
+                    generic_kernels):
             fast, tag = mod.select_engine(self.model, self.shape, self.dtype)
             if fast is not None:
                 return fast, tag

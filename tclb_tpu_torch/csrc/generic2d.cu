@@ -57,6 +57,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "generic_common.cuh"
+
 namespace cg = cooperative_groups;
 
 static_assert((model::N_STAGES == 2 && model::stage_ext(1) == 0)
@@ -72,23 +74,6 @@ constexpr int RESIDENT_THREADS = 256;
 constexpr unsigned ALL_WRITES =
     model::stage_writes(0) | (TWO_STAGES ? model::stage_writes(1) : 0u);
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
-
-struct Generic2dArgs {
-  int ny, nx;
-  int zone_shift, zone_max;
-  float setting[model::N_SETTINGS];          // registry order
-  int nt_mask[model::N_TYPES], nt_val[model::N_TYPES];
-  int group_mask[model::N_GROUPS];
-};
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-__device__ __forceinline__ bool writes(int s, int k) {
-  return (model::stage_writes(s) >> k) & 1u;
-}
 
 // ---------------------------------------------------------------------------
 // What a stage reads: plane k at an unwrapped (y, x)
@@ -151,7 +136,7 @@ struct DeviceOut {        // a plane in device memory at node `idx`
 
 template <class Storage, class Out, bool kGlobals>
 struct Node {
-  const Generic2dArgs& a;
+  const GenericArgs& a;
   const Storage& s;
   const Out& out;
   const float* ztab;       // [N_ZONAL][zone_max]
@@ -182,7 +167,7 @@ struct Node {
 };
 
 template <int S, bool kGlobals, class Storage, class Out>
-__device__ __forceinline__ void run_stage(const Generic2dArgs& a,
+__device__ __forceinline__ void run_stage(const GenericArgs& a,
                                           const Storage& s, const Out& out,
                                           const float* ztab, double* acc,
                                           int y, int x, int flag,
@@ -197,64 +182,11 @@ __device__ __forceinline__ void run_stage(const Generic2dArgs& a,
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavour, per launch
 
-// Sum each thread's `acc[N]` over the block in a fixed order (warp
-// shuffles, then the warps in order) into partials[block], and let the last
-// block to arrive add the partials in block order and hand each total to
-// `put(i, total)`.  One launch per arrival counter `done` at a time.
-template <int N, class Put>
-__device__ void finish_sums(const double* acc, double* partials,
-                            unsigned int* done, Put put) {
-  __shared__ double warp_sum[N][BX * BY / 32];
-  __shared__ bool last;
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nblocks = gridDim.x * gridDim.y;
-  const int block = blockIdx.y * gridDim.x + blockIdx.x;
-#pragma unroll
-  for (int g = 0; g < N; ++g) {
-    double v = acc[g];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sum[g][warp] = v;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int g = 0; g < N; ++g) {
-      double v = 0.0;
-      for (int w = 0; w < BX * BY / 32; ++w) v += warp_sum[g][w];
-      partials[(size_t)block * N + g] = v;
-    }
-    __threadfence();
-    last = atomicAdd(done, 1u) == (unsigned)nblocks - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int g = 0; g < N; ++g) {
-    double v = 0.0;
-    for (int b = tid; b < nblocks; b += BX * BY)
-      v += __ldcg(partials + (size_t)b * N + g);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    __syncthreads();
-    if (lane == 0) warp_sum[g][warp] = v;
-    __syncthreads();
-    if (tid == 0) {
-      double t = 0.0;
-      for (int w = 0; w < BX * BY / 32; ++w) t += warp_sum[g][w];
-      put(g, t);
-    }
-  }
-  if (tid == 0) *done = 0;
-}
-
 template <bool kGlobals>
 __global__ void __launch_bounds__(BX * BY)
 generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
                       const int* __restrict__ flags,
-                      const float* __restrict__ ztab, const Generic2dArgs a,
+                      const float* __restrict__ ztab, const GenericArgs a,
                       double* partials, float* gout) {
   const size_t n = (size_t)a.ny * a.nx;
   const int ly = threadIdx.y, lx = threadIdx.x;
@@ -299,7 +231,7 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
       if (!writes(0, k)) fout[k * n + idx] = fin[k * n + idx];
   }
   if constexpr (kGlobals)
-    finish_sums<NG>(acc, partials, &g_blocks_done,
+    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
@@ -311,7 +243,7 @@ __global__ void __launch_bounds__(RESIDENT_THREADS)
 generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
                           float* scratch, const int* __restrict__ flags,
                           const float* __restrict__ ztab,
-                          const Generic2dArgs a, int nsteps) {
+                          const GenericArgs a, int nsteps) {
   cg::grid_group grid = cg::this_grid();
   const size_t n = (size_t)a.ny * a.nx;
   const int stride = gridDim.x * blockDim.x;
@@ -351,10 +283,6 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
 
 extern "C" {
 
-const char* generic2d_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 // The output tile of a generic2d_step block (its partials are one per block)
 // and the layout sizes this library was built with, for the wrapper's checks.
 void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
@@ -374,7 +302,7 @@ void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
 // `partials` holding one double per block and global and `gout` the
 // globals (n_globals floats).
 int generic2d_step(const float* fin, float* fout, const int* flags,
-                   const float* ztab, const Generic2dArgs* a,
+                   const float* ztab, const GenericArgs* a,
                    double* partials, float* gout, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -410,11 +338,11 @@ int generic2d_resident_capacity(int device, int* cooperative,
 
 int generic2d_resident(const float* fin, float* fout, float* scratch,
                        const int* flags, const float* ztab,
-                       const Generic2dArgs* a, int nsteps, int blocks,
+                       const GenericArgs* a, int nsteps, int blocks,
                        int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  Generic2dArgs args = *a;
+  GenericArgs args = *a;
   void* params[] = {(void*)&fin, (void*)&fout, (void*)&scratch,
                     (void*)&flags, (void*)&ztab, (void*)&args,
                     (void*)&nsteps};

@@ -38,7 +38,7 @@ constexpr int NS_SETT = model::N_SETTINGS;
 // what stage_b<0> sees: the forward's node context, plus the cotangents
 // it reads and writes
 struct NodeB {
-  const Generic2dArgs& a;
+  const GenericArgs& a;
   const DeviceStorage<false>& s;
   const float* lam_out;    // [N_STORAGE][ny][nx]
   const float* lam_g;      // [N_GLOBALS]
@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(BX * BY)
 generic2d_step_b_kernel(const float* __restrict__ fin,
                         const float* __restrict__ lam_out,
                         const int* __restrict__ flags,
-                        const Generic2dArgs a,
+                        const GenericArgs a,
                         const float* __restrict__ lam_g,
                         float* __restrict__ lam_in, double* partials,
                         double* sett_out) {
@@ -107,7 +107,7 @@ generic2d_step_b_kernel(const float* __restrict__ fin,
       lam_in[k * n + idx] = v;
     }
   }
-  finish_sums<NS_SETT>(sacc, partials, &g_blocks_done_b,
+  finish_sums<NS_SETT, BX * BY>(sacc, partials, &g_blocks_done_b,
                        [sett_out](int i, double t) { sett_out[i] = t; });
 }
 
@@ -124,7 +124,7 @@ void generic2d_step_b_tile(int* tile_y, int* tile_x) {
 // and sett_out (n_settings doubles) are written; fin, lam_out, flags and
 // lam_g (n_globals floats) are read.
 int generic2d_step_b(const float* fin, const float* lam_out, const int* flags,
-                     const Generic2dArgs* a, const float* lam_g,
+                     const GenericArgs* a, const float* lam_g,
                      float* lam_in, double* partials, double* sett_out,
                      int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);

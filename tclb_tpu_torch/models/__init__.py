@@ -1,6 +1,7 @@
 """Model catalogue of the PyTorch port.  ``get_model`` builds (and caches)
 the frozen Model with physics bound.  Ported so far: ``d2q9``,
-``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat`` and ``d2q9_heat_adj``;
+``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat``, ``d2q9_heat_adj``,
+``d3q19`` and ``d3q19_adj``;
 the other models of the JAX package follow ROADMAP queue 1 items 7, 8, 10
 and 11."""
 
@@ -17,6 +18,8 @@ _REGISTRY: dict[str, str] = {
     "d2q9_kuper": "tclb_tpu_torch.models.d2q9_kuper",
     "d2q9_heat": "tclb_tpu_torch.models.d2q9_heat",
     "d2q9_heat_adj": "tclb_tpu_torch.models.d2q9_heat_adj",
+    "d3q19": "tclb_tpu_torch.models.d3q19",
+    "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",
 }
 
 _CACHE: dict[str, Model] = {}

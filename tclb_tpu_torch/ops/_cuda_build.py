@@ -3,7 +3,7 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``tclb_tpu_torch/csrc/`` builds once per content into
 ``build/tclb_tpu_torch/libtclb_<name>_<digest>.so``; a template built per
-model (``generic2d``) pre-includes the model's device header
+model (``generic2d``, ``generic3d``) pre-includes the model's device header
 (``nvcc -include csrc/models/<model>.cuh``) into
 ``libtclb_<name>_<model>_<digest>.so``.  The digest covers the source, the
 pre-included header, every header either includes from ``csrc/``
@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source besides NVCC_FLAGS: the generic kernels keep every
 # multiply and add apart, as the plain PyTorch versions compute them
-SOURCE_FLAGS = {"generic2d": ("--fmad=false",)}
+SOURCE_FLAGS = {"generic2d": ("--fmad=false",),
+                "generic3d": ("--fmad=false",)}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 

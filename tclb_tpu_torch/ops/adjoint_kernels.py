@@ -1,5 +1,6 @@
-"""The hand-written backward kernel of the generic 2D engine, its plain
-PyTorch version, and the differentiable step the adjoint runs take.
+"""The hand-written backward kernels of the generic 2D and 3D engines,
+their plain PyTorch version, and the differentiable step the adjoint runs
+take.
 
 ``step_b`` (kernel ``generic2d_step_b``, ``csrc/generic2d_adjoint.cuh``)
 replaces the JAX package's fused backward band kernel
@@ -13,6 +14,11 @@ adjoint``) build it into their generic library.  Bound by bytes: the
 primal, the output cotangent and the flags are read once and the input
 cotangent written once (``launch_bytes_b``).
 
+For a 3D model the same wrapper launches ``generic3d_step_b``
+(``csrc/generic3d_adjoint.cuh``), which replaces the fused 3D backward
+(``pallas_adjoint.py:_mk_call_bwd_3d`` for ``_make_diff_step_3d``) at
+k = 1: the node cotangents q through a device scratch, then the gather.
+
 The wrapper launches the kernel for a CUDA tensor (or raises) and runs
 ``step_b_plain`` for a CPU tensor; it counts its launches in
 ``LAUNCHES``.  ``step_b_plain`` is ``torch.func.vjp`` of the plain
@@ -21,7 +27,8 @@ cotangent is summed in float64 as the kernel sums it.
 
 ``make_diff_step`` builds the step ``tclb_tpu_torch.adjoint.run`` drives
 on the card: a ``torch.autograd.Function`` whose forward is
-``generic_kernels.step_globals`` and whose backward is ``step_b``, with the
+``generic_kernels.step_globals`` (``generic3d_kernels.step_globals`` in 3D)
+and whose backward is ``step_b``, with the
 JAX package's protocol (``chunk``, ``returns_inc``, ``prepare``,
 ``engine_name``).  k > 1 and the Control-series flavour wait (ROADMAP
 queue 2).
@@ -37,9 +44,10 @@ import torch
 
 from tclb_tpu_torch.core.lattice import LatticeState, SimParams
 from tclb_tpu_torch.core.registry import Model
+from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
 
-KERNELS = ("generic2d_step_b",)
+KERNELS = ("generic2d_step_b", "generic3d_step_b")
 # launches per kernel; the wrapper adds one where it launches, nowhere else
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -51,12 +59,14 @@ def reset_launches() -> None:
 
 def supports_diff(model: Model, shape, dtype) -> bool:
     """Whether the differentiable kernel step covers this configuration:
-    the forward kernels run it (``generic_kernels.supports``), the
-    model's header has a reverse stage, and its Iteration is one stage
-    pulling one node far (the backward kernel's one-node ring)."""
+    the forward kernels run it (``generic_kernels.supports`` or
+    ``generic3d_kernels.supports``), the model's header has a reverse
+    stage, and its Iteration is one stage pulling one node far (the
+    backward kernels' gather)."""
     dm = gk.DEVICE_MODELS.get(model.name)
     return (dm is not None and dm.adjoint
-            and gk.supports(model, shape, dtype)
+            and (gk.supports(model, shape, dtype)
+                 or g3.supports(model, shape, dtype))
             and len(model.actions["Iteration"]) == 1
             and gk.action_plan(model)[1] <= 1)
 
@@ -67,9 +77,10 @@ def supports_diff(model: Model, shape, dtype) -> bool:
 
 
 def launch_bytes_b(model: Model, shape) -> int:
-    """Device-memory bytes one ``generic2d_step_b`` launch must move: the
-    primal fields, the output cotangent and the int32 flags read once, the
-    input cotangent written once."""
+    """Device-memory bytes one ``generic2d_step_b`` or ``generic3d_step_b``
+    call must move: the primal fields, the output cotangent and the int32
+    flags read once, the input cotangent written once (the 3D kernel's
+    scratch is its own choice, not the function's)."""
     n = int(np.prod(shape))
     return (3 * model.n_storage + 1) * 4 * n
 
@@ -83,7 +94,9 @@ def node_step_b_flops(model: Model, flags: np.ndarray) -> int:
     (8 x 7 + 1), two reverse equilibria (2 x 110), the settings (12);
     every node: the Brinkman velocity, the divisions by rho and the sums
     (9 x 6 + 14); a WVelocity node its closure and inlet temperature (40),
-    an EPressure node its closure (30)."""
+    an EPressure node its closure (30).  d3q19_adj: ``_d3q19_adj_b_flops``."""
+    if model.name == "d3q19_adj":
+        return _d3q19_adj_b_flops(model, flags)
     if model.name != "d2q9_heat_adj":
         raise ValueError(f"no reverse flop count for {model.name}")
     coll = gk.count_group(model, flags, "COLLISION")
@@ -92,6 +105,31 @@ def node_step_b_flops(model: Model, flags: np.ndarray) -> int:
             + 68 * int(np.asarray(flags).size)
             + 40 * gk.count_types(model, flags, "WVelocity")
             + 30 * gk.count_types(model, flags, "EPressure"))
+
+
+def _d3q19_adj_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d3q19_adj's reverse, counted by hand from ``run_b`` in
+    csrc/models/d3q19_adj.cuh, on top of the forward it recomputes
+    (``generic3d_kernels.node_step_flops``): a collision node the output
+    cotangents times kh (19), the two dot products for the keep factors
+    (4 x 19), the stress projection's transpose and the basis' (2 x 2 x
+    69 nonzeros), the settings (3), two reverse equilibria (2 x 276), the
+    Brinkman velocity, Drag, Lift and nw (24); every node u = j / rho
+    (13) and the populations' cotangents (19 x 3); a NEBB node its
+    transpose (40); an Inlet or Outlet collision node its flux reverse
+    (40); a DesignSpace node the material cotangents (4)."""
+    coll = gk.count_group(model, flags, "COLLISION")
+    faces = gk.count_types(model, flags, "WVelocity", "WPressure",
+                           "EVelocity", "EPressure")
+    flags64 = np.asarray(flags).astype(np.int64)
+    objective = int((((flags64 & model.group_masks["OBJECTIVE"]) != 0)
+                     & ((flags64 & model.group_masks["COLLISION"]) != 0))
+                    .sum())
+    return (g3.node_step_flops(model, flags)
+            + (19 + 76 + 276 + 3 + 552 + 24) * coll
+            + (13 + 57) * int(np.asarray(flags).size) + 40 * faces
+            + 40 * objective
+            + 4 * gk.count_group(model, flags, "DESIGNSPACE"))
 
 
 # --------------------------------------------------------------------------- #
@@ -107,7 +145,8 @@ def step_b_plain(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
     m = gk._get_model(a.model)
     table = gk._plain_params(ztab, a).zone_table
     sett = torch.tensor(a.settings, dtype=fields.dtype, device=fields.device)
-    planes = sett[:, None, None].expand(len(a.settings), a.ny, a.nx)
+    planes = sett.reshape((-1,) + (1,) * len(a.shape)).expand(
+        (len(a.settings),) + a.shape)
     step = gk._action_step(a.model, True)
     zeros = torch.zeros((m.n_globals,), dtype=fields.dtype,
                         device=fields.device)
@@ -120,7 +159,7 @@ def step_b_plain(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
 
     _, vjp = torch.func.vjp(forward, fields, planes)
     lam_in, lam_planes = vjp((lam_out, lam_g))
-    return lam_in, lam_planes.double().sum(dim=(1, 2))
+    return lam_in, lam_planes.double().flatten(1).sum(dim=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -129,21 +168,25 @@ def step_b_plain(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
 
 
 def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
-    """The reverse of one Iteration (kernel ``generic2d_step_b``):
-    ``(lam_in, settings cotangent)``, the latter float64."""
+    """The reverse of one Iteration (kernel ``generic2d_step_b``, or
+    ``generic3d_step_b`` for a 3D model): ``(lam_in, settings
+    cotangent)``, the latter float64."""
     if fields.device.type == "cpu":
         return step_b_plain(fields, flags, ztab, a, lam_out, lam_g)
     gk.validate(fields, flags, ztab, a)
     dm = gk.DEVICE_MODELS[a.model]
+    name = f"generic{dm.ndim}d_step_b"
     if not dm.adjoint:
         raise ValueError(f"{a.model}'s device header has no reverse stage")
     for t, sh in ((lam_out, tuple(fields.shape)), (lam_g, (len(dm.globals_),))):
         if t.device != fields.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != sh or not t.is_contiguous():
             raise ValueError(
-                f"generic2d_step_b cotangent {tuple(t.shape)} {t.dtype} on "
+                f"{name} cotangent {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}: needs contiguous {sh} float32 on "
                 f"{fields.device}")
+    if dm.ndim == 3:
+        return _launch_step_b_3d(fields, flags, ztab, a, lam_out, lam_g)
     lb = gk.lib(a.model)
     dev, stream = gk.device_and_stream(fields)
     ty, tx = gk._LIB[a.model]["tile_b"]
@@ -162,19 +205,41 @@ def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
     return lam_in, sett
 
 
+def _launch_step_b_3d(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
+    """``generic3d_step_b``: the node cotangents into a scratch stack, then
+    the gather into lam_in (two kernels, one call)."""
+    lb = g3.lib(a.model)
+    dev, stream = gk.device_and_stream(fields)
+    n_sett = len(a.settings)
+    lam_in = torch.empty_like(fields)
+    q = torch.empty_like(fields)
+    partials = torch.empty((g3.n_blocks(a), n_sett), dtype=torch.float64,
+                           device=fields.device)
+    sett = torch.empty((n_sett,), dtype=torch.float64, device=fields.device)
+    rc = lb.generic3d_step_b(
+        fields.data_ptr(), lam_out.data_ptr(), flags.data_ptr(),
+        ztab.data_ptr(), ctypes.byref(a.c_struct), lam_g.data_ptr(),
+        lam_in.data_ptr(), q.data_ptr(), partials.data_ptr(),
+        sett.data_ptr(), dev, stream)
+    gk.check(lb, rc, "generic3d_step_b")
+    LAUNCHES["generic3d_step_b"] += 1
+    return lam_in, sett
+
+
 # --------------------------------------------------------------------------- #
 # The differentiable step
 # --------------------------------------------------------------------------- #
 
 
 class _KernelStep(torch.autograd.Function):
-    """One Iteration: forward ``generic2d_step`` (globals flavour),
-    backward ``generic2d_step_b``.  ``settings`` routes the settings
-    cotangent; the kernels read the settings from ``args``."""
+    """One Iteration: forward ``generic2d_step`` or ``generic3d_step``
+    (globals flavour), backward ``step_b``.  ``settings`` routes the
+    settings cotangent; the kernels read the settings from ``args``."""
 
     @staticmethod
     def forward(ctx, fields, settings, flags, ztab, args):
-        out, g = gk.step_globals(fields, flags, ztab, args)
+        fwd = g3.step_globals if args.nz else gk.step_globals
+        out, g = fwd(fields, flags, ztab, args)
         ctx.save_for_backward(fields, flags, ztab)
         ctx.args = args
         ctx.settings_dtype = settings.dtype
@@ -191,7 +256,9 @@ class _KernelStep(torch.autograd.Function):
 def make_diff_step(model: Model, shape, dtype=torch.float32):
     """``step(state, params) -> (state, globals)`` advancing one Iteration
     on the kernels, differentiable through ``torch.autograd``: forward
-    ``generic2d_step``'s globals flavour, backward ``generic2d_step_b``.
+    ``generic2d_step``'s globals flavour, backward ``generic2d_step_b``
+    (``generic3d_step`` and ``generic3d_step_b`` for a 3D model, tagged
+    ``cuda_adjoint3d``).
     The protocol of the JAX package's ``pallas_adjoint.make_diff_step``:
     ``state.globals_`` keeps the last iteration's globals and the second
     value is the chunk's objective increment (``returns_inc``);
@@ -224,6 +291,7 @@ def make_diff_step(model: Model, shape, dtype=torch.float32):
     step.prepare = prepare
     step.chunk = 1
     step.returns_inc = True
-    step.engine_name = f"cuda_adjoint[{model.name},k=1]"
+    kind = "cuda_adjoint3d" if model.ndim == 3 else "cuda_adjoint"
+    step.engine_name = f"{kind}[{model.name},k=1]"
     return step
 

@@ -8,8 +8,9 @@ one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
 compiled into the model-independent template ``csrc/generic2d.cu``
 (streaming, the stage plan, node types, zonal settings, globals), built
 once per model into a library of its own.  ``DEVICE_MODELS`` lists the
-models that have such a header (``d2q9_kuper`` and ``d2q9_heat_adj``) with
-the registry layout the header indexes by position.
+models that have such a header (``d2q9_kuper``, ``d2q9_heat_adj`` and the 3D
+``d3q19_adj``, whose kernels ``ops/generic3d_kernels.py`` binds) with the
+registry layout the header indexes by position.
 
 Two kernels; each wrapper launches its kernel for a CUDA tensor (or raises)
 and runs the plain version for a CPU tensor, and counts its launches in
@@ -74,6 +75,8 @@ class DeviceModel:
     globals_: tuple
     plan: tuple
     adjoint: bool = False    # the header has a reverse stage_b
+    ndim: int = 2            # 3: built into csrc/generic3d.cu
+
 
 
 DEVICE_MODELS = {
@@ -105,6 +108,23 @@ DEVICE_MODELS = {
         globals_=("HeatFlux", "HeatSourceTotal", "Material", "Drag"),
         plan=(("BaseIteration", 0),),
         adjoint=True),
+    "d3q19_adj": DeviceModel(
+        header="models/d3q19_adj.cuh",
+        storage=tuple(f"f[{k}]" for k in range(19)) + ("w",),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "GravitationZ", "S_high", "Porocity",
+                  "PorocityGamma", "PressureLossInObj", "OutletFluxInObj",
+                  "InletFluxInObj", "DragInObj", "LiftInObj",
+                  "MaterialInObj", "MaterialPenaltyInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "NSymmetry", "SSymmetry", "Inlet",
+                    "Outlet"),
+        groups=("COLLISION", "DESIGNSPACE"),
+        zonal=("Velocity", "Density", "Porocity"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux", "Drag", "Lift",
+                  "Material", "MaterialPenalty"),
+        plan=(("BaseIteration", 0),),
+        adjoint=True, ndim=3),
 }
 
 
@@ -158,7 +178,8 @@ def check_layout(model: Model) -> None:
         groups=tuple(g for g in dm.groups if g in model.group_masks),
         zonal=tuple(model.zonal_settings),
         globals_=tuple(g.name for g in model.globals_),
-        plan=tuple(action_plan(model)[0]), adjoint=dm.adjoint)
+        plan=tuple(action_plan(model)[0]), adjoint=dm.adjoint,
+        ndim=model.ndim)
     if got != dm:
         raise ValueError(f"{model.name}: registry layout {got} is not the "
                          f"one {dm.header} is written against: {dm}")
@@ -172,12 +193,12 @@ def check_layout(model: Model) -> None:
 
 @functools.lru_cache(maxsize=None)
 def c_args_type(model: str) -> type:
-    """Mirror of ``struct Generic2dArgs`` in csrc/generic2d.cu (field for
-    field), at the sizes of ``model``'s device header."""
+    """Mirror of ``struct GenericArgs`` in csrc/generic_common.cuh (field
+    for field), at the sizes of ``model``'s device header."""
     dm = DEVICE_MODELS[model]
-    return type(f"Generic2dArgs_{model}", (ctypes.Structure,), {
+    return type(f"GenericArgs_{model}", (ctypes.Structure,), {
         "_fields_": [
-            ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+            ("nz", ctypes.c_int), ("ny", ctypes.c_int), ("nx", ctypes.c_int),
             ("zone_shift", ctypes.c_int), ("zone_max", ctypes.c_int),
             ("setting", ctypes.c_float * len(dm.settings)),
             ("nt_mask", ctypes.c_int * len(dm.node_types)),
@@ -199,12 +220,17 @@ class StepArgs:
     groups: tuple       # mask per DeviceModel.groups entry
     zone_shift: int
     zone_max: int
+    nz: int = 0         # 0 for a 2D lattice
+
+    @property
+    def shape(self) -> tuple:
+        return (self.nz, self.ny, self.nx) if self.nz else (self.ny, self.nx)
 
     @functools.cached_property
     def c_struct(self) -> ctypes.Structure:
-        """The ``struct Generic2dArgs`` the kernels take (built once)."""
+        """The ``struct GenericArgs`` the kernels take (built once)."""
         c = c_args_type(self.model)()
-        c.ny, c.nx = self.ny, self.nx
+        c.nz, c.ny, c.nx = max(self.nz, 1), self.ny, self.nx
         c.zone_shift, c.zone_max = self.zone_shift, self.zone_max
         c.setting[:] = [float(np.float32(v)) for v in self.settings]
         c.nt_mask[:] = [mv[0] for mv in self.node_types]
@@ -220,7 +246,8 @@ def step_args(model: Model, shape, settings: np.ndarray) -> StepArgs:
     dm = DEVICE_MODELS[model.name]
     nt = model.node_types
     return StepArgs(
-        model=model.name, ny=int(shape[0]), nx=int(shape[1]),
+        model=model.name, nz=int(shape[0]) if len(shape) == 3 else 0,
+        ny=int(shape[-2]), nx=int(shape[-1]),
         settings=tuple(float(v) for v in settings),
         node_types=tuple((int(nt[n].mask), int(nt[n].value))
                          for n in dm.node_types),
@@ -377,10 +404,12 @@ _LIB: dict = {}
 
 
 def build(model: str) -> tuple[pathlib.Path, str]:
-    """Compile csrc/generic2d.cu with ``model``'s device header for sm_90a
-    into build/tclb_tpu_torch/ (once per source content).  Returns the
-    library path and the compiler's report (``-Xptxas -v``)."""
-    return _cuda_build.build("generic2d", DEVICE_MODELS[model].header)
+    """Compile csrc/generic2d.cu (csrc/generic3d.cu for a 3D model) with
+    ``model``'s device header for sm_90a into build/tclb_tpu_torch/ (once
+    per source content).  Returns the library path and the compiler's
+    report (``-Xptxas -v``)."""
+    dm = DEVICE_MODELS[model]
+    return _cuda_build.build(f"generic{dm.ndim}d", dm.header)
 
 
 def lib(model: str) -> ctypes.CDLL:
@@ -389,6 +418,9 @@ def lib(model: str) -> ctypes.CDLL:
     entry = _LIB.setdefault(model, {})
     if "lib" not in entry:
         dm = DEVICE_MODELS[model]
+        if dm.ndim != 2:
+            raise ValueError(f"{model} is a 3D model: its kernels are "
+                             "ops/generic3d_kernels.py's")
         path, _ = build(model)
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -402,8 +434,8 @@ def lib(model: str) -> ctypes.CDLL:
         lib.generic2d_resident.restype = i
         lib.generic2d_resident_capacity.argtypes = [i, ip, ip]
         lib.generic2d_resident_capacity.restype = i
-        lib.generic2d_error_string.argtypes = [i]
-        lib.generic2d_error_string.restype = ctypes.c_char_p
+        lib.generic_error_string.argtypes = [i]
+        lib.generic_error_string.restype = ctypes.c_char_p
         if dm.adjoint:
             lib.generic2d_step_b.argtypes = [p, p, p, argp, p, p, p, p, i, p]
             lib.generic2d_step_b.restype = i
@@ -429,7 +461,7 @@ def check(lib, rc: int, what: str) -> None:
     """Raise on a nonzero CUDA error code from a launch."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error {rc} "
-                           f"({lib.generic2d_error_string(rc).decode()})")
+                           f"({lib.generic_error_string(rc).decode()})")
 
 
 def validate(fields, flags, ztab, a: StepArgs) -> None:
@@ -439,7 +471,7 @@ def validate(fields, flags, ztab, a: StepArgs) -> None:
         raise ValueError(f"no generic kernels for {a.model} (device "
                          f"headers: {sorted(DEVICE_MODELS)})")
     dm = DEVICE_MODELS[a.model]
-    shape = (a.ny, a.nx)
+    shape = a.shape
     want = ((fields, torch.float32, (len(dm.storage),) + shape),
             (flags, torch.int32, shape),
             (ztab, torch.float32, (len(dm.zonal), a.zone_max)))
@@ -447,7 +479,7 @@ def validate(fields, flags, ztab, a: StepArgs) -> None:
         if t.device != fields.device or t.dtype != dtype \
                 or tuple(t.shape) != sh or not t.is_contiguous():
             raise ValueError(
-                f"generic2d kernel input {tuple(t.shape)} {t.dtype} on "
+                f"generic kernel input {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}: needs contiguous {sh} {dtype} on "
                 f"{fields.device}")
 

@@ -1,6 +1,7 @@
 """Shared LBM math on PyTorch tensors — the port's counterpart of the JAX
 package's ``ops/lbm.py``, restricted to what the ported models (``d2q9``,
-``d3q27_cumulant``) use.
+``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat_adj``, ``d3q19``,
+``d3q19_adj``) use.
 
 Constants (velocity sets, weights, moment bases) are numpy arrays built on
 the host; everything that touches lattice planes is a plain function on
@@ -118,6 +119,58 @@ def mrt_basis_d2q9(E: np.ndarray) -> np.ndarray:
     return M
 
 
+def d3q19_velocities() -> np.ndarray:
+    """Standard 19-velocity set: rest, 6 axis, 12 edge vectors,
+    shell-ordered (the JAX package's order)."""
+    E = [(0, 0, 0)]
+    for a in range(3):
+        for s in (1, -1):
+            v = [0, 0, 0]
+            v[a] = s
+            E.append(tuple(v))
+    for a in range(3):
+        for b in range(a + 1, 3):
+            for sa in (1, -1):
+                for sb in (1, -1):
+                    v = [0, 0, 0]
+                    v[a], v[b] = sa, sb
+                    E.append(tuple(v))
+    return np.array(E, dtype=np.int32)
+
+
+def gram_schmidt_basis(E: np.ndarray) -> np.ndarray:
+    """Orthogonal moment basis over a velocity set by Gram-Schmidt on the
+    monomials 1, ex, ey[, ez], exey, ... in graded order.  Rows are
+    ordered by total degree; the first 1 + d rows are the conserved
+    (rho, j) moments."""
+    q, d = E.shape
+    polys = []
+    for total in range(0, 3 * d + 1):
+        for px in range(total + 1):
+            for py in range(total - px + 1):
+                pz = total - px - py
+                if d == 2 and pz:
+                    continue
+                p = (px, py) if d == 2 else (px, py, pz)
+                if max(p) > 2:   # velocities in {-1,0,1}: e^3 == e
+                    continue
+                polys.append(p)
+    M: list = []
+    for p in polys:
+        row = np.ones(q)
+        for a, pw in enumerate(p):
+            row = row * E[:, a].astype(np.float64) ** pw
+        for r in M:
+            row = row - r * (row @ r) / (r @ r)
+        if (np.abs(row) > 1e-9).any():
+            M.append(row)
+        if len(M) == q:
+            break
+    if len(M) != q:
+        raise ValueError(f"moment basis incomplete: {len(M)}/{q}")
+    return np.stack(M)
+
+
 def inverse_basis(M: np.ndarray) -> np.ndarray:
     """Inverse of an orthogonal (row) basis: ``(M / |row|^2).T``."""
     norm = (M * M).sum(axis=1)
@@ -148,6 +201,25 @@ def moments(M: np.ndarray, f: torch.Tensor) -> torch.Tensor:
 def from_moments(M: np.ndarray, m: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`moments` for an orthogonal (row) basis."""
     return unrolled_matvec(inverse_basis(M), m)
+
+
+def two_rate_relax(M: np.ndarray, lo: int, hi: int, fneq,
+                   keep_stress, keep_high) -> torch.Tensor:
+    """Relaxed non-equilibrium of a two-rate MRT: rows ``lo:hi`` of the
+    orthogonal basis ``M`` (the stress group) keep ``keep_stress``, every
+    higher row keeps ``keep_high``, the conserved rows (0:lo) drop out.
+
+    Uses the projection identity ``Minv @ (keep * M @ fneq) == keep_high
+    * fneq + (keep_stress - keep_high) * P_s @ fneq`` (the conserved
+    moments of ``fneq = f - feq`` vanish), so only the ``hi - lo`` stress
+    projections are computed: ``mn = M[lo:hi] fneq``, ``back = (M[lo:hi]
+    / |row|^2)^T mn``, ``keep_high fneq_k + d back_k``."""
+    norms = (M * M).sum(axis=1)
+    mn = unrolled_matvec(M[lo:hi], fneq)
+    back = unrolled_matvec((M[lo:hi] / norms[lo:hi, None]).T, mn)
+    d = keep_stress - keep_high
+    return torch.stack([keep_high * fneq[k] + d * back[k]
+                        for k in range(len(M))])
 
 
 def nebb_boundary(E: np.ndarray, W: np.ndarray, OPP: np.ndarray,

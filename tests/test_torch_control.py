@@ -306,8 +306,8 @@ def test_cli(tmp_path, capsys):
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "d2q9", "d2q9_heat", "d2q9_heat_adj", "d2q9_kuper",
-        "d3q27_cumulant"]
+        "d2q9", "d2q9_heat", "d2q9_heat_adj", "d2q9_kuper", "d3q19",
+        "d3q19_adj", "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

@@ -1,5 +1,5 @@
-"""The d2q9, d3q27, generic and adjoint CUDA kernels against their plain
-PyTorch versions on the card.
+"""The d2q9, d3q27, generic (2D and 3D) and adjoint CUDA kernels against
+their plain PyTorch versions on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -16,10 +16,13 @@ from tclb_tpu_torch import Lattice, get_model
 from tclb_tpu_torch.ops import d2q9_kernels as dk
 from tclb_tpu_torch.ops import d3q27_kernels as dk3
 from tclb_tpu_torch.ops import adjoint_kernels as ak
+from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
-from torch_cases import (HEAT_SETTINGS, KUPER_SETTINGS, RICH3D_SETTINGS,
-                         RICH_SETTINGS, heat_adj_golden_columns, paint_rich,
-                         paint_rich_3d, paint_rich_heat, paint_rich_kuper)
+from torch_cases import (ADJ3D_SETTINGS, HEAT_SETTINGS, KUPER_SETTINGS,
+                         RICH3D_SETTINGS, RICH_SETTINGS,
+                         bench_adjoint3d_lattice, heat_adj_golden_columns,
+                         paint_rich, paint_rich_3d, paint_rich_adj3d,
+                         paint_rich_heat, paint_rich_kuper)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -277,7 +280,7 @@ def test_step_b_matches_plain(card_lattice_heat, shape):
     ak.reset_launches()
     got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
     torch.cuda.synchronize()
-    assert ak.LAUNCHES == {"generic2d_step_b": 1}
+    assert ak.LAUNCHES == {"generic2d_step_b": 1, "generic3d_step_b": 0}
     want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(gs, ws, rtol=1e-4, atol=0.0)
@@ -337,3 +340,89 @@ def test_heat_adj_golden_on_the_card(tmp_path):
     for key, want in golden.items():
         if key != "Walltime":
             assert abs(row[key] - want) <= 1e-6 + 1e-4 * abs(want), key
+
+
+@pytest.fixture
+def card_lattice_adj3d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(shape, seed):
+        lat = Lattice(get_model("d3q19_adj"), shape, dtype=torch.float32,
+                      settings=ADJ3D_SETTINGS, device="cuda")
+        return paint_rich_adj3d(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 32), (5, 11, 37), (32, 64, 256)])
+def test_generic3d_step_matches_plain(card_lattice_adj3d, shape):
+    """d3q19_adj's generic3d_step, both flavours: every node type the
+    model reads, ragged 32x8 blocks (5x11x37), bench.py's shape; fields
+    at rtol 2e-5 / atol 2e-6, globals at rtol 1e-4 / atol 1e-6."""
+    lat = card_lattice_adj3d(shape, seed=5)
+    f, flags, ztab, args = g3.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    g3.reset_launches()
+    got = g3.step(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert g3.LAUNCHES == {"generic3d_step": 1}
+    torch.testing.assert_close(got, g3.plain_steps(f, flags, ztab, args, 1),
+                               **FIELDS_TOL)
+    assert torch.equal(got[19], f[19])     # w carried through
+    got, g = g3.step_globals(f, flags, ztab, args)
+    assert g3.FLAVOUR_LAUNCHES == {"plain": 1, "globals": 1}
+    want, wg = g3.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    # a fixed order of summation: the same inputs give the same bits
+    assert torch.equal(g3.step_globals(f, flags, ztab, args)[1], g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 32), (5, 11, 37), (32, 64, 256)])
+def test_generic3d_step_b_matches_plain(card_lattice_adj3d, shape):
+    """generic3d_step_b against torch.func.vjp of the plain step: lam_in
+    at rtol 1e-4 / atol 1e-6, the settings cotangent at rtol 1e-4."""
+    lat = card_lattice_adj3d(shape, seed=6)
+    f, flags, ztab, args = g3.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"generic2d_step_b": 0, "generic3d_step_b": 1}
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=0.0)
+    assert torch.equal(ak.step_b(f, flags, ztab, args, lam, lam_g)[1], gs)
+
+
+@pytest.mark.cuda
+def test_adj3d_kernel_gradient_matches_eager():
+    """An 8-step gradient on cuda_adjoint3d against the eager step's
+    autograd on the card, f32, on bench.py:bench_adjoint3d's case at
+    8x16x64: rtol 1e-4 / atol 1e-7 (tests/test_pallas_adjoint.py:155)."""
+    from tclb_tpu_torch.adjoint import InternalTopology, \
+        make_unsteady_gradient
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    m = get_model("d3q19_adj")
+    lat = bench_adjoint3d_lattice(Lattice, m, torch.float32, (8, 16, 64),
+                                  device="cuda")
+    design = InternalTopology(m)
+    theta = torch.full_like(design.get(lat.state, lat.params), 0.8)
+    runs = {}
+    for engine in ("cuda", "eager"):
+        fn = make_unsteady_gradient(m, design, 8, levels=1, engine=engine,
+                                    shape=lat.shape, device="cuda")
+        runs[engine] = fn(theta, lat.state, lat.params)
+        assert fn.engine_name == ("cuda_adjoint3d[d3q19_adj,k=1]"
+                                  if engine == "cuda" else "eager")
+    (oc, gc, _), (oe, ge, _) = runs["cuda"], runs["eager"]
+    assert float(oc) == pytest.approx(float(oe), rel=1e-5)
+    assert float(ge.abs().max()) > 0
+    torch.testing.assert_close(gc, ge, rtol=1e-4, atol=1e-7)

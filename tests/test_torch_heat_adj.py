@@ -214,7 +214,7 @@ def test_step_b_plain_matches_jax_vjp(seed):
     ak.reset_launches()
     got_in, got_s = ak.step_b(f, flags, ztab, args, torch.tensor(lam),
                               torch.tensor(lam_g))
-    assert ak.LAUNCHES == {"generic2d_step_b": 0}   # plain on the CPU
+    assert set(ak.LAUNCHES.values()) == {0}   # plain on the CPU
     np.testing.assert_allclose(got_in.numpy(), np.asarray(want_in),
                                **F64_TOL)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),

@@ -27,6 +27,8 @@ def test_every_module_imports_without_jax():
     mods = list(_modules())
     assert "tclb_tpu_torch.ops.d2q9_kernels" in mods
     assert "tclb_tpu_torch.ops.d3q27_kernels" in mods
+    assert "tclb_tpu_torch.ops.generic3d_kernels" in mods
+    assert "tclb_tpu_torch.models.d3q19_adj" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {FORBIDDEN!r}:

@@ -284,8 +284,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
     assert [p.name for p in _cuda_build.included(csrc / "generic2d.cu")] \
-        == ["generic2d.cu", "generic2d_adjoint.cuh"]
-    headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()}
+        == ["generic2d.cu", "generic_common.cuh", "generic2d_adjoint.cuh"]
+    headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()
+               if dm.ndim == 2}
     assert set(headers) == {"d2q9_kuper", "d2q9_heat_adj"}
 
     def digests():

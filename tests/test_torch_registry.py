@@ -84,6 +84,7 @@ def test_globals_quantities_and_actions(pair):
 
 def test_catalogue_names_the_roadmap_for_models_not_ported():
     assert list_models() == ["d2q9", "d2q9_heat", "d2q9_heat_adj",
-                             "d2q9_kuper", "d3q27_cumulant"]
+                             "d2q9_kuper", "d3q19", "d3q19_adj",
+                             "d3q27_cumulant"]
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_model("d3q19")
+        get_model("d3q19_heat")

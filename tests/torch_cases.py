@@ -296,3 +296,150 @@ def heat_adj_golden_columns(solver):
     cols = {"AdjObjective": float(obj), "AdjGradL1": float(np.abs(g).sum()),
             "AdjGradP1": float(g[0, 8, 12]), "AdjGradP2": float(g[0, 10, 20])}
     return cols, grad_fn.engine_name
+
+
+# d3q19_adj: every node type the model dispatches, two zones (zone 1 a
+# faster inlet and a lower Porocity, zone 2 a denser outlet), a body force,
+# a compressible design law (PorocityGamma) and every global in the
+# objective, so every term of the step and its reverse counts
+ADJ3D_SETTINGS = {"nu": 0.05, "Velocity": 0.02, "Porocity": 0.5,
+                  "PorocityGamma": 0.3, "S_high": 1.2,
+                  "GravitationX": 1e-5, "GravitationY": -2e-6,
+                  "GravitationZ": 3e-6, "DragInObj": 1.0,
+                  "LiftInObj": 0.5, "MaterialInObj": 0.1,
+                  "MaterialPenaltyInObj": 0.05, "PressureLossInObj": 0.2,
+                  "OutletFluxInObj": 0.3, "InletFluxInObj": 0.4}
+ADJ3D_SHAPE = (8, 16, 32)      # nz, ny, nx
+
+
+def rich_flags_adj3d(m, nz, ny, nx):
+    """Every node type ``d3q19_adj`` reads on a (nz, ny, nx) field: W
+    velocity and pressure, E pressure and velocity, S and N symmetry,
+    walls, a solid node, BGK and MRT collision, Inlet and Outlet columns
+    and a DesignSpace block, half of it in Porocity zone 1."""
+    f = m.flag_for
+    flags = np.full((nz, ny, nx), f("MRT"), dtype=np.uint16)
+    h = nz // 2
+    flags[:h, :, 0] = f("WVelocity", "MRT", zone=1)
+    flags[h:, :, 0] = f("WPressure", "MRT", zone=2)
+    flags[:h, :, -1] = f("EPressure", "MRT", zone=2)
+    flags[h:, :, -1] = f("EVelocity", "MRT", zone=1)
+    flags[:, 0, 1:-1] = f("SSymmetry", "MRT")
+    flags[:, -1, 1:-1] = f("NSymmetry", "MRT")
+    flags[2:4, 5:8, 6:9] = f("Wall")
+    flags[h, ny // 2, 3 * nx // 4] = f("Solid")
+    flags[:, 2:-2, 3:5] = f("BGK")
+    flags[1:-1, 1:-1, 2] = f("MRT", "Inlet")
+    flags[1:-1, 1:-1, -3] = f("MRT", "Outlet")
+    x0, x1 = nx // 3, 2 * nx // 3
+    flags[1:-1, 3:-3, x0:x1] = f("MRT", "DesignSpace")
+    flags[1:-1, 3:-3, x0:(x0 + x1) // 2] = f("MRT", "DesignSpace", zone=1)
+    return flags
+
+
+def adj3d_planes(m, shape, seed):
+    """d3q19 populations near a flowing equilibrium with 2% noise and a
+    design field w in (0.1, 0.9)."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:19].astype(np.float64)
+    wt = np.array([{0: 1 / 3, 1: 1 / 18, 2: 1 / 36}[int((e * e).sum())]
+                   for e in E])
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.01 * rng.standard_normal((3,) + shape)
+    u[0] += 0.02
+    usq = (u * u).sum(0)
+    planes = {}
+    for k in range(19):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1] + E[k, 2] * u[2]
+        feq = wt[k] * rho * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+        planes[f"f[{k}]"] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    planes["w"] = 0.1 + 0.8 * rng.random(shape)
+    return planes
+
+
+def paint_rich_adj3d(lat, seed):
+    """``rich_flags_adj3d`` with its zones and ``adj3d_planes`` on a
+    Lattice of either package (d3q19_adj, or d3q19 without the design
+    field)."""
+    lat.set_flags(rich_flags_adj3d(lat.model, *lat.shape))
+    lat.set_setting("Velocity", 0.03, zone=1)
+    if "Porocity" in lat.model.setting_index:     # d3q19 has none
+        lat.set_setting("Porocity", 0.2, zone=1)
+    lat.set_setting("Density", 1.002, zone=2)
+    lat.init()
+    planes = adj3d_planes(lat.model, lat.shape, seed)
+    if "w" not in lat.model.storage_index:
+        del planes["w"]
+    lat.set_density_planes(planes)
+    return lat
+
+
+# The 3D adjoint case: the analogue of example/heat_adj.xml for d3q19_adj
+# at bench.py's 32x64x256 (bench.py:418-428): a W velocity inlet, an E
+# pressure outlet, channel walls on y (periodic in z), bench.py's
+# DesignSpace block (the middle half in y and z, the middle third in x),
+# bench.py's settings; a Solve, an FD check, an MMA Optimize under a
+# material constraint, ThresholdNow and VTK.
+ADJ3D_CASE_SIZES = {
+    "chip": dict(nz=32, ny=64, nx=256, solve=2000, fd_iter=8, fd_checks=3,
+                 evals=5, opt_iter=200),
+    "test": dict(nz=8, ny=16, nx=32, solve=50, fd_iter=4, fd_checks=2,
+                 evals=2, opt_iter=8),
+}
+
+
+def adj3d_case_xml(size="test", out="output/"):
+    """The case XML at one of ``ADJ3D_CASE_SIZES``."""
+    s = ADJ3D_CASE_SIZES[size]
+    nz, ny, nx = s["nz"], s["ny"], s["nx"]
+    return f"""<?xml version="1.0"?>
+<CLBConfig version="2.0" model="d3q19_adj" output="{out}">
+    <Geometry nx="{nx}" ny="{ny}" nz="{nz}">
+        <MRT><Box/></MRT>
+        <WVelocity name="Inlet"><Box nx="1"/></WVelocity>
+        <EPressure name="Outlet"><Box dx="-1"/></EPressure>
+        <Wall mask="ALL"><Channel/></Wall>
+        <DesignSpace><Box dx="{nx // 3}" nx="{nx // 3}" dy="{ny // 4}"
+            ny="{ny // 2}" dz="{nz // 4}" nz="{nz // 2}"/></DesignSpace>
+    </Geometry>
+    <Model>
+        <Params Velocity="0.02" nu="0.05"/>
+        <Params Porocity="0.5" DragInObj="1"/>
+    </Model>
+    <Solve Iterations="{s['solve']}"/>
+    <FDTest Iterations="{s['fd_iter']}" Checks="{s['fd_checks']}"/>
+    <Optimize Method="MMA" MaxEvaluations="{s['evals']}"
+              Iterations="{s['opt_iter']}" Material="less">
+        <InternalTopology/>
+    </Optimize>
+    <ThresholdNow/>
+    <VTK/>
+</CLBConfig>
+"""
+
+
+def adj3d_design_block(shape):
+    """The case's DesignSpace block as (z, y, x) slices."""
+    nz, ny, nx = shape
+    return (slice(nz // 4, nz // 4 + nz // 2),
+            slice(ny // 4, ny // 4 + ny // 2),
+            slice(nx // 3, nx // 3 + nx // 3))
+
+
+def bench_adjoint3d_lattice(lattice_cls, model, dtype, shape=(32, 64, 256),
+                            **kw):
+    """bench.py:bench_adjoint3d's case (bench.py:418-428) on a Lattice of
+    either package: MRT everywhere, walls on y, periodic x and z, the
+    DesignSpace block, nu 0.05, Velocity 0.02, Porocity 0.5, Drag as the
+    objective."""
+    nz, ny, nx = shape
+    lat = lattice_cls(model, shape, dtype=dtype,
+                      settings={"nu": 0.05, "Velocity": 0.02,
+                                "Porocity": 0.5, "DragInObj": 1.0}, **kw)
+    flags = np.full(shape, model.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0, :] = flags[:, -1, :] = model.flag_for("Wall")
+    flags[nz // 4:3 * nz // 4, ny // 4:3 * ny // 4,
+          nx // 3:2 * nx // 3] |= np.uint16(model.flag_for("DesignSpace"))
+    lat.set_flags(flags)
+    lat.init()
+    return lat
