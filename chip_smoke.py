@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
-builds ``tclb_tpu_torch/csrc/d2q9.cu``, ``d3q27.cu``, ``generic2d.cu``
+builds ``tclb_tpu_torch/csrc/d2q9.cu`` for d2q9 and once for each of the
+five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu``, ``generic2d.cu``
 once for each of d2q9_kuper and d2q9_heat_adj, the latter with the
 backward kernel of ``generic2d_adjoint.cuh``, and ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
@@ -12,8 +13,9 @@ sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
-1. build the d2q9, d3q27, the two generic 2D and the generic 3D libraries
-   and print what ``ptxas`` reports;
+1. build the d2q9 library and the five family libraries, the d3q27, the
+   two generic 2D and the generic 3D libraries and print what ``ptxas``
+   reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
@@ -35,7 +37,11 @@ missing.  Phases, each of which fails the run on its own:
    ``generic3d_step_b`` at the same tolerances on an 8x16x32 state that
    paints every node type the model reads, two zones and ``w`` in (0, 1),
    on the 32x64x256 case state of phase 13, and after phase 13 on its
-   developed state after the Solve;
+   developed state after the Solve; each d2q9-family model's branch of
+   ``d2q9_step``, ``d2q9_step2`` and ``d2q9_resident8`` on a 32x64 state
+   that paints every node type the model reads (two zones, gravity,
+   d2q9_new's Smagorinsky and Stab nodes), on its paths' starting states
+   and, after phases 15-19, on their developed states;
 3. hold the card's f32 run of the d2q9 golden cases
    (``tests/goldens/karman.json``, ``poiseuille.json``), of the
    d3q27_cumulant channel (``channel3d.json``), of the d2q9_kuper drop
@@ -97,9 +103,29 @@ missing.  Phases, each of which fails the run on its own:
    with automatic checkpoint levels (2): its wall time, rate, ratio to
    1000 primal steps, peak memory and launches.
 
-Phase 7 also times d2q9_heat_adj's kernels, ``generic2d_step_b`` and the
-two 3D kernels; phase 8 also profiles the two 1000-step gradients.
-Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 7, 8.
+15. ``example/cumulant2d.xml`` unchanged through ``run_config``
+   (d2q9_cumulant, 1024x128, 8000 iterations, Log every 1000) on
+   ``cuda_d2q9_resident[d2q9_cumulant,fuse=8]``, counted from 0, its Log
+   columns finite, one eager (globals) step per iterate call;
+16. bench.py's d2q9_cumulant channel (bench.py:194-207, 1024x1024):
+   ``iterate(2002)`` on ``cuda_d2q9_band[d2q9_cumulant,fuse=2]``;
+17. ``example/les_channel.xml`` unchanged (d2q9_les, 512x96, 8000
+   iterations) on the resident engine;
+18. BASELINE config 2: ``example/poiseuille.xml`` on d2q9_SRT
+   (``tests/torch_cases.py:srt_poiseuille_xml``) on the resident engine,
+   its final ux profile against the same case on the eager engine on the
+   card, in f32 at rtol 2e-5 / atol 2e-6 and in f64 within a relative L2
+   error of 1e-3;
+19. bench.py's channel at 1024x1024 for d2q9_SRT, d2q9_les, d2q9_inc and
+   d2q9_new (``iterate(2002)`` on the band engine), and at 128x1024 for
+   d2q9_inc and d2q9_new (the resident engine), so that every family
+   branch of every kernel runs on a path.
+
+Phase 7 also times d2q9_heat_adj's kernels, ``generic2d_step_b``, the
+two 3D kernels and each family branch at its path's shape; phase 8 also
+profiles the two 1000-step gradients, a cumulant2d and a 1024x1024
+d2q9_cumulant window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10,
+11, 12, 13, 14, 15-19, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -137,10 +163,18 @@ GRAD_F64_REL_L2 = 1e-3     # the f32 kernel gradient against f64 eager
 # limit, the objective's f64 rounding over eps (|J| 1e-16 / 1e-4, about
 # 1e-10 for |J| ~ 100) below the absolute one
 FD_REL, FD_ATOL = 1e-4, 1e-9
+# the d2q9_SRT Poiseuille's f32 ux profile after 10000 steps against f64:
+# its body force enters as feq(u + g) - feq(u), two values near 0.1 that
+# differ by about 1e-6 at g ~ 1e-5, so f32 on any engine carries a
+# systematic error of several 1e-4 of the profile; the limit is the one
+# this script holds its f32 gradients to against f64
+POISEUILLE_F64_REL_L2 = GRAD_F64_REL_L2
 KARMAN_XML = ROOT / "example" / "karman.xml"
 CHANNEL3D_XML = ROOT / "example" / "3d_channel.xml"
 DROP_XML = ROOT / "example" / "drop.xml"
 HEAT_ADJ_XML = ROOT / "example" / "heat_adj.xml"
+CUMULANT2D_XML = ROOT / "example" / "cumulant2d.xml"
+LES_XML = ROOT / "example" / "les_channel.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
@@ -154,6 +188,13 @@ TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "generic3d_step": "tclb_tpu/ops/pallas_generic.py:1528",
     "generic3d_step_b": "tclb_tpu/ops/pallas_adjoint.py:634",
 }
+# the d2q9 family's branches of the three d2q9 kernels replace the family
+# branches of the same Pallas calls (pallas_d2q9.py:136, :535-584)
+FAMILY_2D = ("d2q9_SRT", "d2q9_les", "d2q9_inc", "d2q9_cumulant",
+             "d2q9_new")
+TPU_KERNELS.update({f"{name}[{m}]": TPU_KERNELS[name] for m in FAMILY_2D
+                    for name in ("d2q9_step", "d2q9_step2",
+                                 "d2q9_resident8")})
 SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
            "adjoint": "generic2d_adjoint.cuh", "generic3d": "generic3d.cu",
            "adjoint3d": "generic3d_adjoint.cuh"}
@@ -343,8 +384,11 @@ def check_kernels(cases, errs: dict, what: str) -> dict:
 
 
 def kernel_key(dk, name: str, lat) -> str:
-    """A kernel's name in the record: the generic kernels are built once
-    per model, so theirs carries the model."""
+    """A kernel's name in the record: the generic kernels, and the d2q9
+    kernels' family branches, are built once per model, so theirs carries
+    the model."""
+    if hasattr(dk, "launch_key"):
+        return dk.launch_key(name, lat.model.name)
     return f"{name}[{lat.model.name}]" \
         if "generic" in dk.__name__ else name
 
@@ -481,7 +525,12 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
     case = xml.stem
     niter = int(root.find("Solve").get("Iterations"))
     log_every = int(root.find("Log").get("Iterations"))
-    vtk_every = int(root.find("VTK").get("Iterations"))
+    vtk = root.find("VTK")
+    vtk_every = None if vtk is None else int(vtk.get("Iterations"))
+    # the Solve iterates between the Log and VTK callbacks: one iterate
+    # call, hence one trailing eager step, per stop
+    stops = {niter} | {i for every in (log_every, vtk_every) if every
+                       for i in range(every, niter + 1, every)}
     model = get_model(root.get("model"))
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -502,18 +551,24 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
         files = sorted(os.listdir(out))
         with open(os.path.join(out, f"{case}_Log.csv")) as f:
             rows = f.read().strip().splitlines()[1:]
+    log = np.array([[float(v) for v in r.split(",")] for r in rows])
+    if not np.isfinite(log).all():
+        fail(f"{case}: non-finite Log columns")
     lat = solver.lattice
     full_globals = bool(getattr(lat._fast, "full_globals", False))
     eager_steps = lat.eager_steps
     say(f"  engine {lat.engine_name}, {solver.iter} iterations, "
-        f"{wall:.3f} s wall, launches {launches}, eager steps {eager_steps}")
+        f"{wall:.3f} s wall, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, eager steps "
+        f"{eager_steps}")
     if lat.engine_name != engine:
         fail(f"{case} ran on {lat.engine_name}")
-    if full_globals and eager_steps:
-        fail(f"{case} ran {eager_steps} eager steps on {engine}")
+    if eager_steps != (0 if full_globals else len(stops)):
+        fail(f"{case} ran {eager_steps} eager steps on {engine} in "
+             f"{len(stops)} iterate calls")
     if solver.iter != niter or len(rows) != niter // log_every:
         fail(f"{case}: {solver.iter} iterations, {len(rows)} log rows")
-    for it in range(vtk_every, niter + 1, vtk_every):
+    for it in range(vtk_every or niter + 1, niter + 1, vtk_every or 1):
         for ext in ("vti", "pvti"):
             if f"{case}_VTK_{it:08d}.{ext}" not in files:
                 fail(f"{case}: no VTK output {it} .{ext} in {files}")
@@ -1152,28 +1207,229 @@ def time_generic3d(g3, ak, lat) -> dict:
     return out
 
 
-def run_channel(dk, lat) -> dict:
-    """The band engine on the 1024x1024 channel."""
-    say("phase 5: 1024x1024 channel on the band engine")
-    niter = 2002
+def run_iterate(dk, lat, phase: str, what: str, engine: str, kernels,
+                niter: int = 2002) -> dict:
+    """``lat.iterate(niter)`` on ``engine``, counted from 0: each of
+    ``kernels`` launched, one trailing eager step (the globals), finite
+    fields, and the window's MLUPS."""
+    say(f"phase {phase}: {what}")
     lat.synchronize()
     dk.reset_launches()
+    eager0 = lat.eager_steps
     t0 = time.perf_counter()
     lat.iterate(niter)
     lat.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dk.LAUNCHES)
-    say(f"  engine {lat.engine_name}, launches {launches}, "
-        f"{np.prod(lat.shape) * niter / dt / 1e6:.1f} MLUPS")
-    if lat.engine_name != "cuda_d2q9_band[d2q9,fuse=2]":
-        fail(f"channel ran on {lat.engine_name}")
-    for name in ("d2q9_step2", "d2q9_step"):
+    mlups = float(np.prod(lat.shape)) * niter / dt / 1e6
+    say(f"  engine {lat.engine_name}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, {mlups:.1f} MLUPS")
+    if lat.engine_name != engine:
+        fail(f"{what} ran on {lat.engine_name}")
+    for name in kernels:
         if launches[name] < 1:
-            fail(f"channel did not launch {name}")
+            fail(f"{what} did not launch {name}")
+    if lat.eager_steps - eager0 != 1:
+        fail(f"{what}: {lat.eager_steps - eager0} eager steps")
     if not bool(torch.isfinite(lat.state.fields).all()):
-        fail("channel: non-finite fields")
-    return {"launches": launches,
-            "mlups_iterate": float(np.prod(lat.shape)) * niter / dt / 1e6}
+        fail(f"{what}: non-finite fields")
+    return {"launches": launches, "mlups_iterate": mlups, "lattice": lat}
+
+
+def rich_family_lattice(model: str, device):
+    """A 32x64 state of a d2q9-family model that paints every node type
+    the model reads, two zones and gravity (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import FAMILY_SHAPE, family_settings, paint_rich_family
+    m = get_model(model)
+    lat = Lattice(m, FAMILY_SHAPE, dtype=torch.float32, device=device,
+                  settings=family_settings(m))
+    return paint_rich_family(lat, seed=5)
+
+
+def family_channel_lattice(model: str, device, shape):
+    """bench.py's channels for a family model: its d2q9_cumulant channel
+    (bench.py:194-207: BGK nodes, W velocity inlet, E pressure outlet, two
+    walls, nu 0.02, Velocity 0.01, omega_bulk 1) for d2q9_cumulant, and
+    its d2q9 channel's flags (bench.py:154-167) with the same settings for
+    the other models."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import channel_flags, cumulant_channel_flags
+    m = get_model(model)
+    settings = {"nu": 0.02, "Velocity": 0.01}
+    if model == "d2q9_cumulant":
+        settings["omega_bulk"] = 1.0
+        flags = cumulant_channel_flags(m, *shape)
+    else:
+        flags = channel_flags(m, *shape)
+    lat = Lattice(m, shape, dtype=torch.float32, device=device,
+                  settings=settings)
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def run_xml(xml, dtype):
+    """A case XML through ``run_config`` on the card's eager engine
+    (``TCLB_FASTPATH=0``) from a temporary working directory (its output=
+    prefix is relative)."""
+    from tclb_tpu_torch.control.solver import run_config
+    from tclb_tpu_torch.models import get_model
+    model = get_model(ET.parse(xml).getroot().get("model"))
+    cwd, fastpath = os.getcwd(), os.environ.get("TCLB_FASTPATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        os.environ["TCLB_FASTPATH"] = "0"
+        try:
+            solver = run_config(str(xml), model, dtype=dtype, device=DEVICE)
+            solver.lattice.synchronize()
+        finally:
+            os.chdir(cwd)
+            if fastpath is None:
+                del os.environ["TCLB_FASTPATH"]
+            else:
+                os.environ["TCLB_FASTPATH"] = fastpath
+    return solver
+
+
+def mean_ux_between_walls(lat) -> float:
+    return float(lat.get_quantity("U")[0, 1:-1, :].double().mean())
+
+
+def check_cumulant2d(lat) -> None:
+    """The inlet-driven cumulant channel flows along +x: a mean ux between
+    the walls in (0, 0.1) (the case paints no objective nodes, so its
+    flux globals stay 0)."""
+    ux = mean_ux_between_walls(lat)
+    say(f"  mean ux {ux:.6g}, globals {lat.get_globals()}")
+    if not 0 < ux < 0.1:
+        fail(f"cumulant2d: implausible mean ux {ux}")
+
+
+def check_les(lat) -> None:
+    """The gravity-driven LES channel accelerates along +x."""
+    ux = mean_ux_between_walls(lat)
+    say(f"  mean ux {ux:.6g}")
+    if not 0 < ux < 0.2:
+        fail(f"les_channel: implausible mean ux {ux}")
+
+
+def check_poiseuille(xml, out: dict):
+    """BASELINE config 2 on d2q9_SRT: the f32 kernel run's final ux
+    profile (the mean over x of each fluid row) against the same XML run on
+    the eager engine on the card, in f32 at the kernels' own tolerance
+    (rtol 2e-5, atol 2e-6) and in f64 within a relative L2 error of
+    POISEUILLE_F64_REL_L2; the f32 eager run's own distance from f64 is
+    reported beside it."""
+    def profile(lat):
+        return lat.get_quantity("U")[0, 1:-1].double().mean(dim=1)
+
+    def check(lat) -> None:
+        got = profile(lat)
+        refs = {}
+        for dtype in (torch.float32, torch.float64):
+            ref = run_xml(xml, dtype)
+            if ref.lattice.engine_name != "eager" \
+                    or ref.iter != lat.state.iteration:
+                fail(f"SRT Poiseuille {dtype} reference: "
+                     f"{ref.lattice.engine_name}, {ref.iter} iterations")
+            refs[dtype] = profile(ref.lattice)
+        want = refs[torch.float64]
+        out["vs_f32_eager"] = compare(got, refs[torch.float32],
+                                      "SRT Poiseuille ux profile, f32 "
+                                      "kernels vs f32 eager")
+        for what, u in (("kernels", got), ("eager", refs[torch.float32])):
+            rel = float((u - want).norm() / want.norm())
+            out[f"f32_{what}_vs_f64_rel_l2"] = rel
+            out[f"f32_{what}_vs_f64_max_abs"] = float((u - want).abs().max())
+            say(f"  SRT Poiseuille ux profile, f32 {what} vs f64 eager: "
+                f"relative L2 {rel:.3e}, max_abs "
+                f"{out[f'f32_{what}_vs_f64_max_abs']:.3e} (limit "
+                f"{POISEUILLE_F64_REL_L2} for the kernels)")
+        out["ux_max"] = float(want.max())
+        if not out["f32_kernels_vs_f64_rel_l2"] <= POISEUILLE_F64_REL_L2:
+            fail("SRT Poiseuille: the f32 kernel profile is too far from "
+                 "f64")
+        if not float(want.max()) > 0:
+            fail("SRT Poiseuille: no flow")
+    return check
+
+
+def run_family(dk, band_lats: dict, res_lats: dict, errs: dict) -> dict:
+    """The d2q9 family's paths, each counted from 0 (phases 15-19), then
+    every family kernel against its plain version on each path's developed
+    state (phase 19b).  Returns the launches by kernel and path, each
+    model's resident-path lattice and the paths' figures."""
+    from torch_cases import srt_poiseuille_xml
+    keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
+            "iterate_host_ms", "eager_step_ms", "eager_steps")
+    launches = {dk.launch_key(name, m): {} for m in dk.FAMILY
+                for name in dk.KERNELS}
+    resident, summary, developed = {}, {}, []
+
+    def engine(kind: str, m: str) -> str:
+        return (f"cuda_d2q9_resident[{m},fuse={dk.RESIDENT_FUSE}]"
+                if kind == "resident" else f"cuda_d2q9_band[{m},fuse=2]")
+
+    def kernels(kind: str, m: str) -> tuple:
+        first = "d2q9_resident8" if kind == "resident" else "d2q9_step2"
+        return (dk.launch_key(first, m), dk.launch_key("d2q9_step", m))
+
+    def record(path: str, m: str, run: dict) -> None:
+        for name in dk.KERNELS:
+            n = run["launches"][dk.launch_key(name, m)]
+            if n:
+                launches[dk.launch_key(name, m)][path] = n
+        developed.append(run["lattice"])
+
+    m = "d2q9_cumulant"
+    run = run_case(dk, CUMULANT2D_XML, "15", engine("resident", m),
+                   kernels("resident", m), check_cumulant2d)
+    record("cumulant2d", m, run)
+    resident[m] = run["lattice"]
+    summary["cumulant2d"] = {k: run[k] for k in keys}
+    run = run_iterate(dk, band_lats[m], "16", "bench.py's 1024x1024 "
+                      "d2q9_cumulant channel on the band engine",
+                      engine("band", m), kernels("band", m))
+    record("cumulant1024", m, run)
+    summary["d2q9_cumulant1024_mlups_iterate"] = run["mlups_iterate"]
+    m = "d2q9_les"
+    run = run_case(dk, LES_XML, "17", engine("resident", m),
+                   kernels("resident", m), check_les)
+    record("les_channel", m, run)
+    resident[m] = run["lattice"]
+    summary["les_channel"] = {k: run[k] for k in keys}
+    m = "d2q9_SRT"
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = pathlib.Path(tmp) / "poiseuille_srt.xml"
+        xml.write_text(srt_poiseuille_xml())
+        profile = {}
+        run = run_case(dk, xml, "18", engine("resident", m),
+                       kernels("resident", m), check_poiseuille(xml, profile))
+    record("srt_poiseuille", m, run)
+    resident[m] = run["lattice"]
+    summary["srt_poiseuille"] = {**{k: run[k] for k in keys},
+                                 "ux_profile": profile}
+    summary["family1024_mlups_iterate"] = {}
+    for m in ("d2q9_SRT", "d2q9_les", "d2q9_inc", "d2q9_new"):
+        run = run_iterate(dk, band_lats[m], "19", f"bench.py's 1024x1024 "
+                          f"channel, {m}, on the band engine",
+                          engine("band", m), kernels("band", m))
+        record("channel1024", m, run)
+        summary["family1024_mlups_iterate"][m] = run["mlups_iterate"]
+    summary["family128x1024_mlups_iterate"] = {}
+    for m, lat in res_lats.items():
+        run = run_iterate(dk, lat, "19", f"bench.py's channel at 128x1024, "
+                          f"{m}, on the resident engine",
+                          engine("resident", m), kernels("resident", m))
+        record("channel128x1024", m, run)
+        resident[m] = lat
+        summary["family128x1024_mlups_iterate"][m] = run["mlups_iterate"]
+    check_kernels([(dk, lat, name) for lat in developed
+                   for name in dk.KERNELS], errs,
+                  "phase 19b, the family's paths after their runs")
+    return {"launches": launches, "resident_lattice": resident,
+            "summary": summary}
 
 
 def event_ms(fn, reps: int, warm: int = 5) -> float:
@@ -1222,8 +1478,9 @@ def time_kernels(cases) -> dict:
     for dk, name, lat, reps in cases:
         fn, steps = dk.WRAPPERS[name]
         *inputs, a = dk.kernel_inputs(lat.model, lat.state, lat.params)
-        out[name] = time_one(
-            name, lambda: fn(*inputs, a),
+        key = kernel_key(dk, name, lat)
+        out[key] = time_one(
+            key, lambda: fn(*inputs, a),
             lambda: dk.plain_steps(*inputs, a, steps),
             dk.launch_bytes(lat.model, lat.shape),
             steps * dk.node_step_flops(lat.model, lat.flags_numpy()),
@@ -1371,16 +1628,17 @@ def main() -> int:
     say("phase 1: build (one nvcc per library, started together)")
     t0 = time.perf_counter()
     jobs = [dk.build, dk3.build] + [
-        (lambda m=m: gk.build(m)) for m in GENERIC_MODELS]
+        (lambda m=m: gk.build(m)) for m in GENERIC_MODELS] + [
+        (lambda m=m: dk.build(m)) for m in dk.FAMILY]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         builds = list(pool.map(lambda job: job(), jobs))
     say(f"  built {', '.join(p.name for p, _ in builds)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for _, report in builds:
+    for path, report in builds:
         for line in report.splitlines():
             if "registers" in line or "spill" in line \
                     or "Compiling" in line:
-                say(f"  ptxas: {line.strip()}")
+                say(f"  ptxas ({path.name}): {line.strip()}")
 
     karman = case_lattice(KARMAN_XML, torch.float32, DEVICE)
     eager_warm(karman, 200)
@@ -1404,6 +1662,16 @@ def main() -> int:
                               drop=ADJ3D_HANDLERS)
     eager_warm(adj3d_init, 4)
     bench3d = bench3d_lattice(DEVICE)
+    # the d2q9 family: a rich state each, the paths' starting states
+    # (bench.py's channels at 1024x1024, for d2q9_inc and d2q9_new also at
+    # 128x1024) warmed a few steps
+    rich_family = [rich_family_lattice(m, DEVICE) for m in dk.FAMILY]
+    family_band = {m: family_channel_lattice(m, DEVICE, (1024, 1024))
+                   for m in dk.FAMILY}
+    family_res = {m: family_channel_lattice(m, DEVICE, (128, 1024))
+                  for m in ("d2q9_inc", "d2q9_new")}
+    for lat in list(family_band.values()) + list(family_res.values()):
+        eager_warm(lat, 20)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
@@ -1419,7 +1687,10 @@ def main() -> int:
         (gk, heat1024, "generic2d_step"),
         (gk, heat1024, "generic2d_resident"),
         (g3, rich_adj3d, "generic3d_step"),
-        (g3, adj3d_init, "generic3d_step")], {}, "phase 2")
+        (g3, adj3d_init, "generic3d_step")] + [
+        (dk, lat, name) for lat in rich_family
+        + list(family_band.values()) + list(family_res.values())
+        for name in dk.KERNELS], {}, "phase 2")
     check_globals_flavour(gk, (drop, drop1024, rich_kuper, rich_heat,
                                heat1024), errs, "phase 2")
     check_globals_flavour(g3, (rich_adj3d, adj3d_init), errs, "phase 2")
@@ -1429,7 +1700,9 @@ def main() -> int:
     main_path = run_case(dk, KARMAN_XML, "4",
                          "cuda_d2q9_resident[d2q9,fuse=8]",
                          ("d2q9_resident8", "d2q9_step"), check_karman)
-    band = run_channel(dk, channel)
+    band = run_iterate(dk, channel, "5", "1024x1024 channel on the band "
+                       "engine", "cuda_d2q9_band[d2q9,fuse=2]",
+                       ("d2q9_step2", "d2q9_step"))
     path3d = run_case(dk3, CHANNEL3D_XML, "6",
                       "cuda_d3q27_band[d3q27_cumulant,fuse=2]",
                       ("d3q27_step2", "d3q27_step"), check_channel3d)
@@ -1463,6 +1736,7 @@ def main() -> int:
     check_globals_flavour(g3, (adj3d_dev,), errs, "phase 13b")
     check_step_b(ak, g3, (adj3d_dev,), errs, "phase 13b")
     bench_adj3d = run_bench_adjoint3d(g3, ak, bench3d)
+    family = run_family(dk, family_band, family_res, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -1481,6 +1755,13 @@ def main() -> int:
         HEAT_ADJ_XML), (solve - 1) // 2 * 2, plain_reps=1))
     times.update(time_step_b(ak, gk, heat1024))
     times.update(time_generic3d(g3, ak, adj3d_dev))
+    # the family: d2q9_resident8 on each model's resident path, the
+    # single and fused steps on its 1024x1024 band path
+    times.update(time_kernels(
+        [(dk, "d2q9_resident8", family["resident_lattice"][m], 400)
+         for m in dk.FAMILY]
+        + [(dk, name, family_band[m], reps) for m in dk.FAMILY
+           for name, reps in (("d2q9_step", 400), ("d2q9_step2", 200))]))
     busy = device_busy(lambda: karman.iterate(400), "a karman iterate(400)")
     busy3d = device_busy(lambda: channel3d.iterate(200),
                          "a 3d_channel iterate(200)")
@@ -1490,10 +1771,17 @@ def main() -> int:
                             "the 1000-step 512x1024 heat_adj gradient")
     busy_grad3d = device_busy(bench_adj3d.pop("grad_fn"),
                               "the 1000-step 64x128x256 d3q19_adj gradient")
+    cum2d = family["resident_lattice"]["d2q9_cumulant"]
+    busy_cum2d = device_busy(lambda: cum2d.iterate(400),
+                             "a cumulant2d iterate(400)")
+    cum1024 = family_band["d2q9_cumulant"]
+    busy_cum1024 = device_busy(lambda: cum1024.iterate(200),
+                               "a 1024x1024 d2q9_cumulant iterate(200)")
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
                 for name in dk.KERNELS}
+    launches.update(family["launches"])
     launches.update({name: {"3d_channel": path3d["launches"][name]}
                      for name in dk3.KERNELS})
     launches.update({f"{name}[d2q9_kuper]": {
@@ -1526,7 +1814,7 @@ def main() -> int:
         kernels.append({
             "name": key, "route": "cuda",
             "source": "tclb_tpu_torch/csrc/" + sources[name],
-            "replaces": TPU_KERNELS[name],
+            "replaces": TPU_KERNELS.get(key, TPU_KERNELS[name]),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[key]["max_abs_err"],
@@ -1585,6 +1873,9 @@ def main() -> int:
             "fd_in_block",)},
         "bench_adjoint3d": {k: bench_adj3d[k] for k in (
             "mlups_iterate", "grad8_max_abs_err", "grad200", "grad1000")},
+        **family["summary"],
+        "cumulant2d_iterate_profile": busy_cum2d,
+        "d2q9_cumulant1024_iterate_profile": busy_cum1024,
         "karman_iterate_profile": busy,
         "3d_channel_iterate_profile": busy3d,
         "drop_iterate_profile": busy_drop,

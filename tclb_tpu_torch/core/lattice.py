@@ -11,7 +11,7 @@ the CPU, and the zone id is ``flags >> zone_shift``); they cross to numpy as
 uint16 in ``set_flags``, ``flags_numpy`` and ``save``/``load``.
 
 Engines: the eager path below runs every model at any dtype.  For ``d2q9``
-and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
+and its family and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
 :mod:`tclb_tpu_torch.ops.d2q9_kernels` and
 :mod:`tclb_tpu_torch.ops.d3q27_kernels` take ``niter - 1`` steps and one
 eager step computes the globals (the JAX package's hybrid); the generic

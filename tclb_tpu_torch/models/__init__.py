@@ -1,9 +1,9 @@
 """Model catalogue of the PyTorch port.  ``get_model`` builds (and caches)
-the frozen Model with physics bound.  Ported so far: ``d2q9``,
-``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat``, ``d2q9_heat_adj``,
-``d3q19`` and ``d3q19_adj``;
-the other models of the JAX package follow ROADMAP queue 1 items 7, 8, 10
-and 11."""
+the frozen Model with physics bound.  Ported so far: ``d2q9`` and its
+family (``d2q9_SRT``, ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``,
+``d2q9_new``), ``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat``,
+``d2q9_heat_adj``, ``d3q19`` and ``d3q19_adj``; the other models of the
+JAX package follow ROADMAP queue 1 items 8, 10 and 11."""
 
 from __future__ import annotations
 
@@ -14,6 +14,11 @@ from tclb_tpu_torch.core.registry import Model
 # model name -> module path ("module.path" uses its build())
 _REGISTRY: dict[str, str] = {
     "d2q9": "tclb_tpu_torch.models.d2q9",
+    "d2q9_SRT": "tclb_tpu_torch.models.d2q9_srt",
+    "d2q9_les": "tclb_tpu_torch.models.d2q9_les",
+    "d2q9_inc": "tclb_tpu_torch.models.d2q9_inc",
+    "d2q9_cumulant": "tclb_tpu_torch.models.d2q9_cumulant",
+    "d2q9_new": "tclb_tpu_torch.models.d2q9_new",
     "d3q27_cumulant": "tclb_tpu_torch.models.d3q27_cumulant",
     "d2q9_kuper": "tclb_tpu_torch.models.d2q9_kuper",
     "d2q9_heat": "tclb_tpu_torch.models.d2q9_heat",
@@ -34,7 +39,7 @@ def get_model(name: str) -> Model:
         if name not in _REGISTRY:
             raise KeyError(
                 f"model {name!r} is not ported to PyTorch yet (ROADMAP "
-                f"queue 1, items 7-11); ported: {list_models()}")
+                f"queue 1, items 8-11); ported: {list_models()}")
         mod = importlib.import_module(_REGISTRY[name])
         _CACHE[name] = mod.build()
     return _CACHE[name]

@@ -5,7 +5,10 @@ Each source under ``tclb_tpu_torch/csrc/`` builds once per content into
 ``build/tclb_tpu_torch/libtclb_<name>_<digest>.so``; a template built per
 model (``generic2d``, ``generic3d``) pre-includes the model's device header
 (``nvcc -include csrc/models/<model>.cuh``) into
-``libtclb_<name>_<model>_<digest>.so``.  The digest covers the source, the
+``libtclb_<name>_<model>_<digest>.so``; a source built per model with
+compiler flags of its own (``d2q9`` for its family: ``-DD2Q9_MODEL=<id>``)
+goes to ``libtclb_<name>_<variant>_<digest>.so``.  The digest covers the
+source, the
 pre-included header, every header either includes from ``csrc/``
 (``#include "..."``, followed recursively) and the compiler flags, and the
 compiler's report
@@ -53,20 +56,21 @@ def included(src: pathlib.Path) -> list[pathlib.Path]:
     return seen
 
 
-def _flags(name: str, header: Optional[str]) -> tuple:
+def _flags(name: str, header: Optional[str], extra: tuple = ()) -> tuple:
     pre = () if header is None else ("-include", header)
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + pre
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + tuple(extra) + pre
 
 
-def digest(name: str, header: Optional[str] = None) -> str:
+def digest(name: str, header: Optional[str] = None,
+           extra: tuple = ()) -> str:
     """Content digest of ``csrc/<name>.cu`` built with the pre-included
-    ``csrc/<header>`` (if any), the headers both include and the compiler
-    flags."""
+    ``csrc/<header>`` (if any) and the flags ``extra``, the headers both
+    include and the compiler flags."""
     h = hashlib.sha1()
     paths = [] if header is None else included(CSRC / header)
     for path in paths + included(CSRC / f"{name}.cu"):
         h.update(path.read_bytes())
-    h.update(" ".join(_flags(name, header)).encode())
+    h.update(" ".join(_flags(name, header, extra)).encode())
     return h.hexdigest()[:12]
 
 
@@ -80,15 +84,20 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str, header: Optional[str] = None
+def build(name: str, header: Optional[str] = None,
+          variant: Optional[tuple[str, tuple]] = None
           ) -> tuple[pathlib.Path, str]:
     """Compile ``csrc/<name>.cu`` for sm_90a (once per source content),
     with ``csrc/<header>`` pre-included where given (a model's device
-    header).  Returns the library path and the compiler's report."""
+    header), or as ``variant = (label, flags)`` with compiler flags of its
+    own.  Returns the library path and the compiler's report."""
     src = CSRC / f"{name}.cu"
-    tag = digest(name, header)
+    extra = () if variant is None else tuple(variant[1])
+    tag = digest(name, header, extra)
     stem = name if header is None else \
         f"{name}_{pathlib.Path(header).stem}"
+    if variant is not None:
+        stem = f"{stem}_{variant[0]}"
     lib = BUILD_DIR / f"libtclb_{stem}_{tag}.so"
     report = BUILD_DIR / f"libtclb_{stem}_{tag}.log"
     if lib.exists():
@@ -96,7 +105,7 @@ def build(name: str, header: Optional[str] = None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
     flags = [str(CSRC / f) if f == header else f
-             for f in _flags(name, header)]
+             for f in _flags(name, header, extra)]
     proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

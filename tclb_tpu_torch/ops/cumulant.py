@@ -1,9 +1,8 @@
 """Cumulant collision on PyTorch tensors — the port's counterpart of the
-JAX package's ``ops/cumulant.py`` (3D part; ``collide_d2q9`` waits for
-ROADMAP queue 1 item 7).
+JAX package's ``ops/cumulant.py`` (``collide_d3q27`` and ``collide_d2q9``).
 
-The populations of the tensor-product {-1,0,1}^3 velocity set reshape to a
-``(3, 3, 3, *shape)`` tensor (axes x, y, z).  Raw moments are three 3-wide
+The populations of the tensor-product {-1,0,1}^d velocity set reshape to a
+``(3,)*d + shape`` tensor (axes x, y[, z]).  Raw moments are 3-wide
 contractions with the Vandermonde of (-1, 0, 1); the collision relaxes the
 second-order central moments and rebuilds every higher one from the relaxed
 covariance (all cumulants above second order vanish), then shifts back and
@@ -52,10 +51,27 @@ def _contract_axis(F: torch.Tensor, mat: np.ndarray, axis: int
     return torch.stack(outs, dim=axis)
 
 
+def _raw_moments(F: torch.Tensor, ndim: int) -> torch.Tensor:
+    """m[p, q(, r)] = sum_ijk C_i^p C_j^q C_k^r F[i, j(, k)]."""
+    for ax in range(ndim):
+        F = _contract_axis(F, T, ax)
+    return F
+
+
 def _from_raw_moments(m: torch.Tensor, ndim: int) -> torch.Tensor:
     for ax in range(ndim):
         m = _contract_axis(m, T_INV, ax)
     return m
+
+
+def _centralize(m: torch.Tensor, u, axis: int) -> torch.Tensor:
+    """Raw -> central along one tensor axis: k_0 = m_0; k_1 = m_1 - u m_0;
+    k_2 = m_2 - 2u m_1 + u^2 m_0."""
+    m0, m1, m2 = (m.select(axis, p) for p in range(3))
+    k0 = m0
+    k1 = m1 - u * m0
+    k2 = m2 - 2.0 * u * m1 + u * u * m0
+    return torch.stack([k0, k1, k2], dim=axis)
 
 
 def _decentralize(k: torch.Tensor, u, axis: int) -> torch.Tensor:
@@ -215,3 +231,43 @@ def collide_d3q27(F: torch.Tensor, omega, omega_bulk=1.0,
     mp = _decentralize(mp, uy2, 1)
     mp = _decentralize(mp, uz2, 2)
     return _from_raw_moments(mp, 3), rho, (ux, uy, uz)
+
+
+def collide_d2q9(F: torch.Tensor, omega, omega_bulk=1.0,
+                 force=(0.0, 0.0), correlated: bool = True):
+    """The 2D cumulant collision of the ``(3, 3, *shape)`` population
+    tensor (axes x, y): the trace relaxes with ``omega_bulk`` toward
+    ``2 rho / 3``, the deviator and ``k_xy`` with ``omega``, ``k_22`` is the
+    Isserlis closure of the relaxed covariance (``correlated``) or the
+    product of its diagonal, and the back-shift uses ``u + force``.
+    Returns (F', rho, (ux, uy))."""
+    m = _raw_moments(F, 2)
+    rho = m[0, 0]
+    inv = 1.0 / rho
+    ux = m[1, 0] * inv
+    uy = m[0, 1] * inv
+
+    k = _centralize(m, ux, 0)
+    k = _centralize(k, uy, 1)
+
+    kxx, kyy, kxy = k[2, 0], k[0, 2], k[1, 1]
+    tr = kxx + kyy
+    tr_p = tr + omega_bulk * (2.0 * rho / 3.0 - tr)
+    d = (1.0 - omega) * (kxx - kyy) / 2.0
+    kxx_p = tr_p / 2.0 + d
+    kyy_p = tr_p / 2.0 - d
+    kxy_p = (1.0 - omega) * kxy
+
+    if correlated:
+        g22 = (kxx_p * kyy_p + 2.0 * kxy_p * kxy_p) * inv
+    else:
+        g22 = kxx_p * kyy_p * inv
+
+    kp = _moment_tensor({
+        (0, 0): rho, (2, 0): kxx_p, (0, 2): kyy_p,
+        (1, 1): kxy_p, (2, 2): g22,
+    }, rho, 2)
+
+    mp = _decentralize(kp, ux + force[0], 0)
+    mp = _decentralize(mp, uy + force[1], 1)
+    return _from_raw_moments(mp, 2), rho, (ux, uy)

@@ -27,10 +27,22 @@ version for a CPU tensor, and counts its launches in ``LAUNCHES``:
     20 flops a byte); the grid barriers and the L2 bandwidth are what its
     time shows.
 
+The same three kernels run the d2q9 family (``FAMILY``: ``d2q9_SRT``,
+``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``, ``d2q9_new``; the
+reference's ``_FAMILY_2D``, ``pallas_d2q9.py:136``): ``csrc/d2q9.cu`` is
+built once per model with ``-DD2Q9_MODEL=<id>``, which compiles in that
+model's velocity order, boundary set and collision (the branches of
+``pallas_d2q9.py:_lbm_step_family``); ``d2q9`` itself builds without it,
+to the code it always had.  A family model has no BC coupling planes
+(9 storage planes: 84 B a node), so all three kernels are bound by bytes
+for it, the resident one too (8 steps of 118 to 243 flops a node fall
+just under the card's 20 flops a byte).  Launches are counted per kernel
+and model (``launch_key``).
+
 The TPU engines' ghost-row padding and (8,128) alignment are not carried
 over: the kernels wrap periodically at any ``ny``, ``nx`` and mask the
 ragged edge.  Like the TPU kernels they compute no globals (the engine's
-trailing eager step does) and copy the BC planes through.
+trailing eager step does); d2q9's kernels copy the BC planes through.
 """
 
 from __future__ import annotations
@@ -46,18 +58,34 @@ import torch
 
 from tclb_tpu_torch.core.lattice import LatticeState, SimParams
 from tclb_tpu_torch.core.registry import Model
-from tclb_tpu_torch.models import d2q9
-from tclb_tpu_torch.ops import _cuda_build, lbm
+from tclb_tpu_torch.models import (d2q9, d2q9_inc, d2q9_les, d2q9_new,
+                                   family, get_model)
+from tclb_tpu_torch.ops import _cuda_build, cumulant, lbm
 
 KERNELS = ("d2q9_step", "d2q9_step2", "d2q9_resident8")
-# launches per kernel; a wrapper adds one where it launches, nowhere else
-LAUNCHES = {name: 0 for name in KERNELS}
+# the family models and their csrc/d2q9.cu D2Q9_MODEL ids (d2q9 is 0)
+FAMILY = ("d2q9_SRT", "d2q9_les", "d2q9_inc", "d2q9_cumulant", "d2q9_new")
+MODEL_ID = {"d2q9": 0, **{m: i + 1 for i, m in enumerate(FAMILY)}}
+
+
+def launch_key(name: str, model: str) -> str:
+    """A kernel's key in ``LAUNCHES``: d2q9's own under its name, a family
+    model's branch as ``name[model]``."""
+    return name if model == "d2q9" else f"{name}[{model}]"
+
+
+# launches per kernel and model; a wrapper adds one where it launches,
+# nowhere else
+LAUNCHES = {launch_key(name, m): 0 for m in MODEL_ID for name in KERNELS}
 
 RESIDENT_FUSE = 8               # steps per d2q9_resident8 launch
 L2_BYTES = 50 * 1024 * 1024     # H100 L2
-# boundary cases in the order the model applies them (csrc/d2q9.cu CASE_*)
+# boundary cases (csrc/d2q9.cu CASE_*); a type the model lacks never
+# matches.  d2q9 and d2q9_new apply them in this order, the family
+# through family.boundary_cases; a node matches at most one
 CASES = ("Wall", "Solid", "EVelocity", "WPressure", "WVelocity",
          "EPressure", "TopSymmetry", "BottomSymmetry")
+NEVER = (0, 1)                  # (mask, value) no flag matches
 
 
 def reset_launches() -> None:
@@ -84,28 +112,42 @@ class _CArgs(ctypes.Structure):
         ("case_mask", ctypes.c_int * len(CASES)),
         ("case_val", ctypes.c_int * len(CASES)),
         ("mrt_mask", ctypes.c_int), ("mrt_val", ctypes.c_int),
+        ("omega", ctypes.c_float), ("smag", ctypes.c_float),
+        ("omega_bulk", ctypes.c_float), ("coll_mask", ctypes.c_int),
+        ("smag_mask", ctypes.c_int), ("smag_val", ctypes.c_int),
+        ("stab_mask", ctypes.c_int), ("stab_val", ctypes.c_int),
+        ("minv_new", (ctypes.c_float * 9) * 9),
+        ("p_sh", (ctypes.c_float * 3) * 3), ("p_hh", (ctypes.c_float * 3) * 3),
     ]
 
 
 @dataclasses.dataclass(frozen=True)
 class StepArgs:
-    """The d2q9 step's constants, from the registry and the settings."""
+    """A d2q9-family step's constants, from the registry and the settings
+    (the fields a model does not use are zero)."""
 
+    model: str
     ny: int
     nx: int
     n_storage: int
-    bc: tuple          # planes of BC[0], BC[1]
+    bc: tuple          # planes of BC[0], BC[1] (d2q9)
     ex: tuple
     ey: tuple
     opp: tuple
     w: tuple
-    m: np.ndarray      # (6, 9) MRT basis rows 3..8
-    minv: np.ndarray   # (9, 6) inverse-basis columns 3..8
-    rate: tuple        # S3, S4, S56, S56, S78, S78
+    m: np.ndarray      # (6, 9) MRT basis rows 3..8 (d2q9)
+    minv: np.ndarray   # (9, 6) inverse-basis columns 3..8 (d2q9)
+    rate: tuple        # S3, S4, S56, S56, S78, S78 (d2q9)
     gx: float
     gy: float
     cases: tuple       # (mask, value) per CASES entry
     mrt: tuple         # (mask, value) of MRT
+    omega: float = 0.0
+    smag: float = 0.0
+    omega_bulk: float = 0.0
+    coll_mask: int = 0                 # the COLLISION group
+    smag_type: tuple = NEVER           # d2q9_new's Smagorinsky (LES)
+    stab_type: tuple = NEVER           # d2q9_new's Stab (ENTROPIC)
 
     @functools.cached_property
     def c_struct(self) -> _CArgs:
@@ -125,29 +167,60 @@ class StepArgs:
         c.case_mask[:] = [mv[0] for mv in self.cases]
         c.case_val[:] = [mv[1] for mv in self.cases]
         c.mrt_mask, c.mrt_val = self.mrt
+        c.omega, c.smag, c.omega_bulk = self.omega, self.smag, \
+            self.omega_bulk
+        c.coll_mask = self.coll_mask
+        c.smag_mask, c.smag_val = self.smag_type
+        c.stab_mask, c.stab_val = self.stab_type
+        if self.model == "d2q9_new":
+            # the same float32 coefficients the plain version multiplies by
+            P = d2q9_new.P_MAT
+            for i in range(9):
+                c.minv_new[i][:] = [float(v) for v in d2q9_new.MINV[i]]
+            for r in range(3):
+                c.p_sh[r][:] = [float(v) for v in P[3 + r, 6:9]]
+                c.p_hh[r][:] = [float(v) for v in P[6 + r, 6:9]]
         return c
+
+
+def _type(model: Model, name: str) -> tuple:
+    t = model.node_types.get(name)
+    return NEVER if t is None else (int(t.mask), int(t.value))
 
 
 def step_args(model: Model, shape, settings: np.ndarray) -> StepArgs:
     """Kernel constants for ``model`` at ``shape`` with the settings
     vector ``settings`` (registry order)."""
-    E, M = d2q9.E, d2q9.M
-    minv = lbm.inverse_basis(M)
     si = model.setting_index
-    s = [float(settings[si[n]]) for n in ("S3", "S4", "S56", "S78")]
-    nt = model.node_types
-    return StepArgs(
-        ny=int(shape[0]), nx=int(shape[1]), n_storage=model.n_storage,
-        bc=tuple(int(i) for i in model.groups["BC"]),
+
+    def setting(name):
+        return float(settings[si[name]]) if name in si else 0.0
+
+    E = model.ei[:9, :2]
+    common = dict(
+        model=model.name, ny=int(shape[0]), nx=int(shape[1]),
+        n_storage=model.n_storage,
         ex=tuple(int(v) for v in E[:, 0]), ey=tuple(int(v) for v in E[:, 1]),
-        opp=tuple(int(v) for v in d2q9.OPP),
-        w=tuple(float(v) for v in d2q9.W),
+        opp=tuple(int(v) for v in lbm.opposite(E)),
+        w=tuple(float(v) for v in lbm.weights(E)),
+        gx=setting("GravitationX"), gy=setting("GravitationY"),
+        cases=tuple(_type(model, n) for n in CASES),
+        mrt=_type(model, "MRT"))
+    if model.name != "d2q9":
+        return StepArgs(
+            bc=(0, 0), m=np.zeros((6, 9)), minv=np.zeros((9, 6)),
+            rate=(0.0,) * 6, omega=setting("omega"), smag=setting("Smag"),
+            omega_bulk=setting("omega_bulk"),
+            coll_mask=int(model.group_masks["COLLISION"]),
+            smag_type=_type(model, "Smagorinsky"),
+            stab_type=_type(model, "Stab"), **common)
+    M = d2q9.M
+    minv = lbm.inverse_basis(M)
+    s = [setting(n) for n in ("S3", "S4", "S56", "S78")]
+    return StepArgs(
+        bc=tuple(int(i) for i in model.groups["BC"]),
         m=M[3:].copy(), minv=minv[:, 3:].copy(),
-        rate=(s[0], s[1], s[2], s[2], s[3], s[3]),
-        gx=float(settings[si["GravitationX"]]),
-        gy=float(settings[si["GravitationY"]]),
-        cases=tuple((int(nt[n].mask), int(nt[n].value)) for n in CASES),
-        mrt=(int(nt["MRT"].mask), int(nt["MRT"].value)))
+        rate=(s[0], s[1], s[2], s[2], s[3], s[3]), **common)
 
 
 def _combo_flops(coef, onto: bool = False) -> int:
@@ -171,36 +244,128 @@ def _equilibrium_flops(E: np.ndarray, W: np.ndarray) -> int:
     return n
 
 
-def node_step_flops(model: Model, flags: np.ndarray) -> int:
-    """Floating-point operations one step of d2q9 needs over a flag field:
-    what the function takes, not what csrc/d2q9.cu executes (it also
-    multiplies by the basis' zeros and by the unit streaming components).
+def _nebb_flops() -> int:
+    """Operations of one 2D non-equilibrium bounce-back face
+    (``lbm.nebb_boundary``): the wall-parallel and the outgoing sums (2 +
+    2), rho or the normal velocity (4), rho u_n and the two distinct
+    weights times it (3), the tangential momentum, -3 q_t and the weight
+    times it (3), the two diagonal corrections added (2), each unknown's
+    partner plus its correction (3): 19."""
+    return 2 + 2 + 4 + 3 + 3 + 2 + 3
 
-    An MRT node: rho and j (8 + 5 + 5), two divisions, two equilibria
+
+def _bgk_flops(eq: int, n: int = 9) -> int:
+    """rho (8), j (5 + 5), u (2), two equilibria, ``f + omega (feq - f)``
+    (3 a population), ``u + g`` (2), ``+ (feq2 - feq)`` (2 a
+    population)."""
+    return 8 + 10 + 2 + 2 * eq + 3 * n + 2 + 2 * n
+
+
+def _smagorinsky_flops() -> int:
+    """``lbm.smagorinsky_omega_unrolled`` in 2D: f - feq of the 8 moving
+    populations, Pi_xx and Pi_yy over 6 terms each (5 + 5), Pi_xy over 4
+    (3), |Pi|^2 (6), then the square root, the constant, / rho, + tau0^2,
+    the square root, + tau0, / 2 and 1 / tau (8): 35."""
+    return 8 + 5 + 5 + 3 + 6 + 8
+
+
+def _cumulant_flops() -> int:
+    """``cumulant.collide_d2q9`` over what its result needs: the raw
+    moments up to second order (12 along x, 9 along y), 1/rho and u (3),
+    the three second-order central moments (6), the relaxation (tr 1,
+    tr' 5, d 3, kxx' kyy' 3, kxy' 1), k22 (5), the back-shift along x
+    (u + g, u^2, 2u and seven terms: 10) and along y (18), and the
+    inverse Vandermonde along both axes (2 x 3 x 7): 118."""
+    return 21 + 3 + 6 + 13 + 5 + 10 + 18 + 42
+
+
+def _new_flops() -> tuple[int, int, int]:
+    """``d2q9_new.collision_core`` at an MRT node, and what its
+    Smagorinsky and Stab modes add: the monomial moments of f and of feq
+    (over the nonzeros of ``M``, twice), u (2), one equilibrium, the six
+    non-equilibrium moments of order >= 2, their relaxation (2 each), the
+    inverse basis over its nonzeros; Smagorinsky: q2 (5), the eddy term
+    (4), tau and 1 - 1/tau (6); Stab: ``a`` and ``b`` over the nonzero
+    blocks of the H-norm metric, the guarded ratio and ``-gamma a/b``
+    (3)."""
+    def quad(block):
+        nz = int((~np.isclose(block, 0.0)).sum())
+        return 2 * nz + max(nz - 1, 0)
+
+    moments = sum(_combo_flops(row) for row in d2q9_new.M)
+    minv = sum(_combo_flops(row) for row in d2q9_new.MINV)
+    eq = _equilibrium_flops(d2q9_new.E, d2q9_new.W)
+    P = d2q9_new.P_MAT
+    base = 2 * moments + 2 + eq + 6 + 2 * 6 + minv
+    return base, 5 + 4 + 6, quad(P[3:6, 6:9]) + quad(P[6:9, 6:9]) + 3
+
+
+def _inc_equilibrium_flops() -> int:
+    """``d2q9_inc.inc_equilibrium``: |u|^2 (3) and 1.5 |u|^2 (1) once; a
+    moving direction e.u, 3 e.u, (e.u)^2, 4.5 times it, the two adds, rho
+    plus and times w (7 beyond e.u; rho0 = 1); the rest population rho -
+    1.5 |u|^2 times w (2)."""
+    E = d2q9_inc.E
+    n = 4 + 2
+    for e in E:
+        if e.any():
+            n += _combo_flops(e) + 7
+    return n
+
+
+def node_step_flops(model: Model, flags: np.ndarray) -> int:
+    """Floating-point operations one step of a d2q9-family model needs
+    over a flag field: what the function takes, not what csrc/d2q9.cu
+    executes (it also multiplies by the basis' zeros and by the unit
+    streaming components).
+
+    d2q9, an MRT node: rho and j (8 + 5 + 5), two divisions, two equilibria
     (2 x 53), f - feq (9), the moment rows 3..8 of ``M`` over their
     nonzeros (46), the six rates, four force adds, and the inverse-basis
     columns 3..8 over their nonzeros onto the post-force equilibrium (76):
     267 in all, derived below from the same ``E``, ``W`` and ``M`` the
     kernels take.  A Zou/He node adds 21; bounce-back and symmetry only
-    move values."""
-    E, W, M = d2q9.E, d2q9.W, d2q9.M
-    minv = lbm.inverse_basis(M)
-    eq = _equilibrium_flops(E, W)
-    mrt_flops = (_combo_flops(np.ones(len(W))) + _combo_flops(E[:, 0])
-                 + _combo_flops(E[:, 1]) + 2 + 2 * eq + len(W)
-                 + sum(_combo_flops(row) for row in M[3:]) + len(M) - 3
-                 + 4 + sum(_combo_flops(row, onto=True)
-                           for row in minv[:, 3:]))
+    move values.  The family, at a collision node: d2q9_SRT 173, d2q9_les
+    208 (the Smagorinsky rate adds 35), d2q9_inc 197, d2q9_cumulant 118,
+    d2q9_new 212 (+15 at a Smagorinsky node, +16 at a Stab node); a
+    non-equilibrium bounce-back face adds 19 (d2q9_new's Zou/He 21)."""
     flags = np.asarray(flags).astype(np.int64)
     nt = model.node_types
 
-    def count(name):
+    def count(name, extra=None):
+        if name not in nt:
+            return 0
         t = nt[name]
-        return int(((flags & t.mask) == t.value).sum())
+        hit = (flags & t.mask) == t.value
+        if extra is not None:
+            hit &= extra
+        return int(hit.sum())
 
-    zou_he = sum(count(n) for n in ("EVelocity", "WPressure", "WVelocity",
-                                    "EPressure"))
-    return mrt_flops * count("MRT") + 21 * zou_he
+    faces = sum(count(n) for n in ("EVelocity", "WPressure", "WVelocity",
+                                   "EPressure"))
+    if model.name in ("d2q9", "d2q9_new"):
+        mrt = (flags & nt["MRT"].mask) == nt["MRT"].value
+        if model.name == "d2q9_new":
+            base, smag, stab = _new_flops()
+            return (base * int(mrt.sum()) + smag * count("Smagorinsky", mrt)
+                    + stab * count("Stab", mrt) + 21 * faces)
+        E, W, M = d2q9.E, d2q9.W, d2q9.M
+        minv = lbm.inverse_basis(M)
+        eq = _equilibrium_flops(E, W)
+        mrt_flops = (_combo_flops(np.ones(len(W))) + _combo_flops(E[:, 0])
+                     + _combo_flops(E[:, 1]) + 2 + 2 * eq + len(W)
+                     + sum(_combo_flops(row) for row in M[3:]) + len(M) - 3
+                     + 4 + sum(_combo_flops(row, onto=True)
+                               for row in minv[:, 3:]))
+        return mrt_flops * int(mrt.sum()) + 21 * faces
+    coll = int(((flags & model.group_masks["COLLISION"]) != 0).sum())
+    E = model.ei[:9, :2]
+    eq = _equilibrium_flops(E, lbm.weights(E))
+    per_node = {"d2q9_SRT": _bgk_flops(eq),
+                "d2q9_les": _bgk_flops(eq) + _smagorinsky_flops(),
+                "d2q9_inc": _bgk_flops(_inc_equilibrium_flops()) - 2,
+                "d2q9_cumulant": _cumulant_flops()}[model.name]
+    return per_node * coll + _nebb_flops() * faces
 
 
 def launch_bytes(model: Model, shape) -> int:
@@ -251,13 +416,56 @@ def _plain_step(fields, flags, vel, den, a: StepArgs) -> torch.Tensor:
     return out
 
 
+def _plain_family_step(fields, flags, vel, den, a: StepArgs
+                       ) -> torch.Tensor:
+    """One NoGlobals step of a family model on the whole lattice, op for
+    op the reference's ``pallas_d2q9.py:_lbm_step_family``: the model's
+    boundary dispatch, then its collision where it collides."""
+    model = get_model(a.model)
+    f = torch.stack([torch.roll(fields[k], (a.ey[k], a.ex[k]), (0, 1))
+                     for k in range(9)])
+
+    def hit(name):
+        t = model.node_types[name]
+        return (flags & t.mask) == t.value
+
+    def setting(value):
+        return torch.tensor(value, dtype=f.dtype, device=f.device)
+
+    omega = setting(a.omega)
+    if a.model == "d2q9_new":
+        f = family.dispatch_boundary_cases(
+            d2q9_new.boundary_cases(vel, den), f, hit)
+        fc = d2q9_new.collision_core(f, omega, setting(a.smag),
+                                     hit("Smagorinsky"), hit("Stab"))
+        return torch.where(hit("MRT")[None], fc, f)
+    E = np.stack([a.ex, a.ey], axis=1)
+    W, OPP = np.asarray(a.w), np.asarray(a.opp)
+    f = family.dispatch_boundary_cases(
+        family.boundary_cases(model, E, W, OPP, vel, den), f, hit)
+    force = (setting(a.gx), setting(a.gy))
+    if a.model == "d2q9_SRT":
+        fc, _, _ = lbm.bgk_collide(E, W, f, omega, force=force)
+    elif a.model == "d2q9_les":
+        fc = d2q9_les.collide(f, omega, setting(a.smag), force)
+    elif a.model == "d2q9_inc":
+        fc = d2q9_inc.collide(f, omega, force)
+    else:
+        Fp, _, _ = cumulant.collide_d2q9(
+            f.reshape((3, 3) + f.shape[1:]), omega, setting(a.omega_bulk),
+            force=force)
+        fc = Fp.reshape(f.shape)
+    return torch.where(((flags & a.coll_mask) != 0)[None], fc, f)
+
+
 def plain_steps(fields, flags, vel, den, a: StepArgs, n: int
                 ) -> torch.Tensor:
-    """``n`` NoGlobals d2q9 steps on the whole lattice: what ``step``
-    (n=1), ``step2`` (n=2) and ``resident8`` (n=8) compute."""
+    """``n`` NoGlobals steps of ``a.model`` on the whole lattice: what
+    ``step`` (n=1), ``step2`` (n=2) and ``resident8`` (n=8) compute."""
+    one = _plain_step if a.model == "d2q9" else _plain_family_step
     with torch.no_grad():
         for _ in range(n):
-            fields = _plain_step(fields, flags, vel, den, a)
+            fields = one(fields, flags, vel, den, a)
     return fields
 
 
@@ -265,19 +473,28 @@ def plain_steps(fields, flags, vel, den, a: StepArgs, n: int
 # Build and bind
 # --------------------------------------------------------------------------- #
 
-_LIB: dict = {}    # the loaded library, once per process
+_LIB: dict = {}    # the loaded libraries, once per process and model
+# the family's libraries keep every multiply and add apart, as the plain
+# PyTorch versions compute them
+FAMILY_FLAGS = ("--fmad=false",)
 
 
-def build() -> tuple[pathlib.Path, str]:
+def build(model: str = "d2q9") -> tuple[pathlib.Path, str]:
     """Compile csrc/d2q9.cu for sm_90a into build/tclb_tpu_torch/ (once per
-    source content).  Returns the library path and the compiler's report
-    (``-Xptxas -v``: registers, shared memory, spills per kernel)."""
-    return _cuda_build.build("d2q9")
+    source content and model): ``d2q9`` as it is, a family model with
+    ``-DD2Q9_MODEL=<id>``.  Returns the library path and the compiler's
+    report (``-Xptxas -v``: registers, shared memory, spills per
+    kernel)."""
+    if model == "d2q9":
+        return _cuda_build.build("d2q9")
+    return _cuda_build.build(
+        "d2q9", variant=(model, (f"-DD2Q9_MODEL={MODEL_ID[model]}",)
+                         + FAMILY_FLAGS))
 
 
-def _lib() -> ctypes.CDLL:
-    if "lib" not in _LIB:
-        path, _ = build()
+def _lib(model: str = "d2q9") -> ctypes.CDLL:
+    if model not in _LIB:
+        path, _ = build(model)
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         argp = ctypes.POINTER(_CArgs)
@@ -292,8 +509,25 @@ def _lib() -> ctypes.CDLL:
         lib.d2q9_resident8_capacity.restype = i
         lib.d2q9_error_string.argtypes = [i]
         lib.d2q9_error_string.restype = ctypes.c_char_p
-        _LIB["lib"] = lib
-    return _LIB["lib"]
+        lib.d2q9_velocity_set.argtypes = [ctypes.POINTER(i)] * 3
+        lib.d2q9_velocity_set.restype = None
+        _check_velocity_set(lib, model)
+        _LIB[model] = lib
+    return _LIB[model]
+
+
+def _check_velocity_set(lib, model: str) -> None:
+    """The library was compiled for ``model``: its model id and velocity
+    order are the registry's."""
+    ex, ey, mid = (ctypes.c_int * 9)(), (ctypes.c_int * 9)(), ctypes.c_int()
+    lib.d2q9_velocity_set(ex, ey, ctypes.byref(mid))
+    E = get_model(model).ei[:9, :2]
+    if mid.value != MODEL_ID[model] or list(ex) != E[:, 0].tolist() \
+            or list(ey) != E[:, 1].tolist():
+        raise RuntimeError(
+            f"csrc/d2q9.cu built as model {mid.value} with velocities "
+            f"{list(zip(ex, ey))}; {model} needs {MODEL_ID[model]} and "
+            f"{E.tolist()}")
 
 
 def _check(lib, rc: int, what: str) -> None:
@@ -303,6 +537,9 @@ def _check(lib, rc: int, what: str) -> None:
 
 
 def _validate(fields, flags, vel, den, a: StepArgs) -> None:
+    if a.model != "d2q9" and a.n_storage != 9:
+        raise ValueError(f"{a.model}: the family kernels take 9 storage "
+                         f"planes, not {a.n_storage}")
     shape = (a.ny, a.nx)
     want = ((fields, torch.float32, (a.n_storage,) + shape),
             (flags, torch.int32, shape), (vel, torch.float32, shape),
@@ -325,14 +562,14 @@ def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
 def _launch_single(name: str, fields, flags, vel, den, a: StepArgs
                    ) -> torch.Tensor:
     _validate(fields, flags, vel, den, a)
-    lib = _lib()
+    lib = _lib(a.model)
     out = torch.empty_like(fields)
     dev, stream = _device_and_stream(fields)
     rc = getattr(lib, name)(fields.data_ptr(), out.data_ptr(),
                             flags.data_ptr(), vel.data_ptr(), den.data_ptr(),
                             ctypes.byref(a.c_struct), dev, stream)
     _check(lib, rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, a.model)] += 1
     return out
 
 
@@ -350,13 +587,14 @@ def step2(fields, flags, vel, den, a: StepArgs) -> torch.Tensor:
     return _launch_single("d2q9_step2", fields, flags, vel, den, a)
 
 
-def resident_grid(device: int, nodes: int) -> int:
-    """Blocks of one cooperative ``d2q9_resident8`` launch: as many as
-    the device holds at once, no more than the lattice needs.  Raises
-    when the device cannot launch cooperative kernels."""
-    key = ("capacity", device)
+def resident_grid(device: int, nodes: int, model: str = "d2q9") -> int:
+    """Blocks of one cooperative ``d2q9_resident8`` launch of ``model``'s
+    library: as many as the device holds at once, no more than the
+    lattice needs.  Raises when the device cannot launch cooperative
+    kernels."""
+    key = ("capacity", device, model)
     if key not in _LIB:
-        lib = _lib()
+        lib = _lib(model)
         coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _check(lib, lib.d2q9_resident8_capacity(device, ctypes.byref(coop),
                                                 ctypes.byref(blocks)),
@@ -377,9 +615,9 @@ def resident8(fields, flags, vel, den, a: StepArgs) -> torch.Tensor:
     if fields.device.type == "cpu":
         return plain_steps(fields, flags, vel, den, a, RESIDENT_FUSE)
     _validate(fields, flags, vel, den, a)
-    lib = _lib()
+    lib = _lib(a.model)
     dev, stream = _device_and_stream(fields)
-    blocks = resident_grid(dev, a.ny * a.nx)
+    blocks = resident_grid(dev, a.ny * a.nx, a.model)
     out = torch.empty_like(fields)
     scratch = torch.empty((9, a.ny, a.nx), dtype=fields.dtype,
                           device=fields.device)
@@ -388,7 +626,7 @@ def resident8(fields, flags, vel, den, a: StepArgs) -> torch.Tensor:
                             vel.data_ptr(), den.data_ptr(),
                             ctypes.byref(a.c_struct), blocks, dev, stream)
     _check(lib, rc, "d2q9_resident8")
-    LAUNCHES["d2q9_resident8"] += 1
+    LAUNCHES[launch_key("d2q9_resident8", a.model)] += 1
     return out
 
 
@@ -403,9 +641,12 @@ WRAPPERS = {"d2q9_step": (step, 1), "d2q9_step2": (step2, 2),
 
 
 def supports(model: Model, shape, dtype) -> bool:
-    """Whether the kernels run this configuration: ``d2q9``, 2D, f32."""
-    return (model.name == "d2q9" and len(shape) == 2
-            and dtype == torch.float32 and min(int(s) for s in shape) >= 1)
+    """Whether the kernels run this configuration: ``d2q9``, or a family
+    model with its 9 storage planes; 2D, f32."""
+    ours = model.name == "d2q9" or (model.name in FAMILY
+                                    and model.n_storage == 9)
+    return (ours and len(shape) == 2 and dtype == torch.float32
+            and min(int(s) for s in shape) >= 1)
 
 
 def supports_resident(model: Model, shape, dtype) -> bool:
@@ -420,13 +661,18 @@ def kernel_inputs(model: Model, state: LatticeState, params: SimParams
                   ) -> tuple:
     """``(fields, flags, vel, den, args)`` as the engines hand them to a
     kernel wrapper, once per ``iterate`` call: the field stack, the int32
-    flags, the zonal Velocity and Density planes gathered through the zone
-    bits, and the constants."""
+    flags, the zonal Velocity and Density (``1 + 3 Pressure`` for
+    ``d2q9_new``) planes gathered through the zone bits, and the
+    constants."""
     flags = state.flags.contiguous()
     zones = (flags >> model.zone_shift).long()
     si = model.setting_index
     vel = params.zone_table[si["Velocity"]][zones].contiguous()
-    den = params.zone_table[si["Density"]][zones].contiguous()
+    if "Density" in si:
+        den = params.zone_table[si["Density"]][zones].contiguous()
+    else:   # d2q9_new: the boundary density from the zonal Pressure
+        den = (1.0 + 3.0 * params.zone_table[si["Pressure"]][zones]
+               ).contiguous()
     a = step_args(model, tuple(flags.shape),
                   params.settings.cpu().numpy())
     return state.fields.contiguous(), flags, vel, den, a

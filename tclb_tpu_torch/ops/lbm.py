@@ -1,7 +1,7 @@
 """Shared LBM math on PyTorch tensors — the port's counterpart of the JAX
-package's ``ops/lbm.py``, restricted to what the ported models (``d2q9``,
-``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat_adj``, ``d3q19``,
-``d3q19_adj``) use.
+package's ``ops/lbm.py``, restricted to what the ported models (``d2q9``
+and its family, ``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat_adj``,
+``d3q19``, ``d3q19_adj``) use.
 
 Constants (velocity sets, weights, moment bases) are numpy arrays built on
 the host; everything that touches lattice planes is a plain function on
@@ -11,6 +11,7 @@ counterpart: they exist only to make XLA's fusion choices reproducible.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -94,6 +95,44 @@ def equilibrium(E: np.ndarray, W: np.ndarray, rho: torch.Tensor, u):
                 - usq / (2 * CS2)
         out.append(float(W[i]) * rho * common)
     return torch.stack(out)
+
+
+def bgk_collide(E: np.ndarray, W: np.ndarray, f: torch.Tensor, omega,
+                force=None):
+    """Plain BGK with the velocity-shift (exact-difference) body force.
+    Returns ``(f', rho, u)`` with ``u`` a tuple of velocity planes."""
+    rho = torch.sum(f, dim=0)
+    d = E.shape[1]
+    u = tuple(edot(E[:, a], f) / rho for a in range(d))
+    feq = equilibrium(E, W, rho, u)
+    out = f + omega * (feq - f)
+    if force is not None:
+        u2 = tuple(u[a] + force[a] for a in range(d))
+        out = out + (equilibrium(E, W, rho, u2) - feq)
+    return out, rho, u
+
+
+def smagorinsky_omega_unrolled(E: np.ndarray, f, feq, rho, omega0, smag):
+    """Smagorinsky eddy-viscosity relaxation rate (Hou et al.):
+    ``tau_eff = (tau0 + sqrt(tau0^2 + 18 sqrt(2) Cs^2 |Pi| / rho)) / 2``
+    with ``|Pi|`` the Frobenius norm of the non-equilibrium momentum flux,
+    contracted with scalar coefficients (2D and 3D)."""
+    d = E.shape[1]
+    pi2 = None
+    for a in range(d):
+        for b in range(a, d):
+            ks = [k for k in range(len(E)) if E[k, a] * E[k, b]]
+            if not ks:
+                continue
+            pab = sum(float(E[k, a] * E[k, b]) * (f[k] - feq[k])
+                      for k in ks)
+            term = pab * pab * (1.0 if a == b else 2.0)
+            pi2 = term if pi2 is None else pi2 + term
+    tau0 = 1.0 / omega0
+    tau_eff = 0.5 * (tau0 + torch.sqrt(
+        tau0 * tau0 + 18.0 * math.sqrt(2.0) * smag * smag
+        * torch.sqrt(pi2) / rho))
+    return 1.0 / tau_eff
 
 
 def mrt_basis_d2q9(E: np.ndarray) -> np.ndarray:

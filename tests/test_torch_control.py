@@ -1,7 +1,8 @@
 """The port's control plane against the JAX package's: geometry painting,
 units, CSV/VTI output, the handler tree and the CLI, and each slice as a
 whole — the d2q9, channel3d, drop and heat_adj goldens reproduced through
-the port's ``_run_root``."""
+the port's ``_run_root``, and example/cavity.xml and heat_channel.xml run
+through both packages."""
 
 # jax 0.9 turned batching.primitive_batchers into a proxy without ``in``,
 # which the JAX package's ops/lbm.py uses at import; give it one
@@ -295,6 +296,46 @@ def test_golden_through_port(name, xml, tmp_path):
             f"{name}:{key}: {row[key]!r} != {want!r}"
 
 
+def _read_log(path):
+    import csv
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], np.array([[float(v) for v in r] for r in rows[1:]])
+
+
+@pytest.mark.parametrize("example", ["cavity.xml", "heat_channel.xml"])
+def test_example_through_both_control_planes(example, tmp_path):
+    """example/cavity.xml (d2q9_kuper, a MovingWall lid) and
+    example/heat_channel.xml (d2q9_heat, a Heater strip) through both
+    packages' _run_root at f64, cut to 200 iterations with a Log every 50:
+    the fields and every Log column at RTOL 1e-10 / ATOL 1e-12."""
+    root = ET.parse(ROOT / "example" / example).getroot()
+    root.find("Solve").set("Iterations", "200")
+    root.find("Log").set("Iterations", "50")
+    for el in root.findall("VTK"):
+        root.remove(el)
+    runs = {}
+    for tag, run_root, get, dtype in (
+            ("port", solver._run_root, get_model, torch.float64),
+            ("ref", jax_solver._run_root, jax_model, jnp.float64)):
+        out = tmp_path / tag
+        root.set("output", str(out) + "/")    # the XML's own wins
+        kw = {"device": "cpu"} if tag == "port" else {}
+        runs[tag] = (run_root(root, get(root.get("model")), None, dtype,
+                              str(out) + "/", "case", **kw), out)
+    (port, pout), (ref, rout) = runs["port"], runs["ref"]
+    assert port.iter == ref.iter == 200
+    np.testing.assert_allclose(port.lattice.state.fields.numpy(),
+                               np.asarray(ref.lattice.state.fields),
+                               rtol=RTOL, atol=ATOL)
+    hp, lp = _read_log(pout / "case_Log.csv")
+    hr, lr = _read_log(rout / "case_Log.csv")
+    assert hp == hr and lp.shape == lr.shape == (4, len(hp))
+    keep = [i for i, h in enumerate(hp) if h != "Walltime"]
+    np.testing.assert_allclose(lp[:, keep], lr[:, keep], rtol=RTOL,
+                               atol=ATOL)
+
+
 def test_cli(tmp_path, capsys):
     case = tmp_path / "k.xml"
     case.write_text(KARMAN.replace("<CLBConfig ", '<CLBConfig model="d2q9" ')
@@ -306,7 +347,8 @@ def test_cli(tmp_path, capsys):
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "d2q9", "d2q9_heat", "d2q9_heat_adj", "d2q9_kuper", "d3q19",
+        "d2q9", "d2q9_SRT", "d2q9_cumulant", "d2q9_heat", "d2q9_heat_adj",
+        "d2q9_inc", "d2q9_kuper", "d2q9_les", "d2q9_new", "d3q19",
         "d3q19_adj", "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)

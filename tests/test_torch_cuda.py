@@ -1,5 +1,5 @@
-"""The d2q9, d3q27, generic (2D and 3D) and adjoint CUDA kernels against
-their plain PyTorch versions on the card.
+"""The d2q9 (with the d2q9 family's branches), d3q27, generic (2D and 3D)
+and adjoint CUDA kernels against their plain PyTorch versions on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -18,10 +18,11 @@ from tclb_tpu_torch.ops import d3q27_kernels as dk3
 from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
-from torch_cases import (ADJ3D_SETTINGS, HEAT_SETTINGS, KUPER_SETTINGS,
-                         RICH3D_SETTINGS, RICH_SETTINGS,
-                         bench_adjoint3d_lattice, heat_adj_golden_columns,
-                         paint_rich, paint_rich_3d, paint_rich_adj3d,
+from torch_cases import (ADJ3D_SETTINGS, FAMILY_MODELS, HEAT_SETTINGS,
+                         KUPER_SETTINGS, RICH3D_SETTINGS, RICH_SETTINGS,
+                         bench_adjoint3d_lattice, family_settings,
+                         heat_adj_golden_columns, paint_rich, paint_rich_3d,
+                         paint_rich_adj3d, paint_rich_family,
                          paint_rich_heat, paint_rich_kuper)
 
 # the kernels contract multiply-adds and the plain version does not:
@@ -87,6 +88,65 @@ def test_lattice_engine_matches_eager(card_lattice, shape, engine, kernels):
     assert lat.engine_name == engine
     for k in kernels:
         assert dk.LAUNCHES[k] >= 1, k
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    got, want = lat.get_globals(), ref.get_globals()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+@pytest.fixture
+def card_lattice_family():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed):
+        m = get_model(name)
+        lat = Lattice(m, shape, dtype=torch.float32,
+                      settings=family_settings(m), device="cuda")
+        return paint_rich_family(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64), (37, 53), (128, 1024)])
+@pytest.mark.parametrize("name", dk.KERNELS)
+@pytest.mark.parametrize("model", FAMILY_MODELS)
+def test_family_kernel_matches_plain(card_lattice_family, model, name,
+                                     shape):
+    """Each family model's branch of each kernel on a state that paints
+    every node type the model reads."""
+    lat = card_lattice_family(model, shape, seed=5)
+    f, flags, vel, den, args = dk.kernel_inputs(lat.model, lat.state,
+                                                lat.params)
+    fn, n = dk.WRAPPERS[name]
+    dk.reset_launches()
+    got = fn(f, flags, vel, den, args)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[dk.launch_key(name, model)] == 1
+    assert sum(dk.LAUNCHES.values()) == 1
+    torch.testing.assert_close(got, dk.plain_steps(f, flags, vel, den,
+                                                   args, n), **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", FAMILY_MODELS)
+@pytest.mark.parametrize("shape,engine,kernels", [
+    ((128, 1024), "resident", ("d2q9_resident8", "d2q9_step")),
+    ((1024, 1024), "band", ("d2q9_step2", "d2q9_step")),
+])
+def test_family_lattice_engine_matches_eager(card_lattice_family, model,
+                                             shape, engine, kernels):
+    lat = card_lattice_family(model, shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    dk.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name.startswith(f"cuda_d2q9_{engine}[{model},")
+    for k in kernels:
+        assert dk.LAUNCHES[dk.launch_key(k, model)] >= 1, k
     torch.testing.assert_close(lat.state.fields, ref.state.fields,
                                **FIELDS_TOL)
     got, want = lat.get_globals(), ref.get_globals()

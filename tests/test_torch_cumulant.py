@@ -1,6 +1,7 @@
 """The port's cumulant collision and generic boundary closures against the
 JAX package's, at f64 on random near-equilibrium populations:
-``ops/cumulant.py`` (moments, shifts, ``collide_d3q27``), ``ops/lbm.py``
+``ops/cumulant.py`` (moments, shifts, ``collide_d3q27``, ``collide_d2q9``),
+``ops/lbm.py``
 (``nebb_boundary`` on every face and kind, ``wstack``) and
 ``models/family.py`` (``boundary_cases`` of ``d3q27_cumulant``,
 ``add_flux_objectives``)."""
@@ -121,6 +122,47 @@ def test_collide_d3q27(correlated, forced, galilean, omega_plane):
     rho = F.sum(axis=(0, 1, 2))
     np.testing.assert_allclose(tout[0].numpy().sum(axis=(0, 1, 2)), rho,
                                rtol=1e-13)
+
+
+def populations_2d(seed, shape=(5, 6)):
+    """d2q9 populations in the tensor order near a flowing equilibrium
+    plus 2% noise."""
+    E2 = cumulant.velocity_set(2)
+    W2 = lbm.weights(E2)
+    rng = np.random.default_rng(seed)
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.03 * rng.standard_normal((2,) + shape)
+    usq = (u * u).sum(0)
+    f = [W2[k] * rho * (1 + 3 * (E2[k, 0] * u[0] + E2[k, 1] * u[1])
+                        + 4.5 * (E2[k, 0] * u[0] + E2[k, 1] * u[1]) ** 2
+                        - 1.5 * usq) for k in range(9)]
+    return np.stack(f) * (1 + 0.02 * rng.standard_normal((9,) + shape))
+
+
+@pytest.mark.parametrize("correlated", [True, False])
+@pytest.mark.parametrize("forced", [False, True])
+def test_collide_d2q9(correlated, forced):
+    """The 2D cumulant collision (and its raw-moment and centralising
+    helpers) at f64, mass conserved."""
+    F = populations_2d(4).reshape((3, 3, 5, 6))
+    jF, tF = both(F)
+    for axis in range(2):
+        u = 0.02 + 0.01 * np.random.default_rng(axis).standard_normal((5, 6))
+        ju, tu = both(u)
+        close(cumulant._centralize(tF, tu, axis),
+              jax_cumulant._centralize(jF, ju, axis))
+    close(cumulant._raw_moments(tF, 2), jax_cumulant._raw_moments(jF, 2))
+    force = (1e-4, -3e-5) if forced else (0.0, 0.0)
+    jout = jax_cumulant.collide_d2q9(jF, 1.3, 0.8, force=force,
+                                     correlated=correlated)
+    tout = cumulant.collide_d2q9(tF, 1.3, 0.8, force=force,
+                                 correlated=correlated)
+    close(tout[0], jout[0])
+    close(tout[1], jout[1])
+    for a, b in zip(tout[2], jout[2]):
+        close(a, b)
+    np.testing.assert_allclose(tout[0].numpy().sum(axis=(0, 1)),
+                               F.sum(axis=(0, 1)), rtol=1e-13)
 
 
 FACES = [(axis, side) for axis in range(3) for side in (+1, -1)]

@@ -121,7 +121,7 @@ def test_cpu_tensor_takes_plain_version_without_counting():
         got = fn(f, flags, vel, den, args)
         want = dk.plain_steps(f, flags, vel, den, args, n)
         assert torch.equal(got, want), name
-    assert dk.LAUNCHES == {name: 0 for name in dk.KERNELS}
+    assert not any(dk.LAUNCHES.values())
     # the BC planes are carried through unchanged
     assert torch.equal(got[9:], f[9:])
 
@@ -147,6 +147,24 @@ def test_engine_choice(monkeypatch):
     monkeypatch.setenv("TCLB_FASTPATH", "0")
     off = Lattice(tm, (16, 16), dtype=torch.float32, device="cpu")
     assert off.engine_name == "eager"
+
+
+def test_family_engines_and_launch_keys():
+    """The family runs on the same three kernels, one library per model:
+    its engines carry the model in their tag and its launches count
+    under ``name[model]``; a model the kernels lack is refused."""
+    assert set(dk.LAUNCHES) == {
+        dk.launch_key(k, m) for k in dk.KERNELS for m in dk.MODEL_ID}
+    assert dk.launch_key("d2q9_step2", "d2q9") == "d2q9_step2"
+    for name in dk.FAMILY:
+        m = get_model(name)
+        assert dk.select_engine(m, (1024, 1024), torch.float32)[1] \
+            == f"cuda_d2q9_band[{name},fuse=2]"
+        assert dk.launch_key("d2q9_step2", name) in dk.LAUNCHES
+    kuper = get_model("d2q9_kuper")
+    assert not dk.supports(kuper, (64, 64), torch.float32)
+    with pytest.raises(ValueError, match="unsupported"):
+        dk.make_band_iterate(kuper, (64, 64))
 
 
 def test_bound_counts():

@@ -80,3 +80,31 @@ def test_present_types():
     assert lbm.present_types(tm, flags) == jlbm.present_types(jm, flags)
     assert {"MRT", "WVelocity", "Wall", "TopSymmetry", "Outlet"} <= \
         lbm.present_types(tm, flags)
+
+
+def test_bgk_collide_and_smagorinsky_rate():
+    """``bgk_collide`` with and without the body force, and the
+    Smagorinsky relaxation rate, in 2D and in 3D (d3q19)."""
+    f = _planes(3)
+    fj, ft = _both(f)
+    W = jlbm.weights(E)
+    for force in (None, (2e-5, -1e-5)):
+        got = lbm.bgk_collide(E, W, ft, 1.4, force=force)
+        want = jlbm.bgk_collide(E, W, fj, 1.4, force=force)
+        for t, j in zip(got[:2], want[:2]):
+            _close(t, j)
+        for t, j in zip(got[2], want[2]):
+            _close(t, j)
+    for E_ in (E, lbm.d3q19_velocities()):
+        q = len(E_)
+        W_ = jlbm.weights(E_)
+        fj, ft = _both(_planes(4, n=q))
+        rho_t, rho_j = ft.sum(0), fj.sum(0)
+        u_t = [lbm.edot(E_[:, a], ft) / rho_t for a in range(E_.shape[1])]
+        u_j = [jlbm.edot(E_[:, a], fj) / rho_j for a in range(E_.shape[1])]
+        feq_t = lbm.equilibrium(E_, W_, rho_t, tuple(u_t))
+        feq_j = jlbm.equilibrium(E_, W_, rho_j, tuple(u_j))
+        _close(lbm.smagorinsky_omega_unrolled(E_, ft, feq_t, rho_t, 1.7,
+                                              0.16),
+               jlbm.smagorinsky_omega_unrolled(E_, fj, feq_j, rho_j, 1.7,
+                                               0.16))

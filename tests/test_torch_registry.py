@@ -83,8 +83,28 @@ def test_globals_quantities_and_actions(pair):
 
 
 def test_catalogue_names_the_roadmap_for_models_not_ported():
-    assert list_models() == ["d2q9", "d2q9_heat", "d2q9_heat_adj",
-                             "d2q9_kuper", "d3q19", "d3q19_adj",
-                             "d3q27_cumulant"]
+    assert list_models() == ["d2q9", "d2q9_SRT", "d2q9_cumulant",
+                             "d2q9_heat", "d2q9_heat_adj", "d2q9_inc",
+                             "d2q9_kuper", "d2q9_les", "d2q9_new", "d3q19",
+                             "d3q19_adj", "d3q27_cumulant"]
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model("d3q19_heat")
+
+
+@pytest.mark.parametrize("name", ["d2q9_SRT", "d2q9_les", "d2q9_inc",
+                                  "d2q9_cumulant", "d2q9_new"])
+def test_family_on_the_d2q9_kernels(name):
+    """Each family model is the reference's own registry entry and is
+    taken by the d2q9 kernels at f32 (engine tag per model), by none at
+    f64."""
+    from tclb_tpu_torch.ops import d2q9_kernels
+    j, t = jax_model(name), get_model(name)
+    assert t.structural_key() == j.structural_key()
+    assert t.fingerprint == j.fingerprint
+    assert d2q9_kernels.supports(t, (100, 1024), np.float32) is False
+    import torch
+    assert d2q9_kernels.supports(t, (100, 1024), torch.float32)
+    assert d2q9_kernels.select_engine(t, (100, 1024), torch.float32)[1] \
+        == f"cuda_d2q9_resident[{name},fuse=8]"
+    assert d2q9_kernels.select_engine(t, (100, 1024), torch.float64) \
+        == (None, None)

@@ -443,3 +443,128 @@ def bench_adjoint3d_lattice(lattice_cls, model, dtype, shape=(32, 64, 256),
     lat.set_flags(flags)
     lat.init()
     return lat
+
+
+# the d2q9 family (d2q9_SRT, d2q9_les, d2q9_inc, d2q9_cumulant, d2q9_new):
+# zone 1 velocity, zone 2 density (d2q9_new: zone 2 pressure), gravity
+# where the model has it
+FAMILY_MODELS = ("d2q9_SRT", "d2q9_les", "d2q9_inc", "d2q9_cumulant",
+                 "d2q9_new")
+FAMILY_SHAPE = (32, 64)
+
+
+def family_settings(m):
+    """Settings that make every term of a family model's step count."""
+    s = {"nu": 0.05, "Velocity": 0.03}
+    if "GravitationX" in m.setting_index:
+        s.update(GravitationX=2e-5, GravitationY=-1e-5)
+    if "omega_bulk" in m.setting_index:
+        s["omega_bulk"] = 0.9
+    if "Smag" in m.setting_index:
+        s["Smag"] = 0.16
+    return s
+
+
+def rich_flags_family(m, ny, nx):
+    """Every node type a family model reads on a (ny, nx) field: W/E
+    velocity (zone 1) and pressure (zone 2) faces, Top/BottomSymmetry rows
+    where the model declares them (walls otherwise), a Wall block, a Solid
+    node, a painted-but-unhandled WPressureL node, objective columns, a
+    band of BGK collision nodes and, for ``d2q9_new``, overlapping
+    Smagorinsky and Stab patches (there BGK nodes do not collide)."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f("MRT"), dtype=np.uint16)
+    flags[:, 0] = f("WVelocity", "MRT", zone=1)
+    flags[:, -1] = f("EPressure", "MRT", zone=2)
+    flags[: ny // 2, 1] = f("WPressure", "MRT", zone=2)
+    flags[ny // 2:, -2] = f("EVelocity", "MRT", zone=1)
+    if "TopSymmetry" in m.node_types:
+        flags[0, :] = f("BottomSymmetry", "MRT")
+        flags[-1, :] = f("TopSymmetry", "MRT")
+    else:
+        flags[0, :] = flags[-1, :] = f("Wall")
+    flags[ny // 3:2 * ny // 3, nx // 8:nx // 4] = f("Wall")
+    flags[ny // 3, nx // 2] = f("Solid")
+    flags[ny // 2, nx // 2] = f("WPressureL", "MRT")
+    flags[2:-2, 3] = f("MRT", "Inlet")
+    flags[2:-2, -4] = f("MRT", "Outlet")
+    flags[2:-2, nx // 2 + 4:nx // 2 + 8] = f("BGK")
+    if "Stab" in m.node_types:
+        flags[2:ny // 2, 5 * nx // 8:7 * nx // 8] |= np.uint16(
+            f("Smagorinsky"))
+        flags[ny // 4:3 * ny // 4, 3 * nx // 4:nx - 6] |= np.uint16(
+            f("Stab"))
+    return flags
+
+
+def family_planes(m, shape, seed):
+    """Populations near a flowing equilibrium plus 2% noise, in the
+    model's own velocity order."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:9, :2].astype(np.float64)
+    w = np.array([{0: 4 / 9, 1: 1 / 9, 2: 1 / 36}[int((e * e).sum())]
+                  for e in E])
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.03 + 0.01 * rng.standard_normal((2,) + shape)
+    planes = {}
+    for k in range(9):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+        feq = w[k] * rho * (1 + 3 * eu + 4.5 * eu * eu
+                            - 1.5 * (u * u).sum(0))
+        planes[f"f[{k}]"] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    return planes
+
+
+def paint_rich_family(lat, seed):
+    """``rich_flags_family`` with zonal Velocity and Density (Pressure for
+    ``d2q9_new``) and ``family_planes`` on a Lattice of either package."""
+    m = lat.model
+    lat.set_flags(rich_flags_family(m, *lat.shape))
+    lat.set_setting("Velocity", 0.04, zone=1)
+    if "Density" in m.setting_index:
+        lat.set_setting("Density", 1.002, zone=2)
+    else:
+        lat.set_setting("Pressure", 0.0007, zone=2)
+    lat.init()
+    lat.set_density_planes(family_planes(m, lat.shape, seed))
+    return lat
+
+
+def channel_flags(m, ny, nx, coll="MRT"):
+    """bench.py's 2D channel (bench.py:154-167): W velocity inlet, E
+    pressure outlet, walls, a block obstacle and objective columns, over
+    ``coll`` collision nodes."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f(coll), dtype=np.uint16)
+    flags[:, 0] = f("WVelocity", coll)
+    flags[:, -1] = f("EPressure", coll)
+    flags[0, :] = f("Wall")
+    flags[-1, :] = f("Wall")
+    flags[ny // 3:2 * ny // 3, nx // 10:nx // 5] = f("Wall")
+    flags[1:-1, 2] = f(coll, "Inlet")
+    flags[1:-1, -3] = f(coll, "Outlet")
+    return flags
+
+
+def cumulant_channel_flags(m, ny, nx):
+    """bench.py's d2q9_cumulant channel (bench.py:194-207): BGK nodes, a
+    W velocity inlet, an E pressure outlet and two walls."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f("BGK"), dtype=np.uint16)
+    flags[:, 0] = f("WVelocity", "BGK")
+    flags[:, -1] = f("EPressure", "BGK")
+    flags[0, :] = flags[-1, :] = f("Wall")
+    return flags
+
+
+def srt_poiseuille_xml(out="output/"):
+    """example/poiseuille.xml (BASELINE config 2) on model d2q9_SRT, the
+    XML otherwise unchanged: 40x21 nodes, walls on y, GravitationX in SI
+    units, 10000 iterations with Log every 1000 and VTK every 5000."""
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "example" \
+        / "poiseuille.xml"
+    text = path.read_text()
+    assert 'model="d2q9"' in text and 'output="output/"' in text
+    return text.replace('model="d2q9"', 'model="d2q9_SRT"') \
+        .replace('output="output/"', f'output="{out}"')
