@@ -5,7 +5,9 @@
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc`` (it
 builds ``tclb_tpu_torch/csrc/d2q9.cu`` for d2q9 and once for each of the
-five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu``, ``generic2d.cu``
+five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu`` for
+d3q27_cumulant and once for each of d3q27_BGK, d3q27_BGK_galcor, d3q19 and
+d3q19_les (``-DD3Q_MODEL``), ``generic2d.cu``
 once for each of d2q9_kuper and d2q9_heat_adj, the latter with the
 backward kernel of ``generic2d_adjoint.cuh``, and ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
@@ -13,9 +15,9 @@ sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
-1. build the d2q9 library and the five family libraries, the d3q27, the
-   two generic 2D and the generic 3D libraries and print what ``ptxas``
-   reports;
+1. build the d2q9 library and the five family libraries, the five d3q27
+   libraries, the two generic 2D and the generic 3D libraries and print
+   what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
@@ -41,7 +43,13 @@ missing.  Phases, each of which fails the run on its own:
    ``d2q9_step``, ``d2q9_step2`` and ``d2q9_resident8`` on a 32x64 state
    that paints every node type the model reads (two zones, gravity,
    d2q9_new's Smagorinsky and Stab nodes), on its paths' starting states
-   and, after phases 15-19, on their developed states;
+   and, after phases 15-19, on their developed states; each z-slab family
+   model's branch of ``d3q27_step`` and ``d3q27_step2`` on a 12x8x64 state
+   that paints every node type the model reads (two zones, gravity), on
+   its 48x48x256 channel's starting state and, after phase 21, on its
+   developed state, and the cumulant's two kernels on the
+   3dcum_turbulence state with SynthT planes that are not zero (and after
+   phase 20);
 3. hold the card's f32 run of the d2q9 golden cases
    (``tests/goldens/karman.json``, ``poiseuille.json``), of the
    d3q27_cumulant channel (``channel3d.json``), of the d2q9_kuper drop
@@ -119,13 +127,30 @@ missing.  Phases, each of which fails the run on its own:
 19. bench.py's channel at 1024x1024 for d2q9_SRT, d2q9_les, d2q9_inc and
    d2q9_new (``iterate(2002)`` on the band engine), and at 128x1024 for
    d2q9_inc and d2q9_new (the resident engine), so that every family
-   branch of every kernel runs on a path.
+   branch of every kernel runs on a path;
+20. path A: ``example/3dcum_turbulence.xml`` unchanged through
+   ``run_config`` (d3q27_cumulant, 128x32x32, a ``WVelocityTurbulent``
+   inlet fed by ``<SyntheticTurbulence>``, 1000 iterations, Log every 200)
+   on ``cuda_d3q27_band[d3q27_cumulant,fuse=2]``, counted from 0: finite
+   fields, SynthT planes that change between the Solve's segments, an
+   inlet whose ux fluctuates, the MLUPS over the whole case;
+21. path B: bench.py's 3D channel (bench.py:619-662, 48x48x256, walls at
+   y = 0 and y = ny - 1, a body force along x) for d3q27_BGK,
+   d3q27_BGK_galcor, d3q19 and d3q19_les, ``iterate(2002)`` on
+   ``cuda_d3q27_band[<model>,fuse=2]``: the launches by kernel and the
+   MLUPS;
+22. tests/test_models.py's 3D Poiseuille for d3q19 and d3q27_BGK on the
+   kernels in f32: the ux profile against the f32 eager engine at rtol
+   2e-5 / atol 2e-6, against the f64 eager engine (relative L2, see
+   ``check_d3q_poiseuille``) and the analytic profile (3%).
 
 Phase 7 also times d2q9_heat_adj's kernels, ``generic2d_step_b``, the
-two 3D kernels and each family branch at its path's shape; phase 8 also
-profiles the two 1000-step gradients, a cumulant2d and a 1024x1024
-d2q9_cumulant window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10,
-11, 12, 13, 14, 15-19, 7, 8.
+two 3D kernels, each d2q9-family branch at its path's shape and each
+z-slab family branch at 48x48x256; phase 8 also profiles the two
+1000-step gradients, a cumulant2d, a 1024x1024 d2q9_cumulant, a
+3dcum_turbulence and a 48x48x256 window of each z-slab family model.
+Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15-19,
+20-22, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -175,6 +200,7 @@ DROP_XML = ROOT / "example" / "drop.xml"
 HEAT_ADJ_XML = ROOT / "example" / "heat_adj.xml"
 CUMULANT2D_XML = ROOT / "example" / "cumulant2d.xml"
 LES_XML = ROOT / "example" / "les_channel.xml"
+TURB_XML = ROOT / "example" / "3dcum_turbulence.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
@@ -199,6 +225,9 @@ SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
            "adjoint": "generic2d_adjoint.cuh", "generic3d": "generic3d.cu",
            "adjoint3d": "generic3d_adjoint.cuh"}
 GENERIC_MODELS = ("d2q9_kuper", "d2q9_heat_adj", "d3q19_adj")
+# the rest of the z-slab family on the d3q27 kernels (phases 20-22)
+D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
+CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
 # the 3D adjoint case's handlers (phase 13)
 ADJ3D_HANDLERS = ("Solve", "FDTest", "Optimize", "ThresholdNow", "VTK")
 GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
@@ -385,8 +414,8 @@ def check_kernels(cases, errs: dict, what: str) -> dict:
 
 def kernel_key(dk, name: str, lat) -> str:
     """A kernel's name in the record: the generic kernels, and the d2q9
-    kernels' family branches, are built once per model, so theirs carries
-    the model."""
+    and d3q27 kernels' family branches, are built once per model, so
+    theirs carries the model."""
     if hasattr(dk, "launch_key"):
         return dk.launch_key(name, lat.model.name)
     return f"{name}[{lat.model.name}]" \
@@ -1432,6 +1461,184 @@ def run_family(dk, band_lats: dict, res_lats: dict, errs: dict) -> dict:
             "summary": summary}
 
 
+def rich_d3q_lattice(model: str, device):
+    """A 12x8x64 state of a z-slab family model that paints every node
+    type the model reads, two zones and gravity (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import SHAPE3D, d3q_family_settings, paint_rich_d3q
+    m = get_model(model)
+    lat = Lattice(m, SHAPE3D, dtype=torch.float32, device=device,
+                  settings=d3q_family_settings(m))
+    return paint_rich_d3q(lat, seed=5)
+
+
+def channel48_lattice(model: str, device):
+    """bench.py's 3D channel (bench.py:619-662) at 48x48x256: MRT nodes,
+    walls at y = 0 and y = ny - 1, nu 0.01 and a body force along x."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import channel3d_flags
+    m = get_model(model)
+    lat = Lattice(m, CHANNEL48, dtype=torch.float32, device=device,
+                  settings={"nu": 0.01, "GravitationX": 1e-5})
+    lat.set_flags(channel3d_flags(m, *CHANNEL48))
+    lat.init()
+    return lat
+
+
+def turbulence_lattice(device):
+    """example/3dcum_turbulence.xml painted and initialised, its SynthT
+    planes drawn once for a 200-step segment (nonzero) and the flow
+    warmed 20 eager steps."""
+    from tclb_tpu_torch.control.solver import _run_root
+    from tclb_tpu_torch.models import get_model
+    root = ET.parse(TURB_XML).getroot()
+    for tag in ("Solve", "Log"):
+        for el in root.findall(tag):
+            root.remove(el)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as out:
+        os.chdir(out)
+        try:
+            solver = _run_root(root, get_model(root.get("model")), None,
+                               torch.float32, out + "/", "case_state",
+                               device=device)
+        finally:
+            os.chdir(cwd)
+    solver.update_synthetic_turbulence(200)
+    lat = solver.lattice
+    eager_warm(lat, 20)
+    if not float(lat.get_density("SynthTX").abs().max()) > 0:
+        fail("3dcum_turbulence: SynthT planes are zero")
+    return lat
+
+
+def run_turbulence(dk3) -> dict:
+    """Path A: example/3dcum_turbulence.xml unchanged through
+    ``run_config`` on ``cuda_d3q27_band[d3q27_cumulant,fuse=2]`` (phase
+    20, counted from 0).  The Solve draws new SynthT planes before each of
+    its five iterate calls: their digests are recorded and must all
+    differ; the inlet's ux must fluctuate and the flow near the inlet carry
+    a transverse velocity (after tests/test_turbulence.py:56-93)."""
+    from tclb_tpu_torch.control.solver import Solver
+    synth_sums = []
+    update = Solver.update_synthetic_turbulence
+
+    def recording(self, steps):
+        update(self, steps)
+        planes = [self.lattice.get_density(n)
+                  for n in ("SynthTX", "SynthTY", "SynthTZ")]
+        synth_sums.append(float(sum(p.double().abs().sum()
+                                    for p in planes)))
+
+    def check(lat) -> None:
+        u = lat.get_quantity("U")
+        ux_in = u[0, 1:-1, 1:-1, 0].double()
+        uy_near = float(u[1, :, :, 1].abs().max())
+        sx = float(lat.get_density("SynthTX").abs().max())
+        say(f"  SynthT digests per segment {synth_sums}; inlet ux mean "
+            f"{float(ux_in.mean()):.6g} std {float(ux_in.std()):.3e}, "
+            f"max |uy| at x = 1 {uy_near:.3e}, max |SynthTX| {sx:.3g}")
+        if len(synth_sums) != 5 or len(set(synth_sums)) != len(synth_sums):
+            fail(f"3dcum_turbulence: SynthT planes did not change between "
+                 f"segments: {synth_sums}")
+        if not (float(ux_in.std()) > 1e-4 and uy_near > 1e-5 and sx > 1e-3
+                and 0 < float(ux_in.mean()) < 0.1):
+            fail("3dcum_turbulence: the inlet does not fluctuate")
+
+    Solver.update_synthetic_turbulence = recording
+    try:
+        out = run_case(dk3, TURB_XML, "20",
+                       "cuda_d3q27_band[d3q27_cumulant,fuse=2]",
+                       ("d3q27_step2", "d3q27_step"), check)
+    finally:
+        Solver.update_synthetic_turbulence = update
+    out["synth_digests"] = synth_sums
+    return out
+
+
+def run_d3q_channels(dk3, lats: dict) -> dict:
+    """Path B (phase 21): bench.py's 48x48x256 channel for each z-slab
+    family model, ``iterate(2002)`` on ``cuda_d3q27_band[<model>,fuse=2]``,
+    counted from 0, its launches by kernel and its MLUPS."""
+    out = {}
+    for m, lat in lats.items():
+        run = run_iterate(dk3, lat, "21", f"bench.py's 48x48x256 channel, "
+                          f"{m}, on the band engine",
+                          f"cuda_d3q27_band[{m},fuse=2]",
+                          tuple(dk3.launch_key(k, m) for k in dk3.KERNELS))
+        out[m] = run
+    return out
+
+
+def check_d3q_poiseuille() -> dict:
+    """Phase 22: tests/test_models.py's 3D Poiseuille (14x3x4, walls on the
+    first axis, BGK nodes, nu 0.1, GravitationX 1e-5, 2000 steps) for
+    d3q19 and d3q27_BGK on the kernels in f32, its mean ux profile against
+    the f32 eager engine on the card at rtol 2e-5 / atol 2e-6, within 3%
+    of the analytic profile (tests/test_models.py's limit), and against
+    the f64 eager engine within a relative L2 error of
+    POISEUILLE_F64_REL_L2 or, where f32 itself is farther, within twice
+    the f32 eager engine's own distance: d3q27_BGK's f32 profile is
+    1.27e-3 (the CPU) to 1.35e-3 (the card) from f64 on the eager engine
+    and 1.55e-3 on the kernels, because its body force is the difference
+    of two ~0.07 equilibria ~1e-6 apart, which f32 resolves to about a
+    percent a step; which f32 engine lands nearer f64 is chance."""
+    from tclb_tpu_torch import Lattice, get_model
+    say("phase 22: the 3D Poiseuille profile on the kernels")
+    shape, g, nu, steps = (14, 3, 4), 1e-5, 0.1, 2000
+    out = {}
+    h = shape[0] - 2
+    y = torch.arange(1, shape[0] - 1, dtype=torch.float64)
+    ana = g / (2 * nu) * (y - 0.5) * (h + 0.5 - y)
+    for name in ("d3q19", "d3q27_BGK"):
+        m = get_model(name)
+        flags = np.full(shape, m.flag_for("BGK"), dtype=np.uint16)
+        flags[0] = flags[-1] = m.flag_for("Wall")
+        prof = {}
+        for tag, dtype, fast in (("kernels", torch.float32, "1"),
+                                 ("eager32", torch.float32, "0"),
+                                 ("eager64", torch.float64, "0")):
+            before = os.environ.get("TCLB_FASTPATH")
+            os.environ["TCLB_FASTPATH"] = fast
+            try:
+                lat = Lattice(m, shape, dtype=dtype, device=DEVICE,
+                              settings={"nu": nu, "GravitationX": g})
+                lat.set_flags(flags)
+                lat.init()
+                lat.iterate(steps)
+                lat.synchronize()
+            finally:
+                if before is None:
+                    del os.environ["TCLB_FASTPATH"]
+                else:
+                    os.environ["TCLB_FASTPATH"] = before
+            want_engine = (f"cuda_d3q27_band[{name},fuse=2]"
+                           if tag == "kernels" else "eager")
+            if lat.engine_name != want_engine:
+                fail(f"{name} Poiseuille {tag} ran on {lat.engine_name}")
+            prof[tag] = lat.get_quantity("U")[0].double().reshape(
+                shape[0], -1).mean(dim=1)[1:-1].cpu()
+        e = compare(prof["kernels"], prof["eager32"],
+                    f"{name} Poiseuille ux profile, f32 kernels vs f32 eager")
+        rel = float((prof["kernels"] - prof["eager64"]).norm()
+                    / prof["eager64"].norm())
+        rel32 = float((prof["eager32"] - prof["eager64"]).norm()
+                      / prof["eager64"].norm())
+        ana_err = float(((prof["kernels"] - ana).abs() / ana).max())
+        say(f"  {name}: f32 kernels vs f64 eager relative L2 {rel:.3e} "
+            f"(f32 eager {rel32:.3e}; limit {POISEUILLE_F64_REL_L2} or twice "
+            f"the f32 eager one), vs "
+            f"the analytic profile max rel {ana_err:.3e} (limit 0.03)")
+        limit = max(POISEUILLE_F64_REL_L2, 2 * rel32)
+        if not (rel <= limit and ana_err <= 0.03):
+            fail(f"{name} Poiseuille: the f32 kernel profile is off")
+        out[name] = {"vs_f32_eager": e, "f32_kernels_vs_f64_rel_l2": rel,
+                     "f32_eager_vs_f64_rel_l2": rel32,
+                     "vs_analytic_max_rel": ana_err,
+                     "ux_max": float(prof["eager64"].max())}
+    return out
+
+
 def event_ms(fn, reps: int, warm: int = 5) -> float:
     """Device ms per call of ``fn`` between two CUDA events.  A spin kernel
     queued first keeps the card busy while the host enqueues the window,
@@ -1629,7 +1836,8 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = [dk.build, dk3.build] + [
         (lambda m=m: gk.build(m)) for m in GENERIC_MODELS] + [
-        (lambda m=m: dk.build(m)) for m in dk.FAMILY]
+        (lambda m=m: dk.build(m)) for m in dk.FAMILY] + [
+        (lambda m=m: dk3.build(m)) for m in D3Q_FAMILY]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         builds = list(pool.map(lambda job: job(), jobs))
     say(f"  built {', '.join(p.name for p, _ in builds)} in "
@@ -1672,6 +1880,13 @@ def main() -> int:
                   for m in ("d2q9_inc", "d2q9_new")}
     for lat in list(family_band.values()) + list(family_res.values()):
         eager_warm(lat, 20)
+    # the rest of the z-slab family: a rich state each and path B's
+    # starting states; path A's state with SynthT planes drawn
+    rich_d3q = [rich_d3q_lattice(m, DEVICE) for m in D3Q_FAMILY]
+    channel48 = {m: channel48_lattice(m, DEVICE) for m in D3Q_FAMILY}
+    for lat in channel48.values():
+        eager_warm(lat, 4)
+    turb = turbulence_lattice(DEVICE)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
@@ -1690,7 +1905,9 @@ def main() -> int:
         (g3, adj3d_init, "generic3d_step")] + [
         (dk, lat, name) for lat in rich_family
         + list(family_band.values()) + list(family_res.values())
-        for name in dk.KERNELS], {}, "phase 2")
+        for name in dk.KERNELS] + [
+        (dk3, lat, name) for lat in rich_d3q + list(channel48.values())
+        + [turb] for name in dk3.KERNELS], {}, "phase 2")
     check_globals_flavour(gk, (drop, drop1024, rich_kuper, rich_heat,
                                heat1024), errs, "phase 2")
     check_globals_flavour(g3, (rich_adj3d, adj3d_init), errs, "phase 2")
@@ -1737,6 +1954,15 @@ def main() -> int:
     check_step_b(ak, g3, (adj3d_dev,), errs, "phase 13b")
     bench_adj3d = run_bench_adjoint3d(g3, ak, bench3d)
     family = run_family(dk, family_band, family_res, errs)
+    path_turb = run_turbulence(dk3)
+    check_kernels([(dk3, path_turb["lattice"], name)
+                   for name in dk3.KERNELS], errs,
+                  "phase 20b, 3dcum_turbulence.xml after 1000 iterations")
+    path_b = run_d3q_channels(dk3, channel48)
+    check_kernels([(dk3, lat, name) for lat in channel48.values()
+                   for name in dk3.KERNELS], errs,
+                  "phase 21b, the 48x48x256 channels after 2002 iterations")
+    poiseuille3d = check_d3q_poiseuille()
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -1761,7 +1987,9 @@ def main() -> int:
         [(dk, "d2q9_resident8", family["resident_lattice"][m], 400)
          for m in dk.FAMILY]
         + [(dk, name, family_band[m], reps) for m in dk.FAMILY
-           for name, reps in (("d2q9_step", 400), ("d2q9_step2", 200))]))
+           for name, reps in (("d2q9_step", 400), ("d2q9_step2", 200))]
+        + [(dk3, name, channel48[m], reps) for m in D3Q_FAMILY
+           for name, reps in (("d3q27_step", 400), ("d3q27_step2", 200))]))
     busy = device_busy(lambda: karman.iterate(400), "a karman iterate(400)")
     busy3d = device_busy(lambda: channel3d.iterate(200),
                          "a 3d_channel iterate(200)")
@@ -1777,13 +2005,23 @@ def main() -> int:
     cum1024 = family_band["d2q9_cumulant"]
     busy_cum1024 = device_busy(lambda: cum1024.iterate(200),
                                "a 1024x1024 d2q9_cumulant iterate(200)")
+    turb_dev = path_turb["lattice"]
+    busy_turb = device_busy(lambda: turb_dev.iterate(200),
+                            "a 3dcum_turbulence iterate(200)")
+    busy48 = {m: device_busy(lambda lat=lat: lat.iterate(200),
+                             f"a 48x48x256 {m} channel iterate(200)")
+              for m, lat in channel48.items()}
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
                 for name in dk.KERNELS}
     launches.update(family["launches"])
-    launches.update({name: {"3d_channel": path3d["launches"][name]}
+    launches.update({name: {"3d_channel": path3d["launches"][name],
+                            "3dcum_turbulence": path_turb["launches"][name]}
                      for name in dk3.KERNELS})
+    launches.update({dk3.launch_key(name, m): {
+        "channel48": path_b[m]["launches"][dk3.launch_key(name, m)]}
+        for m in D3Q_FAMILY for name in dk3.KERNELS})
     launches.update({f"{name}[d2q9_kuper]": {
         "drop": path_drop["launches"][name],
         "drop1024": band_drop["launches"][name]} for name in gk.KERNELS})
@@ -1874,6 +2112,13 @@ def main() -> int:
         "bench_adjoint3d": {k: bench_adj3d[k] for k in (
             "mlups_iterate", "grad8_max_abs_err", "grad200", "grad1000")},
         **family["summary"],
+        "3dcum_turbulence": {**{k: path_turb[k] for k in keys},
+                             "synth_digests": path_turb["synth_digests"]},
+        "channel48_mlups_iterate": {m: path_b[m]["mlups_iterate"]
+                                    for m in D3Q_FAMILY},
+        "poiseuille3d": poiseuille3d,
+        "3dcum_turbulence_iterate_profile": busy_turb,
+        "channel48_iterate_profile": busy48,
         "cumulant2d_iterate_profile": busy_cum2d,
         "d2q9_cumulant1024_iterate_profile": busy_cum1024,
         "karman_iterate_profile": busy,

@@ -21,6 +21,7 @@ import numpy as np
 
 from tclb_tpu_torch.control.solver import ITERATION_STOP, Solver
 from tclb_tpu_torch.utils import log
+from tclb_tpu_torch.utils.turbulence import SyntheticTurbulence
 
 
 class Handler:
@@ -137,6 +138,7 @@ class acSolve(GenericAction):
                 if 0 < it < next_it:
                     next_it = it
             s.iter += next_it
+            s.update_synthetic_turbulence(next_it)
             s.lattice.iterate(next_it)
             s.progress(next_it)
             for h in s.hands:
@@ -341,6 +343,65 @@ class cbAveraging(Handler):
         return 0
 
 
+class acSyntheticTurbulence(Handler):
+    """<SyntheticTurbulence>: configure the synthetic-inflow turbulence
+    generator.  Wave parameters take <name>WaveLength (inverted),
+    <name>WaveNumber or <name>WaveFrequency (times 2 pi), all
+    unit-converted; the spectrum is "Von Karman" or "One Wave"."""
+
+    def _wave_number(self, name: str):
+        u = self.solver.units
+        val = None
+        a = self.node.get(name + "WaveLength")
+        if a is not None:
+            val = 1.0 / u.alt(a)
+        a = self.node.get(name + "WaveNumber")
+        if a is not None:
+            val = u.alt(a)
+        a = self.node.get(name + "WaveFrequency")
+        if a is not None:
+            val = u.alt(a) * 2.0 * math.pi
+        return val
+
+    def init(self) -> int:
+        super().init()
+        st = SyntheticTurbulence()
+        nmodes = int(self.node.get("Modes", 100))
+        spec = self.node.get("Spectrum", "Von Karman")
+        if spec == "Von Karman":
+            main_wn = self._wave_number("Main")
+            diff_wn = self._wave_number("Diffusion")
+            if main_wn is None or diff_wn is None:
+                raise ValueError(
+                    "Von Karman spectrum needs MainWaveNumber and "
+                    "DiffusionWaveNumber (or WaveLength/Frequency forms)")
+            max_wn = self._wave_number("Shortest")
+            if max_wn is None:
+                max_wn = 2.0 * math.pi / 4.0   # 2 pi over 4 elements
+            min_wn = self._wave_number("Longest")
+            if min_wn is None:
+                min_wn = main_wn / 2.0
+            frac = st.set_von_karman(main_wn, diff_wn, min_wn, max_wn,
+                                     nmodes)
+            if frac < 0.7:
+                log.notice(f"synthetic turbulence resolves only "
+                           f"{frac:.0%} of the spectrum")
+        elif spec == "One Wave":
+            wn = self._wave_number("")
+            if wn is None:
+                raise ValueError("One Wave spectrum needs a WaveNumber")
+            st.set_one_wave(wn)
+        else:
+            raise ValueError(f"unknown spectrum {spec!r}")
+        t_wn = self._wave_number("Time")
+        if t_wn is None:
+            raise ValueError("synthetic turbulence needs TimeWaveNumber "
+                             "(iteration correlation scale)")
+        st.set_time_scale(t_wn)
+        self.solver.synthetic_turbulence = st
+        return 0
+
+
 class acNop(Handler):
     """Elements handled elsewhere (<Units> is read before the tree
     runs)."""
@@ -362,13 +423,13 @@ _HANDLERS = {
     "Stop": cbStop,
     "Failcheck": cbFailcheck,
     "Average": cbAveraging,
+    "SyntheticTurbulence": acSyntheticTurbulence,
     "Units": acNop,
 }
 
 # elements of the JAX package's handler table not ported yet -> the ROADMAP
 # queue 1 item that ports them
 _WAITING = {
-    "SyntheticTurbulence": 8,
     "Control": 10, "Sample": 10, "Keep": 10,
     "OptSolve": 11, "OptimalControl": 10, "OptimalControlSecond": 10,
     "Fourier": 10, "BSpline": 10, "RepeatControl": 10,

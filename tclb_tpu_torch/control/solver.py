@@ -53,6 +53,7 @@ class Solver:
         self.opt_history: list = []  # <Optimize>: each evaluation's objective
         self.opt_material: Optional[dict] = None
         self.hands: list = []        # stacked periodic callbacks
+        self.synthetic_turbulence = None   # set by <SyntheticTurbulence>
         self.log: Optional[CSVLog] = None
         self.start_walltime = time.time()
         self.conf_name = "run"
@@ -126,6 +127,27 @@ class Solver:
         annotated.set("backend", self.lattice.device.type)
         path = self.out_path("config", "xml", with_iter=False)
         ET.ElementTree(annotated).write(path)
+
+    # -- synthetic turbulence (modes drawn per handler segment) ------------- #
+
+    def update_synthetic_turbulence(self, steps: int) -> None:
+        """Advance the SynthT coupling planes by one handler segment of
+        ``steps`` iterations with the variance-exact AR(1) update
+        (``utils/turbulence.py``)."""
+        st = self.synthetic_turbulence
+        m = self.model
+        if st is None or st.nmodes == 0 or "SynthT" not in m.groups:
+            return
+        fluct = st.evaluate(self.shape)
+        k_aa = st.ar1_factor(steps)
+        k_bb = float(np.sqrt(max(0.0, 1.0 - k_aa * k_aa)))
+        lat = self.lattice
+        idx = list(m.groups["SynthT"])
+        # only the SynthT planes cross to the host
+        old = lat.state.fields[idx].cpu().numpy()
+        lat.set_density_planes(
+            {m.storage_names[i]: k_aa * old[c] + k_bb * fluct[c]
+             for c, i in enumerate(idx)})
 
     # -- output ------------------------------------------------------------- #
 

@@ -1,9 +1,10 @@
 """Model catalogue of the PyTorch port.  ``get_model`` builds (and caches)
 the frozen Model with physics bound.  Ported so far: ``d2q9`` and its
 family (``d2q9_SRT``, ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``,
-``d2q9_new``), ``d3q27_cumulant``, ``d2q9_kuper``, ``d2q9_heat``,
-``d2q9_heat_adj``, ``d3q19`` and ``d3q19_adj``; the other models of the
-JAX package follow ROADMAP queue 1 items 8, 10 and 11."""
+``d2q9_new``), the z-slab family (``d3q27_cumulant``, ``d3q27_BGK``,
+``d3q27_BGK_galcor``, ``d3q19``, ``d3q19_les``), ``d2q9_kuper``,
+``d2q9_heat``, ``d2q9_heat_adj`` and ``d3q19_adj``; the other models of
+the JAX package follow ROADMAP queue 1 items 10 and 11."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import importlib
 
 from tclb_tpu_torch.core.registry import Model
 
-# model name -> module path ("module.path" uses its build())
+# model name -> module path ("module.path" uses its build(),
+# "module.path:fn" its fn())
 _REGISTRY: dict[str, str] = {
     "d2q9": "tclb_tpu_torch.models.d2q9",
     "d2q9_SRT": "tclb_tpu_torch.models.d2q9_srt",
@@ -20,10 +22,13 @@ _REGISTRY: dict[str, str] = {
     "d2q9_cumulant": "tclb_tpu_torch.models.d2q9_cumulant",
     "d2q9_new": "tclb_tpu_torch.models.d2q9_new",
     "d3q27_cumulant": "tclb_tpu_torch.models.d3q27_cumulant",
+    "d3q27_BGK": "tclb_tpu_torch.models.d3q27_bgk",
+    "d3q27_BGK_galcor": "tclb_tpu_torch.models.d3q27_bgk:build_galcor",
     "d2q9_kuper": "tclb_tpu_torch.models.d2q9_kuper",
     "d2q9_heat": "tclb_tpu_torch.models.d2q9_heat",
     "d2q9_heat_adj": "tclb_tpu_torch.models.d2q9_heat_adj",
     "d3q19": "tclb_tpu_torch.models.d3q19",
+    "d3q19_les": "tclb_tpu_torch.models.d3q19_les",
     "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",
 }
 
@@ -39,7 +44,7 @@ def get_model(name: str) -> Model:
         if name not in _REGISTRY:
             raise KeyError(
                 f"model {name!r} is not ported to PyTorch yet (ROADMAP "
-                f"queue 1, items 8-11); ported: {list_models()}")
-        mod = importlib.import_module(_REGISTRY[name])
-        _CACHE[name] = mod.build()
+                f"queue 1, items 10-11); ported: {list_models()}")
+        path, _, fn = _REGISTRY[name].partition(":")
+        _CACHE[name] = getattr(importlib.import_module(path), fn or "build")()
     return _CACHE[name]

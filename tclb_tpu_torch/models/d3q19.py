@@ -6,10 +6,11 @@ body force.  The moment basis is built numerically by Gram-Schmidt over
 the monomials (``lbm.gram_schmidt_basis``); the conserved moments are
 untouched, the six stress moments relax with ``omega``, the higher ones
 with ``S_high`` (``lbm.two_rate_relax``).  ``d3q19_adj`` takes its
-velocity set, weights, bounce-back pairs and basis from here.  It runs on
-the eager engine; its K3 branch is still to port (ROADMAP queue 1 item
-8).  The JAX package's two ``lbm.pin`` seams only steer XLA's fusion and
-have no counterpart.
+velocity set, weights, bounce-back pairs and basis from here.  At f32 on
+the card it runs on the z-slab kernels (``ops/d3q27_kernels.py``, built
+for d3q19); the plain versions of those kernels share :func:`relax`.  The
+JAX package's two ``lbm.pin`` seams only steer XLA's fusion and have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -46,17 +47,22 @@ def macroscopic(f: torch.Tensor):
     return rho, tuple(lbm.edot(E[:, a], f) / rho for a in range(3))
 
 
-def collide(ctx: NodeCtx, f: torch.Tensor) -> torch.Tensor:
+def relax(f: torch.Tensor, omega, s_high, force) -> torch.Tensor:
     """Two-rate MRT: the stress moments relax with ``omega``, the rest
-    with ``S_high``, then the equilibrium at the forced velocity."""
+    with ``s_high``, then the equilibrium at the velocity shifted by
+    ``force = (gx, gy, gz)``."""
     rho, u = macroscopic(f)
     feq = lbm.equilibrium(E, W, rho, u)
     fneq = [f[k] - feq[k] for k in range(19)]
-    relax = lbm.two_rate_relax(M, *STRESS, fneq, 1.0 - ctx.setting("omega"),
-                               1.0 - ctx.setting("S_high"))
-    g = family.gravity_of(ctx)
-    u2 = tuple(u[a] + g[a] for a in range(3))
-    return relax + lbm.equilibrium(E, W, rho, u2)
+    kept = lbm.two_rate_relax(M, *STRESS, fneq, 1.0 - omega, 1.0 - s_high)
+    u2 = tuple(u[a] + force[a] for a in range(3))
+    return kept + lbm.equilibrium(E, W, rho, u2)
+
+
+def collide(ctx: NodeCtx, f: torch.Tensor) -> torch.Tensor:
+    """:func:`relax` at the node's settings and gravity."""
+    return relax(f, ctx.setting("omega"), ctx.setting("S_high"),
+                 family.gravity_of(ctx))
 
 
 def run(ctx: NodeCtx) -> dict:

@@ -349,7 +349,8 @@ def test_cli(tmp_path, capsys):
     assert capsys.readouterr().out.split() == [
         "d2q9", "d2q9_SRT", "d2q9_cumulant", "d2q9_heat", "d2q9_heat_adj",
         "d2q9_inc", "d2q9_kuper", "d2q9_les", "d2q9_new", "d3q19",
-        "d3q19_adj", "d3q27_cumulant"]
+        "d3q19_adj", "d3q19_les", "d3q27_BGK", "d3q27_BGK_galcor",
+        "d3q27_cumulant"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

@@ -1,5 +1,6 @@
-"""The d2q9 (with the d2q9 family's branches), d3q27, generic (2D and 3D)
-and adjoint CUDA kernels against their plain PyTorch versions on the card.
+"""The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
+family's branches), generic (2D and 3D) and adjoint CUDA kernels against
+their plain PyTorch versions on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -18,12 +19,14 @@ from tclb_tpu_torch.ops import d3q27_kernels as dk3
 from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
-from torch_cases import (ADJ3D_SETTINGS, FAMILY_MODELS, HEAT_SETTINGS,
-                         KUPER_SETTINGS, RICH3D_SETTINGS, RICH_SETTINGS,
-                         bench_adjoint3d_lattice, family_settings,
-                         heat_adj_golden_columns, paint_rich, paint_rich_3d,
-                         paint_rich_adj3d, paint_rich_family,
-                         paint_rich_heat, paint_rich_kuper)
+from torch_cases import (ADJ3D_SETTINGS, D3Q_FAMILY, FAMILY_MODELS,
+                         HEAT_SETTINGS, KUPER_SETTINGS, RICH3D_SETTINGS,
+                         RICH_SETTINGS, bench_adjoint3d_lattice,
+                         channel3d_flags, d3q_family_settings,
+                         family_settings, heat_adj_golden_columns,
+                         paint_rich, paint_rich_3d, paint_rich_adj3d,
+                         paint_rich_d3q, paint_rich_family, paint_rich_heat,
+                         paint_rich_kuper)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -209,11 +212,75 @@ def test_d3q27_lattice_engine_matches_eager(card_lattice_3d, shape):
     ref.state = ref._iterate(ref.state, ref.params, 12)
     torch.cuda.synchronize()
     assert lat.engine_name == "cuda_d3q27_band[d3q27_cumulant,fuse=2]"
-    assert dk3.LAUNCHES == {"d3q27_step2": 5, "d3q27_step": 1}
+    assert {k: v for k, v in dk3.LAUNCHES.items() if v} == {
+        "d3q27_step2": 5, "d3q27_step": 1}
     torch.testing.assert_close(lat.state.fields, ref.state.fields,
                                **FIELDS_TOL)
     assert lat.get_globals()["Flux"] == pytest.approx(
         ref.get_globals()["Flux"], rel=1e-4, abs=1e-6)
+
+
+@pytest.fixture
+def card_lattice_d3q():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed):
+        m = get_model(name)
+        lat = Lattice(m, shape, dtype=torch.float32,
+                      settings=d3q_family_settings(m), device="cuda")
+        return paint_rich_d3q(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 8, 64), (7, 9, 40), (48, 48, 256)])
+@pytest.mark.parametrize("name", dk3.KERNELS)
+@pytest.mark.parametrize("model", D3Q_FAMILY)
+def test_d3q_family_kernel_matches_plain(card_lattice_d3q, model, name,
+                                         shape):
+    """Each z-slab family model's branch of each kernel on a state that
+    paints every node type the model reads, the ragged edge of the 32x8
+    columns and 3d_channel's shape."""
+    lat = card_lattice_d3q(model, shape, seed=5)
+    f, flags, ztab, args = dk3.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+    fn, n = dk3.WRAPPERS[name]
+    dk3.reset_launches()
+    got = fn(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert dk3.LAUNCHES[dk3.launch_key(name, model)] == 1
+    assert sum(dk3.LAUNCHES.values()) == 1
+    torch.testing.assert_close(got, dk3.plain_steps(f, flags, ztab, args, n),
+                               **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", D3Q_FAMILY)
+def test_d3q_family_channel_matches_eager(model):
+    """bench.py's 48x48x256 channel: 12 steps on the band engine against
+    the eager engine on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    m = get_model(model)
+    shape = (48, 48, 256)
+    lats = []
+    for _ in range(2):
+        lat = Lattice(m, shape, dtype=torch.float32, device="cuda",
+                      settings={"nu": 0.01, "GravitationX": 1e-5})
+        lat.set_flags(channel3d_flags(m, *shape))
+        lat.init()
+        lats.append(lat)
+    lat, ref = lats
+    dk3.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == f"cuda_d3q27_band[{model},fuse=2]"
+    assert {k: v for k, v in dk3.LAUNCHES.items() if v} == {
+        f"d3q27_step2[{model}]": 5, f"d3q27_step[{model}]": 1}
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
 
 
 @pytest.fixture

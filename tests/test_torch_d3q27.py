@@ -225,21 +225,13 @@ def test_average_handler_and_outputs_match(tmp_path):
                                    rtol=1e-10, atol=1e-12, err_msg=q)
 
 
-def test_synthetic_turbulence_names_its_roadmap_item(tmp_path):
-    xml = AVERAGE_XML.format(out=tmp_path).replace(
-        '<Average Iterations="6"/>', '<SyntheticTurbulence/>')
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solver.run_config_string(xml, get_model(NAME), dtype=torch.float64,
-                                 device="cpu")
-
-
 def test_rich_flags_paint_every_case():
     """The test flags reach every boundary case, the Buffer layer and both
     collision types (so the comparisons above cover them all)."""
     from tclb_tpu_torch.ops.d3q27_kernels import CASES
     m = get_model(NAME)
     flags = rich_flags_3d(m, *SHAPE3D).astype(np.int64)
-    for name in CASES + ("Buffer", "MRT", "BGK", "WPressureL", "Inlet",
-                         "Outlet"):
+    for name in CASES[NAME] + ("Buffer", "MRT", "BGK", "WPressureL",
+                               "Inlet", "Outlet"):
         t = m.node_types[name]
         assert ((flags & t.mask) == t.value).any(), name

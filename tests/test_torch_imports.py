@@ -29,6 +29,8 @@ def test_every_module_imports_without_jax():
     assert "tclb_tpu_torch.ops.d3q27_kernels" in mods
     assert "tclb_tpu_torch.ops.generic3d_kernels" in mods
     assert "tclb_tpu_torch.models.d3q19_adj" in mods
+    assert "tclb_tpu_torch.models.d3q27_bgk" in mods
+    assert "tclb_tpu_torch.utils.turbulence" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {FORBIDDEN!r}:

@@ -568,3 +568,87 @@ def srt_poiseuille_xml(out="output/"):
     assert 'model="d2q9"' in text and 'output="output/"' in text
     return text.replace('model="d2q9"', 'model="d2q9_SRT"') \
         .replace('output="output/"', f'output="{out}"')
+
+
+# the rest of the z-slab family (d3q27_BGK, d3q27_BGK_galcor, d3q19,
+# d3q19_les): zone 1 velocity, zone 2 density, gravity on all three axes
+D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
+
+
+def d3q_family_settings(m, **extra):
+    """Settings that make every term of a family model's step count
+    (d3q19's ``S_high`` and d3q19_les's ``Smag`` where the model has
+    them, or as ``extra`` gives them)."""
+    s = {"nu": 0.05, "Velocity": 0.03, "GravitationX": 2e-5,
+         "GravitationY": -1e-5, "GravitationZ": 5e-6}
+    if "S_high" in m.setting_index:
+        s["S_high"] = 1.3
+    if "Smag" in m.setting_index:
+        s["Smag"] = 0.17
+    s.update(extra)
+    return s
+
+
+def rich_flags_d3q(m, nz, ny, nx):
+    """Every node type a family model reads, painted on a (nz, ny, nx)
+    field: W velocity (zone 1) and pressure (zone 2) on the x faces, E
+    pressure and velocity, S/N symmetry rows, a Wall block, a Solid node,
+    an unhandled WPressureL node, objective columns, BGK collision nodes
+    beside the MRT ones."""
+    f = m.flag_for
+    flags = np.full((nz, ny, nx), f("MRT"), dtype=np.uint16)
+    h = nz // 2
+    flags[:, :, 0] = f("WVelocity", "MRT", zone=1)
+    flags[:h, :, 1] = f("WPressure", "MRT", zone=2)
+    flags[:, :, -1] = f("EPressure", "MRT", zone=2)
+    flags[h:, :, -2] = f("EVelocity", "MRT", zone=1)
+    flags[:, 0, 2:-2] = f("SSymmetry", "MRT")
+    flags[:, -1, 2:-2] = f("NSymmetry", "MRT")
+    flags[nz // 4:nz // 4 + 3, 3:5, nx // 4:nx // 4 + 4] = f("Wall")
+    flags[0, ny // 2, 3 * nx // 4] = f("Solid")
+    flags[h, ny // 2, nx // 2] = f("WPressureL", "MRT")
+    flags[1:-1, 2:-2, 4] = f("MRT", "Inlet")
+    flags[1:-1, 2:-2, -5] = f("MRT", "Outlet")
+    flags[:, 2:-2, 6:9] = f("BGK")
+    return flags
+
+
+def d3q_planes(m, shape, seed):
+    """Populations of a family model near a flowing equilibrium plus 2%
+    noise, in the model's own velocity order."""
+    rng = np.random.default_rng(seed)
+    q = m.n_storage
+    E = m.ei[:q].astype(np.float64)
+    table = ({0: 1 / 3, 1: 1 / 18, 2: 1 / 36} if q == 19 else
+             {0: 8 / 27, 1: 2 / 27, 2: 1 / 54, 3: 1 / 216})
+    w = np.array([table[int((e * e).sum())] for e in E])
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.02 * rng.standard_normal((3,) + shape)
+    u[0] += 0.03
+    usq = (u * u).sum(0)
+    planes = {}
+    for k in range(q):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1] + E[k, 2] * u[2]
+        feq = w[k] * rho * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+        planes[f"f[{k}]"] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    return planes
+
+
+def paint_rich_d3q(lat, seed):
+    """``rich_flags_d3q`` with zonal Velocity and Density and
+    ``d3q_planes`` on a Lattice of either package."""
+    lat.set_flags(rich_flags_d3q(lat.model, *lat.shape))
+    lat.set_setting("Velocity", 0.04, zone=1)
+    lat.set_setting("Density", 1.002, zone=2)
+    lat.init()
+    lat.set_density_planes(d3q_planes(lat.model, lat.shape, seed))
+    return lat
+
+
+def channel3d_flags(m, nz, ny, nx):
+    """bench.py's 3D channel (bench.py:619-662): MRT nodes, walls at y = 0
+    and y = ny - 1 (the body force along x drives it)."""
+    flags = np.full((nz, ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0, :] = m.flag_for("Wall")
+    flags[:, -1, :] = m.flag_for("Wall")
+    return flags
