@@ -8,7 +8,8 @@ builds ``tclb_tpu_torch/csrc/d2q9.cu`` for d2q9 and once for each of the
 five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu`` for
 d3q27_cumulant and once for each of d3q27_BGK, d3q27_BGK_galcor, d3q19 and
 d3q19_les (``-DD3Q_MODEL``), ``generic2d.cu``
-once for each of d2q9_kuper and d2q9_heat_adj, the latter with the
+once for each of d2q9 (``csrc/models/d2q9.cuh``), d2q9_kuper and
+d2q9_heat_adj, the latter with the
 backward kernel of ``generic2d_adjoint.cuh``, and ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
 sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
@@ -142,15 +143,47 @@ missing.  Phases, each of which fails the run on its own:
 22. tests/test_models.py's 3D Poiseuille for d3q19 and d3q27_BGK on the
    kernels in f32: the ux profile against the f32 eager engine at rtol
    2e-5 / atol 2e-6, against the f64 eager engine (relative L2, see
-   ``check_d3q_poiseuille``) and the analytic profile (3%).
+   ``check_d3q_poiseuille``) and the analytic profile (3%);
+23. path A of the <Control> slice: ``example/karman_control.xml``
+   unchanged through ``run_config`` (d2q9, 512x96, a ``<Control>`` of
+   4000 iterations reading ``example/inlet_ramp.csv`` into the inlet
+   zone's Velocity, Log every 500, Solve 4000) on
+   ``cuda_generic_band[d2q9,fuse=1]``, counted from 0: no eager step,
+   ``generic2d_step_series`` on every step but the last of each iterate
+   call, which is ``generic2d_step_series_globals``, no plain launch;
+   every Log column and the final fields against the same XML on the
+   eager f32 engine at rtol 1e-4 / atol 1e-6; the inlet's ux at each Log
+   equal to the series' entry of the step before and changing as the
+   ramp does; the MLUPS of the whole case and of an ``iterate(500)``
+   window;
+24. path B: the 3D Control channel (``tests/torch_cases.py:
+   adj3d_control_xml`` at 32x64x256: the 3D adjoint case's geometry and
+   settings, a forward Solve of 2000 under a ``<Control>`` ramp of the
+   inlet zone's Velocity, Log every 500) on
+   ``cuda_generic3d_band[d3q19_adj,fuse=1]``, held the same way;
+25. path C: ``<Sample what="U,Rho">`` of three points on
+   karman_control.xml's lattice (500 iterations), every step eager by
+   selection (no kernel launched), its CSV against the same case stepped
+   one iteration at a time on the kernel engine at rtol 1e-4 / atol 1e-6.
+
+Phase 2 also holds both series flavours of ``generic2d_step`` and
+``generic3d_step`` on rich states with series on two zones (horizon 5, at
+iterations inside, at the end of and past it) and on the paths' states,
+and d2q9's plain ``generic2d_step`` (both flavours) and
+``generic2d_resident``, which no path runs (d2q9 without a series takes
+``d2q9_step``/``d2q9_resident8``): their times and errors go into the
+summary line, not the kernels line.
 
 Phase 7 also times d2q9_heat_adj's kernels, ``generic2d_step_b``, the
 two 3D kernels, each d2q9-family branch at its path's shape and each
 z-slab family branch at 48x48x256; phase 8 also profiles the two
 1000-step gradients, a cumulant2d, a 1024x1024 d2q9_cumulant, a
 3dcum_turbulence and a 48x48x256 window of each z-slab family model.
-Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15-19,
-20-22, 7, 8.
+Phase 7 also times the series flavours (K4's at 1024x1024 and at
+512x96, K6's at 32x64x256) and d2q9's plain generic kernels; phase 8 also
+profiles a karman_control ``iterate(500)`` and a 3D Control channel
+``iterate(200)``.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
+12, 13, 14, 15-19, 20-22, 23-25, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -201,6 +234,7 @@ HEAT_ADJ_XML = ROOT / "example" / "heat_adj.xml"
 CUMULANT2D_XML = ROOT / "example" / "cumulant2d.xml"
 LES_XML = ROOT / "example" / "les_channel.xml"
 TURB_XML = ROOT / "example" / "3dcum_turbulence.xml"
+KARMAN_CONTROL_XML = ROOT / "example" / "karman_control.xml"
 DEVICE = "cuda"
 TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "d2q9_step": "tclb_tpu/ops/pallas_d2q9.py:775",
@@ -213,6 +247,11 @@ TPU_KERNELS = {   # the Pallas call each CUDA kernel replaces
     "generic2d_step_b": "tclb_tpu/ops/pallas_adjoint.py:905",
     "generic3d_step": "tclb_tpu/ops/pallas_generic.py:1528",
     "generic3d_step_b": "tclb_tpu/ops/pallas_adjoint.py:634",
+    # the <Control> series flavours: call_s and call_sg of the same functions
+    "generic2d_step_series": "tclb_tpu/ops/pallas_generic.py:838",
+    "generic2d_step_series_globals": "tclb_tpu/ops/pallas_generic.py:839",
+    "generic3d_step_series": "tclb_tpu/ops/pallas_generic.py:1558",
+    "generic3d_step_series_globals": "tclb_tpu/ops/pallas_generic.py:1559",
 }
 # the d2q9 family's branches of the three d2q9 kernels replace the family
 # branches of the same Pallas calls (pallas_d2q9.py:136, :535-584)
@@ -224,7 +263,7 @@ TPU_KERNELS.update({f"{name}[{m}]": TPU_KERNELS[name] for m in FAMILY_2D
 SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
            "adjoint": "generic2d_adjoint.cuh", "generic3d": "generic3d.cu",
            "adjoint3d": "generic3d_adjoint.cuh"}
-GENERIC_MODELS = ("d2q9_kuper", "d2q9_heat_adj", "d3q19_adj")
+GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -266,7 +305,7 @@ def case_lattice(xml, dtype, device, drop=("Solve", "Log", "VTK")):
         for el in root.findall(tag):
             root.remove(el)
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as out:
+    with case_dir() as out:
         os.chdir(out)    # the XML's own output= prefix is relative
         try:
             solver = _run_root(root, get_model(root.get("model")), None,
@@ -274,6 +313,16 @@ def case_lattice(xml, dtype, device, drop=("Solve", "Log", "VTK")):
         finally:
             os.chdir(cwd)
     return solver.lattice
+
+
+def case_dir() -> tempfile.TemporaryDirectory:
+    """A temporary working directory for a case: an XML's output= prefix
+    is relative, and so is karman_control.xml's CSV
+    (example/inlet_ramp.csv), so ``example`` there links to the
+    checkout's."""
+    tmp = tempfile.TemporaryDirectory()
+    os.symlink(ROOT / "example", os.path.join(tmp.name, "example"))
+    return tmp
 
 
 def rich3d_lattice(device):
@@ -1306,7 +1355,7 @@ def run_xml(xml, dtype):
     from tclb_tpu_torch.models import get_model
     model = get_model(ET.parse(xml).getroot().get("model"))
     cwd, fastpath = os.getcwd(), os.environ.get("TCLB_FASTPATH")
-    with tempfile.TemporaryDirectory() as tmp:
+    with case_dir() as tmp:
         os.chdir(tmp)
         os.environ["TCLB_FASTPATH"] = "0"
         try:
@@ -1639,6 +1688,322 @@ def check_d3q_poiseuille() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# <Control> time series and <Sample> (phases 23-25)
+# --------------------------------------------------------------------------- #
+
+
+def series_lattice(lat, T: int = 16):
+    """``lat`` with a <Control> inlet series on zone 0's Velocity (a
+    ramp over ``T`` iterations, so a long run wraps)."""
+    lat.set_setting_series("Velocity", np.linspace(0.008, 0.012, T), zone=0)
+    return lat
+
+
+def rich_series_lattice(model: str, device):
+    """A rich state that paints every node type ``model`` reads, with
+    series on two zones and a horizon of 5 (tests/torch_cases.py)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import (ADJ3D_SETTINGS, ADJ3D_SHAPE, RICH_SETTINGS,
+                             add_rich_series, paint_rich, paint_rich_adj3d)
+    shape, settings, paint = {
+        "d2q9": ((32, 64), RICH_SETTINGS, paint_rich),
+        "d3q19_adj": (ADJ3D_SHAPE, ADJ3D_SETTINGS, paint_rich_adj3d)}[model]
+    lat = Lattice(get_model(model), shape, dtype=torch.float32,
+                  device=device, settings=settings)
+    return add_rich_series(paint(lat, seed=5))
+
+
+def adj3d_control_file(directory) -> pathlib.Path:
+    """The 3D Control channel (tests/torch_cases.py:adj3d_control_xml at
+    32x64x256, Solve 2000, Log every 500) and its inlet ramp CSV, written
+    into ``directory``."""
+    from torch_cases import adj3d_control_xml, ramp_csv
+    csv = ramp_csv(pathlib.Path(directory) / "ramp.csv")
+    path = pathlib.Path(directory) / "adj3d_control.xml"
+    path.write_text(adj3d_control_xml(str(csv), "chip"))
+    return path
+
+
+def compare_globals(g, wg, what: str) -> dict:
+    """A kernel's SUM globals against its plain version's at rtol 1e-4 /
+    atol 1e-6."""
+    gerr = (g - wg).abs()
+    ok = bool((gerr <= GOLDEN_ATOL + GOLDEN_RTOL * wg.abs()).all()) \
+        and bool(torch.isfinite(g).all())
+    say(f"  globals {what}: {g.tolist()} vs {wg.tolist()} (rtol "
+        f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"globals {what} disagree with the plain version's")
+    return {"max_abs_err": float(gerr.max()),
+            "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30)).max())}
+
+
+def check_series_flavours(mod, lats, errs: dict, what: str) -> dict:
+    """Both <Control> series flavours of ``mod``'s step kernel
+    (``generic2d_step_series``, ``generic3d_step_series``) against their
+    plain versions on lattices with a series, at an iteration inside, at
+    the end of and past the horizon: fields at rtol 2e-5 / atol 2e-6, the
+    series + globals flavour's globals at rtol 1e-4 / atol 1e-6."""
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    say(f"{what}: the series flavours against their plain versions")
+    for lat in lats:
+        f, flags, ztab, a = mod.kernel_inputs(lat.model, lat.state,
+                                              lat.params)
+        series = gk.series_inputs(lat.model, lat.params)
+        T = series.horizon
+        key, keyg = (f"{k}[{lat.model.name}]" for k in mod.SERIES_KERNELS)
+        for it in (0, T - 1, 3 * T + 2):
+            got = mod.step_series(f, flags, ztab, a, series, it)
+            gotg, g = mod.step_series_globals(f, flags, ztab, a, series, it)
+            want, wg = mod.plain_steps(f, flags, ztab, a, 1,
+                                       with_globals=True, series=series,
+                                       it=it)
+            torch.cuda.synchronize()
+            at = f"{tuple(f.shape)}, it {it} of T {T}"
+            keep_worst(errs, key, compare(got, want, f"{key} at {at}"))
+            keep_worst(errs, keyg, compare(gotg, want, f"{keyg} at {at}"))
+            keep_worst(errs, f"{keyg} globals",
+                       compare_globals(g, wg, f"of {keyg} at {at}"))
+    return errs
+
+
+def _read_log(path) -> tuple:
+    lines = pathlib.Path(path).read_text().strip().splitlines()
+    return (lines[0].split(","),
+            np.array([[float(v) for v in r.split(",")] for r in lines[1:]]))
+
+
+def run_series_xml(xml, fast: bool, probe=None, csvs=("Log",)) -> dict:
+    """``xml`` through ``run_config`` at f32 from a case directory, on the
+    kernel engines (``fast``, launches counted from 0) or the eager engine
+    (``TCLB_FASTPATH=0``); ``probe(solver)`` is recorded at each Log, and
+    the case's ``<stem>_<name>.csv`` read for each of ``csvs``."""
+    from tclb_tpu_torch.control.solver import Solver, run_config
+    from tclb_tpu_torch.models import get_model
+    from tclb_tpu_torch.ops import generic3d_kernels as g3
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    root = ET.parse(xml).getroot()
+    probes = []
+    write_log = Solver.write_log
+
+    def recording(self):
+        if probe is not None:
+            probes.append((self.iter, probe(self)))
+        write_log(self)
+
+    cwd, fastpath = os.getcwd(), os.environ.get("TCLB_FASTPATH")
+    with case_dir() as tmp:
+        os.chdir(tmp)
+        if not fast:
+            os.environ["TCLB_FASTPATH"] = "0"
+        Solver.write_log = recording
+        try:
+            torch.cuda.synchronize()
+            for mod in (gk, g3):
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            solver = run_config(str(xml), get_model(root.get("model")),
+                                dtype=torch.float32, device=DEVICE)
+            solver.lattice.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**gk.LAUNCHES, **gk.SERIES_LAUNCHES, **g3.LAUNCHES,
+                        **g3.SERIES_LAUNCHES}
+            read = {name: _read_log(os.path.join(
+                tmp, root.get("output"), f"{xml.stem}_{name}.csv"))
+                for name in csvs}
+        finally:
+            Solver.write_log = write_log
+            os.chdir(cwd)
+            if fastpath is None:
+                os.environ.pop("TCLB_FASTPATH", None)
+            else:
+                os.environ["TCLB_FASTPATH"] = fastpath
+    return {"solver": solver, "wall_s": wall, "launches": launches,
+            "probes": probes, **read}
+
+
+def run_series_case(mod, xml, phase: str, engine: str, probe,
+                    window: int) -> dict:
+    """A case under a <Control> series end to end on the card (paths A
+    and B): on ``engine`` with no eager step, the series flavour on every
+    step but the last of each iterate call (one per Log stop), which is
+    the series + globals flavour, and no plain launch; every Log column
+    and the final fields against the same XML on the eager f32 engine at
+    rtol 1e-4 / atol 1e-6; ``probe(solver)`` (the inlet's mean ux) at each
+    Log in a fixed proportion to the series' entry of the iteration before
+    it and changing between Logs as the series does.  Then the MLUPS of
+    the whole case and of an ``iterate(window)`` window."""
+    say(f"phase {phase}: {xml.name} end to end under its <Control> series")
+    root = ET.parse(xml).getroot()
+    niter = int(root.find("Solve").get("Iterations"))
+    stops = niter // int(root.find("Log").get("Iterations"))
+    run = run_series_xml(xml, True, probe)
+    solver = run["solver"]
+    lat = solver.lattice
+    launches = {k: v for k, v in run["launches"].items() if v}
+    say(f"  engine {lat.engine_name}, {solver.iter} iterations, "
+        f"{run['wall_s']:.3f} s wall, launches {launches}, eager steps "
+        f"{lat.eager_steps}")
+    one, last = mod.SERIES_KERNELS
+    if lat.engine_name != engine or lat.eager_steps:
+        fail(f"{xml.name} ran on {lat.engine_name} with {lat.eager_steps} "
+             "eager steps")
+    if launches != {one: niter - stops, last: stops}:
+        fail(f"{xml.name}: launches {launches}, not {niter - stops} of "
+             f"{one} and {stops} of {last}")
+    eager = run_series_xml(xml, False)
+    if eager["solver"].lattice.engine_name != "eager":
+        fail(f"{xml.name}'s eager run ran on "
+             f"{eager['solver'].lattice.engine_name}")
+    (head, rows), (ehead, erows) = run["Log"], eager["Log"]
+    if head != ehead or rows.shape != erows.shape or len(rows) != stops:
+        fail(f"{xml.name}: Log {rows.shape} {head} vs eager {erows.shape}")
+    keep = [i for i, h in enumerate(head) if "Walltime" not in h]
+    got, want = rows[:, keep], erows[:, keep]
+    if not (np.isfinite(got).all() and np.allclose(
+            got, want, rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL)):
+        fail(f"{xml.name}: Log columns differ from the eager run's")
+    log_err = float(np.abs(got - want).max())
+    field = compare(lat.state.fields, eager["solver"].lattice.state.fields,
+                    f"{xml.name}'s fields against the eager run's",
+                    GOLDEN_RTOL, GOLDEN_ATOL)
+    ts = lat.params.time_series[0].double().cpu().numpy()
+    its = np.array([it for it, _ in run["probes"]])
+    seen = np.array([v for _, v in run["probes"]])
+    expect = ts[(its - 1) % len(ts)]
+    ratio = seen / expect
+    say(f"  inlet mean ux at the Logs {seen.tolist()} against the series "
+        f"{expect.tolist()} (ratio {ratio.tolist()}); Log columns within "
+        f"{log_err:.3e} of the eager run's")
+    if not (np.allclose(ratio, ratio[0], rtol=1e-4)
+            and (np.sign(np.diff(seen)) == np.sign(np.diff(expect))).all()
+            and (np.diff(expect) != 0).all()):
+        fail(f"{xml.name}: the inlet does not follow the series")
+    nodes = float(np.prod(lat.shape))
+    lat.synchronize()
+    t0 = time.perf_counter()
+    lat.iterate(window)
+    host = time.perf_counter() - t0
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"launches": run["launches"], "wall_s": run["wall_s"],
+           "eager_steps": lat.eager_steps, "engine": lat.engine_name,
+           "mlups_end_to_end": nodes * niter / run["wall_s"] / 1e6,
+           "mlups_iterate": nodes * window / dt / 1e6,
+           "iterate_ms": dt * 1e3, "iterate_host_ms": host * 1e3,
+           "window": window, "eager_wall_s": eager["wall_s"],
+           "log_max_abs_err_vs_eager": log_err,
+           "fields_vs_eager": field, "inlet_ux": seen.tolist(),
+           "inlet_series": expect.tolist(), "lattice": lat}
+    say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end, "
+        f"{out['mlups_iterate']:.1f} in an iterate({window}) window "
+        f"({dt * 1e3:.2f} ms, of which {host * 1e3:.2f} ms until iterate "
+        f"returned); the eager f32 run took {eager['wall_s']:.2f} s")
+    return out
+
+
+def inlet_ux_2d(solver) -> float:
+    """karman_control's inlet: the mean ux of the W velocity column."""
+    return float(solver.lattice.get_quantity("U")[0, 1:-1, 0].double()
+                 .mean())
+
+
+def inlet_ux_3d(solver) -> float:
+    return float(solver.lattice.get_quantity("U")[0, 1:-1, 1:-1, 0]
+                 .double().mean())
+
+
+SAMPLE_POINTS = ((5, 48), (100, 30), (300, 70))    # (dx, dy)
+
+
+def run_sample(gk) -> dict:
+    """Path C (phase 25): karman_control.xml cut to 500 iterations (Log
+    every 250) with a <Sample what="U,Rho"> of three points every 100
+    iterations, through ``run_config``: every step on the eager engine by
+    selection (no kernel launched, 500 eager steps); its CSV (one row per
+    iteration) against the same case stepped one iteration at a time on
+    the kernel engine, U and Rho read at the points after each step, at
+    rtol 1e-4 / atol 1e-6 (the CSV keeps six significant digits)."""
+    say("phase 25: <Sample> on karman_control.xml's lattice")
+    from tclb_tpu_torch.ops import generic3d_kernels as g3
+    niter = 500
+    root = ET.parse(KARMAN_CONTROL_XML).getroot()
+    root.find("Solve").set("Iterations", str(niter))
+    root.find("Log").set("Iterations", str(niter // 2))
+    sample = ET.Element("Sample", {"what": "U,Rho", "Iterations": "100"})
+    for dx, dy in SAMPLE_POINTS:
+        ET.SubElement(sample, "Point", {"dx": str(dx), "dy": str(dy)})
+    root.insert(list(root).index(root.find("Solve")), sample)
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = pathlib.Path(tmp) / "karman_sampled.xml"
+        ET.ElementTree(root).write(xml)
+        run = run_series_xml(xml, True, csvs=("Sample",))
+    head, rows = run["Sample"]
+    lat = run["solver"].lattice
+    launched = {k: v for k, v in run["launches"].items() if v}
+    say(f"  {len(rows)} sample rows, columns {head}; eager steps "
+        f"{lat.eager_steps}, kernel launches {launched}")
+    want_head = ["Iteration"] + [
+        c for i in range(len(SAMPLE_POINTS))
+        for c in (f"U_{i}_x", f"U_{i}_y", f"U_{i}_z", f"Rho_{i}")]
+    if head != want_head or rows.shape != (niter, len(want_head)):
+        fail(f"<Sample>: CSV {rows.shape} {head}")
+    if launched or lat.eager_steps != niter or lat.sampler is not None:
+        fail(f"<Sample>: launches {launched}, eager steps "
+             f"{lat.eager_steps}")
+    ref = case_lattice(KARMAN_CONTROL_XML, torch.float32, DEVICE)
+    ys = [dy for _, dy in SAMPLE_POINTS]
+    xs = [dx for dx, _ in SAMPLE_POINTS]
+    gk.reset_launches()
+    got = []
+    for _ in range(niter):
+        ref.iterate(1)
+        u, rho = ref.get_quantity("U"), ref.get_quantity("Rho")
+        # the CSV's order: per point U's three components, then Rho
+        got.append(torch.cat([torch.cat([u[:, y, x], rho[y, x][None]])
+                              for y, x in zip(ys, xs)]))
+    kern = torch.stack(got).double().cpu().numpy()
+    if ref.engine_name != "cuda_generic_band[d2q9,fuse=1]" \
+            or gk.SERIES_LAUNCHES["generic2d_step_series_globals"] != niter:
+        fail(f"<Sample>'s kernel run ran on {ref.engine_name}")
+    err = np.abs(rows[:, 1:] - kern)
+    ok = bool((err <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(kern)).all())
+    say(f"  the CSV against the kernel run's fields: max abs "
+        f"{float(err.max()):.3e} (rtol {GOLDEN_RTOL} atol {GOLDEN_ATOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or not np.array_equal(rows[:, 0], np.arange(1, niter + 1)):
+        fail("<Sample>: the CSV disagrees with the kernel run")
+    return {"rows": len(rows), "columns": head,
+            "max_abs_err_vs_kernels": float(err.max()),
+            "eager_steps": lat.eager_steps, "wall_s": run["wall_s"],
+            "kernel_launches_during_sampling": launched}
+
+
+def time_series_flavours(mod, lat, reps: int, it: int = 7) -> dict:
+    """Both series flavours at ``lat``'s shape (CUDA events), their plain
+    versions, their bound (``launch_bytes`` with the series' row map and
+    entries) and their wrappers' host time."""
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    f, flags, ztab, a = mod.kernel_inputs(lat.model, lat.state, lat.params)
+    series = gk.series_inputs(lat.model, lat.params)
+    n_series = int(series.ts.shape[0])
+    out = {}
+    for name, fn, g in ((mod.SERIES_KERNELS[0], mod.step_series, False),
+                        (mod.SERIES_KERNELS[1], mod.step_series_globals,
+                         True)):
+        key = f"{name}[{lat.model.name}]"
+        out[key] = time_one(
+            key, lambda fn=fn: fn(f, flags, ztab, a, series, it),
+            lambda g=g: mod.plain_steps(f, flags, ztab, a, 1,
+                                        with_globals=g, series=series,
+                                        it=it),
+            gk.launch_bytes(lat.model, lat.shape, n_series),
+            mod.node_step_flops(lat.model, lat.flags_numpy()), lat.shape,
+            reps)
+    return out
+
+
 def event_ms(fn, reps: int, warm: int = 5) -> float:
     """Device ms per call of ``fn`` between two CUDA events.  A spin kernel
     queued first keeps the card busy while the host enqueues the window,
@@ -1863,8 +2228,8 @@ def main() -> int:
     rich_heat = rich_heat_lattice(DEVICE)
     heat1024 = heat1024_lattice(DEVICE)
     eager_warm(heat1024, 20)
-    case_dir = tempfile.TemporaryDirectory()
-    adj3d_xml = adj3d_case_file(case_dir.name)
+    case_tmp = tempfile.TemporaryDirectory()
+    adj3d_xml = adj3d_case_file(case_tmp.name)
     rich_adj3d = rich_adj3d_lattice(DEVICE)
     adj3d_init = case_lattice(adj3d_xml, torch.float32, DEVICE,
                               drop=ADJ3D_HANDLERS)
@@ -1887,6 +2252,24 @@ def main() -> int:
     for lat in channel48.values():
         eager_warm(lat, 4)
     turb = turbulence_lattice(DEVICE)
+    # the Control series: rich states with series on two zones (horizon 5),
+    # the starting states of paths A and B (their series from their
+    # <Control>), bench.py's 1024x1024 d2q9 channel under an inlet series,
+    # and a rich d2q9 state without one (d2q9's plain generic kernels)
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import RICH_SETTINGS, paint_rich
+    rich_series = {m: rich_series_lattice(m, DEVICE)
+                   for m in ("d2q9", "d3q19_adj")}
+    control_init = case_lattice(KARMAN_CONTROL_XML, torch.float32, DEVICE)
+    eager_warm(control_init, 200)
+    adj3d_control_xml = adj3d_control_file(case_tmp.name)
+    control3d_init = case_lattice(adj3d_control_xml, torch.float32, DEVICE)
+    eager_warm(control3d_init, 4)
+    channel_series = series_lattice(channel_lattice(DEVICE))
+    eager_warm(channel_series, 20)
+    rich_d2q9 = paint_rich(Lattice(get_model("d2q9"), (32, 64),
+                                   dtype=torch.float32, device=DEVICE,
+                                   settings=RICH_SETTINGS), seed=5)
     errs = check_kernels([
         (dk, karman, "d2q9_resident8"), (dk, karman, "d2q9_step"),
         (dk, channel, "d2q9_step2"), (dk, channel, "d2q9_step"),
@@ -1911,6 +2294,20 @@ def main() -> int:
     check_globals_flavour(gk, (drop, drop1024, rich_kuper, rich_heat,
                                heat1024), errs, "phase 2")
     check_globals_flavour(g3, (rich_adj3d, adj3d_init), errs, "phase 2")
+    # d2q9's generic kernels without a series (no path runs them: d2q9
+    # takes K1/K2 there) on the rich state, bench.py's 1024x1024 channel
+    # and karman.xml's state (the resident kernel where it fits the L2)
+    check_kernels([(gk, rich_d2q9, "generic2d_step"),
+                   (gk, rich_d2q9, "generic2d_resident"),
+                   (gk, channel, "generic2d_step"),
+                   (gk, karman, "generic2d_step"),
+                   (gk, karman, "generic2d_resident")], errs,
+                  "phase 2, d2q9 on the generic kernels")
+    check_globals_flavour(gk, (rich_d2q9, channel), errs, "phase 2")
+    check_series_flavours(gk, (rich_series["d2q9"], control_init,
+                               channel_series), errs, "phase 2")
+    check_series_flavours(g3, (rich_series["d3q19_adj"], control3d_init),
+                          errs, "phase 2")
     check_step_b(ak, gk, (rich_heat, heat1024, rich_adj3d, adj3d_init), errs,
                  "phase 2")
     check_goldens()
@@ -1963,6 +2360,22 @@ def main() -> int:
                    for name in dk3.KERNELS], errs,
                   "phase 21b, the 48x48x256 channels after 2002 iterations")
     poiseuille3d = check_d3q_poiseuille()
+    path_control = run_series_case(
+        gk, KARMAN_CONTROL_XML, "23", "cuda_generic_band[d2q9,fuse=1]",
+        inlet_ux_2d, window=500)
+    control_dev = path_control.pop("lattice")
+    path_control3d = run_series_case(
+        g3, adj3d_control_xml, "24",
+        "cuda_generic3d_band[d3q19_adj,fuse=1]", inlet_ux_3d, window=200)
+    control3d_dev = path_control3d.pop("lattice")
+    # the developed states (after the paths' counts were read)
+    check_series_flavours(gk, (control_dev,), errs,
+                          "phase 23b, karman_control.xml after 4000 "
+                          "iterations")
+    check_series_flavours(g3, (control3d_dev,), errs,
+                          "phase 24b, the 3D Control channel after 2000 "
+                          "iterations")
+    path_sample = run_sample(gk)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -1980,6 +2393,14 @@ def main() -> int:
     times.update(time_generic(gk, heat1024, heat_adj_solve_state(
         HEAT_ADJ_XML), (solve - 1) // 2 * 2, plain_reps=1))
     times.update(time_step_b(ak, gk, heat1024))
+    # the series flavours: K4's at 1024x1024 (the record) and at
+    # karman_control's 512x96, K6's at the 3D Control channel's 32x64x256;
+    # d2q9's plain K4 at 1024x1024 and K5 at karman.xml's 1024x100 for the
+    # 498 steps one launch would take per Log interval of 500
+    times.update(time_series_flavours(gk, channel_series, 400))
+    times_512 = time_series_flavours(gk, control_dev, 1000)
+    times.update(time_series_flavours(g3, control3d_dev, 400))
+    times_d2q9 = time_generic(gk, channel, karman, 498, plain_reps=1)
     times.update(time_generic3d(g3, ak, adj3d_dev))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
@@ -2011,6 +2432,10 @@ def main() -> int:
     busy48 = {m: device_busy(lambda lat=lat: lat.iterate(200),
                              f"a 48x48x256 {m} channel iterate(200)")
               for m, lat in channel48.items()}
+    busy_control = device_busy(lambda: control_dev.iterate(500),
+                               "a karman_control iterate(500)")
+    busy_control3d = device_busy(lambda: control3d_dev.iterate(200),
+                                 "a 3D Control channel iterate(200)")
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
@@ -2038,9 +2463,17 @@ def main() -> int:
         "bench_adjoint3d_gradient1000":
             bench_adj3d["grad1000"]["launches"][name]}
         for name in g3.KERNELS + ("generic3d_step_b",)})
+    launches.update({f"{name}[d2q9]": {
+        "karman_control": path_control["launches"][name]}
+        for name in gk.SERIES_KERNELS})
+    launches.update({f"{name}[d3q19_adj]": {
+        "adj3d_control": path_control3d["launches"][name]}
+        for name in g3.SERIES_KERNELS})
     sources = {**{n: SOURCES["d2q9"] for n in dk.KERNELS},
                **{n: SOURCES["d3q27"] for n in dk3.KERNELS},
-               **{n: SOURCES["generic"] for n in gk.KERNELS},
+               **{n: SOURCES["generic"] for n in gk.KERNELS
+                  + gk.SERIES_KERNELS},
+               **{n: SOURCES["generic3d"] for n in g3.SERIES_KERNELS},
                "generic2d_step_b": SOURCES["adjoint"],
                **{n: SOURCES["generic3d"] for n in g3.KERNELS},
                "generic3d_step_b": SOURCES["adjoint3d"]}
@@ -2094,6 +2527,22 @@ def main() -> int:
                    "generic3d_step_b[d3q19_adj]"):
         by_name[step_b]["settings_max_rel_err"] = \
             errs[f"{step_b} settings"]["max_rel_err"]
+    for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"))
+                for k in mod.SERIES_KERNELS[1:]):
+        by_name[key]["globals_max_abs_err"] = \
+            errs[f"{key} globals"]["max_abs_err"]
+    for key, t in times_512.items():
+        by_name[key]["at_512x96"] = {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "wrapper_host_ms")}
+    # d2q9's plain generic kernels: held and timed, on no path (d2q9
+    # without a series takes K1/K2), so not in the kernels line
+    d2q9_generic = {key: {**{k: t[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "wrapper_host_ms",
+        "shape")}, "max_abs_err": errs[key.replace(" globals", "")
+                                       ]["max_abs_err"]}
+        for key, t in times_d2q9.items()}
+    d2q9_generic["generic2d_step[d2q9] globals"]["globals_max_abs_err"] = \
+        errs["generic2d_step[d2q9] globals"]["max_abs_err"]
     keys = ("wall_s", "mlups_end_to_end", "mlups_iterate", "iterate_ms",
             "iterate_host_ms", "eager_step_ms", "eager_steps")
     heat_keys = ("wall_s", "objectives", "material", "fd_records",
@@ -2117,6 +2566,12 @@ def main() -> int:
         "channel48_mlups_iterate": {m: path_b[m]["mlups_iterate"]
                                     for m in D3Q_FAMILY},
         "poiseuille3d": poiseuille3d,
+        "karman_control": path_control,
+        "adj3d_control": path_control3d,
+        "sample": path_sample,
+        "d2q9_generic_kernels_off_path": d2q9_generic,
+        "karman_control_iterate_profile": busy_control,
+        "adj3d_control_iterate_profile": busy_control3d,
         "3dcum_turbulence_iterate_profile": busy_turb,
         "channel48_iterate_profile": busy48,
         "cumulant2d_iterate_profile": busy_cum2d,
@@ -2126,7 +2581,7 @@ def main() -> int:
         "drop_iterate_profile": busy_drop,
         "heat_adj1024_gradient_profile": busy_grad,
         "bench_adjoint3d_gradient1000_profile": busy_grad3d}))
-    case_dir.cleanup()
+    case_tmp.cleanup()
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

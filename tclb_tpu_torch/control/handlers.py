@@ -3,10 +3,12 @@
 The port's counterpart of the JAX package's ``control/handlers.py``: the
 same scheduling (fractional intervals, Now/Next), the same recursive
 ``GenericAction`` execution with callback stacking, and the handlers the
-main path and its goldens use; the adjoint and optimization handlers are
-in ``opt_handlers.py``.  Every other element of the JAX package's
-handler table raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; an element neither package knows raises ``ValueError``.
+main path and its goldens use, with ``<Control>`` time series, the
+``<Sample>`` point sampler and the ``<Keep>`` feedback loop; the adjoint
+and optimization handlers are in ``opt_handlers.py``.  Every other
+element of the JAX package's handler table raises
+``NotImplementedError`` naming the ROADMAP item that ports it; an element
+neither package knows raises ``ValueError``.
 
 Handlers run on the host; everything device-bound goes through the Lattice.
 """
@@ -14,6 +16,7 @@ Handlers run on the host; everything device-bound goes through the Lattice.
 from __future__ import annotations
 
 import math
+import re
 import xml.etree.ElementTree as ET
 from typing import Optional
 
@@ -21,6 +24,7 @@ import numpy as np
 
 from tclb_tpu_torch.control.solver import ITERATION_STOP, Solver
 from tclb_tpu_torch.utils import log
+from tclb_tpu_torch.utils.sampler import Sampler
 from tclb_tpu_torch.utils.turbulence import SyntheticTurbulence
 
 
@@ -229,6 +233,126 @@ class acParams(Handler):
         return 0
 
 
+class conControl(Handler):
+    """<Control Iterations="N"><CSV file="..." Time="col*1s"/>
+    <Params name-zone="col*1m/s+0.5"/></Control>: time-dependent zonal
+    settings.  CSV columns are read through the units engine, linearly
+    interpolated onto the iteration grid [0, N), and each <Params> value is
+    an expression ``term + term + ...`` whose terms are ``variable*scale``
+    (a column) or a constant with units; the per-iteration series land in
+    the lattice's time series (``Lattice.set_setting_series``)."""
+
+    def init(self) -> int:
+        super().init()
+        s = self.solver
+        horizon = int(round(s.units.alt(self.node.get("Iterations", "0"))))
+        if horizon <= 0:
+            raise ValueError("<Control> needs a positive Iterations horizon")
+        self.horizon = horizon
+        context: dict[str, np.ndarray] = {}
+        for child in self.node:
+            if child.tag == "CSV":
+                self._load_csv(child, context)
+            elif child.tag == "Params":
+                self._params(child, context)
+            else:
+                raise ValueError(f"unknown element <{child.tag}> in Control")
+        return 0
+
+    def _eval(self, context: dict[str, np.ndarray], expr: str) -> np.ndarray:
+        """``var*scale+var2*scale2+const`` -> per-iteration array.
+
+        Terms split on top-level ``+``/``-``.  A sign after a digit and
+        ``e``/``E`` is an exponent (``1e+5``), one after ``*`` a negative
+        factor (``flow*-2``); a leading sign negates the first term."""
+        s = self.solver
+        out = np.zeros(self.horizon)
+        expr = re.sub(r"\s*\*\s*", "*", expr)
+        parts = re.split(r"(?<![\d.][eE])(?<!\*)([+-])", expr)
+        sign = 1.0
+        for part in parts:
+            part = part.strip()
+            if part == "+":
+                continue
+            if part == "-":
+                sign = -sign
+                continue
+            if not part:
+                continue
+            factors = part.split("*")
+            if factors[0].strip() in context:
+                val = context[factors[0].strip()].copy()
+                for f in factors[1:]:
+                    val = val * s.units.alt(f)
+            else:
+                v = 1.0
+                for f in factors:
+                    v *= s.units.alt(f)
+                val = v
+            out = out + sign * val
+            sign = 1.0
+        return out
+
+    def _load_csv(self, node: ET.Element, context: dict) -> None:
+        """Parse the CSV, convert through the units engine, interpolate
+        every column onto the iteration grid."""
+        s = self.solver
+        fn = node.get("file")
+        if not fn:
+            raise ValueError("<CSV> in Control needs file=")
+        with open(fn) as f:
+            header = [h.strip().strip('"') for h in
+                      f.readline().strip().split(",")]
+            rows = [[s.units.alt(tok) for tok in line.strip().split(",")]
+                    for line in f if line.strip()]
+        data = {name: np.array([r[i] for r in rows])
+                for i, name in enumerate(header)}
+        n = len(rows)
+        data["_index"] = np.arange(n, dtype=np.float64)
+        tattr = node.get("Time")
+        if tattr:
+            # a time expression in iterations, over the CSV's rows
+            saved, self.horizon = self.horizon, n
+            t = self._eval(data, tattr)
+            self.horizon = saved
+        else:
+            t = data["_index"] * (self.horizon / n)
+        # np.interp needs an increasing grid: sort, and refuse duplicates
+        order = np.argsort(t, kind="stable")
+        t = np.asarray(t, dtype=np.float64)[order]
+        if (np.diff(t) <= 0).any():
+            raise ValueError(f"<CSV {fn}>: Time column has duplicate or "
+                             "non-increasing entries after sorting")
+        grid = np.arange(self.horizon, dtype=np.float64)
+        for name, col in data.items():
+            context[name] = np.interp(grid, t, np.asarray(col)[order])
+        # <Params> may also sit inside <CSV>
+        for child in node:
+            if child.tag == "Params":
+                self._params(child, context)
+
+    def _params(self, node: ET.Element, context: dict) -> None:
+        s = self.solver
+        for name, raw in node.attrib.items():
+            par, zones = name, None
+            if "-" in name:
+                par, zname = name.split("-", 1)
+                if zname in s.geometry.setting_zones:
+                    zones = [s.geometry.setting_zones[zname]]
+                else:
+                    log.warning(f"unknown zone {zname!r} (Control "
+                                f"setting {par})")
+                    continue
+            if par not in s.model.setting_index:
+                continue
+            if zones is None:
+                # zone-less: every allocated zone
+                zones = sorted({0} | set(s.geometry.setting_zones.values()))
+            series = self._eval(context, raw)
+            for z in zones:
+                s.lattice.set_setting_series(par, series, zone=z)
+
+
 class _Callback(Handler):
     """A callback that fires once at init when it has no interval."""
 
@@ -254,6 +378,80 @@ class cbVTK(_Callback):
 class cbLog(_Callback):
     def do_it(self) -> int:
         self.solver.write_log()
+        return 0
+
+
+class cbSample(Handler):
+    """<Sample what="U,Rho" Iterations="N"><Point dx=... dy=.../></Sample>:
+    per-iteration point probes, flushed to ``<prefix>_Sample.csv`` on each
+    firing.  While attached, the lattice steps on the eager engine."""
+
+    kind = "callback"
+
+    def init(self) -> int:
+        super().init()
+        if not self.every_iter:
+            raise ValueError("Sampler needs a nonzero Iterations attribute")
+        s = self.solver
+        what = self.node.get("what")
+        quants = ([q.name for q in s.model.quantities if not q.adjoint]
+                  if not what or what == "all" else what.split(","))
+        pts = []
+        for p in self.node:
+            if p.tag != "Point":
+                raise ValueError(f"unknown element <{p.tag}> in Sampler")
+            x = int(round(s.units.alt(p.get("dx", "0"))))
+            y = int(round(s.units.alt(p.get("dy", "0"))))
+            z = int(round(s.units.alt(p.get("dz", "0"))))
+            pts.append((z, y, x)[-s.model.ndim:])
+        self.sampler = Sampler(s.model, quants, np.asarray(pts),
+                               s.out_path("Sample", "csv", with_iter=False))
+        s.lattice.attach_sampler(self.sampler)
+        return 0
+
+    def do_it(self) -> int:
+        self.sampler.flush()
+        return 0
+
+    def finish(self) -> int:
+        self.sampler.flush()
+        self.solver.lattice.detach_sampler()
+        return 0
+
+
+class cbKeep(Handler):
+    """<Keep What="..." Above=|Below=|Equal=... Rate=...>: a feedback loop
+    on the host that holds a Global at a target by adjusting its InObj
+    weight."""
+
+    kind = "callback"
+
+    def init(self) -> int:
+        super().init()
+        self.gname = self.node.get("What")
+        if self.gname not in self.solver.model.global_index:
+            raise ValueError(f"Keep: unknown global {self.gname!r}")
+        for mode in ("Above", "Below", "Equal"):
+            if self.node.get(mode) is not None:
+                self.mode = mode
+                self.target = self.solver.units.alt(self.node.get(mode))
+                break
+        else:
+            raise ValueError("Keep needs Above=, Below= or Equal=")
+        self.rate = float(self.node.get("Rate", "1.0"))
+        return 0
+
+    def do_it(self) -> int:
+        s = self.solver
+        val = s.lattice.get_globals()[self.gname]
+        wname = self.gname + "InObj"
+        cur = float(s.lattice.params.settings[
+            s.model.setting_index[wname]])
+        err = val - self.target
+        if (self.mode == "Above" and err < 0) or \
+           (self.mode == "Below" and err > 0) or self.mode == "Equal":
+            cur -= self.rate * err
+            s.lattice.set_setting(wname, cur)
         return 0
 
 
@@ -424,13 +622,15 @@ _HANDLERS = {
     "Failcheck": cbFailcheck,
     "Average": cbAveraging,
     "SyntheticTurbulence": acSyntheticTurbulence,
+    "Control": conControl,
+    "Sample": cbSample,
+    "Keep": cbKeep,
     "Units": acNop,
 }
 
 # elements of the JAX package's handler table not ported yet -> the ROADMAP
 # queue 1 item that ports them
 _WAITING = {
-    "Control": 10, "Sample": 10, "Keep": 10,
     "OptSolve": 11, "OptimalControl": 10, "OptimalControlSecond": 10,
     "Fourier": 10, "BSpline": 10, "RepeatControl": 10,
     "BIN": 13, "SaveBinary": 13, "SaveMemoryDump": 13, "SaveCheckpoint": 13,

@@ -6,10 +6,11 @@ uint16 flags with the registry's bit packing, globals and settings in
 registry order), so crossing over is a change of container, not of layout:
 
 * :func:`state_from_numpy` turns the JAX package's ``LatticeState`` and
-  ``SimParams``, handed over as numpy arrays, into the port's;
+  ``SimParams`` (its <Control> time series included), handed over as numpy
+  arrays, into the port's;
 * :func:`state_to_numpy` is its inverse;
 * ``Lattice.load`` reads a ``.npz`` that the JAX package's ``Lattice.save``
-  or ``<SaveBinary>`` wrote (raw f32/f64 storage).
+  or ``<SaveBinary>`` wrote (raw f32/f64 storage, with its time series).
 """
 
 from __future__ import annotations
@@ -25,12 +26,14 @@ from tclb_tpu_torch.core.registry import Model
 
 
 def state_from_numpy(model: Model, fields, flags, globals_, iteration,
-                     settings, zone_table, device: Any = None
+                     settings, zone_table, device: Any = None,
+                     time_series=None, series_map=()
                      ) -> tuple[LatticeState, SimParams]:
     """The port's ``(LatticeState, SimParams)`` from numpy arrays of the
     JAX package's state and params.  The field dtype (f32 or f64) is kept;
-    settings, the zone table and the globals take the fields' dtype, as
-    they do in the JAX ``Lattice``.  ``device=None`` means the card."""
+    settings, the zone table, the <Control> time series (if any) and the
+    globals take the fields' dtype, as they do in the JAX ``Lattice``.
+    ``device=None`` means the card."""
     dev = resolve_device(device)
     fields = np.asarray(fields)
     if fields.dtype not in (np.float32, np.float64):
@@ -56,14 +59,18 @@ def state_from_numpy(model: Model, fields, flags, globals_, iteration,
         iteration=int(np.asarray(iteration)))
     params = SimParams(
         settings=tensor(np.asarray(settings, dtype=np.float64)),
-        zone_table=tensor(np.asarray(zone_table, dtype=np.float64)))
+        zone_table=tensor(np.asarray(zone_table, dtype=np.float64)),
+        time_series=None if time_series is None else tensor(
+            np.asarray(time_series, dtype=np.float64)),
+        series_map=tuple(tuple(int(v) for v in row) for row in series_map))
     return state, params
 
 
 def state_to_numpy(state: LatticeState, params: SimParams) -> dict:
     """The inverse of :func:`state_from_numpy`: numpy arrays in the JAX
-    package's layout and dtypes (uint16 flags, int32 iteration)."""
-    return {
+    package's layout and dtypes (uint16 flags, int32 iteration), with
+    ``time_series`` and ``series_map`` where a series is set."""
+    out = {
         "fields": state.fields.cpu().numpy(),
         "flags": state.flags.cpu().numpy().astype(np.uint16),
         "globals_": state.globals_.cpu().numpy(),
@@ -71,3 +78,7 @@ def state_to_numpy(state: LatticeState, params: SimParams) -> dict:
         "settings": params.settings.cpu().numpy(),
         "zone_table": params.zone_table.cpu().numpy(),
     }
+    if params.time_series is not None:
+        out["time_series"] = params.time_series.cpu().numpy()
+        out["series_map"] = tuple(params.series_map)
+    return out

@@ -15,9 +15,12 @@ and its family and ``d3q27_cumulant`` at f32 the hand-written CUDA kernels of
 :mod:`tclb_tpu_torch.ops.d2q9_kernels` and
 :mod:`tclb_tpu_torch.ops.d3q27_kernels` take ``niter - 1`` steps and one
 eager step computes the globals (the JAX package's hybrid); the generic
-kernels of :mod:`tclb_tpu_torch.ops.generic_kernels` (``d2q9_kuper``,
-``d2q9_heat_adj``) sum
-the globals themselves (``full_globals``) and take all ``niter`` steps.
+kernels of :mod:`tclb_tpu_torch.ops.generic_kernels` and
+:mod:`tclb_tpu_torch.ops.generic3d_kernels` (the models with a device
+header) sum the globals themselves (``full_globals``) and take all
+``niter`` steps.  Under a ``<Control>`` time series only the generic band
+engines, which read the series per step (``supports_series``), are
+chosen; with a ``<Sample>`` sampler attached every step is eager.
 The engine is chosen by each module's ``supports()``; a kernel that fails
 to build or launch fails the run — nothing falls back to eager after a
 failure.
@@ -42,10 +45,17 @@ FLAG_DTYPE = torch.int32     # device-side flag copy (uint16 at numpy seams)
 class SimParams:
     """Runtime settings: ``settings[s]`` for plain settings and
     ``zone_table[s, z]`` for the value of setting ``s`` in zone ``z``.
-    Control time series wait for ROADMAP queue 1 item 10."""
+
+    ``<Control>`` time series: row ``r`` of the ``(n_series, T)``
+    ``time_series`` is the per-iteration value of the (setting, zone) pair
+    that ``series_map`` lists as ``(setting_index, zone, r)``.  At
+    iteration ``t`` that zone reads ``time_series[r, t % T]`` instead of
+    its ``zone_table`` entry."""
 
     settings: torch.Tensor       # (n_settings,)
     zone_table: torch.Tensor     # (n_settings, zone_max)
+    time_series: Optional[torch.Tensor] = None   # (n_series, T)
+    series_map: tuple = ()
 
 
 @dataclasses.dataclass
@@ -120,6 +130,42 @@ class Streaming:
 
 
 # --------------------------------------------------------------------------- #
+# Control time series
+# --------------------------------------------------------------------------- #
+
+
+def _series_rows(params: SimParams, i: int) -> list:
+    return [(z, r) for (si, z, r) in params.series_map if si == i]
+
+
+def series_overrides(params: SimParams, i: int, iteration: int) -> list:
+    """``[(zone, value)]`` overrides of setting ``i`` from its <Control>
+    time series at ``iteration`` (wrapping modulo the horizon); empty
+    without a series.  ``value`` is a 0-d tensor."""
+    rows = _series_rows(params, i)
+    if not rows or params.time_series is None:
+        return []
+    t = int(iteration) % params.time_series.shape[1]
+    return [(z, params.time_series[r, t]) for z, r in rows]
+
+
+def series_dt_overrides(params: SimParams, i: int, iteration: int) -> list:
+    """``[(zone, d/dt value)]`` of setting ``i``'s series: central
+    differences, one-sided at the ends of the horizon (the horizon is
+    finite, not periodic: a wrapped difference would mix its two ends);
+    empty without a series."""
+    rows = _series_rows(params, i)
+    if not rows or params.time_series is None:
+        return []
+    ts = params.time_series
+    T = ts.shape[1]
+    t = int(iteration) % T
+    lo, hi = max(t - 1, 0), min(t + 1, T - 1)
+    span = float(max(hi - lo, 1))
+    return [(z, (ts[r, hi] - ts[r, lo]) / span) for z, r in rows]
+
+
+# --------------------------------------------------------------------------- #
 # Node context — what a model's Run()/Init() sees
 # --------------------------------------------------------------------------- #
 
@@ -179,11 +225,25 @@ class NodeCtx:
 
     def setting(self, name: str) -> torch.Tensor:
         """Scalar for plain settings; per-node plane for zonal settings,
-        gathered through the flag's zone bits."""
+        gathered through the flag's zone bits.  Zones with a <Control>
+        time series read this iteration's entry instead."""
         i = self.model.setting_index[name]
         if not self.model.settings[i].zonal:
             return self.params.settings[i]
-        return self.params.zone_table[i][self._zones()]
+        plane = self.params.zone_table[i][self._zones()]
+        for z, v in series_overrides(self.params, i, self.iteration):
+            plane = torch.where(self._zones() == z, v.to(plane.dtype), plane)
+        return plane
+
+    def setting_dt(self, name: str) -> torch.Tensor:
+        """Time derivative of a zonal setting from its time series
+        (:func:`series_dt_overrides`); zero where no series applies."""
+        i = self.model.setting_index[name]
+        plane = torch.zeros(self.flags.shape, dtype=self._fields.dtype,
+                            device=self._fields.device)
+        for z, v in series_dt_overrides(self.params, i, self.iteration):
+            plane = torch.where(self._zones() == z, v.to(plane.dtype), plane)
+        return plane
 
     def _zones(self) -> torch.Tensor:
         if self._zone_ids is None:
@@ -339,6 +399,47 @@ def make_iterate(model: Model, action: str = "Iteration",
     return iterate
 
 
+def make_sampled_iterate(model: Model, points: np.ndarray,
+                         quantities: Sequence[str]) -> Callable:
+    """Like :func:`make_iterate`, but every step also gathers the listed
+    quantities at fixed lattice points (the <Sample> probes).
+
+    ``points`` is ``(npoints, ndim)`` in array index order (z, y, x / y,
+    x).  Returns ``iterate(state, params, niter, avg_start=0) -> (state,
+    samples)`` with ``samples`` ``(niter, npoints, ncols)``: a vector
+    quantity gives its components as consecutive columns.  Every step
+    reduces the globals, so the state's globals are the last step's."""
+    step = make_action_step(model)
+    idx = tuple(torch.as_tensor(np.asarray(points)[:, k], dtype=torch.long)
+                for k in range(np.asarray(points).shape[1]))
+    qfns = [model.quantity_fns[q] for q in quantities]
+
+    def sample(state: LatticeState, params: SimParams, avg_start: int
+               ) -> torch.Tensor:
+        ctx = NodeCtx(model, state.fields, state.fields, state.flags, params,
+                      iteration=state.iteration, avg_start=avg_start)
+        at = tuple(i.to(state.fields.device) for i in idx)
+        cols = []
+        for fn in qfns:
+            plane = fn(ctx)
+            if plane.dim() == state.flags.dim():
+                cols.append(plane[at][:, None])
+            else:   # vector: (ncomp, *shape) -> (npoints, ncomp)
+                cols.append(plane[(slice(None),) + at].T)
+        return torch.cat(cols, dim=-1)
+
+    def iterate(state: LatticeState, params: SimParams, niter: int,
+                avg_start: int = 0) -> tuple:
+        rows = []
+        with torch.no_grad():
+            for _ in range(niter):
+                state = step(state, params)
+                rows.append(sample(state, params, avg_start))
+        return state, torch.stack(rows) if rows else None
+
+    return iterate
+
+
 def _roadmap(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
@@ -394,6 +495,9 @@ class Lattice:
         self._fast_name: Optional[str] = None
         self._fast_tried = False
         self.eager_steps = 0  # steps ``iterate`` ran on the eager engine
+        self._series: dict = {}   # (setting index, zone) -> host series
+        self.sampler = None       # a <Sample> point sampler, if attached
+        self._iterate_sampled: Optional[Callable] = None
 
     def _params_from(self, vec: np.ndarray, table: np.ndarray) -> SimParams:
         return SimParams(
@@ -424,9 +528,16 @@ class Lattice:
             state, flags=self.state.flags,
             fields=state.fields.to(self.device, self.dtype),
             globals_=state.globals_.to(self.device, self.dtype))
+        ts = params.time_series
         self.params = SimParams(
             settings=params.settings.to(self.device, self.dtype),
-            zone_table=params.zone_table.to(self.device, self.dtype))
+            zone_table=params.zone_table.to(self.device, self.dtype),
+            time_series=None if ts is None else ts.to(self.device,
+                                                      self.dtype),
+            series_map=tuple(params.series_map))
+        self._series = {} if ts is None else {
+            (si, z): ts[r].double().cpu().numpy()
+            for si, z, r in params.series_map}
 
     def flags_numpy(self) -> np.ndarray:
         """The flag field as the uint16 array the JAX package keeps."""
@@ -445,13 +556,51 @@ class Lattice:
             table[m.setting_index[name], :] = vec[m.setting_index[name]]
         else:
             table[m.setting_index[name], zone] = float(value)
-        self.params = self._params_from(vec, table)
+        new = self._params_from(vec, table)     # the series stays
+        self.params = dataclasses.replace(self.params, settings=new.settings,
+                                          zone_table=new.zone_table)
 
     def set_setting_series(self, name: str, values, zone: int = 0) -> None:
-        raise _roadmap("<Control> time series", "item 10")
+        """Attach a per-iteration time series to one zone of a zonal
+        setting (<Control>).  All series share one horizon; the iteration
+        wraps modulo its length.  The engine is chosen again: only the
+        engines that read a series per step take it."""
+        m = self.model
+        i = m.setting_index[name]
+        if not m.settings[i].zonal:
+            raise ValueError(f"setting {name!r} is not zonal; Control time "
+                             "series apply to zonal settings")
+        values = np.asarray(values, dtype=np.float64).ravel()
+        for old in self._series.values():
+            if len(old) != len(values):
+                raise ValueError(
+                    f"all Control series must share one horizon: got "
+                    f"{len(values)}, existing {len(old)}")
+        self._series[(i, int(zone))] = values
+        self._fast_tried = False   # the engine re-selects series-aware
+        keys = sorted(self._series)
+        self.params = dataclasses.replace(
+            self.params,
+            time_series=torch.as_tensor(
+                np.stack([self._series[k] for k in keys]), dtype=self.dtype,
+                device=self.device),
+            series_map=tuple((si, z, r) for r, (si, z) in enumerate(keys)))
 
     def attach_sampler(self, sampler) -> None:
-        raise _roadmap("the point sampler", "item 10")
+        """Register a point sampler (<Sample>): every later step also
+        gathers its quantities at its points.  Sampled steps run on the
+        eager engine by selection (engine ``sampled_eager``): no kernel
+        gathers per step.  ``detach_sampler`` returns to the kernels."""
+        self.sampler = sampler
+        self._iterate_sampled = make_sampled_iterate(
+            self.model, sampler.points, sampler.quantities)
+        log.info(f"engine: sampled_eager ({len(sampler.points)} points, "
+                 f"{','.join(sampler.quantities)} every step; kernel "
+                 "engines resume when the sampler is detached)")
+
+    def detach_sampler(self) -> None:
+        self.sampler = None
+        self._iterate_sampled = None
 
     def init(self) -> None:
         """Run the model's Init action."""
@@ -483,10 +632,13 @@ class Lattice:
         if os.environ.get("TCLB_FASTPATH") == "0" \
                 or self.device.type != "cuda":
             return None, None
-        # the tuned kernels first, the generic engines last
+        # the tuned kernels first, the generic engines last; under a
+        # <Control> series only the engines that read it per step accept
+        series = self.params.time_series is not None
         for mod in (d2q9_kernels, d3q27_kernels, generic3d_kernels,
                     generic_kernels):
-            fast, tag = mod.select_engine(self.model, self.shape, self.dtype)
+            fast, tag = mod.select_engine(self.model, self.shape, self.dtype,
+                                          series=series)
             if fast is not None:
                 return fast, tag
         return None, None
@@ -508,7 +660,10 @@ class Lattice:
     @property
     def engine_name(self) -> str:
         """Tag of the engine ``iterate`` runs on (``eager`` when no
-        kernel engine was selected)."""
+        kernel engine was selected, ``sampled_eager`` while a sampler is
+        attached)."""
+        if self.sampler is not None:
+            return "sampled_eager"
         self._fast_path()
         return self._fast_name or "eager"
 
@@ -516,8 +671,21 @@ class Lattice:
         """Advance ``niter`` steps.  An engine that returns the last step's
         globals itself (``full_globals``) takes all of them; the others
         take ``niter - 1`` and one eager step computes the globals; without
-        an engine every step is eager."""
+        an engine every step is eager.  With a sampler attached every step
+        is eager and sampled."""
+        if self.sampler is not None:
+            it0 = int(self.state.iteration)
+            self.state, samples = self._iterate_sampled(
+                self.state, self.params, niter, self.avg_start)
+            self.eager_steps += niter
+            if samples is not None:
+                self.sampler.append(it0, samples.cpu().numpy())
+            return
         fast = self._fast_path()
+        if fast is not None and self.params.time_series is not None \
+                and not getattr(fast, "supports_series", False):
+            raise RuntimeError(f"engine {self._fast_name} cannot read a "
+                               "Control time series")
         full = bool(getattr(fast, "full_globals", False))
         nfast = niter if full else niter - 1
         if fast is not None and nfast >= 1:
@@ -592,6 +760,11 @@ class Lattice:
         """Full-state dump in the JAX package's legacy ``.npz`` format,
         written atomically."""
         from tclb_tpu_torch.checkpoint.writer import atomic_path, with_suffix
+        extra = {}
+        if self.params.time_series is not None:
+            extra["time_series"] = self.params.time_series.cpu().numpy()
+            extra["series_map"] = np.asarray(self.params.series_map,
+                                             dtype=np.int64)
         target = with_suffix(path, ".npz")
         with atomic_path(target) as tmp:
             with open(tmp, "wb") as f:
@@ -603,15 +776,13 @@ class Lattice:
                          zone_table=self.params.zone_table.cpu().numpy(),
                          storage_dtype=str(np.dtype(
                              str(self.dtype).replace("torch.", ""))),
-                         storage_repr="raw")
+                         storage_repr="raw", **extra)
 
     def load(self, path: str) -> None:
         """Restore a ``.npz`` written by :meth:`save` or by the JAX
         package's ``Lattice.save`` / ``<SaveBinary>`` (raw f32/f64)."""
         from tclb_tpu_torch.checkpoint.writer import resolve_npz
         with np.load(resolve_npz(path)) as d:
-            if "time_series" in d:
-                raise _roadmap("restoring <Control> time series", "item 10")
             src_repr = str(d["storage_repr"]) if "storage_repr" in d \
                 else "raw"
             src_dtype = str(d["storage_dtype"]) if "storage_dtype" in d \
@@ -624,10 +795,21 @@ class Lattice:
             iteration = int(d["iteration"])
             settings = np.asarray(d["settings"])
             table = np.asarray(d["zone_table"])
+            ts = np.asarray(d["time_series"]) if "time_series" in d \
+                else None
+            smap = tuple(tuple(int(v) for v in row)
+                         for row in d["series_map"]) if ts is not None \
+                else ()
         self.set_flags(flags)
         self.state = dataclasses.replace(
             self.state,
             fields=torch.as_tensor(fields, dtype=self.dtype,
                                    device=self.device),
             iteration=iteration)
-        self.params = self._params_from(settings, table)
+        self._series = {} if ts is None else {
+            (si, z): ts[r].astype(np.float64) for si, z, r in smap}
+        self.params = dataclasses.replace(
+            self._params_from(settings, table),
+            time_series=None if ts is None else torch.as_tensor(
+                ts, dtype=self.dtype, device=self.device),
+            series_map=smap)

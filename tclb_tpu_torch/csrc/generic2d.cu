@@ -12,7 +12,12 @@
 //
 //   generic2d_step      one Iteration per launch (replaces
 //                       tclb_tpu/ops/pallas_generic.py:make_pallas_iterate,
-//                       `call` and its in-kernel-globals flavour `call_g`).
+//                       `call` and its in-kernel-globals flavour `call_g`;
+//                       generic2d_step_series replaces the <Control> time
+//                       series flavours `call_s` and `call_sg`: the same
+//                       kernel reading a zonal setting from the series where
+//                       one overrides the node's zone, SeriesArgs in
+//                       generic_common.cuh).
 //                       A two-stage action (d2q9_kuper): a 32x16 block runs
 //                       stage 0 on its 30x14 output tile plus the one-node
 //                       ring stage 1 pulls from, keeping stage 0's output
@@ -134,12 +139,13 @@ struct DeviceOut {        // a plane in device memory at node `idx`
 // The node context a model's stage function sees
 // ---------------------------------------------------------------------------
 
-template <class Storage, class Out, bool kGlobals>
+template <class Storage, class Out, bool kGlobals, bool kSeries>
 struct Node {
   const GenericArgs& a;
   const Storage& s;
   const Out& out;
   const float* ztab;       // [N_ZONAL][zone_max]
+  const SeriesArgs& ser;   // read by the series flavours only
   double* acc;             // [NG] this thread's global sums
   int y, x, flag;
   bool counts;             // the node's globals count (an output node)
@@ -152,7 +158,7 @@ struct Node {
   }
   __device__ float setting(int i) const { return a.setting[i]; }
   __device__ float zonal(int j) const {
-    return __ldg(ztab + j * a.zone_max + (flag >> a.zone_shift));
+    return zonal_value<kSeries>(a, ztab, ser, j, flag);
   }
   __device__ bool nt_is(int t) const {
     return (flag & a.nt_mask[t]) == a.nt_val[t];
@@ -166,13 +172,16 @@ struct Node {
   __device__ void store(int k, float v) const { out(k, v); }
 };
 
-template <int S, bool kGlobals, class Storage, class Out>
+template <int S, bool kGlobals, bool kSeries = false, class Storage,
+          class Out>
 __device__ __forceinline__ void run_stage(const GenericArgs& a,
                                           const Storage& s, const Out& out,
-                                          const float* ztab, double* acc,
+                                          const float* ztab,
+                                          const SeriesArgs& ser, double* acc,
                                           int y, int x, int flag,
                                           bool counts) {
-  Node<Storage, Out, kGlobals> c{a, s, out, ztab, acc, y, x, flag, counts};
+  Node<Storage, Out, kGlobals, kSeries> c{a, s, out, ztab, ser, acc, y, x,
+                                          flag, counts};
   model::stage<S>(c);
 }
 
@@ -180,14 +189,14 @@ __device__ __forceinline__ void run_stage(const GenericArgs& a,
 // generic2d_step
 // ---------------------------------------------------------------------------
 
-__device__ unsigned int g_blocks_done = 0;   // globals flavour, per launch
+__device__ unsigned int g_blocks_done = 0;   // globals flavours, per launch
 
-template <bool kGlobals>
+template <bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
 generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
                       const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
-                      double* partials, float* gout) {
+                      const SeriesArgs ser, double* partials, float* gout) {
   const size_t n = (size_t)a.ny * a.nx;
   const int ly = threadIdx.y, lx = threadIdx.x;
   // this thread's stage-0 node, unwrapped: the block's ring starts RING
@@ -205,14 +214,14 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   const DeviceStorage<false> in{fin, a.ny, a.nx};
   if constexpr (TWO_STAGES) {
     __shared__ float tile[model::N_STORAGE * BY * BX];
-    run_stage<0, kGlobals>(a, in, TileOut{tile, ly, lx}, ztab, acc, y, x,
-                           flag, out_node);
+    run_stage<0, kGlobals, kSeries>(a, in, TileOut{tile, ly, lx}, ztab,
+                                    ser, acc, y, x, flag, out_node);
     __syncthreads();
     if (out_node) {
       const size_t idx = (size_t)y * a.nx + x;
-      run_stage<1, kGlobals>(a, TileStorage{tile, y0, x0, in},
-                             DeviceOut{fout, idx, n}, ztab, acc, y, x, flag,
-                             true);
+      run_stage<1, kGlobals, kSeries>(a, TileStorage{tile, y0, x0, in},
+                                      DeviceOut{fout, idx, n}, ztab, ser,
+                                      acc, y, x, flag, true);
 #pragma unroll
       for (int k = 0; k < model::N_STORAGE; ++k) {
         if (writes(0, k) && !writes(1, k))
@@ -224,8 +233,8 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   } else if (out_node) {
     // one stage, no ring: the stage writes the output tile itself
     const size_t idx = (size_t)y * a.nx + x;
-    run_stage<0, kGlobals>(a, in, DeviceOut{fout, idx, n}, ztab, acc, y, x,
-                           flag, true);
+    run_stage<0, kGlobals, kSeries>(a, in, DeviceOut{fout, idx, n}, ztab,
+                                    ser, acc, y, x, flag, true);
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
       if (!writes(0, k)) fout[k * n + idx] = fin[k * n + idx];
@@ -248,6 +257,7 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
   const size_t n = (size_t)a.ny * a.nx;
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const SeriesArgs none{};
   // planes no stage writes are the same in both buffers
   for (int idx = first; idx < (int)n; idx += stride) {
 #pragma unroll
@@ -264,7 +274,7 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
     for (int idx = first; idx < (int)n; idx += stride) {
       const int y = idx / a.nx, x = idx - y * a.nx;
       run_stage<0, false>(a, in, DeviceOut{dst, (size_t)idx, n}, ztab,
-                          nullptr, y, x, __ldg(flags + idx), false);
+                          none, nullptr, y, x, __ldg(flags + idx), false);
     }
     grid.sync();
     if constexpr (TWO_STAGES) {
@@ -272,7 +282,7 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
       for (int idx = first; idx < (int)n; idx += stride) {
         const int y = idx / a.nx, x = idx - y * a.nx;
         run_stage<1, false>(a, st, DeviceOut{dst, (size_t)idx, n}, ztab,
-                            nullptr, y, x, __ldg(flags + idx), false);
+                            none, nullptr, y, x, __ldg(flags + idx), false);
       }
       grid.sync();
     }
@@ -308,12 +318,42 @@ int generic2d_step(const float* fin, float* fout, const int* flags,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
   const dim3 block(BX, BY);
+  const SeriesArgs none{};
   if (partials)
-    generic2d_step_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        fin, fout, flags, ztab, *a, partials, gout);
+    generic2d_step_kernel<true, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, partials, gout);
   else
-    generic2d_step_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        fin, fout, flags, ztab, *a, nullptr, nullptr);
+    generic2d_step_kernel<false, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, nullptr,
+                                                   nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The <Control> time series flavours (generic2d_step_series): as
+// generic2d_step, with zonal setting j in zone z read from ts[row[j][z]][t]
+// where row[j][z] >= 0 (SeriesArgs); `partials` null for the plain series
+// flavour, else the series + globals flavour.
+int generic2d_step_series(const float* fin, float* fout, const int* flags,
+                          const float* ztab, const GenericArgs* a,
+                          const int* row, const float* ts, int len, int t,
+                          double* partials, float* gout, int device,
+                          void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
+  const dim3 block(BX, BY);
+  const SeriesArgs ser{row, ts, len, t};
+  if (partials)
+    generic2d_step_kernel<true, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, ser, partials, gout);
+  else
+    generic2d_step_kernel<false, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, ser, nullptr,
+                                                   nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,11 @@
 //   generic3d_step      one Iteration per launch over (n_storage, nz, ny, nx)
 //                       (replaces tclb_tpu/ops/pallas_generic.py:
 //                       make_pallas_iterate_3d, `call` and its
-//                       in-kernel-globals flavour `call_g`, at fuse = 1).
+//                       in-kernel-globals flavour `call_g`, at fuse = 1;
+//                       generic3d_step_series replaces the <Control> time
+//                       series flavours `call_s` and `call_sg`, reading a
+//                       zonal setting from the series where one overrides
+//                       the node's zone, SeriesArgs in generic_common.cuh).
 //                       One thread per node: a 32x8 (x, y) block per
 //                       z-plane, the stage's pulls and the node's flag read
 //                       from device memory through the read-only path with
@@ -58,12 +62,13 @@ struct Storage3 {
 
 // The node context a model's stage function sees (the 3D form of
 // generic2d.cu's Node; the header lists it)
-template <bool kGlobals>
+template <bool kGlobals, bool kSeries>
 struct Node3 {
   const GenericArgs& a;
   const Storage3& s;
   float* out;              // the output stack
   const float* ztab;       // [N_ZONAL][zone_max]
+  const SeriesArgs& ser;   // read by the series flavours only
   double* acc;             // [NG] this thread's global sums
   size_t idx, n;           // the node and the plane size
   int z, y, x, flag;
@@ -73,7 +78,7 @@ struct Node3 {
   }
   __device__ float setting(int i) const { return a.setting[i]; }
   __device__ float zonal(int j) const {
-    return __ldg(ztab + j * a.zone_max + (flag >> a.zone_shift));
+    return zonal_value<kSeries>(a, ztab, ser, j, flag);
   }
   __device__ bool nt_is(int t) const {
     return (flag & a.nt_mask[t]) == a.nt_val[t];
@@ -87,14 +92,14 @@ struct Node3 {
   __device__ void store(int k, float v) const { out[k * n + idx] = v; }
 };
 
-__device__ unsigned int g_blocks_done3 = 0;   // globals flavour, per launch
+__device__ unsigned int g_blocks_done3 = 0;   // globals flavours, per launch
 
-template <bool kGlobals>
+template <bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
 generic3d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
                       const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
-                      double* partials, float* gout) {
+                      const SeriesArgs ser, double* partials, float* gout) {
   const size_t n = (size_t)a.nz * a.ny * a.nx;
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
@@ -105,8 +110,8 @@ generic3d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   if (x < a.nx && y < a.ny) {
     const size_t idx = ((size_t)z * a.ny + y) * a.nx + x;
     const Storage3 in{fin, a.nz, a.ny, a.nx};
-    Node3<kGlobals> c{a, in, fout, ztab, acc, idx, n, z, y, x,
-                      __ldg(flags + idx)};
+    Node3<kGlobals, kSeries> c{a, in, fout, ztab, ser, acc, idx, n, z, y, x,
+                               __ldg(flags + idx)};
     model::stage<0>(c);
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
@@ -145,12 +150,42 @@ int generic3d_step(const float* fin, float* fout, const int* flags,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a->nx + BX - 1) / BX, (a->ny + BY - 1) / BY, a->nz);
   const dim3 block(BX, BY);
+  const SeriesArgs none{};
   if (partials)
-    generic3d_step_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        fin, fout, flags, ztab, *a, partials, gout);
+    generic3d_step_kernel<true, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, partials, gout);
   else
-    generic3d_step_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        fin, fout, flags, ztab, *a, nullptr, nullptr);
+    generic3d_step_kernel<false, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, nullptr,
+                                                   nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The <Control> time series flavours (generic3d_step_series): as
+// generic3d_step, with zonal setting j in zone z read from ts[row[j][z]][t]
+// where row[j][z] >= 0 (SeriesArgs); `partials` null for the plain series
+// flavour, else the series + globals flavour.
+int generic3d_step_series(const float* fin, float* fout, const int* flags,
+                          const float* ztab, const GenericArgs* a,
+                          const int* row, const float* ts, int len, int t,
+                          double* partials, float* gout, int device,
+                          void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a->nx + BX - 1) / BX, (a->ny + BY - 1) / BY, a->nz);
+  const dim3 block(BX, BY);
+  const SeriesArgs ser{row, ts, len, t};
+  if (partials)
+    generic3d_step_kernel<true, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, ser, partials, gout);
+  else
+    generic3d_step_kernel<false, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, ser, nullptr,
+                                                   nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,34 @@ struct GenericArgs {
   int group_mask[model::N_GROUPS];
 };
 
+// The <Control> time series flavour's launch arguments: `row[j * zone_max
+// + z]` is the row of `ts` (n_series x len) that overrides zonal setting j
+// in zone z, -1 where none does, and `t` the entry of this step (the
+// iteration before the step, modulo the horizon `len`).  The plain flavours
+// read the zone table only.  No stage reads a time derivative (the
+// reference's _DT planes): a header that called c.setting_dt would not
+// compile, since no node context has it.
+struct SeriesArgs {
+  const int* row;      // [N_ZONAL][zone_max]
+  const float* ts;     // [n_series][len]
+  int len, t;
+};
+
+// Zonal setting j at a node of zone `flag >> zone_shift`: the time series'
+// entry where one overrides this zone (kSeries), else the zone table's.
+template <bool kSeries>
+__device__ __forceinline__ float zonal_value(const GenericArgs& a,
+                                             const float* ztab,
+                                             const SeriesArgs& s, int j,
+                                             int flag) {
+  const int z = flag >> a.zone_shift;
+  if constexpr (kSeries) {
+    const int r = __ldg(s.row + j * a.zone_max + z);
+    if (r >= 0) return __ldg(s.ts + (size_t)r * s.len + s.t);
+  }
+  return __ldg(ztab + j * a.zone_max + z);
+}
+
 // The message of a CUDA error code a launch returned (each library exports
 // its own copy; tclb_tpu_torch/ops/generic_kernels.py:check reads it).
 extern "C" const char* generic_error_string(int code) {

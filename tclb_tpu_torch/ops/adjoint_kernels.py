@@ -270,6 +270,11 @@ def make_diff_step(model: Model, shape, dtype=torch.float32):
     si = model.setting_index
 
     def prepare(state: LatticeState, params: SimParams):
+        if params.time_series is not None:
+            raise NotImplementedError(
+                "the kernel adjoint under a <Control> time series (K7's "
+                "series flavour) is not ported to PyTorch yet (ROADMAP "
+                "queue 1, item 11); the eager adjoint engine reads it")
         ztab = params.zone_table[[si[n] for n in model.zonal_settings]]
         a = gk.step_args(model, tuple(state.flags.shape),
                          params.settings.detach().cpu().numpy())

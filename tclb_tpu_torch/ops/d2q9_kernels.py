@@ -724,10 +724,14 @@ def make_band_iterate(model: Model, shape, fuse: int = 2) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False
+                  ) -> tuple:
     """``(iterate, tag)`` of the kernel engine ``supports()`` picks for
     this configuration, or ``(None, None)``: resident where it fits, else
-    the band engine at fuse 2."""
+    the band engine at fuse 2.  A <Control> time series (``series``) is
+    rejected: these kernels read the zone table, not a per-step value."""
+    if series:
+        return None, None
     if supports_resident(model, shape, dtype):
         return (make_resident_iterate(model, shape),
                 f"cuda_d2q9_resident[{model.name},fuse={RESIDENT_FUSE}]")

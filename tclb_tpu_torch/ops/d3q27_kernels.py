@@ -629,10 +629,13 @@ def make_band_iterate(model: Model, shape, fuse: int = 2) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False
+                  ) -> tuple:
     """``(iterate, tag)`` of the band engine at fuse 2 where ``supports()``
-    accepts, else ``(None, None)``."""
-    if supports(model, shape, dtype):
+    accepts, else ``(None, None)``.  A <Control> time series (``series``)
+    is rejected: these kernels read the zone table, not a per-step
+    value."""
+    if supports(model, shape, dtype) and not series:
         return (make_band_iterate(model, shape, fuse=2),
                 f"cuda_d3q27_band[{model.name},fuse=2]")
     return None, None

@@ -13,10 +13,13 @@ and the byte count are the 2D module's.
 in-kernel-globals flavour ``call_g``) at fuse = 1: one whole Iteration per
 launch, one thread per node.  Bound by bytes (``launch_bytes``,
 ``node_step_flops``).  The globals flavour also returns the step's SUM
-globals, reduced in a fixed order (no float atomics).  Each wrapper
-launches its kernel for a CUDA tensor (or raises) and runs the plain
-version for a CPU tensor, and counts its launches in ``LAUNCHES``.  f32
-only.
+globals, reduced in a fixed order (no float atomics).
+``step_series`` / ``step_series_globals`` (``generic3d_step_series``)
+replace the ``<Control>`` time series flavours ``call_s`` and ``call_sg``
+the same way as the 2D module's.  Each wrapper launches its kernel for a
+CUDA tensor (or raises) and runs the plain version for a CPU tensor, and
+counts its launches in ``LAUNCHES`` (the series flavours in
+``SERIES_LAUNCHES``).  f32 only.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ KERNELS = ("generic3d_step",)
 LAUNCHES = {name: 0 for name in KERNELS}
 # generic3d_step's launches by flavour (each also counts in LAUNCHES)
 FLAVOUR_LAUNCHES = {"plain": 0, "globals": 0}
+# the <Control> series flavours (generic3d_step_series), counted apart
+SERIES_KERNELS = ("generic3d_step_series", "generic3d_step_series_globals")
+SERIES_LAUNCHES = {name: 0 for name in SERIES_KERNELS}
 
 # the 3D models with device physics
 DEVICE_MODELS = {name: dm for name, dm in gk.DEVICE_MODELS.items()
@@ -50,7 +56,7 @@ build = gk.build
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLAVOUR_LAUNCHES):
+    for counts in (LAUNCHES, FLAVOUR_LAUNCHES, SERIES_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -146,6 +152,9 @@ def lib(model: str) -> ctypes.CDLL:
         lb.generic3d_layout.restype = None
         lb.generic3d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
         lb.generic3d_step.restype = i
+        lb.generic3d_step_series.argtypes = [p, p, p, p, argp, p, p, i, i,
+                                             p, p, i, p]
+        lb.generic3d_step_series.restype = i
         lb.generic_error_string.argtypes = [i]
         lb.generic_error_string.restype = ctypes.c_char_p
         if dm.adjoint:
@@ -172,10 +181,15 @@ def n_blocks(a: gk.StepArgs) -> int:
     return -(-a.ny // by) * -(-a.nx // bx) * a.nz
 
 
-def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool):
+def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool,
+                 series=None, it: int = 0):
+    """One ``generic3d_step`` launch, or with :class:`SeriesInputs`
+    ``series`` one ``generic3d_step_series`` launch at iteration ``it``."""
     gk.validate(fields, flags, ztab, a)
     if a.model not in DEVICE_MODELS:
         raise ValueError(f"{a.model} has no generic 3D kernels")
+    if series is not None:
+        sargs = gk.series_args(series, a, it, fields.device)
     lb = lib(a.model)
     dev, stream = gk.device_and_stream(fields)
     out = torch.empty_like(fields)
@@ -185,14 +199,18 @@ def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool):
         partials = torch.empty((n_blocks(a), max(n_g, 1)),
                                dtype=torch.float64, device=fields.device)
         gout = torch.empty((n_g,), dtype=torch.float32, device=fields.device)
-    rc = lb.generic3d_step(
-        fields.data_ptr(), out.data_ptr(), flags.data_ptr(), ztab.data_ptr(),
-        ctypes.byref(a.c_struct),
-        partials.data_ptr() if with_globals else None,
-        gout.data_ptr() if with_globals else None, dev, stream)
-    gk.check(lb, rc, "generic3d_step")
-    LAUNCHES["generic3d_step"] += 1
-    FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            ztab.data_ptr(), ctypes.byref(a.c_struct))
+    tail = (partials.data_ptr() if with_globals else None,
+            gout.data_ptr() if with_globals else None, dev, stream)
+    if series is None:
+        gk.check(lb, lb.generic3d_step(*head, *tail), "generic3d_step")
+        LAUNCHES["generic3d_step"] += 1
+        FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+    else:
+        gk.check(lb, lb.generic3d_step_series(*head, *sargs, *tail),
+                 "generic3d_step_series")
+        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += 1
     return (out, gout) if with_globals else out
 
 
@@ -209,6 +227,26 @@ def step_globals(fields, flags, ztab, a: gk.StepArgs) -> tuple:
     if fields.device.type == "cpu":
         return plain_steps(fields, flags, ztab, a, 1, with_globals=True)
     return _launch_step(fields, flags, ztab, a, with_globals=True)
+
+
+def step_series(fields, flags, ztab, a: gk.StepArgs, series, it: int
+                ) -> torch.Tensor:
+    """One Iteration at iteration ``it`` under a Control series (kernel
+    ``generic3d_step_series``)."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1, series=series, it=it)
+    return _launch_step(fields, flags, ztab, a, False, series, it)
+
+
+def step_series_globals(fields, flags, ztab, a: gk.StepArgs, series,
+                        it: int) -> tuple:
+    """One Iteration at iteration ``it`` under a Control series and its
+    SUM globals (kernel ``generic3d_step_series``, the globals flavour):
+    ``(fields, globals)``."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1, with_globals=True,
+                           series=series, it=it)
+    return _launch_step(fields, flags, ztab, a, True, series, it)
 
 
 # kernel name -> (wrapper, steps one launch takes)
@@ -236,7 +274,8 @@ def supports(model: Model, shape, dtype) -> bool:
 def make_band_iterate(model: Model, shape) -> Callable:
     """``iterate(state, params, niter)`` on ``generic3d_step``: ``niter -
     1`` plain launches, then one globals launch, so the state comes back
-    with the last step's globals (``full_globals``)."""
+    with the last step's globals (``full_globals``).  Under a Control
+    series the same on the series flavours (``supports_series``)."""
     if not supports(model, shape, torch.float32):
         raise ValueError(f"generic 3D kernel unsupported: {model.name} "
                          f"{shape}")
@@ -246,20 +285,29 @@ def make_band_iterate(model: Model, shape) -> Callable:
         if niter <= 0:
             return state
         f, flags, ztab, a = kernel_inputs(model, state, params)
-        for _ in range(niter - 1):
-            f = step(f, flags, ztab, a)
-        f, g = step_globals(f, flags, ztab, a)
+        series = gk.series_inputs(model, params)
+        if series is None:
+            for _ in range(niter - 1):
+                f = step(f, flags, ztab, a)
+            f, g = step_globals(f, flags, ztab, a)
+        else:
+            f, g = gk.series_steps(f, flags, ztab, a, series,
+                                   state.iteration, niter, step_series,
+                                   step_series_globals)
         return dataclasses.replace(
             state, fields=f, globals_=g.to(state.globals_.dtype),
             iteration=state.iteration + niter)
 
     iterate.full_globals = True
+    iterate.supports_series = True
     return iterate
 
 
-def select_engine(model: Model, shape, dtype) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False
+                  ) -> tuple:
     """``(iterate, tag)`` of the band engine where ``supports()`` accepts
-    this configuration, else ``(None, None)``."""
+    this configuration, else ``(None, None)``; the band engine reads a
+    Control series (``series``) itself."""
     if supports(model, shape, dtype):
         return (make_band_iterate(model, shape),
                 f"cuda_generic3d_band[{model.name},fuse=1]")

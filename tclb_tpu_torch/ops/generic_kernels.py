@@ -8,13 +8,16 @@ one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
 compiled into the model-independent template ``csrc/generic2d.cu``
 (streaming, the stage plan, node types, zonal settings, globals), built
 once per model into a library of its own.  ``DEVICE_MODELS`` lists the
-models that have such a header (``d2q9_kuper``, ``d2q9_heat_adj`` and the 3D
-``d3q19_adj``, whose kernels ``ops/generic3d_kernels.py`` binds) with the
-registry layout the header indexes by position.
+models that have such a header (``d2q9``, ``d2q9_kuper``, ``d2q9_heat_adj``
+and the 3D ``d3q19_adj``, whose kernels ``ops/generic3d_kernels.py`` binds)
+with the registry layout the header indexes by position.  ``d2q9`` takes
+these kernels under a ``<Control>`` series only; without one its own
+kernels (``ops/d2q9_kernels.py``) come first.
 
-Two kernels; each wrapper launches its kernel for a CUDA tensor (or raises)
-and runs the plain version for a CPU tensor, and counts its launches in
-``LAUNCHES``:
+Two kernels and the series flavours of the first; each wrapper launches
+its kernel for a CUDA tensor (or raises) and runs the plain version for a
+CPU tensor, and counts its launches in ``LAUNCHES`` (the series flavours in
+``SERIES_LAUNCHES``):
 
 ``step`` / ``step_globals`` (``generic2d_step``) replace
     ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
@@ -24,6 +27,15 @@ and runs the plain version for a CPU tensor, and counts its launches in
     by bytes (see ``launch_bytes`` and ``node_step_flops``).  The globals
     flavour also returns the last step's SUM globals, reduced in a fixed
     order (no float atomics).
+``step_series`` / ``step_series_globals`` (``generic2d_step_series``)
+    replace the ``<Control>`` time series flavours ``call_s`` and
+    ``call_sg``: the same Iteration, with a zonal setting read from the
+    series (its entry at the iteration before the step, modulo the
+    horizon) where one overrides the node's zone.  The kernel takes the
+    series table, a (zonal setting, zone) -> row map and the entry as
+    launch arguments, so a series step moves the bytes of a plain step.
+    The reference's ``_DT`` planes have no reader among the models with a
+    device header, and no kernel computes them.
 ``resident`` (``generic2d_resident``) replaces ``make_resident_iterate``:
     an even number of Iterations in one cooperative launch, a grid barrier
     after each stage, two ping-pong buffers that stay in the L2 when the
@@ -54,6 +66,9 @@ KERNELS = ("generic2d_step", "generic2d_resident")
 LAUNCHES = {name: 0 for name in KERNELS}
 # generic2d_step's launches by flavour (each also counts in LAUNCHES)
 FLAVOUR_LAUNCHES = {"plain": 0, "globals": 0}
+# the <Control> series flavours (generic2d_step_series), counted apart
+SERIES_KERNELS = ("generic2d_step_series", "generic2d_step_series_globals")
+SERIES_LAUNCHES = {name: 0 for name in SERIES_KERNELS}
 
 HALO = 2                        # action reach the step kernel's ring covers
 RESIDENT_CHECK_STEPS = 8        # steps of the resident launch WRAPPERS holds
@@ -80,6 +95,19 @@ class DeviceModel:
 
 
 DEVICE_MODELS = {
+    "d2q9": DeviceModel(
+        header="models/d2q9.cuh",
+        storage=tuple(f"f[{k}]" for k in range(9)) + ("BC[0]", "BC[1]"),
+        settings=("omega", "nu", "Velocity", "Density", "GravitationY",
+                  "GravitationX", "S3", "S4", "S56", "S78",
+                  "PressureLossInObj", "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "BottomSymmetry", "TopSymmetry", "MRT",
+                    "Inlet", "Outlet"),
+        groups=("BOUNDARY",),
+        zonal=("Velocity", "Density"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 0),)),
     "d2q9_kuper": DeviceModel(
         header="models/d2q9_kuper.cuh",
         storage=tuple(f"f[{k}]" for k in range(9)) + ("phi",),
@@ -129,7 +157,7 @@ DEVICE_MODELS = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLAVOUR_LAUNCHES):
+    for counts in (LAUNCHES, FLAVOUR_LAUNCHES, SERIES_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -255,6 +283,45 @@ def step_args(model: Model, shape, settings: np.ndarray) -> StepArgs:
         zone_shift=int(model.zone_shift), zone_max=int(model.zone_max))
 
 
+@dataclasses.dataclass(frozen=True)
+class SeriesInputs:
+    """A ``<Control>`` time series as the series flavours take it:
+    ``row[j, z]`` is the row of ``ts`` that overrides zonal setting ``j``
+    (``DeviceModel.zonal`` order) in zone ``z``, -1 where none does;
+    ``ts`` is ``SimParams.time_series``."""
+
+    row: torch.Tensor        # (n_zonal, zone_max) int32
+    ts: torch.Tensor         # (n_series, T)
+
+    @property
+    def horizon(self) -> int:
+        return int(self.ts.shape[1])
+
+
+def series_inputs(model: Model, params: SimParams):
+    """The lattice's series as :class:`SeriesInputs` (built on the host,
+    once per ``iterate`` call), or None without one."""
+    if params.time_series is None:
+        return None
+    zonal = {model.setting_index[n]: j
+             for j, n in enumerate(model.zonal_settings)}
+    row = np.full((len(zonal), model.zone_max), -1, dtype=np.int32)
+    for si, z, r in params.series_map:
+        row[zonal[si], z] = r
+    ts = params.time_series
+    return SeriesInputs(row=torch.as_tensor(row, device=ts.device),
+                        ts=ts.contiguous())
+
+
+def series_map_of(series: SeriesInputs, model: Model) -> tuple:
+    """``SimParams.series_map`` of :class:`SeriesInputs`: the inverse of
+    :func:`series_inputs`."""
+    row = series.row.cpu().numpy()
+    return tuple(sorted(
+        (model.setting_index[model.zonal_settings[j]], int(z), int(row[j, z]))
+        for j, z in zip(*np.nonzero(row >= 0))))
+
+
 # --------------------------------------------------------------------------- #
 # Bounds: operations and bytes
 # --------------------------------------------------------------------------- #
@@ -278,8 +345,22 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
     """Floating-point operations one Iteration of a ``DEVICE_MODELS``
     model needs over a flag field: what the function takes, not what
     csrc/generic2d.cu executes (it recomputes stage 0 on the ring)."""
-    return {"d2q9_kuper": _kuper_flops,
+    return {"d2q9": _d2q9_flops, "d2q9_kuper": _kuper_flops,
             "d2q9_heat_adj": _heat_adj_flops}[model.name](model, flags)
+
+
+def _d2q9_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9 (models/d2q9.py): the step d2q9_kernels.node_step_flops counts
+    (267 at an MRT node, 21 more at a Zou/He face), and at an Inlet or
+    Outlet MRT node the objectives: ux / rho, |u|^2 (3) and the pressure
+    loss (6)."""
+    from tclb_tpu_torch.ops import d2q9_kernels
+    flags64 = np.asarray(flags).astype(np.int64)
+    nt = model.node_types
+    mrt = (flags64 & nt["MRT"].mask) == nt["MRT"].value
+    objective = sum(int((((flags64 & nt[n].mask) == nt[n].value) & mrt)
+                        .sum()) for n in ("Inlet", "Outlet"))
+    return d2q9_kernels.node_step_flops(model, flags) + 10 * objective
 
 
 def _heat_adj_flops(model: Model, flags: np.ndarray) -> int:
@@ -339,14 +420,18 @@ def _kuper_flops(model: Model, flags: np.ndarray) -> int:
             + calc_phi * int(np.asarray(flags).size))
 
 
-def launch_bytes(model: Model, shape) -> int:
+def launch_bytes(model: Model, shape, n_series: int = 0) -> int:
     """Device-memory bytes one launch of either kernel must move: the
     field stack and the int32 flags read once, the zone table read once,
     the field stack written once (the resident kernel's steps stay in the
-    L2)."""
+    L2).  A series flavour's launch under ``n_series`` series also reads
+    the row map (int32, the zone table's size) and one entry of each
+    series."""
     n = int(np.prod(shape))
     zonal = len(model.zonal_settings)
-    return (2 * model.n_storage + 1) * 4 * n + zonal * model.zone_max * 4
+    table = zonal * model.zone_max * 4
+    series = table + 4 * n_series if n_series else 0
+    return (2 * model.n_storage + 1) * 4 * n + table + series
 
 
 # --------------------------------------------------------------------------- #
@@ -365,29 +450,34 @@ def _action_step(name: str, compute_globals: bool) -> Callable:
                             compute_globals=compute_globals)
 
 
-def _plain_params(ztab, a: StepArgs) -> SimParams:
+def _plain_params(ztab, a: StepArgs, series=None) -> SimParams:
     """The settings vector and a zone table whose zonal rows are
-    ``ztab``."""
+    ``ztab``, with the time series of :class:`SeriesInputs` ``series``."""
     m = _get_model(a.model)
     sett = torch.tensor(a.settings, dtype=ztab.dtype, device=ztab.device)
     table = sett[:, None].expand(len(a.settings), a.zone_max).clone()
     for j, name in enumerate(m.zonal_settings):
         table[m.setting_index[name]] = ztab[j]
-    return SimParams(settings=sett, zone_table=table)
+    if series is None:
+        return SimParams(settings=sett, zone_table=table)
+    return SimParams(settings=sett, zone_table=table, time_series=series.ts,
+                     series_map=series_map_of(series, m))
 
 
 def plain_steps(fields, flags, ztab, a: StepArgs, n: int,
-                with_globals: bool = False):
+                with_globals: bool = False, series=None, it: int = 0):
     """``n`` Iterations on the whole lattice: what ``step`` (n=1) and
     ``resident`` (n steps) compute, and with ``with_globals`` what
     ``step_globals`` computes (n=1): then ``(fields, globals)``, the last
-    step's globals."""
+    step's globals.  Under :class:`SeriesInputs` ``series`` the steps
+    start at iteration ``it``: what ``step_series`` and
+    ``step_series_globals`` compute (n=1)."""
     m = _get_model(a.model)
-    params = _plain_params(ztab, a)
+    params = _plain_params(ztab, a, series)
     state = LatticeState(
         fields=fields, flags=flags,
         globals_=torch.zeros((m.n_globals,), dtype=fields.dtype,
-                             device=fields.device), iteration=0)
+                             device=fields.device), iteration=int(it))
     with torch.no_grad():
         for i in range(n):
             full = with_globals and i == n - 1
@@ -430,6 +520,9 @@ def lib(model: str) -> ctypes.CDLL:
         lib.generic2d_layout.restype = None
         lib.generic2d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
         lib.generic2d_step.restype = i
+        lib.generic2d_step_series.argtypes = [p, p, p, p, argp, p, p, i, i,
+                                              p, p, i, p]
+        lib.generic2d_step_series.restype = i
         lib.generic2d_resident.argtypes = [p, p, p, p, p, argp, i, i, i, p]
         lib.generic2d_resident.restype = i
         lib.generic2d_resident_capacity.argtypes = [i, ip, ip]
@@ -484,14 +577,39 @@ def validate(fields, flags, ztab, a: StepArgs) -> None:
                 f"{fields.device}")
 
 
+def series_args(series: SeriesInputs, a: StepArgs, it: int,
+                device: torch.device) -> tuple:
+    """``(row, ts, T, t)`` as the series flavours take them: the row map
+    and the table (contiguous int32 and f32 on ``device``) and the entry
+    ``t = it mod T`` of this step."""
+    dm = DEVICE_MODELS[a.model]
+    want = ((series.row, torch.int32, (len(dm.zonal), a.zone_max)),
+            (series.ts, torch.float32, tuple(series.ts.shape)))
+    for t, dtype, sh in want:
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != sh \
+                or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"series input {tuple(t.shape)} {t.dtype} on {t.device}: "
+                f"needs contiguous {sh} {dtype} on {device}")
+    T = series.horizon
+    if T < 1:
+        raise ValueError("a Control series needs a horizon of at least 1")
+    return series.row.data_ptr(), series.ts.data_ptr(), T, int(it) % T
+
+
 def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool):
+def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
+                 series=None, it: int = 0):
+    """One ``generic2d_step`` launch, or with :class:`SeriesInputs`
+    ``series`` one ``generic2d_step_series`` launch at iteration ``it``."""
     validate(fields, flags, ztab, a)
+    if series is not None:
+        sargs = series_args(series, a, it, fields.device)
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
     out = torch.empty_like(fields)
@@ -503,14 +621,18 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool):
         partials = torch.empty((blocks, max(n_g, 1)), dtype=torch.float64,
                                device=fields.device)
         gout = torch.empty((n_g,), dtype=torch.float32, device=fields.device)
-    rc = lb.generic2d_step(
-        fields.data_ptr(), out.data_ptr(), flags.data_ptr(), ztab.data_ptr(),
-        ctypes.byref(a.c_struct),
-        partials.data_ptr() if with_globals else None,
-        gout.data_ptr() if with_globals else None, dev, stream)
-    check(lb, rc, "generic2d_step")
-    LAUNCHES["generic2d_step"] += 1
-    FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            ztab.data_ptr(), ctypes.byref(a.c_struct))
+    tail = (partials.data_ptr() if with_globals else None,
+            gout.data_ptr() if with_globals else None, dev, stream)
+    if series is None:
+        check(lb, lb.generic2d_step(*head, *tail), "generic2d_step")
+        LAUNCHES["generic2d_step"] += 1
+        FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+    else:
+        check(lb, lb.generic2d_step_series(*head, *sargs, *tail),
+              "generic2d_step_series")
+        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += 1
     return (out, gout) if with_globals else out
 
 
@@ -527,6 +649,26 @@ def step_globals(fields, flags, ztab, a: StepArgs) -> tuple:
     if fields.device.type == "cpu":
         return plain_steps(fields, flags, ztab, a, 1, with_globals=True)
     return _launch_step(fields, flags, ztab, a, with_globals=True)
+
+
+def step_series(fields, flags, ztab, a: StepArgs, series: SeriesInputs,
+                it: int) -> torch.Tensor:
+    """One Iteration at iteration ``it`` under a Control series (kernel
+    ``generic2d_step_series``)."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1, series=series, it=it)
+    return _launch_step(fields, flags, ztab, a, False, series, it)
+
+
+def step_series_globals(fields, flags, ztab, a: StepArgs,
+                        series: SeriesInputs, it: int) -> tuple:
+    """One Iteration at iteration ``it`` under a Control series and its
+    SUM globals (kernel ``generic2d_step_series``, the globals flavour):
+    ``(fields, globals)``."""
+    if fields.device.type == "cpu":
+        return plain_steps(fields, flags, ztab, a, 1, with_globals=True,
+                           series=series, it=it)
+    return _launch_step(fields, flags, ztab, a, True, series, it)
 
 
 def resident_grid(model: str, device: int, nodes: int) -> int:
@@ -601,10 +743,12 @@ def supports(model: Model, shape, dtype) -> bool:
             and action_plan(model)[1] <= HALO)
 
 
-def supports_resident(model: Model, shape, dtype) -> bool:
+def supports_resident(model: Model, shape, dtype, series: bool = False
+                      ) -> bool:
     """Whether the resident engine fits: the two ping-pong stacks plus
-    the flags within half of the L2."""
-    return (supports(model, shape, dtype)
+    the flags within half of the L2.  Not under a Control series
+    (``series``): its launch runs many Iterations on one zone table."""
+    return (not series and supports(model, shape, dtype)
             and launch_bytes(model, shape) <= L2_BYTES // 2)
 
 
@@ -630,6 +774,17 @@ def _band_steps(f, flags, ztab, a: StepArgs, n: int) -> tuple:
     return step_globals(f, flags, ztab, a)
 
 
+def series_steps(f, flags, ztab, a: StepArgs, series: SeriesInputs,
+                 it: int, n: int, one: Callable, last: Callable) -> tuple:
+    """``n >= 1`` Iterations from iteration ``it`` under a Control series:
+    ``n - 1`` launches of the series flavour ``one``, then the series +
+    globals flavour ``last`` (pallas_generic.py's ``call_s`` and
+    ``call_sg`` at fuse 1).  Returns ``(fields, globals)``."""
+    for k in range(n - 1):
+        f = one(f, flags, ztab, a, series, it + k)
+    return last(f, flags, ztab, a, series, it + n - 1)
+
+
 def _advanced(state: LatticeState, fields, globals_, niter: int
               ) -> LatticeState:
     return dataclasses.replace(state, fields=fields,
@@ -640,7 +795,8 @@ def _advanced(state: LatticeState, fields, globals_, niter: int
 def make_band_iterate(model: Model, shape) -> Callable:
     """``iterate(state, params, niter)`` on ``generic2d_step``: ``niter -
     1`` plain launches, then one globals launch, so the state comes back
-    with the last step's globals (``full_globals``)."""
+    with the last step's globals (``full_globals``).  Under a Control
+    series the same on the series flavours (``supports_series``)."""
     if not supports(model, shape, torch.float32):
         raise ValueError(f"generic kernels unsupported: {model.name} "
                          f"{shape}")
@@ -650,10 +806,16 @@ def make_band_iterate(model: Model, shape) -> Callable:
         if niter <= 0:
             return state
         f, flags, ztab, a = kernel_inputs(model, state, params)
-        f, g = _band_steps(f, flags, ztab, a, niter)
+        series = series_inputs(model, params)
+        if series is None:
+            f, g = _band_steps(f, flags, ztab, a, niter)
+        else:
+            f, g = series_steps(f, flags, ztab, a, series, state.iteration,
+                                niter, step_series, step_series_globals)
         return _advanced(state, f, g, niter)
 
     iterate.full_globals = True
+    iterate.supports_series = True
     return iterate
 
 
@@ -681,12 +843,14 @@ def make_resident_iterate(model: Model, shape) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False
+                  ) -> tuple:
     """``(iterate, tag)`` of the kernel engine ``supports()`` picks for
     this configuration, or ``(None, None)``: resident where it fits (one
     launch fuses the even part of each call's ``niter - 1`` steps: the tag's
-    ``fuse=N``), else the band engine."""
-    if supports_resident(model, shape, dtype):
+    ``fuse=N``), else the band engine; under a Control series
+    (``series``) the band engine."""
+    if supports_resident(model, shape, dtype, series):
         return (make_resident_iterate(model, shape),
                 f"cuda_generic_resident[{model.name},fuse=N]")
     if supports(model, shape, dtype):

@@ -303,15 +303,27 @@ def _read_log(path):
     return rows[0], np.array([[float(v) for v in r] for r in rows[1:]])
 
 
-@pytest.mark.parametrize("example", ["cavity.xml", "heat_channel.xml"])
-def test_example_through_both_control_planes(example, tmp_path):
-    """example/cavity.xml (d2q9_kuper, a MovingWall lid) and
-    example/heat_channel.xml (d2q9_heat, a Heater strip) through both
-    packages' _run_root at f64, cut to 200 iterations with a Log every 50:
-    the fields and every Log column at RTOL 1e-10 / ATOL 1e-12."""
+# the examples run through both control planes, each cut to this many
+# iterations with a Log every quarter of them
+EXAMPLE_CUTS = {"cavity.xml": 200, "heat_channel.xml": 200,
+                "karman_control.xml": 500}
+
+
+@pytest.mark.parametrize("example", list(EXAMPLE_CUTS))
+def test_example_through_both_control_planes(example, tmp_path,
+                                             monkeypatch):
+    """example/cavity.xml (d2q9_kuper, a MovingWall lid),
+    example/heat_channel.xml (d2q9_heat, a Heater strip) and
+    example/karman_control.xml (d2q9 under a <Control> inlet ramp read
+    from example/inlet_ramp.csv, which the XML names relative to the
+    repository's root) through both packages' _run_root at f64, cut to
+    EXAMPLE_CUTS iterations with four Log rows: the fields and every Log
+    column at RTOL 1e-10 / ATOL 1e-12."""
+    niter = EXAMPLE_CUTS[example]
+    monkeypatch.chdir(ROOT)
     root = ET.parse(ROOT / "example" / example).getroot()
-    root.find("Solve").set("Iterations", "200")
-    root.find("Log").set("Iterations", "50")
+    root.find("Solve").set("Iterations", str(niter))
+    root.find("Log").set("Iterations", str(niter // 4))
     for el in root.findall("VTK"):
         root.remove(el)
     runs = {}
@@ -324,7 +336,8 @@ def test_example_through_both_control_planes(example, tmp_path):
         runs[tag] = (run_root(root, get(root.get("model")), None, dtype,
                               str(out) + "/", "case", **kw), out)
     (port, pout), (ref, rout) = runs["port"], runs["ref"]
-    assert port.iter == ref.iter == 200
+    assert port.iter == ref.iter == niter
+    assert port.lattice.params.series_map == ref.lattice.params.series_map
     np.testing.assert_allclose(port.lattice.state.fields.numpy(),
                                np.asarray(ref.lattice.state.fields),
                                rtol=RTOL, atol=ATOL)

@@ -1,6 +1,7 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
-family's branches), generic (2D and 3D) and adjoint CUDA kernels against
-their plain PyTorch versions on the card.
+family's branches), generic (2D and 3D, with their <Control> series
+flavours) and adjoint CUDA kernels against their plain PyTorch versions on
+the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -21,7 +22,8 @@ from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
 from torch_cases import (ADJ3D_SETTINGS, D3Q_FAMILY, FAMILY_MODELS,
                          HEAT_SETTINGS, KUPER_SETTINGS, RICH3D_SETTINGS,
-                         RICH_SETTINGS, bench_adjoint3d_lattice,
+                         RICH_SERIES_T, RICH_SETTINGS, add_rich_series,
+                         bench_adjoint3d_lattice,
                          channel3d_flags, d3q_family_settings,
                          family_settings, heat_adj_golden_columns,
                          paint_rich, paint_rich_3d, paint_rich_adj3d,
@@ -553,3 +555,111 @@ def test_adj3d_kernel_gradient_matches_eager():
     assert float(oc) == pytest.approx(float(oe), rel=1e-5)
     assert float(ge.abs().max()) > 0
     torch.testing.assert_close(gc, ge, rtol=1e-4, atol=1e-7)
+
+
+# --------------------------------------------------------------------------- #
+# <Control> time series flavours and d2q9 on the generic kernels
+# --------------------------------------------------------------------------- #
+
+# model -> (settings, painter, kernel module) of the rich states with a
+# series on two zones (horizon RICH_SERIES_T, so the iteration wraps)
+SERIES_CASES = {"d2q9": (RICH_SETTINGS, paint_rich, gk),
+                "d2q9_kuper": (KUPER_SETTINGS, paint_rich_kuper, gk),
+                "d3q19_adj": (ADJ3D_SETTINGS, paint_rich_adj3d, g3)}
+
+
+@pytest.fixture
+def card_series_lattice():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed):
+        settings, paint, _ = SERIES_CASES[name]
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=settings, device="cuda")
+        return add_rich_series(paint(lat, seed))
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [
+    ("d2q9", (32, 64)), ("d2q9", (37, 53)), ("d2q9", (96, 512)),
+    ("d2q9_kuper", (16, 128)), ("d3q19_adj", (8, 16, 32)),
+    ("d3q19_adj", (5, 11, 37))])
+@pytest.mark.parametrize("it", [0, RICH_SERIES_T - 1, 3 * RICH_SERIES_T + 2])
+def test_series_flavours_match_plain(card_series_lattice, name, shape, it):
+    """Both series flavours of generic2d_step / generic3d_step at an
+    iteration inside, at the end of and past the horizon: fields at rtol
+    2e-5 / atol 2e-6, globals at rtol 1e-4 / atol 1e-6, one launch each."""
+    mod = SERIES_CASES[name][2]
+    lat = card_series_lattice(name, shape, seed=5)
+    f, flags, ztab, args = mod.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+    series = gk.series_inputs(lat.model, lat.params)
+    mod.reset_launches()
+    got = mod.step_series(f, flags, ztab, args, series, it)
+    gotg, g = mod.step_series_globals(f, flags, ztab, args, series, it)
+    torch.cuda.synchronize()
+    assert set(mod.SERIES_LAUNCHES.values()) == {1}
+    assert sum(mod.LAUNCHES.values()) == 0
+    want, wg = mod.plain_steps(f, flags, ztab, args, 1, with_globals=True,
+                               series=series, it=it)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(gotg, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    # the series is read: the plain step on the zone table differs
+    assert not torch.equal(got, mod.step(f, flags, ztab, args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,engine", [
+    ("d2q9", (96, 512), "cuda_generic_band[d2q9,fuse=1]"),
+    ("d2q9_kuper", (128, 128), "cuda_generic_band[d2q9_kuper,fuse=1]"),
+    ("d3q19_adj", (8, 16, 32), "cuda_generic3d_band[d3q19_adj,fuse=1]"),
+])
+def test_series_lattice_engine_matches_eager(card_series_lattice, name,
+                                             shape, engine):
+    """Lattice.iterate under a series on the card: the band engine (the
+    resident engine and K1/K2 reject a series), 12 steps on the series
+    flavours, no eager step, the state and globals of 12 eager steps."""
+    mod = SERIES_CASES[name][2]
+    lat = card_series_lattice(name, shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    mod.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == engine and lat.eager_steps == 0
+    assert list(mod.SERIES_LAUNCHES.values()) == [11, 1]
+    assert sum(mod.LAUNCHES.values()) == 0
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    got, want = lat.get_globals(), ref.get_globals()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64), (37, 53), (96, 512)])
+def test_d2q9_generic_kernels_match_plain(card_lattice, shape):
+    """d2q9's build of the generic kernels (csrc/models/d2q9.cuh) without
+    a series: generic2d_step in both flavours and an 8-step
+    generic2d_resident on the rich state; the BC planes carried through."""
+    lat = card_lattice(shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gk.reset_launches()
+    for name in gk.KERNELS:
+        fn, n = gk.WRAPPERS[name]
+        got = fn(f, flags, ztab, args)
+        torch.testing.assert_close(
+            got, gk.plain_steps(f, flags, ztab, args, n), **FIELDS_TOL)
+        assert torch.equal(got[9:], f[9:])
+    got, g = gk.step_globals(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == {"generic2d_step": 2, "generic2d_resident": 1}
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    assert bool((g != 0).all())

@@ -33,11 +33,13 @@ from tclb_tpu.core.lattice import Lattice as JaxLattice  # noqa: E402
 from tclb_tpu.core.lattice import make_iterate as jax_make_iterate  # noqa: E402,E501
 from tclb_tpu.models import get_model as jax_model  # noqa: E402
 from tclb_tpu.ops import pallas_generic  # noqa: E402
+from tclb_tpu.ops.lbm import present_types as jax_present  # noqa: E402
 from tclb_tpu_torch import Lattice, get_model  # noqa: E402
 from tclb_tpu_torch.ops import _cuda_build, lbm  # noqa: E402
 from tclb_tpu_torch.ops import generic_kernels as gk  # noqa: E402
 from torch_cases import (KUPER_SETTINGS, KUPER_SHAPE,  # noqa: E402
-                         paint_rich_kuper, rich_flags_kuper)
+                         RICH_SETTINGS, paint_rich, paint_rich_kuper,
+                         rich_flags, rich_flags_kuper)
 
 NAME = "d2q9_kuper"
 # f32 engines against each other: tests/test_fastpath.py's tolerances
@@ -147,7 +149,11 @@ def test_engine_choice(monkeypatch):
     assert gk.supports(tm, (1024, 1024), torch.float32)
     assert gk.supports(tm, (37, 53), torch.float32)   # no alignment needed
     assert not gk.supports(tm, (128, 128), torch.float64)
-    assert not gk.supports(get_model("d2q9"), (128, 128), torch.float32)
+    # d2q9 has a device header (for its Control series); a model without
+    # one is not taken
+    assert gk.supports(get_model("d2q9"), (128, 128), torch.float32)
+    assert not gk.supports(get_model("d2q9_heat"), (128, 128),
+                           torch.float32)
     assert not gk.supports(get_model("d3q27_cumulant"), (8, 8, 8),
                            torch.float32)
     assert gk.select_engine(tm, (128, 128), torch.float32)[1] \
@@ -267,19 +273,19 @@ def test_device_header_matches_registry():
                           text).group(1)
         assert eval(value) == getattr(kuper, const), const  # noqa: S307
     with pytest.raises(ValueError, match="not the one"):
-        gk.DEVICE_MODELS["d2q9"] = dm
+        gk.DEVICE_MODELS["d2q9_heat"] = dm
         try:
-            gk.check_layout(get_model("d2q9"))
+            gk.check_layout(get_model("d2q9_heat"))
         finally:
-            del gk.DEVICE_MODELS["d2q9"]
+            del gk.DEVICE_MODELS["d2q9_heat"]
 
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """generic2d.cu builds once per model, the model's header pre-included,
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
-    adjoint header generic2d.cu includes changes both; editing a file
-    neither includes changes none."""
+    adjoint header generic2d.cu includes changes all three; editing a file
+    none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
@@ -287,23 +293,106 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
         == ["generic2d.cu", "generic_common.cuh", "generic2d_adjoint.cuh"]
     headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()
                if dm.ndim == 2}
-    assert set(headers) == {"d2q9_kuper", "d2q9_heat_adj"}
+    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"}
 
     def digests():
         return {m: _cuda_build.digest("generic2d", h)
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 2
+    assert len(set(before.values())) == 3
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     edited = digests()
     assert edited["d2q9_kuper"] != before["d2q9_kuper"]
     assert edited["d2q9_heat_adj"] == before["d2q9_heat_adj"]
+    assert edited["d2q9"] == before["d2q9"]
     assert _cuda_build.digest("d2q9") == d2q9
     (csrc / "d3q27.cu").write_text("// edited\n")
     assert digests() == edited
     adj = csrc / "generic2d_adjoint.cuh"
     adj.write_text(adj.read_text() + "\n// edited\n")
     assert all(a != b for a, b in zip(digests().values(), edited.values()))
+
+
+# --------------------------------------------------------------------------- #
+# d2q9 on the generic kernels (csrc/models/d2q9.cuh)
+# --------------------------------------------------------------------------- #
+
+D2Q9_SHAPE = (16, 128)     # nx a multiple of 128: the reference's call_g
+
+
+def d2q9_pair(seed):
+    """The rich d2q9 state (every node type, zonal in/outlets, objective
+    columns) in both packages, f32."""
+    a = JaxLattice(jax_model("d2q9"), D2Q9_SHAPE, dtype=jnp.float32,
+                   settings=RICH_SETTINGS)
+    b = Lattice(get_model("d2q9"), D2Q9_SHAPE, dtype=torch.float32,
+                settings=RICH_SETTINGS, device="cpu")
+    return paint_rich(a, seed), paint_rich(b, seed)
+
+
+@pytest.mark.parametrize("engine", ["band", "resident"])
+def test_d2q9_plain_engine_matches_pallas_and_xla(engine):
+    """d2q9's plain K4 (four plain launches and one globals launch) and
+    K5 (one 4-step launch, then the globals launch) against the JAX
+    package's generic engines of the same kind in interpret mode and its
+    XLA engine."""
+    a, b = d2q9_pair(2)
+    present = jax_present(a.model, a._host_flags)
+    if engine == "band":
+        jit = pallas_generic.make_pallas_iterate(
+            a.model, D2Q9_SHAPE, jnp.float32, interpret=True,
+            present=present)
+        port = gk.make_band_iterate(b.model, D2Q9_SHAPE)
+    else:
+        jit = pallas_generic.make_resident_iterate(
+            a.model, D2Q9_SHAPE, jnp.float32, interpret=True,
+            present=present)
+        port = gk.make_resident_iterate(b.model, D2Q9_SHAPE)
+    assert jit.full_globals and port.full_globals
+    got = port(b.state, b.params, NITER)
+    _assert_state(got, jit(_copy(a.state), a.params, NITER))
+    _assert_state(got, jax_make_iterate(a.model)(_copy(a.state), a.params,
+                                                 NITER))
+    assert np.all(got.globals_.numpy() != 0)
+
+
+def test_d2q9_bound_counts():
+    """d2q9's operations: d2q9_kernels' step count and, at an Inlet or
+    Outlet MRT node, the objectives (10); bytes: 11 planes read and
+    written, the flags, two zone tables."""
+    from tclb_tpu_torch.ops import d2q9_kernels as dk
+    m = get_model("d2q9")
+    flags = rich_flags(m, *D2Q9_SHAPE)
+    objective = gk.count_types(m, flags, "Inlet", "Outlet")
+    assert objective == 2 * (D2Q9_SHAPE[0] - 4)
+    assert gk.node_step_flops(m, flags) == \
+        dk.node_step_flops(m, flags) + 10 * objective
+    assert gk.launch_bytes(m, (96, 512)) == 92 * 96 * 512 + 8 * m.zone_max
+
+
+def test_d2q9_device_header_matches_registry():
+    """csrc/models/d2q9.cuh's enums list DEVICE_MODELS' names (held to the
+    registry by check_layout) and its tables the model's lattice."""
+    from tclb_tpu_torch.models import d2q9
+    text = (_cuda_build.CSRC / gk.DEVICE_MODELS["d2q9"].header).read_text()
+    dm = gk.DEVICE_MODELS["d2q9"]
+    m = get_model("d2q9")
+    gk.check_layout(m)
+    assert _enum(text, "Setting") == ["S_" + s for s in dm.settings]
+    assert _enum(text, "NodeType") == ["T_" + s for s in dm.node_types]
+    assert _enum(text, "Group") == ["G_" + s for s in dm.groups]
+    assert _enum(text, "Zonal") == ["Z_" + s for s in dm.zonal]
+    assert _enum(text, "Global") == ["GL_" + s for s in dm.globals_]
+    np.testing.assert_array_equal(_table(text, "ex"), m.ei[:, 0])
+    np.testing.assert_array_equal(_table(text, "ey"), m.ei[:, 1])
+    np.testing.assert_allclose(_table(text, "wd"), d2q9.W, rtol=1e-15)
+    np.testing.assert_array_equal(_table(text, "opp"), d2q9.OPP)
+    np.testing.assert_array_equal(_table(text, "basis").reshape(9, 9),
+                                  d2q9.M)
+    np.testing.assert_array_equal(_table(text, "norm"),
+                                  (d2q9.M * d2q9.M).sum(axis=1))
+    # no stage reads a time derivative: the kernels compute none
+    assert "setting_dt" not in text

@@ -652,3 +652,98 @@ def channel3d_flags(m, nz, ny, nx):
     flags[:, 0, :] = m.flag_for("Wall")
     flags[:, -1, :] = m.flag_for("Wall")
     return flags
+
+
+# <Control> time series.  SERIES_SETTINGS and series_flags are the d2q9
+# case of tests/test_pallas_generic.py's series tests (its _SETTINGS and
+# _paint); add_rich_series sets series on two zones of the rich states
+# above, with a horizon shorter than the runs, so the iteration wraps.
+SERIES_SETTINGS = {"nu": 0.05, "Velocity": 0.02}
+RICH_SERIES_T = 5
+
+
+def series_flags(m, ny, nx, objectives=False):
+    """MRT nodes, walls at y = 0 and ny - 1, a W velocity and an E
+    pressure face, a zone-1 stripe; with ``objectives`` the Inlet and
+    Outlet columns."""
+    f = m.flag_for
+    flags = np.full((ny, nx), f("MRT"), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[1:-1, 0] = f("WVelocity", "MRT")
+    flags[1:-1, -1] = f("EPressure", "MRT")
+    flags[ny // 4:ny // 2, nx // 4:nx // 2] = f("MRT", zone=1)
+    if objectives:
+        flags[1:-1, 2] = f("MRT", "Inlet")
+        flags[1:-1, -3] = f("MRT", "Outlet")
+    return flags
+
+
+def series_values(T, base=0.02, amp=0.005, rate=0.7, phase=0.0):
+    """``base + amp sin(rate t + phase)`` over a horizon of ``T``
+    iterations."""
+    return base + amp * np.sin(np.arange(T) * rate + phase)
+
+
+def add_rich_series(lat, T=RICH_SERIES_T):
+    """Series on two zones of a rich state of either package: the inlet
+    velocity zone 1 and the density zone 2 (d2q9, d3q19_adj), or both
+    Density zones of d2q9_kuper."""
+    zonal = [s.name for s in lat.model.settings if s.zonal]
+    if "Velocity" in zonal:
+        lat.set_setting_series("Velocity", series_values(T, 0.035, 0.01),
+                               zone=1)
+        lat.set_setting_series("Density", series_values(
+            T, 1.002, 0.002, 1.3, phase=0.5), zone=2)
+    else:
+        table = lat.params.zone_table
+        vals = np.asarray(table.cpu() if hasattr(table, "cpu") else table)[
+            lat.model.setting_index["Density"]]
+        for z in (0, 1):
+            lat.set_setting_series("Density", float(vals[z]) * series_values(
+                T, 1.0, 0.01, 0.9 + z, phase=0.5), zone=z)
+    return lat
+
+
+def ramp_csv(path, rows=11, lo=0.01, hi=0.03):
+    """A one-column CSV (``vel``) that ramps from ``lo`` to ``hi``."""
+    with open(path, "w") as f:
+        f.write("vel\n")
+        for v in np.linspace(lo, hi, rows):
+            f.write(f"{v:.6f}\n")
+    return path
+
+
+ADJ3D_CONTROL_SIZES = {
+    "chip": dict(nz=32, ny=64, nx=256, solve=2000, log=500),
+    "test": dict(nz=8, ny=16, nx=32, solve=40, log=10),
+}
+
+
+def adj3d_control_xml(csv, size="test", out="output/"):
+    """The 3D adjoint case's geometry and settings (``adj3d_case_xml``)
+    with a forward Solve only, its inlet zone's Velocity under a <Control>
+    ramp read from ``csv`` over the Solve's horizon, and a Log."""
+    s = ADJ3D_CONTROL_SIZES[size]
+    nz, ny, nx = s["nz"], s["ny"], s["nx"]
+    return f"""<?xml version="1.0"?>
+<CLBConfig version="2.0" model="d3q19_adj" output="{out}">
+    <Geometry nx="{nx}" ny="{ny}" nz="{nz}">
+        <MRT><Box/></MRT>
+        <WVelocity name="Inlet"><Box nx="1"/></WVelocity>
+        <EPressure name="Outlet"><Box dx="-1"/></EPressure>
+        <Wall mask="ALL"><Channel/></Wall>
+        <DesignSpace><Box dx="{nx // 3}" nx="{nx // 3}" dy="{ny // 4}"
+            ny="{ny // 2}" dz="{nz // 4}" nz="{nz // 2}"/></DesignSpace>
+    </Geometry>
+    <Model>
+        <Params Velocity="0.02" nu="0.05"/>
+        <Params Porocity="0.5" DragInObj="1"/>
+    </Model>
+    <Control Iterations="{s['solve']}">
+        <CSV file="{csv}"/>
+        <Params Velocity-Inlet="vel"/>
+    </Control>
+    <Log Iterations="{s['log']}"/>
+    <Solve Iterations="{s['solve']}"/>
+</CLBConfig>
+"""
