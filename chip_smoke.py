@@ -166,6 +166,33 @@ missing.  Phases, each of which fails the run on its own:
    selection (no kernel launched), its CSV against the same case stepped
    one iteration at a time on the kernel engine at rtol 1e-4 / atol 1e-6.
 
+26. the storage ladder's bf16 kernels against their plain versions on the
+   card, in both representations (raw, shifted): ``generic2d_step_bf16``
+   (both flavours) for d2q9 and d2q9_kuper at 1024x1024 and 96x512,
+   ``generic2d_resident_bf16`` for the two harness cases at 64x64, and
+   ``d3q27_step_bf16``/``d3q27_step2_bf16`` for d3q27_cumulant (a rich
+   48x48x256 state with nonzero SynthT planes, the developed 3d_channel
+   and 3dcum_turbulence states) and for the four other z-slab models (the
+   developed 48x48x256 channels).  A kernel that narrows once a launch is
+   held to the f32 tolerance (rtol 2e-5 / atol 2e-6 on the raw values)
+   carried through its narrowing (``core/shift.py:narrowed_bounds``); the
+   resident kernel equals as many chained ``generic2d_step_bf16`` launches
+   bit for bit, each launch of that chain held so against its plain
+   version from the same input, and, for d2q9_kuper, the resident kernel
+   also equals its plain version from the start at the f32 tolerance;
+27. the precision harness (``tclb_tpu_torch.precision``) on the kernels:
+   both cases, both representations, 64x64, 500 steps, within
+   ``ERROR_BOUNDS``, the shifted cavity's u_linf at least 10x below raw's;
+28. bench.py's bf16 flagship (bench.py:818-870: d2q9 1024x1024, walls top
+   and bottom): f32 on K1/K2, f32 on K4, bf16 shifted and bf16 raw on K4,
+   MLUPS over ``iterate(2000)`` windows and their ratios (no floor held);
+29. example/3d_channel.xml's lattice in bf16 shifted on K3 against the f32
+   run of the same 20000 steps (MLUPS, U's relative L2, reported), and
+   (29b) bench.py's 48x48x256 channel for each other z-slab model in bf16
+   shifted;
+30. bf16 shifted checkpoints on the card: bit-exact at rest, through raw
+   f32 and back.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -183,7 +210,7 @@ Phase 7 also times the series flavours (K4's at 1024x1024 and at
 512x96, K6's at 32x64x256) and d2q9's plain generic kernels; phase 8 also
 profiles a karman_control ``iterate(500)`` and a 3D Control channel
 ``iterate(200)``.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
-12, 13, 14, 15-19, 20-22, 23-25, 7, 8.
+12, 13, 14, 15-19, 20-22, 23-25, 26-30, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -622,7 +649,7 @@ def run_case(dk, xml, phase: str, engine: str, kernels, check) -> dict:
             solver.lattice.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(dk.LAUNCHES)
-            flavours = dict(getattr(dk, "FLAVOUR_LAUNCHES", {}))
+            flavours = getattr(dk, "flavours", dict)()
         finally:
             os.chdir(cwd)
         out = os.path.join(tmp, root.get("output"))
@@ -748,7 +775,7 @@ def run_drop_band(gk, lat) -> dict:
     lat.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(gk.LAUNCHES)
-    flavours = dict(gk.FLAVOUR_LAUNCHES)
+    flavours = gk.flavours()
     say(f"  engine {lat.engine_name}, launches {launches} (flavours "
         f"{flavours}), eager steps {lat.eager_steps}, "
         f"{np.prod(lat.shape) * niter / dt / 1e6:.1f} MLUPS")
@@ -801,7 +828,7 @@ def run_heat_adj(gk, ak) -> dict:
             solver.lattice.synchronize()
             wall = time.perf_counter() - t0
             launches = {**gk.LAUNCHES, **ak.LAUNCHES}
-            flavours = dict(gk.FLAVOUR_LAUNCHES)
+            flavours = gk.flavours()
         finally:
             os.chdir(cwd)
         files = sorted(os.listdir(os.path.join(tmp, root.get("output"))))
@@ -893,7 +920,7 @@ def run_heat1024(gk, ak, lat) -> dict:
     lat.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(gk.LAUNCHES)
-    flavours = dict(gk.FLAVOUR_LAUNCHES)
+    flavours = gk.flavours()
     mlups = nodes * niter / dt / 1e6
     say(f"  (a) engine {lat.engine_name}, launches {launches} (flavours "
         f"{flavours}), {mlups:.1f} MLUPS")
@@ -938,7 +965,7 @@ def run_heat1024(gk, ak, lat) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grad_launches = {**gk.LAUNCHES, **ak.LAUNCHES}
-    grad_flavours = dict(gk.FLAVOUR_LAUNCHES)
+    grad_flavours = gk.flavours()
     peak = torch.cuda.max_memory_allocated()
     rate = nodes * horizon / wall / 1e6
     primal_s = horizon * nodes / (mlups * 1e6)
@@ -2173,6 +2200,611 @@ def device_busy(run, what: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The storage ladder: the bf16 flavours of K4, K5 and K3 (phases 26-30)
+# --------------------------------------------------------------------------- #
+
+BF16 = torch.bfloat16
+HARNESS_N, HARNESS_NITER = 64, 500     # tests/test_precision.py's size
+FLAGSHIP_N, FLAGSHIP_WINDOW = 1024, 2000
+
+
+def bf16_key(mod, name: str, model: str) -> str:
+    """A bf16 kernel's name in the record: ``generic2d_step_bf16[d2q9]``,
+    ``d3q27_step2_bf16[d3q19]`` (the cumulant's ``d3q27_step2_bf16``)."""
+    if hasattr(mod, "launch_key"):
+        return mod.launch_key(f"{name}_bf16", model)
+    return f"{name}_bf16[{model}]"
+
+
+def bf16_copy(lat, storage_repr: str = "shifted"):
+    """The same case on a bf16 lattice on the card: flags, params and the
+    fields narrowed into ``storage_repr``."""
+    import dataclasses
+    from tclb_tpu_torch import Lattice
+    from tclb_tpu_torch.core import shift as ddf
+    b = Lattice(lat.model, lat.shape, dtype=torch.float32, device=DEVICE,
+                storage_dtype=BF16, storage_repr=storage_repr)
+    b.set_flags(lat.flags_numpy())
+    b.params = dataclasses.replace(lat.params)
+    b.state = dataclasses.replace(
+        lat.state, fields=ddf.narrow_stack(lat.state.fields, BF16,
+                                           b._shift_block),
+        globals_=lat.state.globals_.clone())
+    b.avg_start = lat.avg_start
+    return b
+
+
+def bf16_inputs(mod, lat) -> tuple:
+    """``mod.kernel_inputs`` of a bf16 lattice, with its shifts."""
+    from tclb_tpu_torch.core import shift as ddf
+    return mod.kernel_inputs(lat.model, lat.state, lat.params,
+                             ddf.kernel_shift(lat.model, lat.storage_repr))
+
+
+def wide_plain(mod, lat, n: int, with_globals: bool = False, fields=None):
+    """The plain version's f32 values before its one narrowing: ``n``
+    plain f32 steps on the widened stack (a bf16 kernel's cadence), from
+    ``lat``'s stack or from ``fields``, a bf16 stack of ``lat``'s shape."""
+    import dataclasses
+    from tclb_tpu_torch.core import shift as ddf
+    f, flags, ztab, a = bf16_inputs(mod, lat)
+    wide = ddf.widen_stack(f if fields is None else fields, torch.float32,
+                           lat._shift_block)
+    a32 = dataclasses.replace(a, shift=None)
+    if with_globals:
+        return mod.plain_steps(wide, flags, ztab, a32, n, with_globals=True)
+    return mod.plain_steps(wide, flags, ztab, a32, n)
+
+
+def compare_narrowed(got, wide, lat, what: str, quiet: bool = False
+                     ) -> dict:
+    """A bf16 kernel's output against its plain version's compute values
+    before their one narrowing: the f32 tolerance (rtol 2e-5 / atol 2e-6
+    on the raw values) carried through the narrowing
+    (``core/shift.py:narrowed_bounds``).  Where the kernel's f32 values
+    equal the plain version's the stored bits are equal; where they sit
+    an ulp apart a value that straddles a bf16 rounding boundary may take
+    the other neighbour.  The error printed is that of the widened raw
+    fields against the narrowed plain output; ``flips`` counts the values
+    whose bits differ.  ``quiet``: print only a failure."""
+    from tclb_tpu_torch.core import shift as ddf
+    sb = lat._shift_block
+    lo, hi = ddf.narrowed_bounds(wide, BF16, sb, RTOL, ATOL)
+    s = got.double()
+    ok = bool(((s >= lo.double()) & (s <= hi.double())).all())
+    want = ddf.narrow_stack(wide, BF16, sb)
+    g_raw = ddf.widen_stack(got, torch.float32, sb)
+    w_raw = ddf.widen_stack(want, torch.float32, sb)
+    err = (g_raw - w_raw).abs()
+    flips = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    out = {"max_abs_err": float(err.max()),
+           "max_rel_err": float((err / w_raw.abs().clamp_min(1e-30)).max()),
+           "flips": flips, "values": int(got.numel())}
+    finite = bool(torch.isfinite(g_raw).all())
+    if quiet and ok and finite:
+        return out
+    say(f"  {what}: max_abs {out['max_abs_err']:.3e} max_rel "
+        f"{out['max_rel_err']:.3e}, {flips} of {got.numel()} values a bf16 "
+        f"step from the narrowed plain output, all within the f32 tolerance "
+        f"(rtol {RTOL} atol {ATOL}) carried through the narrowing: "
+        f"{'ok' if ok and finite else 'FAIL'}")
+    if not (ok and finite):
+        fail(f"{what} disagrees with its plain version")
+    return out
+
+
+def check_bf16_kernels(cases, errs: dict, what: str) -> dict:
+    """Phase 26: each one-narrowing bf16 kernel against its plain version
+    on the same bf16 inputs.  ``cases`` lists (module, bf16 lattice,
+    kernel name); ``generic2d_step`` is checked in both flavours (the
+    globals at rtol 1e-4 / atol 1e-6)."""
+    say(f"{what}: bf16 kernels against their plain versions on the card")
+    for mod, lat, name in cases:
+        fn, n = mod.WRAPPERS[name]
+        *inputs, a = bf16_inputs(mod, lat)
+        key = bf16_key(mod, name, lat.model.name)
+        tag = f"{key} ({lat.storage_repr}) at {tuple(inputs[0].shape)}"
+        got = fn(*inputs, a)
+        torch.cuda.synchronize()
+        keep_worst(errs, key, compare_narrowed(
+            got, wide_plain(mod, lat, n), lat, tag))
+        if name == "generic2d_step":
+            got, g = mod.step_globals(*inputs, a)
+            wide, wg = wide_plain(mod, lat, 1, with_globals=True)
+            torch.cuda.synchronize()
+            keep_worst(errs, key, compare_narrowed(
+                got, wide, lat, f"{tag}, globals flavour"))
+            gerr = (g - wg).abs()
+            ok = bool((gerr <= GOLDEN_ATOL + GOLDEN_RTOL * wg.abs()).all()) \
+                and bool(torch.isfinite(g).all())
+            say(f"  its globals: {g.tolist()} vs {wg.tolist()} (rtol "
+                f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{tag}: globals disagree")
+            keep_worst(errs, f"{key} globals",
+                       {"max_abs_err": float(gerr.max()),
+                        "max_rel_err": float(
+                            (gerr / wg.abs().clamp_min(1e-30)).max())})
+    return errs
+
+
+def check_bf16_resident(gk, lat, nsteps: int, errs: dict, what: str) -> dict:
+    """Phase 26, K5: ``generic2d_resident_bf16`` narrows once a step, and
+    its step is ``generic2d_step_bf16``'s device code.  Each of ``nsteps``
+    chained ``generic2d_step_bf16`` launches is held against its plain
+    version from the same input (the f32 tolerance carried through the
+    narrowing, ``compare_narrowed``), and the resident launch equals that
+    chain bit for bit: so each of its steps is held too.  Against
+    ``nsteps`` narrowed eager steps from the start: at the f32 tolerance
+    on the widened raw fields where the model's f32 kernels equal their
+    plain versions bit for bit (d2q9_kuper); for d2q9, whose header sums
+    rho in plane order, a value one bf16 step off moves the next steps'
+    inputs, so that error is reported, not held."""
+    from tclb_tpu_torch.core import shift as ddf
+    f, flags, ztab, a = bf16_inputs(gk, lat)
+    key = bf16_key(gk, "generic2d_resident", lat.model.name)
+    tag = f"{key} ({lat.storage_repr}, {nsteps} steps) at {tuple(f.shape)}"
+    got = gk.resident(f, flags, ztab, a, nsteps)
+    chain = f
+    e = {"max_abs_err": 0.0, "max_rel_err": 0.0, "flips": 0}
+    for i in range(nsteps):
+        nxt = gk.step(chain, flags, ztab, a)
+        one = compare_narrowed(
+            nxt, wide_plain(gk, lat, 1, fields=chain), lat,
+            f"{tag}: generic2d_step_bf16 launch {i + 1} of the chain",
+            quiet=True)
+        e = {k: max(e[k], one[k]) for k in e}
+        chain = nxt
+    torch.cuda.synchronize()
+    say(f"{what}: {tag}: each of {nsteps} chained generic2d_step_bf16 "
+        f"launches against its plain version from the same input: max_abs "
+        f"{e['max_abs_err']:.3e} max_rel {e['max_rel_err']:.3e}, at most "
+        f"{e['flips']} values a bf16 step off, all within the f32 "
+        f"tolerance carried through the narrowing: ok")
+    same = torch.equal(got.view(torch.int16), chain.view(torch.int16))
+    say(f"  {tag} against the {nsteps} chained launches: "
+        f"{'bit-identical' if same else 'DIFFERS'}")
+    if not same:
+        fail(f"{tag} differs from {nsteps} generic2d_step_bf16 launches")
+    want = gk.plain_steps(f, flags, ztab, a, nsteps)
+    sb = lat._shift_block
+    g_raw = ddf.widen_stack(got, torch.float32, sb)
+    w_raw = ddf.widen_stack(want, torch.float32, sb)
+    err = (g_raw - w_raw).abs()
+    eager = {"max_abs_err": float(err.max()),
+             "flips": int((got.view(torch.int16)
+                           != want.view(torch.int16)).sum())}
+    if lat.model.name == "d2q9":
+        say(f"  {tag} against {nsteps} narrowed eager steps from the start: "
+            f"max_abs {eager['max_abs_err']:.3e}, {eager['flips']} values "
+            "differ (reported)")
+    else:
+        compare(g_raw, w_raw, f"{tag} against {nsteps} narrowed eager "
+                "steps from the start (widened raw fields)")
+    e["chain_bit_identical"] = same
+    e["eager_max_abs_err"] = eager["max_abs_err"]
+    keep_worst(errs, key, e)
+    return errs
+
+
+def harness_phase(gk) -> dict:
+    """Phase 27: the precision harness (``tclb_tpu_torch.precision``) on
+    the card: both cases, both representations, 64x64, 500 steps, each
+    run on the engines ``Lattice`` selects (the bf16 runs on
+    ``cuda_generic_resident[...,bfloat16/<repr>]``), within
+    ``ERROR_BOUNDS``; the shifted cavity's u_linf at least 10x below raw's
+    at every checkpoint.  Counted from 0."""
+    from tclb_tpu_torch import precision
+    say(f"phase 27: the precision harness on the kernels ({HARNESS_N}x"
+        f"{HARNESS_N}, {HARNESS_NITER} steps)")
+    t0 = time.perf_counter()
+    reports, launches = [], {}
+    for case in precision.CASE_NAMES:
+        gk.reset_launches()
+        reports += precision.compare_reprs(case, niter=HARNESS_NITER,
+                                           n=HARNESS_N, device=DEVICE)
+        launches[case] = {
+            **{k: gk.LAUNCHES[k] for k in gk.BF16_KERNELS},
+            "globals": gk.flavours("generic2d_step_bf16")["globals"]}
+    wall = time.perf_counter() - t0
+    precision._print_text(reports)
+    models = {"cavity": "d2q9", "kuper_drop": "d2q9_kuper"}
+    for rep in reports:
+        want = (f"cuda_generic_resident[{models[rep['case']]},fuse=N,"
+                f"bfloat16/{rep['storage_repr']}]")
+        if rep["engine"] != want:
+            fail(f"harness {rep['case']} ran on {rep['engine']}")
+        v = precision.check_bounds(rep)
+        if v or not all(r["l2"] > 0 for r in rep["checkpoints"]):
+            fail(f"harness: {v or 'no error measured'}")
+    cav = {r["storage_repr"]: r for r in reports if r["case"] == "cavity"}
+    ratios = [rr["u_linf"] / rs["u_linf"] for rr, rs in zip(
+        cav["raw"]["checkpoints"], cav["shifted"]["checkpoints"])]
+    say(f"  within ERROR_BOUNDS; cavity u_linf raw / shifted "
+        f"{[round(r, 2) for r in ratios]} (at least 10); bf16 launches "
+        f"{launches}; {wall:.2f} s")
+    if min(ratios) < 10:
+        fail(f"shifted cavity u_linf only {min(ratios):.2f}x below raw")
+    return {"reports": reports, "u_linf_raw_over_shifted": ratios,
+            "launches": launches, "wall_s": wall}
+
+
+def flagship_lattice(storage_dtype=None, storage_repr=None):
+    """bench.py's ``bench_precision_ladder`` case (bench.py:818-870): d2q9
+    at 1024x1024, MRT everywhere, walls top and bottom, nu 0.02, Velocity
+    0.01."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d2q9")
+    n = FLAGSHIP_N
+    lat = Lattice(m, (n, n), dtype=torch.float32, device=DEVICE,
+                  settings={"nu": 0.02, "Velocity": 0.01},
+                  storage_dtype=storage_dtype, storage_repr=storage_repr)
+    flags = np.full((n, n), m.flag_for("MRT"), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def flagship_phase(gk) -> dict:
+    """Phase 28: the flagship through the port: f32 (K1/K2 by selection),
+    f32 on the generic engine (the same engine as bf16), bf16 shifted and
+    bf16 raw (K4): each engine's tag and MLUPS over an
+    ``iterate(FLAGSHIP_WINDOW)`` fenced by synchronize, and the ratios.
+    No floor is asserted."""
+    say(f"phase 28: bench.py's bf16 flagship, d2q9 {FLAGSHIP_N}x"
+        f"{FLAGSHIP_N}, iterate({FLAGSHIP_WINDOW}) windows")
+    runs = {}
+    for label, sdt, repr_, generic in (
+            ("f32", None, None, False), ("f32_generic", None, None, True),
+            ("bf16_shifted", BF16, "shifted", False),
+            ("bf16_raw", BF16, "raw", False)):
+        lat = flagship_lattice(sdt, repr_)
+        if generic:
+            lat._fast, lat._fast_name = gk.select_engine(
+                lat.model, lat.shape, lat.dtype)
+            lat._fast_tried = True
+        lat.iterate(10)
+        lat.synchronize()
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        lat.iterate(FLAGSHIP_WINDOW)
+        lat.synchronize()
+        dt = time.perf_counter() - t0
+        mlups = FLAGSHIP_N * FLAGSHIP_N * FLAGSHIP_WINDOW / dt / 1e6
+        if not bool(torch.isfinite(lat.state.fields.float()).all()):
+            fail(f"flagship {label}: non-finite fields")
+        runs[label] = {"engine": lat.engine_name, "mlups_iterate": mlups,
+                       "iterate_ms": dt * 1e3,
+                       "bf16_launches": {
+                           **{k: gk.LAUNCHES[k] for k in gk.BF16_KERNELS},
+                           "globals": gk.flavours(
+                               "generic2d_step_bf16")["globals"]},
+                       "lattice": lat}
+        say(f"  {label}: engine {lat.engine_name}, {mlups:.1f} MLUPS "
+            f"({dt * 1e3:.2f} ms), bf16 launches "
+            f"{ {k: gk.LAUNCHES[k] for k in gk.BF16_KERNELS} }")
+    want = {"f32": "cuda_d2q9_band[d2q9,fuse=2]",
+            "f32_generic": "cuda_generic_band[d2q9,fuse=1]",
+            "bf16_shifted": "cuda_generic_band[d2q9,fuse=1,bfloat16/shifted]",
+            "bf16_raw": "cuda_generic_band[d2q9,fuse=1,bfloat16/raw]"}
+    for label, engine in want.items():
+        if runs[label]["engine"] != engine:
+            fail(f"flagship {label} ran on {runs[label]['engine']}")
+    for label in ("bf16_shifted", "bf16_raw"):
+        if runs[label]["bf16_launches"]["generic2d_step_bf16"] \
+                != FLAGSHIP_WINDOW:
+            fail(f"flagship {label}: {runs[label]['bf16_launches']}")
+    m = {k: v["mlups_iterate"] for k, v in runs.items()}
+    out = {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "lattice"}
+                    for k, v in runs.items()},
+           "bf16_over_f32": m["bf16_shifted"] / m["f32"],
+           "bf16_raw_over_f32": m["bf16_raw"] / m["f32"],
+           "bf16_over_f32_same_engine": m["bf16_shifted"] / m["f32_generic"],
+           "bf16_raw_over_f32_same_engine": m["bf16_raw"] / m["f32_generic"],
+           "lattice": runs["bf16_shifted"]["lattice"]}
+    say(f"  bf16 (shifted) / f32: {out['bf16_over_f32']:.3f} across engines "
+        f"(K4 over K1/K2, as the JAX package reports it), "
+        f"{out['bf16_over_f32_same_engine']:.3f} on the same engine (K4); "
+        f"raw {out['bf16_raw_over_f32']:.3f} / "
+        f"{out['bf16_raw_over_f32_same_engine']:.3f}; card "
+        f"{card_line()}")
+    return out
+
+
+def channel3d_bf16_phase(dk3) -> dict:
+    """Phase 29: example/3d_channel.xml's lattice (48x48x256,
+    d3q27_cumulant) in bf16 shifted on K3 and in f32, the Solve's 20000
+    steps as its Log interval cuts them (iterate(2000) ten times), each
+    fenced by synchronize: MLUPS, the launches and the relative L2 of U
+    against the f32 run (reported: the JAX package pins no 3D bound)."""
+    say("phase 29: 3d_channel.xml's lattice in bf16 shifted on K3")
+    root = ET.parse(CHANNEL3D_XML).getroot()
+    niter = int(root.find("Solve").get("Iterations"))
+    chunk = int(root.find("Log").get("Iterations"))
+    base = case_lattice(CHANNEL3D_XML, torch.float32, DEVICE)
+    out = {}
+    for label, lat in (("f32", base), ("bf16_shifted", bf16_copy(base))):
+        lat.synchronize()
+        dk3.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(niter // chunk):
+            lat.iterate(chunk)
+        lat.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in dk3.LAUNCHES.items() if v}
+        out[label] = {"engine": lat.engine_name, "wall_s": dt,
+                      "mlups": float(np.prod(lat.shape)) * niter / dt / 1e6,
+                      "launches": launches, "lattice": lat}
+        say(f"  {label}: engine {lat.engine_name}, {niter} steps in "
+            f"{dt:.3f} s, {out[label]['mlups']:.1f} MLUPS, launches "
+            f"{launches}")
+    if out["bf16_shifted"]["engine"] != \
+            "cuda_d3q27_band[d3q27_cumulant,fuse=2,bfloat16/shifted]":
+        fail(f"3d_channel bf16 ran on {out['bf16_shifted']['engine']}")
+    u32 = out["f32"]["lattice"].get_quantity("U").double()
+    u16 = out["bf16_shifted"]["lattice"].get_quantity("U").double()
+    if not bool(torch.isfinite(u16).all()):
+        fail("3d_channel bf16: non-finite U")
+    rel = float((u16 - u32).norm() / u32.norm())
+    out["u_rel_l2_vs_f32"] = rel
+    out["mean_ux"] = {"f32": float(u32[0].mean()),
+                      "bf16_shifted": float(u16[0].mean())}
+    say(f"  U of the bf16 run against the f32 run: relative L2 {rel:.3e}; "
+        f"mean ux {out['mean_ux']['bf16_shifted']:.4e} against "
+        f"{out['mean_ux']['f32']:.4e} (reported, not held)")
+    return out
+
+
+def channel48_bf16_phase(dk3, models) -> dict:
+    """Phase 29b: bench.py's 48x48x256 channel for each other z-slab
+    model in bf16 shifted, ``iterate(2002)`` on
+    ``cuda_d3q27_band[<model>,fuse=2,bfloat16/shifted]``: the launches and
+    the MLUPS."""
+    out = {}
+    for m in models:
+        lat = bf16_copy(channel48_lattice(m, DEVICE))
+        say(f"phase 29b: the 48x48x256 {m} channel in bf16 shifted")
+        lat.synchronize()
+        dk3.reset_launches()
+        t0 = time.perf_counter()
+        lat.iterate(2002)
+        lat.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in dk3.LAUNCHES.items() if "bf16" in k}
+        mlups = float(np.prod(lat.shape)) * 2002 / dt / 1e6
+        say(f"  engine {lat.engine_name}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, {mlups:.1f} "
+            "MLUPS")
+        if lat.engine_name != f"cuda_d3q27_band[{m},fuse=2,bfloat16/shifted]":
+            fail(f"{m} bf16 ran on {lat.engine_name}")
+        if not bool(torch.isfinite(lat.state.fields.float()).all()):
+            fail(f"{m} bf16: non-finite fields")
+        out[m] = {"launches": launches, "mlups_iterate": mlups,
+                  "lattice": lat}
+    return out
+
+
+def walled_cavity(storage_dtype=None, n: int = 16):
+    """tests/test_shift.py's cavity: d2q9, walls top and bottom, nu 0.05,
+    Velocity 0.02, initialised."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d2q9")
+    lat = Lattice(m, (n, n), dtype=torch.float32, device=DEVICE,
+                  settings={"nu": 0.05, "Velocity": 0.02},
+                  storage_dtype=storage_dtype)
+    flags = np.full((n, n), m.flag_for("MRT"), dtype=np.uint16)
+    flags[0] = flags[-1] = m.flag_for("Wall")
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def checkpoint_phase() -> dict:
+    """Phase 30: a save/load round trip of bf16 shifted lattices on the
+    card: bit-exact at rest in the same representation; through a raw f32
+    lattice within 1e-6; and back to shifted bf16, every value to within
+    the f32 rounding of its raw value f + w (the values that differ are
+    counted; on the JAX package's own test state none do).
+    The states: tests/test_shift.py:177-222's (its walled 16x16 cavity
+    after 12 steps) and the developed 64x64 harness cavity (500 steps)."""
+    from tclb_tpu_torch import precision
+    from tclb_tpu_torch.core import shift as ddf
+    say("phase 30: bf16 shifted checkpoints on the card")
+    out = {}
+    makers = {
+        "test_shift_state": (lambda sdt=None: walled_cavity(sdt), 12),
+        "harness_cavity": (lambda sdt=None: precision.case_lattice(
+            "cavity", HARNESS_N, sdt, None, DEVICE), HARNESS_NITER)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (make, steps) in makers.items():
+            sh = make(BF16)
+            sh.iterate(steps)
+            p = os.path.join(tmp, f"{label}.npz")
+            sh.save(p)
+            same = make(BF16)
+            same.load(p)
+            exact = torch.equal(same.state.fields.view(torch.int16),
+                                sh.state.fields.view(torch.int16))
+            wide = make()
+            wide.load(p)
+            to_f32 = float(abs(wide.fields_raw() - sh.fields_raw()).max())
+            q = os.path.join(tmp, f"{label}_f32.npz")
+            wide.save(q)
+            back = make(BF16)
+            back.load(q)
+            differ = (back.state.fields.view(torch.int16)
+                      != sh.state.fields.view(torch.int16)).cpu().numpy()
+            # a value comes back to within the f32 rounding of f + w: the
+            # raw f32 lattice holds f32(dev + w)
+            dev = sh.state.fields.double().cpu().numpy()
+            w = ddf._bshape(ddf.storage_shift(sh.model), dev.ndim)
+            e = np.abs(dev + w) * 2.0 ** -24 * (1 + 2.0 ** -20)
+            lo = torch.from_numpy(dev - e).to(BF16).double().numpy()
+            hi = torch.from_numpy(dev + e).to(BF16).double().numpy()
+            got = back.state.fields.double().cpu().numpy()
+            explained = bool(np.all((got >= lo) & (got <= hi)))
+            out[label] = {"same_repr_bit_exact": exact,
+                          "to_f32_max_abs": to_f32,
+                          "round_trip_differ": int(differ.sum()),
+                          "values": int(differ.size)}
+            say(f"  {label} ({tuple(sh.shape)}, {steps} steps on "
+                f"{sh.engine_name}): same-repr load "
+                f"{'bit-exact' if exact else 'DIFFERS'}; to raw f32 max "
+                f"{to_f32:.2e}; back to shifted bf16: {int(differ.sum())} "
+                f"of {differ.size} values differ, every value within the "
+                f"f32 rounding of f + w")
+            if not exact or to_f32 > 1e-6 or not explained:
+                fail(f"checkpoint round trip {label}: {out[label]}")
+    return out
+
+
+HARNESS_RES_STEPS = 98     # one resident launch of the harness's iterate(100)
+
+
+def run_ladder(gk, dk3, errs: dict, channel, drop1024, control, channel3d,
+               turb, channel48) -> dict:
+    """Phases 26-30 (the storage ladder) on the card, and the bf16
+    kernels' launches by path, their lattices for phase 7 and the summary
+    line's record."""
+    from tclb_tpu_torch import Lattice, get_model, precision
+    from torch_cases import (KUPER_SETTINGS, RICH3D_SETTINGS,
+                             paint_rich_3d, paint_rich_kuper)
+    kuper96 = paint_rich_kuper(Lattice(
+        get_model("d2q9_kuper"), (96, 512), dtype=torch.float32,
+        device=DEVICE, settings=KUPER_SETTINGS), seed=5)
+    rich48 = paint_rich_3d(Lattice(
+        get_model("d3q27_cumulant"), CHANNEL48, dtype=torch.float32,
+        device=DEVICE, settings=RICH3D_SETTINGS), seed=5)
+    k4 = [channel, control, drop1024, kuper96]
+    k3 = [rich48, channel3d, turb] + list(channel48.values())
+    harness = {}
+    for case in precision.CASE_NAMES:
+        for repr_ in ("raw", "shifted"):
+            lat = precision.case_lattice(case, HARNESS_N, BF16, repr_,
+                                         DEVICE)
+            lat.iterate(100)
+            harness[(case, repr_)] = lat
+    for repr_ in ("raw", "shifted"):
+        check_bf16_kernels(
+            [(gk, bf16_copy(lat, repr_), "generic2d_step") for lat in k4]
+            + [(dk3, bf16_copy(lat, repr_), name) for lat in k3
+               for name in dk3.KERNELS], errs,
+            f"phase 26 ({repr_})")
+        for case in precision.CASE_NAMES:
+            check_bf16_resident(gk, harness[(case, repr_)],
+                                HARNESS_RES_STEPS, errs,
+                                f"phase 26 ({repr_}, {case})")
+    harness_out = harness_phase(gk)
+    flagship = flagship_phase(gk)
+    ch3d = channel3d_bf16_phase(dk3)
+    ch48 = channel48_bf16_phase(dk3, channel48)
+    ckpt = checkpoint_phase()
+    # the developed bf16 states of the paths (after their counts were read)
+    check_bf16_kernels(
+        [(gk, flagship["lattice"], "generic2d_step"),
+         (dk3, ch3d["bf16_shifted"]["lattice"], "d3q27_step"),
+         (dk3, ch3d["bf16_shifted"]["lattice"], "d3q27_step2")]
+        + [(dk3, v["lattice"], name) for v in ch48.values()
+           for name in dk3.KERNELS], errs,
+        "phase 26b, the paths' developed bf16 states")
+    h = harness_out["launches"]
+    fl = flagship["runs"]
+    launches = {
+        "generic2d_step_bf16[d2q9]": {
+            "flagship": sum(fl[k]["bf16_launches"]["generic2d_step_bf16"]
+                            for k in ("bf16_shifted", "bf16_raw")),
+            "harness_cavity": h["cavity"]["generic2d_step_bf16"]},
+        "generic2d_resident_bf16[d2q9]": {
+            "harness_cavity": h["cavity"]["generic2d_resident_bf16"]},
+        "generic2d_step_bf16[d2q9_kuper]": {
+            "harness_kuper_drop": h["kuper_drop"]["generic2d_step_bf16"]},
+        "generic2d_resident_bf16[d2q9_kuper]": {
+            "harness_kuper_drop":
+                h["kuper_drop"]["generic2d_resident_bf16"]}}
+    launches.update({k: {"3d_channel_bf16": v} for k, v in
+                     ch3d["bf16_shifted"]["launches"].items()
+                     if "bf16" in k})
+    launches.update({k: {"channel48_bf16": n} for v in ch48.values()
+                     for k, n in v["launches"].items() if n})
+    # the globals flavour's share of generic2d_step_bf16's launches
+    globals_launches = {
+        "generic2d_step_bf16[d2q9]": {
+            "flagship": sum(fl[k]["bf16_launches"]["globals"]
+                            for k in ("bf16_shifted", "bf16_raw")),
+            "harness_cavity": h["cavity"]["globals"]},
+        "generic2d_step_bf16[d2q9_kuper]": {
+            "harness_kuper_drop": h["kuper_drop"]["globals"]}}
+    summary = {
+        "harness": {"u_linf_raw_over_shifted":
+                    harness_out["u_linf_raw_over_shifted"],
+                    "wall_s": harness_out["wall_s"],
+                    "reports": harness_out["reports"]},
+        "flagship": {k: v for k, v in flagship.items() if k != "lattice"},
+        "3d_channel_bf16": {
+            "u_rel_l2_vs_f32": ch3d["u_rel_l2_vs_f32"],
+            "mean_ux": ch3d["mean_ux"],
+            **{label: {k: v for k, v in ch3d[label].items()
+                       if k != "lattice"} for label in ("f32",
+                                                        "bf16_shifted")}},
+        "channel48_bf16_mlups_iterate": {m: v["mlups_iterate"]
+                                         for m, v in ch48.items()},
+        "checkpoints": ckpt}
+    return {"launches": launches, "globals_launches": globals_launches,
+            "summary": summary,
+            "band": {"d2q9": flagship["lattice"],
+                     "d2q9_kuper": bf16_copy(drop1024)},
+            "resident": {"d2q9": harness[("cavity", "shifted")],
+                         "d2q9_kuper": harness[("kuper_drop", "shifted")]},
+            "d3": {"d3q27_cumulant": ch3d["bf16_shifted"]["lattice"],
+                   **{m: v["lattice"] for m, v in ch48.items()}}}
+
+
+def time_bf16(gk, dk3, band: dict, res: dict, d3: dict,
+              res_steps: int) -> dict:
+    """Phase 7 for the bf16 kernels at their paths' shapes: K4 (both
+    flavours) on ``band`` lattices, K5 for ``res_steps`` on ``res``
+    lattices, K3 on ``d3`` lattices; the bound at 2 B a value at rest."""
+    out = {}
+    for lat in band.values():
+        f, flags, ztab, a = bf16_inputs(gk, lat)
+        key = bf16_key(gk, "generic2d_step", lat.model.name)
+        for k, fn, g, reps in ((key, gk.step, False, 400),
+                               (f"{key} globals", gk.step_globals, True,
+                                200)):
+            out[k] = time_one(
+                k, lambda fn=fn: fn(f, flags, ztab, a),
+                lambda g=g: gk.plain_steps(f, flags, ztab, a, 1,
+                                           with_globals=g),
+                gk.launch_bytes(lat.model, lat.shape, itemsize=2),
+                gk.node_step_flops(lat.model, lat.flags_numpy()), lat.shape,
+                reps)
+    for lat in res.values():
+        f, flags, ztab, a = bf16_inputs(gk, lat)
+        key = bf16_key(gk, "generic2d_resident", lat.model.name)
+        out[key] = time_one(
+            f"{key} ({res_steps} steps)",
+            lambda: gk.resident(f, flags, ztab, a, res_steps),
+            lambda: gk.plain_steps(f, flags, ztab, a, res_steps),
+            gk.launch_bytes(lat.model, lat.shape, itemsize=2),
+            res_steps * gk.node_step_flops(lat.model, lat.flags_numpy()),
+            lat.shape, 50, plain_reps=2)
+        out[key]["steps"] = res_steps
+    for lat in d3.values():
+        *inputs, a = bf16_inputs(dk3, lat)
+        for name, reps in (("d3q27_step", 400), ("d3q27_step2", 200)):
+            fn, steps = dk3.WRAPPERS[name]
+            key = bf16_key(dk3, name, lat.model.name)
+            out[key] = time_one(
+                key, lambda fn=fn: fn(*inputs, a),
+                lambda steps=steps: dk3.plain_steps(*inputs, a, steps),
+                dk3.launch_bytes(lat.model, lat.shape, itemsize=2),
+                steps * dk3.node_step_flops(lat.model, lat.flags_numpy()),
+                lat.shape, reps)
+    return out
+
+
 def main() -> int:
     if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
                for src in SOURCES.values()):
@@ -2376,6 +3008,9 @@ def main() -> int:
                           "phase 24b, the 3D Control channel after 2000 "
                           "iterations")
     path_sample = run_sample(gk)
+    ladder = run_ladder(gk, dk3, errs, channel=channel, drop1024=drop1024,
+                        control=control_dev, channel3d=path3d["lattice"],
+                        turb=path_turb["lattice"], channel48=channel48)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -2402,6 +3037,8 @@ def main() -> int:
     times.update(time_series_flavours(g3, control3d_dev, 400))
     times_d2q9 = time_generic(gk, channel, karman, 498, plain_reps=1)
     times.update(time_generic3d(g3, ak, adj3d_dev))
+    times.update(time_bf16(gk, dk3, ladder["band"], ladder["resident"],
+                           ladder["d3"], HARNESS_RES_STEPS))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
     times.update(time_kernels(
@@ -2469,6 +3106,13 @@ def main() -> int:
     launches.update({f"{name}[d3q19_adj]": {
         "adj3d_control": path_control3d["launches"][name]}
         for name in g3.SERIES_KERNELS})
+    bf16_sources = {}
+    for key, by_path in ladder["launches"].items():
+        launches[key] = by_path
+        name = key.split("[")[0]
+        bf16_sources[name] = SOURCES["d3q27" if name.startswith("d3q27")
+                                     else "generic"]
+        TPU_KERNELS.setdefault(name, TPU_KERNELS[name[:-len("_bf16")]])
     sources = {**{n: SOURCES["d2q9"] for n in dk.KERNELS},
                **{n: SOURCES["d3q27"] for n in dk3.KERNELS},
                **{n: SOURCES["generic"] for n in gk.KERNELS
@@ -2476,7 +3120,7 @@ def main() -> int:
                **{n: SOURCES["generic3d"] for n in g3.SERIES_KERNELS},
                "generic2d_step_b": SOURCES["adjoint"],
                **{n: SOURCES["generic3d"] for n in g3.KERNELS},
-               "generic3d_step_b": SOURCES["adjoint3d"]}
+               "generic3d_step_b": SOURCES["adjoint3d"], **bf16_sources}
     kernels = []
     for key, by_path in launches.items():
         name = key.split("[")[0]
@@ -2531,6 +3175,21 @@ def main() -> int:
                 for k in mod.SERIES_KERNELS[1:]):
         by_name[key]["globals_max_abs_err"] = \
             errs[f"{key} globals"]["max_abs_err"]
+    for key in ladder["launches"]:
+        e = errs[key]
+        by_name[key]["flips"] = e.get("flips")
+        if key.startswith("generic2d_step_bf16"):
+            by_name[key]["globals_flavour"] = {
+                **{k: times[f"{key} globals"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "wrapper_host_ms", "shape")},
+                "launches_by_path": ladder["globals_launches"][key],
+                "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
+        if key.startswith("generic2d_resident_bf16"):
+            by_name[key]["steps"] = times[key]["steps"]
+            by_name[key]["chain_bit_identical"] = e["chain_bit_identical"]
+            # against as many narrowed eager steps from the start
+            by_name[key]["eager_max_abs_err"] = e["eager_max_abs_err"]
     for key, t in times_512.items():
         by_name[key]["at_512x96"] = {k: t[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "wrapper_host_ms")}
@@ -2569,6 +3228,7 @@ def main() -> int:
         "karman_control": path_control,
         "adj3d_control": path_control3d,
         "sample": path_sample,
+        "storage_ladder": ladder["summary"],
         "d2q9_generic_kernels_off_path": d2q9_generic,
         "karman_control_iterate_profile": busy_control,
         "adj3d_control_iterate_profile": busy_control3d,

@@ -11,8 +11,10 @@ both compiler reports (registers, shared memory, spills per kernel), runs
 ``d3q27_step`` and ``d3q27_step2`` of both libraries on the same inputs
 (a 12x8x64 state that paints every node type, the initial state of
 ``example/3d_channel.xml`` warmed 4 steps, and that of
-``example/3dcum_turbulence.xml`` with its SynthT planes drawn) and exits
-nonzero unless every output is bit for bit the same.
+``example/3dcum_turbulence.xml`` with its SynthT planes drawn), times
+both kernels of both libraries on the 3d_channel state (CUDA events, the
+median of ``REPS`` launches each, the libraries alternating in rounds)
+and exits nonzero unless every output is bit for bit the same.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -27,6 +30,7 @@ import tempfile
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
+REPS, ROUNDS = 100, 4      # launches a round, rounds a library (timing)
 
 
 def build(src: pathlib.Path, out: pathlib.Path) -> tuple[ctypes.CDLL, str]:
@@ -41,9 +45,6 @@ def build(src: pathlib.Path, out: pathlib.Path) -> tuple[ctypes.CDLL, str]:
     for name in ("d3q27_step", "d3q27_step2"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i, p]
         getattr(lib, name).restype = i
-    ip = ctypes.POINTER(i)
-    lib.d3q27_step2_config.argtypes = [i, ip, ip, ip, ip]
-    lib.d3q27_step2_config.restype = i
     return lib, proc.stdout + proc.stderr
 
 
@@ -58,6 +59,27 @@ def registers(report: str) -> dict:
         if m and kernel:
             out[kernel] = int(m.group(1))
     return out
+
+
+def median_ms(launches: dict) -> dict:
+    """Each library's median launch time in ms: ``launches`` maps a tag
+    to a function that launches its kernel once; the libraries alternate
+    in ``ROUNDS`` rounds of ``REPS`` launches after a warm-up."""
+    times = {tag: [] for tag in launches}
+    for fn in launches.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(ROUNDS):
+        for tag, fn in launches.items():
+            for _ in range(REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times[tag].append(start.elapsed_time(end))
+    return {tag: statistics.median(t) for tag, t in times.items()}
 
 
 def main() -> int:
@@ -97,18 +119,27 @@ def main() -> int:
             zc = dk3.step2_planes(tuple(f.shape[1:]),
                                   cfg["sms"] * cfg["blocks_per_sm"])
             for name in ("d3q27_step", "d3q27_step2"):
-                outs = []
-                for lib in libs.values():
-                    out = torch.empty_like(f)
+                args = ctypes.byref(a.c_struct(zc if name == "d3q27_step2"
+                                               else 1))
+                outs = [torch.empty_like(f) for _ in libs]
+
+                def launch(lib, out, name=name, args=args):
                     rc = getattr(lib, name)(
                         f.data_ptr(), out.data_ptr(), flags.data_ptr(),
-                        ztab.data_ptr(),
-                        ctypes.byref(a.c_struct(zc if name == "d3q27_step2"
-                                                else 1)), dev, stream)
+                        ztab.data_ptr(), args, dev, stream)
                     if rc:
                         raise SystemExit(f"{name} failed: CUDA error {rc}")
-                    outs.append(out)
+                for lib, out in zip(libs.values(), outs):
+                    launch(lib, out)
                 torch.cuda.synchronize()
+                if what == "3d_channel":
+                    ms = median_ms({tag: (lambda lib=lib, out=out:
+                                          launch(lib, out))
+                                    for (tag, lib), out in zip(libs.items(),
+                                                               outs)})
+                    print(f"{name} on {what}: " + ", ".join(
+                        f"{tag} {v:.5f} ms" for tag, v in ms.items())
+                        + f" (medians of {ROUNDS}x{REPS} launches)")
                 equal = torch.equal(outs[0], outs[1])
                 diff = float((outs[0] - outs[1]).abs().max())
                 print(f"{name} on {what} {tuple(f.shape)}: "

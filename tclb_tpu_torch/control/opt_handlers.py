@@ -49,8 +49,20 @@ def _design_bounds(design):
     return (max(los) if los else None, min(his) if his else None)
 
 
+def _full_width(lat) -> None:
+    """Gradients differentiate an f32/f64 state: a narrowed lattice (the
+    storage ladder) has no adjoint in the JAX package either, so it is
+    refused rather than differentiated at another precision."""
+    if lat.narrowed:
+        raise NotImplementedError(
+            f"gradients of a lattice with {lat.storage_dtype} storage are "
+            "not ported (ROADMAP queue 2: the adjoint kernels take f32 "
+            "storage only)")
+
+
 def _unsteady(s: Solver, design, niter: int):
     lat = s.lattice
+    _full_width(lat)
     grad_fn = make_unsteady_gradient(s.model, design, niter,
                                      shape=lat.shape, dtype=lat.dtype,
                                      device=lat.device)
@@ -86,6 +98,7 @@ class acAdjoint(GenericAction):
         theta = design.get(lat.state, lat.params)
         if self.node.get("type", "unsteady") == "steady":
             n_adj = int(round(s.units.alt(self.node.get("NAdjoint", "100"))))
+            _full_width(lat)
             grad_fn = make_steady_gradient(s.model, design, n_adjoint=n_adj,
                                            shape=lat.shape, dtype=lat.dtype,
                                            device=lat.device)

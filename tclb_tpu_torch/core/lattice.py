@@ -35,6 +35,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from tclb_tpu_torch.core import shift as ddf
 from tclb_tpu_torch.core.registry import Model
 from tclb_tpu_torch.utils import log
 
@@ -378,14 +379,28 @@ def make_action_step(model: Model, action: str = "Iteration",
 
 def make_iterate(model: Model, action: str = "Iteration",
                  streaming: Optional[Streaming] = None,
-                 present: Optional[set] = None) -> Callable:
+                 present: Optional[set] = None,
+                 storage_dtype: Any = None,
+                 storage_shift: Optional[np.ndarray] = None) -> Callable:
     """``niter``-step loop.  Its contract is "globals_ = the LAST step's
     integrals", so the first ``niter - 1`` steps run the NoGlobals flavour
-    and only the final step reduces."""
-    step_ng = make_action_step(model, action, streaming, present=present,
-                               compute_globals=False)
-    step_full = make_action_step(model, action, streaming, present=present,
-                                 compute_globals=True)
+    and only the final step reduces.
+
+    ``storage_dtype`` (the storage ladder) narrows the carry: each step
+    widens the fields to the compute dtype (the settings'), runs the whole
+    action and narrows the result, so the state between steps is
+    ``storage_dtype`` -- once per step, after the last stage, never
+    between stages.  ``storage_shift`` is the float32 block of
+    :func:`tclb_tpu_torch.core.shift.stack_shift` (``storage_repr=
+    "shifted"``: the carry stores ``f_i - w_i``); ``None`` is the raw
+    representation, pure casts.  Without ``storage_dtype`` nothing is
+    cast."""
+    step_ng = narrowed_step(make_action_step(
+        model, action, streaming, present=present, compute_globals=False),
+        storage_dtype, storage_shift)
+    step_full = narrowed_step(make_action_step(
+        model, action, streaming, present=present, compute_globals=True),
+        storage_dtype, storage_shift)
 
     def iterate(state: LatticeState, params: SimParams, niter: int
                 ) -> LatticeState:
@@ -399,8 +414,30 @@ def make_iterate(model: Model, action: str = "Iteration",
     return iterate
 
 
+def narrowed_step(step: Callable, storage_dtype: Any = None,
+                  storage_shift: Optional[np.ndarray] = None) -> Callable:
+    """``step`` on a narrowed carry: widen the fields to the compute dtype
+    (the settings') with the shift restored, run ``step``, narrow its
+    fields with the shift removed.  ``storage_dtype=None``: ``step``
+    itself."""
+    if storage_dtype is None:
+        return step
+
+    def one(state: LatticeState, params: SimParams) -> LatticeState:
+        wide = ddf.widen_stack(state.fields, params.settings.dtype,
+                               storage_shift)
+        out = step(dataclasses.replace(state, fields=wide), params)
+        return dataclasses.replace(out, fields=ddf.narrow_stack(
+            out.fields, storage_dtype, storage_shift))
+
+    return one
+
+
 def make_sampled_iterate(model: Model, points: np.ndarray,
-                         quantities: Sequence[str]) -> Callable:
+                         quantities: Sequence[str],
+                         storage_dtype: Any = None,
+                         storage_shift: Optional[np.ndarray] = None
+                         ) -> Callable:
     """Like :func:`make_iterate`, but every step also gathers the listed
     quantities at fixed lattice points (the <Sample> probes).
 
@@ -408,15 +445,23 @@ def make_sampled_iterate(model: Model, points: np.ndarray,
     x).  Returns ``iterate(state, params, niter, avg_start=0) -> (state,
     samples)`` with ``samples`` ``(niter, npoints, ncols)``: a vector
     quantity gives its components as consecutive columns.  Every step
-    reduces the globals, so the state's globals are the last step's."""
-    step = make_action_step(model)
+    reduces the globals, so the state's globals are the last step's.  On a
+    narrowed carry (``storage_dtype``, ``storage_shift`` as in
+    :func:`make_iterate`) each step narrows once and the probes read the
+    stored state widened with its shift, as ``Lattice.get_quantity``
+    does."""
+    step = narrowed_step(make_action_step(model), storage_dtype,
+                         storage_shift)
     idx = tuple(torch.as_tensor(np.asarray(points)[:, k], dtype=torch.long)
                 for k in range(np.asarray(points).shape[1]))
     qfns = [model.quantity_fns[q] for q in quantities]
 
     def sample(state: LatticeState, params: SimParams, avg_start: int
                ) -> torch.Tensor:
-        ctx = NodeCtx(model, state.fields, state.fields, state.flags, params,
+        f = state.fields
+        if storage_dtype is not None:
+            f = ddf.widen_stack(f, params.settings.dtype, storage_shift)
+        ctx = NodeCtx(model, f, f, state.flags, params,
                       iteration=state.iteration, avg_start=avg_start)
         at = tuple(i.to(state.fields.device) for i in idx)
         cols = []
@@ -452,7 +497,16 @@ def _roadmap(what: str, item: str) -> NotImplementedError:
 
 class Lattice:
     """Host-side wrapper: allocate, Init, Iterate, get/set densities,
-    quantities, settings, save/load.  ``device=None`` means the card."""
+    quantities, settings, save/load.  ``device=None`` means the card.
+
+    The storage ladder: ``storage_dtype`` (opt-in; default the compute
+    dtype) narrows the field stack at rest only -- every step computes in
+    ``dtype``, and settings, zone tables and globals stay at ``dtype``.
+    A narrowed lattice with a recognized velocity set stores ``f_i - w_i``
+    (``storage_repr="shifted"``) unless ``storage_repr="raw"`` is asked
+    for; a full-width lattice is always raw, so the f32 path is unchanged.
+    The density accessors, ``get_quantity`` and ``fields_raw`` read and
+    write raw distributions in either representation."""
 
     def __init__(self, model: Model, shape: Sequence[int],
                  dtype: torch.dtype = torch.float32,
@@ -466,20 +520,29 @@ class Lattice:
                              f"got shape {shape}")
         if mesh is not None:
             raise _roadmap("a sharded (mesh) lattice", "item 12")
-        if (storage_dtype not in (None, dtype)
-                or storage_repr not in (None, "raw")):
-            raise _roadmap("the narrowed storage ladder", "item 9")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        sdt = dtype if storage_dtype is None \
+            else ddf.torch_dtype(storage_dtype)
+        narrowed = sdt != dtype
+        if narrowed and (not sdt.is_floating_point or sdt.itemsize
+                         > dtype.itemsize):
+            raise ValueError(
+                f"storage_dtype {ddf.dtype_name(sdt)} must be a float dtype "
+                f"no wider than the compute dtype {ddf.dtype_name(dtype)}")
         self.model = model
         self.shape = tuple(int(s) for s in shape)
         self.dtype = dtype
+        self.storage_dtype = sdt
+        self.storage_repr = ddf.resolve_repr(model, narrowed, storage_repr)
+        self._shift_vec = ddf.shift_of(model, self.storage_repr)
+        self._shift_block = ddf.stack_shift(model, self.storage_repr)
         self.device = resolve_device(device)
         vec = model.settings_vector(settings)
         self.params = self._params_from(
             vec, np.broadcast_to(vec[:, None], (len(vec), model.zone_max)))
         self.state = LatticeState(
-            fields=torch.zeros((model.n_storage,) + self.shape, dtype=dtype,
+            fields=torch.zeros((model.n_storage,) + self.shape, dtype=sdt,
                                device=self.device),
             flags=torch.zeros(self.shape, dtype=FLAG_DTYPE,
                               device=self.device),
@@ -489,7 +552,8 @@ class Lattice:
         )
         self._host_flags = np.zeros(self.shape, dtype=np.uint16)
         self.avg_start = 0    # iteration of the last <Average> reset
-        self._init = make_action_step(model, "Init")
+        self._init = narrowed_step(make_action_step(model, "Init"),
+                                   *self._carry())
         self._iterate_cached: Optional[Callable] = None
         self._fast: Optional[Callable] = None
         self._fast_name: Optional[str] = None
@@ -498,6 +562,18 @@ class Lattice:
         self._series: dict = {}   # (setting index, zone) -> host series
         self.sampler = None       # a <Sample> point sampler, if attached
         self._iterate_sampled: Optional[Callable] = None
+
+    @property
+    def narrowed(self) -> bool:
+        """Whether the fields are stored narrower than they compute."""
+        return self.storage_dtype != self.dtype
+
+    def _carry(self) -> tuple:
+        """``(storage_dtype, storage_shift)`` as :func:`make_iterate`
+        takes them: ``(None, None)`` for a full-width lattice."""
+        if not self.narrowed:
+            return None, None
+        return self.storage_dtype, self._shift_block
 
     def _params_from(self, vec: np.ndarray, table: np.ndarray) -> SimParams:
         return SimParams(
@@ -522,11 +598,12 @@ class Lattice:
 
     def set_state(self, state: LatticeState, params: SimParams) -> None:
         """Adopt a whole state and its params (e.g. from
-        :func:`tclb_tpu_torch.convert.state_from_numpy`)."""
+        :func:`tclb_tpu_torch.convert.state_from_numpy`); the fields are
+        at rest in this lattice's storage dtype and representation."""
         self.set_flags(state.flags.cpu().numpy())
         self.state = dataclasses.replace(
             state, flags=self.state.flags,
-            fields=state.fields.to(self.device, self.dtype),
+            fields=state.fields.to(self.device, self.storage_dtype),
             globals_=state.globals_.to(self.device, self.dtype))
         ts = params.time_series
         self.params = SimParams(
@@ -593,7 +670,7 @@ class Lattice:
         gathers per step.  ``detach_sampler`` returns to the kernels."""
         self.sampler = sampler
         self._iterate_sampled = make_sampled_iterate(
-            self.model, sampler.points, sampler.quantities)
+            self.model, sampler.points, sampler.quantities, *self._carry())
         log.info(f"engine: sampled_eager ({len(sampler.points)} points, "
                  f"{','.join(sampler.quantities)} every step; kernel "
                  "engines resume when the sampler is detached)")
@@ -616,7 +693,9 @@ class Lattice:
             from tclb_tpu_torch.ops.lbm import present_types
             self._iterate_cached = make_iterate(
                 self.model, present=present_types(self.model,
-                                                  self._host_flags))
+                                                  self._host_flags),
+                storage_dtype=self._carry()[0],
+                storage_shift=self._carry()[1])
         return self._iterate_cached
 
     def _build_fast(self):
@@ -625,8 +704,10 @@ class Lattice:
         The kernels run on the card only, and ``TCLB_FASTPATH=0`` turns
         them off.  Each kernel module is asked in turn and the first whose
         ``supports()`` accepts is taken; anything every one rejects —
-        another model, f64 — runs eager by selection, not after a
-        failure."""
+        another model, f64, a storage dtype the kernel has no rung for —
+        runs eager by selection, not after a failure.  Each engine is
+        handed the storage dtype and representation and names them in its
+        tag (``cuda_generic_band[d2q9,fuse=1,bfloat16/shifted]``)."""
         from tclb_tpu_torch.ops import (d2q9_kernels, d3q27_kernels,
                                         generic3d_kernels, generic_kernels)
         if os.environ.get("TCLB_FASTPATH") == "0" \
@@ -637,8 +718,10 @@ class Lattice:
         series = self.params.time_series is not None
         for mod in (d2q9_kernels, d3q27_kernels, generic3d_kernels,
                     generic_kernels):
-            fast, tag = mod.select_engine(self.model, self.shape, self.dtype,
-                                          series=series)
+            fast, tag = mod.select_engine(
+                self.model, self.shape, self.dtype, series=series,
+                storage_dtype=self.storage_dtype,
+                storage_repr=self.storage_repr)
             if fast is not None:
                 return fast, tag
         return None, None
@@ -652,6 +735,9 @@ class Lattice:
                           if getattr(self._fast, "full_globals", False)
                           else "(+1 eager step per call for globals)")
                 log.info(f"engine: {self._fast_name} {suffix}")
+            elif self.narrowed:
+                log.info(f"engine: {self.eager_tag} (no kernel engine "
+                         "takes this configuration)")
             else:
                 log.debug(f"engine: eager ({self.model.name} {self.shape} "
                           f"{self.dtype} on {self.device})")
@@ -665,7 +751,16 @@ class Lattice:
         if self.sampler is not None:
             return "sampled_eager"
         self._fast_path()
-        return self._fast_name or "eager"
+        return self._fast_name or self.eager_tag
+
+    @property
+    def eager_tag(self) -> str:
+        """The eager engine's tag: ``eager``, and on a narrowed lattice
+        ``eager[bfloat16/shifted]``."""
+        if not self.narrowed:
+            return "eager"
+        return (f"eager[{ddf.dtype_name(self.storage_dtype)}/"
+                f"{self.storage_repr}]")
 
     def iterate(self, niter: int) -> None:
         """Advance ``niter`` steps.  An engine that returns the last step's
@@ -707,7 +802,8 @@ class Lattice:
     def get_quantity(self, name: str) -> torch.Tensor:
         """Evaluate a registered Quantity over the lattice."""
         fn = self.model.quantity_fns[name]
-        f = self.state.fields
+        # quantities evaluate in the compute dtype over raw distributions
+        f = ddf.widen_stack(self.state.fields, self.dtype, self._shift_block)
         ctx = NodeCtx(self.model, f, f, self.state.flags, self.params,
                       iteration=self.state.iteration,
                       avg_start=self.avg_start)
@@ -724,22 +820,45 @@ class Lattice:
             self.state = dataclasses.replace(self.state, fields=fields)
         self.avg_start = int(self.state.iteration)
 
+    def _plane_w(self, idx: int) -> Optional[float]:
+        """Plane ``idx``'s shift under the shifted representation, else
+        ``None``."""
+        if self._shift_vec is None:
+            return None
+        return float(self._shift_vec[idx]) or None
+
     def get_density(self, name: str) -> torch.Tensor:
-        return self.state.fields[self.model.storage_index[name]]
+        """One storage plane in raw distribution values (a narrowed plane
+        widened with its shift; a full-width plane as it is stored)."""
+        idx = self.model.storage_index[name]
+        if not self.narrowed:
+            return self.state.fields[idx]
+        return ddf.widen_plane(self.state.fields[idx], self.dtype,
+                               self._plane_w(idx))
 
     def set_density_planes(self, values: dict) -> None:
+        """Write several storage planes from raw distribution values; a
+        narrowed plane has its shift removed in the compute dtype before
+        the cast."""
         fields = self.state.fields.clone()
         for name, value in values.items():
-            fields[self.model.storage_index[name]] = torch.as_tensor(
-                np.asarray(value), dtype=self.dtype, device=self.device)
+            idx = self.model.storage_index[name]
+            plane = torch.as_tensor(np.asarray(value), dtype=self.dtype,
+                                    device=self.device)
+            fields[idx] = ddf.narrow_plane(plane, self.storage_dtype,
+                                           self._plane_w(idx))
         self.state = dataclasses.replace(self.state, fields=fields)
 
     def set_density(self, name: str, value) -> None:
         self.set_density_planes({name: value})
 
     def fields_raw(self) -> np.ndarray:
-        """The field stack as a host float64 array."""
-        return self.state.fields.cpu().numpy().astype(np.float64)
+        """The field stack as a host float64 array in the raw
+        representation (exact for either storage layout: the arithmetic
+        runs in f64)."""
+        return ddf.convert_fields_host(
+            self.state.fields.double().cpu().numpy(), self.storage_repr,
+            "raw", ddf.storage_shift(self.model), np.float64)
 
     def get_globals(self) -> dict[str, float]:
         vals = self.state.globals_.cpu().numpy()
@@ -758,7 +877,9 @@ class Lattice:
 
     def save(self, path: str) -> None:
         """Full-state dump in the JAX package's legacy ``.npz`` format,
-        written atomically."""
+        written atomically, stamped with the storage dtype and
+        representation (bf16 fields as their uint16 bits, as the JAX
+        package's ``npy_safe`` writes them)."""
         from tclb_tpu_torch.checkpoint.writer import atomic_path, with_suffix
         extra = {}
         if self.params.time_series is not None:
@@ -769,28 +890,37 @@ class Lattice:
         with atomic_path(target) as tmp:
             with open(tmp, "wb") as f:
                 np.savez(f,
-                         fields=self.state.fields.cpu().numpy(),
+                         fields=self._fields_at_rest(),
                          flags=self._host_flags,
                          iteration=int(self.state.iteration),
                          settings=self.params.settings.cpu().numpy(),
                          zone_table=self.params.zone_table.cpu().numpy(),
-                         storage_dtype=str(np.dtype(
-                             str(self.dtype).replace("torch.", ""))),
-                         storage_repr="raw", **extra)
+                         storage_dtype=ddf.dtype_name(self.storage_dtype),
+                         storage_repr=self.storage_repr, **extra)
+
+    def _fields_at_rest(self) -> np.ndarray:
+        """The field stack at rest on the host: bf16 as its uint16 bits."""
+        if self.storage_dtype == torch.bfloat16:
+            return ddf.bf16_bits(self.state.fields)
+        return self.state.fields.cpu().numpy()
 
     def load(self, path: str) -> None:
         """Restore a ``.npz`` written by :meth:`save` or by the JAX
-        package's ``Lattice.save`` / ``<SaveBinary>`` (raw f32/f64)."""
+        package's ``Lattice.save`` / ``<SaveBinary>``.  A file in this
+        lattice's storage representation is cast to its storage dtype
+        (bit-exact when the dtype is the same too); one in the other
+        representation is converted on the host in f64.  Files without a
+        stamp are raw."""
         from tclb_tpu_torch.checkpoint.writer import resolve_npz
         with np.load(resolve_npz(path)) as d:
             src_repr = str(d["storage_repr"]) if "storage_repr" in d \
                 else "raw"
             src_dtype = str(d["storage_dtype"]) if "storage_dtype" in d \
                 else str(d["fields"].dtype)
-            if src_repr != "raw" or src_dtype not in ("float32", "float64"):
-                raise _roadmap(f"restoring {src_dtype}/{src_repr} storage",
-                               "item 9")
-            fields = np.asarray(d["fields"])
+            if src_repr not in ddf.STORAGE_REPRS:
+                raise ValueError(f"unknown storage_repr {src_repr!r} in "
+                                 f"{path}; known: {ddf.STORAGE_REPRS}")
+            src = ddf.tensor_from_numpy(d["fields"], src_dtype)
             flags = np.asarray(d["flags"], dtype=np.uint16)
             iteration = int(d["iteration"])
             settings = np.asarray(d["settings"])
@@ -800,12 +930,16 @@ class Lattice:
             smap = tuple(tuple(int(v) for v in row)
                          for row in d["series_map"]) if ts is not None \
                 else ()
+        if src_repr == self.storage_repr:
+            fields = src.to(self.storage_dtype)
+        else:
+            fields = ddf.tensor_from_numpy(ddf.convert_fields_host(
+                src.double().numpy(), src_repr, self.storage_repr,
+                ddf.storage_shift(self.model), self.storage_dtype),
+                self.storage_dtype)
         self.set_flags(flags)
         self.state = dataclasses.replace(
-            self.state,
-            fields=torch.as_tensor(fields, dtype=self.dtype,
-                                   device=self.device),
-            iteration=iteration)
+            self.state, fields=fields.to(self.device), iteration=iteration)
         self._series = {} if ts is None else {
             (si, z): ts[r].astype(np.float64) for si, z, r in smap}
         self.params = dataclasses.replace(

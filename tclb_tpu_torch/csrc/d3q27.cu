@@ -66,10 +66,28 @@
 // D3q27Args.  No globals are computed (the engine's trailing eager step
 // does); the cumulant's SynthT planes are copied through.
 //
+// The storage ladder: both kernels also take a bf16 stack at rest
+// (d3q27_step_bf16, d3q27_step2_bf16: the same templates with
+// S = __nv_bfloat16).  Each population plane is widened where it is pulled
+// from device memory and narrowed where it is stored, through
+// csrc/storage.cuh (load_plane, store_plane), with the plane's DDF shift
+// from core/shift.py, a __grid_constant__ launch argument as K4's: the
+// lattice weight under the shifted representation, 0 under the raw one
+// and for the cumulant's SynthT and average planes, which pass through as
+// plain casts.  The ring of step-1 planes in shared memory stays f32, so
+// d3q27_step2 narrows once per two steps (as pallas_d3q.py's fused kernel
+// does, :797-840) and its averages take both steps' increments before they
+// narrow.  A bf16 node moves a little over half the bytes of an f32 one
+// (the cumulant: 140 B against 276 B).  f32 storage ignores the shifts:
+// its outputs are those of plain f32 loads and stores, and every plane it
+// reads takes the read-only path (fin is never written in a launch).
+//
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
 
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 #ifndef D3Q_MODEL
 #define D3Q_MODEL 0
@@ -219,6 +237,9 @@ __host__ __device__ constexpr double weight_d(int k) {
          : speed2(k) == 2 ? 1.0 / 54.0 : 1.0 / 216.0;
 }
 
+// the stack's per-plane shifts (csrc/storage.cuh)
+using Shift = PlaneShift<N_STORAGE>;
+
 // f[idx] as selects: the index folds to a constant where the compiler sees
 // it, and a runtime index into f would move the populations to local memory
 __device__ __forceinline__ float pick(const float* f, int idx) {
@@ -350,12 +371,14 @@ __device__ __forceinline__ void bounce_back(float* f) {
 // The boundary case the node's flag selects (the cases are exclusive: all
 // are values of the BOUNDARY group).  `ztab` holds the zonal Velocity and
 // Density rows (and the cumulant's Turbulence); SynthT is read only at
-// turbulent-inlet nodes.
+// turbulent-inlet nodes (`w`: the stack's per-plane shifts).
+template <class S>
 __device__ __forceinline__ void boundary(const D3q27Args& a, float* f,
                                          int flag,
                                          const float* __restrict__ ztab,
-                                         const float* __restrict__ fin,
-                                         size_t n, size_t idx) {
+                                         const S* __restrict__ fin,
+                                         const float* w, size_t n,
+                                         size_t idx) {
   const int zone = flag >> a.zone_shift;
   const float* vel = ztab + zone;
   const float* den = ztab + a.zone_max + zone;
@@ -395,9 +418,13 @@ __device__ __forceinline__ void boundary(const D3q27Args& a, float* f,
     nebb<1, -1>(f, false, __ldg(den), 0.f, 0.f, false);
   else if (is_type(a, flag, CASE_WTURBULENT)) {
     const float turb = __ldg(ztab + 2 * a.zone_max + zone);
-    nebb<0, 1>(f, true, __ldg(vel) + turb * fin[P_SYNTH * n + idx],
-               turb * fin[(P_SYNTH + 1) * n + idx],
-               turb * fin[(P_SYNTH + 2) * n + idx], true);
+    nebb<0, 1>(f, true,
+               __ldg(vel) + turb * load_plane<false>(
+                                       fin + P_SYNTH * n + idx, w, P_SYNTH),
+               turb * load_plane<false>(fin + (P_SYNTH + 1) * n + idx, w,
+                                        P_SYNTH + 1),
+               turb * load_plane<false>(fin + (P_SYNTH + 2) * n + idx, w,
+                                        P_SYNTH + 2), true);
   }
 #endif
 }
@@ -746,13 +773,14 @@ __device__ __forceinline__ void les_collide(const D3q27Args& a, float* f) {
 // group is set.  The cumulant takes omega from the Buffer layer select and
 // returns the averages' increments (rho - 1) / 3 and u in `inc`; the other
 // models leave `inc` alone.
+template <class S>
 __device__ __forceinline__ void node_update(const D3q27Args& a, float* f,
                                             int flag,
                                             const float* __restrict__ ztab,
-                                            const float* __restrict__ fin,
-                                            size_t n, size_t idx,
-                                            float* inc) {
-  boundary(a, f, flag, ztab, fin, n, idx);
+                                            const S* __restrict__ fin,
+                                            const float* w, size_t n,
+                                            size_t idx, float* inc) {
+  boundary(a, f, flag, ztab, fin, w, n, idx);
   if constexpr (kCumulant) {
     const float omega = (flag & a.buffer_mask) == a.buffer_val
                             ? a.omega_buffer : a.omega;
@@ -770,9 +798,11 @@ __device__ __forceinline__ void node_update(const D3q27Args& a, float* f,
 }
 
 // f_k(z, y, x) <- fin_k(z - ez, y - ey, x - ex), periodic
+template <class S>
 __device__ __forceinline__ void pull(const D3q27Args& a,
-                                     const float* __restrict__ fin, int z,
-                                     int y, int x, float* f) {
+                                     const S* __restrict__ fin,
+                                     const float* w, int z, int y, int x,
+                                     float* f) {
   const size_t n = (size_t)a.nz * a.ny * a.nx;
   int sz[3], sy[3], sx[3];
   sources(z, a.nz, sz);
@@ -782,28 +812,32 @@ __device__ __forceinline__ void pull(const D3q27Args& a,
   for (int k = 0; k < Q; ++k) {
     const size_t g = ((size_t)sz[comp(k, 2) + 1] * a.ny + sy[comp(k, 1) + 1])
                      * a.nx + sx[comp(k, 0) + 1];
-    f[k] = __ldg(fin + k * n + g);
+    f[k] = load_plane<false>(fin + k * n + g, w, k);
   }
 }
 
 // Write a node's populations; the cumulant also copies its SynthT planes
 // and adds the averages' increments (inc1 then inc2, as consecutive steps
 // would).
-__device__ __forceinline__ void store(const float* __restrict__ fin,
-                                      float* __restrict__ fout, size_t n,
+template <class S>
+__device__ __forceinline__ void store(const S* __restrict__ fin,
+                                      S* __restrict__ fout, size_t n,
                                       size_t idx, const float* f,
-                                      const float* inc1, const float* inc2) {
+                                      const float* inc1, const float* inc2,
+                                      const float* w) {
 #pragma unroll
-  for (int k = 0; k < Q; ++k) fout[k * n + idx] = f[k];
+  for (int k = 0; k < Q; ++k) store_plane(fout + k * n + idx, f[k], w, k);
   if constexpr (kCumulant) {
 #pragma unroll
     for (int p = P_SYNTH; p < P_AVGP; ++p)
-      fout[p * n + idx] = fin[p * n + idx];
+      store_plane(fout + p * n + idx,
+                  load_plane<false>(fin + p * n + idx, w, p), w, p);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      float v = fin[(P_AVGP + c) * n + idx] + inc1[c];
+      const int p = P_AVGP + c;
+      float v = load_plane<false>(fin + p * n + idx, w, p) + inc1[c];
       if (inc2) v = v + inc2[c];
-      fout[(P_AVGP + c) * n + idx] = v;
+      store_plane(fout + p * n + idx, v, w, p);
     }
   }
 }
@@ -811,10 +845,13 @@ __device__ __forceinline__ void store(const float* __restrict__ fin,
 #define STEP_TX 32
 #define STEP_TY 4
 
+// `sh`: the stack's per-plane shifts (read by S = bf16 only)
+template <class S>
 __global__ void __launch_bounds__(STEP_TX * STEP_TY)
-d3q27_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+d3q27_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                   const int* __restrict__ flags,
-                  const float* __restrict__ ztab, const D3q27Args a) {
+                  const float* __restrict__ ztab, const D3q27Args a,
+                  const __grid_constant__ Shift sh) {
   const int x = blockIdx.x * STEP_TX + threadIdx.x;
   const int y = blockIdx.y * STEP_TY + threadIdx.y;
   const int z = blockIdx.z;
@@ -822,9 +859,9 @@ d3q27_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   const size_t n = (size_t)a.nz * a.ny * a.nx;
   const size_t idx = ((size_t)z * a.ny + y) * a.nx + x;
   float f[Q], inc[4];
-  pull(a, fin, z, y, x, f);
-  node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
-  store(fin, fout, n, idx, f, inc, nullptr);
+  pull(a, fin, sh.w, z, y, x, f);
+  node_update(a, f, __ldg(flags + idx), ztab, fin, sh.w, n, idx, inc);
+  store(fin, fout, n, idx, f, inc, nullptr, sh.w);
 }
 
 // d3q27_step2 tiling: a TX x TY output column, its step-1 extension by one
@@ -863,10 +900,12 @@ __device__ __forceinline__ float* ring_slot(float* smem, int k, int r) {
   return smem + (g + zrank(k)) * EXT_N;
 }
 
+template <class S>
 __global__ void __launch_bounds__(STEP2_THREADS, 2)
-d3q27_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+d3q27_step2_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                    const int* __restrict__ flags,
-                   const float* __restrict__ ztab, const D3q27Args a) {
+                   const float* __restrict__ ztab, const D3q27Args a,
+                   const __grid_constant__ Shift sh) {
   extern __shared__ float smem[];
   float* sinc = smem + RING_PLANES * EXT_N;       // [2][4][TX * TY]
   const size_t n = (size_t)a.nz * a.ny * a.nx;
@@ -892,8 +931,8 @@ d3q27_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
       const int z1 = wrap(zs - 1 + r, a.nz);
       const size_t idx = ((size_t)z1 * a.ny + y1) * a.nx + x1;
       float f[Q], inc[4];
-      pull(a, fin, z1, y1, x1, f);
-      node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
+      pull(a, fin, sh.w, z1, y1, x1, f);
+      node_update(a, f, __ldg(flags + idx), ztab, fin, sh.w, n, idx, inc);
 #pragma unroll
       for (int k = 0; k < Q; ++k) ring_slot(smem, k, r)[tid] = f[k];
       if (kCumulant && central1) {
@@ -913,14 +952,14 @@ d3q27_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
         f[k] = ring_slot(smem, k, r - 1 - comp(k, 2))[
             (cy + 1 - comp(k, 1)) * EXT_X + (cx + 1 - comp(k, 0))];
       const size_t idx = ((size_t)z * a.ny + y2) * a.nx + x2;
-      node_update(a, f, __ldg(flags + idx), ztab, fin, n, idx, inc);
+      node_update(a, f, __ldg(flags + idx), ztab, fin, sh.w, n, idx, inc);
       float inc1[4];
       if constexpr (kCumulant) {
         const float* si = sinc + ((r - 1) % 2) * 4 * TX * TY + cy * TX + cx;
 #pragma unroll
         for (int c = 0; c < 4; ++c) inc1[c] = si[c * TX * TY];
       }
-      store(fin, fout, n, idx, f, inc1, inc);
+      store(fin, fout, n, idx, f, inc1, inc, sh.w);
     }
     __syncthreads();              // before the next step 1 reuses slots
   }
@@ -933,8 +972,8 @@ const char* d3q27_error_string(int code) {
 }
 
 // The compiled model: its D3Q_MODEL id, its population count, storage
-// planes and boundary cases, and its velocity set (Q entries each of ex, ey,
-// ez; the wrapper checks them against the registry).
+// planes and boundary cases and its velocity set (Q entries each of ex,
+// ey, ez); the wrapper checks them against the registry.
 void d3q27_model_info(int* model, int* q, int* n_storage, int* n_cases,
                       int* ex, int* ey, int* ez) {
   *model = kModel;
@@ -948,18 +987,19 @@ void d3q27_model_info(int* model, int* q, int* n_storage, int* n_cases,
   }
 }
 
-// Shared-memory bytes, threads and co-resident blocks per SM of one
-// d3q27_step2 block (the wrapper sizes the z runs from them).
-int d3q27_step2_config(int device, int* smem, int* threads,
-                       int* blocks_per_sm, int* sms) {
+}  // extern "C"
+
+template <class S>
+static int step2_config(int device, int* smem, int* threads,
+                        int* blocks_per_sm, int* sms) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(d3q27_step2_kernel,
+  e = cudaFuncSetAttribute(d3q27_step2_kernel<S>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)STEP2_SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, d3q27_step2_kernel, STEP2_THREADS, STEP2_SMEM);
+      blocks_per_sm, d3q27_step2_kernel<S>, STEP2_THREADS, STEP2_SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
@@ -968,33 +1008,80 @@ int d3q27_step2_config(int device, int* smem, int* threads,
   return 0;
 }
 
-int d3q27_step(const float* fin, float* fout, const int* flags,
-               const float* ztab, const D3q27Args* a, int device,
-               void* stream) {
+template <class S>
+static int launch_step(const S* fin, S* fout, const int* flags,
+                       const float* ztab, const D3q27Args* a,
+                       const float* shift, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const dim3 block(STEP_TX, STEP_TY);
   const dim3 grid((a->nx + STEP_TX - 1) / STEP_TX,
                   (a->ny + STEP_TY - 1) / STEP_TY, a->nz);
-  d3q27_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      fin, fout, flags, ztab, *a);
+  d3q27_step_kernel<S><<<grid, block, 0, (cudaStream_t)stream>>>(
+      fin, fout, flags, ztab, *a, shift_arg<N_STORAGE>(shift));
   return (int)cudaGetLastError();
 }
 
-int d3q27_step2(const float* fin, float* fout, const int* flags,
-                const float* ztab, const D3q27Args* a, int device,
-                void* stream) {
+template <class S>
+static int launch_step2(const S* fin, S* fout, const int* flags,
+                        const float* ztab, const D3q27Args* a,
+                        const float* shift, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(d3q27_step2_kernel,
+  e = cudaFuncSetAttribute(d3q27_step2_kernel<S>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)STEP2_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY,
                   (a->nz + a->zc - 1) / a->zc);
-  d3q27_step2_kernel<<<grid, STEP2_THREADS, STEP2_SMEM,
-                       (cudaStream_t)stream>>>(fin, fout, flags, ztab, *a);
+  d3q27_step2_kernel<S><<<grid, STEP2_THREADS, STEP2_SMEM,
+                          (cudaStream_t)stream>>>(
+      fin, fout, flags, ztab, *a, shift_arg<N_STORAGE>(shift));
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// Shared-memory bytes, threads and co-resident blocks per SM of one
+// d3q27_step2 block (`bf16` != 0: d3q27_step2_bf16's; the wrapper sizes
+// the z runs from them).
+int d3q27_step2_config(int device, int bf16, int* smem, int* threads,
+                       int* blocks_per_sm, int* sms) {
+  return bf16 ? step2_config<__nv_bfloat16>(device, smem, threads,
+                                            blocks_per_sm, sms)
+              : step2_config<float>(device, smem, threads, blocks_per_sm,
+                                    sms);
+}
+
+int d3q27_step(const float* fin, float* fout, const int* flags,
+               const float* ztab, const D3q27Args* a, int device,
+               void* stream) {
+  return launch_step<float>(fin, fout, flags, ztab, a, nullptr, device,
+                            stream);
+}
+
+int d3q27_step2(const float* fin, float* fout, const int* flags,
+                const float* ztab, const D3q27Args* a, int device,
+                void* stream) {
+  return launch_step2<float>(fin, fout, flags, ztab, a, nullptr, device,
+                             stream);
+}
+
+// The kernels on a bf16 stack at rest, with the planes' shifts `shift`
+// (host, n_storage floats; null: raw).
+int d3q27_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
+                    const int* flags, const float* ztab, const D3q27Args* a,
+                    const float* shift, int device, void* stream) {
+  return launch_step<__nv_bfloat16>(fin, fout, flags, ztab, a, shift,
+                                    device, stream);
+}
+
+int d3q27_step2_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
+                     const int* flags, const float* ztab,
+                     const D3q27Args* a, const float* shift, int device,
+                     void* stream) {
+  return launch_step2<__nv_bfloat16>(fin, fout, flags, ztab, a, shift,
+                                     device, stream);
 }
 
 }  // extern "C"

@@ -50,6 +50,18 @@
 //                       hand-written reverse stage (csrc/generic2d_adjoint.cuh,
 //                       built where the header defines TCLB_MODEL_ADJOINT).
 //
+// The storage ladder: generic2d_step (both flavours) and generic2d_resident
+// also take a bf16 stack at rest (generic2d_step_bf16,
+// generic2d_resident_bf16; the same templates with S = __nv_bfloat16).  A
+// plane is widened where it is read from device memory and narrowed where it
+// is written there, with its DDF shift, through csrc/storage.cuh only; the
+// stages compute in f32 and the shared tile stays f32, so a step narrows
+// once, after its last stage, as the narrowed eager engine does.  The
+// resident kernel keeps stage 0's output of a two-stage step in an f32
+// scratch stack for stage 1 to read, for the same reason.  A bf16 node moves
+// half the bytes of an f32 one (d2q9: 48 B against 92 B).  f32 storage runs
+// the same code as before the ladder (S = float: plain loads and stores).
+//
 // Like the JAX engine, the stage plan runs on shrinking rings: stage s
 // computes its output on the tile plus model::stage_ext(s) nodes; the
 // template runs one-stage actions and two-stage actions whose second stage
@@ -63,8 +75,11 @@
 #include <cuda_runtime.h>
 
 #include "generic_common.cuh"
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
+
+using Shift = PlaneShift<model::N_STORAGE>;
 
 static_assert((model::N_STAGES == 2 && model::stage_ext(1) == 0)
                   || (model::N_STAGES == 1 && model::stage_ext(0) == 0),
@@ -84,34 +99,39 @@ constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 // What a stage reads: plane k at an unwrapped (y, x)
 // ---------------------------------------------------------------------------
 
-// every plane from one buffer in device memory; kCoherent reads through L2
-// only (the resident kernel's buffers change during the launch)
-template <bool kCoherent>
+// every plane from one buffer in device memory, stored as S (f32, or bf16
+// widened with the planes' shifts `w`); kCoherent reads through L2 only
+// (the resident kernel's buffers change during the launch)
+template <bool kCoherent, class S = float>
 struct DeviceStorage {
-  const float* p;
+  const S* p;
   int ny, nx;
+  const float* w = nullptr;     // the planes' shifts (a bf16 stack)
   __device__ float get(int k, int y, int x) const {
-    const float* q = p + ((size_t)k * ny + wrap(y, ny)) * nx + wrap(x, nx);
-    return kCoherent ? __ldcg(q) : __ldg(q);
+    const S* q = p + ((size_t)k * ny + wrap(y, ny)) * nx + wrap(x, nx);
+    return load_plane<kCoherent>(q, w, k);
   }
 };
 
 // generic2d_step's stage 1: stage 0's planes from the block's shared tile
 // (origin at unwrapped (y0, x0)), the others from the launch's input
+template <class S>
 struct TileStorage {
   const float* tile;       // [N_STORAGE][BY][BX]
   int y0, x0;
-  DeviceStorage<false> rest;
+  DeviceStorage<false, S> rest;
   __device__ float get(int k, int y, int x) const {
     if (writes(0, k)) return tile[(k * BY + (y - y0)) * BX + (x - x0)];
     return rest.get(k, y, x);
   }
 };
 
-// generic2d_resident's stage 1: stage 0's planes from this step's output,
-// the others from its input
+// generic2d_resident's stage 1: stage 0's planes from this step's stage-0
+// output (f32), the others from its input
+template <class S>
 struct StepStorage {
-  DeviceStorage<true> fresh, rest;
+  DeviceStorage<true> fresh;
+  DeviceStorage<true, S> rest;
   __device__ float get(int k, int y, int x) const {
     return writes(0, k) ? fresh.get(k, y, x) : rest.get(k, y, x);
   }
@@ -129,10 +149,14 @@ struct TileOut {          // a plane of the shared tile
   }
 };
 
+template <class S = float>
 struct DeviceOut {        // a plane in device memory at node `idx`
-  float* p;
+  S* p;
   size_t idx, n;
-  __device__ void operator()(int k, float v) const { p[k * n + idx] = v; }
+  const float* w = nullptr;     // the planes' shifts (a bf16 stack)
+  __device__ void operator()(int k, float v) const {
+    store_plane(p + k * n + idx, v, w, k);
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -191,12 +215,13 @@ __device__ __forceinline__ void run_stage(const GenericArgs& a,
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavours, per launch
 
-template <bool kGlobals, bool kSeries>
+template <class S, bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
-generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                       const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
-                      const SeriesArgs ser, double* partials, float* gout) {
+                      const SeriesArgs ser, double* partials, float* gout,
+                      const __grid_constant__ Shift sh) {
   const size_t n = (size_t)a.ny * a.nx;
   const int ly = threadIdx.y, lx = threadIdx.x;
   // this thread's stage-0 node, unwrapped: the block's ring starts RING
@@ -211,7 +236,7 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
 #pragma unroll
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
 
-  const DeviceStorage<false> in{fin, a.ny, a.nx};
+  const DeviceStorage<false, S> in{fin, a.ny, a.nx, sh.w};
   if constexpr (TWO_STAGES) {
     __shared__ float tile[model::N_STORAGE * BY * BX];
     run_stage<0, kGlobals, kSeries>(a, in, TileOut{tile, ly, lx}, ztab,
@@ -219,25 +244,30 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
     __syncthreads();
     if (out_node) {
       const size_t idx = (size_t)y * a.nx + x;
-      run_stage<1, kGlobals, kSeries>(a, TileStorage{tile, y0, x0, in},
-                                      DeviceOut{fout, idx, n}, ztab, ser,
-                                      acc, y, x, flag, true);
+      run_stage<1, kGlobals, kSeries>(a, TileStorage<S>{tile, y0, x0, in},
+                                      DeviceOut<S>{fout, idx, n, sh.w},
+                                      ztab, ser, acc, y, x, flag, true);
 #pragma unroll
       for (int k = 0; k < model::N_STORAGE; ++k) {
         if (writes(0, k) && !writes(1, k))
-          fout[k * n + idx] = tile[(k * BY + ly) * BX + lx];
+          store_plane(fout + k * n + idx, tile[(k * BY + ly) * BX + lx],
+                      sh.w, k);
         else if (!((ALL_WRITES >> k) & 1u))   // no stage writes it
-          fout[k * n + idx] = fin[k * n + idx];
+          store_plane(fout + k * n + idx,
+                      load_plane<false>(fin + k * n + idx, sh.w, k), sh.w,
+                      k);
       }
     }
   } else if (out_node) {
     // one stage, no ring: the stage writes the output tile itself
     const size_t idx = (size_t)y * a.nx + x;
-    run_stage<0, kGlobals, kSeries>(a, in, DeviceOut{fout, idx, n}, ztab,
-                                    ser, acc, y, x, flag, true);
+    run_stage<0, kGlobals, kSeries>(a, in, DeviceOut<S>{fout, idx, n, sh.w},
+                                    ztab, ser, acc, y, x, flag, true);
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
-      if (!writes(0, k)) fout[k * n + idx] = fin[k * n + idx];
+      if (!writes(0, k))
+        store_plane(fout + k * n + idx,
+                    load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
   }
   if constexpr (kGlobals)
     finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
@@ -248,11 +278,17 @@ generic2d_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
 // generic2d_resident
 // ---------------------------------------------------------------------------
 
+// S = bf16 with two stages: `mid` (f32, n_storage planes) takes stage 0's
+// output, so stage 1 reads it unrounded and the step narrows once.  With
+// S = float, stage 0 writes `dst` and `mid` is unused.
+template <class S>
 __global__ void __launch_bounds__(RESIDENT_THREADS)
-generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
-                          float* scratch, const int* __restrict__ flags,
+generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
+                          float* mid, const int* __restrict__ flags,
                           const float* __restrict__ ztab,
-                          const GenericArgs a, int nsteps) {
+                          const GenericArgs a, int nsteps,
+                          const __grid_constant__ Shift sh) {
+  constexpr bool kMid = TWO_STAGES && sizeof(S) != sizeof(float);
   cg::grid_group grid = cg::this_grid();
   const size_t n = (size_t)a.ny * a.nx;
   const int stride = gridDim.x * blockDim.x;
@@ -262,33 +298,73 @@ generic2d_resident_kernel(const float* __restrict__ fin, float* fout,
   for (int idx = first; idx < (int)n; idx += stride) {
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
-      if (!((ALL_WRITES >> k) & 1u))
-        scratch[k * n + idx] = fout[k * n + idx] = fin[k * n + idx];
+      if (!((ALL_WRITES >> k) & 1u)) {
+        const float v = load_plane<false>(fin + k * n + idx, sh.w, k);
+        store_plane(scratch + k * n + idx, v, sh.w, k);
+        store_plane(fout + k * n + idx, v, sh.w, k);
+      }
   }
   // step 0 reads fin and writes scratch, odd steps write fout, even steps
   // scratch: an even nsteps ends in fout
-  const float* src = fin;
-  float* dst = scratch;
+  const S* src = fin;
+  S* dst = scratch;
   for (int s = 0; s < nsteps; ++s) {
-    const DeviceStorage<true> in{src, a.ny, a.nx};
+    const DeviceStorage<true, S> in{src, a.ny, a.nx, sh.w};
     for (int idx = first; idx < (int)n; idx += stride) {
       const int y = idx / a.nx, x = idx - y * a.nx;
-      run_stage<0, false>(a, in, DeviceOut{dst, (size_t)idx, n}, ztab,
-                          none, nullptr, y, x, __ldg(flags + idx), false);
+      if constexpr (kMid)
+        run_stage<0, false>(a, in, DeviceOut<float>{mid, (size_t)idx, n},
+                            ztab, none, nullptr, y, x, __ldg(flags + idx),
+                            false);
+      else
+        run_stage<0, false>(a, in, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
+                            ztab, none, nullptr, y, x, __ldg(flags + idx),
+                            false);
     }
     grid.sync();
     if constexpr (TWO_STAGES) {
-      const StepStorage st{DeviceStorage<true>{dst, a.ny, a.nx}, in};
+      const float* fresh;
+      if constexpr (kMid) fresh = mid;
+      else fresh = dst;
+      const StepStorage<S> st{DeviceStorage<true>{fresh, a.ny, a.nx}, in};
       for (int idx = first; idx < (int)n; idx += stride) {
         const int y = idx / a.nx, x = idx - y * a.nx;
-        run_stage<1, false>(a, st, DeviceOut{dst, (size_t)idx, n}, ztab,
-                            none, nullptr, y, x, __ldg(flags + idx), false);
+        run_stage<1, false>(a, st, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
+                            ztab, none, nullptr, y, x, __ldg(flags + idx),
+                            false);
+        if constexpr (kMid) {
+#pragma unroll
+          for (int k = 0; k < model::N_STORAGE; ++k)
+            if (writes(0, k) && !writes(1, k))
+              store_plane(dst + k * n + idx, __ldcg(mid + k * n + idx),
+                          sh.w, k);
+        }
       }
       grid.sync();
     }
     src = dst;
     dst = (dst == scratch) ? fout : scratch;
   }
+}
+
+template <class S>
+static int launch_resident(const S* fin, S* fout, S* scratch, float* mid,
+                           const int* flags, const float* ztab,
+                           const GenericArgs* a, const Shift& shift,
+                           int nsteps, int blocks, int device,
+                           void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  GenericArgs args = *a;
+  Shift sh = shift;
+  void* params[] = {(void*)&fin, (void*)&fout, (void*)&scratch,
+                    (void*)&mid, (void*)&flags, (void*)&ztab,
+                    (void*)&args, (void*)&nsteps, (void*)&sh};
+  e = cudaLaunchCooperativeKernel((const void*)generic2d_resident_kernel<S>,
+                                  dim3(blocks), dim3(RESIDENT_THREADS),
+                                  params, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -319,15 +395,44 @@ int generic2d_step(const float* fin, float* fout, const int* flags,
   const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
   const dim3 block(BX, BY);
   const SeriesArgs none{};
+  const Shift unused{};
   if (partials)
-    generic2d_step_kernel<true, false>
+    generic2d_step_kernel<float, true, false>
         <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, none, partials, gout);
+                                                   *a, none, partials, gout,
+                                                   unused);
   else
-    generic2d_step_kernel<false, false>
+    generic2d_step_kernel<float, false, false>
         <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
                                                    *a, none, nullptr,
-                                                   nullptr);
+                                                   nullptr, unused);
+  return (int)cudaGetLastError();
+}
+
+// generic2d_step on a bf16 stack at rest (`fin`, `fout`: n_storage bf16
+// planes), with the planes' shifts `shift` (null: raw); the flavours as
+// generic2d_step's.
+int generic2d_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
+                        const int* flags, const float* ztab,
+                        const GenericArgs* a, const float* shift,
+                        double* partials, float* gout, int device,
+                        void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
+  const dim3 block(BX, BY);
+  const SeriesArgs none{};
+  const Shift sh = shift_arg<model::N_STORAGE>(shift);
+  if (partials)
+    generic2d_step_kernel<__nv_bfloat16, true, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, partials, gout,
+                                                   sh);
+  else
+    generic2d_step_kernel<__nv_bfloat16, false, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
+                                                   *a, none, nullptr,
+                                                   nullptr, sh);
   return (int)cudaGetLastError();
 }
 
@@ -345,21 +450,24 @@ int generic2d_step_series(const float* fin, float* fout, const int* flags,
   const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
   const dim3 block(BX, BY);
   const SeriesArgs ser{row, ts, len, t};
+  const Shift unused{};
   if (partials)
-    generic2d_step_kernel<true, true>
+    generic2d_step_kernel<float, true, true>
         <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, ser, partials, gout);
+                                                   *a, ser, partials, gout,
+                                                   unused);
   else
-    generic2d_step_kernel<false, true>
+    generic2d_step_kernel<float, false, true>
         <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
                                                    *a, ser, nullptr,
-                                                   nullptr);
+                                                   nullptr, unused);
   return (int)cudaGetLastError();
 }
 
 // Whether the device can launch cooperative kernels, and how many blocks of
-// generic2d_resident can be resident at once (the largest cooperative grid).
-int generic2d_resident_capacity(int device, int* cooperative,
+// generic2d_resident (`bf16` != 0: generic2d_resident_bf16) can be resident
+// at once (the largest cooperative grid).
+int generic2d_resident_capacity(int device, int bf16, int* cooperative,
                                 int* max_blocks) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -369,8 +477,13 @@ int generic2d_resident_capacity(int device, int* cooperative,
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, generic2d_resident_kernel, RESIDENT_THREADS, 0);
+  if (bf16)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, generic2d_resident_kernel<__nv_bfloat16>, RESIDENT_THREADS,
+        0);
+  else
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, generic2d_resident_kernel<float>, RESIDENT_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
   *max_blocks = per_sm * sms;
   return 0;
@@ -380,17 +493,22 @@ int generic2d_resident(const float* fin, float* fout, float* scratch,
                        const int* flags, const float* ztab,
                        const GenericArgs* a, int nsteps, int blocks,
                        int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  GenericArgs args = *a;
-  void* params[] = {(void*)&fin, (void*)&fout, (void*)&scratch,
-                    (void*)&flags, (void*)&ztab, (void*)&args,
-                    (void*)&nsteps};
-  e = cudaLaunchCooperativeKernel((const void*)generic2d_resident_kernel,
-                                  dim3(blocks), dim3(RESIDENT_THREADS),
-                                  params, 0, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_resident<float>(fin, fout, scratch, nullptr, flags, ztab, a,
+                                Shift{}, nsteps, blocks, device, stream);
+}
+
+// generic2d_resident on a bf16 stack at rest, with the planes' shifts
+// `shift` (null: raw); `mid` is an f32 scratch of n_storage planes (read by
+// a two-stage model only, may be null for a one-stage one).
+int generic2d_resident_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
+                            __nv_bfloat16* scratch, float* mid,
+                            const int* flags, const float* ztab,
+                            const GenericArgs* a, const float* shift,
+                            int nsteps, int blocks, int device,
+                            void* stream) {
+  return launch_resident<__nv_bfloat16>(
+      fin, fout, scratch, mid, flags, ztab, a,
+      shift_arg<model::N_STORAGE>(shift), nsteps, blocks, device, stream);
 }
 
 }  // extern "C"

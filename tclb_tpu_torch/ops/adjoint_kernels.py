@@ -57,14 +57,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def supports_diff(model: Model, shape, dtype) -> bool:
+def supports_diff(model: Model, shape, dtype, storage_dtype=None) -> bool:
     """Whether the differentiable kernel step covers this configuration:
     the forward kernels run it (``generic_kernels.supports`` or
     ``generic3d_kernels.supports``), the model's header has a reverse
     stage, and its Iteration is one stage pulling one node far (the
-    backward kernels' gather)."""
+    backward kernels' gather).  f32 storage only: the backward kernels have
+    no bf16 rung (a narrowed ``storage_dtype`` is rejected)."""
     dm = gk.DEVICE_MODELS.get(model.name)
     return (dm is not None and dm.adjoint
+            and storage_dtype in (None, dtype)
             and (gk.supports(model, shape, dtype)
                  or g3.supports(model, shape, dtype))
             and len(model.actions["Iteration"]) == 1

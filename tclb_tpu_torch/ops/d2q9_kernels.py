@@ -724,13 +724,16 @@ def make_band_iterate(model: Model, shape, fuse: int = 2) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype, series: bool = False
-                  ) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False,
+                  storage_dtype=None, storage_repr: str = "raw") -> tuple:
     """``(iterate, tag)`` of the kernel engine ``supports()`` picks for
     this configuration, or ``(None, None)``: resident where it fits, else
     the band engine at fuse 2.  A <Control> time series (``series``) is
-    rejected: these kernels read the zone table, not a per-step value."""
-    if series:
+    rejected: these kernels read the zone table, not a per-step value.  So
+    is a narrowed stack (``storage_dtype`` other than ``dtype``), as the JAX
+    package's f32-only ``pallas_d2q9`` rejects it: bf16 d2q9 goes to the
+    generic kernels."""
+    if series or storage_dtype not in (None, dtype):
         return None, None
     if supports_resident(model, shape, dtype):
         return (make_resident_iterate(model, shape),

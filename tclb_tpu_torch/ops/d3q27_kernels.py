@@ -40,20 +40,31 @@ the second- or third-order equilibrium; d3q19: the two-rate MRT; d3q19_les:
 BGK at the Smagorinsky rate; each with the body-force equilibrium
 difference).  Zonal Velocity/Density (and the cumulant's Turbulence) come
 from the zone table through the flag's zone bits, as the TPU's fused
-kernel rebuilds them.  f32 only.
+kernel rebuilds them.
+
+The storage ladder: both wrappers also take a bf16 stack at rest and
+launch ``d3q27_step_bf16``/``d3q27_step2_bf16`` (counted in ``LAUNCHES``
+under ``launch_key``), which widen each plane where they read it and narrow
+it where they store it, with the per-plane DDF shifts of the lattice's
+representation (``StepArgs.shift``, from ``core/shift.py:kernel_shift``,
+a launch argument).  The plain versions are
+the narrowed eager engine at each kernel's cadence: widen, one step (two
+for ``d3q27_step2``, whose shared-memory ring stays f32), narrow.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import pathlib
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from tclb_tpu_torch.core import shift as ddf
 from tclb_tpu_torch.core.lattice import LatticeState, SimParams, pull_stream
 from tclb_tpu_torch.core.registry import Model
 from tclb_tpu_torch.models import d3q19, d3q19_les, d3q27_bgk, family
@@ -73,9 +84,12 @@ def launch_key(name: str, model: str) -> str:
     return name if model == MODEL else f"{name}[{model}]"
 
 
-# launches per kernel and model; a wrapper adds one where it launches,
-# nowhere else
-LAUNCHES = {launch_key(name, m): 0 for m in MODELS for name in KERNELS}
+# the bf16 storage flavours
+BF16_KERNELS = ("d3q27_step_bf16", "d3q27_step2_bf16")
+# launches per kernel (f32 and bf16) and model; a wrapper adds one where it
+# launches, nowhere else
+LAUNCHES = {launch_key(name, m): 0 for m in MODELS
+            for name in KERNELS + BF16_KERNELS}
 
 # boundary cases in the order each model lists them (csrc/d3q27.cu CASE_*)
 _FAMILY_CASES = ("Wall", "Solid", "WVelocity", "WPressure", "EVelocity",
@@ -152,6 +166,19 @@ class StepArgs:
     buffer: tuple      # (mask, value) of Buffer (the cumulant's)
     zone_shift: int
     zone_max: int
+    # a bf16 stack's per-plane DDF shifts (core/shift.py:kernel_shift),
+    # None for a raw stack (and for every f32 one)
+    shift: Optional[tuple] = None
+
+    @functools.cached_property
+    def c_shift(self):
+        """The shifts as the bf16 kernels take them (or a null pointer)."""
+        return ddf.c_shift(self.shift)
+
+    def shift_block(self) -> Optional[np.ndarray]:
+        """The shifts as :func:`tclb_tpu_torch.core.shift.widen_stack`
+        takes them (the float32 block), or None."""
+        return ddf.shift_block(self.shift, 3)
 
     def _f32(self, name: str) -> np.float32:
         si = _model(self.model).setting_index
@@ -347,12 +374,12 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
     return n
 
 
-def launch_bytes(model: Model, shape) -> int:
+def launch_bytes(model: Model, shape, itemsize: int = 4) -> int:
     """Device-memory bytes one launch of either kernel must move: the
-    field stack and the int32 flags read once, the zone table read once,
-    the field stack written once."""
+    field stack (``itemsize`` bytes a value at rest) and the int32 flags
+    read once, the zone table read once, the field stack written once."""
     n = int(np.prod(shape))
-    return ((2 * model.n_storage + 1) * 4 * n
+    return ((2 * model.n_storage * itemsize + 4) * n
             + len(ZONAL[model.name]) * model.zone_max * 4)
 
 
@@ -418,10 +445,19 @@ def _plain_step(fields, flags, ztab, a: StepArgs) -> torch.Tensor:
 
 def plain_steps(fields, flags, ztab, a: StepArgs, n: int) -> torch.Tensor:
     """``n`` NoGlobals steps of ``a.model`` on the whole lattice: what
-    ``step`` (n=1) and ``step2`` (n=2) compute."""
+    ``step`` (n=1) and ``step2`` (n=2) compute.  A bf16 stack is widened
+    once (with ``a``'s shifts), takes the ``n`` steps in f32 and is
+    narrowed once: the kernels' cadence (``d3q27_step2`` keeps its step-1
+    planes in f32)."""
+    narrow = fields.dtype != ztab.dtype
+    sdt = fields.dtype
     with torch.no_grad():
+        if narrow:
+            fields = ddf.widen_stack(fields, ztab.dtype, a.shift_block())
         for _ in range(n):
             fields = _plain_step(fields, flags, ztab, a)
+        if narrow:
+            fields = ddf.narrow_stack(fields, sdt, a.shift_block())
     return fields
 
 
@@ -458,8 +494,13 @@ def _lib(model: str = MODEL) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, argp, i, p]
             fn.restype = i
+        for name in BF16_KERNELS:
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, argp, ctypes.POINTER(ctypes.c_float),
+                           i, p]
+            fn.restype = i
         ip = ctypes.POINTER(i)
-        lib.d3q27_step2_config.argtypes = [i, ip, ip, ip, ip]
+        lib.d3q27_step2_config.argtypes = [i, i, ip, ip, ip, ip]
         lib.d3q27_step2_config.restype = i
         lib.d3q27_error_string.argtypes = [i]
         lib.d3q27_error_string.restype = ctypes.c_char_p
@@ -495,16 +536,17 @@ def _check(lib, rc: int, what: str) -> None:
                            f"({lib.d3q27_error_string(rc).decode()})")
 
 
-def step2_config(device: int, model: str = MODEL) -> dict:
-    """``d3q27_step2``'s dynamic shared memory, threads per block,
-    co-resident blocks per SM and the device's SM count, for ``model``'s
-    build."""
-    key = ("config", device, model)
+def step2_config(device: int, model: str = MODEL, bf16: bool = False
+                 ) -> dict:
+    """``d3q27_step2``'s (``bf16``: ``d3q27_step2_bf16``'s) dynamic shared
+    memory, threads per block, co-resident blocks per SM and the device's
+    SM count, for ``model``'s build."""
+    key = ("config", device, model, bf16)
     if key not in _LIB:
         lib = _lib(model)
         vals = [ctypes.c_int(0) for _ in range(4)]
         _check(lib, lib.d3q27_step2_config(
-            device, *[ctypes.byref(v) for v in vals]),
+            device, int(bf16), *[ctypes.byref(v) for v in vals]),
             "d3q27_step2 configuration query")
         smem, threads, per_sm, sms = (v.value for v in vals)
         if per_sm < 1:
@@ -530,7 +572,12 @@ def step2_planes(shape, slots: int) -> int:
 
 def _validate(fields, flags, ztab, a: StepArgs) -> None:
     shape = (a.nz, a.ny, a.nx)
-    want = ((fields, torch.float32, (len(STORAGE[a.model]),) + shape),
+    sdt = fields.dtype if fields.dtype in ddf.STORAGE_DTYPES \
+        else torch.float32
+    if a.shift is not None and sdt == torch.float32:
+        raise ValueError("a shifted stack is a bf16 one; got "
+                         f"{fields.dtype}")
+    want = ((fields, sdt, (len(STORAGE[a.model]),) + shape),
             (flags, torch.int32, shape),
             (ztab, torch.float32, (len(ZONAL[a.model]), a.zone_max)))
     for t, dtype, sh in want:
@@ -548,15 +595,20 @@ def _launch(name: str, fields, flags, ztab, a: StepArgs) -> torch.Tensor:
     dev = fields.device.index if fields.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = fields.dtype == torch.bfloat16
     zc = 1
     if name == "d3q27_step2":
-        cfg = step2_config(dev, a.model)
+        cfg = step2_config(dev, a.model, bf16)
         zc = step2_planes((a.nz, a.ny, a.nx),
                           cfg["sms"] * cfg["blocks_per_sm"])
     out = torch.empty_like(fields)
-    rc = getattr(lib, name)(fields.data_ptr(), out.data_ptr(),
-                            flags.data_ptr(), ztab.data_ptr(),
-                            ctypes.byref(a.c_struct(zc)), dev, stream)
+    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            ztab.data_ptr(), ctypes.byref(a.c_struct(zc)))
+    if bf16:
+        name += "_bf16"
+        rc = getattr(lib, name)(*head, a.c_shift, dev, stream)
+    else:
+        rc = getattr(lib, name)(*head, dev, stream)
     _check(lib, rc, name)
     LAUNCHES[launch_key(name, a.model)] += 1
     return out
@@ -585,38 +637,51 @@ WRAPPERS = {"d3q27_step": (step, 1), "d3q27_step2": (step2, 2)}
 # --------------------------------------------------------------------------- #
 
 
-def supports(model: Model, shape, dtype) -> bool:
+def supports(model: Model, shape, dtype, storage_dtype=None) -> bool:
     """Whether the kernels run this configuration: a model of ``MODELS``,
-    3D, f32."""
+    3D, f32 compute with the stack at rest in f32 or bf16
+    (``storage_dtype``, default ``dtype``)."""
+    sdt = dtype if storage_dtype is None else storage_dtype
     return (model.name in MODELS and len(shape) == 3
-            and dtype == torch.float32 and min(int(s) for s in shape) >= 1)
+            and dtype == torch.float32 and sdt in ddf.STORAGE_DTYPES
+            and min(int(s) for s in shape) >= 1)
 
 
-def kernel_inputs(model: Model, state: LatticeState, params: SimParams
-                  ) -> tuple:
+def kernel_inputs(model: Model, state: LatticeState, params: SimParams,
+                  shift: Optional[tuple] = None) -> tuple:
     """``(fields, flags, ztab, args)`` as the engine hands them to a kernel
     wrapper, once per ``iterate`` call: the field stack, the int32 flags,
     the (rows, zone_max) table of the model's ``ZONAL`` settings, and the
-    constants."""
+    constants (``shift``: a bf16 stack's per-plane shifts,
+    ``core/shift.py:kernel_shift``)."""
     si = model.setting_index
     ztab = params.zone_table[[si[n] for n in ZONAL[model.name]]].contiguous()
     a = step_args(model, tuple(state.flags.shape),
                   params.settings.cpu().numpy())
+    if shift is not None:
+        a = dataclasses.replace(a, shift=shift)
     return state.fields.contiguous(), state.flags.contiguous(), ztab, a
 
 
-def make_band_iterate(model: Model, shape, fuse: int = 2) -> Callable:
+def make_band_iterate(model: Model, shape, fuse: int = 2,
+                      storage_dtype=torch.float32,
+                      storage_repr: str = "raw") -> Callable:
     """``iterate(state, params, niter)``: with ``fuse=2`` pairs of steps
     through ``step2`` and an odd last step through ``step``; with
-    ``fuse=1`` every step through ``step``.  Globals come back zeroed."""
-    if not supports(model, shape, torch.float32):
-        raise ValueError(f"d3q27 kernels unsupported: {model.name} {shape}")
+    ``fuse=1`` every step through ``step``.  Globals come back zeroed.  A
+    bf16 stack (``storage_dtype``) runs the bf16 flavours with the shifts of
+    ``storage_repr``."""
+    if not supports(model, shape, torch.float32, storage_dtype):
+        raise ValueError(f"d3q27 kernels unsupported: {model.name} {shape} "
+                         f"{storage_dtype}")
     if fuse not in (1, 2):
         raise ValueError(f"fuse={fuse}: only 1 and 2 exist")
+    shift = ddf.kernel_shift(model, storage_repr) \
+        if storage_dtype == torch.bfloat16 else None
 
     def iterate(state: LatticeState, params: SimParams, niter: int
                 ) -> LatticeState:
-        f, flags, ztab, a = kernel_inputs(model, state, params)
+        f, flags, ztab, a = kernel_inputs(model, state, params, shift)
         pairs = niter // 2 if fuse == 2 else 0
         for _ in range(pairs):
             f = step2(f, flags, ztab, a)
@@ -629,13 +694,17 @@ def make_band_iterate(model: Model, shape, fuse: int = 2) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype, series: bool = False
-                  ) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False,
+                  storage_dtype=None, storage_repr: str = "raw") -> tuple:
     """``(iterate, tag)`` of the band engine at fuse 2 where ``supports()``
     accepts, else ``(None, None)``.  A <Control> time series (``series``)
-    is rejected: these kernels read the zone table, not a per-step
-    value."""
-    if supports(model, shape, dtype) and not series:
-        return (make_band_iterate(model, shape, fuse=2),
-                f"cuda_d3q27_band[{model.name},fuse=2]")
+    is rejected: these kernels read the zone table, not a per-step value.
+    A bf16 stack is named in the tag
+    (``cuda_d3q27_band[d3q19,fuse=2,bfloat16/shifted]``)."""
+    from tclb_tpu_torch.ops.generic_kernels import storage_tag
+    sdt = dtype if storage_dtype is None else storage_dtype
+    if supports(model, shape, dtype, sdt) and not series:
+        return (make_band_iterate(model, shape, 2, sdt, storage_repr),
+                f"cuda_d3q27_band[{model.name},fuse=2"
+                f"{storage_tag(sdt, storage_repr)}]")
     return None, None

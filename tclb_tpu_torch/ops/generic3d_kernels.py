@@ -61,6 +61,11 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def flavours() -> dict:
+    """generic3d_step's launches by flavour (as ``gk.flavours``)."""
+    return dict(FLAVOUR_LAUNCHES)
+
+
 # --------------------------------------------------------------------------- #
 # Bounds: operations (bytes: generic_kernels.launch_bytes)
 # --------------------------------------------------------------------------- #
@@ -303,11 +308,15 @@ def make_band_iterate(model: Model, shape) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype, series: bool = False
-                  ) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False,
+                  storage_dtype=None, storage_repr: str = "raw") -> tuple:
     """``(iterate, tag)`` of the band engine where ``supports()`` accepts
     this configuration, else ``(None, None)``; the band engine reads a
-    Control series (``series``) itself."""
+    Control series (``series``) itself.  The kernel has no bf16 rung yet
+    (ROADMAP queue 2): a narrowed stack (``storage_dtype`` other than
+    ``dtype``) is rejected and runs eager."""
+    if storage_dtype not in (None, dtype):
+        return None, None
     if supports(model, shape, dtype):
         return (make_band_iterate(model, shape),
                 f"cuda_generic3d_band[{model.name},fuse=1]")

@@ -16,8 +16,9 @@ kernels (``ops/d2q9_kernels.py``) come first.
 
 Two kernels and the series flavours of the first; each wrapper launches
 its kernel for a CUDA tensor (or raises) and runs the plain version for a
-CPU tensor, and counts its launches in ``LAUNCHES`` (the series flavours in
-``SERIES_LAUNCHES``):
+CPU tensor, and counts its launches in ``LAUNCHES`` (the step kernels'
+also by flavour in ``FLAVOUR_LAUNCHES``, read through ``flavours``; the
+series flavours in ``SERIES_LAUNCHES``):
 
 ``step`` / ``step_globals`` (``generic2d_step``) replace
     ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
@@ -41,8 +42,18 @@ CPU tensor, and counts its launches in ``LAUNCHES`` (the series flavours in
     after each stage, two ping-pong buffers that stay in the L2 when the
     lattice fits half of it.
 
+The storage ladder: ``step``, ``step_globals`` and ``resident`` also take
+a bf16 stack at rest, launching ``generic2d_step_bf16`` and
+``generic2d_resident_bf16`` (the same templates; counted in ``LAUNCHES``
+under those names, and ``flavours("generic2d_step_bf16")``).  Each plane is
+widened where it is read and narrowed where it is written, with the
+lattice's DDF shifts (``StepArgs.shift``, from ``core/shift.py``), and
+every stage computes in f32, so a step narrows once.  The series flavours
+are f32 only.
+
 The plain versions are the port's eager action step (``make_action_step``)
-on the kernels' inputs.  f32 only.
+on the kernels' inputs; on a bf16 stack, the narrowed eager step
+(``narrowed_step``: widen, the whole action, narrow) once per step.
 """
 
 from __future__ import annotations
@@ -51,21 +62,29 @@ import ctypes
 import dataclasses
 import functools
 import pathlib
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from tclb_tpu_torch.core import shift as ddf
 from tclb_tpu_torch.core.lattice import (LatticeState, SimParams,
-                                         make_action_step)
+                                         make_action_step, narrowed_step)
 from tclb_tpu_torch.core.registry import Model
 from tclb_tpu_torch.ops import _cuda_build
 
 KERNELS = ("generic2d_step", "generic2d_resident")
-# launches per kernel; a wrapper adds one where it launches, nowhere else
-LAUNCHES = {name: 0 for name in KERNELS}
-# generic2d_step's launches by flavour (each also counts in LAUNCHES)
-FLAVOUR_LAUNCHES = {"plain": 0, "globals": 0}
+# the bf16 storage flavours of both kernels
+BF16_KERNELS = ("generic2d_step_bf16", "generic2d_resident_bf16")
+# launches per kernel (f32 and bf16); a wrapper adds one where it launches,
+# nowhere else
+LAUNCHES = {name: 0 for name in KERNELS + BF16_KERNELS}
+# the step kernels' launches by flavour, as "<kernel>/<flavour>" (each also
+# counts in LAUNCHES)
+STEP_FLAVOURS = ("plain", "globals")
+FLAVOUR_LAUNCHES = {f"{k}/{fl}": 0 for k in ("generic2d_step",
+                                             "generic2d_step_bf16")
+                    for fl in STEP_FLAVOURS}
 # the <Control> series flavours (generic2d_step_series), counted apart
 SERIES_KERNELS = ("generic2d_step_series", "generic2d_step_series_globals")
 SERIES_LAUNCHES = {name: 0 for name in SERIES_KERNELS}
@@ -162,6 +181,11 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def flavours(kernel: str = "generic2d_step") -> dict:
+    """A step kernel's launches by flavour: ``{"plain": n, "globals": m}``."""
+    return {fl: FLAVOUR_LAUNCHES[f"{kernel}/{fl}"] for fl in STEP_FLAVOURS}
+
+
 # --------------------------------------------------------------------------- #
 # Registry-derived stage plan (pallas_generic.py:_stage_reach, action_plan)
 # --------------------------------------------------------------------------- #
@@ -249,10 +273,23 @@ class StepArgs:
     zone_shift: int
     zone_max: int
     nz: int = 0         # 0 for a 2D lattice
+    # a bf16 stack's per-plane DDF shifts (core/shift.py:kernel_shift),
+    # None for a raw stack (and for every f32 one)
+    shift: Optional[tuple] = None
 
     @property
     def shape(self) -> tuple:
         return (self.nz, self.ny, self.nx) if self.nz else (self.ny, self.nx)
+
+    @functools.cached_property
+    def c_shift(self):
+        """The shifts as the bf16 kernels take them (or a null pointer)."""
+        return ddf.c_shift(self.shift)
+
+    def shift_block(self) -> Optional[np.ndarray]:
+        """The shifts as :func:`tclb_tpu_torch.core.shift.widen_stack`
+        takes them (the float32 block), or None."""
+        return ddf.shift_block(self.shift, len(self.shape))
 
     @functools.cached_property
     def c_struct(self) -> ctypes.Structure:
@@ -420,18 +457,19 @@ def _kuper_flops(model: Model, flags: np.ndarray) -> int:
             + calc_phi * int(np.asarray(flags).size))
 
 
-def launch_bytes(model: Model, shape, n_series: int = 0) -> int:
+def launch_bytes(model: Model, shape, n_series: int = 0,
+                 itemsize: int = 4) -> int:
     """Device-memory bytes one launch of either kernel must move: the
-    field stack and the int32 flags read once, the zone table read once,
-    the field stack written once (the resident kernel's steps stay in the
-    L2).  A series flavour's launch under ``n_series`` series also reads
-    the row map (int32, the zone table's size) and one entry of each
-    series."""
+    field stack (``itemsize`` bytes a value at rest) and the int32 flags
+    read once, the zone table read once, the field stack written once (the
+    resident kernel's steps stay in the L2).  A series flavour's launch
+    under ``n_series`` series also reads the row map (int32, the zone
+    table's size) and one entry of each series."""
     n = int(np.prod(shape))
     zonal = len(model.zonal_settings)
     table = zonal * model.zone_max * 4
     series = table + 4 * n_series if n_series else 0
-    return (2 * model.n_storage + 1) * 4 * n + table + series
+    return (2 * model.n_storage * itemsize + 4) * n + table + series
 
 
 # --------------------------------------------------------------------------- #
@@ -471,17 +509,24 @@ def plain_steps(fields, flags, ztab, a: StepArgs, n: int,
     ``step_globals`` computes (n=1): then ``(fields, globals)``, the last
     step's globals.  Under :class:`SeriesInputs` ``series`` the steps
     start at iteration ``it``: what ``step_series`` and
-    ``step_series_globals`` compute (n=1)."""
+    ``step_series_globals`` compute (n=1).  On a bf16 stack each step is
+    the narrowed eager step (widen with ``a.shift``, the action in f32,
+    narrow): what ``generic2d_step_bf16`` and ``generic2d_resident_bf16``
+    compute."""
     m = _get_model(a.model)
     params = _plain_params(ztab, a, series)
+    narrow = fields.dtype != ztab.dtype
     state = LatticeState(
         fields=fields, flags=flags,
-        globals_=torch.zeros((m.n_globals,), dtype=fields.dtype,
+        globals_=torch.zeros((m.n_globals,), dtype=ztab.dtype,
                              device=fields.device), iteration=int(it))
     with torch.no_grad():
         for i in range(n):
             full = with_globals and i == n - 1
-            state = _action_step(a.model, full)(state, params)
+            step = _action_step(a.model, full)
+            if narrow:
+                step = narrowed_step(step, fields.dtype, a.shift_block())
+            state = step(state, params)
     return (state.fields, state.globals_) if with_globals else state.fields
 
 
@@ -525,7 +570,13 @@ def lib(model: str) -> ctypes.CDLL:
         lib.generic2d_step_series.restype = i
         lib.generic2d_resident.argtypes = [p, p, p, p, p, argp, i, i, i, p]
         lib.generic2d_resident.restype = i
-        lib.generic2d_resident_capacity.argtypes = [i, ip, ip]
+        fp = ctypes.POINTER(ctypes.c_float)
+        lib.generic2d_step_bf16.argtypes = [p, p, p, p, argp, fp, p, p, i, p]
+        lib.generic2d_step_bf16.restype = i
+        lib.generic2d_resident_bf16.argtypes = [p, p, p, p, p, p, argp, fp,
+                                                i, i, i, p]
+        lib.generic2d_resident_bf16.restype = i
+        lib.generic2d_resident_capacity.argtypes = [i, i, ip, ip]
         lib.generic2d_resident_capacity.restype = i
         lib.generic_error_string.argtypes = [i]
         lib.generic_error_string.restype = ctypes.c_char_p
@@ -558,14 +609,21 @@ def check(lib, rc: int, what: str) -> None:
 
 
 def validate(fields, flags, ztab, a: StepArgs) -> None:
-    """The kernels' inputs: contiguous f32 fields and zone table and int32
-    flags on one device, at the shapes of ``a.model``'s header."""
+    """The kernels' inputs: contiguous fields (f32, or bf16 at rest with
+    the shifts in ``a``) and f32 zone table and int32 flags on one device,
+    at the shapes of ``a.model``'s header."""
     if a.model not in DEVICE_MODELS:
         raise ValueError(f"no generic kernels for {a.model} (device "
                          f"headers: {sorted(DEVICE_MODELS)})")
     dm = DEVICE_MODELS[a.model]
     shape = a.shape
-    want = ((fields, torch.float32, (len(dm.storage),) + shape),
+    sdt = fields.dtype if fields.dtype in ddf.STORAGE_DTYPES \
+        else torch.float32
+    if a.shift is not None and (sdt == torch.float32
+                                or len(a.shift) != len(dm.storage)):
+        raise ValueError(f"a shift of {len(a.shift)} planes is for a bf16 "
+                         f"stack of {len(dm.storage)}; got {fields.dtype}")
+    want = ((fields, sdt, (len(dm.storage),) + shape),
             (flags, torch.int32, shape),
             (ztab, torch.float32, (len(dm.zonal), a.zone_max)))
     for t, dtype, sh in want:
@@ -605,10 +663,14 @@ def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
 
 def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
                  series=None, it: int = 0):
-    """One ``generic2d_step`` launch, or with :class:`SeriesInputs`
-    ``series`` one ``generic2d_step_series`` launch at iteration ``it``."""
+    """One ``generic2d_step`` launch (``generic2d_step_bf16`` for a bf16
+    stack), or with :class:`SeriesInputs` ``series`` one
+    ``generic2d_step_series`` launch at iteration ``it``."""
     validate(fields, flags, ztab, a)
+    bf16 = fields.dtype == torch.bfloat16
     if series is not None:
+        if bf16:
+            raise ValueError("the series flavours take f32 storage only")
         sargs = series_args(series, a, it, fields.device)
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
@@ -626,9 +688,12 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
     tail = (partials.data_ptr() if with_globals else None,
             gout.data_ptr() if with_globals else None, dev, stream)
     if series is None:
-        check(lb, lb.generic2d_step(*head, *tail), "generic2d_step")
-        LAUNCHES["generic2d_step"] += 1
-        FLAVOUR_LAUNCHES["globals" if with_globals else "plain"] += 1
+        name = "generic2d_step_bf16" if bf16 else "generic2d_step"
+        fn = getattr(lb, name)
+        check(lb, fn(*head, a.c_shift, *tail) if bf16 else fn(*head, *tail),
+              name)
+        LAUNCHES[name] += 1
+        FLAVOUR_LAUNCHES[f"{name}/{STEP_FLAVOURS[with_globals]}"] += 1
     else:
         check(lb, lb.generic2d_step_series(*head, *sargs, *tail),
               "generic2d_step_series")
@@ -671,18 +736,19 @@ def step_series_globals(fields, flags, ztab, a: StepArgs,
     return _launch_step(fields, flags, ztab, a, True, series, it)
 
 
-def resident_grid(model: str, device: int, nodes: int) -> int:
-    """Blocks of one cooperative ``generic2d_resident`` launch of
-    ``model``'s library: as many as the device holds at once, no more than
-    the lattice needs.  Raises when the device cannot launch cooperative
-    kernels."""
+def resident_grid(model: str, device: int, nodes: int,
+                  bf16: bool = False) -> int:
+    """Blocks of one cooperative ``generic2d_resident`` (``bf16``:
+    ``generic2d_resident_bf16``) launch of ``model``'s library: as many as
+    the device holds at once, no more than the lattice needs.  Raises when
+    the device cannot launch cooperative kernels."""
     lb = lib(model)
     entry = _LIB[model]
-    key = ("capacity", device)
+    key = ("capacity", device, bf16)
     if key not in entry:
         coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
         check(lb, lb.generic2d_resident_capacity(
-            device, ctypes.byref(coop), ctypes.byref(blocks)),
+            device, int(bf16), ctypes.byref(coop), ctypes.byref(blocks)),
             "generic2d_resident capacity query")
         if not coop.value:
             raise RuntimeError(f"CUDA device {device} cannot launch "
@@ -697,7 +763,9 @@ def resident_grid(model: str, device: int, nodes: int) -> int:
 
 def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     """``nsteps`` Iterations (even, at least 2) in one cooperative launch
-    (kernel ``generic2d_resident``)."""
+    (kernel ``generic2d_resident``; ``generic2d_resident_bf16`` for a bf16
+    stack, with an f32 scratch stack that carries a two-stage model's
+    stage-0 planes to stage 1)."""
     if nsteps < 2 or nsteps % 2:
         raise ValueError(f"nsteps={nsteps}: the ping-pong needs an even "
                          "count of at least 2")
@@ -706,9 +774,22 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     validate(fields, flags, ztab, a)
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
-    blocks = resident_grid(a.model, dev, a.ny * a.nx)
+    bf16 = fields.dtype == torch.bfloat16
+    blocks = resident_grid(a.model, dev, a.ny * a.nx, bf16)
     out = torch.empty_like(fields)
     scratch = torch.empty_like(fields)
+    if bf16:
+        two = len(DEVICE_MODELS[a.model].plan) == 2
+        mid = torch.empty(fields.shape if two else (0,),
+                          dtype=torch.float32, device=fields.device)
+        rc = lb.generic2d_resident_bf16(
+            fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            mid.data_ptr() if two else None, flags.data_ptr(),
+            ztab.data_ptr(), ctypes.byref(a.c_struct), a.c_shift, nsteps,
+            blocks, dev, stream)
+        check(lb, rc, "generic2d_resident_bf16")
+        LAUNCHES["generic2d_resident_bf16"] += 1
+        return out
     rc = lb.generic2d_resident(
         fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
@@ -733,35 +814,44 @@ WRAPPERS = {"generic2d_step": (step, 1),
 # --------------------------------------------------------------------------- #
 
 
-def supports(model: Model, shape, dtype) -> bool:
+def supports(model: Model, shape, dtype, storage_dtype=None) -> bool:
     """Whether the kernels run this configuration: a 2D model with device
-    physics (``DEVICE_MODELS``), f32, whose Iteration plan reaches no
-    further than the step kernel's ring."""
+    physics (``DEVICE_MODELS``), f32 compute with the stack at rest in f32
+    or bf16 (``storage_dtype``, default ``dtype``), whose Iteration plan
+    reaches no further than the step kernel's ring."""
+    sdt = dtype if storage_dtype is None else storage_dtype
     return (model.name in DEVICE_MODELS and model.ndim == 2
             and len(shape) == 2 and dtype == torch.float32
+            and sdt in ddf.STORAGE_DTYPES
             and min(int(s) for s in shape) >= 1
             and action_plan(model)[1] <= HALO)
 
 
-def supports_resident(model: Model, shape, dtype, series: bool = False
-                      ) -> bool:
-    """Whether the resident engine fits: the two ping-pong stacks plus
-    the flags within half of the L2.  Not under a Control series
-    (``series``): its launch runs many Iterations on one zone table."""
-    return (not series and supports(model, shape, dtype)
-            and launch_bytes(model, shape) <= L2_BYTES // 2)
+def supports_resident(model: Model, shape, dtype, series: bool = False,
+                      storage_dtype=None) -> bool:
+    """Whether the resident engine fits: the two ping-pong stacks (at the
+    storage itemsize) plus the flags within half of the L2.  Not under a
+    Control series (``series``): its launch runs many Iterations on one
+    zone table."""
+    sdt = dtype if storage_dtype is None else storage_dtype
+    return (not series and supports(model, shape, dtype, sdt)
+            and launch_bytes(model, shape, itemsize=sdt.itemsize)
+            <= L2_BYTES // 2)
 
 
-def kernel_inputs(model: Model, state: LatticeState, params: SimParams
-                  ) -> tuple:
+def kernel_inputs(model: Model, state: LatticeState, params: SimParams,
+                  shift: Optional[tuple] = None) -> tuple:
     """``(fields, flags, ztab, args)`` as the engines hand them to a kernel
     wrapper, once per ``iterate`` call: the field stack, the int32 flags,
     the (n_zonal, zone_max) table of the zonal settings, and the
-    constants."""
+    constants, with a bf16 stack's DDF shifts ``shift``
+    (:func:`tclb_tpu_torch.core.shift.kernel_shift`)."""
     si = model.setting_index
     ztab = params.zone_table[[si[n] for n in model.zonal_settings]]
     a = step_args(model, tuple(state.flags.shape),
                   params.settings.cpu().numpy())
+    if shift is not None:
+        a = dataclasses.replace(a, shift=tuple(shift))
     return (state.fields.contiguous(), state.flags.contiguous(),
             ztab.contiguous(), a)
 
@@ -792,20 +882,41 @@ def _advanced(state: LatticeState, fields, globals_, niter: int
                                iteration=state.iteration + niter)
 
 
-def make_band_iterate(model: Model, shape) -> Callable:
+def storage_tag(storage_dtype=torch.float32, storage_repr: str = "raw"
+                ) -> str:
+    """The storage part of an engine tag: empty for f32, else
+    ``,bfloat16/shifted`` (or ``/raw``)."""
+    if storage_dtype in (None, torch.float32):
+        return ""
+    return f",{ddf.dtype_name(storage_dtype)}/{storage_repr}"
+
+
+def engine_shift(model: Model, storage_dtype, storage_repr: str):
+    """The shifts an engine hands its kernels: None for f32 storage."""
+    if storage_dtype in (None, torch.float32):
+        return None
+    return ddf.kernel_shift(model, storage_repr)
+
+
+def make_band_iterate(model: Model, shape, storage_dtype=torch.float32,
+                      storage_repr: str = "raw") -> Callable:
     """``iterate(state, params, niter)`` on ``generic2d_step``: ``niter -
     1`` plain launches, then one globals launch, so the state comes back
     with the last step's globals (``full_globals``).  Under a Control
-    series the same on the series flavours (``supports_series``)."""
-    if not supports(model, shape, torch.float32):
+    series the same on the series flavours (``supports_series``, f32 storage
+    only).  A bf16 stack (``storage_dtype``) runs ``generic2d_step_bf16``
+    with the shifts of ``storage_repr``."""
+    if not supports(model, shape, torch.float32, storage_dtype):
         raise ValueError(f"generic kernels unsupported: {model.name} "
-                         f"{shape}")
+                         f"{shape} {storage_dtype}")
+    shift = engine_shift(model, storage_dtype, storage_repr)
+    narrowed = storage_dtype != torch.float32
 
     def iterate(state: LatticeState, params: SimParams, niter: int
                 ) -> LatticeState:
         if niter <= 0:
             return state
-        f, flags, ztab, a = kernel_inputs(model, state, params)
+        f, flags, ztab, a = kernel_inputs(model, state, params, shift)
         series = series_inputs(model, params)
         if series is None:
             f, g = _band_steps(f, flags, ztab, a, niter)
@@ -815,24 +926,28 @@ def make_band_iterate(model: Model, shape) -> Callable:
         return _advanced(state, f, g, niter)
 
     iterate.full_globals = True
-    iterate.supports_series = True
+    iterate.supports_series = not narrowed
     return iterate
 
 
-def make_resident_iterate(model: Model, shape) -> Callable:
+def make_resident_iterate(model: Model, shape, storage_dtype=torch.float32,
+                          storage_repr: str = "raw") -> Callable:
     """``iterate(state, params, niter)``: the even part of ``niter - 1``
     steps in one ``generic2d_resident`` launch, the rest on the band
     engine, whose last launch is the globals flavour
-    (pallas_generic.py:make_resident_iterate's composition)."""
-    if not supports_resident(model, shape, torch.float32):
+    (pallas_generic.py:make_resident_iterate's composition).  A bf16 stack
+    runs the bf16 flavours of both kernels."""
+    if not supports_resident(model, shape, torch.float32,
+                             storage_dtype=storage_dtype):
         raise ValueError(f"generic resident engine unsupported: "
-                         f"{model.name} {shape}")
+                         f"{model.name} {shape} {storage_dtype}")
+    shift = engine_shift(model, storage_dtype, storage_repr)
 
     def iterate(state: LatticeState, params: SimParams, niter: int
                 ) -> LatticeState:
         if niter <= 0:
             return state
-        f, flags, ztab, a = kernel_inputs(model, state, params)
+        f, flags, ztab, a = kernel_inputs(model, state, params, shift)
         main = (niter - 1) // 2 * 2
         if main:
             f = resident(f, flags, ztab, a, main)
@@ -843,17 +958,23 @@ def make_resident_iterate(model: Model, shape) -> Callable:
     return iterate
 
 
-def select_engine(model: Model, shape, dtype, series: bool = False
-                  ) -> tuple:
+def select_engine(model: Model, shape, dtype, series: bool = False,
+                  storage_dtype=None, storage_repr: str = "raw") -> tuple:
     """``(iterate, tag)`` of the kernel engine ``supports()`` picks for
     this configuration, or ``(None, None)``: resident where it fits (one
     launch fuses the even part of each call's ``niter - 1`` steps: the tag's
     ``fuse=N``), else the band engine; under a Control series
-    (``series``) the band engine."""
-    if supports_resident(model, shape, dtype, series):
-        return (make_resident_iterate(model, shape),
-                f"cuda_generic_resident[{model.name},fuse=N]")
-    if supports(model, shape, dtype):
-        return (make_band_iterate(model, shape),
-                f"cuda_generic_band[{model.name},fuse=1]")
+    (``series``) the band engine, f32 storage only.  A bf16 stack
+    (``storage_dtype``) is named in the tag: ``cuda_generic_band[d2q9,
+    fuse=1,bfloat16/shifted]``."""
+    sdt = dtype if storage_dtype is None else storage_dtype
+    tag = storage_tag(sdt, storage_repr)
+    if series and sdt != torch.float32:
+        return None, None
+    if supports_resident(model, shape, dtype, series, sdt):
+        return (make_resident_iterate(model, shape, sdt, storage_repr),
+                f"cuda_generic_resident[{model.name},fuse=N{tag}]")
+    if supports(model, shape, dtype, sdt):
+        return (make_band_iterate(model, shape, sdt, storage_repr),
+                f"cuda_generic_band[{model.name},fuse=1{tag}]")
     return None, None

@@ -41,6 +41,11 @@ def set_level(level: str) -> None:
     _threshold = LEVELS[level]
 
 
+def get_level() -> str:
+    """The current threshold's name."""
+    return next(k for k, v in LEVELS.items() if v == _threshold)
+
+
 def _emit(level: str, msg: str) -> None:
     if LEVELS[level] >= _threshold:
         stream = sys.stderr if LEVELS[level] >= 3 else sys.stdout

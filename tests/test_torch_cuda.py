@@ -1,7 +1,8 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
 family's branches), generic (2D and 3D, with their <Control> series
 flavours) and adjoint CUDA kernels against their plain PyTorch versions on
-the card.
+the card, and the storage ladder's bf16 flavours of the generic 2D and
+d3q27 kernels with the precision harness on them.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -10,6 +11,8 @@ without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -325,7 +328,7 @@ def test_generic_globals_flavour_matches_plain(card_lattice_kuper, shape):
     gk.reset_launches()
     got, g = gk.step_globals(f, flags, ztab, args)
     torch.cuda.synchronize()
-    assert gk.FLAVOUR_LAUNCHES == {"plain": 0, "globals": 1}
+    assert gk.flavours() == {"plain": 0, "globals": 1}
     want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
     torch.testing.assert_close(got, want, **FIELDS_TOL)
     torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
@@ -349,7 +352,7 @@ def test_generic_lattice_engine_matches_eager(card_lattice_kuper, shape,
     ref.state = ref._iterate(ref.state, ref.params, 12)
     torch.cuda.synchronize()
     assert lat.engine_name == engine and lat.eager_steps == 0
-    assert gk.FLAVOUR_LAUNCHES["globals"] == 1
+    assert gk.flavours()["globals"] == 1
     torch.testing.assert_close(lat.state.fields, ref.state.fields,
                                **FIELDS_TOL)
     got, want = lat.get_globals(), ref.get_globals()
@@ -658,8 +661,260 @@ def test_d2q9_generic_kernels_match_plain(card_lattice, shape):
         assert torch.equal(got[9:], f[9:])
     got, g = gk.step_globals(f, flags, ztab, args)
     torch.cuda.synchronize()
-    assert gk.LAUNCHES == {"generic2d_step": 2, "generic2d_resident": 1}
+    assert {k: v for k, v in gk.LAUNCHES.items() if v} == {
+        "generic2d_step": 2, "generic2d_resident": 1}
     want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
     torch.testing.assert_close(got, want, **FIELDS_TOL)
     torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
     assert bool((g != 0).all())
+
+
+# --------------------------------------------------------------------------- #
+# The storage ladder: the bf16 flavours of K4, K5 and K3
+# --------------------------------------------------------------------------- #
+
+from tclb_tpu_torch import precision  # noqa: E402
+from tclb_tpu_torch.core import shift as ddf  # noqa: E402
+
+# model -> (settings, painter) of the rich bf16 states
+BF16_GENERIC = {"d2q9": (RICH_SETTINGS, paint_rich),
+                "d2q9_kuper": (KUPER_SETTINGS, paint_rich_kuper),
+                "d2q9_heat_adj": (HEAT_SETTINGS, paint_rich_heat)}
+
+
+def _raw(lat_or_model, fields, storage_repr):
+    """A bf16 stack widened to f32 in the raw representation."""
+    model = getattr(lat_or_model, "model", lat_or_model)
+    return ddf.widen_stack(fields, torch.float32,
+                           ddf.stack_shift(model, storage_repr))
+
+
+def _assert_narrowed(got, wide, model, storage_repr):
+    """A bf16 kernel's output against its plain version's compute values
+    before their one narrowing (``wide``, raw f32): the f32 tolerance
+    carried through the narrowing (``core/shift.py:narrowed_bounds``).
+    Where the kernel's f32 arithmetic equals the plain version's, this is
+    bit-equality with the narrowed plain output; where it sits an ulp
+    away, a value that straddles a bf16 rounding boundary may round to its
+    other neighbour, and only then."""
+    lo, hi = ddf.narrowed_bounds(wide, torch.bfloat16,
+                                 ddf.stack_shift(model, storage_repr),
+                                 **FIELDS_TOL)
+    s = got.double()
+    bad = (s < lo.double()) | (s > hi.double())
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} values outside the f32 tolerance carried "
+        "through the narrowing")
+
+
+def _wide_plain(mod, f, flags, ztab, args, n, model, storage_repr):
+    """The plain version's f32 values before its one narrowing: ``n``
+    plain f32 steps on the widened stack (K4: n = 1; K3: the kernel's
+    cadence)."""
+    wide = ddf.widen_stack(f, torch.float32,
+                           ddf.stack_shift(model, storage_repr))
+    f32_args = dataclasses.replace(args, shift=None)
+    return mod.plain_steps(wide, flags, ztab, f32_args, n)
+
+
+@pytest.fixture
+def card_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, storage_repr, seed):
+        m = get_model(name)
+        if name in BF16_GENERIC:
+            settings, paint = BF16_GENERIC[name]
+        elif name == "d3q27_cumulant":
+            settings, paint = RICH3D_SETTINGS, paint_rich_3d
+        else:
+            settings, paint = d3q_family_settings(m), paint_rich_d3q
+        lat = Lattice(m, shape, dtype=torch.float32, settings=settings,
+                      device="cuda", storage_dtype=torch.bfloat16,
+                      storage_repr=storage_repr)
+        return paint(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("shape", [(16, 128), (37, 53), (64, 64)])
+@pytest.mark.parametrize("name", sorted(BF16_GENERIC))
+def test_bf16_generic_kernels_match_plain(card_bf16, name, shape,
+                                          storage_repr):
+    """generic2d_step_bf16 (both flavours) against the narrowed eager step
+    on the same bf16 stack (the f32 tolerance carried through the one
+    narrowing; the globals at rtol 1e-4 / atol 1e-6), and an 8-step
+    generic2d_resident_bf16 against eight generic2d_step_bf16 launches, bit
+    for bit (the same device code a step), and, for the models whose f32
+    kernels equal their plain versions bit for bit, against the plain
+    version at the f32 tolerance."""
+    lat = card_bf16(name, shape, storage_repr, seed=5)
+    m = lat.model
+    shift = ddf.kernel_shift(m, storage_repr)
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params, shift)
+    assert f.dtype == torch.bfloat16
+    gk.reset_launches()
+    got = gk.step(f, flags, ztab, args)
+    assert got.dtype == torch.bfloat16
+    wide = _wide_plain(gk, f, flags, ztab, args, 1, m, storage_repr)
+    _assert_narrowed(got, wide, m, storage_repr)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    _assert_narrowed(gotg, wide, m, storage_repr)
+    _, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in gk.LAUNCHES.items() if v} == {
+        "generic2d_step_bf16": 2, "generic2d_resident_bf16": 1}
+    assert gk.flavours("generic2d_step_bf16") == {"plain": 1, "globals": 1}
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    assert torch.equal(res.view(torch.int16), steps.view(torch.int16))
+    if name != "d2q9":      # d2q9's header sums rho in plane order
+        torch.testing.assert_close(
+            _raw(lat, res, storage_repr),
+            _raw(lat, gk.plain_steps(f, flags, ztab, args, 8), storage_repr),
+            **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("shape", [(12, 8, 64), (7, 9, 40)])
+@pytest.mark.parametrize("model", ("d3q27_cumulant",) + D3Q_FAMILY)
+def test_bf16_d3q27_kernels_match_plain(card_bf16, model, shape,
+                                        storage_repr):
+    """d3q27_step_bf16 and d3q27_step2_bf16 against the narrowed eager
+    steps at their cadence (one step; two f32 steps between one widen and
+    one narrow): the f32 tolerance carried through the one narrowing, the
+    cumulant's SynthT planes carried through."""
+    lat = card_bf16(model, shape, storage_repr, seed=5)
+    m = lat.model
+    f, flags, ztab, args = dk3.kernel_inputs(
+        m, lat.state, lat.params, ddf.kernel_shift(m, storage_repr))
+    dk3.reset_launches()
+    for name in dk3.KERNELS:
+        fn, n = dk3.WRAPPERS[name]
+        got = fn(f, flags, ztab, args)
+        assert got.dtype == torch.bfloat16
+        _assert_narrowed(got, _wide_plain(dk3, f, flags, ztab, args, n, m,
+                                          storage_repr), m, storage_repr)
+        if model == "d3q27_cumulant":
+            assert torch.equal(got[27:30], f[27:30])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in dk3.LAUNCHES.items() if v} == {
+        dk3.launch_key(k, model): 1 for k in dk3.BF16_KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name,shape,engine", [
+    ("d2q9", (64, 64), "cuda_generic_resident[d2q9,fuse=N,bfloat16/{}]"),
+    ("d2q9", (1024, 1024), "cuda_generic_band[d2q9,fuse=1,bfloat16/{}]"),
+    ("d2q9_kuper", (64, 64),
+     "cuda_generic_resident[d2q9_kuper,fuse=N,bfloat16/{}]"),
+    ("d2q9_kuper", (1024, 1024),
+     "cuda_generic_band[d2q9_kuper,fuse=1,bfloat16/{}]"),
+])
+def test_bf16_generic_lattice_matches_eager(card_bf16, name, shape, engine,
+                                            storage_repr):
+    """Lattice.iterate on a bf16 lattice on the card selects the generic
+    engine (K1/K2 reject bf16), with the storage in its tag: its 12 steps
+    equal 12 generic2d_step_bf16 launches bit for bit and, where the f32
+    kernels equal their plain versions bit for bit (d2q9_kuper), 12
+    narrowed eager steps (both narrow once a step)."""
+    lat = card_bf16(name, shape, storage_repr, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda",
+                  storage_dtype=torch.bfloat16, storage_repr=storage_repr)
+    ref.set_state(lat.state, lat.params)
+    f, flags, ztab, args = gk.kernel_inputs(
+        lat.model, lat.state, lat.params,
+        ddf.kernel_shift(lat.model, storage_repr))
+    gk.reset_launches()
+    lat.iterate(12)
+    assert lat.engine_name == engine.format(storage_repr)
+    assert lat.eager_steps == 0
+    assert gk.flavours("generic2d_step_bf16")["globals"] == 1
+    assert not any(gk.LAUNCHES[k] for k in gk.KERNELS)
+    for _ in range(12):
+        f = gk.step(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert torch.equal(lat.state.fields.view(torch.int16),
+                       f.view(torch.int16))
+    if name != "d2q9":      # d2q9's header sums rho in plane order
+        ref.state = ref._iterate(ref.state, ref.params, 12)
+        torch.testing.assert_close(
+            _raw(lat, lat.state.fields, storage_repr),
+            _raw(lat, ref.state.fields, storage_repr), **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ("d3q27_cumulant", "d3q19"))
+def test_bf16_d3q27_lattice_engine(card_bf16, model):
+    """A bf16 shifted z-slab lattice on the card: the K3 band engine with
+    the storage in its tag, its launches the bf16 flavours only."""
+    lat = card_bf16(model, (12, 8, 64), "shifted", seed=6)
+    dk3.reset_launches()
+    lat.iterate(12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == (f"cuda_d3q27_band[{model},fuse=2,"
+                               "bfloat16/shifted]")
+    assert {k: v for k, v in dk3.LAUNCHES.items() if v} == {
+        dk3.launch_key("d3q27_step2_bf16", model): 5,
+        dk3.launch_key("d3q27_step_bf16", model): 1}
+    assert bool(torch.isfinite(lat.state.fields.float()).all())
+
+
+@pytest.mark.cuda
+def test_bf16_rejected_engines_run_eager_by_selection():
+    """K6 and the series flavours have no bf16 rung: a bf16 lattice there
+    runs eager by selection, with the storage in the tag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    lat = Lattice(get_model("d3q19_adj"), (8, 16, 32), device="cuda",
+                  settings=ADJ3D_SETTINGS, storage_dtype=torch.bfloat16)
+    assert lat.engine_name == "eager[bfloat16/shifted]"
+    lat = Lattice(get_model("d2q9"), (32, 64), device="cuda",
+                  settings=RICH_SETTINGS, storage_dtype=torch.bfloat16)
+    lat.set_setting_series("Velocity", [0.01, 0.02], zone=0)
+    assert lat.engine_name == "eager[bfloat16/shifted]"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", precision.CASE_NAMES)
+def test_bf16_harness_within_bounds_on_the_kernels(case):
+    """The precision harness on the card: both representations of the
+    case at 64x64 and 500 steps on the generic resident engine, within
+    ERROR_BOUNDS; the shifted cavity's u_linf at least 10x below raw."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    raw, shifted = precision.compare_reprs(case, device="cuda")
+    for rep in (raw, shifted):
+        assert rep["engine"].startswith("cuda_generic_resident["), rep
+        assert precision.check_bounds(rep) == []
+        assert all(r["l2"] > 0 for r in rep["checkpoints"])
+    if case == "cavity":
+        for rr, rs in zip(raw["checkpoints"], shifted["checkpoints"]):
+            assert rs["u_linf"] <= rr["u_linf"] / 10, (rr, rs)
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(tmp_path):
+    """A bf16 shifted lattice on the card saves and loads bit-exactly, and
+    through a raw f32 lattice stays within the f32 rounding of f + w."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    sh = precision.case_lattice("cavity", 32, torch.bfloat16, "shifted",
+                                "cuda")
+    sh.iterate(12)
+    sh.save(str(tmp_path / "sh.npz"))
+    same = precision.case_lattice("cavity", 32, torch.bfloat16, "shifted",
+                                  "cuda")
+    same.load(str(tmp_path / "sh.npz"))
+    assert torch.equal(same.state.fields.view(torch.int16),
+                       sh.state.fields.view(torch.int16))
+    wide = precision.case_lattice("cavity", 32, device="cuda")
+    wide.load(str(tmp_path / "sh.npz"))
+    assert abs(wide.fields_raw() - sh.fields_raw()).max() < 1e-6

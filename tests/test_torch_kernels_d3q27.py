@@ -18,6 +18,8 @@ if not hasattr(type(_batching.primitive_batchers), "__contains__"):
     type(_batching.primitive_batchers).__contains__ = (
         lambda self, k: k in _batching.fancy_primitive_batchers)
 
+import dataclasses  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -301,3 +303,75 @@ def test_family_step_args():
     stress, back = dk.stress_rows()
     np.testing.assert_allclose(stress @ back, np.eye(6), atol=1e-12)
     np.testing.assert_array_equal(stress, d3q19.M[4:10])
+
+
+# --------------------------------------------------------------------------- #
+# the storage ladder: the plain versions of the bf16 flavours
+# --------------------------------------------------------------------------- #
+
+from tclb_tpu_torch.core import shift as ddf  # noqa: E402
+from tclb_tpu_torch.core.lattice import make_iterate  # noqa: E402
+
+BF16_SHAPE = (8, 8, 32)
+
+
+def bf16_lattice(name, storage_repr, seed=5):
+    m = get_model(name)
+    settings = RICH3D_SETTINGS if name == NAME else d3q_family_settings(m)
+    lat = Lattice(m, BF16_SHAPE, dtype=torch.float32, settings=settings,
+                  device="cpu", storage_dtype=torch.bfloat16,
+                  storage_repr=storage_repr)
+    return (paint_rich_3d if name == NAME else paint_rich_d3q)(lat, seed)
+
+
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", (NAME,) + D3Q_FAMILY)
+def test_bf16_plain_kernels_equal_narrowed_eager(name, storage_repr):
+    """The plain bf16 d3q27_step is one narrowed eager step, and
+    d3q27_step2 two f32 eager steps between one widen and one narrow (the
+    kernel's cadence: its ring of step-1 planes stays f32), bit for bit;
+    the cumulant's SynthT planes pass through; no launch is counted."""
+    b = bf16_lattice(name, storage_repr)
+    m = b.model
+    sb = ddf.stack_shift(m, storage_repr)
+    f, flags, ztab, args = dk.kernel_inputs(
+        m, b.state, b.params, ddf.kernel_shift(m, storage_repr))
+    assert (args.c_shift is None) == (storage_repr == "raw")
+    dk.reset_launches()
+    one = make_iterate(m, storage_dtype=torch.bfloat16,
+                       storage_shift=sb)(b.state, b.params, 1).fields
+    wide = dataclasses.replace(b.state, fields=ddf.widen_stack(
+        f, torch.float32, sb))
+    two = ddf.narrow_stack(make_iterate(m)(wide, b.params, 2).fields,
+                           torch.bfloat16, sb)
+    for (fn, n), want in zip(dk.WRAPPERS.values(), (one, two)):
+        got = fn(f, flags, ztab, args)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        if name == NAME:
+            assert torch.equal(got[27:30], f[27:30])
+    assert not any(dk.LAUNCHES.values())
+
+
+def test_bf16_bounds_and_shifts():
+    """A bf16 node moves 2 B a plane each way plus the flag: the cumulant
+    140 B, the BGK models 112 B, d3q19 and d3q19_les 80 B; the shifts the
+    kernels take (core/shift.py:kernel_shift) are f32 of each population's
+    weight in the velocity order csrc/d3q27.cu builds, 0 for SynthT and
+    the averages."""
+    n = int(np.prod(SHAPE3D))
+    for name, per_node in ((NAME, 140), ("d3q27_BGK", 112),
+                           ("d3q27_BGK_galcor", 112), ("d3q19", 80),
+                           ("d3q19_les", 80)):
+        m = get_model(name)
+        assert dk.launch_bytes(m, SHAPE3D, itemsize=2) == per_node * n \
+            + len(dk.ZONAL[name]) * m.zone_max * 4
+        E, W, _ = dk._SETS[name]
+        want = np.zeros(m.n_storage, dtype=np.float32)
+        want[:len(W)] = np.asarray(W, dtype=np.float64)
+        assert ddf.kernel_shift(m, "shifted") == tuple(
+            float(w) for w in want)
+        assert dk.supports(m, SHAPE3D, torch.float32,
+                           storage_dtype=torch.bfloat16)
+        assert not dk.supports(m, SHAPE3D, torch.float32,
+                               storage_dtype=torch.float16)

@@ -20,6 +20,7 @@ if not hasattr(type(_batching.primitive_batchers), "__contains__"):
     type(_batching.primitive_batchers).__contains__ = (
         lambda self, k: k in _batching.fancy_primitive_batchers)
 
+import dataclasses  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
 
@@ -130,8 +131,10 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     assert torch.equal(got, want) and torch.equal(g, wg)
     assert torch.equal(gk.resident(f, flags, ztab, args, 2),
                        gk.plain_steps(f, flags, ztab, args, 2))
-    assert gk.LAUNCHES == {name: 0 for name in gk.KERNELS}
-    assert gk.FLAVOUR_LAUNCHES == {"plain": 0, "globals": 0}
+    assert gk.LAUNCHES == {name: 0 for name in gk.KERNELS
+                           + gk.BF16_KERNELS}
+    assert set(gk.FLAVOUR_LAUNCHES.values()) == {0}
+    assert gk.flavours() == {"plain": 0, "globals": 0}
     with pytest.raises(ValueError, match="even count"):
         gk.resident(f, flags, ztab, args, 3)
 
@@ -284,13 +287,14 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """generic2d.cu builds once per model, the model's header pre-included,
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
-    adjoint header generic2d.cu includes changes all three; editing a file
-    none includes changes none."""
+    adjoint header or the storage seams generic2d.cu includes changes all
+    three; editing a file none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
     assert [p.name for p in _cuda_build.included(csrc / "generic2d.cu")] \
-        == ["generic2d.cu", "generic_common.cuh", "generic2d_adjoint.cuh"]
+        == ["generic2d.cu", "generic_common.cuh", "storage.cuh",
+            "generic2d_adjoint.cuh"]
     headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()
                if dm.ndim == 2}
     assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"}
@@ -314,6 +318,10 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     adj = csrc / "generic2d_adjoint.cuh"
     adj.write_text(adj.read_text() + "\n// edited\n")
     assert all(a != b for a, b in zip(digests().values(), edited.values()))
+    again = digests()
+    seams = csrc / "storage.cuh"
+    seams.write_text(seams.read_text() + "\n// edited\n")
+    assert all(a != b for a, b in zip(digests().values(), again.values()))
 
 
 # --------------------------------------------------------------------------- #
@@ -396,3 +404,133 @@ def test_d2q9_device_header_matches_registry():
                                   (d2q9.M * d2q9.M).sum(axis=1))
     # no stage reads a time derivative: the kernels compute none
     assert "setting_dt" not in text
+
+
+# --------------------------------------------------------------------------- #
+# the storage ladder: the plain versions of the bf16 flavours
+# --------------------------------------------------------------------------- #
+
+from tclb_tpu.core import shift as jax_shift  # noqa: E402
+from tclb_tpu_torch.convert import state_from_numpy  # noqa: E402
+from tclb_tpu_torch.core import shift as ddf  # noqa: E402
+from tclb_tpu_torch.core.lattice import make_iterate  # noqa: E402
+from torch_cases import HEAT_SETTINGS, paint_rich_heat  # noqa: E402
+
+# model -> (settings, painter, shape) of the rich bf16 states
+BF16_CASES = {"d2q9": (RICH_SETTINGS, paint_rich, (16, 64)),
+              "d2q9_kuper": (KUPER_SETTINGS, paint_rich_kuper, KUPER_SHAPE),
+              "d2q9_heat_adj": (HEAT_SETTINGS, paint_rich_heat, (32, 64))}
+
+
+def bf16_lattice(cls, name, storage_repr, seed=5):
+    settings, paint, shape = BF16_CASES[name]
+    if cls is Lattice:
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=settings, device="cpu",
+                      storage_dtype=torch.bfloat16,
+                      storage_repr=storage_repr)
+    else:
+        lat = JaxLattice(jax_model(name), shape, dtype=jnp.float32,
+                         settings=settings, storage_dtype=jnp.bfloat16,
+                         storage_repr=storage_repr)
+    return paint(lat, seed)
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return ddf.bf16_bits(a)
+    return np.asarray(a).view(np.uint16)
+
+
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plain_kernels_equal_narrowed_eager(name, storage_repr):
+    """Each bf16 wrapper on CPU tensors is the narrowed eager engine at
+    its kernel's cadence (widen, one Iteration in f32, narrow, per step),
+    bit for bit: step, step_globals (and its globals) and an 8-step
+    resident, with no launch counted."""
+    b = bf16_lattice(Lattice, name, storage_repr)
+    m = b.model
+    shift = ddf.kernel_shift(m, storage_repr)
+    f, flags, ztab, args = gk.kernel_inputs(m, b.state, b.params, shift)
+    assert f.dtype == torch.bfloat16 and args.shift == shift
+    eager = make_iterate(m, storage_dtype=torch.bfloat16,
+                         storage_shift=ddf.stack_shift(m, storage_repr))
+    gk.reset_launches()
+    one = eager(b.state, b.params, 1)
+    got, g = gk.step_globals(f, flags, ztab, args)
+    assert torch.equal(_bits_t(gk.step(f, flags, ztab, args)),
+                       _bits_t(one.fields))
+    assert torch.equal(_bits_t(got), _bits_t(one.fields))
+    assert torch.equal(g, one.globals_)
+    eight = eager(b.state, b.params, 8)
+    assert torch.equal(_bits_t(gk.resident(f, flags, ztab, args, 8)),
+                       _bits_t(eight.fields))
+    assert set(gk.LAUNCHES.values()) == {0}
+    assert set(gk.FLAVOUR_LAUNCHES.values()) == {0}
+
+
+def _bits_t(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plain_band_matches_pallas(name, storage_repr):
+    """The plain bf16 K4 (the band engine on CPU tensors, fuse=1) against
+    the JAX package's ``pallas_generic.make_pallas_iterate`` at bf16 in
+    interpret mode, from the same bf16 state: one Iteration bit for bit
+    for d2q9, d2q9_kuper and d2q9_heat_adj raw (d2q9 also after three);
+    d2q9_heat_adj shifted within the f32 tolerance carried through the
+    narrowing (its f32 engines sit an ulp apart at some nodes, and a
+    shifted bf16 deviation resolves that ulp at a few of them)."""
+    a = bf16_lattice(JaxLattice, name, storage_repr)
+    m = get_model(name)
+    shape = BF16_CASES[name][2]
+    state, params = state_from_numpy(
+        m, np.asarray(a.state.fields), np.asarray(a.state.flags),
+        np.asarray(a.state.globals_), a.state.iteration,
+        np.asarray(a.params.settings), np.asarray(a.params.zone_table),
+        device="cpu")
+    it = pallas_generic.make_pallas_iterate(
+        a.model, shape, jnp.bfloat16, interpret=True, fuse=1,
+        present=jax_present(a.model, np.asarray(a.state.flags)),
+        shift=jax_shift.shift_of(a.model, storage_repr))
+    port = gk.make_band_iterate(m, shape, torch.bfloat16, storage_repr)
+    for niter in ((1, 3) if name == "d2q9" else (1,)):
+        want = it(_copy(a.state), a.params, niter)
+        got = port(state, params, niter)
+        assert got.fields.dtype == torch.bfloat16
+        if name == "d2q9_heat_adj" and storage_repr == "shifted":
+            sb = ddf.stack_shift(m, storage_repr)
+            wide = make_iterate(m)(dataclasses.replace(
+                state, fields=ddf.widen_stack(state.fields, torch.float32,
+                                              sb)), params, 1).fields
+            lo, hi = ddf.narrowed_bounds(wide, torch.bfloat16, sb,
+                                         **FIELDS_TOL)
+            w = torch.from_numpy(np.asarray(want.fields, np.float64))
+            assert bool(((w >= lo.double()) & (w <= hi.double())).all())
+            assert int((_bits(got.fields) != _bits(want.fields)).sum()) <= 4
+        else:
+            np.testing.assert_array_equal(_bits(got.fields),
+                                          _bits(want.fields))
+
+
+def test_bf16_bounds_and_selection():
+    """A bf16 node moves 2 B a plane each way: d2q9 48 B (11 planes and
+    the flags), d2q9_kuper 44 B; the resident engine counts its L2 at that
+    size, so a lattice too large for it in f32 fits in bf16."""
+    d2q9, kuper = get_model("d2q9"), get_model("d2q9_kuper")
+    n = 1024 * 1024
+    assert gk.launch_bytes(d2q9, (1024, 1024), itemsize=2) == \
+        48 * n + 8 * d2q9.zone_max
+    assert gk.launch_bytes(kuper, (1024, 1024), itemsize=2) == \
+        44 * n + 4 * kuper.zone_max
+    shape = (512, 640)      # 27.5 MB of f32 stacks, 14.4 MB of bf16
+    assert not gk.supports_resident(kuper, shape, torch.float32)
+    assert gk.supports_resident(kuper, shape, torch.float32,
+                                storage_dtype=torch.bfloat16)
+    assert not gk.supports(kuper, shape, torch.float32,
+                           storage_dtype=torch.float16)
+    it = gk.make_band_iterate(kuper, shape, torch.bfloat16, "shifted")
+    assert it.full_globals and not it.supports_series
