@@ -8,16 +8,17 @@ builds ``tclb_tpu_torch/csrc/d2q9.cu`` for d2q9 and once for each of the
 five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu`` for
 d3q27_cumulant and once for each of d3q27_BGK, d3q27_BGK_galcor, d3q19 and
 d3q19_les (``-DD3Q_MODEL``), ``generic2d.cu``
-once for each of d2q9 (``csrc/models/d2q9.cuh``), d2q9_kuper and
-d2q9_heat_adj, the latter with the
-backward kernel of ``generic2d_adjoint.cuh``, and ``generic3d.cu`` for
+once for each of d2q9 (``csrc/models/d2q9.cuh``), d2q9_kuper,
+d2q9_heat_adj (with the backward kernel of ``generic2d_adjoint.cuh``)
+and the six one-stage models (d2q9_heat, d2q9_heat_conjugate, d2q9_hb,
+sw, d2q9_solid, d2q9_npe_guo), and ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
 sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
 1. build the d2q9 library and the five family libraries, the five d3q27
-   libraries, the two generic 2D and the generic 3D libraries and print
+   libraries, the nine generic 2D and the generic 3D libraries and print
    what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
@@ -193,6 +194,40 @@ missing.  Phases, each of which fails the run on its own:
 30. bf16 shifted checkpoints on the card: bit-exact at rest, through raw
    f32 and back.
 
+31. the one-stage models' examples unchanged through ``run_config``:
+   ``example/heat_channel.xml`` (d2q9_heat, 512x64, 6000 iterations),
+   ``sw_wave.xml`` (256x64, 3000), ``solidification.xml`` (d2q9_solid,
+   128x128, 2000, VTK Solid,C,T) and ``npe_guo.xml`` (d2q9_npe_guo, 64x32,
+   2000), each on ``cuda_generic_resident[<model>,fuse=N]``, counted from
+   0: no eager step, both generic kernels, one globals launch per Log;
+   heat_channel's T finite and hottest on the Heater,
+   solidification's fi_s in [0, 1] with its sum growing from Log to Log;
+   then each example cut to 1000 iterations on the kernels and on the
+   eager f32 engine: every Log column, the fields and the VTK quantities
+   at rtol 1e-4 / atol 1e-6; sw_wave's total height (f64 sum) conserved
+   within 1e-10 by the f64 eager engine over the cut and carried by the
+   kernels as by the eager f32 engine (within 1e-7 at every Log; f32
+   drifts alike on every engine, ``SW_MASS_F32``); the MLUPS of the case
+   and of an
+   ``iterate(2000)`` window; (31b) tests/test_electrokinetics.py's
+   electro-osmotic channel (30x64, 8000 iterations) on the kernels, its
+   normalised ux within 0.08 of (psi - zeta);
+32. each one-stage model's 1024x1024 lattice (``torch_cases.
+   paint_generic``: tests/test_pallas_generic.py's ``_paint``) on K4:
+   ``generic2d_step`` (both flavours) against its plain version after 4
+   eager steps, the bf16 shifted flavours within the f32 tolerance carried
+   through the narrowing, and ``iterate(2000)`` in f32 and in bf16
+   (MLUPS, the band engine's tag);
+33. K5 on each model's resident path (the example's state after its run;
+   a 128x128 lattice iterated 500 steps for d2q9_heat_conjugate and
+   d2q9_hb) against its plain version and bit for bit against eight
+   chained K4 launches, its bf16 rung bit for bit against eight chained
+   ``generic2d_step_bf16`` launches each within its bound, and an
+   ``iterate(2000)`` of the same state in bf16 on the resident engine;
+34. d2q9_heat under a ``<Control>`` series of HeaterTemperature on
+   heat_channel's Heater zone (horizon 5): both series flavours against
+   their plain versions, then an ``iterate(2000)`` on them.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -209,8 +244,10 @@ z-slab family branch at 48x48x256; phase 8 also profiles the two
 Phase 7 also times the series flavours (K4's at 1024x1024 and at
 512x96, K6's at 32x64x256) and d2q9's plain generic kernels; phase 8 also
 profiles a karman_control ``iterate(500)`` and a 3D Control channel
-``iterate(200)``.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
-12, 13, 14, 15-19, 20-22, 23-25, 26-30, 7, 8.
+``iterate(200)``.  Phase 7 also times every one-stage kernel at its paths'
+shapes, phase 8 profiles a heat_channel and a 1024x1024 d2q9_npe_guo
+window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14,
+15-19, 20-22, 23-25, 26-30, 31-34, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -290,7 +327,9 @@ TPU_KERNELS.update({f"{name}[{m}]": TPU_KERNELS[name] for m in FAMILY_2D
 SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
            "adjoint": "generic2d_adjoint.cuh", "generic3d": "generic3d.cu",
            "adjoint3d": "generic3d_adjoint.cuh"}
-GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj")
+GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj",
+                  "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
+                  "d2q9_solid", "d2q9_npe_guo")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -1801,11 +1840,13 @@ def _read_log(path) -> tuple:
             np.array([[float(v) for v in r.split(",")] for r in lines[1:]]))
 
 
-def run_series_xml(xml, fast: bool, probe=None, csvs=("Log",)) -> dict:
-    """``xml`` through ``run_config`` at f32 from a case directory, on the
-    kernel engines (``fast``, launches counted from 0) or the eager engine
-    (``TCLB_FASTPATH=0``); ``probe(solver)`` is recorded at each Log, and
-    the case's ``<stem>_<name>.csv`` read for each of ``csvs``."""
+def run_series_xml(xml, fast: bool, probe=None, csvs=("Log",),
+                   dtype=torch.float32) -> dict:
+    """``xml`` through ``run_config`` at ``dtype`` (f32) from a case
+    directory, on the kernel engines (``fast``, launches counted from 0)
+    or the eager engine (``TCLB_FASTPATH=0``); ``probe(solver)`` is
+    recorded at each Log, and the case's ``<stem>_<name>.csv`` read for
+    each of ``csvs``."""
     from tclb_tpu_torch.control.solver import Solver, run_config
     from tclb_tpu_torch.models import get_model
     from tclb_tpu_torch.ops import generic3d_kernels as g3
@@ -1831,7 +1872,7 @@ def run_series_xml(xml, fast: bool, probe=None, csvs=("Log",)) -> dict:
                 mod.reset_launches()
             t0 = time.perf_counter()
             solver = run_config(str(xml), get_model(root.get("model")),
-                                dtype=torch.float32, device=DEVICE)
+                                dtype=dtype, device=DEVICE)
             solver.lattice.synchronize()
             wall = time.perf_counter() - t0
             launches = {**gk.LAUNCHES, **gk.SERIES_LAUNCHES, **g3.LAUNCHES,
@@ -2050,11 +2091,14 @@ def event_ms(fn, reps: int, warm: int = 5) -> float:
 
 
 def time_one(name: str, launch, plain, nbytes: int, flops: int, shape,
-             reps: int, plain_reps: int = 10) -> dict:
-    """One kernel's time (CUDA events), its plain version's, its bound on
-    this card from ``nbytes`` and ``flops``, and its wrapper's host time."""
+             reps: int, plain_reps: int = 10, plain_warm=None) -> dict:
+    """One kernel's time (CUDA events), its plain version's (after
+    ``plain_warm`` calls, by default as many as its repeats up to 2), its
+    bound on this card from ``nbytes`` and ``flops``, and its wrapper's
+    host time."""
     ms = event_ms(launch, reps)
-    plain_ms = event_ms(plain, plain_reps, warm=min(2, plain_reps))
+    plain_ms = event_ms(plain, plain_reps, warm=min(2, plain_reps)
+                        if plain_warm is None else plain_warm)
     host_ms = wrapper_host_ms(launch)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
@@ -2805,6 +2849,504 @@ def time_bf16(gk, dk3, band: dict, res: dict, d3: dict,
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The one-stage 2D models on K4/K5 (phases 31-34)
+# --------------------------------------------------------------------------- #
+
+ONESTAGE_MODELS = ("d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
+                   "d2q9_solid", "d2q9_npe_guo")
+# model -> its shipped example (the two built on d2q9_heat ship none)
+ONESTAGE_EXAMPLES = {"d2q9_heat": "heat_channel.xml", "sw": "sw_wave.xml",
+                     "d2q9_solid": "solidification.xml",
+                     "d2q9_npe_guo": "npe_guo.xml"}
+ONESTAGE_CUT = 1000          # iterations of the eager comparison
+ONESTAGE_N = 1024            # the full-width lattices
+ONESTAGE_WINDOW = 2000       # iterate() window of the MLUPS
+ONESTAGE_SMALL = (128, 128)  # K5's path for the models without an example
+ONESTAGE_SMALL_WINDOW = 500  # its iterate window
+# sw_wave's total height (an f64 sum): the f64 eager run conserves it to
+# SW_MASS_F64 over the cut; in f32 it grows on every engine, the JAX
+# package's XLA engine too (the inverse basis' float coefficients;
+# tests/test_torch_sw.py), so the kernel run's mass is held to the eager
+# f32 run's at every Log of the cut within SW_MASS_F32
+SW_MASS_F64, SW_MASS_F32 = 1e-10, 1e-7
+EOF_ATOL = 0.08              # tests/test_electrokinetics.py:122
+
+
+def onestage_lattice(model: str, shape, storage_dtype=None):
+    """tests/test_pallas_generic.py's ``_paint`` on the card
+    (``torch_cases.paint_generic``: the collision type inside, walls top
+    and bottom, W and E faces, a settings zone 1 stripe; hb's Destroy and
+    solid's Seed), that file's ``_SETTINGS`` where it has the model and
+    the example's otherwise (``GENERIC_SETTINGS``), initialised; bf16
+    shifted storage with ``storage_dtype``."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import (GENERIC_SETTINGS, RICH_ONESTAGE_ZONE1,
+                             paint_generic)
+    m = get_model(model)
+    kw = {} if storage_dtype is None else {
+        "storage_dtype": storage_dtype, "storage_repr": "shifted"}
+    lat = Lattice(m, shape, dtype=torch.float32, device=DEVICE,
+                  settings=GENERIC_SETTINGS[model], **kw)
+    lat.set_flags(paint_generic(m, *shape))
+    for name in m.zonal_settings:
+        lat.set_setting(name, RICH_ONESTAGE_ZONE1[name], zone=1)
+    lat.init()
+    return lat
+
+
+def cut_xml(xml, niter: int, directory) -> pathlib.Path:
+    """``xml`` with its Solve cut to ``niter`` iterations (the Log
+    interval kept, no VTK), written into ``directory`` under its name."""
+    root = ET.parse(xml).getroot()
+    root.find("Solve").set("Iterations", str(niter))
+    for el in root.findall("VTK"):
+        root.remove(el)
+    path = pathlib.Path(directory) / xml.name
+    ET.ElementTree(root).write(path)
+    return path
+
+
+def heat_check(run, lat) -> dict:
+    """heat_channel.xml: T finite, hottest on the Heater."""
+    m = lat.model
+    T = lat.get_quantity("T").double()
+    heater = torch.as_tensor(
+        (lat.flags_numpy() & m.node_types["Heater"].mask)
+        == m.node_types["Heater"].value, device=T.device)
+    t_max, t_heater = float(T.max()), float(T[heater].max())
+    say(f"  T in [{float(T.min()):.4f}, {t_max:.4f}], on the Heater up to "
+        f"{t_heater:.4f}")
+    if not (bool(torch.isfinite(T).all()) and t_heater == t_max):
+        fail("heat_channel.xml: T is not hottest on the Heater")
+    return {"T_max": t_max, "T_heater_max": t_heater}
+
+
+def sw_check(run, kern, eager, f64) -> dict:
+    """sw_wave.xml's total height (summed in f64): the f64 eager run of
+    the cut conserves it within SW_MASS_F64 at every Log; the kernel run
+    of the cut carries it as the eager f32 run does, within SW_MASS_F32
+    at every Log; the whole run's drift (f32) is reported."""
+    mass0 = run["mass0"]
+    drift = {tag: [abs(v - r["mass0"]) / r["mass0"] for _, v in r["probes"]]
+             for tag, r in (("run", run), ("f64", f64))}
+    gap = max(abs(a - b) / mass0 for (_, a), (_, b)
+              in zip(kern["probes"], eager["probes"]))
+    say(f"  total height {mass0!r} at the start; relative drift at the "
+        f"Logs {drift['run']} on the kernels (f32), {drift['f64']} on the "
+        f"f64 eager engine over the first {ONESTAGE_CUT} (limit "
+        f"{SW_MASS_F64}); kernels against eager f32 over the cut: "
+        f"{gap:.3e} (limit {SW_MASS_F32})")
+    if not (max(drift["f64"]) <= SW_MASS_F64 and gap <= SW_MASS_F32
+            and len(kern["probes"]) == len(eager["probes"]) > 0):
+        fail("sw_wave.xml does not conserve its mass")
+    return {"mass0": mass0, "drift_f32_run": drift["run"],
+            "drift_f64_cut": drift["f64"], "kernel_vs_eager_f32": gap}
+
+
+def solid_check(run, lat) -> dict:
+    """solidification.xml: fi_s in [0, 1] at every Log, its sum growing
+    from Log to Log (tests/test_physics_constitutive.py:158-200)."""
+    sums = [v[0] for _, v in run["probes"]]
+    lo = min(v[1] for _, v in run["probes"])
+    hi = max(v[2] for _, v in run["probes"])
+    say(f"  solid sum at the Logs {sums}; fi_s in [{lo!r}, {hi!r}]")
+    if not (lo >= 0.0 and hi <= 1.0
+            and all(b > a for a, b in zip(sums, sums[1:]))):
+        fail("solidification.xml: the solid does not grow within [0, 1]")
+    return {"solid_sums": sums, "fi_min": lo, "fi_max": hi}
+
+
+def onestage_probe(model: str):
+    """What the physics check of ``model``'s example records at each Log."""
+    if model == "sw":
+        return lambda s: float(s.lattice.get_quantity("Rho").double().sum())
+    if model == "d2q9_solid":
+        def solid(s):
+            fi = s.lattice.get_quantity("Solid").double()
+            return (float(fi.sum()), float(fi.min()), float(fi.max()))
+        return solid
+    return None
+
+
+def run_onestage_example(gk, model: str) -> dict:
+    """Phase 31: ``model``'s example unchanged through ``run_config`` on
+    the card, counted from 0: the resident engine, no eager step, both
+    generic kernels; the physics check; then the example cut to
+    ONESTAGE_CUT iterations on the kernels and on the eager f32 engine:
+    every Log column and the final fields and VTK quantities at rtol 1e-4
+    / atol 1e-6; the MLUPS of the whole case and of an iterate window."""
+    xml = ROOT / "example" / ONESTAGE_EXAMPLES[model]
+    say(f"phase 31: {xml.name} end to end")
+    root = ET.parse(xml).getroot()
+    niter = int(root.find("Solve").get("Iterations"))
+    # one iterate call, hence one globals launch, per Log or VTK stop
+    stops = len({niter} | {i for el in root.findall("Log")
+                           + root.findall("VTK")
+                           for i in range(int(el.get("Iterations")),
+                                          niter + 1,
+                                          int(el.get("Iterations")))})
+    run = run_onestage_xml(gk, xml, True, onestage_probe(model))
+    lat = run["solver"].lattice
+    engine = f"cuda_generic_resident[{model},fuse=N]"
+    launches = {k: v for k, v in run["launches"].items() if v}
+    say(f"  engine {lat.engine_name}, {run['solver'].iter} iterations, "
+        f"{run['wall_s']:.3f} s wall, launches {launches}, eager steps "
+        f"{lat.eager_steps}")
+    if lat.engine_name != engine or lat.eager_steps:
+        fail(f"{xml.name} ran on {lat.engine_name} with {lat.eager_steps} "
+             "eager steps")
+    globals_ = run["flavours"]["generic2d_step"]["globals"]
+    if set(launches) != set(gk.KERNELS) or globals_ != stops:
+        fail(f"{xml.name}: launches {launches}, globals flavour "
+             f"{globals_} in {stops} iterate calls")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"{xml.name}: non-finite fields")
+    if model == "d2q9_heat":
+        physics = heat_check(run, lat)
+    elif model == "d2q9_solid":
+        physics = solid_check(run, lat)
+    probe = onestage_probe(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = cut_xml(xml, ONESTAGE_CUT, tmp)
+        kern = run_onestage_xml(gk, cut, True, probe)
+        eager = run_onestage_xml(gk, cut, False, probe)
+        if model == "sw":
+            f64 = run_onestage_xml(gk, cut, False, probe, torch.float64)
+            run["mass0"], f64["mass0"] = (
+                float(case_lattice(xml, dt, DEVICE).get_quantity("Rho")
+                      .double().sum())
+                for dt in (torch.float32, torch.float64))
+            physics = sw_check(run, kern, eager, f64)
+        elif model == "d2q9_npe_guo":
+            physics = {}
+    if eager["solver"].lattice.engine_name != "eager" \
+            or kern["solver"].lattice.engine_name != engine:
+        fail(f"{xml.name} cut: engines {kern['solver'].lattice.engine_name}"
+             f", {eager['solver'].lattice.engine_name}")
+    (head, rows), (ehead, erows) = kern["Log"], eager["Log"]
+    keep = [i for i, h in enumerate(head) if "Walltime" not in h]
+    if head != ehead or rows.shape != erows.shape or not (
+            np.isfinite(rows[:, keep]).all() and np.allclose(
+                rows[:, keep], erows[:, keep], rtol=GOLDEN_RTOL,
+                atol=GOLDEN_ATOL)):
+        fail(f"{xml.name}: the Log columns of the first {ONESTAGE_CUT} "
+             "iterations differ from the eager run's")
+    log_err = float(np.abs(rows[:, keep] - erows[:, keep]).max())
+    klat, elat = kern["solver"].lattice, eager["solver"].lattice
+    say(f"  the first {ONESTAGE_CUT} iterations on the kernels against the "
+        f"eager f32 engine ({eager['wall_s']:.2f} s): Log columns within "
+        f"{log_err:.3e}")
+    fields = compare(klat.state.fields, elat.state.fields,
+                     f"{xml.name}'s fields after {ONESTAGE_CUT} against the "
+                     "eager run's", GOLDEN_RTOL, GOLDEN_ATOL)
+    vtk = root.find("VTK")
+    quantities = {}
+    for q in ([] if vtk is None else vtk.get("what").split(",")):
+        quantities[q] = compare(klat.get_quantity(q), elat.get_quantity(q),
+                                f"{xml.name}'s {q} after {ONESTAGE_CUT}",
+                                GOLDEN_RTOL, GOLDEN_ATOL)
+    nodes = float(np.prod(lat.shape))
+    lat.synchronize()
+    t0 = time.perf_counter()
+    lat.iterate(ONESTAGE_WINDOW)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"engine": lat.engine_name, "wall_s": run["wall_s"],
+           "launches": run["launches"], "flavours": run["flavours"],
+           "mlups_end_to_end": nodes * niter / run["wall_s"] / 1e6,
+           "mlups_iterate": nodes * ONESTAGE_WINDOW / dt / 1e6,
+           "log_max_abs_err_vs_eager": log_err, "fields_vs_eager": fields,
+           "vtk_vs_eager": quantities, "eager_wall_s": eager["wall_s"],
+           "physics": physics, "lattice": lat}
+    say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end, "
+        f"{out['mlups_iterate']:.1f} in an iterate({ONESTAGE_WINDOW}) "
+        "window")
+    return out
+
+
+def run_onestage_xml(gk, xml, fast: bool, probe=None,
+                     dtype=torch.float32) -> dict:
+    """``run_series_xml`` with the step kernels' launches by flavour."""
+    run = run_series_xml(xml, fast, probe, dtype=dtype)
+    run["flavours"] = {k: gk.flavours(k) for k in ("generic2d_step",
+                                                   "generic2d_step_bf16")}
+    return run
+
+
+def run_eof(gk) -> dict:
+    """Phase 31b: tests/test_electrokinetics.py's electro-osmotic channel
+    (30x64, charged walls, a potential drop through phi_bc zones at the W
+    and E pressure faces, 8000 iterations) on the kernels in f32: a plug
+    profile whose shape follows (psi - zeta) within EOF_ATOL."""
+    from tclb_tpu_torch import Lattice, get_model
+    say("phase 31b: d2q9_npe_guo's electro-osmotic profile on the kernels")
+    ny, nx, zeta, n_inf = 30, 64, 0.05, 0.01
+    m = get_model("d2q9_npe_guo")
+    lat = Lattice(m, (ny, nx), dtype=torch.float32, device=DEVICE,
+                  settings={"n_inf_0": n_inf, "n_inf_1": n_inf,
+                            "psi_bc": zeta, "psi0": 0.0, "phi0": 0.0,
+                            "phi_bc": 0.0, "el_kbT": 1.0, "epsilon": 1.0,
+                            "nu": 1 / 6, "D": 1 / 6, "rho_bc": 1.0})
+    flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+    flags[1:-1, 0] = m.flag_for("WPressure", "MRT", zone=1)
+    flags[1:-1, -1] = m.flag_for("EPressure", "MRT")
+    lat.set_flags(flags)
+    lat.set_setting("phi_bc", 0.5, zone=1)
+    lat.init()
+    gk.reset_launches()
+    lat.iterate(8000)
+    lat.synchronize()
+    launches = dict(gk.LAUNCHES)
+    flavours = {k: gk.flavours(k) for k in ("generic2d_step",
+                                            "generic2d_step_bf16")}
+    ux = lat.get_quantity("U")[0][:, nx // 2].double().cpu().numpy()
+    psi = lat.get_quantity("Psi")[:, nx // 2].double().cpu().numpy()
+    c = ny // 2
+    shape_u = ux / ux[c]
+    shape_p = (psi - zeta) / (psi[c] - zeta)
+    err = float(np.abs(shape_u[3:-3] - shape_p[3:-3]).max())
+    plug = abs(ux[c]) > 5 * abs(ux[1] - ux[c] * (psi[1] - zeta)
+                                / (psi[c] - zeta))
+    say(f"  engine {lat.engine_name}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; centre ux "
+        f"{ux[c]:.4e}, normalised u against (psi - zeta): max |diff| "
+        f"{err:.4f} (limit {EOF_ATOL}), plug {plug}")
+    if not (np.isfinite(ux).all() and plug and err <= EOF_ATOL):
+        fail("npe_guo: the electro-osmotic profile does not follow "
+             "(psi - zeta)")
+    return {"engine": lat.engine_name, "launches": launches,
+            "flavours": flavours, "ux_centre": float(ux[c]),
+            "shape_max_abs_diff": err}
+
+
+def bf16_chain(gk, lat, nsteps: int, errs: dict, what: str) -> dict:
+    """K5's bf16 rung on ``lat`` (bf16 shifted): each of ``nsteps``
+    chained ``generic2d_step_bf16`` launches against its plain version
+    from the same input (``compare_narrowed``), and the resident launch
+    bit for bit against the chain."""
+    f, flags, ztab, a = bf16_inputs(gk, lat)
+    key = bf16_key(gk, "generic2d_resident", lat.model.name)
+    tag = f"{key} ({nsteps} steps) at {tuple(f.shape)}"
+    got = gk.resident(f, flags, ztab, a, nsteps)
+    chain = f
+    e = {"max_abs_err": 0.0, "max_rel_err": 0.0, "flips": 0}
+    for i in range(nsteps):
+        nxt = gk.step(chain, flags, ztab, a)
+        one = compare_narrowed(nxt, wide_plain(gk, lat, 1, fields=chain),
+                               lat, f"{tag}: chained launch {i + 1}",
+                               quiet=True)
+        e = {k: max(e[k], one[k]) for k in e}
+        chain = nxt
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int16), chain.view(torch.int16))
+    say(f"{what}: {tag}: {nsteps} chained generic2d_step_bf16 launches "
+        f"each within the f32 tolerance carried through the narrowing "
+        f"(max_abs {e['max_abs_err']:.3e}, at most {e['flips']} values a "
+        f"bf16 step off); the resident launch "
+        f"{'bit-identical to' if same else 'DIFFERS from'} the chain")
+    if not same:
+        fail(f"{tag} differs from {nsteps} generic2d_step_bf16 launches")
+    e["chain_bit_identical"] = same
+    keep_worst(errs, key, e)
+    return errs
+
+
+def resident_chain(gk, lat, nsteps: int, errs: dict, what: str) -> dict:
+    """K5 in f32 on ``lat``: against its plain version (``check_kernels``)
+    and bit for bit against ``nsteps`` chained ``generic2d_step``
+    launches."""
+    check_kernels([(gk, lat, "generic2d_resident")], errs, what)
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    got = gk.resident(f, flags, ztab, a, nsteps)
+    chain = f
+    for _ in range(nsteps):
+        chain = gk.step(chain, flags, ztab, a)
+    torch.cuda.synchronize()
+    same = torch.equal(got, chain)
+    say(f"  generic2d_resident[{lat.model.name}] ({nsteps} steps) at "
+        f"{tuple(f.shape)}: {'bit-identical to' if same else 'DIFFERS from'}"
+        f" {nsteps} chained generic2d_step launches")
+    if not same:
+        fail(f"generic2d_resident[{lat.model.name}] differs from its chain")
+    errs[f"generic2d_resident[{lat.model.name}]"]["chain_bit_identical"] = \
+        same
+    return errs
+
+
+def iterate_window(gk, lat, what: str, engine: str,
+                   n: int = ONESTAGE_WINDOW) -> dict:
+    """An ``iterate(n)`` on the card from counts set to 0, fenced by
+    synchronize: its engine, launches by kernel and flavour and MLUPS."""
+    lat.synchronize()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    lat.iterate(n)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**gk.LAUNCHES, **gk.SERIES_LAUNCHES}
+    flav = {k: gk.flavours(k) for k in ("generic2d_step",
+                                        "generic2d_step_bf16")}
+    mlups = float(np.prod(lat.shape)) * n / dt / 1e6
+    say(f"  {what}: engine {lat.engine_name}, "
+        f"{ {k: v for k, v in launches.items() if v} }, {mlups:.1f} MLUPS "
+        f"({dt * 1e3:.2f} ms)")
+    if lat.engine_name != engine or lat.eager_steps:
+        fail(f"{what} ran on {lat.engine_name}")
+    if not bool(torch.isfinite(lat.state.fields.float()).all()):
+        fail(f"{what}: non-finite fields")
+    return {"engine": lat.engine_name, "launches": launches,
+            "flavours": flav, "mlups_iterate": mlups, "iterate_ms": dt * 1e3,
+            "window": n}
+
+
+def run_onestage(gk, errs: dict) -> dict:
+    """Phases 31-34 for the six one-stage models: the examples (31), the
+    EOF profile (31b), K5 and its bf16 rung on each resident path (33: the
+    example's, or a 128x128 lattice for the two models without one), each
+    model's 1024x1024 lattice on K4 in f32 and in bf16 shifted (32),
+    d2q9_heat under a <Control> series of HeaterTemperature (34).
+    Returns the launches by kernel and path (and of the step kernels'
+    globals flavour), the lattices phase 7 times and the summary."""
+    launches, glaunches, summary = {}, {}, {}
+    band, res, res_steps = {}, {}, {}
+
+    def count(into, key, path, n):
+        if n:
+            into.setdefault(key, {})[path] = into.get(key, {}).get(path,
+                                                                    0) + n
+
+    def record(path, run, kernels):
+        for k in kernels:
+            count(launches, f"{k}[{model}]", path, run["launches"][k])
+        for k in ("generic2d_step", "generic2d_step_bf16"):
+            count(glaunches, f"{k}[{model}]", path,
+                  run["flavours"][k]["globals"])
+        summary[path] = {k: v for k, v in run.items()
+                         if k not in ("launches", "flavours")}
+
+    for model in ONESTAGE_MODELS:
+        if model in ONESTAGE_EXAMPLES:
+            xml = ROOT / "example" / ONESTAGE_EXAMPLES[model]
+            run = run_onestage_example(gk, model)
+            res[model] = run.pop("lattice")
+            log = int(ET.parse(xml).getroot().find("Log").get("Iterations"))
+            record(xml.stem, run, gk.KERNELS)
+        else:
+            say(f"phase 33: {model} at {ONESTAGE_SMALL} (K5's path)")
+            res[model] = onestage_lattice(model, ONESTAGE_SMALL)
+            log = ONESTAGE_SMALL_WINDOW
+            run = iterate_window(gk, res[model], f"{model}128",
+                                 f"cuda_generic_resident[{model},fuse=N]",
+                                 log)
+            record(f"{model}128", run, gk.KERNELS)
+        # one resident launch of the path: the even part of niter - 1
+        res_steps[model] = (log - 1) // 2 * 2
+    model = "d2q9_npe_guo"
+    eof = run_eof(gk)
+    record("npe_eof", eof, gk.KERNELS)
+    # K5 and its bf16 rung on each resident path's developed state
+    for model in ONESTAGE_MODELS:
+        lat = res[model]
+        resident_chain(gk, lat, 8, errs, f"phase 33, {model}'s resident "
+                       "path")
+        bf = bf16_copy(lat)
+        bf16_chain(gk, bf, 8, errs, f"phase 33, {model} in bf16 shifted")
+        res[f"{model} bf16"] = bf16_copy(lat)
+        path = f"{model}_bf16_resident"
+        record(path, iterate_window(
+            gk, bf, f"{path} at {lat.shape}",
+            f"cuda_generic_resident[{model},fuse=N,bfloat16/shifted]"),
+            gk.BF16_KERNELS)
+    # the full-width lattices on K4, f32 and bf16 shifted
+    for model in ONESTAGE_MODELS:
+        say(f"phase 32: {model} at {ONESTAGE_N}x{ONESTAGE_N} on K4")
+        what = f"phase 32, {model} {ONESTAGE_N}x{ONESTAGE_N}"
+        lat = onestage_lattice(model, (ONESTAGE_N, ONESTAGE_N))
+        eager_warm(lat, 4)
+        check_kernels([(gk, lat, "generic2d_step")], errs, what)
+        check_globals_flavour(gk, (lat,), errs, what)
+        bf = bf16_copy(lat)
+        check_bf16_kernels([(gk, bf, "generic2d_step")], errs, what)
+        band[model], band[f"{model} bf16"] = lat, bf16_copy(lat)
+        for tag, L, eng in (
+                ("", lat, f"cuda_generic_band[{model},fuse=1]"),
+                ("_bf16", bf,
+                 f"cuda_generic_band[{model},fuse=1,bfloat16/shifted]")):
+            path = f"{model}{ONESTAGE_N}{tag}"
+            record(path, iterate_window(gk, L, path, eng),
+                   [f"generic2d_step{tag}"])
+        summary[f"{model}{ONESTAGE_N}"]["bf16_over_f32"] = (
+            summary[f"{model}{ONESTAGE_N}_bf16"]["mlups_iterate"]
+            / summary[f"{model}{ONESTAGE_N}"]["mlups_iterate"])
+    # a <Control> series on a new model: heat_channel's Heater zone
+    say("phase 34: d2q9_heat under a <Control> series of HeaterTemperature")
+    model = "d2q9_heat"
+    heat = case_lattice(ROOT / "example" / ONESTAGE_EXAMPLES[model],
+                        torch.float32, DEVICE)
+    eager_warm(heat, 50)
+    heat.set_setting_series("HeaterTemperature",
+                            [10.0, 12.0, 15.0, 11.0, 9.0], zone=0)
+    check_series_flavours(gk, (heat,), errs, "phase 34")
+    record("heat_channel_series", iterate_window(
+        gk, heat, "heat_channel under the series",
+        "cuda_generic_band[d2q9_heat,fuse=1]"), gk.SERIES_KERNELS)
+    res["heat series"] = heat
+    return {"launches": launches, "globals_launches": glaunches,
+            "summary": summary, "band": band, "resident": res,
+            "res_steps": res_steps}
+
+
+def time_onestage(gk, one: dict) -> dict:
+    """Phase 7 for the one-stage models: K4 (both flavours) at 1024x1024
+    in f32 and bf16, K5 on each resident path's state for the steps one of
+    its launches takes there, in f32 and bf16 (its plain version, seconds
+    of eager steps, timed once with no warm-up call: the checks before
+    ran the same eager operations), the series flavours on heat_channel; the
+    bound from ``launch_bytes`` (bf16 at 2 B a value) and
+    ``node_step_flops``."""
+    out = {}
+    for model in ONESTAGE_MODELS:
+        for tag, lat in (("", one["band"][model]),
+                         ("_bf16", one["band"][f"{model} bf16"])):
+            inputs = (bf16_inputs(gk, lat) if tag
+                      else gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params))
+            f, flags, ztab, a = inputs
+            key = f"generic2d_step{tag}[{model}]"
+            for k, fn, g, reps in ((key, gk.step, False, 200),
+                                   (f"{key} globals", gk.step_globals,
+                                    True, 100)):
+                out[k] = time_one(
+                    k, lambda fn=fn: fn(f, flags, ztab, a),
+                    lambda g=g: gk.plain_steps(f, flags, ztab, a, 1,
+                                               with_globals=g),
+                    gk.launch_bytes(lat.model, lat.shape,
+                                    itemsize=2 if tag else 4),
+                    gk.node_step_flops(lat.model, lat.flags_numpy()),
+                    lat.shape, reps, plain_reps=3)
+        steps = one["res_steps"][model]
+        for tag, lat in (("", one["resident"][model]),
+                         ("_bf16", one["resident"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_resident{tag}[{model}]"
+            out[key] = time_one(
+                f"{key} ({steps} steps)",
+                lambda: gk.resident(f, flags, ztab, a, steps),
+                lambda: gk.plain_steps(f, flags, ztab, a, steps),
+                gk.launch_bytes(lat.model, lat.shape,
+                                itemsize=2 if tag else 4),
+                steps * gk.node_step_flops(lat.model, lat.flags_numpy()),
+                lat.shape, 20, plain_reps=1, plain_warm=0)
+            out[key]["steps"] = steps
+    out.update(time_series_flavours(gk, one["resident"]["heat series"],
+                                    1000))
+    return out
+
+
 def main() -> int:
     if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
                for src in SOURCES.values()):
@@ -3011,6 +3553,7 @@ def main() -> int:
     ladder = run_ladder(gk, dk3, errs, channel=channel, drop1024=drop1024,
                         control=control_dev, channel3d=path3d["lattice"],
                         turb=path_turb["lattice"], channel48=channel48)
+    one = run_onestage(gk, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -3039,6 +3582,7 @@ def main() -> int:
     times.update(time_generic3d(g3, ak, adj3d_dev))
     times.update(time_bf16(gk, dk3, ladder["band"], ladder["resident"],
                            ladder["d3"], HARNESS_RES_STEPS))
+    times.update(time_onestage(gk, one))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
     times.update(time_kernels(
@@ -3073,6 +3617,13 @@ def main() -> int:
                                "a karman_control iterate(500)")
     busy_control3d = device_busy(lambda: control3d_dev.iterate(200),
                                  "a 3D Control channel iterate(200)")
+    busy_one = {
+        "heat_channel": device_busy(
+            lambda: one["resident"]["d2q9_heat"].iterate(500),
+            "a heat_channel iterate(500)"),
+        "d2q9_npe_guo1024": device_busy(
+            lambda: one["band"]["d2q9_npe_guo"].iterate(100),
+            "a 1024x1024 d2q9_npe_guo iterate(100)")}
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
@@ -3106,7 +3657,10 @@ def main() -> int:
     launches.update({f"{name}[d3q19_adj]": {
         "adj3d_control": path_control3d["launches"][name]}
         for name in g3.SERIES_KERNELS})
-    bf16_sources = {}
+    launches.update(one["launches"])
+    for name in gk.BF16_KERNELS:
+        TPU_KERNELS.setdefault(name, TPU_KERNELS[name[:-len("_bf16")]])
+    bf16_sources = {name: SOURCES["generic"] for name in gk.BF16_KERNELS}
     for key, by_path in ladder["launches"].items():
         launches[key] = by_path
         name = key.split("[")[0]
@@ -3171,7 +3725,8 @@ def main() -> int:
                    "generic3d_step_b[d3q19_adj]"):
         by_name[step_b]["settings_max_rel_err"] = \
             errs[f"{step_b} settings"]["max_rel_err"]
-    for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"))
+    for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"),
+                                           (gk, "d2q9_heat"))
                 for k in mod.SERIES_KERNELS[1:]):
         by_name[key]["globals_max_abs_err"] = \
             errs[f"{key} globals"]["max_abs_err"]
@@ -3190,6 +3745,25 @@ def main() -> int:
             by_name[key]["chain_bit_identical"] = e["chain_bit_identical"]
             # against as many narrowed eager steps from the start
             by_name[key]["eager_max_abs_err"] = e["eager_max_abs_err"]
+    # the one-stage models: each kernel's header, the step kernels' globals
+    # flavour, K5's steps and its chain, the bf16 values a step off
+    for key in one["launches"]:
+        model = key.split("[")[1].rstrip("]")
+        by_name[key]["header"] = ("tclb_tpu_torch/csrc/"
+                                  + gk.DEVICE_MODELS[model].header)
+        if key.startswith("generic2d_resident"):
+            by_name[key]["steps"] = times[key]["steps"]
+            by_name[key]["chain_bit_identical"] = \
+                errs[key]["chain_bit_identical"]
+        if "bf16" in key:
+            by_name[key]["flips"] = errs[key].get("flips")
+    for key, by_path in one["globals_launches"].items():
+        by_name[key]["globals_flavour"] = {
+            **{k: times[f"{key} globals"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "wrapper_host_ms", "shape")},
+            "launches_by_path": by_path,
+            "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
     for key, t in times_512.items():
         by_name[key]["at_512x96"] = {k: t[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "wrapper_host_ms")}
@@ -3229,6 +3803,8 @@ def main() -> int:
         "adj3d_control": path_control3d,
         "sample": path_sample,
         "storage_ladder": ladder["summary"],
+        "onestage": one["summary"],
+        "onestage_iterate_profile": busy_one,
         "d2q9_generic_kernels_off_path": d2q9_generic,
         "karman_control_iterate_profile": busy_control,
         "adj3d_control_iterate_profile": busy_control3d,

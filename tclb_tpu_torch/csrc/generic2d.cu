@@ -91,8 +91,11 @@ constexpr int RING = TWO_STAGES ? model::stage_ext(0) : 0;
 constexpr int BX = 32, BY = 16;                    // threads of a step block
 constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
 constexpr int RESIDENT_THREADS = 256;
-constexpr unsigned ALL_WRITES =
-    model::stage_writes(0) | (TWO_STAGES ? model::stage_writes(1) : 0u);
+// the planes some stage writes, one bit each (64 bits: d2q9_npe_guo's
+// stage writes 45 planes; the other headers return an unsigned)
+constexpr unsigned long long ALL_WRITES =
+    (unsigned long long)model::stage_writes(0)
+    | (TWO_STAGES ? (unsigned long long)model::stage_writes(1) : 0ull);
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
 // ---------------------------------------------------------------------------
@@ -252,7 +255,7 @@ generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
         if (writes(0, k) && !writes(1, k))
           store_plane(fout + k * n + idx, tile[(k * BY + ly) * BX + lx],
                       sh.w, k);
-        else if (!((ALL_WRITES >> k) & 1u))   // no stage writes it
+        else if (!((ALL_WRITES >> k) & 1ull))   // no stage writes it
           store_plane(fout + k * n + idx,
                       load_plane<false>(fin + k * n + idx, sh.w, k), sh.w,
                       k);
@@ -298,7 +301,7 @@ generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
   for (int idx = first; idx < (int)n; idx += stride) {
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
-      if (!((ALL_WRITES >> k) & 1u)) {
+      if (!((ALL_WRITES >> k) & 1ull)) {
         const float v = load_plane<false>(fin + k * n + idx, sh.w, k);
         store_plane(scratch + k * n + idx, v, sh.w, k);
         store_plane(fout + k * n + idx, v, sh.w, k);

@@ -2,9 +2,11 @@
 the frozen Model with physics bound.  Ported so far: ``d2q9`` and its
 family (``d2q9_SRT``, ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``,
 ``d2q9_new``), the z-slab family (``d3q27_cumulant``, ``d3q27_BGK``,
-``d3q27_BGK_galcor``, ``d3q19``, ``d3q19_les``), ``d2q9_kuper``,
-``d2q9_heat``, ``d2q9_heat_adj`` and ``d3q19_adj``; the other models of
-the JAX package follow ROADMAP queue 1 items 10 and 11."""
+``d3q27_BGK_galcor``, ``d3q19``, ``d3q19_les``), ``d2q9_kuper``, the
+one-stage 2D models (``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
+``sw``, ``d2q9_solid``, ``d2q9_npe_guo``), ``d2q9_heat_adj`` and
+``d3q19_adj``; the other models of the JAX package follow ROADMAP queue 1
+items 10 and 11."""
 
 from __future__ import annotations
 
@@ -26,7 +28,12 @@ _REGISTRY: dict[str, str] = {
     "d3q27_BGK_galcor": "tclb_tpu_torch.models.d3q27_bgk:build_galcor",
     "d2q9_kuper": "tclb_tpu_torch.models.d2q9_kuper",
     "d2q9_heat": "tclb_tpu_torch.models.d2q9_heat",
+    "d2q9_heat_conjugate": "tclb_tpu_torch.models.d2q9_heat_conjugate",
+    "d2q9_hb": "tclb_tpu_torch.models.d2q9_hb",
     "d2q9_heat_adj": "tclb_tpu_torch.models.d2q9_heat_adj",
+    "sw": "tclb_tpu_torch.models.sw",
+    "d2q9_solid": "tclb_tpu_torch.models.d2q9_solid",
+    "d2q9_npe_guo": "tclb_tpu_torch.models.d2q9_npe_guo",
     "d3q19": "tclb_tpu_torch.models.d3q19",
     "d3q19_les": "tclb_tpu_torch.models.d3q19_les",
     "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",

@@ -7,9 +7,11 @@ lattice advecting temperature at the fluid velocity with diffusivity
 target temperature to the zonal ``HeaterTemperature`` (the reference
 hard-codes 100, src/d2q9_heat/Dynamics.c.Rt:257).
 
-The eager engine runs it; its device header waits for ROADMAP queue 1
-item 10.  ``_t_eq``, ``get_rho`` and ``get_u`` are shared with
-``d2q9_heat_adj``.
+Sums over populations run in plane order and every term in the order
+the device header ``csrc/models/d2q9_heat.cuh`` repeats, so the generic
+kernels agree with this eager step to a few ulps.  ``run`` is shared with
+``d2q9_heat_conjugate`` (``solid_adiabatic=False``) and ``d2q9_hb``;
+``_t_eq``, ``get_rho`` and ``get_u`` with ``d2q9_heat_adj``.
 """
 
 from __future__ import annotations

@@ -8,9 +8,11 @@ one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
 compiled into the model-independent template ``csrc/generic2d.cu``
 (streaming, the stage plan, node types, zonal settings, globals), built
 once per model into a library of its own.  ``DEVICE_MODELS`` lists the
-models that have such a header (``d2q9``, ``d2q9_kuper``, ``d2q9_heat_adj``
-and the 3D ``d3q19_adj``, whose kernels ``ops/generic3d_kernels.py`` binds)
-with the registry layout the header indexes by position.  ``d2q9`` takes
+models that have such a header (``d2q9``, ``d2q9_kuper``, ``d2q9_heat_adj``,
+the one-stage 2D models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
+``sw``, ``d2q9_solid`` and ``d2q9_npe_guo``, and the 3D ``d3q19_adj``, whose
+kernels ``ops/generic3d_kernels.py`` binds) with the registry layout the
+header indexes by position.  ``d2q9`` takes
 these kernels under a ``<Control>`` series only; without one its own
 kernels (``ops/d2q9_kernels.py``) come first.
 
@@ -113,6 +115,18 @@ class DeviceModel:
 
 
 
+def _d2q9_groups(*names: str) -> tuple:
+    """Storage names of d2q9 groups, nine planes each, in order."""
+    return tuple(f"{n}[{k}]" for n in names for k in range(9))
+
+
+# the registry entries d2q9_heat_physics.cuh reads, common to its builds
+_HEAT_SETTINGS = ("omega", "nu", "InletVelocity", "InletPressure",
+                  "InletDensity", "InletTemperature", "InitTemperature",
+                  "FluidAlfa", "HeaterTemperature")
+_HEAT_TYPES = ("Heater", "Wall", "Solid", "WVelocity", "WPressure",
+               "EPressure", "EVelocity", "Outlet")
+
 DEVICE_MODELS = {
     "d2q9": DeviceModel(
         header="models/d2q9.cuh",
@@ -155,6 +169,72 @@ DEVICE_MODELS = {
         globals_=("HeatFlux", "HeatSourceTotal", "Material", "Drag"),
         plan=(("BaseIteration", 0),),
         adjoint=True),
+    # the one-stage 2D models (csrc/models/d2q9_common.cuh's building
+    # blocks); the two built on d2q9_heat share d2q9_heat_physics.cuh
+    "d2q9_heat": DeviceModel(
+        header="models/d2q9_heat.cuh",
+        storage=_d2q9_groups("f", "T"),
+        settings=_HEAT_SETTINGS + ("OutFluxInObj",),
+        node_types=_HEAT_TYPES, groups=("COLLISION",),
+        zonal=("HeaterTemperature",), globals_=("OutFlux",),
+        plan=(("BaseIteration", 0),)),
+    "d2q9_heat_conjugate": DeviceModel(
+        header="models/d2q9_heat_conjugate.cuh",
+        storage=_d2q9_groups("f", "T"),
+        settings=_HEAT_SETTINGS + ("SolidAlfa", "OutFluxInObj"),
+        node_types=_HEAT_TYPES, groups=("COLLISION",),
+        zonal=("HeaterTemperature",), globals_=("OutFlux",),
+        plan=(("BaseIteration", 0),)),
+    "d2q9_hb": DeviceModel(
+        header="models/d2q9_hb.cuh",
+        storage=_d2q9_groups("f", "T"),
+        settings=_HEAT_SETTINGS + ("DestructionRate", "DestructionPower",
+                                   "OutFluxInObj",
+                                   "DestroyedCellFluxInObj"),
+        node_types=_HEAT_TYPES + ("Destroy",), groups=("COLLISION",),
+        zonal=("HeaterTemperature",),
+        globals_=("OutFlux", "DestroyedCellFlux"),
+        plan=(("BaseIteration", 0),)),
+    "sw": DeviceModel(
+        header="models/sw.cuh",
+        storage=_d2q9_groups("f") + ("w",),
+        settings=("omega", "nu", "InletVelocity", "InletPressure",
+                  "InletDensity", "Gravity", "SolidH", "EnergySink",
+                  "Height", "S2", "S3", "S5", "S7", "S8", "S9",
+                  "PressDiffInObj", "TotalDiffInObj", "MaterialInObj",
+                  "EnergyGainInObj"),
+        node_types=("Wall", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "Obj1"),
+        groups=("COLLISION",), zonal=("Height",),
+        globals_=("PressDiff", "TotalDiff", "Material", "EnergyGain"),
+        plan=(("BaseIteration", 0),)),
+    "d2q9_solid": DeviceModel(
+        header="models/d2q9_solid.cuh",
+        storage=_d2q9_groups("f", "g", "h") + ("Cs", "fi_s"),
+        settings=("nu", "FluidAlfa", "SoluteDiffusion", "C0", "T0", "Teq",
+                  "Velocity", "Pressure", "Temperature", "Concentration",
+                  "Theta0", "PartitionCoef", "LiquidusSlope", "GTCoef",
+                  "SurfaceAnisotropy", "SoluteCapillar", "Buoyancy",
+                  "OutFluxInObj", "MaterialInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EVelocity",
+                    "EPressure", "ForceTemperature", "ForceConcentration",
+                    "Obj"),
+        groups=("COLLISION",),
+        zonal=("Velocity", "Pressure", "Temperature", "Concentration",
+               "Theta0"),
+        globals_=("OutFlux", "Material"),
+        plan=(("BaseIteration", 0),)),
+    "d2q9_npe_guo": DeviceModel(
+        header="models/d2q9_npe_guo.cuh",
+        storage=_d2q9_groups("phi", "g", "f", "h_0", "h_1"),
+        settings=("n_inf_0", "n_inf_1", "el", "el_kbT", "epsilon", "dt",
+                  "psi0", "phi0", "ez", "Ex", "D", "nu", "rho_bc",
+                  "phi_bc", "psi_bc", "t_to_s", "TotalMomentumInObj"),
+        node_types=("Wall", "Solid", "WPressure", "EPressure",
+                    "BottomSymmetry", "TopSymmetry"),
+        groups=("COLLISION",), zonal=("rho_bc", "phi_bc", "psi_bc"),
+        globals_=("TotalMomentum",),
+        plan=(("BaseIteration", 0),)),
     "d3q19_adj": DeviceModel(
         header="models/d3q19_adj.cuh",
         storage=tuple(f"f[{k}]" for k in range(19)) + ("w",),
@@ -383,7 +463,121 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
     model needs over a flag field: what the function takes, not what
     csrc/generic2d.cu executes (it recomputes stage 0 on the ring)."""
     return {"d2q9": _d2q9_flops, "d2q9_kuper": _kuper_flops,
-            "d2q9_heat_adj": _heat_adj_flops}[model.name](model, flags)
+            "d2q9_heat_adj": _heat_adj_flops, "d2q9_heat": _heat_flops,
+            "d2q9_heat_conjugate": _heat_flops, "d2q9_hb": _heat_flops,
+            "sw": _sw_flops, "d2q9_solid": _solid_flops,
+            "d2q9_npe_guo": _npe_flops}[model.name](model, flags)
+
+
+# Operations of the one-stage models' pieces (csrc/models/d2q9_common.cuh):
+# a d2q9 population sum (8), rho, j and u (8 + 5 + 5 + 2), a Zou/He face
+# (22, as _heat_adj_flops counts it), the temperature equilibrium (w_0 T;
+# per moving direction w T, e.u, 3 e.u, 1 + and the product: 37), a
+# relaxation q + k (eq - q) over nine planes (27), a keep factor 1 - 1 /
+# (3 D + 0.5) (4)
+SUM9, MACRO, ZOU, T_EQ, RELAX, KEEP = 8, 20, 22, 37, 27, 4
+
+
+def _eq_flops() -> int:
+    from tclb_tpu_torch.models.d2q9 import E, W
+    from tclb_tpu_torch.ops.d2q9_kernels import _equilibrium_flops
+    return _equilibrium_flops(E, W)
+
+
+def _faces(model: Model, flags: np.ndarray) -> int:
+    return count_types(model, flags, "WVelocity", "WPressure", "EVelocity",
+                       "EPressure")
+
+
+def _heat_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_heat and its two builds (models/d2q9_heat.py and the
+    conjugate and hb runs on it).  Every node: rho and u, the temperature
+    sum (28); a collision node the equilibrium, both relaxations,
+    1 / (3 alfa + 0.5) (3) and the temperature equilibrium; a Zou/He face
+    22, an inlet temperature 9; an Outlet node its flux (1).  The
+    conjugate build adds at a Solid node the sum, its rate, the
+    equilibrium and the relaxation (75); the hb build at a Destroy node
+    the stress (rho and u 20, the equilibrium, f - feq 9, the three
+    contractions 5 + 3 + 5, the norm 6), the rate and scale (5), the
+    eroded sum and its global (10) and the scaling (9)."""
+    eq = _eq_flops()
+    n = int(np.asarray(flags).size)
+    coll = count_group(model, flags, "COLLISION")
+    out = ((MACRO + SUM9) * n + (eq + 2 * RELAX + 3 + T_EQ) * coll
+           + ZOU * _faces(model, flags)
+           + 9 * count_types(model, flags, "WVelocity", "EPressure")
+           + count_types(model, flags, "Outlet"))
+    if model.name == "d2q9_heat_conjugate":
+        out += (SUM9 + 3 + T_EQ + RELAX) * count_types(model, flags,
+                                                        "Solid")
+    if model.name == "d2q9_hb":
+        stress = MACRO + eq + 9 + 13 + 6
+        out += (stress + 5 + 10 + 9) * count_types(model, flags, "Destroy")
+    return out
+
+
+def _sw_flops(model: Model, flags: np.ndarray) -> int:
+    """sw (models/sw.py).  Every node: the nine moments (the basis rows'
+    combinations), the equilibrium moments (25), the six relaxed rows (3
+    each), |j|^2 (3) and the damped momentum (2); an Obj1 node its two
+    objectives (3 + 4); a collision node the damped equilibrium moments
+    (25), the six sums (6) and f from the moments (the inverse basis'
+    rows); a Zou/He face 22."""
+    from tclb_tpu_torch.models.d2q9 import M
+    from tclb_tpu_torch.ops.d2q9_kernels import _combo_flops
+    from tclb_tpu_torch.ops.lbm import inverse_basis
+    moments = sum(_combo_flops(row) for row in M)
+    back = sum(_combo_flops(row) for row in inverse_basis(M))
+    n = int(np.asarray(flags).size)
+    return ((moments + 25 + 18 + 3 + 2) * n
+            + 7 * count_types(model, flags, "Obj1")
+            + (25 + 6 + back) * count_group(model, flags, "COLLISION")
+            + ZOU * _faces(model, flags))
+
+
+def _solid_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_solid (models/d2q9_solid.py).  Every node: rho and u, rhoT and
+    C (36).  A collision node: the three keep factors and kc (15), the
+    central differences (14), |grad|^2 and the curvature with its power
+    (3 + 11), the double angles (4 + 3 + 3 + 2), the anisotropy (4 Theta0,
+    cos, sin, the combination and 1 - 15 SA cos4: 9), Cl_eq (7), the
+    growth (the test, the ratio 4, the clamp 2, fi, dC, Cs: 1 + 4 + 2 + 1
+    + 2 + 3), the accelerations and the midpoint velocity (2 + 6 + 4 + 2),
+    the shifted scalars (2) and the three collisions (two equilibria and a
+    relaxation each); a Force node its difference (1).  A W face: Zou/He
+    and two refills (22 + 2 x 10); an E pressure face Zou/He and two
+    refills (22 + 2 x 6); an E velocity face Zou/He (22)."""
+    eq = _eq_flops()
+    n = int(np.asarray(flags).size)
+    coll_node = (3 * KEEP + 3 + 14 + 14 + 12 + 9 + 7 + 13 + 14 + 2
+                 + 3 * (2 * eq + RELAX))
+    return (36 * n
+            + coll_node * count_group(model, flags, "COLLISION")
+            + count_types(model, flags, "ForceTemperature",
+                          "ForceConcentration")
+            + (ZOU + 20) * count_types(model, flags, "WVelocity",
+                                       "WPressure")
+            + (ZOU + 12) * count_types(model, flags, "EPressure")
+            + ZOU * count_types(model, flags, "EVelocity"))
+
+
+def _npe_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_npe_guo (models/d2q9_npe_guo.py).  A collision node: the two
+    potentials (8 each) and their gradients (28 each), rho and j (18), n0
+    and n1 (16), rho_e (3), the force (8), u and the measured velocity
+    (6), tau_D and B (5); the Poisson collisions of phi (36) and g (4 +
+    4 + 8 x 7), the fluid BGK (the rate 3, two equilibria, the forced
+    velocity 2, 9 x 5) and the two ion collisions (9 x 18 each).  A wall
+    node: the zeta potential's and the ions' equilibria (9 x 3) and the
+    two Boltzmann factors (5 each); a pressure face Zou/He and the three
+    equilibria (22 + 27)."""
+    eq = _eq_flops()
+    coll_node = (2 * (8 + 28) + 18 + 16 + 3 + 8 + 6 + 5 + 36 + 64
+                 + (3 + 2 * eq + 2 + 45) + 2 * 9 * 18)
+    return (coll_node * count_group(model, flags, "COLLISION")
+            + (27 + 10) * count_types(model, flags, "Wall", "Solid")
+            + (ZOU + 27) * count_types(model, flags, "WPressure",
+                                       "EPressure"))
 
 
 def _d2q9_flops(model: Model, flags: np.ndarray) -> int:

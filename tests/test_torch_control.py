@@ -306,17 +306,21 @@ def _read_log(path):
 # the examples run through both control planes, each cut to this many
 # iterations with a Log every quarter of them
 EXAMPLE_CUTS = {"cavity.xml": 200, "heat_channel.xml": 200,
-                "karman_control.xml": 500}
+                "karman_control.xml": 500, "sw_wave.xml": 200,
+                "solidification.xml": 200, "npe_guo.xml": 200}
 
 
 @pytest.mark.parametrize("example", list(EXAMPLE_CUTS))
 def test_example_through_both_control_planes(example, tmp_path,
                                              monkeypatch):
     """example/cavity.xml (d2q9_kuper, a MovingWall lid),
-    example/heat_channel.xml (d2q9_heat, a Heater strip) and
+    example/heat_channel.xml (d2q9_heat, a Heater strip),
     example/karman_control.xml (d2q9 under a <Control> inlet ramp read
     from example/inlet_ramp.csv, which the XML names relative to the
-    repository's root) through both packages' _run_root at f64, cut to
+    repository's root), example/sw_wave.xml (sw, a Height-zhump zone),
+    example/solidification.xml (d2q9_solid, a Seed) and
+    example/npe_guo.xml (d2q9_npe_guo, charged walls) through both
+    packages' _run_root at f64, cut to
     EXAMPLE_CUTS iterations with four Log rows: the fields and every Log
     column at RTOL 1e-10 / ATOL 1e-12."""
     niter = EXAMPLE_CUTS[example]
@@ -360,10 +364,11 @@ def test_cli(tmp_path, capsys):
     assert (tmp_path / "out" / "k_config.xml").exists()
     assert cli.main(["models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "d2q9", "d2q9_SRT", "d2q9_cumulant", "d2q9_heat", "d2q9_heat_adj",
-        "d2q9_inc", "d2q9_kuper", "d2q9_les", "d2q9_new", "d3q19",
+        "d2q9", "d2q9_SRT", "d2q9_cumulant", "d2q9_hb", "d2q9_heat",
+        "d2q9_heat_adj", "d2q9_heat_conjugate", "d2q9_inc", "d2q9_kuper",
+        "d2q9_les", "d2q9_new", "d2q9_npe_guo", "d2q9_solid", "d3q19",
         "d3q19_adj", "d3q19_les", "d3q27_BGK", "d3q27_BGK_galcor",
-        "d3q27_cumulant"]
+        "d3q27_cumulant", "sw"]
     assert cli.main(["describe", "d2q9"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["densities"][-2:] == ["BC[0]", "BC[1]"]

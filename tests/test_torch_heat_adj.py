@@ -153,8 +153,12 @@ def test_engine_choice():
     assert gk.select_engine(m, (512, 1024), torch.float32)[1] == \
         "cuda_generic_band[d2q9_heat_adj,fuse=1]"
     assert gk.select_engine(m, (32, 64), torch.float64) == (None, None)
+    # d2q9_heat has a device header of its own (no reverse stage)
     assert gk.select_engine(get_model("d2q9_heat"), (32, 64),
-                            torch.float32) == (None, None)
+                            torch.float32)[1] == \
+        "cuda_generic_resident[d2q9_heat,fuse=N]"
+    assert not ak.supports_diff(get_model("d2q9_heat"), (32, 64),
+                                torch.float32)
     assert ak.supports_diff(m, (512, 1024), torch.float32)
     assert ak.supports_diff(m, (37, 53), torch.float32)   # no alignment
     assert not ak.supports_diff(m, (32, 64), torch.float64)

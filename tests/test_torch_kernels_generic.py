@@ -155,7 +155,7 @@ def test_engine_choice(monkeypatch):
     # d2q9 has a device header (for its Control series); a model without
     # one is not taken
     assert gk.supports(get_model("d2q9"), (128, 128), torch.float32)
-    assert not gk.supports(get_model("d2q9_heat"), (128, 128),
+    assert not gk.supports(get_model("d2q9_SRT"), (128, 128),
                            torch.float32)
     assert not gk.supports(get_model("d3q27_cumulant"), (8, 8, 8),
                            torch.float32)
@@ -276,11 +276,11 @@ def test_device_header_matches_registry():
                           text).group(1)
         assert eval(value) == getattr(kuper, const), const  # noqa: S307
     with pytest.raises(ValueError, match="not the one"):
-        gk.DEVICE_MODELS["d2q9_heat"] = dm
+        gk.DEVICE_MODELS["d2q9_SRT"] = dm
         try:
-            gk.check_layout(get_model("d2q9_heat"))
+            gk.check_layout(get_model("d2q9_SRT"))
         finally:
-            del gk.DEVICE_MODELS["d2q9_heat"]
+            del gk.DEVICE_MODELS["d2q9_SRT"]
 
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
@@ -288,7 +288,8 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
     adjoint header or the storage seams generic2d.cu includes changes all
-    three; editing a file none includes changes none."""
+    of them; editing the one-stage models' shared d2q9 blocks changes
+    those six; editing a file none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
@@ -297,14 +298,16 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
             "generic2d_adjoint.cuh"]
     headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()
                if dm.ndim == 2}
-    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"}
+    onestage = {"d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
+                "d2q9_solid", "d2q9_npe_guo"}
+    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"} | onestage
 
     def digests():
         return {m: _cuda_build.digest("generic2d", h)
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 3
+    assert len(set(before.values())) == 9
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -322,6 +325,10 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     seams = csrc / "storage.cuh"
     seams.write_text(seams.read_text() + "\n// edited\n")
     assert all(a != b for a, b in zip(digests().values(), again.values()))
+    again = digests()
+    common = csrc / "models" / "d2q9_common.cuh"
+    common.write_text(common.read_text() + "\n// edited\n")
+    assert {m for m, d in digests().items() if d != again[m]} == onestage
 
 
 # --------------------------------------------------------------------------- #

@@ -83,11 +83,13 @@ def test_globals_quantities_and_actions(pair):
 
 
 def test_catalogue_names_the_roadmap_for_models_not_ported():
-    assert list_models() == ["d2q9", "d2q9_SRT", "d2q9_cumulant",
-                             "d2q9_heat", "d2q9_heat_adj", "d2q9_inc",
-                             "d2q9_kuper", "d2q9_les", "d2q9_new", "d3q19",
+    assert list_models() == ["d2q9", "d2q9_SRT", "d2q9_cumulant", "d2q9_hb",
+                             "d2q9_heat", "d2q9_heat_adj",
+                             "d2q9_heat_conjugate", "d2q9_inc",
+                             "d2q9_kuper", "d2q9_les", "d2q9_new",
+                             "d2q9_npe_guo", "d2q9_solid", "d3q19",
                              "d3q19_adj", "d3q19_les", "d3q27_BGK",
-                             "d3q27_BGK_galcor", "d3q27_cumulant"]
+                             "d3q27_BGK_galcor", "d3q27_cumulant", "sw"]
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model("d3q19_heat")
 

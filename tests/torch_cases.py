@@ -747,3 +747,157 @@ def adj3d_control_xml(csv, size="test", out="output/"):
     <Solve Iterations="{s['solve']}"/>
 </CLBConfig>
 """
+
+
+# --------------------------------------------------------------------------- #
+# the one-stage 2D models on the generic kernels
+# --------------------------------------------------------------------------- #
+
+ONESTAGE_MODELS = ("d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
+                   "d2q9_solid", "d2q9_npe_guo")
+ONESTAGE_SHAPE = (16, 128)     # nx a multiple of 128: the reference's call_g
+# example/solidification.xml's and example/npe_guo.xml's settings
+SOLID_SETTINGS = {"nu": 0.1, "FluidAlfa": 0.05, "SoluteDiffusion": 0.05,
+                  "C0": 0.5, "Concentration": 0.5, "Temperature": 0.95,
+                  "T0": 0.95, "Teq": 1.0, "LiquidusSlope": -1.0,
+                  "PartitionCoef": 0.1, "GTCoef": 0.001,
+                  "SurfaceAnisotropy": 0.02}
+NPE_SETTINGS = {"n_inf_0": 0.01, "n_inf_1": 0.01, "psi_bc": -0.05,
+                "psi0": 0.0, "phi0": 0.0, "phi_bc": 0.0, "el_kbT": 1.0,
+                "epsilon": 1.0, "ez": 1.0, "nu": 0.1666666}
+# tests/test_pallas_generic.py's _SETTINGS where it has the model, the
+# example's otherwise (d2q9_hb: d2q9_heat's, with the erosion switched on;
+# sw: with sw_wave.xml's Gravity, since at the default 1.0 the wave speed
+# sqrt(g h) exceeds the lattice's sound speed and the painted lattice goes
+# non-finite within 500 steps, in f32 and f64 alike)
+GENERIC_SETTINGS = {
+    "d2q9_heat": {"nu": 0.05, "InletVelocity": 0.02, "FluidAlfa": 0.05},
+    "d2q9_heat_conjugate": {"nu": 0.05, "InletVelocity": 0.02,
+                            "FluidAlfa": 0.05, "SolidAlfa": 0.02},
+    "d2q9_hb": {"nu": 0.05, "InletVelocity": 0.02, "FluidAlfa": 0.05,
+                "DestructionRate": 0.5, "DestructionPower": 1.5},
+    "sw": {"nu": 0.05, "Gravity": 0.5},
+    "d2q9_solid": SOLID_SETTINGS,
+    "d2q9_npe_guo": NPE_SETTINGS,
+}
+# the rich states: every branch of each header switched on
+RICH_ONESTAGE_SETTINGS = {
+    **GENERIC_SETTINGS,
+    "d2q9_heat": {**GENERIC_SETTINGS["d2q9_heat"], "HeaterTemperature": 1.5},
+    "d2q9_heat_conjugate": {**GENERIC_SETTINGS["d2q9_heat_conjugate"],
+                            "HeaterTemperature": 1.5},
+    "d2q9_hb": {**GENERIC_SETTINGS["d2q9_hb"], "HeaterTemperature": 1.5},
+    "sw": {"nu": 0.05, "Gravity": 0.5, "Height": 1.0, "EnergySink": 0.1,
+           "InletVelocity": 0.01, "S2": 1.2, "S3": 0.9},
+    "d2q9_solid": {**SOLID_SETTINGS, "Theta0": 0.3, "Buoyancy": 0.01,
+                   "Velocity": 0.01},
+    "d2q9_npe_guo": {**NPE_SETTINGS, "phi_bc": 0.1, "t_to_s": 1.2},
+}
+# zone 1's value of each zonal setting on the rich states
+RICH_ONESTAGE_ZONE1 = {"HeaterTemperature": 2.0, "Height": 1.05,
+                       "Velocity": 0.02, "Pressure": 0.01,
+                       "Temperature": 0.9, "Concentration": 0.45,
+                       "Theta0": 0.6, "rho_bc": 1.001, "phi_bc": 0.5,
+                       "psi_bc": -0.04}
+
+
+def paint_generic(m, ny, nx):
+    """tests/test_pallas_generic.py's ``_paint``: the collision type
+    inside, walls top and bottom, W velocity and E pressure faces where
+    the model declares them (d2q9_npe_guo: a W pressure face, its driving
+    boundary), a settings zone 1 stripe; d2q9_hb adds a Destroy stripe and
+    d2q9_solid a Seed, so that their erosion and growth run."""
+    f = m.flag_for
+    coll = "MRT" if "MRT" in m.node_types else "BGK"
+    flags = np.full((ny, nx), f(coll), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    west = "WPressure" if m.name == "d2q9_npe_guo" else "WVelocity"
+    flags[1:-1, 0] = f(west, coll)
+    flags[1:-1, -1] = f("EPressure", coll)
+    flags[ny // 4:ny // 2, nx // 4:nx // 2] = f(coll, zone=1)
+    if "Destroy" in m.node_types:
+        flags[ny // 2:3 * ny // 4, nx // 2:3 * nx // 4] = f(coll, "Destroy")
+    if "Seed" in m.node_types:
+        flags[ny // 2 - 1:ny // 2 + 1, nx // 2 - 1:nx // 2 + 1] = \
+            f(coll, "Seed")
+    return flags
+
+
+def rich_flags_onestage(m, ny, nx):
+    """Every node type the model's device header reads on a (ny, nx) field
+    (ny >= 16, nx >= 32): split W and E faces (velocity and pressure),
+    walls top and bottom, a Solid block, the model's extra types in
+    patches, and a settings zone 1 block."""
+    f = m.flag_for
+    nt = m.node_types
+    coll = "MRT" if "MRT" in nt else "BGK"
+    flags = np.full((ny, nx), f(coll), dtype=np.uint16)
+    h = ny // 2
+    for col, upper, lower in ((0, "WVelocity", "WPressure"),
+                              (nx - 1, "EPressure", "EVelocity")):
+        flags[h:, col] = f(upper, coll)
+        flags[:h, col] = f(lower, coll)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[h - 2:h + 1, nx // 8:nx // 8 + 3] = f("Solid")
+    if "BottomSymmetry" in nt:
+        flags[1, nx // 2:3 * nx // 4] = f("BottomSymmetry", coll)
+        flags[-2, nx // 2:3 * nx // 4] = f("TopSymmetry", coll)
+    # the extra types, one patch each along the channel
+    extra = [n for n in ("Heater", "Destroy", "Obj1", "ForceTemperature",
+                         "ForceConcentration", "Obj", "Outlet")
+             if n in nt]
+    for i, name in enumerate(extra):
+        x0 = nx // 4 + i * 4
+        if nt[name].group == "OBJECTIVE":
+            flags[2:-2, x0:x0 + 2] |= np.uint16(f(name))
+        else:
+            flags[3:h, x0:x0 + 3] |= np.uint16(f(name))
+    zone = np.uint16(1 << m.zone_shift)
+    flags[h:-1, nx // 2:] |= zone
+    return flags
+
+
+def onestage_planes(m, shape, seed):
+    """Populations near a flowing equilibrium with 1-2% noise in every d2q9
+    group (each around its own scalar), sw's design field w in [0.1, 1],
+    d2q9_solid's fi_s in [0, 1] with fully solid nodes (some at the
+    periodic edges, so the Field stencil crosses them) and Cs small."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:9, :2].astype(np.float64)
+    wt = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+    u = 0.02 + 0.01 * rng.standard_normal((2,) + shape)
+    usq = (u * u).sum(0)
+    base = {"f": 1.0, "T": 0.7, "g": 0.95, "h": 0.5, "phi": 0.01,
+            "h_0": 0.01, "h_1": 0.01}
+    planes = {}
+    for name, idx in m.groups.items():
+        if name not in base or len(idx) != 9:
+            continue
+        level = base.get(name, 1.0) * (1 + 0.01 * rng.standard_normal(shape))
+        for k in range(9):
+            eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+            eq = wt[k] * level * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+            planes[m.storage_names[idx[k]]] = eq * (
+                1 + 0.02 * rng.standard_normal(shape))
+    if "w" in m.storage_index:
+        planes["w"] = 0.1 + 0.9 * rng.random(shape)
+    if "fi_s" in m.storage_index:
+        fi = rng.random(shape)
+        fi[fi > 0.8] = 1.0
+        fi[:, 0] = fi[0, :] = 1.0
+        planes["fi_s"] = fi
+        planes["Cs"] = 0.05 * rng.random(shape)
+    return planes
+
+
+def paint_rich_onestage(lat, seed):
+    """``rich_flags_onestage``, zone 1's values of the zonal settings, Init
+    and ``onestage_planes`` on a Lattice of either package (settings from
+    ``RICH_ONESTAGE_SETTINGS`` at its construction)."""
+    m = lat.model
+    lat.set_flags(rich_flags_onestage(m, *lat.shape))
+    for name in m.zonal_settings:
+        lat.set_setting(name, RICH_ONESTAGE_ZONE1[name], zone=1)
+    lat.init()
+    lat.set_density_planes(onestage_planes(m, lat.shape, seed))
+    return lat
