@@ -9,17 +9,19 @@ five d2q9-family models (``-DD2Q9_MODEL``), ``d3q27.cu`` for
 d3q27_cumulant and once for each of d3q27_BGK, d3q27_BGK_galcor, d3q19 and
 d3q19_les (``-DD3Q_MODEL``), ``generic2d.cu``
 once for each of d2q9 (``csrc/models/d2q9.cuh``), d2q9_kuper,
-d2q9_heat_adj (with the backward kernel of ``generic2d_adjoint.cuh``)
-and the six one-stage models (d2q9_heat, d2q9_heat_conjugate, d2q9_hb,
-sw, d2q9_solid, d2q9_npe_guo), and ``generic3d.cu`` for
+d2q9_heat_adj (with the backward kernel of ``generic2d_adjoint.cuh``),
+the six one-stage models (d2q9_heat, d2q9_heat_conjugate, d2q9_hb, sw,
+d2q9_solid, d2q9_npe_guo) and the four multi-stage models
+(d2q9_pf_pressureEvolution, d2q9_pp_MCMP, d2q9_lee,
+d2q9_poison_boltzmann), and ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
 sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
 1. build the d2q9 library and the five family libraries, the five d3q27
-   libraries, the nine generic 2D and the generic 3D libraries and print
-   what ``ptxas`` reports;
+   libraries, the thirteen generic 2D and the generic 3D libraries and
+   print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
    ``d2q9_step``, the 1024x1024 channel state for ``d2q9_step2`` and
@@ -73,7 +75,9 @@ missing.  Phases, each of which fails the run on its own:
    times, each kernel's bound on this card, and the host time one call of
    each wrapper takes;
 8. torch.profiler traces of a karman, a 3d_channel and a drop ``iterate``
-   window: the card's busy and idle share and its time by kernel;
+   window: the card's busy and idle share and its time by kernel; then,
+   a trace each, every launch of a multi-pass ``generic2d_step`` at
+   1024x1024 against its share of the step's bound;
 9. the generic main path: ``example/drop.xml`` unchanged through
    ``run_config`` (128x128, 6000 iterations, Log every 500, VTK every
    2000) on ``cuda_generic_resident[d2q9_kuper,fuse=N]``, launching both
@@ -228,6 +232,41 @@ missing.  Phases, each of which fails the run on its own:
    heat_channel's Heater zone (horizon 5): both series flavours against
    their plain versions, then an ``iterate(2000)`` on them.
 
+35. the multi-stage models' examples unchanged through ``run_config``:
+   ``example/bubble_rise.xml`` (d2q9_pf_pressureEvolution, 128x64, 3000
+   iterations; its plan of two stages in one launch a step),
+   ``mcmp_contact.xml`` (d2q9_pp_MCMP, 64x128, 2000) and ``drop_lee.xml``
+   (d2q9_lee, 128x128, 3000; three stages, one launch each on K4, a grid
+   barrier each in K5), each on ``cuda_generic_resident[<model>,fuse=N]``,
+   counted from 0: no eager step, both generic kernels, one globals launch
+   per Log; then each cut to 1000 iterations on the kernels and on the
+   eager f32 engine: every Log column, the fields and every quantity at
+   rtol 1e-4 / atol 1e-6; the physics of the reference's tests:
+   bubble_rise's PhaseF sum (an f64 eager cut within 1e-12, the kernels'
+   f32 drift as the eager f32 engine's within 1e-6) and its TotalDensity
+   against the sum of Rho over the MRT nodes at every Log (rtol 1e-4);
+   mcmp_contact's two masses alike (f64 within 1e-10) and TotalDensity1/2
+   against their sums over the collision nodes; drop_lee's mass within
+   5e-3 with rho above 0.8 and below 0.2 somewhere at the end; the MLUPS;
+   (35b) tests/test_pp.py's immiscible blob (48x48, 1000 iterations) on
+   the kernels: the components apart, their masses drifting as eager f32
+   does, the globals equal to the sums;
+36. each multi-stage model's 1024x1024 lattice (``torch_cases.
+   paint_generic`` with ``MULTISTAGE_SETTINGS``) on K4: ``generic2d_step``
+   (both flavours) against its plain version after 4 eager steps, the
+   bf16 shifted flavours within the f32 tolerance carried through the
+   narrowing, and ``iterate(2000)`` in f32 and in bf16;
+37. K5 on each resident path (the example's state after its run;
+   d2q9_poison_boltzmann's 128x128 lattice iterated 500 steps) against its
+   plain version and bit for bit against eight chained K4 calls, its bf16
+   rung bit for bit against eight chained ``generic2d_step_bf16`` calls
+   each within its bound, and an ``iterate(2000)`` in bf16 on the
+   resident engine;
+38. d2q9_lee's 1024x1024 lattice under a ``<Control>`` series of
+   InletVelocity on its inlet's zone (horizon 5): both series flavours of
+   the three-pass step against their plain versions, then an
+   ``iterate(2000)`` on them.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -246,8 +285,9 @@ Phase 7 also times the series flavours (K4's at 1024x1024 and at
 profiles a karman_control ``iterate(500)`` and a 3D Control channel
 ``iterate(200)``.  Phase 7 also times every one-stage kernel at its paths'
 shapes, phase 8 profiles a heat_channel and a 1024x1024 d2q9_npe_guo
-window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14,
-15-19, 20-22, 23-25, 26-30, 31-34, 7, 8.
+window; likewise for the multi-stage kernels, and a drop_lee and a
+1024x1024 d2q9_lee window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9,
+10, 11, 12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -260,6 +300,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -329,7 +370,8 @@ SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
            "adjoint3d": "generic3d_adjoint.cuh"}
 GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj",
                   "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
-                  "d2q9_solid", "d2q9_npe_guo")
+                  "d2q9_solid", "d2q9_npe_guo", "d2q9_pf_pressureEvolution",
+                  "d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -340,7 +382,14 @@ GOLDEN_MODELS = {"karman": "d2q9", "poiseuille": "d2q9",
                  "heat_adj": "d2q9_heat_adj"}
 
 
+T0 = time.perf_counter()     # the script's start, for each phase's clock
+
+
 def say(msg: str) -> None:
+    """Print ``msg``; a phase's first line also gets the seconds since the
+    script started."""
+    if msg.startswith("phase"):
+        msg = f"{msg} [{time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -566,11 +615,17 @@ def check_globals_flavour(gk, lats, errs: dict, what: str) -> dict:
             f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{name}'s globals at {shape} disagree")
-        keep_worst(errs, f"{key} globals",
-                   {"max_abs_err": float(gerr.max()),
-                    "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30))
-                                         .max())})
+        keep_worst(errs, f"{key} globals", globals_err(gerr, wg))
     return errs
+
+
+def globals_err(gerr, wg) -> dict:
+    """The largest absolute and relative error of a globals vector (0 for
+    a model without globals)."""
+    if not gerr.numel():
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    return {"max_abs_err": float(gerr.max()),
+            "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30)).max())}
 
 
 def check_step_b(ak, gk, lats, errs: dict, what: str) -> dict:
@@ -2197,6 +2252,19 @@ def wrapper_host_ms(launch, calls: int = 200) -> float:
     return dt / calls * 1e3
 
 
+def device_events(prof) -> list:
+    """The device activity of a torch.profiler trace: (name, start us,
+    duration us) of each kernel, copy and fill."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "dur" in e]
+
+
 def device_busy(run, what: str) -> dict:
     """Where a window's time goes on the card: a torch.profiler trace of
     ``run()`` (an iterate or a gradient, run once before to warm), the
@@ -2213,17 +2281,10 @@ def device_busy(run, what: str) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
     spans, by_name = [], {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
-                and "dur" in e:
-            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    for name, ts, dur in device_events(prof):
+        spans.append((ts, ts + dur))
+        by_name[name] = by_name.get(name, 0.0) + dur
     busy, end = 0.0, -math.inf
     for a, b in sorted(spans):
         if b > end:
@@ -2366,10 +2427,7 @@ def check_bf16_kernels(cases, errs: dict, what: str) -> dict:
                 f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{tag}: globals disagree")
-            keep_worst(errs, f"{key} globals",
-                       {"max_abs_err": float(gerr.max()),
-                        "max_rel_err": float(
-                            (gerr / wg.abs().clamp_min(1e-30)).max())})
+            keep_worst(errs, f"{key} globals", globals_err(gerr, wg))
     return errs
 
 
@@ -3347,6 +3405,538 @@ def time_onestage(gk, one: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The multi-stage 2D models on K4/K5 (phases 35-38)
+# --------------------------------------------------------------------------- #
+
+MULTISTAGE_MODELS = ("d2q9_pf_pressureEvolution", "d2q9_pp_MCMP",
+                     "d2q9_lee", "d2q9_poison_boltzmann")
+MULTISTAGE_CUT = 1000        # iterations of the eager comparison
+MULTISTAGE_N = 1024          # the full-width lattices
+MULTISTAGE_WINDOW = 2000     # iterate() window of the MLUPS
+PB_SMALL = (128, 128)        # poison_boltzmann's resident path (no example)
+PB_WINDOW = 500
+# a conserved sum's relative drift: the f64 eager run of a cut holds
+# tests/test_pf.py:146's and tests/test_pp.py:106's limits; in f32 the
+# sums drift by their rounding bias on every engine (1e-5 a few thousand
+# steps), so the kernel run's drift is held to the eager f32 run's at
+# every Log of the cut within CONSERVED_F32
+PF_SUM_F64, MCMP_MASS_F64, CONSERVED_F32 = 1e-12, 1e-10, 1e-6
+LEE_MASS_RTOL = 5e-3         # tests/test_lee.py:80
+LEE_RL, LEE_RV = 1.0, 0.1    # drop_lee.xml's Liquid/VaporDensity
+
+
+def mask_of(lat, *names):
+    """The nodes of ``lat`` whose group field equals one of ``names`` (or,
+    for a group name, with any of its bits set), on the card."""
+    m = lat.model
+    flags = lat.flags_numpy().astype(np.int64)
+    out = np.zeros(flags.shape, dtype=bool)
+    for n in names:
+        if n in m.group_masks:
+            out |= (flags & m.group_masks[n]) != 0
+        else:
+            nt = m.node_types[n]
+            out |= (flags & nt.mask) == nt.value
+    return torch.as_tensor(out, device=DEVICE)
+
+
+def multistage_probe(model: str):
+    """What the physics check of ``model``'s example records at each Log:
+    its conserved sums (f64 sums of the stored values), the globals and
+    the sums they must equal."""
+    def pf(s):
+        lat = s.lattice
+        rho = lat.get_quantity("Rho").double()
+        return (float(lat.get_quantity("PhaseField").double().sum()),
+                lat.get_globals()["TotalDensity"],
+                float(rho[mask_of(lat, "MRT")].sum()))
+
+    def mcmp(s):
+        lat = s.lattice
+        rf = lat.get_quantity("Rhof").double()
+        rg = lat.get_quantity("Rhog").double()
+        coll = mask_of(lat, "COLLISION")
+        g = lat.get_globals()
+        return (float(rf.sum()), float(rg.sum()), g["TotalDensity1"],
+                g["TotalDensity2"], float(rf[coll].sum()),
+                float(rg[coll].sum()))
+
+    def lee(s):
+        rho = s.lattice.get_quantity("Rho").double()
+        return (float(rho.sum()), float(rho.max()), float(rho.min()))
+    return {"d2q9_pf_pressureEvolution": pf, "d2q9_pp_MCMP": mcmp,
+            "d2q9_lee": lee}[model]
+
+
+def drifts(run, n: int = 1) -> list:
+    """Relative drift of the first ``n`` probe columns at each Log from
+    the run's start (``run["start"]``)."""
+    return [[abs(v[i] - run["start"][i]) / abs(run["start"][i])
+             for i in range(n)] for _, v in run["probes"]]
+
+
+def sums_match_globals(run, pairs, what: str) -> float:
+    """Each global equals the sum it counts at every Log of ``run``
+    (``pairs`` of probe columns) within GOLDEN_RTOL; the largest
+    relative gap."""
+    gap = max(abs(v[g] - v[s]) / max(abs(v[s]), 1e-30)
+              for _, v in run["probes"] for g, s in pairs)
+    say(f"  {what}: the globals against the sums they count, largest "
+        f"relative gap {gap:.3e} (rtol {GOLDEN_RTOL})")
+    if gap > GOLDEN_RTOL:
+        fail(f"{what}: a global differs from the sum it counts")
+    return gap
+
+
+def conserved_like_eager(kern, eager, f64, n: int, limit_f64: float,
+                         what: str) -> dict:
+    """The cut's conserved sums (the first ``n`` probe columns): the f64
+    eager run holds them within ``limit_f64``, the kernel run drifts as
+    the eager f32 run does within CONSERVED_F32 at every Log."""
+    d64 = max(max(row) for row in drifts(f64, n))
+    gap = max(abs(a - b) for rk, re in zip(drifts(kern, n),
+                                           drifts(eager, n))
+              for a, b in zip(rk, re))
+    say(f"  {what}: the f64 eager cut drifts by at most {d64:.3e} (limit "
+        f"{limit_f64}); the kernels' f32 drift against the eager f32 "
+        f"run's: {gap:.3e} (limit {CONSERVED_F32}); the kernels' own "
+        f"drift at the Logs {drifts(kern, n)}")
+    if not (d64 <= limit_f64 and gap <= CONSERVED_F32
+            and len(kern["probes"]) == len(eager["probes"]) > 0):
+        fail(f"{what}: a conserved sum is not conserved")
+    return {"f64_drift": d64, "kernel_vs_eager_f32": gap,
+            "kernel_drift": drifts(kern, n)}
+
+
+def start_probe(xml, model, dtype=torch.float32):
+    """The probe on the case's initialised lattice (before its Solve)."""
+    import types
+    return multistage_probe(model)(types.SimpleNamespace(
+        lattice=case_lattice(xml, dtype, DEVICE)))
+
+
+def run_multistage_example(gk, model: str) -> dict:
+    """Phase 35: ``model``'s example unchanged through ``run_config`` on
+    the card, counted from 0: the resident engine, no eager step, both
+    generic kernels, one globals call per Log (a launch a pass); its
+    physics (see ``multistage_physics``); then the example cut to
+    MULTISTAGE_CUT iterations on the kernels and on the eager f32 engine:
+    every Log column and the final fields at rtol 1e-4 / atol 1e-6; the
+    MLUPS of the case and of an iterate window."""
+    from torch_cases import MULTISTAGE_EXAMPLES
+    xml = ROOT / "example" / MULTISTAGE_EXAMPLES[model]
+    say(f"phase 35: {xml.name} end to end")
+    root = ET.parse(xml).getroot()
+    niter = int(root.find("Solve").get("Iterations"))
+    stops = len({niter} | {i for el in root.findall("Log")
+                           + root.findall("VTK")
+                           for i in range(int(el.get("Iterations")),
+                                          niter + 1,
+                                          int(el.get("Iterations")))})
+    probe = multistage_probe(model)
+    run = run_onestage_xml(gk, xml, True, probe)
+    run["start"] = start_probe(xml, model)
+    lat = run["solver"].lattice
+    engine = f"cuda_generic_resident[{model},fuse=N]"
+    launches = {k: v for k, v in run["launches"].items() if v}
+    say(f"  engine {lat.engine_name}, {run['solver'].iter} iterations, "
+        f"{run['wall_s']:.3f} s wall, launches {launches}, eager steps "
+        f"{lat.eager_steps}")
+    if lat.engine_name != engine or lat.eager_steps:
+        fail(f"{xml.name} ran on {lat.engine_name} with {lat.eager_steps} "
+             "eager steps")
+    globals_ = run["flavours"]["generic2d_step"]["globals"]
+    passes = gk._LIB[model]["passes"]
+    if set(launches) != set(gk.KERNELS) or globals_ != stops * passes:
+        fail(f"{xml.name}: launches {launches}, globals flavour "
+             f"{globals_} in {stops} iterate calls of {passes} launches")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"{xml.name}: non-finite fields")
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = cut_xml(xml, MULTISTAGE_CUT, tmp)
+        kern = run_onestage_xml(gk, cut, True, probe)
+        eager = run_onestage_xml(gk, cut, False, probe)
+        f64 = (run_onestage_xml(gk, cut, False, probe, torch.float64)
+               if model != "d2q9_lee" else None)
+    for r in (kern, eager):
+        r["start"] = run["start"]
+    if f64 is not None:
+        f64["start"] = start_probe(xml, model, torch.float64)
+    physics = multistage_physics(model, run, kern, eager, f64, lat)
+    if eager["solver"].lattice.engine_name != "eager" \
+            or kern["solver"].lattice.engine_name != engine:
+        fail(f"{xml.name} cut: engines {kern['solver'].lattice.engine_name}"
+             f", {eager['solver'].lattice.engine_name}")
+    (head, rows), (ehead, erows) = kern["Log"], eager["Log"]
+    keep = [i for i, h in enumerate(head) if "Walltime" not in h]
+    if head != ehead or rows.shape != erows.shape or not (
+            np.isfinite(rows[:, keep]).all() and np.allclose(
+                rows[:, keep], erows[:, keep], rtol=GOLDEN_RTOL,
+                atol=GOLDEN_ATOL)):
+        fail(f"{xml.name}: the Log columns of the first {MULTISTAGE_CUT} "
+             "iterations differ from the eager run's")
+    log_err = float(np.abs(rows[:, keep] - erows[:, keep]).max())
+    klat, elat = kern["solver"].lattice, eager["solver"].lattice
+    say(f"  the first {MULTISTAGE_CUT} iterations on the kernels against "
+        f"the eager f32 engine ({eager['wall_s']:.2f} s): Log columns "
+        f"within {log_err:.3e}")
+    fields = compare(klat.state.fields, elat.state.fields,
+                     f"{xml.name}'s fields after {MULTISTAGE_CUT} against "
+                     "the eager run's", GOLDEN_RTOL, GOLDEN_ATOL)
+    same = torch.equal(klat.state.fields, elat.state.fields)
+    say(f"  the kernels' fields after {MULTISTAGE_CUT} iterations are "
+        f"{'bit for bit' if same else 'not bit for bit'} the eager f32 "
+        "engine's")
+    quantities = {q.name: compare(
+        klat.get_quantity(q.name), elat.get_quantity(q.name),
+        f"{xml.name}'s {q.name} after {MULTISTAGE_CUT}", GOLDEN_RTOL,
+        GOLDEN_ATOL) for q in lat.model.quantities}
+    nodes = float(np.prod(lat.shape))
+    lat.synchronize()
+    t0 = time.perf_counter()
+    lat.iterate(ONESTAGE_WINDOW)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"engine": lat.engine_name, "wall_s": run["wall_s"],
+           "launches": run["launches"], "flavours": run["flavours"],
+           "mlups_end_to_end": nodes * niter / run["wall_s"] / 1e6,
+           "mlups_iterate": nodes * ONESTAGE_WINDOW / dt / 1e6,
+           "log_max_abs_err_vs_eager": log_err, "fields_vs_eager": fields,
+           "fields_bit_identical_to_eager": same,
+           "quantities_vs_eager": quantities,
+           "eager_wall_s": eager["wall_s"], "physics": physics,
+           "lattice": lat}
+    say(f"  MLUPS: {out['mlups_end_to_end']:.1f} end to end, "
+        f"{out['mlups_iterate']:.1f} in an iterate({ONESTAGE_WINDOW}) "
+        "window")
+    return out
+
+
+def multistage_physics(model, run, kern, eager, f64, lat) -> dict:
+    """The reference's physics tests on the example: bubble_rise conserves
+    its PhaseF sum (tests/test_pf.py:146) and its TotalDensity equals the
+    sum of Rho over the MRT nodes (:148-150); mcmp_contact keeps both
+    components' masses (tests/test_pp.py:106-107) and its TotalDensity1
+    and TotalDensity2 equal their sums over the collision nodes
+    (:111-113); drop_lee keeps its mass within 5e-3 with both phases
+    present (tests/test_lee.py:80, :91)."""
+    name = lat.model.name
+    if name == "d2q9_pf_pressureEvolution":
+        out = conserved_like_eager(kern, eager, f64, 1, PF_SUM_F64,
+                                   "bubble_rise's PhaseF sum")
+        out["totaldensity_gap"] = sums_match_globals(
+            run, [(1, 2)], "bubble_rise's TotalDensity")
+        out["run_drift"] = drifts(run)
+        return out
+    if name == "d2q9_pp_MCMP":
+        out = conserved_like_eager(kern, eager, f64, 2, MCMP_MASS_F64,
+                                   "mcmp_contact's component masses")
+        out["totaldensity_gap"] = sums_match_globals(
+            run, [(2, 4), (3, 5)], "mcmp_contact's TotalDensity1/2")
+        out["run_drift"] = drifts(run, 2)
+        return out
+    mass = drifts(run)
+    hi = max(v[1] for _, v in run["probes"][-1:])
+    lo = min(v[2] for _, v in run["probes"][-1:])
+    say(f"  drop_lee's mass drift at the Logs {mass} (limit "
+        f"{LEE_MASS_RTOL}); rho in [{lo!r}, {hi!r}] at the end (the "
+        f"liquid above {0.8 * LEE_RL}, the vapour below {2 * LEE_RV})")
+    if not (max(r[0] for r in mass) <= LEE_MASS_RTOL and hi > 0.8 * LEE_RL
+            and lo < 2 * LEE_RV):
+        fail("drop_lee.xml: its mass or its two phases are not kept")
+    return {"mass_drift": mass, "rho_max": hi, "rho_min": lo}
+
+
+def mcmp_blob(gk) -> dict:
+    """Phase 35b: tests/test_pp.py's immiscibility case (48x48, f dense in
+    a disk, g outside, 1000 iterations) on the kernels in f32: the two
+    components stay apart (each dominates its region threefold), the
+    kernels' masses drift as the eager f32 engine's within CONSERVED_F32,
+    and TotalDensity1/2 equal the sums over the collision nodes."""
+    from tclb_tpu_torch import Lattice, get_model
+    say("phase 35b: d2q9_pp_MCMP's immiscible blob on the kernels")
+    m = get_model("d2q9_pp_MCMP")
+    n = 48
+    lats = []
+    for _ in range(2):
+        lat = Lattice(m, (n, n), dtype=torch.float32, device=DEVICE,
+                      settings={"nu": 1 / 6, "nu_g": 1 / 6, "Gc": 1.8,
+                                "Gad1": 0.0, "Gad2": 0.0, "Density": 1.0,
+                                "Density_dry": 1.0})
+        lat.set_flags(np.full((n, n), m.flag_for("BGK"), dtype=np.uint16))
+        lat.init()
+        y, x = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        disk = ((x - n / 2) ** 2 + (y - n / 2) ** 2) < (n / 4) ** 2
+        f = lat.state.fields.cpu().numpy()
+        lat.set_density_planes({
+            **{f"f[{i}]": f[i] * np.where(disk, 1.0, 0.06)
+               for i in range(9)},
+            **{f"g[{i}]": f[9 + i] * np.where(disk, 0.06, 1.0)
+               for i in range(9)}})
+        lats.append(lat)
+    kern, eager = lats
+    mass0 = [float(kern.get_quantity(q).double().sum())
+             for q in ("Rhof", "Rhog")]
+    gk.reset_launches()
+    kern.iterate(1000)
+    kern.synchronize()
+    launches = {k: v for k, v in gk.LAUNCHES.items() if v}
+    eager.state = eager._iterate(eager.state, eager.params, 1000)
+    rf, rg = (kern.get_quantity(q).double() for q in ("Rhof", "Rhog"))
+    erf, erg = (eager.get_quantity(q).double() for q in ("Rhof", "Rhog"))
+    d = torch.as_tensor(disk, device=DEVICE)
+    apart = (float(rf[d].mean()) > 3 * float(rg[d].mean())
+             and float(rg[~d].mean()) > 3 * float(rf[~d].mean()))
+    drift = [abs(float(a.sum()) - m0) / m0 for a, m0 in zip((rf, rg), mass0)]
+    edrift = [abs(float(a.sum()) - m0) / m0
+              for a, m0 in zip((erf, erg), mass0)]
+    gap = max(abs(a - b) for a, b in zip(drift, edrift))
+    g = kern.get_globals()
+    run = {"probes": [(1000, (g["TotalDensity1"], g["TotalDensity2"],
+                              float(rf.sum()), float(rg.sum())))]}
+    say(f"  engine {kern.engine_name}, launches {launches}; inside the "
+        f"disk f {float(rf[d].mean()):.4f} g {float(rg[d].mean()):.4f}, "
+        f"outside f {float(rf[~d].mean()):.4f} g {float(rg[~d].mean()):.4f}"
+        f" (apart: {apart}); mass drift {drift}, eager f32 {edrift} (gap "
+        f"{gap:.3e}, limit {CONSERVED_F32})")
+    if not (apart and gap <= CONSERVED_F32 and launches
+            and not kern.eager_steps):
+        fail("mcmp blob: the components mix or their masses drift")
+    tg = sums_match_globals(run, [(0, 2), (1, 3)], "the blob's "
+                            "TotalDensity1/2")
+    return {"engine": kern.engine_name, "launches": gk.LAUNCHES.copy(),
+            "flavours": {k: gk.flavours(k) for k in ("generic2d_step",
+                                                     "generic2d_step_bf16")},
+            "apart": apart, "mass_drift": drift, "eager_mass_drift": edrift,
+            "totaldensity_gap": tg}
+
+
+def multistage_lattice(model: str, shape):
+    """tests/test_pallas_generic.py's ``_paint`` on the card
+    (``torch_cases.paint_generic``) with that file's ``_SETTINGS`` where it
+    has the model, bubble_rise.xml's for d2q9_pf_pressureEvolution (its
+    zone stripe a bubble: PhaseField-zbub) and the JAX package's physics
+    test's for d2q9_poison_boltzmann (``MULTISTAGE_SETTINGS``),
+    initialised.  The other zonal settings are the same in both zones, as
+    the reference's ``_parity`` has them: MCMP's rich zone-1 velocities
+    (``RICH_MULTISTAGE_ZONE1``) blow its painted lattice up within 100
+    steps on every engine, eager f32 included.  MCMP's lattice keeps the
+    W velocity face and not the E pressure face (mcmp_contact.xml has
+    neither): with both, the two columns meet across the periodic edge
+    and a 2000-step run goes non-finite on every engine."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import MULTISTAGE_SETTINGS, paint_generic
+    m = get_model(model)
+    lat = Lattice(m, shape, dtype=torch.float32, device=DEVICE,
+                  settings=MULTISTAGE_SETTINGS[model])
+    flags = paint_generic(m, *shape)
+    if model == "d2q9_pp_MCMP":
+        flags[1:-1, -1] = m.flag_for("BGK")
+    lat.set_flags(flags)
+    if model == "d2q9_pf_pressureEvolution":
+        lat.set_setting("PhaseField", 0.5, zone=1)
+    lat.init()
+    return lat
+
+
+def run_multistage(gk, errs: dict) -> dict:
+    """Phases 35-38 for the multi-stage models: the three examples (35)
+    and the MCMP blob (35b), each model's 1024x1024 lattice on K4 in f32
+    and in bf16 shifted (36), K5 and its bf16 rung on each resident path
+    (37: the example's, or poison_boltzmann's 128x128), d2q9_lee under a
+    <Control> series of InletVelocity (38).  Returns the launches by
+    kernel and path (and of the step kernels' globals flavour), the
+    lattices phase 7 times and the summary."""
+    from torch_cases import MULTISTAGE_EXAMPLES
+    launches, glaunches, summary = {}, {}, {}
+    band, res, res_steps = {}, {}, {}
+
+    def count(into, key, path, n):
+        if n:
+            into.setdefault(key, {})[path] = into.get(key, {}).get(path,
+                                                                    0) + n
+
+    def record(model, path, run, kernels):
+        for k in kernels:
+            count(launches, f"{k}[{model}]", path, run["launches"][k])
+        for k in ("generic2d_step", "generic2d_step_bf16"):
+            count(glaunches, f"{k}[{model}]", path,
+                  run["flavours"][k]["globals"])
+        summary[path] = {k: v for k, v in run.items()
+                         if k not in ("launches", "flavours")}
+
+    for model in MULTISTAGE_MODELS:
+        if model in MULTISTAGE_EXAMPLES:
+            xml = ROOT / "example" / MULTISTAGE_EXAMPLES[model]
+            run = run_multistage_example(gk, model)
+            res[model] = run.pop("lattice")
+            log = int(ET.parse(xml).getroot().find("Log").get("Iterations"))
+            record(model, xml.stem, run, gk.KERNELS)
+        else:
+            say(f"phase 37: {model} at {PB_SMALL} (K5's path)")
+            res[model] = multistage_lattice(model, PB_SMALL)
+            log = PB_WINDOW
+            run = iterate_window(gk, res[model], f"{model}128",
+                                 f"cuda_generic_resident[{model},fuse=N]",
+                                 log)
+            record(model, f"{model}128", run, gk.KERNELS)
+        res_steps[model] = (log - 1) // 2 * 2
+    record("d2q9_pp_MCMP", "mcmp_blob", mcmp_blob(gk), gk.KERNELS)
+    # K5 and its bf16 rung on each resident path's developed state
+    for model in MULTISTAGE_MODELS:
+        lat = res[model]
+        resident_chain(gk, lat, 8, errs, f"phase 37, {model}'s resident "
+                       "path")
+        bf = bf16_copy(lat)
+        bf16_chain(gk, bf, 8, errs, f"phase 37, {model} in bf16 shifted")
+        res[f"{model} bf16"] = bf16_copy(lat)
+        path = f"{model}_bf16_resident"
+        record(model, path, iterate_window(
+            gk, bf, f"{path} at {lat.shape}",
+            f"cuda_generic_resident[{model},fuse=N,bfloat16/shifted]"),
+            gk.BF16_KERNELS)
+    # the full-width lattices on K4, f32 and bf16 shifted
+    for model in MULTISTAGE_MODELS:
+        say(f"phase 36: {model} at {MULTISTAGE_N}x{MULTISTAGE_N} on K4")
+        what = f"phase 36, {model} {MULTISTAGE_N}x{MULTISTAGE_N}"
+        lat = multistage_lattice(model, (MULTISTAGE_N, MULTISTAGE_N))
+        eager_warm(lat, 4)
+        check_kernels([(gk, lat, "generic2d_step")], errs, what)
+        check_globals_flavour(gk, (lat,), errs, what)
+        bf = bf16_copy(lat)
+        check_bf16_kernels([(gk, bf, "generic2d_step")], errs, what)
+        band[model], band[f"{model} bf16"] = lat, bf16_copy(lat)
+        for tag, L, eng in (
+                ("", lat, f"cuda_generic_band[{model},fuse=1]"),
+                ("_bf16", bf,
+                 f"cuda_generic_band[{model},fuse=1,bfloat16/shifted]")):
+            path = f"{model}{MULTISTAGE_N}{tag}"
+            record(model, path, iterate_window(gk, L, path, eng,
+                                               MULTISTAGE_WINDOW),
+                   [f"generic2d_step{tag}"])
+        summary[f"{model}{MULTISTAGE_N}"]["bf16_over_f32"] = (
+            summary[f"{model}{MULTISTAGE_N}_bf16"]["mlups_iterate"]
+            / summary[f"{model}{MULTISTAGE_N}"]["mlups_iterate"])
+    # a <Control> series on a three-stage model: the inlet of lee's 1024^2
+    say("phase 38: d2q9_lee under a <Control> series of InletVelocity")
+    model = "d2q9_lee"
+    lee = multistage_lattice(model, (MULTISTAGE_N, MULTISTAGE_N))
+    eager_warm(lee, 4)
+    lee.set_setting_series("InletVelocity",
+                           [0.01, 0.015, 0.02, 0.012, 0.008], zone=0)
+    check_series_flavours(gk, (lee,), errs, "phase 38")
+    record(model, "lee1024_series", iterate_window(
+        gk, lee, "lee1024 under the series",
+        f"cuda_generic_band[{model},fuse=1]"), gk.SERIES_KERNELS)
+    res["lee series"] = lee
+    return {"launches": launches, "globals_launches": glaunches,
+            "summary": summary, "band": band, "resident": res,
+            "res_steps": res_steps}
+
+
+def time_passes(gk, lat, key: str, inputs, itemsize: int,
+                reps: int = 100) -> list:
+    """Each launch of a multi-pass ``generic2d_step`` (``key``) on its own:
+    its device time a call from a torch.profiler trace of ``reps`` calls,
+    against its share of the step's bound: pass 0 reads the step's input
+    once (the stack, the flags, the zone table), the last pass writes its
+    output once, and each pass does its stage's operations
+    (``stage_flops``); the passes' shares add up to the step's bound.
+    ``ms`` is None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    say(f"phase 8: each launch of {key} at {lat.shape} (a torch.profiler "
+        f"trace of {reps} calls)")
+    m = lat.model
+    plan = gk.DEVICE_MODELS[m.name].plan
+    flops = gk.stage_flops(m, lat.flags_numpy())
+    n = int(np.prod(lat.shape))
+    table = len(m.zonal_settings) * m.zone_max * 4
+    fn = lambda: gk.step(*inputs)      # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [0.0] * len(plan)
+    for name, _, dur in device_events(prof):
+        hit = re.search(r"generic2d_pass_kernel<(\d+)", name)
+        if hit:
+            us[int(hit.group(1))] += dur
+    out = []
+    for s, ((stage, _), f) in enumerate(zip(plan, flops)):
+        nbytes = ((m.n_storage * itemsize + 4) * n + table if s == 0 else 0)
+        if s == len(plan) - 1:
+            nbytes += m.n_storage * itemsize * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = f / FP32_FLOPS_PER_S * 1e3
+        ms = us[s] / reps / 1e3 if us[s] else None
+        bound = max(bytes_ms, ops_ms)
+        out.append({"stage": stage, "ms": ms, "bound_ms": bound,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "bytes": nbytes, "flops": f,
+                    "share_of_bound": bound / ms if ms else None})
+        say(f"  {key} pass {s} ({stage}): "
+            + (f"{ms:.4f} ms a call" if ms else "not measured (no device "
+               "time in the trace)")
+            + f", its share of the bound {bound:.4f} ms "
+            f"({out[-1]['bound_by']}: {nbytes} B, {f} flop)")
+    return out
+
+
+def time_multistage(gk, multi: dict) -> dict:
+    """Phase 7 for the multi-stage models: K4 (both flavours) at
+    1024x1024 in f32 and bf16, K5 on each resident path's state for the
+    steps one of its launches takes there, in f32 and bf16 (its plain
+    version timed once, no warm-up call: the checks ran the same eager
+    operations), the series flavours on lee's 1024x1024 lattice; the bound
+    from ``launch_bytes`` (bf16 at 2 B a value) and ``node_step_flops``:
+    what the step must move and compute, whatever the launches."""
+    out = {}
+    for model in MULTISTAGE_MODELS:
+        for tag, lat in (("", multi["band"][model]),
+                         ("_bf16", multi["band"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_step{tag}[{model}]"
+            for k, fn, g, reps in ((key, gk.step, False, 200),
+                                   (f"{key} globals", gk.step_globals,
+                                    True, 100)):
+                out[k] = time_one(
+                    k, lambda fn=fn: fn(f, flags, ztab, a),
+                    lambda g=g: gk.plain_steps(f, flags, ztab, a, 1,
+                                               with_globals=g),
+                    gk.launch_bytes(lat.model, lat.shape,
+                                    itemsize=2 if tag else 4),
+                    gk.node_step_flops(lat.model, lat.flags_numpy()),
+                    lat.shape, reps, plain_reps=3)
+            out[key]["launches_per_call"] = gk._LIB[model]["passes"]
+        steps = multi["res_steps"][model]
+        for tag, lat in (("", multi["resident"][model]),
+                         ("_bf16", multi["resident"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_resident{tag}[{model}]"
+            out[key] = time_one(
+                f"{key} ({steps} steps)",
+                lambda: gk.resident(f, flags, ztab, a, steps),
+                lambda: gk.plain_steps(f, flags, ztab, a, steps),
+                gk.launch_bytes(lat.model, lat.shape,
+                                itemsize=2 if tag else 4),
+                steps * gk.node_step_flops(lat.model, lat.flags_numpy()),
+                lat.shape, 20, plain_reps=1, plain_warm=0)
+            out[key]["steps"] = steps
+    series = time_series_flavours(gk, multi["resident"]["lee series"], 200)
+    for t in series.values():
+        t["launches_per_call"] = gk._LIB["d2q9_lee"]["passes"]
+    out.update(series)
+    return out
+
+
 def main() -> int:
     if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
                for src in SOURCES.values()):
@@ -3554,6 +4144,7 @@ def main() -> int:
                         control=control_dev, channel3d=path3d["lattice"],
                         turb=path_turb["lattice"], channel48=channel48)
     one = run_onestage(gk, errs)
+    multi = run_multistage(gk, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -3583,6 +4174,7 @@ def main() -> int:
     times.update(time_bf16(gk, dk3, ladder["band"], ladder["resident"],
                            ladder["d3"], HARNESS_RES_STEPS))
     times.update(time_onestage(gk, one))
+    times.update(time_multistage(gk, multi))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
     times.update(time_kernels(
@@ -3624,6 +4216,24 @@ def main() -> int:
         "d2q9_npe_guo1024": device_busy(
             lambda: one["band"]["d2q9_npe_guo"].iterate(100),
             "a 1024x1024 d2q9_npe_guo iterate(100)")}
+    busy_multi = {
+        "drop_lee": device_busy(
+            lambda: multi["resident"]["d2q9_lee"].iterate(500),
+            "a drop_lee iterate(500)"),
+        "d2q9_lee1024": device_busy(
+            lambda: multi["band"]["d2q9_lee"].iterate(100),
+            "a 1024x1024 d2q9_lee iterate(100)")}
+    # each pass of the multi-pass steps at 1024x1024, after the windows
+    # above (a trace of its own each)
+    for model in MULTISTAGE_MODELS:
+        if gk._LIB[model]["passes"] > 1:
+            for tag in ("", "_bf16"):
+                lat = multi["band"][f"{model}{' bf16' if tag else ''}"]
+                key = f"generic2d_step{tag}[{model}]"
+                times[key]["passes"] = time_passes(
+                    gk, lat, key, bf16_inputs(gk, lat) if tag else
+                    gk.kernel_inputs(lat.model, lat.state, lat.params),
+                    2 if tag else 4)
 
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
@@ -3658,6 +4268,7 @@ def main() -> int:
         "adj3d_control": path_control3d["launches"][name]}
         for name in g3.SERIES_KERNELS})
     launches.update(one["launches"])
+    launches.update(multi["launches"])
     for name in gk.BF16_KERNELS:
         TPU_KERNELS.setdefault(name, TPU_KERNELS[name[:-len("_bf16")]])
     bf16_sources = {name: SOURCES["generic"] for name in gk.BF16_KERNELS}
@@ -3726,7 +4337,8 @@ def main() -> int:
         by_name[step_b]["settings_max_rel_err"] = \
             errs[f"{step_b} settings"]["max_rel_err"]
     for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"),
-                                           (gk, "d2q9_heat"))
+                                           (gk, "d2q9_heat"),
+                                           (gk, "d2q9_lee"))
                 for k in mod.SERIES_KERNELS[1:]):
         by_name[key]["globals_max_abs_err"] = \
             errs[f"{key} globals"]["max_abs_err"]
@@ -3745,9 +4357,10 @@ def main() -> int:
             by_name[key]["chain_bit_identical"] = e["chain_bit_identical"]
             # against as many narrowed eager steps from the start
             by_name[key]["eager_max_abs_err"] = e["eager_max_abs_err"]
-    # the one-stage models: each kernel's header, the step kernels' globals
-    # flavour, K5's steps and its chain, the bf16 values a step off
-    for key in one["launches"]:
+    # the one-stage and multi-stage models: each kernel's header, the step
+    # kernels' globals flavour, K5's steps and its chain, the bf16 values a
+    # step off
+    for key in list(one["launches"]) + list(multi["launches"]):
         model = key.split("[")[1].rstrip("]")
         by_name[key]["header"] = ("tclb_tpu_torch/csrc/"
                                   + gk.DEVICE_MODELS[model].header)
@@ -3757,7 +4370,14 @@ def main() -> int:
                 errs[key]["chain_bit_identical"]
         if "bf16" in key:
             by_name[key]["flips"] = errs[key].get("flips")
-    for key, by_path in one["globals_launches"].items():
+    # a multi-pass step's launches a call, and each pass's time and share
+    # of the bound
+    for key in multi["launches"]:
+        for k in ("launches_per_call", "passes"):
+            if k in times[key]:
+                by_name[key][k] = times[key][k]
+    for key, by_path in list(one["globals_launches"].items()) + list(
+            multi["globals_launches"].items()):
         by_name[key]["globals_flavour"] = {
             **{k: times[f"{key} globals"][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -3805,6 +4425,8 @@ def main() -> int:
         "storage_ladder": ladder["summary"],
         "onestage": one["summary"],
         "onestage_iterate_profile": busy_one,
+        "multistage": multi["summary"],
+        "multistage_iterate_profile": busy_multi,
         "d2q9_generic_kernels_off_path": d2q9_generic,
         "karman_control_iterate_profile": busy_control,
         "adj3d_control_iterate_profile": busy_control3d,

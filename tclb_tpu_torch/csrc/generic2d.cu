@@ -18,12 +18,26 @@
 //                       kernel reading a zonal setting from the series where
 //                       one overrides the node's zone, SeriesArgs in
 //                       generic_common.cuh).
-//                       A two-stage action (d2q9_kuper): a 32x16 block runs
-//                       stage 0 on its 30x14 output tile plus the one-node
-//                       ring stage 1 pulls from, keeping stage 0's output
-//                       planes in shared memory, then stage 1 on the tile.
-//                       A one-stage action (d2q9_heat_adj) has no ring: the
-//                       stage writes straight to the 32x16 output tile.
+//                       A two-stage action whose first stage computes a
+//                       ring of at most two nodes (d2q9_kuper: 1,
+//                       d2q9_pf_pressureEvolution: 2) runs in one launch
+//                       (the ring form): a 32x16 block runs stage 0 on its
+//                       output tile plus the ring, keeping stage 0's output
+//                       planes in shared memory (19 planes: 38.9 KB), then
+//                       stage 1 on the tile.  Any other plan runs one
+//                       launch a stage (generic2d_pass_kernel, the passes)
+//                       on the caller's stream, each over the whole
+//                       lattice: stage s reads a plane an earlier stage of
+//                       the step wrote from the f32 scratch stack `mid`
+//                       (the caller's), any other from the step's input,
+//                       and writes `mid`; the last stage writes the output
+//                       and copies the planes it leaves.  A one-stage plan
+//                       (d2q9_heat_adj) is one pass that writes the output
+//                       itself; a plan of three stages or a wider ring
+//                       (d2q9_pp_MCMP, d2q9_lee, d2q9_poison_boltzmann)
+//                       computes no node twice, whatever the reach, and
+//                       moves one more write and read of the earlier
+//                       stages' planes.
 //                       Pulls and Field loads wrap periodically by index
 //                       arithmetic.  Bound by bytes: a d2q9_kuper node reads
 //                       its 10 planes and flag and writes 10 planes (84 B)
@@ -35,15 +49,22 @@
 //                       double sums, a fixed-order block reduction into one
 //                       partial per block, and the last block to finish
 //                       adds the partials in block order -- no float
-//                       atomics, so a run is deterministic.
+//                       atomics, so a run is deterministic.  A multi-pass
+//                       step sums each pass so and carries the running
+//                       totals from pass to pass in the row after the
+//                       partials.
 //   generic2d_resident  an even number of Iterations in one cooperative
 //                       launch (replaces make_resident_iterate): every
 //                       thread walks the lattice with a grid stride, a
 //                       grid-wide barrier after each stage, and two global
-//                       buffers ping-pong.  For lattices that fit half the
-//                       50 MB L2 (drop.xml's 128x128 is 1.4 MB) the planes
-//                       stay in L2: device memory sees one read and one
-//                       write per launch, and the barriers set its time.
+//                       buffers ping-pong (the earlier stages of a plan
+//                       write `mid`, as generic2d_step's passes do, but
+//                       for an f32 ring-form plan's stage 0, which writes
+//                       the step's output buffer).  For lattices that fit
+//                       half the 50 MB L2 (drop.xml's 128x128 is 1.4 MB)
+//                       the planes stay in L2: device memory sees one read
+//                       and one write per launch, and the barriers set its
+//                       time.
 //                       Planes written during the launch are read through
 //                       L2 only (__ldcg), never through the read-only path.
 //   generic2d_step_b    the reverse of one generic2d_step for models with a
@@ -57,16 +78,17 @@
 // is written there, with its DDF shift, through csrc/storage.cuh only; the
 // stages compute in f32 and the shared tile stays f32, so a step narrows
 // once, after its last stage, as the narrowed eager engine does.  The
-// resident kernel keeps stage 0's output of a two-stage step in an f32
-// scratch stack for stage 1 to read, for the same reason.  A bf16 node moves
-// half the bytes of an f32 one (d2q9: 48 B against 92 B).  f32 storage runs
-// the same code as before the ladder (S = float: plain loads and stores).
+// passes and the resident kernel keep the earlier stages' planes in the f32
+// scratch stack for the same reason.  A bf16 node moves half the bytes of
+// an f32 one (d2q9: 48 B against 92 B).  f32 storage runs the same code as
+// before the ladder (S = float: plain loads and stores).
 //
-// Like the JAX engine, the stage plan runs on shrinking rings: stage s
-// computes its output on the tile plus model::stage_ext(s) nodes; the
-// template runs one-stage actions and two-stage actions whose second stage
-// reads a one-node ring of the first.  Nothing of the TPU's ghost rows or
-// (8,128) alignment is carried over: any ny, nx, ragged edges masked.
+// Like the JAX engine, the ring form runs on shrinking rings: stage s
+// computes its output on the tile plus model::stage_ext(s) nodes.  Any plan
+// whose last stage computes no ring runs (the passes need no ring at all:
+// the reach the JAX engine caps at 8 rows does not bound them).  Nothing of
+// the TPU's ghost rows or (8,128) alignment is carried over: any ny, nx,
+// ragged edges masked.
 //
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
@@ -81,22 +103,47 @@ namespace cg = cooperative_groups;
 
 using Shift = PlaneShift<model::N_STORAGE>;
 
-static_assert((model::N_STAGES == 2 && model::stage_ext(1) == 0)
-                  || (model::N_STAGES == 1 && model::stage_ext(0) == 0),
-              "the template runs a stage with a ring, then one on the tile, "
-              "or one stage on the tile");
-
-constexpr bool TWO_STAGES = model::N_STAGES == 2;
-constexpr int RING = TWO_STAGES ? model::stage_ext(0) : 0;
 constexpr int BX = 32, BY = 16;                    // threads of a step block
+constexpr int LAST = model::N_STAGES - 1;          // the stage that writes
+                                                   // the step's output
+// the planes stages [0, s) write, one bit each (64 bits: d2q9_npe_guo's
+// stage writes 45 planes; the other headers return an unsigned)
+__host__ __device__ constexpr unsigned long long writes_before(int s) {
+  unsigned long long w = 0;
+  for (int j = 0; j < s; ++j)
+    w |= (unsigned long long)model::stage_writes(j);
+  return w;
+}
+constexpr unsigned long long ALL_WRITES = writes_before(model::N_STAGES);
+// The ring form: two stages, the first computing a ring of at most two
+// nodes whose planes fit the static shared memory; any other plan runs as
+// passes, one launch a stage
+constexpr bool RING_FORM =
+    model::N_STAGES == 2 && model::stage_ext(0) <= 2
+    && model::N_STORAGE * BY * BX * sizeof(float) <= 40 * 1024;
+constexpr int PASSES = RING_FORM ? 1 : model::N_STAGES;
+constexpr int RING = RING_FORM ? model::stage_ext(0) : 0;
 constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
 constexpr int RESIDENT_THREADS = 256;
-// the planes some stage writes, one bit each (64 bits: d2q9_npe_guo's
-// stage writes 45 planes; the other headers return an unsigned)
-constexpr unsigned long long ALL_WRITES =
-    (unsigned long long)model::stage_writes(0)
-    | (TWO_STAGES ? (unsigned long long)model::stage_writes(1) : 0ull);
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
+
+// whether stages 1 .. LAST - 1 each write planes no earlier stage wrote
+constexpr bool earlier_stages_disjoint() {
+  for (int s = 1; s < LAST; ++s)
+    if (writes_before(s) & (unsigned long long)model::stage_writes(s))
+      return false;
+  return true;
+}
+
+static_assert(model::N_STAGES >= 1 && model::stage_ext(LAST) == 0,
+              "the last stage of the plan writes the output tile");
+static_assert(!RING_FORM
+                  || (model::stage_writes(0) & model::stage_writes(1)) == 0,
+              "the f32 resident kernel's stage 1 writes the buffer it reads "
+              "stage 0's planes from: the two write sets must be disjoint");
+static_assert(earlier_stages_disjoint(),
+              "the earlier stages' planes share one scratch stack: no two "
+              "stages before the last may write the same plane");
 
 // ---------------------------------------------------------------------------
 // What a stage reads: plane k at an unwrapped (y, x)
@@ -129,14 +176,16 @@ struct TileStorage {
   }
 };
 
-// generic2d_resident's stage 1: stage 0's planes from this step's stage-0
-// output (f32), the others from its input
-template <class S>
-struct StepStorage {
-  DeviceStorage<true> fresh;
-  DeviceStorage<true, S> rest;
+// stage s of the passes or the resident kernel: a plane an earlier stage
+// of the step wrote from the f32 scratch stack `mid`, any other from the
+// step's input
+template <int s, bool kCoherent, class S>
+struct PassStorage {
+  DeviceStorage<kCoherent> mid;
+  DeviceStorage<kCoherent, S> in;
   __device__ float get(int k, int y, int x) const {
-    return writes(0, k) ? fresh.get(k, y, x) : rest.get(k, y, x);
+    return ((writes_before(s) >> k) & 1ull) ? mid.get(k, y, x)
+                                            : in.get(k, y, x);
   }
 };
 
@@ -218,6 +267,8 @@ __device__ __forceinline__ void run_stage(const GenericArgs& a,
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavours, per launch
 
+// generic2d_step's ring form: stage 0 on the block's tile plus the ring
+// into shared memory, stage 1 on the tile
 template <class S, bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
 generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
@@ -240,50 +291,178 @@ generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
 
   const DeviceStorage<false, S> in{fin, a.ny, a.nx, sh.w};
-  if constexpr (TWO_STAGES) {
-    __shared__ float tile[model::N_STORAGE * BY * BX];
-    run_stage<0, kGlobals, kSeries>(a, in, TileOut{tile, ly, lx}, ztab,
-                                    ser, acc, y, x, flag, out_node);
-    __syncthreads();
-    if (out_node) {
-      const size_t idx = (size_t)y * a.nx + x;
-      run_stage<1, kGlobals, kSeries>(a, TileStorage<S>{tile, y0, x0, in},
-                                      DeviceOut<S>{fout, idx, n, sh.w},
-                                      ztab, ser, acc, y, x, flag, true);
-#pragma unroll
-      for (int k = 0; k < model::N_STORAGE; ++k) {
-        if (writes(0, k) && !writes(1, k))
-          store_plane(fout + k * n + idx, tile[(k * BY + ly) * BX + lx],
-                      sh.w, k);
-        else if (!((ALL_WRITES >> k) & 1ull))   // no stage writes it
-          store_plane(fout + k * n + idx,
-                      load_plane<false>(fin + k * n + idx, sh.w, k), sh.w,
-                      k);
-      }
-    }
-  } else if (out_node) {
-    // one stage, no ring: the stage writes the output tile itself
+  __shared__ float tile[model::N_STORAGE * BY * BX];
+  run_stage<0, kGlobals, kSeries>(a, in, TileOut{tile, ly, lx}, ztab, ser,
+                                  acc, y, x, flag, out_node);
+  __syncthreads();
+  if (out_node) {
     const size_t idx = (size_t)y * a.nx + x;
-    run_stage<0, kGlobals, kSeries>(a, in, DeviceOut<S>{fout, idx, n, sh.w},
-                                    ztab, ser, acc, y, x, flag, true);
+    run_stage<1, kGlobals, kSeries>(a, TileStorage<S>{tile, y0, x0, in},
+                                    DeviceOut<S>{fout, idx, n, sh.w}, ztab,
+                                    ser, acc, y, x, flag, true);
 #pragma unroll
-    for (int k = 0; k < model::N_STORAGE; ++k)
-      if (!writes(0, k))
+    for (int k = 0; k < model::N_STORAGE; ++k) {
+      if (writes(0, k) && !writes(1, k))
+        store_plane(fout + k * n + idx, tile[(k * BY + ly) * BX + lx],
+                    sh.w, k);
+      else if (!((ALL_WRITES >> k) & 1ull))   // no stage writes it
         store_plane(fout + k * n + idx,
                     load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
+    }
   }
   if constexpr (kGlobals)
     finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
+// generic2d_step's passes: stage kStage of the plan over the whole lattice,
+// one node a thread, no ring.  An earlier stage writes its planes
+// to `mid` (f32), the last writes the output and copies the planes it
+// leaves: an earlier stage's from `mid`, the others from the input.  The
+// globals flavour sums each pass's output nodes and carries the running
+// totals in the row after the partials (`carry`); the last pass writes
+// them out.
+template <int kStage, class S, bool kGlobals, bool kSeries>
+__global__ void __launch_bounds__(BX * BY)
+generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
+                      float* mid, const int* __restrict__ flags,
+                      const float* __restrict__ ztab, const GenericArgs a,
+                      const SeriesArgs ser, double* partials, float* gout,
+                      const __grid_constant__ Shift sh) {
+  const size_t n = (size_t)a.ny * a.nx;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  const int x = blockIdx.x * BX + threadIdx.x;
+  double acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g] = 0.0;
+  if (y < a.ny && x < a.nx) {
+    const size_t idx = (size_t)y * a.nx + x;
+    const int flag = __ldg(flags + idx);
+    const PassStorage<kStage, false, S> st{
+        DeviceStorage<false>{mid, a.ny, a.nx},
+        DeviceStorage<false, S>{fin, a.ny, a.nx, sh.w}};
+    if constexpr (kStage < LAST) {
+      run_stage<kStage, kGlobals, kSeries>(a, st,
+                                           DeviceOut<float>{mid, idx, n},
+                                           ztab, ser, acc, y, x, flag, true);
+    } else {
+      run_stage<kStage, kGlobals, kSeries>(
+          a, st, DeviceOut<S>{fout, idx, n, sh.w}, ztab, ser, acc, y, x,
+          flag, true);
+#pragma unroll
+      for (int k = 0; k < model::N_STORAGE; ++k) {
+        if (writes(LAST, k)) continue;
+        if ((writes_before(LAST) >> k) & 1ull)
+          store_plane(fout + k * n + idx, __ldg(mid + k * n + idx), sh.w,
+                      k);
+        else
+          store_plane(fout + k * n + idx,
+                      load_plane<false>(fin + k * n + idx, sh.w, k), sh.w,
+                      k);
+      }
+    }
+  }
+  if constexpr (kGlobals) {
+    double* carry = partials + (size_t)gridDim.x * gridDim.y * NG;
+    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
+                    [carry, gout](int g, double t) {
+                      const double c = kStage == 0 ? t : carry[g] + t;
+                      if (kStage == LAST) gout[g] = (float)c;
+                      else carry[g] = c;
+                    });
+  }
+}
+
+// the passes of stages s .. LAST on `stream`, in order; stops at the first
+// launch that fails
+template <int s, class S, bool kGlobals, bool kSeries>
+static cudaError_t launch_passes(dim3 grid, cudaStream_t stream,
+                                 const S* fin, S* fout, float* mid,
+                                 const int* flags, const float* ztab,
+                                 const GenericArgs& a, const SeriesArgs& ser,
+                                 double* partials, float* gout,
+                                 const Shift& sh) {
+  generic2d_pass_kernel<s, S, kGlobals, kSeries>
+      <<<grid, dim3(BX, BY), 0, stream>>>(fin, fout, mid, flags, ztab, a,
+                                          ser, partials, gout, sh);
+  const cudaError_t e = cudaGetLastError();
+  if constexpr (s < LAST) {
+    if (e != cudaSuccess) return e;
+    return launch_passes<s + 1, S, kGlobals, kSeries>(
+        grid, stream, fin, fout, mid, flags, ztab, a, ser, partials, gout,
+        sh);
+  }
+  return e;
+}
+
+// one Iteration: the ring form, or the plan's passes (more than one needs
+// the caller's scratch stack `mid`)
+template <class S, bool kGlobals, bool kSeries>
+static int launch_step(const S* fin, S* fout, float* mid, const int* flags,
+                       const float* ztab, const GenericArgs& a,
+                       const SeriesArgs& ser, double* partials, float* gout,
+                       const Shift& sh, void* stream) {
+  const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (RING_FORM) {
+    generic2d_step_kernel<S, kGlobals, kSeries>
+        <<<grid, dim3(BX, BY), 0, st>>>(fin, fout, flags, ztab, a, ser,
+                                        partials, gout, sh);
+    return (int)cudaGetLastError();
+  } else {
+    if (PASSES > 1 && !mid) return (int)cudaErrorInvalidValue;
+    return (int)launch_passes<0, S, kGlobals, kSeries>(
+        grid, st, fin, fout, mid, flags, ztab, a, ser, partials, gout, sh);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // generic2d_resident
 // ---------------------------------------------------------------------------
 
-// S = bf16 with two stages: `mid` (f32, n_storage planes) takes stage 0's
-// output, so stage 1 reads it unrounded and the step narrows once.  With
-// S = float, stage 0 writes `dst` and `mid` is unused.
+// Stages s .. LAST of one step, each over the lattice with the grid stride
+// and then a grid barrier: an earlier stage writes `mid` (f32), the last
+// writes `dst` and the planes an earlier stage wrote and it leaves (the
+// planes no stage writes are in both buffers already).  kInPlace: `mid` is
+// `dst` itself, which holds those planes already.
+template <int s, bool kInPlace, class S>
+__device__ __forceinline__ void resident_stages(
+    const GenericArgs& a, const DeviceStorage<true, S>& in, float* mid,
+    S* dst, const int* __restrict__ flags, const float* __restrict__ ztab,
+    const Shift& sh, size_t n, int first, int stride,
+    cg::grid_group& grid) {
+  const SeriesArgs none{};
+  const PassStorage<s, true, S> st{DeviceStorage<true>{mid, a.ny, a.nx}, in};
+  for (int idx = first; idx < (int)n; idx += stride) {
+    const int y = idx / a.nx, x = idx - y * a.nx;
+    if constexpr (s < LAST) {
+      run_stage<s, false>(a, st, DeviceOut<float>{mid, (size_t)idx, n},
+                          ztab, none, nullptr, y, x, __ldg(flags + idx),
+                          false);
+    } else {
+      run_stage<s, false>(a, st, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
+                          ztab, none, nullptr, y, x, __ldg(flags + idx),
+                          false);
+      if constexpr (!kInPlace) {
+#pragma unroll
+        for (int k = 0; k < model::N_STORAGE; ++k)
+          if (!writes(LAST, k) && ((writes_before(LAST) >> k) & 1ull))
+            store_plane(dst + k * n + idx, __ldcg(mid + k * n + idx), sh.w,
+                        k);
+      }
+    }
+  }
+  grid.sync();
+  if constexpr (s < LAST)
+    resident_stages<s + 1, kInPlace, S>(a, in, mid, dst, flags, ztab, sh, n,
+                                        first, stride, grid);
+}
+
+// The earlier stages' planes go to `mid` (f32, n_storage planes), so the
+// later stages read them unrounded and a bf16 step narrows once; but f32
+// storage in the ring form runs in place (kInPlace: stage 0 writes the
+// step's output buffer, stage 1 reads them there; their write sets are
+// disjoint), and `mid` is unused.
 template <class S>
 __global__ void __launch_bounds__(RESIDENT_THREADS)
 generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
@@ -291,12 +470,11 @@ generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
                           const float* __restrict__ ztab,
                           const GenericArgs a, int nsteps,
                           const __grid_constant__ Shift sh) {
-  constexpr bool kMid = TWO_STAGES && sizeof(S) != sizeof(float);
+  constexpr bool kInPlace = RING_FORM && sizeof(S) == sizeof(float);
   cg::grid_group grid = cg::this_grid();
   const size_t n = (size_t)a.ny * a.nx;
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const SeriesArgs none{};
   // planes no stage writes are the same in both buffers
   for (int idx = first; idx < (int)n; idx += stride) {
 #pragma unroll
@@ -312,39 +490,14 @@ generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
   const S* src = fin;
   S* dst = scratch;
   for (int s = 0; s < nsteps; ++s) {
-    const DeviceStorage<true, S> in{src, a.ny, a.nx, sh.w};
-    for (int idx = first; idx < (int)n; idx += stride) {
-      const int y = idx / a.nx, x = idx - y * a.nx;
-      if constexpr (kMid)
-        run_stage<0, false>(a, in, DeviceOut<float>{mid, (size_t)idx, n},
-                            ztab, none, nullptr, y, x, __ldg(flags + idx),
-                            false);
-      else
-        run_stage<0, false>(a, in, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
-                            ztab, none, nullptr, y, x, __ldg(flags + idx),
-                            false);
-    }
-    grid.sync();
-    if constexpr (TWO_STAGES) {
-      const float* fresh;
-      if constexpr (kMid) fresh = mid;
-      else fresh = dst;
-      const StepStorage<S> st{DeviceStorage<true>{fresh, a.ny, a.nx}, in};
-      for (int idx = first; idx < (int)n; idx += stride) {
-        const int y = idx / a.nx, x = idx - y * a.nx;
-        run_stage<1, false>(a, st, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
-                            ztab, none, nullptr, y, x, __ldg(flags + idx),
-                            false);
-        if constexpr (kMid) {
-#pragma unroll
-          for (int k = 0; k < model::N_STORAGE; ++k)
-            if (writes(0, k) && !writes(1, k))
-              store_plane(dst + k * n + idx, __ldcg(mid + k * n + idx),
-                          sh.w, k);
-        }
-      }
-      grid.sync();
-    }
+    float* stack;
+    if constexpr (kInPlace) stack = dst;
+    else stack = mid;
+    resident_stages<0, kInPlace, S>(a,
+                                    DeviceStorage<true, S>{src, a.ny, a.nx,
+                                                           sh.w},
+                                    stack, dst, flags, ztab, sh, n, first,
+                                    stride, grid);
     src = dst;
     dst = (dst == scratch) ? fout : scratch;
   }
@@ -387,84 +540,73 @@ void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
   *n_globals = model::N_GLOBALS;
 }
 
+// The plan this library runs: its stage count and the launches of one
+// generic2d_step (1, or one a stage: more than one needs `mid`).
+void generic2d_plan(int* n_stages, int* passes) {
+  *n_stages = model::N_STAGES;
+  *passes = PASSES;
+}
+
 // `partials` null: the plain flavour; else the globals flavour, with
-// `partials` holding one double per block and global and `gout` the
-// globals (n_globals floats).
-int generic2d_step(const float* fin, float* fout, const int* flags,
-                   const float* ztab, const GenericArgs* a,
+// `partials` holding one double per block and global, and one more row
+// (the multi-pass carry), and `gout` the globals (n_globals floats).
+// `mid`: an f32 scratch stack of n_storage planes where generic2d_plan
+// gives more than one pass, may be null otherwise.
+int generic2d_step(const float* fin, float* fout, float* mid,
+                   const int* flags, const float* ztab, const GenericArgs* a,
                    double* partials, float* gout, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
-  const dim3 block(BX, BY);
   const SeriesArgs none{};
   const Shift unused{};
   if (partials)
-    generic2d_step_kernel<float, true, false>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, none, partials, gout,
-                                                   unused);
-  else
-    generic2d_step_kernel<float, false, false>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, none, nullptr,
-                                                   nullptr, unused);
-  return (int)cudaGetLastError();
+    return launch_step<float, true, false>(fin, fout, mid, flags, ztab, *a,
+                                           none, partials, gout, unused,
+                                           stream);
+  return launch_step<float, false, false>(fin, fout, mid, flags, ztab, *a,
+                                          none, nullptr, nullptr, unused,
+                                          stream);
 }
 
 // generic2d_step on a bf16 stack at rest (`fin`, `fout`: n_storage bf16
-// planes), with the planes' shifts `shift` (null: raw); the flavours as
-// generic2d_step's.
+// planes), with the planes' shifts `shift` (null: raw); the flavours and
+// `mid` (f32) as generic2d_step's.
 int generic2d_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
-                        const int* flags, const float* ztab,
+                        float* mid, const int* flags, const float* ztab,
                         const GenericArgs* a, const float* shift,
                         double* partials, float* gout, int device,
                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
-  const dim3 block(BX, BY);
   const SeriesArgs none{};
   const Shift sh = shift_arg<model::N_STORAGE>(shift);
   if (partials)
-    generic2d_step_kernel<__nv_bfloat16, true, false>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, none, partials, gout,
-                                                   sh);
-  else
-    generic2d_step_kernel<__nv_bfloat16, false, false>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, none, nullptr,
-                                                   nullptr, sh);
-  return (int)cudaGetLastError();
+    return launch_step<__nv_bfloat16, true, false>(
+        fin, fout, mid, flags, ztab, *a, none, partials, gout, sh, stream);
+  return launch_step<__nv_bfloat16, false, false>(
+      fin, fout, mid, flags, ztab, *a, none, nullptr, nullptr, sh, stream);
 }
 
 // The <Control> time series flavours (generic2d_step_series): as
 // generic2d_step, with zonal setting j in zone z read from ts[row[j][z]][t]
 // where row[j][z] >= 0 (SeriesArgs); `partials` null for the plain series
 // flavour, else the series + globals flavour.
-int generic2d_step_series(const float* fin, float* fout, const int* flags,
-                          const float* ztab, const GenericArgs* a,
-                          const int* row, const float* ts, int len, int t,
-                          double* partials, float* gout, int device,
-                          void* stream) {
+int generic2d_step_series(const float* fin, float* fout, float* mid,
+                          const int* flags, const float* ztab,
+                          const GenericArgs* a, const int* row,
+                          const float* ts, int len, int t, double* partials,
+                          float* gout, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
-  const dim3 block(BX, BY);
   const SeriesArgs ser{row, ts, len, t};
   const Shift unused{};
   if (partials)
-    generic2d_step_kernel<float, true, true>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, ser, partials, gout,
-                                                   unused);
-  else
-    generic2d_step_kernel<float, false, true>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(fin, fout, flags, ztab,
-                                                   *a, ser, nullptr,
-                                                   nullptr, unused);
-  return (int)cudaGetLastError();
+    return launch_step<float, true, true>(fin, fout, mid, flags, ztab, *a,
+                                          ser, partials, gout, unused,
+                                          stream);
+  return launch_step<float, false, true>(fin, fout, mid, flags, ztab, *a,
+                                         ser, nullptr, nullptr, unused,
+                                         stream);
 }
 
 // Whether the device can launch cooperative kernels, and how many blocks of
@@ -492,23 +634,28 @@ int generic2d_resident_capacity(int device, int bf16, int* cooperative,
   return 0;
 }
 
+// `mid`: an f32 scratch stack of n_storage planes for a plan of more than
+// one stage that is not in the ring form, may be null otherwise.
 int generic2d_resident(const float* fin, float* fout, float* scratch,
-                       const int* flags, const float* ztab,
+                       float* mid, const int* flags, const float* ztab,
                        const GenericArgs* a, int nsteps, int blocks,
                        int device, void* stream) {
-  return launch_resident<float>(fin, fout, scratch, nullptr, flags, ztab, a,
+  if (model::N_STAGES > 1 && !RING_FORM && !mid)
+    return (int)cudaErrorInvalidValue;
+  return launch_resident<float>(fin, fout, scratch, mid, flags, ztab, a,
                                 Shift{}, nsteps, blocks, device, stream);
 }
 
 // generic2d_resident on a bf16 stack at rest, with the planes' shifts
 // `shift` (null: raw); `mid` is an f32 scratch of n_storage planes (read by
-// a two-stage model only, may be null for a one-stage one).
+// a plan of two stages or more, may be null for a one-stage one).
 int generic2d_resident_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
                             __nv_bfloat16* scratch, float* mid,
                             const int* flags, const float* ztab,
                             const GenericArgs* a, const float* shift,
                             int nsteps, int blocks, int device,
                             void* stream) {
+  if (model::N_STAGES > 1 && !mid) return (int)cudaErrorInvalidValue;
   return launch_resident<__nv_bfloat16>(
       fin, fout, scratch, mid, flags, ztab, a,
       shift_arg<model::N_STORAGE>(shift), nsteps, blocks, device, stream);

@@ -4,8 +4,10 @@ family (``d2q9_SRT``, ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``,
 ``d2q9_new``), the z-slab family (``d3q27_cumulant``, ``d3q27_BGK``,
 ``d3q27_BGK_galcor``, ``d3q19``, ``d3q19_les``), ``d2q9_kuper``, the
 one-stage 2D models (``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
-``sw``, ``d2q9_solid``, ``d2q9_npe_guo``), ``d2q9_heat_adj`` and
-``d3q19_adj``; the other models of the JAX package follow ROADMAP queue 1
+``sw``, ``d2q9_solid``, ``d2q9_npe_guo``), the multi-stage 2D models
+(``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee``,
+``d2q9_poison_boltzmann``), ``d2q9_heat_adj`` and ``d3q19_adj``; the other
+models of the JAX package follow ROADMAP queue 1
 items 10 and 11."""
 
 from __future__ import annotations
@@ -34,6 +36,11 @@ _REGISTRY: dict[str, str] = {
     "sw": "tclb_tpu_torch.models.sw",
     "d2q9_solid": "tclb_tpu_torch.models.d2q9_solid",
     "d2q9_npe_guo": "tclb_tpu_torch.models.d2q9_npe_guo",
+    "d2q9_pf_pressureEvolution":
+        "tclb_tpu_torch.models.d2q9_pf_pressure_evolution",
+    "d2q9_pp_MCMP": "tclb_tpu_torch.models.d2q9_pp_mcmp",
+    "d2q9_lee": "tclb_tpu_torch.models.d2q9_lee",
+    "d2q9_poison_boltzmann": "tclb_tpu_torch.models.d2q9_poison_boltzmann",
     "d3q19": "tclb_tpu_torch.models.d3q19",
     "d3q19_les": "tclb_tpu_torch.models.d3q19_les",
     "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",

@@ -10,15 +10,24 @@ scratch directory).  The script prints both compiler reports (registers
 and spills per kernel), runs each kernel of both libraries on the same
 inputs (every node type of the model's header painted, two zones, 1%
 noise on the initial populations, at 37x53 and 256x256):
-``generic2d_step`` in both flavours, an 8-step ``generic2d_resident``
-and ``generic2d_step_bf16`` on the shifted bf16 stack, and exits nonzero
-unless every output is bit for bit the same.  A change to the
-model-independent templates (``generic2d.cu``, ``generic_common.cuh``,
-``storage.cuh``) is held this way against the parent's builds.
+``generic2d_step`` in both flavours, an 8-step ``generic2d_resident``,
+``generic2d_step_bf16`` on the shifted bf16 stack and, where the header
+defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
+cotangents, and exits nonzero unless every output is bit for bit the
+same.  A change to the model-independent templates (``generic2d.cu``,
+``generic_common.cuh``, ``storage.cuh``, ``generic2d_adjoint.cuh``) is
+held this way against the parent's builds.
+
+A copy of ``csrc/`` from before the multi-pass plans (no
+``generic2d_plan`` export: its step and resident entries take no scratch
+stack) is bound through :class:`OneLaunchAbi`, which drops the scratch
+argument the wrappers pass.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
 import dataclasses
 import pathlib
 import sys
@@ -34,11 +43,13 @@ from tclb_tpu_torch.ops import generic_kernels as gk
 SHAPES = ((37, 53), (256, 256))
 
 
-def paint(model, shape, seed: int = 5, device: str = "cuda"):
+def paint(model, shape, seed: int = 5, device: str = "cuda",
+          settings=None):
     """A lattice (on the card) with every node type ``model``'s header reads:
     the collision type inside, each boundary type in a column of its own,
-    each other type in a patch, zone 1 on the lower half; Init, then 1%
-    noise on every plane."""
+    each other type in a patch (set within its group's bits, so a second
+    collision type replaces the first), zone 1 on the lower half; Init
+    with ``settings``, then 1% noise on every plane."""
     from tclb_tpu_torch import Lattice
     ny, nx = shape
     nt = model.node_types
@@ -51,10 +62,13 @@ def paint(model, shape, seed: int = 5, device: str = "cuda"):
         if nt[name].group == "BOUNDARY":
             flags[1:-1, x] = model.flag_for(name, coll)
         else:
-            flags[ny // 4:ny // 2, x:x + 2] |= np.uint16(model.flag_for(name))
+            patch = flags[ny // 4:ny // 2, x:x + 2]
+            patch &= np.uint16(~nt[name].mask & 0xffff)
+            patch |= np.uint16(nt[name].value)
     flags[0, :] = flags[-1, :] = model.flag_for("Wall")
     flags[ny // 2:, :] |= np.uint16(1 << model.zone_shift)
-    lat = Lattice(model, shape, dtype=torch.float32, device=device)
+    lat = Lattice(model, shape, dtype=torch.float32, device=device,
+                  settings=settings or {})
     lat.set_flags(flags)
     lat.init()
     rng = np.random.default_rng(seed)
@@ -77,22 +91,100 @@ def run(lat) -> dict:
     fb = ddf.narrow_stack(f, torch.bfloat16, ddf.stack_shift(m, "shifted"))
     ab = dataclasses.replace(a, shift=shift)
     out["step_bf16"] = gk.step(fb, flags, ztab, ab).view(torch.int16)
+    if gk.DEVICE_MODELS[m.name].adjoint:
+        from tclb_tpu_torch.ops import adjoint_kernels as ak
+        gen = torch.Generator(device=f.device).manual_seed(11)
+        lam = torch.randn(f.shape, generator=gen, device=f.device)
+        lam_g = torch.randn((m.n_globals,), generator=gen, device=f.device)
+        lam_in, sett = ak.step_b(f, flags, ztab, a, lam, lam_g)
+        out["step_b"] = lam_in
+        out["step_b_settings"] = sett.view(torch.int64)
     if f.is_cuda:
         torch.cuda.synchronize()
     return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
             for k, v in out.items()}
 
 
+class OneLaunchAbi:
+    """A library built from a ``csrc/`` that predates the scratch stack
+    (every plan one launch a step): its ``generic2d_step``,
+    ``generic2d_step_bf16``, ``generic2d_step_series`` and
+    ``generic2d_resident`` take the wrappers' arguments without ``mid``,
+    which is dropped here; every other entry is the library's own."""
+
+    def __init__(self, lib: ctypes.CDLL, model: str):
+        self._lib, self._model = lib, model
+        p, i = ctypes.c_void_p, ctypes.c_int
+        argp = ctypes.POINTER(gk.c_args_type(model))
+        fp = ctypes.POINTER(ctypes.c_float)
+        for name, args in (
+                ("generic2d_step", [p, p, p, p, argp, p, p, i, p]),
+                ("generic2d_step_bf16", [p, p, p, p, argp, fp, p, p, i, p]),
+                ("generic2d_step_series", [p, p, p, p, argp, p, p, i, i, p,
+                                           p, i, p]),
+                ("generic2d_resident", [p, p, p, p, p, argp, i, i, i, p])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, i
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name in ("generic2d_step", "generic2d_step_bf16",
+                    "generic2d_step_series"):
+            return lambda fin, fout, mid, *rest: fn(fin, fout, *rest)
+        if name == "generic2d_resident":
+            return lambda fin, fout, scratch, mid, *rest: fn(
+                fin, fout, scratch, *rest)
+        return fn
+
+
+def _entry(model: str, path: pathlib.Path) -> dict:
+    """``gk._LIB[model]`` for the library at ``path``: bound by ``gk.lib``,
+    or through :class:`OneLaunchAbi` for a library without
+    ``generic2d_plan``."""
+    if hasattr(ctypes.CDLL(str(path)), "generic2d_plan"):
+        gk.lib(model)
+        return dict(gk._LIB[model])
+    lib = ctypes.CDLL(str(path))
+    i = ctypes.c_int
+    lib.generic2d_layout.argtypes = [ctypes.POINTER(i)] * 8
+    lib.generic2d_layout.restype = None
+    lib.generic2d_resident_capacity.argtypes = [i, i, ctypes.POINTER(i),
+                                                ctypes.POINTER(i)]
+    lib.generic2d_resident_capacity.restype = i
+    lib.generic2d_resident_bf16.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.POINTER(gk.c_args_type(model)),
+        ctypes.POINTER(ctypes.c_float), i, i, i, ctypes.c_void_p]
+    lib.generic2d_resident_bf16.restype = i
+    lib.generic_error_string.argtypes = [i]
+    lib.generic_error_string.restype = ctypes.c_char_p
+    vals = [i(0) for _ in range(8)]
+    lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
+    entry = {"lib": OneLaunchAbi(lib, model),
+             "tile": (vals[0].value, vals[1].value), "passes": 1}
+    if gk.DEVICE_MODELS[model].adjoint:
+        p, ip = ctypes.c_void_p, ctypes.POINTER(i)
+        lib.generic2d_step_b.argtypes = [
+            p, p, p, ctypes.POINTER(gk.c_args_type(model)), p, p, p, p, i, p]
+        lib.generic2d_step_b.restype = i
+        lib.generic2d_step_b_tile.argtypes = [ip, ip]
+        lib.generic2d_step_b_tile.restype = None
+        by, bx = i(0), i(0)
+        lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
+        entry["tile_b"] = (by.value, bx.value)
+    return entry
+
+
 def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
-    """Each model's library entry (``gk._LIB[model]``) built from ``csrc``,
-    and print its compiler report."""
+    """Each model's library entry (``gk._LIB[model]``) built from ``csrc``
+    (one ``nvcc`` a model, started together), and print its compiler
+    report."""
     cb.CSRC, cb.BUILD_DIR = csrc, build_dir
     gk._LIB.clear()
+    with concurrent.futures.ThreadPoolExecutor(len(models)) as pool:
+        built = list(pool.map(gk.build, models))
     out = {}
-    for m in models:
-        path, report = gk.build(m)
-        gk.lib(m)
-        out[m] = dict(gk._LIB[m])
+    for m, (path, report) in zip(models, built):
+        out[m] = _entry(m, path)
         print(f"{m} ({path.name} from {csrc}):")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:

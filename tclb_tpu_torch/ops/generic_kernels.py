@@ -10,9 +10,11 @@ compiled into the model-independent template ``csrc/generic2d.cu``
 once per model into a library of its own.  ``DEVICE_MODELS`` lists the
 models that have such a header (``d2q9``, ``d2q9_kuper``, ``d2q9_heat_adj``,
 the one-stage 2D models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
-``sw``, ``d2q9_solid`` and ``d2q9_npe_guo``, and the 3D ``d3q19_adj``, whose
-kernels ``ops/generic3d_kernels.py`` binds) with the registry layout the
-header indexes by position.  ``d2q9`` takes
+``sw``, ``d2q9_solid`` and ``d2q9_npe_guo``, the multi-stage 2D models
+``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee`` and
+``d2q9_poison_boltzmann``, and the 3D ``d3q19_adj``, whose kernels
+``ops/generic3d_kernels.py`` binds) with the registry layout the header
+indexes by position.  ``d2q9`` takes
 these kernels under a ``<Control>`` series only; without one its own
 kernels (``ops/d2q9_kernels.py``) come first.
 
@@ -24,12 +26,17 @@ series flavours in ``SERIES_LAUNCHES``):
 
 ``step`` / ``step_globals`` (``generic2d_step``) replace
     ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
-    ``call_g``: one whole Iteration per launch (a two-stage action runs
-    stage 0 on the output tile plus a one-node ring into shared memory and
-    stage 1 on the tile, a one-stage action its stage on the tile).  Bound
-    by bytes (see ``launch_bytes`` and ``node_step_flops``).  The globals
-    flavour also returns the last step's SUM globals, reduced in a fixed
-    order (no float atomics).
+    ``call_g``: one whole Iteration per call.  A one-stage action runs its
+    stage on the output tile in one launch, a two-stage action whose first
+    stage computes a ring of at most two nodes runs it on the tile plus the
+    ring into shared memory and stage 1 on the tile, in one launch; any
+    other plan (three stages, a wider ring) runs one launch per stage, the
+    earlier stages' planes in an f32 scratch stack the wrapper allocates
+    (the library reports its form: ``generic2d_plan``; a call counts
+    each of its launches).  Bound by bytes
+    (see ``launch_bytes`` and ``node_step_flops``).  The globals flavour
+    also returns the last step's SUM globals, reduced in a fixed order (no
+    float atomics).
 ``step_series`` / ``step_series_globals`` (``generic2d_step_series``)
     replace the ``<Control>`` time series flavours ``call_s`` and
     ``call_sg``: the same Iteration, with a zonal setting read from the
@@ -41,8 +48,8 @@ series flavours in ``SERIES_LAUNCHES``):
     device header, and no kernel computes them.
 ``resident`` (``generic2d_resident``) replaces ``make_resident_iterate``:
     an even number of Iterations in one cooperative launch, a grid barrier
-    after each stage, two ping-pong buffers that stay in the L2 when the
-    lattice fits half of it.
+    after each stage, two ping-pong buffers (and a multi-pass plan's
+    scratch stack) that stay in the L2 when the lattice fits half of it.
 
 The storage ladder: ``step``, ``step_globals`` and ``resident`` also take
 a bf16 stack at rest, launching ``generic2d_step_bf16`` and
@@ -91,7 +98,8 @@ FLAVOUR_LAUNCHES = {f"{k}/{fl}": 0 for k in ("generic2d_step",
 SERIES_KERNELS = ("generic2d_step_series", "generic2d_step_series_globals")
 SERIES_LAUNCHES = {name: 0 for name in SERIES_KERNELS}
 
-HALO = 2                        # action reach the step kernel's ring covers
+HALO = 8                        # the largest action reach the engines take
+                                # (pallas_generic.py:_HALO)
 RESIDENT_CHECK_STEPS = 8        # steps of the resident launch WRAPPERS holds
 L2_BYTES = 50 * 1024 * 1024     # H100 L2
 
@@ -235,6 +243,66 @@ DEVICE_MODELS = {
         groups=("COLLISION",), zonal=("rho_bc", "phi_bc", "psi_bc"),
         globals_=("TotalMomentum",),
         plan=(("BaseIteration", 0),)),
+    # the multi-stage 2D models: pressureEvolution's plan runs in one
+    # launch (a ring of two), the three-stage plans one launch a stage
+    "d2q9_pf_pressureEvolution": DeviceModel(
+        header="models/d2q9_pf_pressure_evolution.cuh",
+        storage=_d2q9_groups("f", "h") + ("PhaseF",),
+        settings=("Density_h", "Density_l", "PhaseField_h", "PhaseField_l",
+                  "PhaseField", "W", "M", "sigma", "omega_l", "omega_h",
+                  "nu_l", "nu_h") + tuple(f"S{i}" for i in range(7))
+        + ("VelocityX", "VelocityY", "Pressure", "GravitationX",
+           "GravitationY", "BuoyancyX", "BuoyancyY", "GmatchedX",
+           "GmatchedY", "PressureLossInObj", "OutletFluxInObj",
+           "InletFluxInObj", "TotalDensityInObj"),
+        node_types=("Wall", "Solid", "MRT"), groups=("COLLISION",),
+        zonal=("PhaseField", "VelocityX", "VelocityY", "Pressure"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux", "TotalDensity"),
+        plan=(("BaseIter", 2), ("calcPhase", 0))),
+    "d2q9_pp_MCMP": DeviceModel(
+        header="models/d2q9_pp_mcmp.cuh",
+        storage=_d2q9_groups("f", "g") + ("psi_f", "psi_g"),
+        settings=("omega", "omega_g", "nu", "nu_g", "Velocity_f",
+                  "Pressure_f", "Velocity_g", "Pressure_g", "Density",
+                  "Density_dry", "Gc", "Gad1", "Gad2", "R", "T", "a", "b",
+                  "Smag", "SL_U", "SL_lambda", "SL_delta", "SL_L",
+                  "GravitationX", "GravitationY", "TotalDensity1InObj",
+                  "TotalDensity2InObj", "PressureLossInObj",
+                  "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity"),
+        groups=("COLLISION",),
+        zonal=("Velocity_f", "Pressure_f", "Velocity_g", "Pressure_g",
+               "Density", "Density_dry"),
+        globals_=("TotalDensity1", "TotalDensity2", "PressureLoss",
+                  "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 2), ("CalcPsi_f", 1), ("CalcPsi_g", 0))),
+    "d2q9_lee": DeviceModel(
+        header="models/d2q9_lee.cuh",
+        storage=_d2q9_groups("f") + ("rho", "nu"),
+        settings=("omega", "nu", "InletVelocity", "InletPressure",
+                  "InletDensity", "OutletDensity", "InitDensity",
+                  "WallDensity", "GravitationY", "GravitationX",
+                  "MovingWallVelocity", "WetDensity", "DryDensity",
+                  "Wetting", "LiquidDensity", "VaporDensity", "Beta",
+                  "Kappa", "MomentumXInObj", "MomentumYInObj", "MassInObj"),
+        node_types=("Wet", "Dry", "Wall", "Solid", "WVelocity", "WPressure",
+                    "EPressure", "EVelocity", "MovingWall",
+                    "ForcedMovingWall", "BGK", "MRT"),
+        groups=("COLLISION",),
+        zonal=("InletVelocity", "InletPressure", "InletDensity",
+               "OutletDensity", "InitDensity", "WallDensity",
+               "MovingWallVelocity", "WetDensity", "DryDensity", "Wetting"),
+        globals_=("MomentumX", "MomentumY", "Mass"),
+        plan=(("BaseIteration", 4), ("CalcRho", 2), ("CalcNu", 0))),
+    "d2q9_poison_boltzmann": DeviceModel(
+        header="models/d2q9_poison_boltzmann.cuh",
+        storage=_d2q9_groups("g") + ("subiter", "psi"),
+        settings=("tau_psi", "n_inf", "z", "el", "kb", "T", "epsilon", "dt",
+                  "psi_bc", "psi0"),
+        node_types=("Wall", "Solid"), groups=("COLLISION",),
+        zonal=("psi_bc", "psi0"), globals_=(),
+        plan=(("BaseIteration", 2), ("CalcPsi", 1), ("CalcSubiter", 0))),
     "d3q19_adj": DeviceModel(
         header="models/d3q19_adj.cuh",
         storage=tuple(f"f[{k}]" for k in range(19)) + ("w",),
@@ -466,7 +534,22 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
             "d2q9_heat_adj": _heat_adj_flops, "d2q9_heat": _heat_flops,
             "d2q9_heat_conjugate": _heat_flops, "d2q9_hb": _heat_flops,
             "sw": _sw_flops, "d2q9_solid": _solid_flops,
-            "d2q9_npe_guo": _npe_flops}[model.name](model, flags)
+            "d2q9_npe_guo": _npe_flops,
+            "d2q9_pf_pressureEvolution": _pf_pe_flops,
+            "d2q9_pp_MCMP": _sum_stages, "d2q9_lee": _sum_stages,
+            "d2q9_poison_boltzmann": _sum_stages}[model.name](model, flags)
+
+
+def stage_flops(model: Model, flags: np.ndarray) -> tuple:
+    """``node_step_flops`` of a model whose step runs one launch a stage
+    (d2q9_pp_MCMP, d2q9_lee, d2q9_poison_boltzmann), by stage of its
+    plan."""
+    return {"d2q9_pp_MCMP": _mcmp_flops, "d2q9_lee": _lee_flops,
+            "d2q9_poison_boltzmann": _pb_flops}[model.name](model, flags)
+
+
+def _sum_stages(model: Model, flags: np.ndarray) -> int:
+    return sum(stage_flops(model, flags))
 
 
 # Operations of the one-stage models' pieces (csrc/models/d2q9_common.cuh):
@@ -578,6 +661,102 @@ def _npe_flops(model: Model, flags: np.ndarray) -> int:
             + (27 + 10) * count_types(model, flags, "Wall", "Solid")
             + (ZOU + 27) * count_types(model, flags, "WPressure",
                                        "EPressure"))
+
+
+def _basis_flops(M: np.ndarray) -> int:
+    """A moment basis and its inverse over nine populations."""
+    from tclb_tpu_torch.ops import lbm
+    from tclb_tpu_torch.ops.d2q9_kernels import _combo_flops
+    return sum(_combo_flops(row) for row in M) + sum(
+        _combo_flops(row) for row in lbm.inverse_basis(M))
+
+
+def _pf_pe_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_pf_pressureEvolution (models/d2q9_pf_pressure_evolution.py).
+    An MRT node: the interpolated density (6) and its global (1), the
+    chemical potential (pavg 2, the laplacian 11, the double well 13), the
+    body force (16), the gradient (13), u (j 10, the reciprocal and its
+    scale 2, the force terms 10), p (the sum 8, 7), Gamma (an
+    equilibrium), u.grad and p - rho/3 (5), per population the directional
+    difference (2 past the rest), the interface (7) and body (6)
+    corrections, g-bar's equilibrium (4) and the non-equilibrium (5), the
+    stress rate (9), the classical basis and its inverse, the nine rates,
+    f - r + iface + body (27), the normal (6), the mobility rate (3),
+    theta (9), the h equilibrium (1 at rest, 4 else) and its relaxation
+    (27).  Every node runs calcPhase: the sum of h (8)."""
+    from tclb_tpu_torch.models import d2q9_pf_pressure_evolution as pe
+    eq = _eq_flops()
+    mrt = (6 + 1 + 26 + 16 + 13 + 22 + 15 + eq + 5 + 9 * 22 + 8 * 2 + 9
+           + _basis_flops(pe.M_CLASSIC) + 9 + 27 + 6 + 3 + 9 + 1 + 8 * 4
+           + 27)
+    return (mrt * count_types(model, flags, "MRT")
+            + SUM9 * int(np.asarray(flags).size))
+
+
+def _mcmp_flops(model: Model, flags: np.ndarray) -> tuple:
+    """d2q9_pp_MCMP (models/d2q9_pp_mcmp.py).  A collision node: both
+    densities (16), the common velocity (the weights 3, the four momenta
+    20, four divisions, two adds, two divisions: 31), both Shan-Chen
+    forces (each 12 products and 10 adds over the neighbours, the scale
+    and gravity 4 a component: 30), the four shifted velocities (3 each),
+    two BGK collisions (an equilibrium and 27 each) and the two globals.
+    A Zou/He face on both populations (the pressure's 3 P + 1 twice: 2).
+    Every node runs CalcPsi_f and CalcPsi_g: a sum each (8)."""
+    from tclb_tpu_torch.ops.d2q9_kernels import _nebb_flops
+    eq = _eq_flops()
+    coll = 16 + 31 + 2 * 30 + 4 * 3 + 2 * (eq + RELAX) + 2
+    nodes = int(np.asarray(flags).size)
+    return (coll * count_group(model, flags, "COLLISION")
+            + (2 * _nebb_flops() + 2) * _faces(model, flags),
+            SUM9 * nodes, SUM9 * nodes)
+
+
+def _lee_flops(model: Model, flags: np.ndarray) -> tuple:
+    """d2q9_lee (models/d2q9_lee.py).  A collision node: d, j and the bare
+    velocity (20), u.G (3), per moving direction the biased (17) and
+    central (7) gradients, e.G (3) and the two projections (4), at rest
+    e.G and the projections (7); the central force vector (11) and the
+    velocity (6); the force vectors again (22), the globals (6), an
+    equilibrium, u.F twice (6); BGK: per population two force terms (4
+    each), 0.5 times each, the non-equilibrium and the relaxation (16);
+    MRT: the pre-shift (6 a population), the basis over f and feq and the
+    inverse, the six relaxed moments (3 each) and the post-shift (6 a
+    population).  A ForcedMovingWall adds the matching force (6 and 5 a
+    population on both projections: 96).  The boundary cases: a Zou/He
+    face 22, the moving lid 15, the equilibrium inlet an equilibrium.
+    Every node runs CalcRho (the sum 8) and CalcNu (the laplacian 39, the
+    double well 9, the difference 2)."""
+    from tclb_tpu_torch.models import d2q9
+    from tclb_tpu_torch.ops.d2q9_kernels import _combo_flops
+    eq = _eq_flops()
+    fill = 20 + 3 + 8 * (17 + 7 + 3 + 4) + 7 + 11 + 6
+    base = fill + 22 + 6 + eq + 6
+    bgk = 9 * 16
+    moments = sum(_combo_flops(row) for row in d2q9.M)
+    mrt = 9 * 6 + moments + _basis_flops(d2q9.M) + 6 * 3 + 9 * 6
+    nodes = int(np.asarray(flags).size)
+    return ((base + bgk) * count_types(model, flags, "BGK")
+            + (base + mrt) * count_types(model, flags, "MRT")
+            + 96 * count_types(model, flags, "ForcedMovingWall")
+            + ZOU * count_types(model, flags, "WPressure", "EPressure",
+                                "EVelocity")
+            + 15 * count_types(model, flags, "MovingWall")
+            + eq * count_types(model, flags, "WVelocity"),
+            SUM9 * nodes, (39 + 9 + 2) * nodes)
+
+
+def _pb_flops(model: Model, flags: np.ndarray) -> tuple:
+    """d2q9_poison_boltzmann (models/d2q9_poison_boltzmann.py).  A
+    collision node: psi (8 and the scale 1), the charge density (the
+    product of settings 3, the argument 4, sinh 1, the product 1), the
+    source (5) and the sweep (4 at rest, 7 per moving population).  A wall
+    node the zeta potential's equilibrium (9).  Every node runs CalcPsi
+    (9) and CalcSubiter (1)."""
+    coll = 9 + 9 + 5 + 4 + 8 * 7
+    nodes = int(np.asarray(flags).size)
+    return (coll * count_group(model, flags, "COLLISION")
+            + 9 * count_types(model, flags, "Wall", "Solid"),
+            9 * nodes, nodes)
 
 
 def _d2q9_flops(model: Model, flags: np.ndarray) -> int:
@@ -757,15 +936,19 @@ def lib(model: str) -> ctypes.CDLL:
         argp = ctypes.POINTER(c_args_type(model))
         lib.generic2d_layout.argtypes = [ip] * 8
         lib.generic2d_layout.restype = None
-        lib.generic2d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
+        lib.generic2d_plan.argtypes = [ip, ip]
+        lib.generic2d_plan.restype = None
+        lib.generic2d_step.argtypes = [p, p, p, p, p, argp, p, p, i, p]
         lib.generic2d_step.restype = i
-        lib.generic2d_step_series.argtypes = [p, p, p, p, argp, p, p, i, i,
-                                              p, p, i, p]
+        lib.generic2d_step_series.argtypes = [p, p, p, p, p, argp, p, p, i,
+                                              i, p, p, i, p]
         lib.generic2d_step_series.restype = i
-        lib.generic2d_resident.argtypes = [p, p, p, p, p, argp, i, i, i, p]
+        lib.generic2d_resident.argtypes = [p, p, p, p, p, p, argp, i, i, i,
+                                           p]
         lib.generic2d_resident.restype = i
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.generic2d_step_bf16.argtypes = [p, p, p, p, argp, fp, p, p, i, p]
+        lib.generic2d_step_bf16.argtypes = [p, p, p, p, p, argp, fp, p, p, i,
+                                            p]
         lib.generic2d_step_bf16.restype = i
         lib.generic2d_resident_bf16.argtypes = [p, p, p, p, p, p, argp, fp,
                                                 i, i, i, p]
@@ -790,6 +973,14 @@ def lib(model: str) -> ctypes.CDLL:
         if sizes != want:
             raise RuntimeError(f"{path.name} was built with layout sizes "
                                f"{sizes}, the wrapper expects {want}")
+        stages, passes = ctypes.c_int(0), ctypes.c_int(0)
+        lib.generic2d_plan(ctypes.byref(stages), ctypes.byref(passes))
+        if stages.value != len(dm.plan):
+            raise RuntimeError(f"{path.name} runs {stages.value} stages, "
+                               f"the wrapper expects {len(dm.plan)}")
+        # launches a step: 1, or one a stage (more than one with the
+        # scratch `mid`)
+        entry["passes"] = passes.value
         entry["tile"] = (tile_y, tile_x)
         entry["lib"] = lib
     return entry["lib"]
@@ -855,11 +1046,23 @@ def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
+def _mid(fields, needed: bool):
+    """The f32 scratch stack a multi-pass step or resident launch hands
+    its earlier stages' planes in (``needed``), else None."""
+    return torch.empty(fields.shape, dtype=torch.float32,
+                       device=fields.device) if needed else None
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
                  series=None, it: int = 0):
-    """One ``generic2d_step`` launch (``generic2d_step_bf16`` for a bf16
+    """One ``generic2d_step`` call (``generic2d_step_bf16`` for a bf16
     stack), or with :class:`SeriesInputs` ``series`` one
-    ``generic2d_step_series`` launch at iteration ``it``."""
+    ``generic2d_step_series`` call at iteration ``it``: one launch, or one
+    a stage of a multi-pass plan (each counted)."""
     validate(fields, flags, ztab, a)
     bf16 = fields.dtype == torch.bfloat16
     if series is not None:
@@ -869,15 +1072,20 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
     out = torch.empty_like(fields)
+    passes = _LIB[a.model]["passes"]
+    mid = _mid(fields, passes > 1)
     partials = gout = None
+    n_g = len(DEVICE_MODELS[a.model].globals_)
     if with_globals:
         ty, tx = _LIB[a.model]["tile"]
         blocks = -(-a.ny // ty) * -(-a.nx // tx)
-        n_g = len(DEVICE_MODELS[a.model].globals_)
-        partials = torch.empty((blocks, max(n_g, 1)), dtype=torch.float64,
-                               device=fields.device)
-        gout = torch.empty((n_g,), dtype=torch.float32, device=fields.device)
-    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
+        # one partial per block and global, and the row that carries a
+        # multi-pass step's sums between its passes
+        partials = torch.empty((blocks + 1, max(n_g, 1)),
+                               dtype=torch.float64, device=fields.device)
+        gout = torch.empty((max(n_g, 1),), dtype=torch.float32,
+                           device=fields.device)
+    head = (fields.data_ptr(), out.data_ptr(), _ptr(mid), flags.data_ptr(),
             ztab.data_ptr(), ctypes.byref(a.c_struct))
     tail = (partials.data_ptr() if with_globals else None,
             gout.data_ptr() if with_globals else None, dev, stream)
@@ -886,13 +1094,13 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
         fn = getattr(lb, name)
         check(lb, fn(*head, a.c_shift, *tail) if bf16 else fn(*head, *tail),
               name)
-        LAUNCHES[name] += 1
-        FLAVOUR_LAUNCHES[f"{name}/{STEP_FLAVOURS[with_globals]}"] += 1
+        LAUNCHES[name] += passes
+        FLAVOUR_LAUNCHES[f"{name}/{STEP_FLAVOURS[with_globals]}"] += passes
     else:
         check(lb, lb.generic2d_step_series(*head, *sargs, *tail),
               "generic2d_step_series")
-        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += 1
-    return (out, gout) if with_globals else out
+        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += passes
+    return (out, gout[:n_g]) if with_globals else out
 
 
 def step(fields, flags, ztab, a: StepArgs) -> torch.Tensor:
@@ -958,8 +1166,9 @@ def resident_grid(model: str, device: int, nodes: int,
 def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     """``nsteps`` Iterations (even, at least 2) in one cooperative launch
     (kernel ``generic2d_resident``; ``generic2d_resident_bf16`` for a bf16
-    stack, with an f32 scratch stack that carries a two-stage model's
-    stage-0 planes to stage 1)."""
+    stack).  An f32 scratch stack carries the earlier stages' planes to the
+    later ones: a multi-pass plan's at either storage, a two-stage plan's
+    on a bf16 stack."""
     if nsteps < 2 or nsteps % 2:
         raise ValueError(f"nsteps={nsteps}: the ping-pong needs an even "
                          "count of at least 2")
@@ -972,20 +1181,19 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     blocks = resident_grid(a.model, dev, a.ny * a.nx, bf16)
     out = torch.empty_like(fields)
     scratch = torch.empty_like(fields)
+    staged = len(DEVICE_MODELS[a.model].plan) > 1
     if bf16:
-        two = len(DEVICE_MODELS[a.model].plan) == 2
-        mid = torch.empty(fields.shape if two else (0,),
-                          dtype=torch.float32, device=fields.device)
+        mid = _mid(fields, staged)
         rc = lb.generic2d_resident_bf16(
-            fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            mid.data_ptr() if two else None, flags.data_ptr(),
-            ztab.data_ptr(), ctypes.byref(a.c_struct), a.c_shift, nsteps,
-            blocks, dev, stream)
+            fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
+            flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
+            a.c_shift, nsteps, blocks, dev, stream)
         check(lb, rc, "generic2d_resident_bf16")
         LAUNCHES["generic2d_resident_bf16"] += 1
         return out
+    mid = _mid(fields, _LIB[a.model]["passes"] > 1)
     rc = lb.generic2d_resident(
-        fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
         flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
         nsteps, blocks, dev, stream)
     check(lb, rc, "generic2d_resident")
@@ -1012,7 +1220,8 @@ def supports(model: Model, shape, dtype, storage_dtype=None) -> bool:
     """Whether the kernels run this configuration: a 2D model with device
     physics (``DEVICE_MODELS``), f32 compute with the stack at rest in f32
     or bf16 (``storage_dtype``, default ``dtype``), whose Iteration plan
-    reaches no further than the step kernel's ring."""
+    reaches no further than ``HALO`` rows (the reference's bound; the
+    kernels themselves take any reach)."""
     sdt = dtype if storage_dtype is None else storage_dtype
     return (model.name in DEVICE_MODELS and model.ndim == 2
             and len(shape) == 2 and dtype == torch.float32

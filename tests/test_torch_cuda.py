@@ -1,7 +1,7 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
 family's branches), generic (2D and 3D, with their <Control> series
 flavours; the 2D ones for every model with a device header, the one-stage
-models among them) and adjoint CUDA kernels against their plain PyTorch versions on
+and multi-stage models among them) and adjoint CUDA kernels against their plain PyTorch versions on
 the card, and the storage ladder's bf16 flavours of the generic 2D and
 d3q27 kernels with the precision harness on them.
 
@@ -25,15 +25,17 @@ from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
 from torch_cases import (ADJ3D_SETTINGS, D3Q_FAMILY, FAMILY_MODELS,
-                         HEAT_SETTINGS, KUPER_SETTINGS, ONESTAGE_MODELS,
-                         RICH3D_SETTINGS, RICH_ONESTAGE_SETTINGS,
+                         HEAT_SETTINGS, KUPER_SETTINGS, MULTISTAGE_MODELS,
+                         ONESTAGE_MODELS, RICH3D_SETTINGS,
+                         RICH_MULTISTAGE_SETTINGS, RICH_ONESTAGE_SETTINGS,
                          RICH_SERIES_T, RICH_SETTINGS, add_rich_series,
                          bench_adjoint3d_lattice,
                          channel3d_flags, d3q_family_settings,
                          family_settings, heat_adj_golden_columns,
                          paint_rich, paint_rich_3d, paint_rich_adj3d,
                          paint_rich_d3q, paint_rich_family, paint_rich_heat,
-                         paint_rich_kuper, paint_rich_onestage)
+                         paint_rich_kuper, paint_rich_multistage,
+                         paint_rich_onestage)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -1057,3 +1059,143 @@ def test_onestage_bf16_kernels_match_plain(card_onestage, name,
         steps = gk.step(steps, flags, ztab, args)
     torch.cuda.synchronize()
     assert torch.equal(res.view(torch.int16), steps.view(torch.int16))
+
+
+# --------------------------------------------------------------------------- #
+# The multi-stage 2D models: K4 and K5 on plans of two and three stages
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def card_multistage():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed, **kw):
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=RICH_MULTISTAGE_SETTINGS[name], device="cuda",
+                      **kw)
+        return paint_rich_multistage(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 53), (256, 256)])
+@pytest.mark.parametrize("name", MULTISTAGE_MODELS)
+def test_multistage_kernels_match_plain(card_multistage, name, shape):
+    """Each multi-stage model's build: every node type its header reads,
+    two zones, ragged 32x16 tiles (37x53).  generic2d_step (one launch, or
+    one a stage, each counted) in both flavours against the plain
+    version (the globals at rtol 1e-4 / atol 1e-6), an 8-step
+    generic2d_resident against it and, bit for bit, against eight
+    generic2d_step calls."""
+    lat = card_multistage(name, shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gk.reset_launches()
+    got = gk.step(f, flags, ztab, args)
+    torch.testing.assert_close(got, gk.plain_steps(f, flags, ztab, args, 1),
+                               **FIELDS_TOL)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(gotg, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    torch.testing.assert_close(res, gk.plain_steps(f, flags, ztab, args, 8),
+                               **FIELDS_TOL)
+    torch.cuda.synchronize()
+    # a two-stage plan with a ring of two in one launch, three stages in
+    # one launch each
+    passes = 1 if name == "d2q9_pf_pressureEvolution" else 3
+    assert gk._LIB[name]["passes"] == passes
+    assert {k: v for k, v in gk.LAUNCHES.items() if v} == {
+        "generic2d_step": 2 * passes, "generic2d_resident": 1}
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    assert torch.equal(res, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,engine", [
+    ((64, 128), "cuda_generic_resident[{},fuse=N]"),
+    ((512, 1024), "cuda_generic_band[{},fuse=1]"),
+])
+@pytest.mark.parametrize("name", MULTISTAGE_MODELS)
+def test_multistage_lattice_engine_matches_eager(card_multistage, name,
+                                                 shape, engine):
+    """Lattice.iterate on the card takes the resident engine where the
+    lattice fits half the L2, else the band engine, runs no eager step, and
+    its 12 steps and globals match 12 eager steps."""
+    lat = card_multistage(name, shape, seed=6)
+    ref = Lattice(lat.model, shape, dtype=torch.float32, device="cuda")
+    ref.set_state(lat.state, lat.params)
+    gk.reset_launches()
+    lat.iterate(12)
+    ref.state = ref._iterate(ref.state, ref.params, 12)
+    torch.cuda.synchronize()
+    assert lat.engine_name == engine.format(name) and lat.eager_steps == 0
+    assert gk.flavours()["globals"] == gk._LIB[name]["passes"]
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               **FIELDS_TOL)
+    got, want = lat.get_globals(), ref.get_globals()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", MULTISTAGE_MODELS)
+def test_multistage_bf16_kernels_match_plain(card_multistage, name,
+                                             storage_repr):
+    """generic2d_step_bf16 (both flavours) against the narrowed eager step
+    on the same bf16 stack (the earlier stages' planes stay f32: one
+    narrowing a step), an 8-step generic2d_resident_bf16 bit for bit
+    against eight generic2d_step_bf16 calls."""
+    lat = card_multistage(name, (37, 53), seed=5,
+                          storage_dtype=torch.bfloat16,
+                          storage_repr=storage_repr)
+    m = lat.model
+    shift = ddf.kernel_shift(m, storage_repr)
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params, shift)
+    assert f.dtype == torch.bfloat16
+    wide = _wide_plain(gk, f, flags, ztab, args, 1, m, storage_repr)
+    _assert_narrowed(gk.step(f, flags, ztab, args), wide, m, storage_repr)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    _assert_narrowed(gotg, wide, m, storage_repr)
+    _, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert torch.equal(res.view(torch.int16), steps.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_lee_series_flavours_match_plain(card_multistage):
+    """d2q9_lee under a <Control> series of InletVelocity on zone 0 (its
+    E velocity and W equilibrium faces; horizon 5): both series flavours
+    of the three-pass step against their plain versions, at an iteration
+    inside the horizon and one past it."""
+    lat = card_multistage("d2q9_lee", (37, 53), seed=4)
+    lat.set_setting_series("InletVelocity", [0.01, 0.015, 0.02, 0.012,
+                                             0.008], zone=0)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    series = gk.series_inputs(lat.model, lat.params)
+    gk.reset_launches()
+    for it in (2, 13):
+        got = gk.step_series(f, flags, ztab, args, series, it)
+        torch.testing.assert_close(got, gk.plain_steps(
+            f, flags, ztab, args, 1, series=series, it=it), **FIELDS_TOL)
+        got, g = gk.step_series_globals(f, flags, ztab, args, series, it)
+        want, wg = gk.plain_steps(f, flags, ztab, args, 1,
+                                  with_globals=True, series=series, it=it)
+        torch.testing.assert_close(got, want, **FIELDS_TOL)
+        torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    # two calls of each flavour, three launches a call
+    assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 6,
+                                  "generic2d_step_series_globals": 6}

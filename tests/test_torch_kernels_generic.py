@@ -288,8 +288,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
     adjoint header or the storage seams generic2d.cu includes changes all
-    of them; editing the one-stage models' shared d2q9 blocks changes
-    those six; editing a file none includes changes none."""
+    of them; editing the shared d2q9 blocks changes the ten one-stage and
+    multi-stage models built on them; editing a file none includes changes
+    none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
@@ -300,14 +301,17 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
                if dm.ndim == 2}
     onestage = {"d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
                 "d2q9_solid", "d2q9_npe_guo"}
-    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"} | onestage
+    multistage = {"d2q9_pf_pressureEvolution", "d2q9_pp_MCMP", "d2q9_lee",
+                  "d2q9_poison_boltzmann"}
+    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"} \
+        | onestage | multistage
 
     def digests():
         return {m: _cuda_build.digest("generic2d", h)
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 9
+    assert len(set(before.values())) == 13
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -328,7 +332,8 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     again = digests()
     common = csrc / "models" / "d2q9_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")
-    assert {m for m, d in digests().items() if d != again[m]} == onestage
+    assert {m for m, d in digests().items() if d != again[m]} == \
+        onestage | multistage
 
 
 # --------------------------------------------------------------------------- #

@@ -46,9 +46,10 @@ from tclb_tpu_torch.core import shift as ddf  # noqa: E402
 from tclb_tpu_torch.core.lattice import make_iterate  # noqa: E402
 from tclb_tpu_torch.ops import _cuda_build  # noqa: E402
 from tclb_tpu_torch.ops import generic_kernels as gk  # noqa: E402
-from torch_cases import (ONESTAGE_MODELS, ONESTAGE_SHAPE,  # noqa: E402
-                         RICH_ONESTAGE_SETTINGS, paint_generic,
-                         paint_rich_onestage, rich_flags_onestage)
+from torch_cases import (MULTISTAGE_SETTINGS, ONESTAGE_MODELS,  # noqa: E402
+                         ONESTAGE_SHAPE, RICH_ONESTAGE_SETTINGS,
+                         paint_generic, paint_rich_onestage,
+                         rich_flags_onestage)
 
 # One PyTorch intra-op thread per process: pytest-xdist imports every test
 # file into each of its workers, so this holds for the whole run.  At the
@@ -378,7 +379,9 @@ def test_parity_painter_paints_every_header_type():
         if dm.ndim != 2:
             continue
         m = get_model(name)
-        lat = generic2d_parity.paint(m, (37, 53), device="cpu")
+        # d2q9_pp_MCMP's default Gc = 0 puts Gad/Gc = 0/0 on its walls
+        lat = generic2d_parity.paint(m, (37, 53), device="cpu",
+                                     settings=MULTISTAGE_SETTINGS.get(name))
         flags = lat.flags_numpy()
         assert all(gk.count_types(m, flags, t) for t in dm.node_types), name
         assert int((flags >> m.zone_shift).max()) == 1

@@ -901,3 +901,153 @@ def paint_rich_onestage(lat, seed):
     lat.init()
     lat.set_density_planes(onestage_planes(m, lat.shape, seed))
     return lat
+
+
+# --------------------------------------------------------------------------- #
+# the multi-stage 2D models on the generic kernels
+# --------------------------------------------------------------------------- #
+
+MULTISTAGE_MODELS = ("d2q9_pf_pressureEvolution", "d2q9_pp_MCMP", "d2q9_lee",
+                     "d2q9_poison_boltzmann")
+MULTISTAGE_SHAPE = (16, 64)
+# each model's shipped example and its lattice (ny, nx)
+MULTISTAGE_EXAMPLES = {"d2q9_pf_pressureEvolution": "bubble_rise.xml",
+                       "d2q9_pp_MCMP": "mcmp_contact.xml",
+                       "d2q9_lee": "drop_lee.xml"}
+# tests/test_pallas_generic.py's _SETTINGS where it has the model;
+# bubble_rise.xml's for d2q9_pf_pressureEvolution, the JAX package's
+# physics test's for d2q9_poison_boltzmann (tests/test_electrokinetics.py)
+MULTISTAGE_SETTINGS = {
+    "d2q9_pf_pressureEvolution": {"nu_l": 0.1, "nu_h": 0.1, "M": 0.05,
+                                  "W": 4.0, "PhaseField": -0.5,
+                                  "GravitationY": -1e-6, "sigma": 0.0001},
+    "d2q9_pp_MCMP": {"nu": 1 / 6, "nu_g": 1 / 6, "Gc": 1.8, "Gad1": 0.0,
+                     "Gad2": 0.0, "Density": 1.0, "Density_dry": 1.0},
+    "d2q9_lee": {"nu": 1 / 6, "LiquidDensity": 1.0, "VaporDensity": 0.1,
+                 "Beta": 0.02, "Kappa": 0.02, "InitDensity": 1.0,
+                 "WallDensity": 1.0},
+    "d2q9_poison_boltzmann": {"tau_psi": 1.0, "n_inf": 0.01, "psi_bc": 0.01,
+                              "psi0": 0.0, "epsilon": 1.0},
+}
+# the rich states: every branch of each header switched on (two densities
+# and forces in the phase field, a tangential inlet, a moving lid)
+RICH_MULTISTAGE_SETTINGS = {
+    **MULTISTAGE_SETTINGS,
+    "d2q9_pf_pressureEvolution": {
+        **MULTISTAGE_SETTINGS["d2q9_pf_pressureEvolution"],
+        "Density_h": 1.0, "Density_l": 0.2, "nu_h": 0.05, "S1": 1.1,
+        "S2": 1.2, "GravitationX": 2e-6, "BuoyancyY": 1e-6,
+        "GmatchedX": 1e-6},
+    "d2q9_pp_MCMP": {**MULTISTAGE_SETTINGS["d2q9_pp_MCMP"], "nu_g": 0.1,
+                     "Gad1": -0.2, "Gad2": 0.1, "GravitationY": -1e-6},
+    "d2q9_lee": {**MULTISTAGE_SETTINGS["d2q9_lee"], "GravitationY": -1e-6,
+                 "MovingWallVelocity": 0.01, "InletVelocity": 0.01,
+                 "WetDensity": 0.97, "DryDensity": 0.93,
+                 "OutletDensity": 0.99, "InletDensity": 1.01},
+    "d2q9_poison_boltzmann": {**MULTISTAGE_SETTINGS["d2q9_poison_boltzmann"],
+                              "tau_psi": 0.8, "n_inf": 0.05, "z": 2.0},
+}
+# zone 1's value of each zonal setting on the rich states
+RICH_MULTISTAGE_ZONE1 = {
+    "PhaseField": 0.5, "VelocityX": 0.0, "VelocityY": 0.0, "Pressure": 0.0,
+    "Velocity_f": 0.01, "Pressure_f": 0.01, "Velocity_g": 0.005,
+    "Pressure_g": 0.005, "Density": 1.0, "Density_dry": 1.0,
+    "InletVelocity": 0.02, "InletPressure": 0.0, "InletDensity": 1.005,
+    "OutletDensity": 0.995, "InitDensity": 0.95, "WallDensity": 0.96,
+    "MovingWallVelocity": 0.02, "WetDensity": 0.98, "DryDensity": 0.94,
+    "Wetting": 1.0, "psi_bc": 0.08, "psi0": 0.01}
+
+
+def rich_flags_multistage(m, ny, nx):
+    """Every node type the model's device header reads on a (ny, nx) field
+    (ny >= 16, nx >= 64): the collision types inside (lee: BGK and MRT
+    halves), walls top and bottom, a Solid block, split W and E faces
+    where the model has Zou/He faces, lee's moving lids and Wet/Dry
+    patches, and a settings zone 1 block."""
+    f = m.flag_for
+    nt = m.node_types
+    coll = "MRT" if m.name == "d2q9_pf_pressureEvolution" else "BGK"
+    flags = np.full((ny, nx), f(coll), dtype=np.uint16)
+    if m.name == "d2q9_lee":
+        flags[:, nx // 2:] = f("MRT")
+    h = ny // 2
+    if m.name in ("d2q9_pp_MCMP", "d2q9_lee"):
+        for col, upper, lower in ((0, "WVelocity", "WPressure"),
+                                  (nx - 1, "EPressure", "EVelocity")):
+            flags[h:, col] = f(upper, coll)
+            flags[:h, col] = f(lower, coll)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[h - 2:h + 1, nx // 8:nx // 8 + 3] = f("Solid")
+    if m.name == "d2q9_lee":
+        flags[1, nx // 4:nx // 4 + 6] = f("MovingWall")
+        flags[1, nx // 2 + 4:nx // 2 + 10] = f("ForcedMovingWall", "MRT")
+        flags[0, 3 * nx // 4:] |= np.uint16(f("Wet"))
+        flags[-1, 3 * nx // 4:] |= np.uint16(f("Dry"))
+        flags[h:, 0] |= np.uint16(f("Wet"))
+        flags[3:6, 3 * nx // 8:3 * nx // 8 + 3] |= np.uint16(f("Dry"))
+    flags[h:-1, nx // 2:] |= np.uint16(1 << m.zone_shift)
+    return flags
+
+
+def multistage_planes(m, shape, seed):
+    """Populations near a flowing equilibrium with 1-2% noise in every d2q9
+    group (each around its own level), and each Field near what its stage
+    would write: PhaseF a smooth drop in [0, 1], psi_f and psi_g near the
+    component densities, lee's rho across the two phases and nu small,
+    the Poisson potential small; subiter a count."""
+    rng = np.random.default_rng(seed)
+    ny, nx = shape
+    E = m.ei[:9, :2].astype(np.float64)
+    wt = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+    u = 0.01 + 0.005 * rng.standard_normal((2,) + shape)
+    usq = (u * u).sum(0)
+    y, x = np.mgrid[0:ny, 0:nx]
+    drop = 0.5 + 0.5 * np.tanh((ny / 3 - np.hypot(x - nx / 2, y - ny / 2))
+                               / 2.0)
+    level = {"d2q9_pf_pressureEvolution": {"f": 0.0, "h": drop},
+             "d2q9_pp_MCMP": {"f": 0.3 + 0.7 * drop, "g": 1.0 - 0.7 * drop},
+             "d2q9_lee": {"f": 0.9 + 0.1 * drop},
+             "d2q9_poison_boltzmann": {}}[m.name]
+    planes = {}
+    for name, base in level.items():
+        idx = m.groups[name]
+        lev = base * (1 + 0.01 * rng.standard_normal(shape))
+        for k in range(9):
+            eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+            eq = wt[k] * lev * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+            noise = 0.02 * rng.standard_normal(shape)
+            # the pressure-shifted g-bar sits near 0: absolute noise
+            shifted = m.name == "d2q9_pf_pressureEvolution" and name == "f"
+            planes[m.storage_names[idx[k]]] = (1e-3 * wt[k] * noise
+                                               if shifted else eq * (1 + noise))
+    if m.name == "d2q9_pf_pressureEvolution":
+        planes["PhaseF"] = drop + 0.01 * rng.standard_normal(shape)
+    if m.name == "d2q9_pp_MCMP":
+        for name, grp in (("psi_f", "f"), ("psi_g", "g")):
+            planes[name] = level[grp] * (1 + 0.01 * rng.standard_normal(
+                shape))
+    if m.name == "d2q9_lee":
+        planes["rho"] = level["f"] * (1 + 0.01 * rng.standard_normal(shape))
+        planes["nu"] = 1e-3 * rng.standard_normal(shape)
+    if m.name == "d2q9_poison_boltzmann":
+        pot = 0.02 * rng.standard_normal(shape)
+        wp = np.array([1 / 9 - 1] + [1 / 9] * 8)
+        for k in range(9):
+            planes[f"g[{k}]"] = wp[k] * pot + 1e-3 * rng.standard_normal(
+                shape)
+        planes["psi"] = pot
+        planes["subiter"] = np.full(shape, 3.0)
+    return planes
+
+
+def paint_rich_multistage(lat, seed):
+    """``rich_flags_multistage``, zone 1's values of the zonal settings,
+    Init and ``multistage_planes`` on a Lattice of either package
+    (settings from ``RICH_MULTISTAGE_SETTINGS`` at its construction)."""
+    m = lat.model
+    lat.set_flags(rich_flags_multistage(m, *lat.shape))
+    for name in m.zonal_settings:
+        lat.set_setting(name, RICH_MULTISTAGE_ZONE1[name], zone=1)
+    lat.init()
+    lat.set_density_planes(multistage_planes(m, lat.shape, seed))
+    return lat
