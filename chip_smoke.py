@@ -11,16 +11,18 @@ d3q19_les (``-DD3Q_MODEL``), ``generic2d.cu``
 once for each of d2q9 (``csrc/models/d2q9.cuh``), d2q9_kuper,
 d2q9_heat_adj (with the backward kernel of ``generic2d_adjoint.cuh``),
 the six one-stage models (d2q9_heat, d2q9_heat_conjugate, d2q9_hb, sw,
-d2q9_solid, d2q9_npe_guo) and the four multi-stage models
+d2q9_solid, d2q9_npe_guo), the four multi-stage models
 (d2q9_pf_pressureEvolution, d2q9_pp_MCMP, d2q9_lee,
-d2q9_poison_boltzmann), and ``generic3d.cu`` for
+d2q9_poison_boltzmann) and the three adjoint models (d2q9_adj,
+d2q9_optimalMixing, d2q9_plate, each with the backward kernel), and
+``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
 sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
 1. build the d2q9 library and the five family libraries, the five d3q27
-   libraries, the thirteen generic 2D and the generic 3D libraries and
+   libraries, the sixteen generic 2D and the generic 3D libraries and
    print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
@@ -267,6 +269,45 @@ missing.  Phases, each of which fails the run on its own:
    the three-pass step against their plain versions, then an
    ``iterate(2000)`` on them.
 
+39. the last shipped example, ``example/adj_drag.xml`` (d2q9_adj, 64x32)
+   unchanged through ``run_config``: FDTest 8/3 and an 8-evaluation MMA
+   Optimize of 20 iterations on ``cuda_adjoint[d2q9_adj,k=1]`` (K4 and K7,
+   whose reverse reads the zonal Velocity and Pressure from the zone
+   table), ThresholdNow, Solve 100 on
+   ``cuda_generic_resident[d2q9_adj,fuse=N]``: the launch counts from 0,
+   the FDTest records, each objective (finite), the material constraint,
+   a binary design; then the first evaluation's f32 kernel gradient
+   against an f64 eager gradient on the card (relative L2 at most 1e-3);
+40. bench.py's d2q9_adj gradient case (``bench_adjoint``, 512x1024, the
+   design block [128:384, 300:700]): ``iterate(2000)`` on
+   ``cuda_generic_band[d2q9_adj,fuse=1]``, an 8-step kernel gradient
+   against f32 eager autograd at rtol 1e-4 / atol 1e-7, and a 1000-step
+   gradient with automatic checkpoint levels (2): its wall time, rate,
+   ratio to 1000 primal steps, peak memory and launches;
+41. each adjoint model's 1024x1024 lattice (``torch_cases.paint_generic``
+   with ``ADJ_SETTINGS``, zone 1's own zonal values) on K4:
+   ``generic2d_step`` (both flavours) against its plain version after 4
+   eager steps, the bf16 shifted flavours within the f32 tolerance
+   carried through the narrowing, ``iterate(2000)`` in f32 and in bf16;
+   (41b) d2q9_optimalMixing's and d2q9_plate's objective sensitivity to
+   the initial populations and the settings on ``cuda_adjoint``
+   (``make_objective_run`` with ``make_diff_step``): 8 steps against
+   eager autograd on the card (rtol 1e-4, an absolute 1e-6 of the
+   largest |g|), then 200 steps, counted;
+42. K5 on each resident path (adj_drag's state after its run; a 128x128
+   lattice iterated 200 steps for the other two) against its plain
+   version and bit for bit against eight chained K4 calls, its bf16 rung
+   bit for bit against eight chained ``generic2d_step_bf16`` calls each
+   within its bound, and an ``iterate(200)`` in bf16 on the resident
+   engine;
+43. ``generic2d_step_b`` for each adjoint model against ``step_b_plain``
+   on rich states (``generic2d_parity.paint``: every node type, zone 1
+   with other zonal values than zone 0, 1% noise; 37x53 and 256x256),
+   lam_in at rtol 1e-4 / atol 1e-6 and the settings cotangent at rtol
+   1e-4, and both series flavours on the same states under a series of a
+   zonal setting; then d2q9_adj's 1024x1024 lattice under a Velocity
+   series: both flavours, then an ``iterate(500)`` on them.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -286,8 +327,10 @@ profiles a karman_control ``iterate(500)`` and a 3D Control channel
 ``iterate(200)``.  Phase 7 also times every one-stage kernel at its paths'
 shapes, phase 8 profiles a heat_channel and a 1024x1024 d2q9_npe_guo
 window; likewise for the multi-stage kernels, and a drop_lee and a
-1024x1024 d2q9_lee window.  Phases run in the order 1, 2, 3, 4, 5, 6, 9,
-10, 11, 12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 7, 8.
+1024x1024 d2q9_lee window; likewise for the adjoint models' kernels
+(``generic2d_step_b`` at its gradient path's shape), and the 1000-step
+d2q9_adj gradient.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
+12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 39-43, 7, 8.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -321,6 +364,11 @@ STEP_B_RTOL, STEP_B_ATOL, STEP_B_SETT_RTOL = 1e-4, 1e-6, 1e-4
 # (tests/test_pallas_adjoint.py:155)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
 GRAD_F64_REL_L2 = 1e-3     # the f32 kernel gradient against f64 eager
+# a sensitivity of a large objective (d2q9_optimalMixing's TotalTempSqr
+# sums temp^2 over 1M nodes: |g| up to ~16) against eager autograd, both
+# f32: GRAD_RTOL, and for the f32 rounding that eight reverse steps carry
+# at the gradient's own scale, an absolute part relative to its largest
+SENS_ATOL_REL = 1e-6
 # central differences (eps 1e-4, f64) against the f64 adjoint: the
 # truncation (eps^2 times the third derivative) stays below the relative
 # limit, the objective's f64 rounding over eps (|J| 1e-16 / 1e-4, about
@@ -371,7 +419,8 @@ SOURCES = {"d2q9": "d2q9.cu", "d3q27": "d3q27.cu", "generic": "generic2d.cu",
 GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj",
                   "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
                   "d2q9_solid", "d2q9_npe_guo", "d2q9_pf_pressureEvolution",
-                  "d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
+                  "d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann",
+                  "d2q9_adj", "d2q9_optimalMixing", "d2q9_plate")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -892,21 +941,28 @@ def heat_adj_solve_state(xml):
 
 
 def run_heat_adj(gk, ak) -> dict:
-    """The adjoint main path: example/heat_adj.xml unchanged through
-    ``run_config`` — the Solve on the resident engine, FDTest and the MMA
-    Optimize on ``cuda_adjoint``, ThresholdNow, VTK — counted from 0, then
-    the first Optimize evaluation's f32 kernel gradient against an f64
-    eager gradient on the card."""
+    """The adjoint main path: example/heat_adj.xml unchanged (phase 11)."""
+    return run_design_xml(gk, ak, HEAT_ADJ_XML, "11",
+                          heat_adj_solve_state(HEAT_ADJ_XML))
+
+
+def run_design_xml(gk, ak, xml, phase: str, start) -> dict:
+    """A design case unchanged through ``run_config`` — its Solve on the
+    resident engine, FDTest and the MMA Optimize on ``cuda_adjoint``,
+    ThresholdNow, VTK — counted from 0, then the first Optimize
+    evaluation's f32 kernel gradient against an f64 eager gradient on the
+    card, from ``start``: the lattice the Optimize begins from."""
     from tclb_tpu_torch.adjoint import (InternalTopology,
                                         make_unsteady_gradient)
     from tclb_tpu_torch.control.solver import run_config
     from tclb_tpu_torch.core.lattice import LatticeState, SimParams
     from tclb_tpu_torch.models import get_model
-    say("phase 11: heat_adj.xml end to end (Solve, FDTest, MMA Optimize, "
-        "ThresholdNow, VTK)")
-    xml = HEAT_ADJ_XML
     root = ET.parse(xml).getroot()
     model = get_model(root.get("model"))
+    case = xml.name
+    say(f"phase {phase}: {case} end to end ("
+        + ", ".join(el.tag for el in root
+                    if el.tag not in ("Geometry", "Model")) + ")")
     opt_el = root.find("Optimize")
     niter = int(opt_el.get("Iterations"))
     cwd = os.getcwd()
@@ -925,7 +981,8 @@ def run_heat_adj(gk, ak) -> dict:
             flavours = gk.flavours()
         finally:
             os.chdir(cwd)
-        files = sorted(os.listdir(os.path.join(tmp, root.get("output"))))
+        out = os.path.join(tmp, root.get("output"))
+        files = sorted(os.listdir(out)) if os.path.isdir(out) else []
     lat = solver.lattice
     say(f"  primal engine {lat.engine_name}, adjoint engine "
         f"{solver.adjoint_engine}, {wall:.3f} s wall, launches {launches} "
@@ -940,31 +997,37 @@ def run_heat_adj(gk, ak) -> dict:
     mat = solver.opt_material
     say(f"  material: start {mat['start']:.9g}, end {mat['end']:.9g} "
         f"({mat['direction']})")
-    if lat.engine_name != "cuda_generic_resident[d2q9_heat_adj,fuse=N]":
-        fail(f"heat_adj.xml's Solve ran on {lat.engine_name}")
-    if solver.adjoint_engine != "cuda_adjoint[d2q9_heat_adj,k=1]":
-        fail(f"heat_adj.xml's gradients ran on {solver.adjoint_engine}")
+    if lat.engine_name != f"cuda_generic_resident[{model.name},fuse=N]":
+        fail(f"{case}'s Solve ran on {lat.engine_name}")
+    if solver.adjoint_engine != f"cuda_adjoint[{model.name},k=1]":
+        fail(f"{case}'s gradients ran on {solver.adjoint_engine}")
     if launches["generic2d_step_b"] < 1 or flavours["globals"] < 1 \
             or launches["generic2d_resident"] < 1:
-        fail(f"heat_adj.xml launches {launches}, flavours {flavours}")
+        fail(f"{case} launches {launches}, flavours {flavours}")
     if len(solver.opt_history) != int(opt_el.get("MaxEvaluations")) \
             or not all(math.isfinite(o) for o in solver.opt_history):
-        fail(f"heat_adj.xml objectives {solver.opt_history}")
+        fail(f"{case} objectives {solver.opt_history}")
     if mat["end"] > mat["start"] * (1 + 1e-6):
-        fail(f"heat_adj.xml broke its material constraint: {mat}")
+        fail(f"{case} broke its material constraint: {mat}")
+    # the design: binary on the DesignSpace nodes after ThresholdNow, w
+    # elsewhere as the Optimize found it
+    design_nodes = (lat.state.flags & model.group_masks["DESIGNSPACE"]) != 0
     w = lat.get_quantity("W")
-    values = sorted(set(torch.unique(w).tolist()))
+    values = sorted(set(torch.unique(w[design_nodes]).tolist()))
     if not set(values) <= {0.0, 1.0}:
-        fail(f"heat_adj.xml's design is not binary after ThresholdNow: "
+        fail(f"{case}'s design is not binary after ThresholdNow: "
              f"{values[:8]}")
-    if not any(f.endswith(".vti") for f in files) \
+    if not torch.equal(w[~design_nodes],
+                       start.get_quantity("W")[~design_nodes]):
+        fail(f"{case} changed w outside its DesignSpace")
+    wants_vtk = root.find("VTK") is not None
+    if (wants_vtk and not any(f.endswith(".vti") for f in files)) \
             or not bool(torch.isfinite(lat.state.fields).all()):
-        fail(f"heat_adj.xml: output {files} or non-finite fields")
-    say(f"  design values after ThresholdNow {values}, "
-        f"{int((w == 0).sum())} solid nodes")
+        fail(f"{case}: output {files} or non-finite fields")
+    solid = int((w == 0).sum())
+    say(f"  design values after ThresholdNow {values}, {solid} solid nodes")
 
     # the first Optimize evaluation: the same state, theta and horizon
-    start = heat_adj_solve_state(xml)
     design = InternalTopology(model)
     theta = design.get(start.state, start.params)
     g32_fn = make_unsteady_gradient(model, design, niter, shape=start.shape,
@@ -986,26 +1049,40 @@ def run_heat_adj(gk, ak) -> dict:
         f"{float(obj64):.9g}; gradient rel L2 {rel_l2:.3e} (limit "
         f"{GRAD_F64_REL_L2})")
     if g64_fn.engine_name != "eager" or not rel_l2 <= GRAD_F64_REL_L2:
-        fail(f"heat_adj.xml's f32 kernel gradient is {rel_l2} from f64")
+        fail(f"{case}'s f32 kernel gradient is {rel_l2} from f64")
     if abs(float(obj32) - solver.opt_history[0]) \
             > 1e-6 * abs(solver.opt_history[0]):
         fail("the re-run first evaluation differs from the Optimize's")
     return {"launches": launches, "flavours": flavours, "wall_s": wall,
             "objectives": solver.opt_history, "material": mat,
             "fd_records": solver.fd_records, "grad_rel_l2_f64": rel_l2,
-            "solid_nodes": int((w == 0).sum())}
+            "solid_nodes": solid, "lattice": lat}
 
 
 def run_heat1024(gk, ak, lat) -> dict:
-    """bench.py's heat_adj channel at 512x1024: (a) ``iterate(2000)`` on
-    the band engine; (b) an 8-step gradient on cuda_adjoint against eager
-    autograd on the card, f32; (c) a 1000-step unsteady gradient with
-    automatic checkpoint levels, counted from 0."""
+    """bench.py's heat_adj channel at 512x1024 (phase 12), with w = 0.8 on
+    the design block: Drag = (1 - w)|ux| then depends on the flow, so the
+    gradient runs through every step's field cotangents."""
+    return run_gradient_channel(gk, ak, lat, "12", 0.8)
+
+
+def run_gradient_channel(gk, ak, lat, phase: str, fill=None,
+                         from_start: bool = False) -> dict:
+    """A bench.py gradient channel: (a) ``iterate(2000)`` on the band
+    engine; (b) an 8-step gradient on cuda_adjoint against eager autograd
+    on the card, f32; (c) a 1000-step unsteady gradient with automatic
+    checkpoint levels, counted from 0.  The gradients start from the
+    developed state, or with ``from_start`` from the state before (a), as
+    bench.py's ``bench_adjoint`` does; the design theta is the state's own
+    (``fill`` None) or ``fill`` on the whole block."""
+    import dataclasses
     from tclb_tpu_torch.adjoint import (InternalTopology, auto_levels,
                                         make_unsteady_gradient)
-    say("phase 12: 512x1024 heat_adj channel: primal band engine and "
-        "gradients")
+    name = lat.model.name
+    what = f"{lat.shape[0]}x{lat.shape[1]} {name} channel"
+    say(f"phase {phase}: {what}: primal band engine and gradients")
     nodes = float(np.prod(lat.shape))
+    start = dataclasses.replace(lat.state, fields=lat.state.fields.clone())
     niter = 2000
     lat.synchronize()
     gk.reset_launches()
@@ -1018,22 +1095,23 @@ def run_heat1024(gk, ak, lat) -> dict:
     mlups = nodes * niter / dt / 1e6
     say(f"  (a) engine {lat.engine_name}, launches {launches} (flavours "
         f"{flavours}), {mlups:.1f} MLUPS")
-    if lat.engine_name != "cuda_generic_band[d2q9_heat_adj,fuse=1]":
-        fail(f"512x1024 heat_adj ran on {lat.engine_name}")
+    if lat.engine_name != f"cuda_generic_band[{name},fuse=1]":
+        fail(f"the {what} ran on {lat.engine_name}")
     if flavours != {"plain": niter - 1, "globals": 1} or lat.eager_steps \
             or not bool(torch.isfinite(lat.state.fields).all()):
-        fail(f"512x1024 heat_adj: flavours {flavours}, eager steps "
+        fail(f"the {what}: flavours {flavours}, eager steps "
              f"{lat.eager_steps}")
     m = lat.model
+    state = start if from_start else lat.state
     design = InternalTopology(m)
-    # w = 0.8 on the design block: Drag = (1 - w)|ux| then depends on the
-    # flow, so the gradient runs through every step's field cotangents
-    theta = torch.full_like(design.get(lat.state, lat.params), 0.8)
+    theta = design.get(state, lat.params)
+    if fill is not None:
+        theta = torch.full_like(theta, fill)
     got = {}
     for engine in ("cuda", "eager"):
         fn = make_unsteady_gradient(m, design, 8, levels=1, engine=engine,
                                     shape=lat.shape, device=DEVICE)
-        got[engine] = fn(theta, lat.state, lat.params)
+        got[engine] = fn(theta, state, lat.params)
     (oc, gc, _), (oe, ge, _) = got["cuda"], got["eager"]
     err = (gc - ge).abs()
     ok = bool((err <= GRAD_ATOL + GRAD_RTOL * ge.abs()).all()) \
@@ -1043,7 +1121,7 @@ def run_heat1024(gk, ak, lat) -> dict:
         f"max |g| {float(ge.abs().max()):.3e} (rtol {GRAD_RTOL} atol "
         f"{GRAD_ATOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the 8-step 512x1024 kernel gradient disagrees with eager")
+        fail(f"the {what}'s 8-step kernel gradient disagrees with eager")
     horizon = 1000
     levels = auto_levels(m, lat.shape, horizon)
     if levels != 2:
@@ -1055,7 +1133,7 @@ def run_heat1024(gk, ak, lat) -> dict:
     gk.reset_launches()
     ak.reset_launches()
     t0 = time.perf_counter()
-    obj, g, _ = grad_fn(theta, lat.state, lat.params)
+    obj, g, _ = grad_fn(theta, state, lat.params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grad_launches = {**gk.LAUNCHES, **ak.LAUNCHES}
@@ -1068,7 +1146,7 @@ def run_heat1024(gk, ak, lat) -> dict:
         f"wall of 1000 primal steps, peak memory {peak / 2**30:.2f} GiB, "
         f"launches {grad_launches}, objective {float(obj):.9g}")
     if not (math.isfinite(float(obj)) and bool(torch.isfinite(g).all())):
-        fail("the 1000-step gradient is not finite")
+        fail(f"the {what}'s 1000-step gradient is not finite")
     return {"launches": launches, "flavours": flavours,
             "mlups_iterate": mlups, "grad_launches": grad_launches,
             "grad_flavours": grad_flavours,
@@ -1077,7 +1155,7 @@ def run_heat1024(gk, ak, lat) -> dict:
                          "mlups_primal_equivalent": rate,
                          "wall_over_primal": wall / primal_s,
                          "max_memory_allocated": peak},
-            "grad_fn": lambda: grad_fn(theta, lat.state, lat.params)}
+            "grad_fn": lambda: grad_fn(theta, state, lat.params)}
 
 
 def adj3d_case_file(directory) -> pathlib.Path:
@@ -2931,12 +3009,15 @@ SW_MASS_F64, SW_MASS_F32 = 1e-10, 1e-7
 EOF_ATOL = 0.08              # tests/test_electrokinetics.py:122
 
 
-def onestage_lattice(model: str, shape, storage_dtype=None):
+def onestage_lattice(model: str, shape, storage_dtype=None, settings=None,
+                     zone1=None):
     """tests/test_pallas_generic.py's ``_paint`` on the card
     (``torch_cases.paint_generic``: the collision type inside, walls top
     and bottom, W and E faces, a settings zone 1 stripe; hb's Destroy and
-    solid's Seed), that file's ``_SETTINGS`` where it has the model and
-    the example's otherwise (``GENERIC_SETTINGS``), initialised; bf16
+    solid's Seed) with ``settings`` (by default that file's ``_SETTINGS``
+    where it has the model and the example's otherwise,
+    ``GENERIC_SETTINGS``) and zone 1's values of the zonal settings from
+    ``zone1`` (by default ``RICH_ONESTAGE_ZONE1``), initialised; bf16
     shifted storage with ``storage_dtype``."""
     from tclb_tpu_torch import Lattice, get_model
     from torch_cases import (GENERIC_SETTINGS, RICH_ONESTAGE_ZONE1,
@@ -2945,10 +3026,10 @@ def onestage_lattice(model: str, shape, storage_dtype=None):
     kw = {} if storage_dtype is None else {
         "storage_dtype": storage_dtype, "storage_repr": "shifted"}
     lat = Lattice(m, shape, dtype=torch.float32, device=DEVICE,
-                  settings=GENERIC_SETTINGS[model], **kw)
+                  settings=settings or GENERIC_SETTINGS[model], **kw)
     lat.set_flags(paint_generic(m, *shape))
     for name in m.zonal_settings:
-        lat.set_setting(name, RICH_ONESTAGE_ZONE1[name], zone=1)
+        lat.set_setting(name, (zone1 or RICH_ONESTAGE_ZONE1)[name], zone=1)
     lat.init()
     return lat
 
@@ -3937,6 +4018,294 @@ def time_multistage(gk, multi: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The 2D adjoint models on K4/K5 and K7 (phases 39-43)
+# --------------------------------------------------------------------------- #
+
+ADJ_MODELS = ("d2q9_adj", "d2q9_optimalMixing", "d2q9_plate")
+ADJ_DRAG_XML = ROOT / "example" / "adj_drag.xml"
+ADJ_N = 1024                 # the full-width lattices
+ADJ_SMALL = (128, 128)       # K5's path for the models without an example
+ADJ_SMALL_WINDOW = 200       # its iterate window
+ADJ_SENSITIVITY = 200        # the sensitivity path's horizon
+
+
+def adj_lattice(model: str, shape):
+    """``onestage_lattice``'s painting with the model's flow settings
+    (``ADJ_SETTINGS``) and zone 1's own zonal values."""
+    from torch_cases import ADJ_SETTINGS, RICH_ADJ_ZONE1
+    return onestage_lattice(model, shape, settings=ADJ_SETTINGS[model],
+                            zone1=RICH_ADJ_ZONE1)
+
+
+def adj_bench_lattice():
+    """bench.py's ``bench_adjoint`` case (bench.py:335-397): d2q9_adj at
+    512x1024, a W velocity inlet, an E pressure outlet, walls top and
+    bottom and the design block [128:384, 300:700], with its settings."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import adj_channel
+    return adj_channel(Lattice, get_model("d2q9_adj"), torch.float32,
+                       shape=(512, 1024),
+                       design=(slice(128, 384), slice(300, 700)),
+                       device=DEVICE)
+
+
+def rich_adj_lattice(model: str, shape, seed: int = 5):
+    """``generic2d_parity.paint``'s rich state: every node type the
+    header reads, zone 1 with other zonal values than zone 0, 1% noise."""
+    from tclb_tpu_torch import get_model
+    from tclb_tpu_torch.ops import generic2d_parity
+    from torch_cases import RICH_ADJ_SETTINGS, RICH_ADJ_ZONE1
+    m = get_model(model)
+    return generic2d_parity.paint(
+        m, shape, seed=seed, device=DEVICE,
+        settings=RICH_ADJ_SETTINGS[model],
+        zone1={n: RICH_ADJ_ZONE1[n] for n in m.zonal_settings})
+
+
+def sensitivity_fn(lat, niter: int, step, levels: int):
+    """``fn() -> (objective, d obj / d fields, d obj / d settings)`` of
+    ``niter`` steps from ``lat``'s state (``make_objective_run``): on the
+    kernel step ``step`` (``adjoint_kernels.make_diff_step``), or eager for
+    None."""
+    import dataclasses
+    from tclb_tpu_torch.adjoint import make_objective_run
+    run = make_objective_run(lat.model, niter, levels=levels, step=step)
+
+    def fn():
+        f0 = lat.state.fields.detach().clone().requires_grad_()
+        sett = lat.params.settings.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            obj, _ = run(dataclasses.replace(lat.state, fields=f0),
+                         dataclasses.replace(lat.params, settings=sett))
+            gf, gs = torch.autograd.grad(obj, (f0, sett))
+        return obj.detach(), gf, gs
+    return fn
+
+
+def run_sensitivity(gk, ak, lat, path: str) -> dict:
+    """Phase 41b: the sensitivity of a model's objective to the initial
+    populations and the settings on the kernel step, (a) over 8 steps
+    against eager autograd on the card (the fields at rtol 1e-4 and an
+    absolute 1e-6 of the largest, the settings within 1e-4 of the
+    largest), (b) over ``ADJ_SENSITIVITY`` steps with automatic checkpoint
+    levels, counted from 0."""
+    from tclb_tpu_torch.adjoint import auto_levels
+    m = lat.model
+    say(f"phase 41b: {path}: the objective's sensitivity on cuda_adjoint")
+    step = ak.make_diff_step(m, lat.shape)
+    (oc, gc, sc), (oe, ge, se) = (sensitivity_fn(lat, 8, st, 1)()
+                                  for st in (step, None))
+    torch.cuda.synchronize()
+    err = (gc - ge).abs()
+    serr = float((sc - se).abs().max())
+    gmax = float(ge.abs().max())
+    ok = bool((err <= SENS_ATOL_REL * gmax + GRAD_RTOL * ge.abs()).all()) \
+        and gmax > 0 and serr <= GRAD_RTOL * float(se.abs().max())
+    say(f"  (a) 8 steps: {step.engine_name} objective {float(oc):.9g}, eager "
+        f"{float(oe):.9g}; fields max abs err {float(err.max()):.3e} "
+        f"(max |g| {gmax:.3e}), settings max abs err "
+        f"{serr:.3e} (max {float(se.abs().max()):.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{path}: the 8-step kernel sensitivity disagrees with eager")
+    levels = auto_levels(m, lat.shape, ADJ_SENSITIVITY)
+    fn = sensitivity_fn(lat, ADJ_SENSITIVITY, step, levels)
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    obj, g, gs = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**gk.LAUNCHES, **ak.LAUNCHES}
+    flavours = {k: gk.flavours(k) for k in ("generic2d_step",
+                                            "generic2d_step_bf16")}
+    say(f"  (b) {ADJ_SENSITIVITY} steps, levels {levels}: {wall:.3f} s wall, "
+        f"launches { {k: v for k, v in launches.items() if v} }, objective "
+        f"{float(obj):.9g}")
+    if not (math.isfinite(float(obj)) and bool(torch.isfinite(g).all())
+            and bool(torch.isfinite(gs).all())):
+        fail(f"{path}: the {ADJ_SENSITIVITY}-step sensitivity is not finite")
+    return {"launches": launches, "flavours": flavours,
+            "grad8_max_abs_err": float(err.max()),
+            "settings8_max_abs_err": serr, "levels": levels, "wall_s": wall}
+
+
+def run_adj_models(gk, ak, errs: dict) -> dict:
+    """Phases 39-43 for the three adjoint models: example/adj_drag.xml
+    whole (39), bench.py's d2q9_adj gradient at 512x1024 (40), each
+    model's 1024x1024 lattice on K4 in f32 and bf16 shifted (41) and the
+    sensitivity of d2q9_optimalMixing's and d2q9_plate's objectives on
+    cuda_adjoint (41b), K5 and its bf16 rung (42: adj_drag's state, or a
+    128x128 lattice), generic2d_step_b and the series flavours on rich
+    states, and d2q9_adj's 1024x1024 lattice under a Velocity series
+    (43).  Returns the launches by kernel and path (and of the step
+    kernels' globals flavour), the lattices phase 7 times and the
+    summary."""
+    launches, glaunches, summary = {}, {}, {}
+    band, res, res_steps, lats_b = {}, {}, {}, {}
+
+    def count(into, key, path, n):
+        if n:
+            into.setdefault(key, {})[path] = into.get(key, {}).get(path,
+                                                                    0) + n
+
+    def record(model, path, run, kernels):
+        for k in kernels:
+            count(launches, f"{k}[{model}]", path, run["launches"][k])
+        # generic2d_step's flavours, or each step kernel's
+        fl = run["flavours"]
+        if "globals" in fl:
+            fl = {"generic2d_step": fl}
+        for k in ("generic2d_step", "generic2d_step_bf16"):
+            count(glaunches, f"{k}[{model}]", path,
+                  fl.get(k, {}).get("globals", 0))
+        summary[path] = {k: v for k, v in run.items()
+                         if k not in ("launches", "flavours", "lattice",
+                                      "grad_fn", "grad_launches",
+                                      "grad_flavours")}
+
+    adjoint = gk.KERNELS + ("generic2d_step_b",)
+    # phase 39: adj_drag.xml unchanged; its Optimize starts from Init
+    start = case_lattice(ADJ_DRAG_XML, torch.float32, DEVICE,
+                         drop=("FDTest", "Optimize", "ThresholdNow",
+                               "Solve"))
+    run = run_design_xml(gk, ak, ADJ_DRAG_XML, "39", start)
+    res["d2q9_adj"] = run["lattice"]
+    solve = int(ET.parse(ADJ_DRAG_XML).getroot().find("Solve")
+                .get("Iterations"))
+    res_steps["d2q9_adj"] = (solve - 1) // 2 * 2
+    record("d2q9_adj", "adj_drag", run, adjoint)
+    # phase 40: bench.py's gradient case
+    bench = adj_bench_lattice()
+    run = run_gradient_channel(gk, ak, bench, "40", from_start=True)
+    lats_b["d2q9_adj"] = bench
+    record("d2q9_adj", "adj_bench", run, gk.KERNELS)
+    record("d2q9_adj", "adj_bench_gradient",
+           {"launches": run["grad_launches"],
+            "flavours": run["grad_flavours"]}, adjoint)
+    grad_fn = run["grad_fn"]
+    # phase 41: the full-width lattices on K4, f32 and bf16 shifted
+    for model in ADJ_MODELS:
+        say(f"phase 41: {model} at {ADJ_N}x{ADJ_N} on K4")
+        what = f"phase 41, {model} {ADJ_N}x{ADJ_N}"
+        lat = adj_lattice(model, (ADJ_N, ADJ_N))
+        eager_warm(lat, 4)
+        check_kernels([(gk, lat, "generic2d_step")], errs, what)
+        check_globals_flavour(gk, (lat,), errs, what)
+        bf = bf16_copy(lat)
+        check_bf16_kernels([(gk, bf, "generic2d_step")], errs, what)
+        band[model], band[f"{model} bf16"] = lat, bf16_copy(lat)
+        for tag, L, eng in (
+                ("", lat, f"cuda_generic_band[{model},fuse=1]"),
+                ("_bf16", bf,
+                 f"cuda_generic_band[{model},fuse=1,bfloat16/shifted]")):
+            path = f"{model}{ADJ_N}{tag}"
+            record(model, path, iterate_window(gk, L, path, eng),
+                   [f"generic2d_step{tag}"])
+        summary[f"{model}{ADJ_N}"]["bf16_over_f32"] = (
+            summary[f"{model}{ADJ_N}_bf16"]["mlups_iterate"]
+            / summary[f"{model}{ADJ_N}"]["mlups_iterate"])
+        if model != "d2q9_adj":
+            lats_b[model] = band[model]
+            path = f"{model}{ADJ_N}_sensitivity"
+            record(model, path, run_sensitivity(gk, ak, band[model], path),
+                   adjoint)
+    # phase 42: K5 and its bf16 rung on each resident path
+    for model in ADJ_MODELS:
+        if model not in res:
+            say(f"phase 42: {model} at {ADJ_SMALL} (K5's path)")
+            res[model] = adj_lattice(model, ADJ_SMALL)
+            res_steps[model] = (ADJ_SMALL_WINDOW - 1) // 2 * 2
+            record(model, f"{model}128", iterate_window(
+                gk, res[model], f"{model}128",
+                f"cuda_generic_resident[{model},fuse=N]", ADJ_SMALL_WINDOW),
+                gk.KERNELS)
+        lat = res[model]
+        resident_chain(gk, lat, 8, errs, f"phase 42, {model}'s resident "
+                       "path")
+        bf = bf16_copy(lat)
+        bf16_chain(gk, bf, 8, errs, f"phase 42, {model} in bf16 shifted")
+        res[f"{model} bf16"] = bf16_copy(lat)
+        path = f"{model}_bf16_resident"
+        record(model, path, iterate_window(
+            gk, bf, f"{path} at {lat.shape}",
+            f"cuda_generic_resident[{model},fuse=N,bfloat16/shifted]",
+            ADJ_SMALL_WINDOW), gk.BF16_KERNELS)
+    # phase 43: K7 and the series flavours on rich states (every node type,
+    # two zones with other zonal values), then d2q9_adj under a series
+    from torch_cases import ADJ_SERIES
+    for model in ADJ_MODELS:
+        rich = [rich_adj_lattice(model, shape) for shape in ((37, 53),
+                                                             (256, 256))]
+        check_step_b(ak, gk, rich, errs, f"phase 43, {model}")
+        setting, values = ADJ_SERIES[model]
+        for lat in rich:
+            lat.set_setting_series(setting, values, zone=0)
+        check_series_flavours(gk, rich, errs, f"phase 43, {model}")
+    say("phase 43: d2q9_adj at 1024x1024 under a <Control> series of "
+        "Velocity")
+    ser = adj_lattice("d2q9_adj", (ADJ_N, ADJ_N))
+    eager_warm(ser, 4)
+    ser.set_setting_series(*ADJ_SERIES["d2q9_adj"], zone=0)
+    check_series_flavours(gk, (ser,), errs, "phase 43, adj1024_series")
+    record("d2q9_adj", "adj1024_series", iterate_window(
+        gk, ser, "adj1024_series", "cuda_generic_band[d2q9_adj,fuse=1]",
+        500), gk.SERIES_KERNELS)
+    res["adj series"] = ser
+    return {"launches": launches, "globals_launches": glaunches,
+            "summary": summary, "band": band, "resident": res,
+            "res_steps": res_steps, "step_b": lats_b, "grad_fn": grad_fn}
+
+
+def time_adj(gk, ak, adj: dict) -> dict:
+    """Phase 7 for the adjoint models: K4 (both flavours) at 1024x1024 in
+    f32 and bf16, K5 on each resident path's state for the steps one of
+    its launches takes there, in f32 and bf16 (the plain version timed
+    once), generic2d_step_b at its gradient path's shape (d2q9_adj's
+    512x1024, the others' 1024x1024) and d2q9_adj's series flavours at
+    1024x1024."""
+    out = {}
+    for model in ADJ_MODELS:
+        for tag, lat in (("", adj["band"][model]),
+                         ("_bf16", adj["band"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_step{tag}[{model}]"
+            for k, fn, g, reps in ((key, gk.step, False, 200),
+                                   (f"{key} globals", gk.step_globals,
+                                    True, 100)):
+                out[k] = time_one(
+                    k, lambda fn=fn: fn(f, flags, ztab, a),
+                    lambda g=g: gk.plain_steps(f, flags, ztab, a, 1,
+                                               with_globals=g),
+                    gk.launch_bytes(lat.model, lat.shape,
+                                    itemsize=2 if tag else 4),
+                    gk.node_step_flops(lat.model, lat.flags_numpy()),
+                    lat.shape, reps, plain_reps=3)
+        steps = adj["res_steps"][model]
+        for tag, lat in (("", adj["resident"][model]),
+                         ("_bf16", adj["resident"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_resident{tag}[{model}]"
+            out[key] = time_one(
+                f"{key} ({steps} steps)",
+                lambda: gk.resident(f, flags, ztab, a, steps),
+                lambda: gk.plain_steps(f, flags, ztab, a, steps),
+                gk.launch_bytes(lat.model, lat.shape,
+                                itemsize=2 if tag else 4),
+                steps * gk.node_step_flops(lat.model, lat.flags_numpy()),
+                lat.shape, 20, plain_reps=1, plain_warm=0)
+            out[key]["steps"] = steps
+        out.update(time_step_b(ak, gk, adj["step_b"][model], plain_reps=3))
+    out.update(time_series_flavours(gk, adj["resident"]["adj series"], 400))
+    return out
+
+
 def main() -> int:
     if not all((ROOT / "tclb_tpu_torch" / "csrc" / src).is_file()
                for src in SOURCES.values()):
@@ -4145,6 +4514,7 @@ def main() -> int:
                         turb=path_turb["lattice"], channel48=channel48)
     one = run_onestage(gk, errs)
     multi = run_multistage(gk, errs)
+    adj = run_adj_models(gk, ak, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -4175,6 +4545,7 @@ def main() -> int:
                            ladder["d3"], HARNESS_RES_STEPS))
     times.update(time_onestage(gk, one))
     times.update(time_multistage(gk, multi))
+    times.update(time_adj(gk, ak, adj))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
     times.update(time_kernels(
@@ -4193,6 +4564,8 @@ def main() -> int:
                             "the 1000-step 512x1024 heat_adj gradient")
     busy_grad3d = device_busy(bench_adj3d.pop("grad_fn"),
                               "the 1000-step 64x128x256 d3q19_adj gradient")
+    busy_adj_grad = device_busy(adj.pop("grad_fn"),
+                                "the 1000-step 512x1024 d2q9_adj gradient")
     cum2d = family["resident_lattice"]["d2q9_cumulant"]
     busy_cum2d = device_busy(lambda: cum2d.iterate(400),
                              "a cumulant2d iterate(400)")
@@ -4269,6 +4642,7 @@ def main() -> int:
         for name in g3.SERIES_KERNELS})
     launches.update(one["launches"])
     launches.update(multi["launches"])
+    launches.update(adj["launches"])
     for name in gk.BF16_KERNELS:
         TPU_KERNELS.setdefault(name, TPU_KERNELS[name[:-len("_bf16")]])
     bf16_sources = {name: SOURCES["generic"] for name in gk.BF16_KERNELS}
@@ -4332,13 +4706,15 @@ def main() -> int:
         res = key.replace("step", "resident")
         if res in by_name:
             by_name[res]["steps"] = times[res]["steps"]
-    for step_b in ("generic2d_step_b[d2q9_heat_adj]",
-                   "generic3d_step_b[d3q19_adj]"):
+    for step_b in ["generic2d_step_b[d2q9_heat_adj]",
+                   "generic3d_step_b[d3q19_adj]"] + [
+            f"generic2d_step_b[{m}]" for m in ADJ_MODELS]:
         by_name[step_b]["settings_max_rel_err"] = \
             errs[f"{step_b} settings"]["max_rel_err"]
     for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"),
                                            (gk, "d2q9_heat"),
-                                           (gk, "d2q9_lee"))
+                                           (gk, "d2q9_lee"),
+                                           (gk, "d2q9_adj"))
                 for k in mod.SERIES_KERNELS[1:]):
         by_name[key]["globals_max_abs_err"] = \
             errs[f"{key} globals"]["max_abs_err"]
@@ -4360,7 +4736,8 @@ def main() -> int:
     # the one-stage and multi-stage models: each kernel's header, the step
     # kernels' globals flavour, K5's steps and its chain, the bf16 values a
     # step off
-    for key in list(one["launches"]) + list(multi["launches"]):
+    for key in list(one["launches"]) + list(multi["launches"]) + list(
+            adj["launches"]):
         model = key.split("[")[1].rstrip("]")
         by_name[key]["header"] = ("tclb_tpu_torch/csrc/"
                                   + gk.DEVICE_MODELS[model].header)
@@ -4377,7 +4754,8 @@ def main() -> int:
             if k in times[key]:
                 by_name[key][k] = times[key][k]
     for key, by_path in list(one["globals_launches"].items()) + list(
-            multi["globals_launches"].items()):
+            multi["globals_launches"].items()) + list(
+            adj["globals_launches"].items()):
         by_name[key]["globals_flavour"] = {
             **{k: times[f"{key} globals"][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4427,6 +4805,8 @@ def main() -> int:
         "onestage_iterate_profile": busy_one,
         "multistage": multi["summary"],
         "multistage_iterate_profile": busy_multi,
+        "adjoint_models": adj["summary"],
+        "adj_bench_gradient1000_profile": busy_adj_grad,
         "d2q9_generic_kernels_off_path": d2q9_generic,
         "karman_control_iterate_profile": busy_control,
         "adj3d_control_iterate_profile": busy_control3d,

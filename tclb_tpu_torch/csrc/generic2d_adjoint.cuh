@@ -40,6 +40,7 @@ constexpr int NS_SETT = model::N_SETTINGS;
 struct NodeB {
   const GenericArgs& a;
   const DeviceStorage<false>& s;
+  const float* ztab;       // [N_ZONAL][zone_max]
   const float* lam_out;    // [N_STORAGE][ny][nx]
   const float* lam_g;      // [N_GLOBALS]
   float* q;                // [N_STORAGE] this node's pulled cotangents
@@ -52,6 +53,9 @@ struct NodeB {
     return s.get(k, y - model::ey(k), x - model::ex(k));
   }
   __device__ float setting(int i) const { return a.setting[i]; }
+  __device__ float zonal(int j) const {
+    return zonal_value<false>(a, ztab, SeriesArgs{}, j, flag);
+  }
   __device__ bool nt_is(int t) const {
     return (flag & a.nt_mask[t]) == a.nt_val[t];
   }
@@ -74,7 +78,7 @@ __global__ void __launch_bounds__(BX * BY)
 generic2d_step_b_kernel(const float* __restrict__ fin,
                         const float* __restrict__ lam_out,
                         const int* __restrict__ flags,
-                        const GenericArgs a,
+                        const float* __restrict__ ztab, const GenericArgs a,
                         const float* __restrict__ lam_g,
                         float* __restrict__ lam_in, double* partials,
                         double* sett_out) {
@@ -93,7 +97,8 @@ generic2d_step_b_kernel(const float* __restrict__ fin,
   float q[model::N_STORAGE];
 
   const DeviceStorage<false> in{fin, a.ny, a.nx};
-  NodeB c{a, in, lam_out, lam_g, q, sacc, y, x, flag, node, out_node};
+  NodeB c{a, in, ztab, lam_out, lam_g, q, sacc, y, x, flag, node,
+          out_node};
   model::stage_b<0>(c);
 #pragma unroll
   for (int k = 0; k < model::N_STORAGE; ++k) qtile[k][ly][lx] = q[k];
@@ -120,18 +125,24 @@ void generic2d_step_b_tile(int* tile_y, int* tile_x) {
   *tile_x = BTX;
 }
 
+// The zonal settings generic2d_step_b reads from its zone table (a
+// library built before the backward read zonal settings exports no such
+// entry, and its generic2d_step_b takes no zone table).
+int generic2d_step_b_zonal() { return model::N_ZONAL; }
+
 // lam_in (n_storage planes), partials (one double per block and setting)
-// and sett_out (n_settings doubles) are written; fin, lam_out, flags and
-// lam_g (n_globals floats) are read.
+// and sett_out (n_settings doubles) are written; fin, lam_out, flags, the
+// zone table ztab (n_zonal x zone_max floats) and lam_g (n_globals floats)
+// are read.
 int generic2d_step_b(const float* fin, const float* lam_out, const int* flags,
-                     const GenericArgs* a, const float* lam_g,
-                     float* lam_in, double* partials, double* sett_out,
-                     int device, void* stream) {
+                     const float* ztab, const GenericArgs* a,
+                     const float* lam_g, float* lam_in, double* partials,
+                     double* sett_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a->nx + BTX - 1) / BTX, (a->ny + BTY - 1) / BTY);
   generic2d_step_b_kernel<<<grid, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      fin, lam_out, flags, *a, lam_g, lam_in, partials, sett_out);
+      fin, lam_out, flags, ztab, *a, lam_g, lam_in, partials, sett_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,12 @@
-// d2q9 building blocks of the one-stage device headers (d2q9_heat.cuh and
-// its conjugate and hb builds, sw.cuh, d2q9_solid.cuh, d2q9_npe_guo.cuh):
-// the velocity set, weights, bounce-back pairs and MRT basis of
+// d2q9 building blocks of the 2D device headers (d2q9_heat.cuh and its
+// conjugate and hb builds, sw.cuh, d2q9_solid.cuh, d2q9_npe_guo.cuh, the
+// multi-stage headers and the adjoint ones, d2q9_heat_adj.cuh,
+// d2q9_adj.cuh, d2q9_optimal_mixing.cuh and d2q9_plate.cuh): the velocity
+// set, weights, bounce-back pairs and MRT basis of
 // tclb_tpu_torch/models/d2q9.py, and the arithmetic the PyTorch models
 // share, each written op for op in the order of its PyTorch counterpart.
+// The reverse of a piece (the adjoint headers' stage_b) is named after it
+// with _b: the exact derivative of its arithmetic, in another order.
 //
 // The conventions of every header built on this file:
 //   * a population sum runs in plane order (ops/lbm.py:edot, the models'
@@ -138,6 +142,147 @@ __device__ __forceinline__ void zou_he_x(float* f, float v) {
     const float f6 = f[8] - (float)(1.0 / 6.0) * ru + 0.5f * (f[4] - f[2]);
     f[7] = f7;
     f[6] = f6;
+  }
+}
+
+// reverse of equilibrium: adds the cotangents of rho, ux and uy given
+// those of the nine outputs
+__device__ __forceinline__ void equilibrium_b(float rho, float ux, float uy,
+                                              const float* a, float& arho,
+                                              float& aux, float& auy) {
+  const float usq = ux * ux + uy * uy;
+  float ausq = 0.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float w = (float)wd(k);
+    if (k == 0) {
+      arho += a[k] * w * (1.f - 1.5f * usq);
+      ausq -= 1.5f * a[k] * w * rho;
+      continue;
+    }
+    const float eu = edot(k, ux, uy);
+    const float ac = a[k] * w * rho;
+    arho += a[k] * w * (1.f + 3.f * eu + 4.5f * eu * eu - 1.5f * usq);
+    ausq -= 1.5f * ac;
+    const float aeu = ac * (3.f + 9.f * eu);
+    aux += vx(k) * aeu;
+    auy += vy(k) * aeu;
+  }
+  aux += 2.f * ux * ausq;
+  auy += 2.f * uy * ausq;
+}
+
+// reverse of zou_he_x: q (the cotangents of the face's input populations
+// f) from a (those of its outputs), and the cotangent of the face's value
+// v in `av`
+template <bool west, bool velocity>
+__device__ __forceinline__ void zou_he_x_b(const float* f, float v,
+                                           const float* a, float* q,
+                                           float& av) {
+  const float n = (f[0] + f[2] + f[4])
+                  + 2.f * (west ? f[3] + f[7] + f[6] : f[1] + f[5] + f[8]);
+  // the rebuilt populations' cotangent by ru = rho ux
+  const float aru =
+      west ? (float)(2.0 / 3.0) * a[1] + (float)(1.0 / 6.0) * (a[5] + a[8])
+           : -(float)(2.0 / 3.0) * a[3] - (float)(1.0 / 6.0) * (a[7] + a[6]);
+  float an;                 // the cotangent of n
+  if (velocity) {           // rho = n / d, d = 1 -+ v
+    const float d = west ? 1.f - v : 1.f + v;
+    const float rho = n / d;
+    const float arh = aru * v;
+    av = west ? aru * rho + arh * n / (d * d)
+              : aru * rho - arh * n / (d * d);
+    an = arh / d;
+  } else {                  // ux = +-(1 - n / v)
+    const float ux = west ? 1.f - n / v : -1.f + n / v;
+    const float aun = aru * v;
+    av = west ? aru * ux + aun * n / (v * v) : aru * ux - aun * n / (v * v);
+    an = west ? -aun / v : aun / v;
+  }
+  if (west) {
+    q[0] = a[0] + an;
+    q[1] = 0.f;
+    q[2] = a[2] + an + 0.5f * (a[8] - a[5]);
+    q[3] = a[3] + a[1] + 2.f * an;
+    q[4] = a[4] + an + 0.5f * (a[5] - a[8]);
+    q[5] = 0.f;
+    q[6] = a[6] + a[8] + 2.f * an;
+    q[7] = a[7] + a[5] + 2.f * an;
+    q[8] = 0.f;
+  } else {
+    q[0] = a[0] + an;
+    q[1] = a[1] + a[3] + 2.f * an;
+    q[2] = a[2] + an + 0.5f * (a[7] - a[6]);
+    q[3] = 0.f;
+    q[4] = a[4] + an + 0.5f * (a[6] - a[7]);
+    q[5] = a[5] + a[7] + 2.f * an;
+    q[6] = 0.f;
+    q[7] = 0.f;
+    q[8] = a[8] + a[6] + 2.f * an;
+  }
+}
+
+// ops/lbm.py:nebb_boundary on an x face: `side` +1 the W face (the fluid
+// toward +x), -1 the E face; `velocity` given the normal velocity `v`,
+// else given the density `v`
+template <int side, bool velocity>
+__device__ __forceinline__ void nebb_x(float* f, float v) {
+  const float s_t = f[0] + f[2] + f[4];
+  const float s_o = side > 0 ? f[3] + f[6] + f[7] : f[1] + f[5] + f[8];
+  float rho, un;
+  if (velocity) {
+    un = v;
+    rho = (s_t + 2.f * s_o) / (1.f - (side > 0 ? un : -un));
+  } else {
+    rho = v;
+    const float t = 1.f - (s_t + 2.f * s_o) / rho;
+    un = side > 0 ? t : -t;
+  }
+  const float j_t = -3.f * (f[2] - f[4]);     // the tangential momentum
+  float out[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    out[k] = f[k];
+    if (vx(k) != side) continue;
+    float corr = (float)(6.0 * wd(k) * vx(k)) * rho * un;
+    if (vy(k)) corr = corr + (float)(6.0 * wd(k) * vy(k)) * j_t;
+    out[k] = f[opp(k)] + corr;
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = out[k];
+}
+
+// reverse of nebb_x at a fixed `v` (the face is linear in f there): q from
+// a, as zou_he_x_b's; the value's cotangent is not formed (every model on
+// this face reads it from a zonal setting)
+template <int side, bool velocity>
+__device__ __forceinline__ void nebb_x_b(float v, const float* a, float* q) {
+  float acn = 0.f, ajt = 0.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    q[k] = vx(k) == side ? 0.f : a[k];
+    if (vx(k) != side) continue;
+    acn += (float)(6.0 * wd(k) * vx(k)) * a[k];
+    if (vy(k)) ajt += (float)(6.0 * wd(k) * vy(k)) * a[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    if (vx(k) == side) q[opp(k)] += a[k];
+  // j_t = -3 (f2 - f4)
+  q[2] += -3.f * ajt;
+  q[4] += 3.f * ajt;
+  // corr_k = c_k rho un, S = s_t + 2 s_o
+  float as;
+  if (velocity) {           // rho = S / (1 - side un)
+    as = acn * v / (1.f - (side > 0 ? v : -v));
+  } else {                  // un = side (1 - S / rho)
+    const float aun = acn * v;
+    as = (side > 0 ? -aun : aun) / v;
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (vx(k) == 0) q[k] += as;
+    else if (vx(k) == -side) q[k] += 2.f * as;
   }
 }
 

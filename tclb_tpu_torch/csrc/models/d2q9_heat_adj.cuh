@@ -35,6 +35,8 @@
 
 #pragma once
 
+#include "d2q9_common.cuh"
+
 // generic2d.cu builds generic2d_step_b for this model
 #define TCLB_MODEL_ADJOINT 1
 
@@ -73,88 +75,15 @@ enum Zonal { Z_Porocity, N_ZONAL };
 enum Global { GL_HeatFlux, GL_HeatSourceTotal, GL_Material, GL_Drag,
               N_GLOBALS };
 
-// lattice weights and bounce-back pairs (models/d2q9.py)
-__host__ __device__ constexpr double wd(int k) {
-  constexpr double t[9] = {4.0 / 9, 1.0 / 9, 1.0 / 9, 1.0 / 9, 1.0 / 9,
-                           1.0 / 36, 1.0 / 36, 1.0 / 36, 1.0 / 36};
-  return t[k];
-}
-__host__ __device__ constexpr int opp(int k) {
-  constexpr int t[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-  return t[k];
-}
-
-// sum_k coef(k) x[k] over the nonzero coefficients of the first nine
-// planes, in order (ops/lbm.py:edot); +-1 is an add or a subtract
-template <class Coef>
-__device__ __forceinline__ float combo(Coef coef, const float* x) {
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const float c = coef(k);
-    if (c == 0.f) continue;
-    const float t = (c == 1.f) ? x[k] : (c == -1.f ? -x[k] : c * x[k]);
-    acc = first ? t : acc + t;
-    first = false;
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float sum9(const float* x) {
-  return combo([](int) { return 1.f; }, x);
-}
-
-// e_k . (ux, uy) with the zero components skipped (ops/lbm.py:edot)
-__device__ __forceinline__ float edot(int k, float ux, float uy) {
-  if (ex(k) == 0) return ey(k) > 0 ? uy : -uy;
-  if (ey(k) == 0) return ex(k) > 0 ? ux : -ux;
-  return (ex(k) > 0 ? ux : -ux) + (ey(k) > 0 ? uy : -uy);
-}
-
-// ops/lbm.py:equilibrium for d2q9, with PyTorch's divisions by the
-// constants 1/3, 2/9 and 2/3 as multiplies by 3, 4.5 and 1.5
-__device__ __forceinline__ void equilibrium(float rho, float ux, float uy,
-                                            float* feq) {
-  const float usq = ux * ux + uy * uy;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const float wr = (float)wd(k) * rho;
-    if (k == 0) {
-      feq[k] = wr * (1.f - usq * 1.5f);
-      continue;
-    }
-    const float eu = edot(k, ux, uy);
-    feq[k] = wr * (1.f + eu * 3.f + eu * eu * 4.5f - usq * 1.5f);
-  }
-}
-
-// reverse of equilibrium: adds the cotangents of rho, ux and uy given
-// those of the nine outputs
-__device__ __forceinline__ void equilibrium_b(float rho, float ux, float uy,
-                                              const float* a, float& arho,
-                                              float& aux, float& auy) {
-  const float usq = ux * ux + uy * uy;
-  float ausq = 0.f;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const float w = (float)wd(k);
-    if (k == 0) {
-      arho += a[k] * w * (1.f - 1.5f * usq);
-      ausq -= 1.5f * a[k] * w * rho;
-      continue;
-    }
-    const float eu = edot(k, ux, uy);
-    const float ac = a[k] * w * rho;
-    arho += a[k] * w * (1.f + 3.f * eu + 4.5f * eu * eu - 1.5f * usq);
-    ausq -= 1.5f * ac;
-    const float aeu = ac * (3.f + 9.f * eu);
-    aux += ex(k) * aeu;
-    auy += ey(k) * aeu;
-  }
-  aux += 2.f * ux * ausq;
-  auy += 2.f * uy * ausq;
-}
+// the d2q9 pieces of csrc/models/d2q9_common.cuh (the first nine planes
+// of both groups run over the same velocity set)
+using d2q9::combo;
+using d2q9::edot;
+using d2q9::equilibrium;
+using d2q9::equilibrium_b;
+using d2q9::opp;
+using d2q9::sum9;
+using d2q9::wd;
 
 // temperature equilibrium (models/d2q9_heat.py:_t_eq): w_0 T at rest,
 // w_k T (1 + 3 e_k.u) else
@@ -164,32 +93,6 @@ __device__ __forceinline__ void t_equilibrium(float T, float ux, float uy,
 #pragma unroll
   for (int k = 1; k < 9; ++k)
     teq[k] = (float)wd(k) * T * (1.f + 3.f * edot(k, ux, uy));
-}
-
-// Zou/He boundaries (models/d2q9.py:_zou_he_x): a W face given the
-// velocity, an E face given the density
-__device__ __forceinline__ void zou_he_w_velocity(float* f, float vel) {
-  const float tang = f[0] + f[2] + f[4];
-  const float known = f[3] + f[7] + f[6];
-  const float rho = (tang + 2.f * known) / (1.f - vel);
-  const float ru = rho * vel;
-  f[1] = f[3] + (float)(2.0 / 3.0) * ru;
-  const float f5 = f[7] + (float)(1.0 / 6.0) * ru + 0.5f * (f[4] - f[2]);
-  const float f8 = f[6] + (float)(1.0 / 6.0) * ru + 0.5f * (f[2] - f[4]);
-  f[5] = f5;
-  f[8] = f8;
-}
-
-__device__ __forceinline__ void zou_he_e_pressure(float* f, float den) {
-  const float tang = f[0] + f[2] + f[4];
-  const float known = f[1] + f[5] + f[8];
-  const float ux = -1.f + (tang + 2.f * known) / den;
-  const float ru = den * ux;
-  f[3] = f[1] - (float)(2.0 / 3.0) * ru;
-  const float f7 = f[5] - (float)(1.0 / 6.0) * ru + 0.5f * (f[2] - f[4]);
-  const float f6 = f[8] - (float)(1.0 / 6.0) * ru + 0.5f * (f[4] - f[2]);
-  f[7] = f7;
-  f[6] = f6;
 }
 
 // The forward of one node up to the collision, shared by stage<0> and its
@@ -222,12 +125,12 @@ struct Forward {
         tb[k] = t[opp(k)];
       }
     } else if (wvel) {
-      zou_he_w_velocity(fb, c.setting(S_InletVelocity));
+      d2q9::zou_he_x<true, true>(fb, c.setting(S_InletVelocity));
       const float tin = c.setting(S_InletTemperature);
 #pragma unroll
       for (int k = 0; k < 9; ++k) tb[k] = (float)wd(k) * tin;
     } else if (epres) {
-      zou_he_e_pressure(fb, c.setting(S_InletDensity));
+      d2q9::zou_he_x<false, false>(fb, c.setting(S_InletDensity));
     }
     rho = sum9(fb);
     ux = combo([](int k) { return (float)ex(k); }, fb) / rho;
@@ -365,48 +268,17 @@ __device__ __forceinline__ void run_b(Ctx& c) {
       qt[k] = 0.f;
     }
     c.add_setting(S_InletTemperature, atin);
-    // rho = N / (1 - vel), ru = rho vel; f1, f5, f8 rebuilt
-    const float vel = c.setting(S_InletVelocity);
-    const float* f = s.f;
-    const float n = (f[0] + f[2] + f[4]) + 2.f * (f[3] + f[7] + f[6]);
-    const float d = 1.f - vel;
-    const float rho = n / d;
-    const float aru = (float)(2.0 / 3.0) * afb[1]
-                      + (float)(1.0 / 6.0) * (afb[5] + afb[8]);
-    const float arh = aru * vel;
-    c.add_setting(S_InletVelocity, aru * rho + arh * n / (d * d));
-    const float an = arh / d;
-    qf[0] = afb[0] + an;
-    qf[1] = 0.f;
-    qf[2] = afb[2] + an + 0.5f * (afb[8] - afb[5]);
-    qf[3] = afb[3] + afb[1] + 2.f * an;
-    qf[4] = afb[4] + an + 0.5f * (afb[5] - afb[8]);
-    qf[5] = 0.f;
-    qf[6] = afb[6] + afb[8] + 2.f * an;
-    qf[7] = afb[7] + afb[5] + 2.f * an;
-    qf[8] = 0.f;
+    float av;
+    d2q9::zou_he_x_b<true, true>(s.f, c.setting(S_InletVelocity), afb, qf,
+                                 av);
+    c.add_setting(S_InletVelocity, av);
   } else if (s.epres) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) qt[k] = atb[k];
-    // ux = -1 + N / den, ru = den ux; f3, f7, f6 rebuilt
-    const float den = c.setting(S_InletDensity);
-    const float* f = s.f;
-    const float n = (f[0] + f[2] + f[4]) + 2.f * (f[1] + f[5] + f[8]);
-    const float ux = -1.f + n / den;
-    const float aru = -(float)(2.0 / 3.0) * afb[3]
-                      - (float)(1.0 / 6.0) * (afb[7] + afb[6]);
-    const float aun = aru * den;
-    c.add_setting(S_InletDensity, aru * ux - aun * n / (den * den));
-    const float an = aun / den;
-    qf[0] = afb[0] + an;
-    qf[1] = afb[1] + afb[3] + 2.f * an;
-    qf[2] = afb[2] + an + 0.5f * (afb[7] - afb[6]);
-    qf[3] = 0.f;
-    qf[4] = afb[4] + an + 0.5f * (afb[6] - afb[7]);
-    qf[5] = afb[5] + afb[7] + 2.f * an;
-    qf[6] = 0.f;
-    qf[7] = 0.f;
-    qf[8] = afb[8] + afb[6] + 2.f * an;
+    float av;
+    d2q9::zou_he_x_b<false, false>(s.f, c.setting(S_InletDensity), afb, qf,
+                                   av);
+    c.add_setting(S_InletDensity, av);
   } else {
 #pragma unroll
     for (int k = 0; k < 9; ++k) {

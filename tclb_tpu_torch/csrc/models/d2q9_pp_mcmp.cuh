@@ -75,46 +75,15 @@ enum Global {
   GL_InletFlux, N_GLOBALS
 };
 
-// ops/lbm.py:nebb_boundary on an x face of the d2q9 set: `side` +1 the W
-// face (the fluid toward +x), -1 the E face; `velocity` given the normal
-// velocity `v`, else given the density `v`
-template <int side, bool velocity>
-__device__ __forceinline__ void nebb_x(float* f, float v) {
-  const float s_t = f[0] + f[2] + f[4];
-  const float s_o = side > 0 ? f[3] + f[6] + f[7] : f[1] + f[5] + f[8];
-  float rho, un;
-  if (velocity) {
-    un = v;
-    rho = (s_t + 2.f * s_o) / (1.f - (side > 0 ? un : -un));
-  } else {
-    rho = v;
-    const float t = 1.f - (s_t + 2.f * s_o) / rho;
-    un = side > 0 ? t : -t;
-  }
-  const float j_t = -3.f * (f[2] - f[4]);     // the tangential momentum
-  float out[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    out[k] = f[k];
-    if (d2q9::vx(k) != side) continue;
-    float corr = (float)(6.0 * d2q9::wd(k) * d2q9::vx(k)) * rho * un;
-    if (d2q9::vy(k))
-      corr = corr + (float)(6.0 * d2q9::wd(k) * d2q9::vy(k)) * j_t;
-    out[k] = f[d2q9::opp(k)] + corr;
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) f[k] = out[k];
-}
-
 // both components' Zou/He on a face (rho = 3 P + 1 at a pressure face)
 template <int side, bool velocity, class Ctx>
 __device__ __forceinline__ void zou_he(const Ctx& c, float* f, float* g) {
   if (velocity) {
-    nebb_x<side, true>(f, c.zonal(Z_Velocity_f));
-    nebb_x<side, true>(g, c.zonal(Z_Velocity_g));
+    d2q9::nebb_x<side, true>(f, c.zonal(Z_Velocity_f));
+    d2q9::nebb_x<side, true>(g, c.zonal(Z_Velocity_g));
   } else {
-    nebb_x<side, false>(f, 3.f * c.zonal(Z_Pressure_f) + 1.f);
-    nebb_x<side, false>(g, 3.f * c.zonal(Z_Pressure_g) + 1.f);
+    d2q9::nebb_x<side, false>(f, 3.f * c.zonal(Z_Pressure_f) + 1.f);
+    d2q9::nebb_x<side, false>(g, 3.f * c.zonal(Z_Pressure_g) + 1.f);
   }
 }
 

@@ -6,9 +6,10 @@ family (``d2q9_SRT``, ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``,
 one-stage 2D models (``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
 ``sw``, ``d2q9_solid``, ``d2q9_npe_guo``), the multi-stage 2D models
 (``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee``,
-``d2q9_poison_boltzmann``), ``d2q9_heat_adj`` and ``d3q19_adj``; the other
-models of the JAX package follow ROADMAP queue 1
-items 10 and 11."""
+``d2q9_poison_boltzmann``), the adjoint models ``d2q9_heat_adj``,
+``d2q9_adj``, ``d2q9_optimalMixing``, ``d2q9_plate`` and ``d3q19_adj``;
+the other models of the JAX package follow ROADMAP queue 1 items 10 and
+11."""
 
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ _REGISTRY: dict[str, str] = {
     "d2q9_heat_conjugate": "tclb_tpu_torch.models.d2q9_heat_conjugate",
     "d2q9_hb": "tclb_tpu_torch.models.d2q9_hb",
     "d2q9_heat_adj": "tclb_tpu_torch.models.d2q9_heat_adj",
+    "d2q9_adj": "tclb_tpu_torch.models.d2q9_adj",
+    "d2q9_optimalMixing": "tclb_tpu_torch.models.d2q9_optimal_mixing",
+    "d2q9_plate": "tclb_tpu_torch.models.d2q9_plate",
     "sw": "tclb_tpu_torch.models.sw",
     "d2q9_solid": "tclb_tpu_torch.models.d2q9_solid",
     "d2q9_npe_guo": "tclb_tpu_torch.models.d2q9_npe_guo",

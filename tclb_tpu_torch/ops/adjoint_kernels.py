@@ -5,9 +5,11 @@ take.
 ``step_b`` (kernel ``generic2d_step_b``, ``csrc/generic2d_adjoint.cuh``)
 replaces the JAX package's fused backward band kernel
 (``tclb_tpu/ops/pallas_adjoint.py:make_diff_step``, ``call_bwd``) at chunk
-k = 1: given one Iteration's primal input, the cotangent of its output
-fields and of its SUM globals, it returns the cotangent of the input
-fields and of the settings vector.  The reverse physics is the model's
+k = 1: given one Iteration's primal input, the zone table of its zonal
+settings, the cotangent of its output fields and of its SUM globals, it
+returns the cotangent of the input fields and of the settings vector
+(zonal settings take none, as in the reference outside its series
+flavour).  The reverse physics is the model's
 hand-written ``stage_b<0>`` in its device header (the counterpart of
 TCLB's Tapenade-generated ``Run_b``); models with one (``DeviceModel.
 adjoint``) build it into their generic library.  Bound by bytes: the
@@ -90,17 +92,21 @@ def launch_bytes_b(model: Model, shape) -> int:
 def node_step_b_flops(model: Model, flags: np.ndarray) -> int:
     """Floating-point operations of one Iteration's reverse over a flag
     field: the forward it recomputes (``node_step_flops``) and the
-    reverse of d2q9_heat_adj's stage, counted by hand from
-    ``run_b`` in csrc/models/d2q9_heat_adj.cuh.  A collision node: the
-    two collisions' cotangents (9 x 14), the temperature equilibrium's
-    (8 x 7 + 1), two reverse equilibria (2 x 110), the settings (12);
-    every node: the Brinkman velocity, the divisions by rho and the sums
-    (9 x 6 + 14); a WVelocity node its closure and inlet temperature (40),
-    an EPressure node its closure (30).  d3q19_adj: ``_d3q19_adj_b_flops``."""
-    if model.name == "d3q19_adj":
-        return _d3q19_adj_b_flops(model, flags)
-    if model.name != "d2q9_heat_adj":
+    reverse stage, counted by hand from the header's ``run_b`` (one
+    function a model, ``_REVERSE_FLOPS``)."""
+    if model.name not in _REVERSE_FLOPS:
         raise ValueError(f"no reverse flop count for {model.name}")
+    return _REVERSE_FLOPS[model.name](model, flags)
+
+
+def _heat_adj_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_heat_adj's reverse (``run_b`` in
+    csrc/models/d2q9_heat_adj.cuh) on top of the forward: a collision node
+    the two collisions' cotangents (9 x 14), the temperature
+    equilibrium's (8 x 7 + 1), two reverse equilibria (2 x 110), the
+    settings (12); every node: the Brinkman velocity, the divisions by rho
+    and the sums (9 x 6 + 14); a WVelocity node its closure and inlet
+    temperature (40), an EPressure node its closure (30)."""
     coll = gk.count_group(model, flags, "COLLISION")
     return (gk.node_step_flops(model, flags)
             + (126 + 57 + 220 + 12) * coll
@@ -132,6 +138,60 @@ def _d3q19_adj_b_flops(model: Model, flags: np.ndarray) -> int:
             + (13 + 57) * int(np.asarray(flags).size) + 40 * faces
             + 40 * objective
             + 4 * gk.count_group(model, flags, "DESIGNSPACE"))
+
+
+def _adj_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_adj's reverse, counted by hand from ``run_b`` in
+    csrc/models/d2q9_adj.cuh, on top of the forward it recomputes: an MRT
+    node the transposes of the inverse basis and of ``M`` over their
+    nonzeros, omega's and the kept rows' cotangents (6) and the kept rows'
+    transpose, -afb (9), two reverse equilibria (2 x 110), the Brinkman
+    velocity, Drag, Lift and nw (16) and the settings (4); an MRT, Inlet or
+    Outlet node u = j / rho and the populations (9 x 6 + 14); an Inlet or
+    Outlet node the flux objectives (20); a Zou/He face its transpose
+    (30); a DesignSpace node the material cotangents (4)."""
+    kept, fwd, back = gk._mrt_kept_flops()
+    mrt = gk.count_types(model, flags, "MRT")
+    objective = gk.count_types(model, flags, "Inlet", "Outlet")
+    return (gk.node_step_flops(model, flags)
+            + (back + fwd + 6 + kept + 9 + 220 + 16 + 4) * mrt
+            + 68 * (mrt + objective) + 20 * objective
+            + 30 * gk._faces(model, flags)
+            + 4 * gk.count_group(model, flags, "DESIGNSPACE"))
+
+
+def _mixing_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_optimalMixing's reverse (``run_b`` in
+    csrc/models/d2q9_optimal_mixing.cuh) on top of the forward: a collision
+    node the flow's relaxation (9 x 5) and the scalar's with its
+    equilibrium (5 x 9), the squared temperature (2), a reverse equilibrium
+    (110), u = j / rho and the populations (68) and the temperature's sum
+    (5); a MovingWall node NMovingWallForce's cotangent (3 + 9)."""
+    return (gk.node_step_flops(model, flags)
+            + (45 + 45 + 2 + 110 + 68 + 5)
+            * gk.count_group(model, flags, "COLLISION")
+            + 12 * gk.count_types(model, flags, "MovingWall"))
+
+
+def _plate_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_plate's reverse (``run_b`` in csrc/models/d2q9_plate.cuh) on
+    top of the forward: a collision node the relaxation (9 x 5), the rate's
+    chain and its settings (25), the stress norm's (35), two reverse
+    equilibria (2 x 110) and u = j / rho with the populations (68); an
+    Inlet or Outlet collision node the flux objectives (20); a Wall node
+    the reaction globals (4 + 9 x 4); a face its transpose (40)."""
+    coll = gk.count_group(model, flags, "COLLISION")
+    return (gk.node_step_flops(model, flags)
+            + (45 + 25 + 35 + 220 + 68) * coll
+            + 20 * gk.count_types(model, flags, "Inlet", "Outlet")
+            + 40 * gk.count_types(model, flags, "Wall")
+            + 40 * gk._faces(model, flags))
+
+
+_REVERSE_FLOPS = {"d2q9_heat_adj": _heat_adj_b_flops,
+                  "d3q19_adj": _d3q19_adj_b_flops, "d2q9_adj": _adj_b_flops,
+                  "d2q9_optimalMixing": _mixing_b_flops,
+                  "d2q9_plate": _plate_b_flops}
 
 
 # --------------------------------------------------------------------------- #
@@ -200,8 +260,9 @@ def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
     sett = torch.empty((n_sett,), dtype=torch.float64, device=fields.device)
     rc = lb.generic2d_step_b(
         fields.data_ptr(), lam_out.data_ptr(), flags.data_ptr(),
-        ctypes.byref(a.c_struct), lam_g.data_ptr(), lam_in.data_ptr(),
-        partials.data_ptr(), sett.data_ptr(), dev, stream)
+        ztab.data_ptr(), ctypes.byref(a.c_struct), lam_g.data_ptr(),
+        lam_in.data_ptr(), partials.data_ptr(), sett.data_ptr(), dev,
+        stream)
     gk.check(lb, rc, "generic2d_step_b")
     LAUNCHES["generic2d_step_b"] += 1
     return lam_in, sett

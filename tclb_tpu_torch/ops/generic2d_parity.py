@@ -18,10 +18,10 @@ same.  A change to the model-independent templates (``generic2d.cu``,
 ``generic_common.cuh``, ``storage.cuh``, ``generic2d_adjoint.cuh``) is
 held this way against the parent's builds.
 
-A copy of ``csrc/`` from before the multi-pass plans (no
-``generic2d_plan`` export: its step and resident entries take no scratch
-stack) is bound through :class:`OneLaunchAbi`, which drops the scratch
-argument the wrappers pass.
+A copy of ``csrc/`` from before the backward read zonal settings (no
+``generic2d_step_b_zonal`` export: its ``generic2d_step_b`` takes no zone
+table) is bound through :class:`NoZoneTableStepB`, which drops the zone
+table the wrapper passes.
 """
 
 from __future__ import annotations
@@ -44,12 +44,13 @@ SHAPES = ((37, 53), (256, 256))
 
 
 def paint(model, shape, seed: int = 5, device: str = "cuda",
-          settings=None):
+          settings=None, zone1=None):
     """A lattice (on the card) with every node type ``model``'s header reads:
     the collision type inside, each boundary type in a column of its own,
     each other type in a patch (set within its group's bits, so a second
-    collision type replaces the first), zone 1 on the lower half; Init
-    with ``settings``, then 1% noise on every plane."""
+    collision type replaces the first), zone 1 on the lower half with the
+    zonal values ``zone1`` (setting name -> value); Init with ``settings``,
+    then 1% noise on every plane."""
     from tclb_tpu_torch import Lattice
     ny, nx = shape
     nt = model.node_types
@@ -70,6 +71,8 @@ def paint(model, shape, seed: int = 5, device: str = "cuda",
     lat = Lattice(model, shape, dtype=torch.float32, device=device,
                   settings=settings or {})
     lat.set_flags(flags)
+    for name, value in (zone1 or {}).items():
+        lat.set_setting(name, value, zone=1)
     lat.init()
     rng = np.random.default_rng(seed)
     f = lat.state.fields.cpu().numpy()
@@ -105,72 +108,35 @@ def run(lat) -> dict:
             for k, v in out.items()}
 
 
-class OneLaunchAbi:
-    """A library built from a ``csrc/`` that predates the scratch stack
-    (every plan one launch a step): its ``generic2d_step``,
-    ``generic2d_step_bf16``, ``generic2d_step_series`` and
-    ``generic2d_resident`` take the wrappers' arguments without ``mid``,
-    which is dropped here; every other entry is the library's own."""
+class NoZoneTableStepB:
+    """A library whose ``generic2d_step_b`` predates the zone table (no
+    ``generic2d_step_b_zonal`` export): that entry takes the wrapper's
+    arguments without ``ztab``, which is dropped here; every other entry
+    is the library's own."""
 
     def __init__(self, lib: ctypes.CDLL, model: str):
-        self._lib, self._model = lib, model
+        self._lib = lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        argp = ctypes.POINTER(gk.c_args_type(model))
-        fp = ctypes.POINTER(ctypes.c_float)
-        for name, args in (
-                ("generic2d_step", [p, p, p, p, argp, p, p, i, p]),
-                ("generic2d_step_bf16", [p, p, p, p, argp, fp, p, p, i, p]),
-                ("generic2d_step_series", [p, p, p, p, argp, p, p, i, i, p,
-                                           p, i, p]),
-                ("generic2d_resident", [p, p, p, p, p, argp, i, i, i, p])):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, i
+        lib.generic2d_step_b.argtypes = [
+            p, p, p, ctypes.POINTER(gk.c_args_type(model)), p, p, p, p, i, p]
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name in ("generic2d_step", "generic2d_step_bf16",
-                    "generic2d_step_series"):
-            return lambda fin, fout, mid, *rest: fn(fin, fout, *rest)
-        if name == "generic2d_resident":
-            return lambda fin, fout, scratch, mid, *rest: fn(
-                fin, fout, scratch, *rest)
+        if name == "generic2d_step_b":
+            return lambda fin, lam, flags, ztab, *rest: fn(fin, lam, flags,
+                                                           *rest)
         return fn
 
 
-def _entry(model: str, path: pathlib.Path) -> dict:
-    """``gk._LIB[model]`` for the library at ``path``: bound by ``gk.lib``,
-    or through :class:`OneLaunchAbi` for a library without
-    ``generic2d_plan``."""
-    if hasattr(ctypes.CDLL(str(path)), "generic2d_plan"):
-        gk.lib(model)
-        return dict(gk._LIB[model])
-    lib = ctypes.CDLL(str(path))
-    i = ctypes.c_int
-    lib.generic2d_layout.argtypes = [ctypes.POINTER(i)] * 8
-    lib.generic2d_layout.restype = None
-    lib.generic2d_resident_capacity.argtypes = [i, i, ctypes.POINTER(i),
-                                                ctypes.POINTER(i)]
-    lib.generic2d_resident_capacity.restype = i
-    lib.generic2d_resident_bf16.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.POINTER(gk.c_args_type(model)),
-        ctypes.POINTER(ctypes.c_float), i, i, i, ctypes.c_void_p]
-    lib.generic2d_resident_bf16.restype = i
-    lib.generic_error_string.argtypes = [i]
-    lib.generic_error_string.restype = ctypes.c_char_p
-    vals = [i(0) for _ in range(8)]
-    lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
-    entry = {"lib": OneLaunchAbi(lib, model),
-             "tile": (vals[0].value, vals[1].value), "passes": 1}
-    if gk.DEVICE_MODELS[model].adjoint:
-        p, ip = ctypes.c_void_p, ctypes.POINTER(i)
-        lib.generic2d_step_b.argtypes = [
-            p, p, p, ctypes.POINTER(gk.c_args_type(model)), p, p, p, p, i, p]
-        lib.generic2d_step_b.restype = i
-        lib.generic2d_step_b_tile.argtypes = [ip, ip]
-        lib.generic2d_step_b_tile.restype = None
-        by, bx = i(0), i(0)
-        lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
-        entry["tile_b"] = (by.value, bx.value)
+def _entry(model: str) -> dict:
+    """``gk._LIB[model]`` for the library ``gk.lib`` builds, its
+    ``generic2d_step_b`` bound through :class:`NoZoneTableStepB` where the
+    library has no ``generic2d_step_b_zonal``."""
+    gk.lib(model)
+    entry = dict(gk._LIB[model])
+    if "tile_b" in entry and not hasattr(entry["lib"],
+                                         "generic2d_step_b_zonal"):
+        entry["lib"] = NoZoneTableStepB(entry["lib"], model)
     return entry
 
 
@@ -184,7 +150,7 @@ def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
         built = list(pool.map(gk.build, models))
     out = {}
     for m, (path, report) in zip(models, built):
-        out[m] = _entry(m, path)
+        out[m] = _entry(m)
         print(f"{m} ({path.name} from {csrc}):")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:

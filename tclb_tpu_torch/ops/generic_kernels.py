@@ -8,11 +8,13 @@ one ``__device__`` function per stage in ``csrc/models/<model>.cuh``,
 compiled into the model-independent template ``csrc/generic2d.cu``
 (streaming, the stage plan, node types, zonal settings, globals), built
 once per model into a library of its own.  ``DEVICE_MODELS`` lists the
-models that have such a header (``d2q9``, ``d2q9_kuper``, ``d2q9_heat_adj``,
-the one-stage 2D models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
-``sw``, ``d2q9_solid`` and ``d2q9_npe_guo``, the multi-stage 2D models
+models that have such a header (``d2q9``, ``d2q9_kuper``, the one-stage 2D
+models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``, ``sw``,
+``d2q9_solid`` and ``d2q9_npe_guo``, the multi-stage 2D models
 ``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee`` and
-``d2q9_poison_boltzmann``, and the 3D ``d3q19_adj``, whose kernels
+``d2q9_poison_boltzmann``, the 2D adjoint models ``d2q9_heat_adj``,
+``d2q9_adj``, ``d2q9_optimalMixing`` and ``d2q9_plate``, and the 3D
+``d3q19_adj``, whose kernels
 ``ops/generic3d_kernels.py`` binds) with the registry layout the header
 indexes by position.  ``d2q9`` takes
 these kernels under a ``<Control>`` series only; without one its own
@@ -303,6 +305,50 @@ DEVICE_MODELS = {
         node_types=("Wall", "Solid"), groups=("COLLISION",),
         zonal=("psi_bc", "psi0"), globals_=(),
         plan=(("BaseIteration", 2), ("CalcPsi", 1), ("CalcSubiter", 0))),
+    # the 2D adjoint models of example/adj_drag.xml and its kin, each with
+    # a reverse stage for generic2d_step_b
+    "d2q9_adj": DeviceModel(
+        header="models/d2q9_adj.cuh",
+        storage=_d2q9_groups("f") + ("w",),
+        settings=("omega", "nu", "Velocity", "Pressure", "ForceX", "ForceY",
+                  "PorocityGamma", "PorocityTheta", "Porocity", "DragInObj",
+                  "LiftInObj", "MaterialPenaltyInObj", "MaterialInObj",
+                  "PressureLossInObj", "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "MRT", "Inlet", "Outlet"),
+        groups=("DESIGNSPACE",),
+        zonal=("Velocity", "Pressure", "Porocity"),
+        globals_=("Drag", "Lift", "MaterialPenalty", "Material",
+                  "PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 0),),
+        adjoint=True),
+    "d2q9_optimalMixing": DeviceModel(
+        header="models/d2q9_optimal_mixing.cuh",
+        storage=_d2q9_groups("f") + tuple(f"g[{i}]" for i in range(5)),
+        settings=("omega", "nu", "omegaT", "K", "MovingWallVelocity",
+                  "Velocity", "Pressure", "Temperature", "TotalTempSqrInObj",
+                  "CountCellsInObj", "NMovingWallForceInObj"),
+        node_types=("Wall", "Solid", "MovingWall"),
+        groups=("COLLISION",),
+        zonal=("MovingWallVelocity", "Velocity", "Pressure", "Temperature"),
+        globals_=("TotalTempSqr", "CountCells", "NMovingWallForce"),
+        plan=(("BaseIteration", 0),),
+        adjoint=True),
+    "d2q9_plate": DeviceModel(
+        header="models/d2q9_plate.cuh",
+        storage=_d2q9_groups("f"),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "tau0", "Smag", "PressureLossInObj",
+                  "OutletFluxInObj", "InletFluxInObj", "ForceXInObj",
+                  "ForceYInObj", "MomentInObj", "PowerXInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EVelocity",
+                    "EPressure", "Inlet", "Outlet"),
+        groups=("COLLISION",),
+        zonal=("Velocity", "Density"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux", "ForceX",
+                  "ForceY", "Moment", "PowerX"),
+        plan=(("BaseIteration", 0),),
+        adjoint=True),
     "d3q19_adj": DeviceModel(
         header="models/d3q19_adj.cuh",
         storage=tuple(f"f[{k}]" for k in range(19)) + ("w",),
@@ -537,7 +583,9 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
             "d2q9_npe_guo": _npe_flops,
             "d2q9_pf_pressureEvolution": _pf_pe_flops,
             "d2q9_pp_MCMP": _sum_stages, "d2q9_lee": _sum_stages,
-            "d2q9_poison_boltzmann": _sum_stages}[model.name](model, flags)
+            "d2q9_poison_boltzmann": _sum_stages, "d2q9_adj": _adj_flops,
+            "d2q9_optimalMixing": _mixing_flops,
+            "d2q9_plate": _plate_flops}[model.name](model, flags)
 
 
 def stage_flops(model: Model, flags: np.ndarray) -> tuple:
@@ -793,6 +841,70 @@ def _heat_adj_flops(model: Model, flags: np.ndarray) -> int:
             + 22 * count_types(model, flags, "EPressure"))
 
 
+def _mrt_kept_flops() -> tuple:
+    """d2q9_adj's collision pieces over the d2q9 basis: the kept rows 3, 7
+    and 8 of ``M`` (the non-equilibrium moments), all of ``M`` (over the
+    penalised equilibrium) and the inverse basis, each over its
+    nonzeros."""
+    from tclb_tpu_torch.models import d2q9
+    from tclb_tpu_torch.ops.d2q9_kernels import _combo_flops
+    from tclb_tpu_torch.ops.lbm import inverse_basis
+    kept = sum(_combo_flops(d2q9.M[r]) for r in (3, 7, 8))
+    return (kept, sum(_combo_flops(row) for row in d2q9.M),
+            sum(_combo_flops(row) for row in inverse_basis(d2q9.M)))
+
+
+def _adj_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_adj (models/d2q9_adj.py).  An MRT node: rho and u (20), |u|^2
+    (3), the equilibrium, f - feq (9), the kept rows of ``M`` and their
+    three keep factors, u + Force (2), nw (4), Drag and Lift (3), the
+    penalised velocity (2), its equilibrium, ``M`` over it, m_neq + M feq2
+    (9) and the inverse basis.  An Inlet or Outlet node its flux and
+    pressure loss (10, as d2q9's); a Zou/He face 22, a pressure face 2
+    more for 1 + 3 Pressure; a DesignSpace node 1 - w and w (1 - w) (2)."""
+    eq = _eq_flops()
+    kept, fwd, back = _mrt_kept_flops()
+    mrt = MACRO + 3 + eq + 9 + kept + 3 + 2 + 4 + 3 + 2 + eq + fwd + 9 + back
+    return (mrt * count_types(model, flags, "MRT")
+            + 10 * count_types(model, flags, "Inlet", "Outlet")
+            + ZOU * _faces(model, flags)
+            + 2 * count_types(model, flags, "WPressure", "EPressure")
+            + 2 * count_group(model, flags, "DESIGNSPACE"))
+
+
+def _mixing_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_optimalMixing (models/d2q9_optimal_mixing.py).  A collision
+    node: rho and u (20), the equilibrium, the flow's relaxation (27), the
+    scalar's sum (4), its equilibrium (per population e.u 3, 1 + 3 e.u 2,
+    w T and the product 2: 35) and relaxation (15), the squared
+    temperature (1).  A MovingWall node its six corrections (12) and
+    NMovingWallForce (jx 5, two products)."""
+    coll = MACRO + _eq_flops() + RELAX + 4 + 35 + 15 + 1
+    return (coll * count_group(model, flags, "COLLISION")
+            + (12 + 7) * count_types(model, flags, "MovingWall"))
+
+
+def _plate_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_plate (models/d2q9_plate.py).  A collision node: the BGK step
+    with the velocity-shift force (d2q9_kernels._bgk_flops), the
+    Smagorinsky rate (35) and its base rate and time 1 / (3 nu + 0.5), 1 /
+    om0 (4); an Inlet or Outlet collision node the flux objectives, which
+    take rho and u again (20, and 10).  A Wall node its reaction globals
+    (jx and jy 10, four products); a face its non-equilibrium bounce-back
+    (19)."""
+    from tclb_tpu_torch.ops.d2q9_kernels import (_bgk_flops, _nebb_flops,
+                                                 _smagorinsky_flops)
+    flags64 = np.asarray(flags).astype(np.int64)
+    coll_mask = (flags64 & model.group_masks["COLLISION"]) != 0
+    nt = model.node_types
+    objective = sum(int((((flags64 & nt[n].mask) == nt[n].value)
+                         & coll_mask).sum()) for n in ("Inlet", "Outlet"))
+    coll = _bgk_flops(_eq_flops()) + _smagorinsky_flops() + 4
+    return (coll * int(coll_mask.sum()) + (MACRO + 10) * objective
+            + 14 * count_types(model, flags, "Wall")
+            + _nebb_flops() * _faces(model, flags))
+
+
 def _kuper_flops(model: Model, flags: np.ndarray) -> int:
     """d2q9_kuper (models/d2q9_kuper.py).
 
@@ -958,7 +1070,8 @@ def lib(model: str) -> ctypes.CDLL:
         lib.generic_error_string.argtypes = [i]
         lib.generic_error_string.restype = ctypes.c_char_p
         if dm.adjoint:
-            lib.generic2d_step_b.argtypes = [p, p, p, argp, p, p, p, p, i, p]
+            lib.generic2d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p,
+                                             i, p]
             lib.generic2d_step_b.restype = i
             lib.generic2d_step_b_tile.argtypes = [ip, ip]
             lib.generic2d_step_b_tile.restype = None

@@ -1,9 +1,10 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
 family's branches), generic (2D and 3D, with their <Control> series
-flavours; the 2D ones for every model with a device header, the one-stage
-and multi-stage models among them) and adjoint CUDA kernels against their plain PyTorch versions on
-the card, and the storage ladder's bf16 flavours of the generic 2D and
-d3q27 kernels with the precision harness on them.
+flavours; the 2D ones for every model with a device header, the one-stage,
+multi-stage and adjoint models among them) and adjoint CUDA kernels
+against their plain PyTorch versions on the card, and the storage
+ladder's bf16 flavours of the generic 2D and d3q27 kernels with the
+precision harness on them.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -24,18 +25,19 @@ from tclb_tpu_torch.ops import d3q27_kernels as dk3
 from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
-from torch_cases import (ADJ3D_SETTINGS, D3Q_FAMILY, FAMILY_MODELS,
-                         HEAT_SETTINGS, KUPER_SETTINGS, MULTISTAGE_MODELS,
-                         ONESTAGE_MODELS, RICH3D_SETTINGS,
+from torch_cases import (ADJ3D_SETTINGS, ADJ_MODELS, ADJ_SERIES,
+                         D3Q_FAMILY, FAMILY_MODELS, HEAT_SETTINGS,
+                         KUPER_SETTINGS, MULTISTAGE_MODELS, ONESTAGE_MODELS,
+                         RICH3D_SETTINGS, RICH_ADJ_SETTINGS,
                          RICH_MULTISTAGE_SETTINGS, RICH_ONESTAGE_SETTINGS,
                          RICH_SERIES_T, RICH_SETTINGS, add_rich_series,
-                         bench_adjoint3d_lattice,
+                         adj_channel, bench_adjoint3d_lattice,
                          channel3d_flags, d3q_family_settings,
                          family_settings, heat_adj_golden_columns,
-                         paint_rich, paint_rich_3d, paint_rich_adj3d,
-                         paint_rich_d3q, paint_rich_family, paint_rich_heat,
-                         paint_rich_kuper, paint_rich_multistage,
-                         paint_rich_onestage)
+                         paint_rich, paint_rich_3d, paint_rich_adj,
+                         paint_rich_adj3d, paint_rich_d3q, paint_rich_family,
+                         paint_rich_heat, paint_rich_kuper,
+                         paint_rich_multistage, paint_rich_onestage)
 
 # the kernels contract multiply-adds and the plain version does not:
 # tests/test_fastpath.py's f32 tolerance
@@ -1199,3 +1201,154 @@ def test_lee_series_flavours_match_plain(card_multistage):
     # two calls of each flavour, three launches a call
     assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 6,
                                   "generic2d_step_series_globals": 6}
+
+
+# --------------------------------------------------------------------------- #
+# the 2D adjoint models: d2q9_adj, d2q9_optimalMixing, d2q9_plate
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def card_adj():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed, **kw):
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=RICH_ADJ_SETTINGS[name], device="cuda", **kw)
+        return paint_rich_adj(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 53), (256, 256)])
+@pytest.mark.parametrize("name", ADJ_MODELS)
+def test_adj_models_kernels_match_plain(card_adj, name, shape):
+    """Each adjoint model's build: every node type its header reads, two
+    zones with different zonal values, ragged 32x16 tiles (37x53).
+    generic2d_step in both flavours against the plain version (the
+    globals at rtol 1e-4 / atol 1e-6), an 8-step generic2d_resident
+    against it and, bit for bit, against eight generic2d_step calls."""
+    lat = card_adj(name, shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gk.reset_launches()
+    got = gk.step(f, flags, ztab, args)
+    torch.testing.assert_close(got, gk.plain_steps(f, flags, ztab, args, 1),
+                               **FIELDS_TOL)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(gotg, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    torch.testing.assert_close(res, gk.plain_steps(f, flags, ztab, args, 8),
+                               **FIELDS_TOL)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in gk.LAUNCHES.items() if v} == {
+        "generic2d_step": 2, "generic2d_resident": 1}
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    assert torch.equal(res, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 53), (256, 256)])
+@pytest.mark.parametrize("name", ADJ_MODELS)
+def test_adj_models_step_b_matches_plain(card_adj, name, shape):
+    """generic2d_step_b, reading the zonal settings from the zone table,
+    against torch.func.vjp of the plain step: lam_in at rtol 1e-4 / atol
+    1e-6, the settings cotangent at rtol 1e-4."""
+    lat = card_adj(name, shape, seed=6)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    assert bool((ztab[:, 0] != ztab[:, 1]).all())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"generic2d_step_b": 1, "generic3d_step_b": 0}
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", ADJ_MODELS)
+def test_adj_models_bf16_kernels_match_plain(card_adj, name, storage_repr):
+    """generic2d_step_bf16 (both flavours) against the narrowed eager step
+    on the same bf16 stack, an 8-step generic2d_resident_bf16 bit for bit
+    against eight generic2d_step_bf16 calls."""
+    lat = card_adj(name, (37, 53), seed=5, storage_dtype=torch.bfloat16,
+                   storage_repr=storage_repr)
+    m = lat.model
+    shift = ddf.kernel_shift(m, storage_repr)
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params, shift)
+    assert f.dtype == torch.bfloat16
+    wide = _wide_plain(gk, f, flags, ztab, args, 1, m, storage_repr)
+    _assert_narrowed(gk.step(f, flags, ztab, args), wide, m, storage_repr)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    _assert_narrowed(gotg, wide, m, storage_repr)
+    _, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert torch.equal(res.view(torch.int16), steps.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADJ_MODELS)
+def test_adj_models_series_flavours_match_plain(card_adj, name):
+    """Both series flavours of each adjoint model's step under a series of
+    a zonal setting (horizon 5), at an iteration inside the horizon and
+    one past it."""
+    lat = card_adj(name, (37, 53), seed=4)
+    setting, values = ADJ_SERIES[name]
+    lat.set_setting_series(setting, values, zone=0)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    series = gk.series_inputs(lat.model, lat.params)
+    gk.reset_launches()
+    for it in (2, 13):
+        got = gk.step_series(f, flags, ztab, args, series, it)
+        torch.testing.assert_close(got, gk.plain_steps(
+            f, flags, ztab, args, 1, series=series, it=it), **FIELDS_TOL)
+        got, g = gk.step_series_globals(f, flags, ztab, args, series, it)
+        want, wg = gk.plain_steps(f, flags, ztab, args, 1,
+                                  with_globals=True, series=series, it=it)
+        torch.testing.assert_close(got, want, **FIELDS_TOL)
+        torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 2,
+                                  "generic2d_step_series_globals": 2}
+
+
+@pytest.mark.cuda
+def test_adj_kernel_gradient_matches_eager():
+    """tests/test_pallas_adjoint.py:_setup's d2q9_adj channel (16x128): an
+    8-step gradient on cuda_adjoint against the eager step's autograd on
+    the card, f32: rtol 1e-4 / atol 1e-7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from tclb_tpu_torch.adjoint import InternalTopology, \
+        make_unsteady_gradient
+    m = get_model("d2q9_adj")
+    lat = adj_channel(Lattice, m, torch.float32, device="cuda")
+    design = InternalTopology(m)
+    theta = torch.full_like(design.get(lat.state, lat.params), 0.7)
+    runs = {}
+    for engine in ("cuda", "eager"):
+        fn = make_unsteady_gradient(m, design, 8, levels=1, engine=engine,
+                                    shape=lat.shape, device="cuda")
+        runs[engine] = fn(theta, lat.state, lat.params)
+    (oc, gc, _), (oe, ge, _) = runs["cuda"], runs["eager"]
+    assert float(oc) == pytest.approx(float(oe), rel=1e-5)
+    assert float(ge.abs().max()) > 0
+    torch.testing.assert_close(gc, ge, rtol=1e-4, atol=1e-7)

@@ -288,9 +288,9 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
     adjoint header or the storage seams generic2d.cu includes changes all
-    of them; editing the shared d2q9 blocks changes the ten one-stage and
-    multi-stage models built on them; editing a file none includes changes
-    none."""
+    of them; editing the shared d2q9 blocks changes the fourteen
+    one-stage, multi-stage and adjoint models built on them; editing a
+    file none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
@@ -303,15 +303,17 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
                 "d2q9_solid", "d2q9_npe_guo"}
     multistage = {"d2q9_pf_pressureEvolution", "d2q9_pp_MCMP", "d2q9_lee",
                   "d2q9_poison_boltzmann"}
-    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_heat_adj"} \
-        | onestage | multistage
+    adjoint = {"d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",
+               "d2q9_plate"}
+    assert set(headers) == {"d2q9", "d2q9_kuper"} | onestage | multistage \
+        | adjoint
 
     def digests():
         return {m: _cuda_build.digest("generic2d", h)
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 13
+    assert len(set(before.values())) == 16
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -333,7 +335,7 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     common = csrc / "models" / "d2q9_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")
     assert {m for m, d in digests().items() if d != again[m]} == \
-        onestage | multistage
+        onestage | multistage | adjoint
 
 
 # --------------------------------------------------------------------------- #

@@ -1051,3 +1051,128 @@ def paint_rich_multistage(lat, seed):
     lat.init()
     lat.set_density_planes(multistage_planes(m, lat.shape, seed))
     return lat
+
+
+# --------------------------------------------------------------------------- #
+# the 2D adjoint models on the generic kernels
+# --------------------------------------------------------------------------- #
+
+ADJ_MODELS = ("d2q9_adj", "d2q9_optimalMixing", "d2q9_plate")
+ADJ_SHAPE = (16, 64)
+# tests/test_pallas_adjoint.py:_setup's settings for d2q9_adj (bench.py's
+# and example/adj_drag.xml's flow); a mixing and a plate flow alike
+ADJ_SETTINGS = {
+    "d2q9_adj": {"nu": 0.1, "Velocity": 0.05, "Porocity": 0.5,
+                 "DragInObj": 1.0},
+    "d2q9_optimalMixing": {"nu": 0.05, "K": 0.1, "Temperature": 1.0,
+                           "MovingWallVelocity": 0.03,
+                           "TotalTempSqrInObj": 1.0},
+    "d2q9_plate": {"nu": 0.05, "Velocity": 0.02, "Smag": 0.16,
+                   "ForceXInObj": 1.0},
+}
+# the rich states: every branch of each header switched on (the porosity
+# transform, the body forces, a moving wall)
+RICH_ADJ_SETTINGS = {
+    "d2q9_adj": {**ADJ_SETTINGS["d2q9_adj"], "PorocityTheta": -1.0,
+                 "ForceX": 1e-5, "ForceY": -2e-6},
+    "d2q9_optimalMixing": ADJ_SETTINGS["d2q9_optimalMixing"],
+    "d2q9_plate": {**ADJ_SETTINGS["d2q9_plate"], "GravitationX": 1e-5,
+                   "GravitationY": -2e-6},
+}
+# zone 1's value of each zonal setting on the rich states
+RICH_ADJ_ZONE1 = {"Velocity": 0.03, "Pressure": 0.01, "Porocity": 0.3,
+                  "MovingWallVelocity": 0.05, "Temperature": 0.5,
+                  "Density": 1.01}
+# a zonal setting of each model under a <Control> series on zone 0
+ADJ_SERIES = {"d2q9_adj": ("Velocity", [0.05, 0.04, 0.06, 0.045, 0.055]),
+              "d2q9_optimalMixing": ("MovingWallVelocity",
+                                     [0.03, 0.05, 0.01, 0.04, 0.02]),
+              "d2q9_plate": ("Velocity", [0.02, 0.025, 0.015, 0.03, 0.01])}
+
+
+def rich_flags_adj(m, ny, nx):
+    """Every node type the model's device header reads on a (ny, nx) field
+    (ny >= 16, nx >= 32): split W and E faces (velocity and pressure),
+    walls top and bottom, a Solid block, a BGK patch among the MRT nodes,
+    MovingWall segments with and without collision where the model has the
+    type, Inlet and Outlet columns, a DesignSpace block and a settings
+    zone 1 block that cuts across them."""
+    f = m.flag_for
+    nt = m.node_types
+    flags = np.full((ny, nx), f("MRT"), dtype=np.uint16)
+    h = ny // 2
+    for col, upper, lower in ((0, "WVelocity", "WPressure"),
+                              (nx - 1, "EPressure", "EVelocity")):
+        flags[h:, col] = f(upper, "MRT")
+        flags[:h, col] = f(lower, "MRT")
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[h - 2:h + 1, nx // 8:nx // 8 + 3] = f("Solid")
+    flags[h + 2:h + 4, nx // 8:nx // 8 + 3] = f("BGK")
+    if "MovingWall" in nt:
+        flags[-1, nx // 4:nx // 2] = f("MovingWall")
+        flags[1, nx // 4:nx // 2] = f("MovingWall", "MRT")
+    flags[2:-2, 3] |= np.uint16(f("Inlet"))
+    flags[2:-2, nx - 4] |= np.uint16(f("Outlet"))
+    flags[3:h + 3, nx // 2 - 6:nx // 2 + 4] |= np.uint16(f("DesignSpace"))
+    flags[h:, nx // 2:] |= np.uint16(1 << m.zone_shift)
+    return flags
+
+
+def adj_planes(m, shape, seed):
+    """Populations near a flowing equilibrium with 1-2% noise (d2q5's g
+    around a temperature of 0.7), and the design field w in [0.1, 1]."""
+    rng = np.random.default_rng(seed)
+    E = m.ei[:9, :2].astype(np.float64)
+    wt = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+    u = 0.02 + 0.01 * rng.standard_normal((2,) + shape)
+    usq = (u * u).sum(0)
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    planes = {}
+    for k in range(9):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+        eq = wt[k] * rho * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+        planes[f"f[{k}]"] = eq * (1 + 0.02 * rng.standard_normal(shape))
+    if "g" in m.groups:
+        idx = m.groups["g"]
+        eg = m.ei[list(idx), :2].astype(np.float64)
+        wg = np.array([1 / 3] + [1 / 6] * 4)
+        temp = 0.7 * (1 + 0.01 * rng.standard_normal(shape))
+        for j, i in enumerate(idx):
+            eu = eg[j, 0] * u[0] + eg[j, 1] * u[1]
+            planes[m.storage_names[i]] = wg[j] * temp * (1 + 3 * eu) * (
+                1 + 0.02 * rng.standard_normal(shape))
+    if "w" in m.storage_index:
+        planes["w"] = 0.1 + 0.9 * rng.random(shape)
+    return planes
+
+
+def paint_rich_adj(lat, seed):
+    """``rich_flags_adj``, zone 1's values of the zonal settings, Init and
+    ``adj_planes`` on a Lattice of either package (settings from
+    ``RICH_ADJ_SETTINGS`` at its construction)."""
+    m = lat.model
+    lat.set_flags(rich_flags_adj(m, *lat.shape))
+    for name in m.zonal_settings:
+        lat.set_setting(name, RICH_ADJ_ZONE1[name], zone=1)
+    lat.init()
+    lat.set_density_planes(adj_planes(m, lat.shape, seed))
+    return lat
+
+
+def adj_channel(lattice_cls, model, dtype, shape=(16, 128),
+                design=(slice(4, 12), slice(40, 80)), **kw):
+    """tests/test_pallas_adjoint.py:_setup's d2q9_adj channel (bench.py's
+    ``bench_adjoint`` at 512x1024 with the design block ``[128:384,
+    300:700]``) on a Lattice of either package: a W velocity inlet, an E
+    pressure outlet, walls top and bottom and a DesignSpace block."""
+    ny, nx = shape
+    lat = lattice_cls(model, shape, dtype=dtype,
+                      settings=ADJ_SETTINGS["d2q9_adj"], **kw)
+    flags = np.full(shape, model.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = model.flag_for("WVelocity", "MRT")
+    flags[:, -1] = model.flag_for("EPressure", "MRT")
+    flags[0, :] = flags[-1, :] = model.flag_for("Wall")
+    flags[design] |= np.uint16(model.flag_for("DesignSpace"))
+    lat.set_flags(flags)
+    lat.init()
+    return lat
