@@ -16,13 +16,15 @@ d2q9_solid, d2q9_npe_guo), the four multi-stage models
 d2q9_poison_boltzmann) and the three adjoint models (d2q9_adj,
 d2q9_optimalMixing, d2q9_plate, each with the backward kernel), and
 ``generic3d.cu`` for
-d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh``, for
+d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh`` and for
+d3q19_heat, d3q27, d3q27_viscoplastic, d3q27_cumulant_qibb_small and
+d3q19_kuper, for
 sm_90a into ``build/``, one ``nvcc`` each, started together), and exits
 nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
 1. build the d2q9 library and the five family libraries, the five d3q27
-   libraries, the sixteen generic 2D and the generic 3D libraries and
+   libraries, the sixteen generic 2D and the six generic 3D libraries and
    print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
@@ -308,6 +310,37 @@ missing.  Phases, each of which fails the run on its own:
    zonal setting; then d2q9_adj's 1024x1024 lattice under a Velocity
    series: both flavours, then an ``iterate(500)`` on them.
 
+44. bench.py's d3q19_heat case (bench.py:664-677, ``bench_d3q27``'s third
+   lattice: 48x48x256, MRT, Wall rows at y = 0 and ny - 1; nu 0.05,
+   Velocity 0.02, FluidAlfa 0.05) on ``cuda_generic3d_band[d3q19_heat,
+   fuse=1]`` (K6): both flavours of ``generic3d_step`` against their plain
+   versions, its first 200 steps against eager f32 on the card (rtol 1e-4
+   / atol 1e-6), then ``iterate(4000)`` from Init counted from 0: MLUPS
+   and GB/s by bench.py's count (2 n_storage 4 + 2 B a node) beside the
+   48x48x256 d3q27_cumulant (3d_channel.xml) and d3q19 (channel48)
+   figures of the same run;
+45. each 3D model of the generic engine (d3q19_heat, d3q27,
+   d3q27_viscoplastic, d3q27_cumulant_qibb_small, d3q19_kuper) at
+   48x48x256, painted as tests/test_pallas_generic.py's ``_parity_3d``
+   (the collision type with Wall rows, its ``_3D_SETTINGS``) with an inlet
+   and outlet face where the model has them (qibb also a sphere with its
+   cut distances): both flavours against their plain versions after 4
+   eager steps and after the run, ``iterate(2000)`` (MLUPS) and the card's
+   idle share over an ``iterate(200)``;
+46. each of them on rich states (every node type its header reads, zone 1
+   with its own zonal values, noise, qibb's cuts from a sphere, kuper's phi
+   not constant; 8x16x32 and 24x48x128): both flavours and both series
+   flavours against their plain versions, and whether each is bit for bit
+   its plain version;
+47. the reference's physics on K6 in f32: tests/test_viscoplastic.py's
+   Newtonian limit, Bingham plug and Zou/He duct, tests/test_qibb.py's
+   off-grid walls at delta 0.25 and 0.75 and plain bounce-back, each at its
+   size and steps with the reference's fits, its first ``PHYS_F64_CUT``
+   steps against f64 eager on the card (``f64_against``);
+48. a d3q19_kuper drop at 64^3 (a liquid sphere in its vapour, periodic,
+   two zones): its first 100 steps against eager f32, 2000 steps with the
+   mass within 1e-4, both passes of each step counted.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -330,7 +363,10 @@ window; likewise for the multi-stage kernels, and a drop_lee and a
 1024x1024 d2q9_lee window; likewise for the adjoint models' kernels
 (``generic2d_step_b`` at its gradient path's shape), and the 1000-step
 d2q9_adj gradient.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
-12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 39-43, 7, 8.
+12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 39-43, 44-48, 7,
+8; phase 7 also times both flavours of each 3D model's ``generic3d_step``
+at 48x48x256, phase 8 each pass of d3q19_kuper's and the heat case's
+``iterate(200)``.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -355,6 +391,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+# K5's launches are timed at no more than this many steps (and their plain
+# versions, the eager engine over as many steps, with them): at a path's
+# own launch (up to 3998 steps) the plain versions alone took some 170 s
+# of phase 7
+K5_TIMING_STEPS = 98
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
@@ -420,7 +461,9 @@ GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj",
                   "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
                   "d2q9_solid", "d2q9_npe_guo", "d2q9_pf_pressureEvolution",
                   "d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann",
-                  "d2q9_adj", "d2q9_optimalMixing", "d2q9_plate")
+                  "d2q9_adj", "d2q9_optimalMixing", "d2q9_plate",
+                  "d3q19_heat", "d3q27", "d3q27_viscoplastic",
+                  "d3q27_cumulant_qibb_small", "d3q19_kuper")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -1934,8 +1977,7 @@ def compare_globals(g, wg, what: str) -> dict:
         f"{GOLDEN_RTOL} atol {GOLDEN_ATOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"globals {what} disagree with the plain version's")
-    return {"max_abs_err": float(gerr.max()),
-            "max_rel_err": float((gerr / wg.abs().clamp_min(1e-30)).max())}
+    return globals_err(gerr, wg)
 
 
 def check_series_flavours(mod, lats, errs: dict, what: str) -> dict:
@@ -2266,7 +2308,8 @@ def time_kernels(cases) -> dict:
 
 def time_generic(gk, band_lat, res_lat, resident_steps: int,
                  plain_reps: int = 2) -> dict:
-    """One model's generic kernels at their paths' launches:
+    """One model's generic kernels at their paths' launches (K5 at no more
+    than ``K5_TIMING_STEPS`` steps):
     ``generic2d_step`` in both flavours on ``band_lat`` (the band engine's
     path), ``generic2d_resident`` on ``res_lat`` at the step count its
     path gives one launch."""
@@ -2286,6 +2329,7 @@ def time_generic(gk, band_lat, res_lat, resident_steps: int,
             reps)
     *inputs, a = gk.kernel_inputs(res_lat.model, res_lat.state,
                                   res_lat.params)
+    resident_steps = min(resident_steps, K5_TIMING_STEPS)
     key = f"generic2d_resident[{model}]"
     out[key] = time_one(
         f"{key} ({resident_steps} steps)",
@@ -3440,7 +3484,8 @@ def run_onestage(gk, errs: dict) -> dict:
 def time_onestage(gk, one: dict) -> dict:
     """Phase 7 for the one-stage models: K4 (both flavours) at 1024x1024
     in f32 and bf16, K5 on each resident path's state for the steps one of
-    its launches takes there, in f32 and bf16 (its plain version, seconds
+    its launches takes there (at most
+    K5_TIMING_STEPS), in f32 and bf16 (its plain version, seconds
     of eager steps, timed once with no warm-up call: the checks before
     ran the same eager operations), the series flavours on heat_channel; the
     bound from ``launch_bytes`` (bf16 at 2 B a value) and
@@ -3465,7 +3510,7 @@ def time_onestage(gk, one: dict) -> dict:
                                     itemsize=2 if tag else 4),
                     gk.node_step_flops(lat.model, lat.flags_numpy()),
                     lat.shape, reps, plain_reps=3)
-        steps = one["res_steps"][model]
+        steps = min(one["res_steps"][model], K5_TIMING_STEPS)
         for tag, lat in (("", one["resident"][model]),
                          ("_bf16", one["resident"][f"{model} bf16"])):
             f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
@@ -3970,7 +4015,8 @@ def time_passes(gk, lat, key: str, inputs, itemsize: int,
 def time_multistage(gk, multi: dict) -> dict:
     """Phase 7 for the multi-stage models: K4 (both flavours) at
     1024x1024 in f32 and bf16, K5 on each resident path's state for the
-    steps one of its launches takes there, in f32 and bf16 (its plain
+    steps one of its launches takes there (at most
+    K5_TIMING_STEPS), in f32 and bf16 (its plain
     version timed once, no warm-up call: the checks ran the same eager
     operations), the series flavours on lee's 1024x1024 lattice; the bound
     from ``launch_bytes`` (bf16 at 2 B a value) and ``node_step_flops``:
@@ -3995,7 +4041,7 @@ def time_multistage(gk, multi: dict) -> dict:
                     gk.node_step_flops(lat.model, lat.flags_numpy()),
                     lat.shape, reps, plain_reps=3)
             out[key]["launches_per_call"] = gk._LIB[model]["passes"]
-        steps = multi["res_steps"][model]
+        steps = min(multi["res_steps"][model], K5_TIMING_STEPS)
         for tag, lat in (("", multi["resident"][model]),
                          ("_bf16", multi["resident"][f"{model} bf16"])):
             f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
@@ -4262,7 +4308,8 @@ def run_adj_models(gk, ak, errs: dict) -> dict:
 def time_adj(gk, ak, adj: dict) -> dict:
     """Phase 7 for the adjoint models: K4 (both flavours) at 1024x1024 in
     f32 and bf16, K5 on each resident path's state for the steps one of
-    its launches takes there, in f32 and bf16 (the plain version timed
+    its launches takes there (at most
+    K5_TIMING_STEPS), in f32 and bf16 (the plain version timed
     once), generic2d_step_b at its gradient path's shape (d2q9_adj's
     512x1024, the others' 1024x1024) and d2q9_adj's series flavours at
     1024x1024."""
@@ -4285,7 +4332,7 @@ def time_adj(gk, ak, adj: dict) -> dict:
                                     itemsize=2 if tag else 4),
                     gk.node_step_flops(lat.model, lat.flags_numpy()),
                     lat.shape, reps, plain_reps=3)
-        steps = adj["res_steps"][model]
+        steps = min(adj["res_steps"][model], K5_TIMING_STEPS)
         for tag, lat in (("", adj["resident"][model]),
                          ("_bf16", adj["resident"][f"{model} bf16"])):
             f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
@@ -4303,6 +4350,693 @@ def time_adj(gk, ak, adj: dict) -> dict:
             out[key]["steps"] = steps
         out.update(time_step_b(ak, gk, adj["step_b"][model], plain_reps=3))
     out.update(time_series_flavours(gk, adj["resident"]["adj series"], 400))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The 3D models of the generic engine on K6 (phases 44-48)
+# --------------------------------------------------------------------------- #
+
+GENERIC3D = ("d3q19_heat", "d3q27", "d3q27_viscoplastic",
+             "d3q27_cumulant_qibb_small", "d3q19_kuper")
+HEAT_BENCH_STEPS = 4000      # bench.py:631's iterations of bench_d3q27
+HEAT_EAGER_CUT = 200         # the heat case's first steps held to eager f32
+G3_WINDOW = 2000             # each model's iterate window at 48x48x256
+G3_RICH = ((8, 16, 32), (24, 48, 128))
+# the inlet and outlet faces each model's 48x48x256 lattice gets, and the
+# inlet velocity where its settings name none
+G3_FACES = {"d3q19_heat": ("WVelocity", "EPressure"),
+            "d3q27": ("WVelocity", "EPressure"),
+            "d3q27_viscoplastic": ("WVelocity_ZouHe", "EPressure_ZouHe"),
+            "d3q27_cumulant_qibb_small": ("WVelocity", "EPressure")}
+G3_INFLOW = 0.02
+# the f32 kernels against f64 eager on a forced channel: the margin the port
+# holds d3q27_BGK's f32 Poiseuille to (ROADMAP queue 3)
+F32_FORCED_REL = 2.7e-3
+# the physics cases' f64 (and f32) eager horizon on the card: the eager
+# engine is launch-bound on these 192- and 864-node lattices (some 10-17 ms
+# a step), so both references over the cases' 32,000 steps would take
+# about 15 minutes; they cover each case's first PHYS_F64_CUT steps, the
+# kernels run each case in full
+PHYS_F64_CUT = 500
+# the reference's steps: tests/test_viscoplastic.py's Newtonian channel,
+# Bingham plug and Zou/He duct, tests/test_qibb.py's channels
+VP_STEPS = {"newtonian": 4000, "bingham": 8000, "duct": 2000}
+QIBB_STEPS = 6000
+KUPER_DROP_N, KUPER_DROP_STEPS, KUPER_DROP_CUT = 64, 2000, 100
+KUPER_MASS_RTOL = 1e-4       # drop.xml's limit (check_drop)
+KUPER_LIQUID, KUPER_VAPOUR = 3.2600529440452366, 0.014500641645077492
+# drop.xml's MagicF (-2/3) halved: d3q19's shell weights 18 w_i give each
+# axis twice d2q9's sum of g_i e_i^2 (6 against 3), so the same force
+# needs half the factor; at -2/3 the 3D drop's interface drives |u| to 0.9
+# in one step and the run goes non-finite within six (eager f32, the CPU)
+KUPER_DROP_MAGICF = -1 / 3
+
+
+def g3_key(model: str) -> str:
+    return f"generic3d_step[{model}]"
+
+
+def g3_engine(model: str) -> str:
+    return f"cuda_generic3d_band[{model},fuse=1]"
+
+
+def heat_bench_lattice():
+    """bench.py's d3q19_heat case (bench.py:664-677): 48x48x256, MRT
+    everywhere, Wall rows at y = 0 and y = ny - 1, periodic in x and z."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d3q19_heat")
+    lat = Lattice(m, CHANNEL48, dtype=torch.float32, device=DEVICE,
+                  settings={"nu": 0.05, "Velocity": 0.02,
+                            "FluidAlfa": 0.05})
+    flags = np.full(CHANNEL48, m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def sphere_cuts(m, shape, center, radius):
+    """A solid sphere for d3q27_cumulant_qibb_small: its cut distances
+    (``utils.geometry.cuts_from_sdf``) and the flags' masks of the nodes
+    inside (Solid) and of the fluid nodes with a cut link (QIBB)."""
+    from tclb_tpu_torch.models.d3q27_cumulant_qibb import E
+    from tclb_tpu_torch.utils.geometry import cuts_from_sdf, sphere_sdf
+    sdf = sphere_sdf(center, radius)
+    cuts = cuts_from_sdf(sdf, shape, E)
+    grids = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float64)
+                                   for s in shape], indexing="ij"))
+    return cuts, sdf(grids) <= 0.0, (cuts >= 0).any(axis=0)
+
+
+def generic3d_lattice(model: str, shape=None):
+    """tests/test_pallas_generic.py's ``_parity_3d`` at ``shape``: the
+    collision type with Wall rows at y = 0 and y = ny - 1, its
+    ``_3D_SETTINGS`` where it names the model; an inlet (velocity
+    ``G3_INFLOW``) and an outlet face where the model has them
+    (``G3_FACES``); for d3q27_cumulant_qibb_small a sphere of radius nz/4
+    at (nz/2, ny/2, nx/4) with its cut distances (QIBB nodes around it,
+    Solid inside).  Initialised."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import GENERIC3D_SETTINGS, parity3d_flags
+    m = get_model(model)
+    shape = shape or CHANNEL48
+    settings = dict(GENERIC3D_SETTINGS[model])
+    if model in G3_FACES:
+        settings.setdefault("Velocity", G3_INFLOW)
+    lat = Lattice(m, shape, dtype=torch.float32, device=DEVICE,
+                  settings=settings)
+    flags = parity3d_flags(m, shape)
+    coll = "MRT" if "MRT" in m.node_types else "BGK"
+    if model in G3_FACES:
+        w, e = G3_FACES[model]
+        flags[:, 1:-1, 0] = m.flag_for(w, coll)
+        flags[:, 1:-1, -1] = m.flag_for(e, coll)
+    cuts = None
+    if "q" in m.groups:
+        nz, ny, nx = shape
+        cuts, solid, qibb = sphere_cuts(m, shape, (nz / 2, ny / 2, nx / 4),
+                                        nz / 4)
+        flags[qibb] = m.flag_for("QIBB", coll)
+        flags[solid] = m.flag_for("Solid")
+    lat.set_flags(flags)
+    lat.init()
+    if cuts is not None:
+        lat.set_density_planes({f"q[{i + 1}]": cuts[i] for i in range(26)})
+    return lat
+
+
+def iterate_window3(g3, lat, what: str, engine: str, n: int) -> dict:
+    """An ``iterate(n)`` on the card from K6's counts set to 0, fenced by
+    synchronize: its engine, launches and flavours, no eager step, finite
+    fields, MLUPS."""
+    lat.synchronize()
+    g3.reset_launches()
+    eager0 = lat.eager_steps
+    t0 = time.perf_counter()
+    lat.iterate(n)
+    lat.synchronize()
+    dt = time.perf_counter() - t0
+    launches, flav = dict(g3.LAUNCHES), g3.flavours()
+    mlups = float(np.prod(lat.shape)) * n / dt / 1e6
+    say(f"  {what}: engine {lat.engine_name}, launches {launches} "
+        f"{flav}, {mlups:.1f} MLUPS ({dt * 1e3:.2f} ms)")
+    if lat.engine_name != engine or lat.eager_steps != eager0:
+        fail(f"{what} ran on {lat.engine_name} "
+             f"({lat.eager_steps - eager0} eager steps)")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"{what}: non-finite fields")
+    return {"launches": launches, "flavours": flav, "mlups_iterate": mlups,
+            "iterate_ms": dt * 1e3, "window": n}
+
+
+def bit_identical(g3, lat) -> dict:
+    """Whether both flavours of ``generic3d_step`` are bit for bit their
+    plain versions on the lattice's state."""
+    f, flags, ztab, a = g3.kernel_inputs(lat.model, lat.state, lat.params)
+    got = g3.step(f, flags, ztab, a)
+    gotg, g = g3.step_globals(f, flags, ztab, a)
+    want, wg = g3.plain_steps(f, flags, ztab, a, 1, with_globals=True)
+    torch.cuda.synchronize()
+    return {"step": bool(torch.equal(got, want)),
+            "globals_flavour_fields": bool(torch.equal(gotg, want)),
+            "globals": bool(torch.equal(g, wg))}
+
+
+def run_heat_bench(g3, errs: dict, beside: dict) -> dict:
+    """Phase 44: bench.py's d3q19_heat case (``bench_d3q27``'s third
+    lattice) on ``cuda_generic3d_band[d3q19_heat,fuse=1]``: both
+    flavours of ``generic3d_step`` against their plain versions on its
+    state, its first ``HEAT_EAGER_CUT`` steps on the kernels against eager
+    f32 on the card (fields and globals at rtol 1e-4 / atol 1e-6), then
+    ``iterate(HEAT_BENCH_STEPS)`` from Init, counted from 0: the MLUPS and
+    the GB/s by bench.py's own count (``2 n_storage 4 + 2`` B a node),
+    beside ``beside``'s figures of this run (the 48x48x256 d3q27_cumulant
+    and d3q19 channels)."""
+    say("phase 44: bench.py's d3q19_heat case, 48x48x256 on K6")
+    lat = heat_bench_lattice()
+    eager_warm(lat, 4)
+    check_kernels([(g3, lat, "generic3d_step")], errs,
+                  "phase 44, the d3q19_heat case")
+    check_globals_flavour(g3, (lat,), errs, "phase 44")
+    kern, ref = heat_bench_lattice(), heat_bench_lattice()
+    kern.iterate(HEAT_EAGER_CUT)
+    eager_warm(ref, HEAT_EAGER_CUT)
+    if kern.engine_name != g3_engine("d3q19_heat"):
+        fail(f"the d3q19_heat case ran on {kern.engine_name}")
+    cut = compare(kern.state.fields, ref.state.fields,
+                  f"the d3q19_heat case after {HEAT_EAGER_CUT} steps, "
+                  "kernels vs eager f32", GOLDEN_RTOL, GOLDEN_ATOL)
+    gcut = compare_globals(kern.state.globals_, ref.state.globals_,
+                           f"of the d3q19_heat case after {HEAT_EAGER_CUT} "
+                           "steps, kernels vs eager f32")
+    bench = heat_bench_lattice()
+    run = iterate_window3(g3, bench, f"iterate({HEAT_BENCH_STEPS}) of the "
+                          "d3q19_heat case", g3_engine("d3q19_heat"),
+                          HEAT_BENCH_STEPS)
+    per_node = 2 * bench.model.n_storage * 4 + 2
+    run["gbps_bench_count"] = run["mlups_iterate"] * per_node / 1e3
+    run["bench_bytes_per_node"] = per_node
+    run["beside_mlups"] = beside
+    say(f"  d3q19_heat {run['mlups_iterate']:.1f} MLUPS, "
+        f"{run['gbps_bench_count']:.1f} GB/s by bench.py's count "
+        f"({per_node} B a node); beside it in this run: "
+        + ", ".join(f"{k} {v:.1f} MLUPS" for k, v in beside.items()))
+    run.update({"vs_eager_f32": cut, "globals_vs_eager_f32": gcut,
+                "lattice": bench})
+    return run
+
+
+def run_generic3d_models(g3, errs: dict) -> dict:
+    """Phases 45-46: each model's 48x48x256 lattice (``generic3d_lattice``)
+    on K6: both flavours against their plain versions after 4 eager steps,
+    ``iterate(G3_WINDOW)`` counted from 0 (MLUPS), the card's idle share
+    over an ``iterate(200)`` (a torch.profiler trace), and the kernel on
+    the developed state (45); on rich states (``torch_cases.
+    paint_rich_generic3d``: every node type the header reads, zone 1 with
+    its own zonal values, noise, qibb's cuts from a sphere, kuper's phi not
+    constant; at ``G3_RICH``) both flavours and both series flavours (a
+    series of the model's first zonal setting on zone 1) against their
+    plain versions, and whether each is bit for bit its plain version
+    (46)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    from torch_cases import RICH_GENERIC3D_SETTINGS, paint_rich_generic3d
+    launches, glaunches, summary, lats = {}, {}, {}, {}
+    for model in GENERIC3D:
+        say(f"phase 45: {model} at 48x48x256 on K6")
+        what = f"phase 45, {model} 48x48x256"
+        lat = generic3d_lattice(model)
+        eager_warm(lat, 4)
+        check_kernels([(g3, lat, "generic3d_step")], errs, what)
+        check_globals_flavour(g3, (lat,), errs, what)
+        run = iterate_window3(g3, lat, f"{model}48 iterate({G3_WINDOW})",
+                              g3_engine(model), G3_WINDOW)
+        busy = device_busy(lambda lat=lat: lat.iterate(200),
+                           f"a 48x48x256 {model} iterate(200)")
+        check_kernels([(g3, lat, "generic3d_step")], errs,
+                      f"{what} after {G3_WINDOW} iterations")
+        key = g3_key(model)
+        launches.setdefault(key, {})[f"{model}48"] = \
+            run["launches"]["generic3d_step"]
+        glaunches.setdefault(key, {})[f"{model}48"] = \
+            run["flavours"]["globals"]
+        run.pop("launches")
+        summary[f"{model}48"] = {**run, "idle_share": busy["idle_share"],
+                                 "iterate_profile": busy}
+        lats[model] = lat
+    for model in GENERIC3D:
+        m = get_model(model)
+        bits = {}
+        for shape in G3_RICH:
+            what = f"phase 46, {model} rich {shape}"
+            lat = paint_rich_generic3d(
+                Lattice(m, shape, dtype=torch.float32, device=DEVICE,
+                        settings=RICH_GENERIC3D_SETTINGS[model]),
+                gk.DEVICE_MODELS[model].node_types, 5)
+            check_kernels([(g3, lat, "generic3d_step")], errs, what)
+            check_globals_flavour(g3, (lat,), errs, what)
+            bits[str(shape)] = bit_identical(g3, lat)
+            name = m.zonal_settings[0]
+            v = float(lat.params.zone_table[m.setting_index[name], 1])
+            lat.set_setting_series(name, [v * (1 + 0.05 * k)
+                                          for k in range(5)], zone=1)
+            check_series_flavours(g3, (lat,), errs, what)
+        summary[f"{model}_bit_identical"] = bits
+        say(f"  {model}: bit for bit its plain version: {bits}")
+    return {"launches": launches, "globals_launches": glaunches,
+            "summary": summary, "lattices": lats}
+
+
+def channel_profile(lat) -> torch.Tensor:
+    """The x velocity across the channel (y) at z = nz // 2, x = nx // 2,
+    in f64 on the host."""
+    nz, _, nx = lat.shape
+    return lat.get_quantity("U")[0][nz // 2, :, nx // 2].double().cpu()
+
+
+def eager_case(make, dtype, steps: int):
+    """The case ``make(dtype)`` run ``steps`` steps on the eager engine on
+    the card (``TCLB_FASTPATH=0`` while it is built and run)."""
+    before = os.environ.get("TCLB_FASTPATH")
+    os.environ["TCLB_FASTPATH"] = "0"
+    try:
+        lat = make(dtype)
+        lat.iterate(steps)
+        lat.synchronize()
+    finally:
+        if before is None:
+            del os.environ["TCLB_FASTPATH"]
+        else:
+            os.environ["TCLB_FASTPATH"] = before
+    if lat.engine_name != "eager":
+        fail(f"an eager reference ran on {lat.engine_name}")
+    return lat
+
+
+def f64_against(lat32, make, cut: int, profile, what: str) -> dict:
+    """The case ``make(dtype)`` for ``cut`` steps on the eager engine on the
+    card in f64 and in f32 against ``lat32`` (the f32 kernels at the same
+    step): ``profile``'s relative L2 distance from f64, within the port's
+    f32 margin for a forced channel: ``F32_FORCED_REL``, or twice the f32
+    eager engine's own distance where that is farther (phase 22's rule;
+    2.7e-3 is twice d3q27_BGK's f32 eager Poiseuille distance there)."""
+    want = profile(eager_case(make, torch.float64, cut))
+    got = profile(lat32)
+    rel = float((got - want).norm() / want.norm())
+    rel32 = float((profile(eager_case(make, torch.float32, cut)) - want)
+                  .norm() / want.norm())
+    limit = max(F32_FORCED_REL, 2 * rel32)
+    say(f"  {what}: f32 kernels vs f64 eager after {cut} steps, relative "
+        f"L2 {rel:.3e} (f32 eager {rel32:.3e}; limit {limit:.3e})")
+    if not rel <= limit:
+        fail(f"{what}: the f32 kernels are {rel} from f64")
+    return {"steps": cut, "rel_l2": rel, "f32_eager_rel_l2": rel32,
+            "limit": limit}
+
+
+def run_case3(g3, make, niter: int, cut: int, profile, what: str,
+              model: str) -> tuple:
+    """One physics case on K6 in f32: ``cut`` steps, the f64 eager
+    comparison there, then the rest to ``niter``; returns the lattice, the
+    comparison and the case's launches and globals launches (counted
+    from 0)."""
+    lat = make(torch.float32)
+    lat.synchronize()
+    g3.reset_launches()
+    lat.iterate(cut)
+    vs64 = f64_against(lat, make, cut, profile, what)
+    lat.iterate(niter - cut)
+    lat.synchronize()
+    launches = (g3.LAUNCHES["generic3d_step"], g3.flavours()["globals"])
+    if lat.engine_name != g3_engine(model):
+        fail(f"{what} ran on {lat.engine_name}")
+    if not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"{what}: non-finite fields")
+    return lat, vs64, launches
+
+
+def vp_channel(yield_stress: float, ny: int = 19, g: float = 1e-5):
+    """tests/test_viscoplastic.py:_channel: a 3xNYx4 force-driven channel,
+    walls on y, nu 1/6, ForceX ``g``, the yield stress."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d3q27_viscoplastic")
+
+    def make(dtype):
+        lat = Lattice(m, (3, ny, 4), dtype=dtype, device=DEVICE,
+                      settings={"nu": 1 / 6, "ForceX": g,
+                                "YieldStress": yield_stress})
+        flags = np.full((3, ny, 4), m.flag_for("MRT"), dtype=np.uint16)
+        flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
+        lat.set_flags(flags)
+        lat.init()
+        return lat
+    return make
+
+
+def vp_duct(dtype):
+    """tests/test_viscoplastic.py:test_zou_he_inlet_outlet's 3x12x24 duct:
+    a WVelocity_ZouHe inlet at 0.02, an EPressure_ZouHe outlet, walls."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d3q27_viscoplastic")
+    shape = (3, 12, 24)
+    lat = Lattice(m, shape, dtype=dtype, device=DEVICE,
+                  settings={"nu": 1 / 6, "Velocity": 0.02})
+    flags = np.full(shape, m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
+    flags[:, 1:-1, 0] = m.flag_for("WVelocity_ZouHe", "MRT")
+    flags[:, 1:-1, -1] = m.flag_for("EPressure_ZouHe", "MRT")
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def qibb_channel(delta, ny: int = 16, g: float = 1e-6):
+    """tests/test_qibb.py:_qibb_channel: a 3xNYx4 force-driven channel
+    whose walls sit at y = 1 - delta and y = ny - 2 + delta (Solid rows 0
+    and ny - 1, QIBB rows 1 and ny - 2 with their cut distances); with
+    ``delta`` None the same channel with plain bounce-back on the Solid
+    rows (test_qibb_beats_plain_bounceback)."""
+    from tclb_tpu_torch import Lattice, get_model
+    from tclb_tpu_torch.models.d3q27_cumulant_qibb import E
+    from tclb_tpu_torch.utils.geometry import cuts_from_sdf
+    m = get_model("d3q27_cumulant_qibb_small")
+    shape = (3, ny, 4)
+
+    def make(dtype):
+        lat = Lattice(m, shape, dtype=dtype, device=DEVICE,
+                      settings={"nu": 1 / 6, "ForceY": 0.0, "ForceX": g})
+        flags = np.full(shape, m.flag_for("MRT"), dtype=np.uint16)
+        flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Solid")
+        if delta is not None:
+            flags[:, 1, :] = flags[:, -2, :] = m.flag_for("QIBB", "MRT")
+        lat.set_flags(flags)
+        lat.init()
+        if delta is not None:
+            y_w0, y_w1 = 1.0 - delta, ny - 2.0 + delta
+            cuts = cuts_from_sdf(
+                lambda c: np.minimum(c[1] - y_w0, y_w1 - c[1]), shape, E)
+            lat.set_density_planes({f"q[{i}]": cuts[i - 1]
+                                    for i in range(1, 27)})
+        return lat
+    return make
+
+
+def run_generic3d_physics(g3) -> dict:
+    """Phase 47: the reference's physics checks on K6 in f32, each at its
+    size and steps, its first ``PHYS_F64_CUT`` steps held against the same
+    case on the f64 eager engine on the card (relative L2 of the profile,
+    or of U for the duct, within the port's f32 margin: ``f64_against``)
+    and each fit the
+    reference's test asserts (tests/test_viscoplastic.py: the Newtonian
+    limit within 3% of Poiseuille, the Bingham plug slower than the
+    Newtonian profile, unyielded and flat at the centre, yielded at the
+    walls, the Zou/He duct finite with its centre above 0.01;
+    tests/test_qibb.py: at delta 0.25 and 0.75 within 4% of the parabola
+    anchored at the off-grid walls, its roots within 0.15 of them, and at
+    0.75 less than half plain bounce-back's error)."""
+    say("phase 47: the reference's viscoplastic and qibb physics on K6")
+    out, launches = {}, {}
+    ny, g = 19, 1e-5
+    y = np.arange(ny, dtype=float)
+    newton = vp_channel(0.0)
+    lat, vs64, n = run_case3(g3, newton, VP_STEPS["newtonian"], PHYS_F64_CUT,
+                             channel_profile, "Newtonian channel",
+                             "d3q27_viscoplastic")
+    launches["vp_newtonian"] = n
+    ux_n = channel_profile(lat).numpy()
+    h, c, nu = (ny - 2) / 2.0, (ny - 1) / 2.0, 1 / 6
+    ref = g / (2 * nu) * (h ** 2 - (y - c) ** 2)
+    err = float(np.abs(ux_n[1:-1] - ref[1:-1]).max() / ref.max())
+    say(f"  Newtonian limit: max error {err:.4e} of the Poiseuille peak "
+        "(limit 0.03)")
+    if not (np.isfinite(ux_n).all() and err < 0.03):
+        fail(f"viscoplastic Newtonian limit: error {err}")
+    out["vp_newtonian"] = {"vs_f64": vs64, "poiseuille_err": err,
+                           "ux_max": float(ux_n.max())}
+    y0_frac = 0.4
+    hb = (ny - 1) / 2.0
+    lat, vs64, n = run_case3(g3, vp_channel(y0_frac * hb * g),
+                             VP_STEPS["bingham"], PHYS_F64_CUT,
+                             channel_profile, "Bingham plug",
+                             "d3q27_viscoplastic")
+    launches["vp_bingham"] = n
+    ux_b = channel_profile(lat).numpy()
+    ystat = lat.get_quantity("yield_stat")[1, :, 2].double().cpu().numpy()
+    cc = ny // 2
+    plug = np.abs(np.arange(ny) - cc) <= y0_frac * hb * 0.5
+    spread = float(ux_b[plug].max() - ux_b[plug].min())
+    ok = (np.isfinite(ux_b).all() and ux_b.max() < ux_n.max()
+          and ux_b.max() > 0 and ystat[cc] == 1.0
+          and spread < 0.02 * ux_b.max() and ystat[1] == 0.0
+          and ystat[-2] == 0.0)
+    say(f"  Bingham plug: ux max {ux_b.max():.6e} (Newtonian "
+        f"{ux_n.max():.6e}), plug spread {spread:.3e} (limit "
+        f"{0.02 * ux_b.max():.3e}), yield_stat centre {ystat[cc]}, walls "
+        f"{ystat[1]} {ystat[-2]}")
+    if not ok:
+        fail("viscoplastic Bingham plug: the reference's fit fails")
+    out["vp_bingham"] = {"vs_f64": vs64, "ux_max": float(ux_b.max()),
+                         "plug_spread": spread,
+                         "yield_stat_centre": float(ystat[cc])}
+
+    def duct_u(lat):
+        return lat.get_quantity("U").double().cpu().flatten()
+    lat, vs64, n = run_case3(g3, vp_duct, VP_STEPS["duct"], PHYS_F64_CUT,
+                             duct_u,
+                             "Zou/He duct", "d3q27_viscoplastic")
+    launches["vp_duct"] = n
+    u = lat.get_quantity("U").double().cpu().numpy()
+    centre = float(u[0][1, 6, 12])
+    say(f"  Zou/He duct: centre ux {centre:.6e} (limit > 0.01)")
+    if not (np.isfinite(u).all() and centre > 0.01):
+        fail(f"viscoplastic Zou/He duct: centre ux {centre}")
+    out["vp_duct"] = {"vs_f64": vs64, "centre_ux": centre}
+    # the qibb channels
+    nyq, gq = 16, 1e-6
+    yq = np.arange(nyq, dtype=float)
+    sl = slice(2, nyq - 2)
+    errs_q = {}
+    for delta in (0.25, 0.75):
+        lat, vs64, n = run_case3(g3, qibb_channel(delta), QIBB_STEPS,
+                                 PHYS_F64_CUT, channel_profile,
+                                 f"qibb channel, delta {delta}",
+                                 "d3q27_cumulant_qibb_small")
+        launches[f"qibb_{delta}"] = n
+        ux = lat.get_quantity("U")[0][1, :, 2].double().cpu().numpy()
+        y_w0, y_w1 = 1.0 - delta, nyq - 2.0 + delta
+        cq, hq = 0.5 * (y_w0 + y_w1), 0.5 * (y_w1 - y_w0)
+        refq = gq / (2 * (1 / 6)) * (hq ** 2 - (yq - cq) ** 2)
+        err = float(np.abs(ux[sl] - refq[sl]).max() / refq.max())
+        roots = np.sort(np.roots(np.polyfit(yq[sl], ux[sl], 2)).real)
+        say(f"  qibb delta {delta}: error {err:.4e} of the parabola "
+            f"(limit 0.04), roots {roots.tolist()} (walls {y_w0}, {y_w1}, "
+            "within 0.15)")
+        if not (np.isfinite(ux).all() and err < 0.04
+                and np.allclose(roots, [y_w0, y_w1], atol=0.15)):
+            fail(f"qibb channel at delta {delta}: the reference's fit fails")
+        errs_q[delta] = (err, refq)
+        out[f"qibb_{delta}"] = {"vs_f64": vs64, "parabola_err": err,
+                                "roots": roots.tolist()}
+    lat, vs64, n = run_case3(g3, qibb_channel(None), QIBB_STEPS,
+                             PHYS_F64_CUT,
+                             channel_profile, "plain bounce-back channel",
+                             "d3q27_cumulant_qibb_small")
+    launches["qibb_plain_bb"] = n
+    ux_bb = lat.get_quantity("U")[0][1, :, 2].double().cpu().numpy()
+    err_q, refq = errs_q[0.75]
+    err_bb = float(np.abs(ux_bb[sl] - refq[sl]).max() / refq.max())
+    say(f"  delta 0.75: qibb error {err_q:.4e} against plain bounce-back's "
+        f"{err_bb:.4e} (qibb below half of it)")
+    if not err_q < 0.5 * err_bb:
+        fail("qibb does not beat plain bounce-back at delta 0.75")
+    out["qibb_plain_bb"] = {"vs_f64": vs64, "err_bb": err_bb}
+    return {"summary": out, "launches": launches}
+
+
+def kuper_drop(dtype):
+    """A liquid drop in its vapour at 64^3 for d3q19_kuper, painted as
+    example/drop.xml paints d2q9_kuper's drop but in 3D: a sphere of
+    diameter 3/8 of the box at its centre in zone 1 (drop.xml's
+    Temperature, FAcc, Magic and MagicA, ``KUPER_DROP_MAGICF``; the liquid
+    Density in the drop, the vapour's outside), periodic."""
+    from tclb_tpu_torch import Lattice, get_model
+    m = get_model("d3q19_kuper")
+    n = KUPER_DROP_N
+    lat = Lattice(m, (n, n, n), dtype=dtype, device=DEVICE,
+                  settings={"omega": 1.0, "Temperature": 0.56, "FAcc": 1.0,
+                            "Magic": 0.01, "MagicA": -0.152,
+                            "MagicF": KUPER_DROP_MAGICF, "Density":
+                            KUPER_VAPOUR})
+    lat.set_setting("Density", KUPER_LIQUID, zone=1)
+    flags = np.full((n, n, n), m.flag_for("MRT"), dtype=np.uint16)
+    zz, yy, xx = np.mgrid[0:n, 0:n, 0:n]
+    r = 3 * n / 16
+    drop = (zz - n / 2) ** 2 + (yy - n / 2) ** 2 + (xx - n / 2) ** 2 < r * r
+    flags[drop] = m.flag_for("MRT", zone=1)
+    lat.set_flags(flags)
+    lat.init()
+    return lat
+
+
+def run_kuper_drop(g3, errs: dict) -> dict:
+    """Phase 48: the 3D kuper drop on K6: its first ``KUPER_DROP_CUT`` steps
+    against eager f32 on the card (rtol 1e-4 / atol 1e-6), then
+    ``KUPER_DROP_STEPS`` steps from Init counted from 0 (both passes of
+    each step): the mass within ``KUPER_MASS_RTOL`` of the initial (the
+    zonal Density summed over the nodes), the drop still liquid at its
+    centre and vapour at a corner; both flavours against their plain
+    versions on the developed drop."""
+    say(f"phase 48: a d3q19_kuper drop at {KUPER_DROP_N}^3 on K6")
+    kern, ref = kuper_drop(torch.float32), kuper_drop(torch.float32)
+    kern.iterate(KUPER_DROP_CUT)
+    eager_warm(ref, KUPER_DROP_CUT)
+    cut = compare(kern.state.fields, ref.state.fields,
+                  f"the kuper drop after {KUPER_DROP_CUT} steps, kernels vs "
+                  "eager f32", GOLDEN_RTOL, GOLDEN_ATOL)
+    lat = kuper_drop(torch.float32)
+    m = lat.model
+    zones = (lat.state.flags >> m.zone_shift).long()
+    mass0 = float(lat.params.zone_table[m.setting_index["Density"]][zones]
+                  .double().sum())
+    run = iterate_window3(g3, lat, f"the kuper drop, iterate("
+                          f"{KUPER_DROP_STEPS})", g3_engine("d3q19_kuper"),
+                          KUPER_DROP_STEPS)
+    rho = lat.get_quantity("Rho")
+    mass = float(rho.double().sum())
+    n = KUPER_DROP_N
+    centre, corner = float(rho[n // 2, n // 2, n // 2]), float(rho[0, 0, 0])
+    drift = abs(mass - mass0) / mass0
+    say(f"  mass {mass:.9g} (initial {mass0:.9g}, rel change {drift:.3e}, "
+        f"limit {KUPER_MASS_RTOL}), Rho centre {centre:.6g}, corner "
+        f"{corner:.6g}")
+    if drift > KUPER_MASS_RTOL:
+        fail(f"the kuper drop's mass drifted by {drift}")
+    if not (centre > 3.0 and corner < 0.1):
+        fail(f"the kuper drop: no liquid drop (Rho centre {centre}, corner "
+             f"{corner})")
+    check_kernels([(g3, lat, "generic3d_step")], errs,
+                  f"phase 48b, the kuper drop after {KUPER_DROP_STEPS} "
+                  "steps")
+    check_globals_flavour(g3, (lat,), errs, "phase 48b")
+    run.update({"vs_eager_f32": cut, "mass_rel_drift": drift,
+                "rho_centre": centre, "rho_corner": corner,
+                "lattice": lat})
+    return run
+
+
+def time_passes3(g3, lat, key: str, reps: int = 100) -> list:
+    """Each launch of a multi-pass ``generic3d_step`` on its own: its device
+    time a call from a torch.profiler trace of ``reps`` calls, against its
+    share of the step's bound (pass 0 reads the step's input once, the
+    last pass writes its output once, each does its stage's operations);
+    ``ms`` is None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    say(f"phase 8: each launch of {key} at {lat.shape} (a torch.profiler "
+        f"trace of {reps} calls)")
+    m = lat.model
+    plan = g3.DEVICE_MODELS[m.name].plan
+    inputs = g3.kernel_inputs(m, lat.state, lat.params)
+    flops = g3.stage_flops(m, lat.flags_numpy(), inputs[0])
+    n = int(np.prod(lat.shape))
+    table = len(m.zonal_settings) * m.zone_max * 4
+    fn = lambda: g3.step(*inputs)      # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [0.0] * len(plan)
+    for name, _, dur in device_events(prof):
+        hit = re.search(r"generic3d_pass_kernel<(\d+)", name)
+        if hit:
+            us[int(hit.group(1))] += dur
+    out = []
+    for s, ((stage, _), f) in enumerate(zip(plan, flops)):
+        nbytes = (m.n_storage * 4 + 4) * n + table if s == 0 else 0
+        if s == len(plan) - 1:
+            nbytes += m.n_storage * 4 * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = f / FP32_FLOPS_PER_S * 1e3
+        ms = us[s] / reps / 1e3 if us[s] else None
+        bound = max(bytes_ms, ops_ms)
+        out.append({"stage": stage, "ms": ms, "bound_ms": bound,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "bytes": nbytes, "flops": f,
+                    "share_of_bound": bound / ms if ms else None})
+        say(f"  {key} pass {s} ({stage}): "
+            + (f"{ms:.4f} ms a call" if ms else "not measured (no device "
+               "time in the trace)")
+            + f", its share of the bound {bound:.4f} ms "
+            f"({out[-1]['bound_by']}: {nbytes} B, {f} flop)")
+    return out
+
+
+def time_generic3d_models(g3, lats: dict) -> dict:
+    """Phase 7 for the 3D models of the generic engine: both flavours of
+    ``generic3d_step`` on each model's 48x48x256 lattice (its developed
+    state) against their plain versions, the bound from ``launch_bytes``
+    and ``node_step_flops`` (qibb's cut links counted from its cut
+    distances), a multi-pass step's launches a call and each pass's time."""
+    out = {}
+    for model, lat in lats.items():
+        f, flags, ztab, a = g3.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+        key = g3_key(model)
+        for k, fn, g, reps in ((key, g3.step, False, 200),
+                               (f"{key} globals", g3.step_globals, True,
+                                100)):
+            out[k] = time_one(
+                k, lambda fn=fn: fn(f, flags, ztab, a),
+                lambda g=g: g3.plain_steps(f, flags, ztab, a, 1,
+                                           with_globals=g),
+                g3.launch_bytes(lat.model, lat.shape),
+                g3.node_step_flops(lat.model, lat.flags_numpy(), f),
+                lat.shape, reps, plain_reps=3)
+        out[key]["launches_per_call"] = len(g3.DEVICE_MODELS[model].plan)
+    return out
+
+
+def ptxas_of(gk, builds, models) -> dict:
+    """Registers, stack, spills and shared memory of each generic3d_pass_
+    kernel instance in the model libraries' compiler reports: by model,
+    then by instance (``<stage,flavour,zonal source>``)."""
+    out = {}
+    for path, report in builds:
+        model = next((m for m in models if re.fullmatch(
+            r"libtclb_generic3d_%s_[0-9a-f]{12}\.so"
+            % pathlib.Path(gk.DEVICE_MODELS[m].header).stem, path.name)),
+            None)
+        if model is None:
+            continue
+        cur, rows = None, {}
+        for line in report.splitlines():
+            hit = re.search(r"generic3d_pass_kernelILi(\d+)ELb(\d)ELb(\d)",
+                            line)
+            if hit:
+                cur = "<{},{},{}>".format(
+                    hit.group(1), "globals" if hit.group(2) == "1"
+                    else "plain", "series" if hit.group(3) == "1"
+                    else "table")
+                rows[cur] = {}
+                continue
+            if cur is None:
+                continue
+            hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line)
+            if hit:
+                rows[cur].update(stack=int(hit.group(1)),
+                                 spill_stores=int(hit.group(2)),
+                                 spill_loads=int(hit.group(3)))
+            hit = re.search(r"Used (\d+) registers", line)
+            if hit:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows[cur].update(registers=int(hit.group(1)),
+                                 smem=int(smem.group(1)) if smem else 0)
+                cur = None
+        out[model] = rows
     return out
 
 
@@ -4515,6 +5249,13 @@ def main() -> int:
     one = run_onestage(gk, errs)
     multi = run_multistage(gk, errs)
     adj = run_adj_models(gk, ak, errs)
+    heat3d = run_heat_bench(g3, errs, {
+        "d3q27_cumulant (3d_channel.xml, 48x48x256)":
+            path3d["mlups_iterate"],
+        "d3q19 (channel48)": path_b["d3q19"]["mlups_iterate"]})
+    g3models = run_generic3d_models(g3, errs)
+    physics3d = run_generic3d_physics(g3)
+    drop3d = run_kuper_drop(g3, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -4546,6 +5287,7 @@ def main() -> int:
     times.update(time_onestage(gk, one))
     times.update(time_multistage(gk, multi))
     times.update(time_adj(gk, ak, adj))
+    times.update(time_generic3d_models(g3, g3models["lattices"]))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
     times.update(time_kernels(
@@ -4608,6 +5350,13 @@ def main() -> int:
                     gk.kernel_inputs(lat.model, lat.state, lat.params),
                     2 if tag else 4)
 
+    # K6's passes of d3q19_kuper at 48x48x256, after the windows above
+    kuper3d = g3_key("d3q19_kuper")
+    times[kuper3d]["passes"] = time_passes3(
+        g3, g3models["lattices"]["d3q19_kuper"], kuper3d)
+    busy_heat3d = device_busy(lambda: heat3d["lattice"].iterate(200),
+                              "a d3q19_heat case iterate(200)")
+
     launches = {name: {"karman": main_path["launches"][name],
                        "channel": band["launches"][name]}
                 for name in dk.KERNELS}
@@ -4643,6 +5392,22 @@ def main() -> int:
     launches.update(one["launches"])
     launches.update(multi["launches"])
     launches.update(adj["launches"])
+    # the 3D models of the generic engine: their paths' launches and the
+    # globals flavour's
+    g3_launches = dict(g3models["launches"])
+    g3_glaunches = dict(g3models["globals_launches"])
+
+    def add3(model, path, n, n_globals):
+        g3_launches.setdefault(g3_key(model), {})[path] = n
+        g3_glaunches.setdefault(g3_key(model), {})[path] = n_globals
+    add3("d3q19_heat", "heat_bench", heat3d["launches"]["generic3d_step"],
+         heat3d["flavours"]["globals"])
+    for path, (n, n_globals) in physics3d["launches"].items():
+        add3("d3q27_viscoplastic" if path.startswith("vp")
+             else "d3q27_cumulant_qibb_small", path, n, n_globals)
+    add3("d3q19_kuper", "kuper_drop", drop3d["launches"]["generic3d_step"],
+         drop3d["flavours"]["globals"])
+    launches.update(g3_launches)
     for name in gk.BF16_KERNELS:
         TPU_KERNELS.setdefault(name, TPU_KERNELS[name[:-len("_bf16")]])
     bf16_sources = {name: SOURCES["generic"] for name in gk.BF16_KERNELS}
@@ -4762,6 +5527,26 @@ def main() -> int:
                          "wrapper_host_ms", "shape")},
             "launches_by_path": by_path,
             "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
+    # the 3D models of the generic engine: each kernel's header, compiler
+    # report, globals flavour, bit parity with its plain version, a
+    # multi-pass step's launches a call and each pass's time
+    ptxas3 = ptxas_of(gk, builds, GENERIC3D)
+    for model in GENERIC3D:
+        key = g3_key(model)
+        by_name[key]["header"] = ("tclb_tpu_torch/csrc/"
+                                  + gk.DEVICE_MODELS[model].header)
+        by_name[key]["ptxas"] = ptxas3.get(model)
+        by_name[key]["bit_identical"] = \
+            g3models["summary"][f"{model}_bit_identical"]
+        for k in ("launches_per_call", "passes"):
+            if k in times[key]:
+                by_name[key][k] = times[key][k]
+        by_name[key]["globals_flavour"] = {
+            **{k: times[f"{key} globals"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "wrapper_host_ms", "shape")},
+            "launches_by_path": g3_glaunches[key],
+            "globals_max_abs_err": errs[f"{key} globals"]["max_abs_err"]}
     for key, t in times_512.items():
         by_name[key]["at_512x96"] = {k: t[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "wrapper_host_ms")}
@@ -4806,6 +5591,15 @@ def main() -> int:
         "multistage": multi["summary"],
         "multistage_iterate_profile": busy_multi,
         "adjoint_models": adj["summary"],
+        "generic3d_models": {
+            "heat_bench": {k: v for k, v in heat3d.items()
+                           if k != "lattice"},
+            "models": g3models["summary"],
+            "physics": physics3d["summary"],
+            "kuper_drop": {k: v for k, v in drop3d.items()
+                           if k != "lattice"},
+            "ptxas": ptxas3},
+        "d3q19_heat_bench_iterate_profile": busy_heat3d,
         "adj_bench_gradient1000_profile": busy_adj_grad,
         "d2q9_generic_kernels_off_path": d2q9_generic,
         "karman_control_iterate_profile": busy_control,

@@ -41,11 +41,13 @@
 // generic3d.cu builds generic3d_step_b for this model
 #define TCLB_MODEL_ADJOINT 1
 
+#include "d3q19_common.cuh"
+
 namespace model {
 
 // storage planes: f[0..18] over the d3q19 velocity set (models/d3q19.py,
-// shell-ordered), then the design density w, which does not stream
-constexpr int Q = 19;
+// shell-ordered; d3q19_common.cuh), then the design density w, which does
+// not stream
 constexpr int N_STORAGE = 20;
 constexpr int WP = 19;         // the design density w
 __host__ __device__ constexpr int ex(int k) {
@@ -87,250 +89,6 @@ enum Zonal { Z_Velocity, Z_Density, Z_Porocity, N_ZONAL };
 enum Global { GL_PressureLoss, GL_OutletFlux, GL_InletFlux, GL_Drag,
               GL_Lift, GL_Material, GL_MaterialPenalty, N_GLOBALS };
 
-// lattice weights, bounce-back pairs and the y mirror of the symmetry
-// faces (models/d3q19.py, models/family.py:mirror_perm)
-__host__ __device__ constexpr double wd(int k) {
-  constexpr double t[Q] = {1.0 / 3, 1.0 / 18, 1.0 / 18, 1.0 / 18, 1.0 / 18,
-                           1.0 / 18, 1.0 / 18, 1.0 / 36, 1.0 / 36, 1.0 / 36,
-                           1.0 / 36, 1.0 / 36, 1.0 / 36, 1.0 / 36, 1.0 / 36,
-                           1.0 / 36, 1.0 / 36, 1.0 / 36, 1.0 / 36};
-  return t[k];
-}
-__host__ __device__ constexpr int opp(int k) {
-  constexpr int t[Q] = {0, 2, 1, 4, 3, 6, 5, 10, 9, 8,
-                        7, 14, 13, 12, 11, 18, 17, 16, 15};
-  return t[k];
-}
-__host__ __device__ constexpr int mirror_y(int k) {
-  constexpr int t[Q] = {0, 1, 2, 4, 3, 5, 6, 8, 7, 10,
-                        9, 11, 12, 13, 14, 17, 18, 15, 16};
-  return t[k];
-}
-
-// the stress rows 4..9 of the Gram-Schmidt basis (lbm.gram_schmidt_basis)
-// and their squared norms, as numpy computes them
-constexpr int NSTRESS = 6;
-__host__ __device__ constexpr double basis(int j, int k) {
-  constexpr double t[NSTRESS][Q] = {
-      {-0.5263157894736842, -0.5263157894736842, -0.5263157894736842,
-       -0.5263157894736842, -0.5263157894736842, 0.4736842105263158,
-       0.4736842105263158, -0.5263157894736842, -0.5263157894736842,
-       -0.5263157894736842, -0.5263157894736842, 0.4736842105263158,
-       0.4736842105263158, 0.4736842105263158, 0.4736842105263158,
-       0.4736842105263158, 0.4736842105263158, 0.4736842105263158,
-       0.4736842105263158},
-      {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
-       0.0, 0.0, 0.0, 0.0, 0.0, 1.0, -1.0, -1.0, 1.0},
-      {-0.6666666666666665, -0.6666666666666665, -0.6666666666666665,
-       0.3333333333333335, 0.3333333333333335, -0.4, -0.4,
-       0.3333333333333335, 0.3333333333333335, 0.3333333333333335,
-       0.3333333333333335, -0.4, -0.4, -0.4, -0.4, 0.6, 0.6, 0.6, 0.6},
-      {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
-       0.0, 1.0, -1.0, -1.0, 1.0, 0.0, 0.0, 0.0, 0.0},
-      {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, -1.0, -1.0,
-       1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0},
-      {-0.909090909090909, 0.09090909090909102, 0.09090909090909102,
-       -0.5454545454545454, -0.5454545454545454, -0.5454545454545455,
-       -0.5454545454545455, 0.45454545454545464, 0.45454545454545464,
-       0.45454545454545464, 0.45454545454545464, 0.4545454545454545,
-       0.4545454545454545, 0.4545454545454545, 0.4545454545454545,
-       -0.18181818181818188, -0.18181818181818188, -0.18181818181818188,
-       -0.18181818181818188}};
-  return t[j][k];
-}
-__host__ __device__ constexpr double norm(int j) {
-  constexpr double t[NSTRESS] = {4.736842105263158, 4.0, 4.4, 4.0, 4.0,
-                                 3.818181818181818};
-  return t[j];
-}
-
-// c x with a coefficient c of ops/lbm.py's unrolled products: +-1 is the
-// value or its negation, anything else a multiply by (float)c
-__device__ __forceinline__ float term(double c, float x) {
-  return c == 1.0 ? x : (c == -1.0 ? -x : (float)c * x);
-}
-
-// sum_k c_k x[k] over the nonzero c_k in order, the first term alone
-// (ops/lbm.py:edot, unrolled_matvec)
-template <int N, class Coef>
-__device__ __forceinline__ float combo(Coef coef, const float* x) {
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const double c = coef(k);
-    if (c == 0.0) continue;
-    const float t = term(c, x[k]);
-    acc = first ? t : acc + t;
-    first = false;
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float sum19(const float* x) {
-  return combo<Q>([](int) { return 1.0; }, x);
-}
-
-// e_k . u with the zero components skipped (ops/lbm.py:equilibrium)
-__device__ __forceinline__ float edot(int k, const float* u) {
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (e(a, k) == 0) continue;
-    const float t = e(a, k) > 0 ? u[a] : -u[a];
-    acc = first ? t : acc + t;
-    first = false;
-  }
-  return acc;
-}
-
-// ops/lbm.py:equilibrium, with PyTorch's divisions by the constants 1/3,
-// 2/9 and 2/3 as multiplies by 3, 4.5 and 1.5
-__device__ __forceinline__ void equilibrium(float rho, const float* u,
-                                            float* feq) {
-  const float usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-#pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    const float wr = (float)wd(k) * rho;
-    if (k == 0) {
-      feq[k] = wr * (1.f - usq * 1.5f);
-      continue;
-    }
-    const float eu = edot(k, u);
-    feq[k] = wr * (1.f + eu * 3.f + eu * eu * 4.5f - usq * 1.5f);
-  }
-}
-
-// reverse of equilibrium: adds the cotangents of rho and u given those of
-// the 19 outputs
-__device__ __forceinline__ void equilibrium_b(float rho, const float* u,
-                                              const float* a, float& arho,
-                                              float* au) {
-  const float usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  float ausq = 0.f;
-#pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    const float w = (float)wd(k);
-    if (k == 0) {
-      arho += a[k] * w * (1.f - 1.5f * usq);
-      ausq -= 1.5f * a[k] * w * rho;
-      continue;
-    }
-    const float eu = edot(k, u);
-    const float ac = a[k] * w * rho;
-    arho += a[k] * w * (1.f + 3.f * eu + 4.5f * eu * eu - 1.5f * usq);
-    ausq -= 1.5f * ac;
-    const float aeu = ac * (3.f + 9.f * eu);
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      if (e(d, k)) au[d] += e(d, k) > 0 ? aeu : -aeu;
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) au[d] += 2.f * u[d] * ausq;
-}
-
-// ops/lbm.py:nebb_boundary on face (AXIS, SIDE): SIDE +1 where the fluid
-// lies toward +AXIS (a W face), -1 on the high face; VELOCITY imposes the
-// normal velocity `value`, else the density `value`
-template <int AXIS, int SIDE, bool VELOCITY>
-__device__ __forceinline__ void nebb(const float* f, float value,
-                                     float* out) {
-  float s_t = 0.f, s_o = 0.f;
-  bool first_t = true, first_o = true;
-#pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    if (e(AXIS, k) == 0) {
-      s_t = first_t ? f[k] : s_t + f[k];
-      first_t = false;
-    } else if (e(AXIS, k) == -SIDE) {
-      s_o = first_o ? f[k] : s_o + f[k];
-      first_o = false;
-    }
-  }
-  float rho, un;
-  if (VELOCITY) {
-    un = value;
-    rho = (s_t + s_o * 2.f) / (1.f - (SIDE > 0 ? un : -un));
-  } else {
-    rho = value;
-    const float r = 1.f - (s_t + s_o * 2.f) / rho;
-    un = SIDE > 0 ? r : -r;
-  }
-  float corr[Q];
-#pragma unroll
-  for (int k = 0; k < Q; ++k)
-    if (e(AXIS, k) == SIDE)
-      corr[k] = (float)(6.0 * wd(k) * e(AXIS, k)) * rho * un;
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    if (t == AXIS) continue;
-    float qt = 0.f;
-    bool first = true;
-#pragma unroll
-    for (int k = 0; k < Q; ++k) {
-      if (e(AXIS, k) != 0 || e(t, k) == 0) continue;
-      const float v = e(t, k) > 0 ? f[k] : -f[k];
-      qt = first ? v : qt + v;
-      first = false;
-    }
-    const float jt = qt * -3.f;
-#pragma unroll
-    for (int k = 0; k < Q; ++k)
-      if (e(AXIS, k) == SIDE && e(t, k) != 0)
-        corr[k] = corr[k] + (float)(6.0 * wd(k) * e(t, k)) * jt;
-  }
-#pragma unroll
-  for (int k = 0; k < Q; ++k)
-    out[k] = e(AXIS, k) == SIDE ? f[opp(k)] + corr[k] : f[k];
-}
-
-// reverse of nebb: q (the pulled populations' cotangents) from a (the
-// closure's outputs'); the closure is linear in f at a fixed `value`
-template <int AXIS, int SIDE, bool VELOCITY>
-__device__ __forceinline__ void nebb_b(float value, const float* a,
-                                       float* q) {
-#pragma unroll
-  for (int k = 0; k < Q; ++k) q[k] = 0.f;
-#pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    if (e(AXIS, k) == SIDE) q[opp(k)] += a[k];
-    else q[k] += a[k];
-  }
-  // the tangential momenta: corr_k += 6 w_k e_tk j_t, j_t = -3 q_t
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    if (t == AXIS) continue;
-    float aj = 0.f;
-#pragma unroll
-    for (int k = 0; k < Q; ++k)
-      if (e(AXIS, k) == SIDE && e(t, k) != 0)
-        aj += (float)(6.0 * wd(k) * e(t, k)) * a[k];
-    const float aq = -3.f * aj;
-#pragma unroll
-    for (int k = 0; k < Q; ++k)
-      if (e(AXIS, k) == 0 && e(t, k) != 0) q[k] += e(t, k) > 0 ? aq : -aq;
-  }
-  // the normal term: corr_k = 6 w_k e_k rho un, with S = s_t + 2 s_o
-  float acn = 0.f;
-#pragma unroll
-  for (int k = 0; k < Q; ++k)
-    if (e(AXIS, k) == SIDE) acn += (float)(6.0 * wd(k) * e(AXIS, k)) * a[k];
-  float as;
-  if (VELOCITY) {     // rho = S / (1 - SIDE un)
-    const float un = value;
-    as = acn * un / (1.f - (SIDE > 0 ? un : -un));
-  } else {            // un = SIDE (1 - S / rho)
-    const float aun = acn * value;
-    as = (SIDE > 0 ? -aun : aun) / value;
-  }
-#pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    if (e(AXIS, k) == 0) q[k] += as;
-    else if (e(AXIS, k) == -SIDE) q[k] += 2.f * as;
-  }
-}
-
 // The forward of one node up to its outputs, shared by stage<0> and its
 // reverse: the boundary cases, the macroscopic values, the relaxed
 // non-equilibrium and the Brinkman velocity
@@ -356,23 +114,8 @@ struct Forward {
          : c.nt_is(T_WVelocity) ? 2 : c.nt_is(T_WPressure) ? 3
          : c.nt_is(T_EVelocity) ? 4 : c.nt_is(T_EPressure) ? 5
          : (c.nt_is(T_NSymmetry) || c.nt_is(T_SSymmetry)) ? 6 : 0;
-    switch (bc) {
-      case 1:
-#pragma unroll
-        for (int k = 0; k < Q; ++k) fb[k] = f[opp(k)];
-        break;
-      case 2: nebb<0, 1, true>(f, c.zonal(Z_Velocity), fb); break;
-      case 3: nebb<0, 1, false>(f, c.zonal(Z_Density), fb); break;
-      case 4: nebb<0, -1, true>(f, c.zonal(Z_Velocity), fb); break;
-      case 5: nebb<0, -1, false>(f, c.zonal(Z_Density), fb); break;
-      case 6:
-#pragma unroll
-        for (int k = 0; k < Q; ++k) fb[k] = f[mirror_y(k)];
-        break;
-      default:
-#pragma unroll
-        for (int k = 0; k < Q; ++k) fb[k] = f[k];
-    }
+    boundary19(bc, f, [&] { return c.zonal(Z_Velocity); },
+               [&] { return c.zonal(Z_Density); }, fb);
     rho = sum19(fb);
 #pragma unroll
     for (int d = 0; d < 3; ++d)
@@ -381,15 +124,7 @@ struct Forward {
     equilibrium(rho, u, feq);
 #pragma unroll
     for (int k = 0; k < Q; ++k) fneq[k] = fb[k] - feq[k];
-    // lbm.two_rate_relax: mn = M[4:10] fneq, back = (M[4:10] / |row|^2)^T mn
-    float mn[NSTRESS];
-#pragma unroll
-    for (int j = 0; j < NSTRESS; ++j)
-      mn[j] = combo<Q>([j](int k) { return basis(j, k); }, fneq);
-#pragma unroll
-    for (int k = 0; k < Q; ++k)
-      back[k] = combo<NSTRESS>(
-          [k](int j) { return basis(j, k) / norm(j); }, mn);
+    stress_back(fneq, back);
     const float pg = c.setting(S_PorocityGamma);
     den = 1.f - pg * (1.f - w);
     nw = w / den;

@@ -7,7 +7,9 @@ one-stage 2D models (``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
 ``sw``, ``d2q9_solid``, ``d2q9_npe_guo``), the multi-stage 2D models
 (``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee``,
 ``d2q9_poison_boltzmann``), the adjoint models ``d2q9_heat_adj``,
-``d2q9_adj``, ``d2q9_optimalMixing``, ``d2q9_plate`` and ``d3q19_adj``;
+``d2q9_adj``, ``d2q9_optimalMixing``, ``d2q9_plate`` and ``d3q19_adj``,
+and the 3D models of the generic engine (``d3q19_heat``, ``d3q27``,
+``d3q27_viscoplastic``, ``d3q27_cumulant_qibb_small``, ``d3q19_kuper``);
 the other models of the JAX package follow ROADMAP queue 1 items 10 and
 11."""
 
@@ -48,6 +50,11 @@ _REGISTRY: dict[str, str] = {
     "d3q19": "tclb_tpu_torch.models.d3q19",
     "d3q19_les": "tclb_tpu_torch.models.d3q19_les",
     "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",
+    "d3q19_heat": "tclb_tpu_torch.models.d3q19_heat",
+    "d3q27": "tclb_tpu_torch.models.d3q27",
+    "d3q27_viscoplastic": "tclb_tpu_torch.models.d3q27_viscoplastic",
+    "d3q27_cumulant_qibb_small": "tclb_tpu_torch.models.d3q27_cumulant_qibb",
+    "d3q19_kuper": "tclb_tpu_torch.models.d3q19_kuper",
 }
 
 _CACHE: dict[str, Model] = {}

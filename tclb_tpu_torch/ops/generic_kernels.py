@@ -14,7 +14,8 @@ models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``, ``sw``,
 ``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee`` and
 ``d2q9_poison_boltzmann``, the 2D adjoint models ``d2q9_heat_adj``,
 ``d2q9_adj``, ``d2q9_optimalMixing`` and ``d2q9_plate``, and the 3D
-``d3q19_adj``, whose kernels
+``d3q19_adj``, ``d3q19_heat``, ``d3q27``, ``d3q27_viscoplastic``,
+``d3q27_cumulant_qibb_small`` and ``d3q19_kuper``, whose kernels
 ``ops/generic3d_kernels.py`` binds) with the registry layout the header
 indexes by position.  ``d2q9`` takes
 these kernels under a ``<Control>`` series only; without one its own
@@ -366,6 +367,77 @@ DEVICE_MODELS = {
                   "Material", "MaterialPenalty"),
         plan=(("BaseIteration", 0),),
         adjoint=True, ndim=3),
+    # the 3D forward models of the generic engine: one stage each but
+    # d3q19_kuper's two (Run, CalcPhi: one launch a stage)
+    "d3q19_heat": DeviceModel(
+        header="models/d3q19_heat.cuh",
+        storage=tuple(f"f[{k}]" for k in range(19))
+        + tuple(f"T[{k}]" for k in range(7)),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "GravitationZ", "S_high",
+                  "InletTemperature", "InitTemperature", "FluidAlfa",
+                  "HeaterTemperature", "PressureLossInObj",
+                  "OutletFluxInObj", "InletFluxInObj", "OutFluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "NSymmetry", "SSymmetry", "Heater",
+                    "Outlet"),
+        groups=("COLLISION",), zonal=("Velocity", "Density"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux", "OutFlux"),
+        plan=(("BaseIteration", 0),), ndim=3),
+    "d3q27": DeviceModel(
+        header="models/d3q27.cuh",
+        storage=tuple(f"f[{k}]" for k in range(27)),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "GravitationZ", "omega_bulk",
+                  "PressureLossInObj", "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "NSymmetry", "SSymmetry", "Inlet",
+                    "Outlet"),
+        groups=("COLLISION",), zonal=("Velocity", "Density"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 0),), ndim=3),
+    "d3q27_viscoplastic": DeviceModel(
+        header="models/d3q27_viscoplastic.cuh",
+        storage=tuple(f"f[{k}]" for k in range(27))
+        + ("nu_app", "yield_stat"),
+        settings=("nu", "Velocity", "Pressure", "ForceX", "ForceY",
+                  "ForceZ", "YieldStress", "FluxInObj", "TotalRhoInObj")
+        + tuple(f"{pl}{g}InObj" for pl in ("XY", "XZ", "YZ")
+                for g in ("vx", "vy", "vz", "rho1", "rho2", "area")),
+        node_types=("Wall", "Solid", "SymmetryY", "SymmetryZ",
+                    "NVelocity_ZouHe", "SVelocity_ZouHe", "EVelocity_ZouHe",
+                    "WVelocity_ZouHe", "NPressure_ZouHe", "SPressure_ZouHe",
+                    "EPressure_ZouHe", "WPressure_ZouHe", "MRT", "XYslice1",
+                    "XZslice1", "YZslice1", "XYslice2", "XZslice2",
+                    "YZslice2"),
+        groups=("COLLISION",), zonal=("Velocity", "Pressure"),
+        globals_=("Flux", "TotalRho") + tuple(
+            f"{pl}{g}" for pl in ("XY", "XZ", "YZ")
+            for g in ("vx", "vy", "vz", "rho1", "rho2", "area")),
+        plan=(("BaseIteration", 0),), ndim=3),
+    "d3q27_cumulant_qibb_small": DeviceModel(
+        header="models/d3q27_cumulant_qibb.cuh",
+        storage=tuple(f"f[{k}]" for k in range(27))
+        + tuple(f"q[{k}]" for k in range(1, 27)),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "GravitationZ", "nubuffer",
+                  "GalileanCorrection", "omega_bulk", "ForceX", "ForceY",
+                  "ForceZ", "FluxInObj"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity", "SVelocity", "SPressure", "NVelocity",
+                    "NPressure", "NSymmetry", "SSymmetry", "QIBB", "Buffer"),
+        groups=("COLLISION",), zonal=("Velocity", "Density"),
+        globals_=("Flux",), plan=(("BaseIteration", 0),), ndim=3),
+    "d3q19_kuper": DeviceModel(
+        header="models/d3q19_kuper.cuh",
+        storage=tuple(f"f[{k}]" for k in range(19)) + ("phi",),
+        settings=("omega", "nu", "Temperature", "FAcc", "Magic", "MagicA",
+                  "MagicF", "GravitationX", "GravitationY", "GravitationZ",
+                  "Density", "Wetting"),
+        node_types=("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+                    "EVelocity"),
+        groups=("BOUNDARY", "COLLISION"), zonal=("Density",), globals_=(),
+        plan=(("BaseIteration", 1), ("CalcPhi", 0)), ndim=3),
 }
 
 

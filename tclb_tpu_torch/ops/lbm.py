@@ -1,7 +1,7 @@
 """Shared LBM math on PyTorch tensors — the port's counterpart of the JAX
 package's ``ops/lbm.py``, restricted to what the ported models (``d2q9``
 and its family, the z-slab family, ``d2q9_kuper``, ``d2q9_heat_adj``,
-``d3q19_adj``) use.
+``d3q19_adj``, the 3D models of the generic engine) use.
 
 Constants (velocity sets, weights, moment bases) are numpy arrays built on
 the host; everything that touches lattice planes is a plain function on

@@ -316,3 +316,57 @@ class Geometry:
             return self.flags[0]
         return self.flags
 
+
+
+# --------------------------------------------------------------------------- #
+# Q-cut painting (interpolated bounce-back wall distances)
+# --------------------------------------------------------------------------- #
+
+
+def cuts_from_sdf(sdf, shape, E) -> np.ndarray:
+    """Per-direction wall-cut distances from a signed distance function
+    (the host-side analogue of the reference's cut generation consumed by
+    Lattice::CutsOverwrite; -1 is no cut and the fraction stays a float
+    where the reference quantizes it to 0.005 steps).
+
+    ``sdf(coords)`` maps an (ndim, *shape) array of node coordinates
+    (index order matching ``shape``: z, y, x / y, x) to signed distances,
+    positive in the fluid and negative in the solid.  For every fluid node
+    whose ``E[i]`` neighbour is solid, the cut fraction along the link is
+    the linear interpolation of the surface crossing
+    ``q = sdf(x) / (sdf(x) - sdf(x + e_i))``.
+
+    Returns (len(E) - 1, *shape) float32, aligned with ``E[1:]``."""
+    shape = tuple(int(s) for s in shape)
+    ndim = len(shape)
+    grids = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in shape],
+                        indexing="ij")
+    coords = np.stack(grids)
+    d0 = np.asarray(sdf(coords), dtype=np.float64)
+    out = np.full((len(E) - 1,) + shape, -1.0, dtype=np.float32)
+    for i in range(1, len(E)):
+        # E rows are (dx[, dy[, dz]]), x first; the index order is reversed
+        off = np.array(list(E[i][::-1]) + [0] * (ndim - len(E[i])),
+                       dtype=np.float64)[:ndim]
+        dn = np.asarray(sdf(coords + off.reshape((ndim,) + (1,) * ndim)),
+                        dtype=np.float64)
+        crossing = (d0 > 0.0) & (dn <= 0.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            q = d0 / (d0 - dn)
+        out[i - 1] = np.where(crossing, np.clip(q, 0.0, 1.0), -1.0)
+    return out
+
+
+def sphere_sdf(center, radius):
+    """SDF of a solid sphere (or a cylinder extruded along the leading
+    axes, given fewer centre components than dimensions): negative inside,
+    coordinates in index order as :func:`cuts_from_sdf` passes them."""
+    center = np.asarray(center, dtype=np.float64)
+
+    def sdf(coords):
+        nd = coords.shape[0]
+        use = coords[nd - len(center):]
+        r = np.sqrt(sum((use[k] - center[k]) ** 2
+                        for k in range(len(center))))
+        return r - radius
+    return sdf

@@ -26,7 +26,9 @@ from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
 from torch_cases import (ADJ3D_SETTINGS, ADJ_MODELS, ADJ_SERIES,
-                         D3Q_FAMILY, FAMILY_MODELS, HEAT_SETTINGS,
+                         D3Q_FAMILY, FAMILY_MODELS, GENERIC3D_MODELS,
+                         HEAT_SETTINGS, RICH_GENERIC3D_SETTINGS,
+                         paint_rich_generic3d,
                          KUPER_SETTINGS, MULTISTAGE_MODELS, ONESTAGE_MODELS,
                          RICH3D_SETTINGS, RICH_ADJ_SETTINGS,
                          RICH_MULTISTAGE_SETTINGS, RICH_ONESTAGE_SETTINGS,
@@ -1352,3 +1354,88 @@ def test_adj_kernel_gradient_matches_eager():
     assert float(oc) == pytest.approx(float(oe), rel=1e-5)
     assert float(ge.abs().max()) > 0
     torch.testing.assert_close(gc, ge, rtol=1e-4, atol=1e-7)
+
+
+# --------------------------------------------------------------------------- #
+# the 3D models of the generic engine (K6: passes, Field reads)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def card_lattice_generic3d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed):
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=RICH_GENERIC3D_SETTINGS[name], device="cuda")
+        return paint_rich_generic3d(
+            lat, gk.DEVICE_MODELS[name].node_types, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 32), (5, 11, 37)])
+@pytest.mark.parametrize("name", GENERIC3D_MODELS)
+def test_generic3d_models_match_plain(card_lattice_generic3d, name, shape):
+    """Each 3D model's generic3d_step on a rich state (every node type its
+    header reads, two zones, qibb's cuts from a sphere, kuper's phi not
+    constant; ragged 32x8 blocks at 5x11x37), all four flavours: one
+    launch a stage (kuper: two), fields at rtol 2e-5 / atol 2e-6, globals
+    at rtol 1e-4 / atol 1e-6."""
+    lat = card_lattice_generic3d(name, shape, seed=5)
+    m = lat.model
+    passes = len(gk.DEVICE_MODELS[name].plan)
+    f, flags, ztab, args = g3.kernel_inputs(m, lat.state, lat.params)
+    g3.reset_launches()
+    got = g3.step(f, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert g3.LAUNCHES == {"generic3d_step": passes}
+    torch.testing.assert_close(got, g3.plain_steps(f, flags, ztab, args, 1),
+                               **FIELDS_TOL)
+    got, g = g3.step_globals(f, flags, ztab, args)
+    assert g3.FLAVOUR_LAUNCHES == {"plain": passes, "globals": passes}
+    want, wg = g3.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    assert torch.equal(g3.step_globals(f, flags, ztab, args)[1], g)
+    zonal = m.zonal_settings[0]
+    v = float(lat.params.zone_table[m.setting_index[zonal], 1])
+    lat.set_setting_series(zonal, [v * (1 + 0.05 * k) for k in range(5)],
+                           zone=1)
+    series = gk.series_inputs(m, lat.params)
+    f, flags, ztab, args = g3.kernel_inputs(m, lat.state, lat.params)
+    for it in (0, 4, 12):
+        got = g3.step_series(f, flags, ztab, args, series, it)
+        gotg, g = g3.step_series_globals(f, flags, ztab, args, series, it)
+        want, wg = g3.plain_steps(f, flags, ztab, args, 1, with_globals=True,
+                                  series=series, it=it)
+        torch.testing.assert_close(got, want, **FIELDS_TOL)
+        torch.testing.assert_close(gotg, want, **FIELDS_TOL)
+        torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    assert g3.SERIES_LAUNCHES == {"generic3d_step_series": 3 * passes,
+                                  "generic3d_step_series_globals":
+                                      3 * passes}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GENERIC3D_MODELS)
+def test_generic3d_models_take_the_band_engine(card_lattice_generic3d,
+                                               name):
+    """Lattice.iterate on the card picks K6 for each model (the z-slab
+    kernels reject them), runs no eager step and agrees with eager f32
+    over a few steps."""
+    lat = card_lattice_generic3d(name, (8, 16, 32), seed=7)
+    ref = card_lattice_generic3d(name, (8, 16, 32), seed=7)
+    assert lat.engine_name == f"cuda_generic3d_band[{name},fuse=1]"
+    g3.reset_launches()
+    lat.iterate(3)
+    ref.state = ref._iterate(ref.state, ref.params, 3)
+    assert lat.eager_steps == 0
+    assert g3.LAUNCHES["generic3d_step"] == 3 * len(
+        gk.DEVICE_MODELS[name].plan)
+    torch.testing.assert_close(lat.state.fields, ref.state.fields,
+                               rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(lat.state.globals_, ref.state.globals_,
+                               rtol=1e-4, atol=1e-6)
+

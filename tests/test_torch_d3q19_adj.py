@@ -545,7 +545,10 @@ def test_bound_counts():
 
 
 def _header() -> str:
-    return (_cuda_build.CSRC / gk.DEVICE_MODELS[NAME].header).read_text()
+    """The model's header with the shared headers it includes
+    (d3q19_common.cuh holds the d3q19 tables)."""
+    path = _cuda_build.CSRC / gk.DEVICE_MODELS[NAME].header
+    return "\n".join(p.read_text() for p in _cuda_build.included(path))
 
 
 def _enum(text, name):

@@ -91,12 +91,14 @@ def test_catalogue_names_the_roadmap_for_models_not_ported():
                              "d2q9_optimalMixing",
                              "d2q9_pf_pressureEvolution", "d2q9_plate",
                              "d2q9_poison_boltzmann", "d2q9_pp_MCMP",
-                             "d2q9_solid", "d3q19", "d3q19_adj", "d3q19_les",
-                             "d3q27_BGK", "d3q27_BGK_galcor",
-                             "d3q27_cumulant", "sw"]
-    assert len(list_models()) == 27
+                             "d2q9_solid", "d3q19", "d3q19_adj",
+                             "d3q19_heat", "d3q19_kuper", "d3q19_les",
+                             "d3q27", "d3q27_BGK", "d3q27_BGK_galcor",
+                             "d3q27_cumulant", "d3q27_cumulant_qibb_small",
+                             "d3q27_viscoplastic", "sw"]
+    assert len(list_models()) == 32
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_model("d3q19_heat")
+        get_model("d3q19_heat_adj")
 
 
 @pytest.mark.parametrize("name", ["d2q9_SRT", "d2q9_les", "d2q9_inc",

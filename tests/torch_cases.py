@@ -1176,3 +1176,157 @@ def adj_channel(lattice_cls, model, dtype, shape=(16, 128),
     lat.set_flags(flags)
     lat.init()
     return lat
+
+
+# The 3D models of the generic engine (K6): tests/test_pallas_generic.py's
+# _3D_SETTINGS where it names the model, a few more settings so every term
+# counts (gravity, a yield stress between the noise's S:S, a force), and
+# zone 1's own zonal values
+GENERIC3D_MODELS = ("d3q19_heat", "d3q27", "d3q27_viscoplastic",
+                    "d3q27_cumulant_qibb_small", "d3q19_kuper")
+GENERIC3D_SHAPE = (6, 16, 32)
+GENERIC3D_SETTINGS = {
+    "d3q19_heat": {"nu": 0.05, "Velocity": 0.02, "FluidAlfa": 0.05},
+    "d3q27": {},
+    "d3q27_viscoplastic": {"nu": 0.1},
+    "d3q27_cumulant_qibb_small": {},
+    "d3q19_kuper": {"nu": 0.1, "Temperature": 0.9, "Magic": 0.01},
+}
+RICH_GENERIC3D_SETTINGS = {
+    "d3q19_heat": {**GENERIC3D_SETTINGS["d3q19_heat"],
+                   "GravitationX": 1e-5, "S_high": 1.2,
+                   "InletTemperature": 1.5, "HeaterTemperature": 3.0},
+    "d3q27": {"nu": 0.05, "Velocity": 0.02, "GravitationX": 1e-5,
+              "GravitationZ": -2e-6, "omega_bulk": 1.1},
+    "d3q27_viscoplastic": {"nu": 0.1, "YieldStress": 5e-4, "ForceX": 1e-5,
+                           "ForceY": -3e-6, "Velocity": 0.01,
+                           "Pressure": 0.001},
+    "d3q27_cumulant_qibb_small": {"nu": 0.01, "Velocity": 0.02,
+                                  "ForceX": 1e-5, "GravitationY": 2e-6,
+                                  "omega_bulk": 1.1, "nubuffer": 0.05},
+    "d3q19_kuper": {**GENERIC3D_SETTINGS["d3q19_kuper"], "Density": 2.0,
+                    "GravitationZ": -1e-5},
+}
+RICH_GENERIC3D_ZONE1 = {"Velocity": 0.035, "Density": 1.004,
+                        "Pressure": 0.002}
+KUPER3D_ZONE1_DENSITY = 1.5
+
+
+def generic3d_coll(m) -> str:
+    return "MRT" if "MRT" in m.node_types else "BGK"
+
+
+def rich_flags_generic3d(m, node_types, nz, ny, nx):
+    """Every node type in ``node_types`` (the ones the model's device
+    header reads) on a (nz, ny, nx) field, as ``ops/generic2d_parity.py``
+    paints a 2D header's: the collision type inside, each boundary type in
+    an x column of its own, each other type in a patch (set within its
+    group's bits), walls at y = 0 and y = ny - 1, zone 1 on the upper half
+    in z."""
+    nt = m.node_types
+    coll = generic3d_coll(m)
+    flags = np.full((nz, ny, nx), m.flag_for(coll), dtype=np.uint16)
+    names = [n for n in node_types if n in nt and n != coll]
+    step = max(nx // (len(names) + 2), 1)
+    for i, name in enumerate(names):
+        x = 1 + i * step
+        if nt[name].group == "BOUNDARY":
+            flags[:, 1:-1, x] = m.flag_for(name, coll)
+        else:
+            patch = flags[1:-1, ny // 4:3 * ny // 4, x:x + 2]
+            patch &= np.uint16(~nt[name].mask & 0xffff)
+            patch |= np.uint16(nt[name].value)
+    flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
+    flags[nz // 2:] |= np.uint16(1 << m.zone_shift)
+    return flags
+
+
+def generic3d_planes(m, shape, seed):
+    """The populations near a flowing equilibrium with 2% noise (d3q19,
+    d3q27; d3q19_heat's d3q7 temperature around 1.2), and the other planes:
+    kuper's phi around 0.6 with 10% noise, viscoplastic's nu_app and
+    yield_stat at random; qibb's cut distances stay as painted."""
+    rng = np.random.default_rng(seed)
+    names = m.storage_names
+    nf = len(m.groups["f"])
+    E = m.ei[:nf].astype(np.float64)
+    shell = {19: {0: 1 / 3, 1: 1 / 18, 2: 1 / 36},
+             27: {0: 8 / 27, 1: 2 / 27, 2: 1 / 54, 3: 1 / 216}}[nf]
+    w = np.array([shell[int((e * e).sum())] for e in E])
+    rho = 1.0 + 0.01 * rng.standard_normal(shape)
+    u = 0.01 * rng.standard_normal((3,) + shape)
+    u[0] += 0.02
+    usq = (u * u).sum(0)
+    planes = {}
+    for k in range(nf):
+        eu = E[k, 0] * u[0] + E[k, 1] * u[1] + E[k, 2] * u[2]
+        feq = w[k] * rho * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+        planes[names[k]] = feq * (1 + 0.02 * rng.standard_normal(shape))
+    if "T" in m.groups:
+        idx = m.groups["T"]
+        et = m.ei[list(idx)].astype(np.float64)
+        temp = 1.2 * (1 + 0.02 * rng.standard_normal(shape))
+        for j, i in enumerate(idx):
+            eu = et[j, 0] * u[0] + et[j, 1] * u[1] + et[j, 2] * u[2]
+            wt = 0.25 if j == 0 else 0.125
+            planes[names[i]] = wt * temp * (1 + 4 * eu) * (
+                1 + 0.02 * rng.standard_normal(shape))
+    if "phi" in m.storage_index:
+        planes["phi"] = 0.6 * (1 + 0.1 * rng.standard_normal(shape))
+    if "nu_app" in m.storage_index:
+        planes["nu_app"] = 0.1 * rng.random(shape)
+        planes["yield_stat"] = (rng.random(shape) < 0.5).astype(np.float64)
+    return planes
+
+
+def qibb_cuts(shape):
+    """The cut distances of a solid sphere (radius a quarter of the
+    smaller cross-section, centred in the lattice), as
+    ``utils.geometry.cuts_from_sdf`` paints them (26 planes)."""
+    from tclb_tpu_torch.models.d3q27_cumulant_qibb import E
+    from tclb_tpu_torch.utils.geometry import cuts_from_sdf, sphere_sdf
+    nz, ny, nx = shape
+    sdf = sphere_sdf((nz / 2 - 0.3, ny / 2 + 0.2, nx / 2 - 0.1),
+                     min(nz, ny) / 4 + 0.37)
+    return cuts_from_sdf(sdf, shape, E)
+
+
+def qibb_flags(m, flags, cuts):
+    """QIBB on every node with a cut link (set within its group's bits)."""
+    has_cut = (cuts >= 0).any(axis=0)
+    flags = flags.copy()
+    t = m.node_types["QIBB"]
+    flags[has_cut] = (flags[has_cut] & np.uint16(~t.mask & 0xffff)) \
+        | np.uint16(t.value)
+    return flags
+
+
+def paint_rich_generic3d(lat, node_types, seed):
+    """``rich_flags_generic3d`` (qibb: QIBB on the nodes a sphere's cuts
+    touch), zone 1's zonal values, Init and ``generic3d_planes`` (qibb:
+    the sphere's cut distances) on a Lattice of either package."""
+    m = lat.model
+    flags = rich_flags_generic3d(m, node_types, *lat.shape)
+    cuts = None
+    if "q" in m.groups:
+        cuts = qibb_cuts(lat.shape)
+        flags = qibb_flags(m, flags, cuts)
+    lat.set_flags(flags)
+    for name in m.zonal_settings:
+        value = (KUPER3D_ZONE1_DENSITY if m.name == "d3q19_kuper"
+                 else RICH_GENERIC3D_ZONE1[name])
+        lat.set_setting(name, value, zone=1)
+    lat.init()
+    planes = generic3d_planes(m, lat.shape, seed)
+    if cuts is not None:
+        planes.update({f"q[{i + 1}]": cuts[i] for i in range(26)})
+    lat.set_density_planes(planes)
+    return lat
+
+
+def parity3d_flags(m, shape):
+    """tests/test_pallas_generic.py:_parity_3d's painting: the collision
+    type with Wall rows at y = 0 and y = ny - 1."""
+    flags = np.full(shape, m.flag_for(generic3d_coll(m)), dtype=np.uint16)
+    flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
+    return flags
