@@ -80,8 +80,8 @@ missing.  Phases, each of which fails the run on its own:
    each wrapper takes;
 8. torch.profiler traces of a karman, a 3d_channel and a drop ``iterate``
    window: the card's busy and idle share and its time by kernel; then,
-   a trace each, every launch of a multi-pass ``generic2d_step`` at
-   1024x1024 against its share of the step's bound;
+   a trace each, the launch of each three-stage ``generic2d_step`` (the
+   staged form) at 1024x1024 against the step's bound;
 9. the generic main path: ``example/drop.xml`` unchanged through
    ``run_config`` (128x128, 6000 iterations, Log every 500, VTK every
    2000) on ``cuda_generic_resident[d2q9_kuper,fuse=N]``, launching both
@@ -268,7 +268,7 @@ missing.  Phases, each of which fails the run on its own:
    resident engine;
 38. d2q9_lee's 1024x1024 lattice under a ``<Control>`` series of
    InletVelocity on its inlet's zone (horizon 5): both series flavours of
-   the three-pass step against their plain versions, then an
+   the three-stage step against their plain versions, then an
    ``iterate(2000)`` on them.
 
 39. the last shipped example, ``example/adj_drag.xml`` (d2q9_adj, 64x32)
@@ -3645,7 +3645,7 @@ def start_probe(xml, model, dtype=torch.float32):
 def run_multistage_example(gk, model: str) -> dict:
     """Phase 35: ``model``'s example unchanged through ``run_config`` on
     the card, counted from 0: the resident engine, no eager step, both
-    generic kernels, one globals call per Log (a launch a pass); its
+    generic kernels, one globals call per Log (one launch a call); its
     physics (see ``multistage_physics``); then the example cut to
     MULTISTAGE_CUT iterations on the kernels and on the eager f32 engine:
     every Log column and the final fields at rtol 1e-4 / atol 1e-6; the
@@ -3673,10 +3673,9 @@ def run_multistage_example(gk, model: str) -> dict:
         fail(f"{xml.name} ran on {lat.engine_name} with {lat.eager_steps} "
              "eager steps")
     globals_ = run["flavours"]["generic2d_step"]["globals"]
-    passes = gk._LIB[model]["passes"]
-    if set(launches) != set(gk.KERNELS) or globals_ != stops * passes:
+    if set(launches) != set(gk.KERNELS) or globals_ != stops:
         fail(f"{xml.name}: launches {launches}, globals flavour "
-             f"{globals_} in {stops} iterate calls of {passes} launches")
+             f"{globals_} in {stops} iterate calls")
     if not bool(torch.isfinite(lat.state.fields).all()):
         fail(f"{xml.name}: non-finite fields")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3963,21 +3962,17 @@ def run_multistage(gk, errs: dict) -> dict:
 
 def time_passes(gk, lat, key: str, inputs, itemsize: int,
                 reps: int = 100) -> list:
-    """Each launch of a multi-pass ``generic2d_step`` (``key``) on its own:
-    its device time a call from a torch.profiler trace of ``reps`` calls,
-    against its share of the step's bound: pass 0 reads the step's input
-    once (the stack, the flags, the zone table), the last pass writes its
-    output once, and each pass does its stage's operations
-    (``stage_flops``); the passes' shares add up to the step's bound.
-    ``ms`` is None where the trace shows no device time."""
+    """Each kernel a ``generic2d_step`` call (``key``) launches, on its
+    own: its device time a call from a torch.profiler trace of ``reps``
+    calls, against the step's bound (``launch_bytes``, at ``itemsize``
+    bytes a value, and ``node_step_flops``: what the step must move and
+    compute, whatever it recomputes).  A three-stage plan runs in one
+    launch, the staged form (``generic2d_staged_kernel``).  ``ms`` is
+    None where the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     say(f"phase 8: each launch of {key} at {lat.shape} (a torch.profiler "
         f"trace of {reps} calls)")
     m = lat.model
-    plan = gk.DEVICE_MODELS[m.name].plan
-    flops = gk.stage_flops(m, lat.flags_numpy())
-    n = int(np.prod(lat.shape))
-    table = len(m.zonal_settings) * m.zone_max * 4
     fn = lambda: gk.step(*inputs)      # noqa: E731
     fn()
     torch.cuda.synchronize()
@@ -3986,29 +3981,30 @@ def time_passes(gk, lat, key: str, inputs, itemsize: int,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [0.0] * len(plan)
+    us = {}
     for name, _, dur in device_events(prof):
-        hit = re.search(r"generic2d_pass_kernel<(\d+)", name)
+        hit = re.search(r"(generic2d_\w+_kernel)", name)
         if hit:
-            us[int(hit.group(1))] += dur
+            us[hit.group(1)] = us.get(hit.group(1), 0.0) + dur
+    nbytes = gk.launch_bytes(m, lat.shape, itemsize=itemsize)
+    flops = gk.node_step_flops(m, lat.flags_numpy())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
     out = []
-    for s, ((stage, _), f) in enumerate(zip(plan, flops)):
-        nbytes = ((m.n_storage * itemsize + 4) * n + table if s == 0 else 0)
-        if s == len(plan) - 1:
-            nbytes += m.n_storage * itemsize * n
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = f / FP32_FLOPS_PER_S * 1e3
-        ms = us[s] / reps / 1e3 if us[s] else None
-        bound = max(bytes_ms, ops_ms)
-        out.append({"stage": stage, "ms": ms, "bound_ms": bound,
+    for kernel, t in sorted(us.items()):
+        ms = t / reps / 1e3 if t else None
+        out.append({"kernel": kernel, "ms": ms, "bound_ms": bound,
                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", "bytes": nbytes, "flops": f,
+                    else "operations", "bytes": nbytes, "flops": flops,
                     "share_of_bound": bound / ms if ms else None})
-        say(f"  {key} pass {s} ({stage}): "
+        say(f"  {key} {kernel}: "
             + (f"{ms:.4f} ms a call" if ms else "not measured (no device "
                "time in the trace)")
-            + f", its share of the bound {bound:.4f} ms "
-            f"({out[-1]['bound_by']}: {nbytes} B, {f} flop)")
+            + f", the step's bound {bound:.4f} ms ({out[-1]['bound_by']}:"
+            f" {nbytes} B, {flops} flop)")
+    if not out:
+        say(f"  {key}: not measured (no generic2d kernel in the trace)")
     return out
 
 
@@ -4040,7 +4036,7 @@ def time_multistage(gk, multi: dict) -> dict:
                                     itemsize=2 if tag else 4),
                     gk.node_step_flops(lat.model, lat.flags_numpy()),
                     lat.shape, reps, plain_reps=3)
-            out[key]["launches_per_call"] = gk._LIB[model]["passes"]
+            out[key]["launches_per_call"] = 1
         steps = min(multi["res_steps"][model], K5_TIMING_STEPS)
         for tag, lat in (("", multi["resident"][model]),
                          ("_bf16", multi["resident"][f"{model} bf16"])):
@@ -4059,7 +4055,7 @@ def time_multistage(gk, multi: dict) -> dict:
             out[key]["steps"] = steps
     series = time_series_flavours(gk, multi["resident"]["lee series"], 200)
     for t in series.values():
-        t["launches_per_call"] = gk._LIB["d2q9_lee"]["passes"]
+        t["launches_per_call"] = 1
     out.update(series)
     return out
 
@@ -5338,10 +5334,10 @@ def main() -> int:
         "d2q9_lee1024": device_busy(
             lambda: multi["band"]["d2q9_lee"].iterate(100),
             "a 1024x1024 d2q9_lee iterate(100)")}
-    # each pass of the multi-pass steps at 1024x1024, after the windows
-    # above (a trace of its own each)
+    # the launch of each three-stage step at 1024x1024 (the staged form),
+    # after the windows above (a trace of its own each)
     for model in MULTISTAGE_MODELS:
-        if gk._LIB[model]["passes"] > 1:
+        if gk.step_form(multi["band"][model].model) == "staged":
             for tag in ("", "_bf16"):
                 lat = multi["band"][f"{model}{' bf16' if tag else ''}"]
                 key = f"generic2d_step{tag}[{model}]"
@@ -5512,8 +5508,8 @@ def main() -> int:
                 errs[key]["chain_bit_identical"]
         if "bf16" in key:
             by_name[key]["flips"] = errs[key].get("flips")
-    # a multi-pass step's launches a call, and each pass's time and share
-    # of the bound
+    # a three-stage step's launches a call, and each launch's time against
+    # the step's bound
     for key in multi["launches"]:
         for k in ("launches_per_call", "passes"):
             if k in times[key]:

@@ -11,8 +11,9 @@
 //                (replaces tclb_tpu/ops/pallas_d3q.py:make_pallas_iterate's
 //                single-step ring and block kernels);
 //   d3q27_step2  two steps per launch (replaces make_pallas_iterate's fused
-//                kernel at K=2).  A block owns a 32x8 (x, y) column of the
-//                lattice over a run of z planes and marches up z: for each
+//                kernel at K=2).  A block owns a 32x12 (x, y) column of the
+//                lattice (32x8 for d3q27_BGK and d3q19_les, below) over a
+//                run of z planes and marches up z: for each
 //                plane it computes step 1 on the column extended by one node
 //                in x and y (one thread per extended node, pulls from global
 //                memory) into a ring of step-1 planes in shared memory, then
@@ -717,9 +718,20 @@ d3q27_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
 // d3q27_step2 tiling: a TX x TY output column, its step-1 extension by one
 // node on each side (EXT_N nodes, one thread each), a ring of step-1 planes
 // in shared memory.  Population k moves by ez = comp(k, 2) in z; those of
-// one ez form a group, k's place in it is zrank(k).
+// one ez form a group, k's place in it is zrank(k).  The column's rows, by
+// measurement on the card (d3q27_build_parity.py): 12, one block an SM
+// with up to 136 registers a thread (no spills) and a third less step-1
+// recompute than 8 rows, where the collision is heavy (the cumulant,
+// galcor, d3q19); 8 rows and two blocks an SM for the light BGK and
+// d3q19_les collisions, whose step-1 loads want the second block.
 #define TX 32
+#if D3Q_MODEL == 1 || D3Q_MODEL == 4
 #define TY 8
+#define STEP2_BLOCKS_PER_SM 2
+#else
+#define TY 12
+#define STEP2_BLOCKS_PER_SM 1
+#endif
 #define EXT_X (TX + 2)
 #define EXT_Y (TY + 2)
 #define EXT_N (EXT_X * EXT_Y)
@@ -751,7 +763,7 @@ __device__ __forceinline__ float* ring_slot(float* smem, int k, int r) {
 }
 
 template <class S>
-__global__ void __launch_bounds__(STEP2_THREADS, 2)
+__global__ void __launch_bounds__(STEP2_THREADS, STEP2_BLOCKS_PER_SM)
 d3q27_step2_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                    const int* __restrict__ flags,
                    const float* __restrict__ ztab, const D3q27Args a,
@@ -891,6 +903,13 @@ static int launch_step2(const S* fin, S* fout, const int* flags,
 }
 
 extern "C" {
+
+// The output column of a d3q27_step2 block, rows by columns (the wrapper
+// plans the z runs over such columns).
+void d3q27_step2_tile(int* ty, int* tx) {
+  *ty = TY;
+  *tx = TX;
+}
 
 // Shared-memory bytes, threads and co-resident blocks per SM of one
 // d3q27_step2 block (`bf16` != 0: d3q27_step2_bf16's; the wrapper sizes

@@ -24,20 +24,23 @@
 //                       (the ring form): a 32x16 block runs stage 0 on its
 //                       output tile plus the ring, keeping stage 0's output
 //                       planes in shared memory (19 planes: 38.9 KB), then
-//                       stage 1 on the tile.  Any other plan runs one
-//                       launch a stage (generic2d_pass_kernel, the passes)
-//                       on the caller's stream, each over the whole
-//                       lattice: stage s reads a plane an earlier stage of
-//                       the step wrote from the f32 scratch stack `mid`
-//                       (the caller's), any other from the step's input,
-//                       and writes `mid`; the last stage writes the output
-//                       and copies the planes it leaves.  A one-stage plan
-//                       (d2q9_heat_adj) is one pass that writes the output
-//                       itself; a plan of three stages or a wider ring
-//                       (d2q9_pp_MCMP, d2q9_lee, d2q9_poison_boltzmann)
-//                       computes no node twice, whatever the reach, and
-//                       moves one more write and read of the earlier
-//                       stages' planes.
+//                       stage 1 on the tile.  Any other plan of two stages
+//                       or more (d2q9_pp_MCMP, d2q9_lee,
+//                       d2q9_poison_boltzmann: three stages, reach 3 to 6)
+//                       runs in one launch too (the staged form,
+//                       generic2d_staged_kernel): a block stages, once,
+//                       every plane of its output tile plus the plan's
+//                       reach into shared memory (widened to f32), then
+//                       runs stage s on the tile plus model::stage_ext(s)
+//                       nodes from shared memory into shared memory (the
+//                       earlier stages' planes: one stack over the tile
+//                       plus stage_ext(0)), and the last stage writes the
+//                       output and the planes the step leaves.  It
+//                       recomputes the earlier stages' rings (lee's stage
+//                       0 on 40x24 nodes for a 32x16 tile) to move each
+//                       plane through device memory once.  A one-stage
+//                       plan runs its stage over the lattice, one node a
+//                       thread (generic2d_pass_kernel).
 //                       Pulls and Field loads wrap periodically by index
 //                       arithmetic.  Bound by bytes: a d2q9_kuper node reads
 //                       its 10 planes and flag and writes 10 planes (84 B)
@@ -49,18 +52,18 @@
 //                       double sums, a fixed-order block reduction into one
 //                       partial per block, and the last block to finish
 //                       adds the partials in block order -- no float
-//                       atomics, so a run is deterministic.  A multi-pass
-//                       step sums each pass so and carries the running
-//                       totals from pass to pass in the row after the
-//                       partials.
+//                       atomics, so a run is deterministic.  The staged
+//                       form sums each stage's output nodes in the same
+//                       per-thread sums (its order of the sums differs from
+//                       a launch a stage's: globals agree to rounding).
 //   generic2d_resident  an even number of Iterations in one cooperative
 //                       launch (replaces make_resident_iterate): every
 //                       thread walks the lattice with a grid stride, a
 //                       grid-wide barrier after each stage, and two global
 //                       buffers ping-pong (the earlier stages of a plan
-//                       write `mid`, as generic2d_step's passes do, but
-//                       for an f32 ring-form plan's stage 0, which writes
-//                       the step's output buffer).  For lattices that fit
+//                       write the f32 scratch stack `mid`, but for an f32
+//                       ring-form plan's stage 0, which writes the step's
+//                       output buffer).  For lattices that fit
 //                       half the 50 MB L2 (drop.xml's 128x128 is 1.4 MB)
 //                       the planes stay in L2: device memory sees one read
 //                       and one write per launch, and the barriers set its
@@ -78,17 +81,16 @@
 // is written there, with its DDF shift, through csrc/storage.cuh only; the
 // stages compute in f32 and the shared tile stays f32, so a step narrows
 // once, after its last stage, as the narrowed eager engine does.  The
-// passes and the resident kernel keep the earlier stages' planes in the f32
-// scratch stack for the same reason.  A bf16 node moves half the bytes of
-// an f32 one (d2q9: 48 B against 92 B).  f32 storage runs the same code as
-// before the ladder (S = float: plain loads and stores).
+// staged tile and the resident kernel keep the earlier stages' planes in
+// f32 (shared memory, the scratch stack `mid`) for the same reason.  A
+// bf16 node moves half the bytes of an f32 one (d2q9: 48 B against 92 B).
+// f32 storage runs the same code as before the ladder (S = float: plain
+// loads and stores).
 //
-// Like the JAX engine, the ring form runs on shrinking rings: stage s
-// computes its output on the tile plus model::stage_ext(s) nodes.  Any plan
-// whose last stage computes no ring runs (the passes need no ring at all:
-// the reach the JAX engine caps at 8 rows does not bound them).  Nothing of
-// the TPU's ghost rows or (8,128) alignment is carried over: any ny, nx,
-// ragged edges masked.
+// Like the JAX engine, the ring form and the staged form run on shrinking
+// rings: stage s computes its output on the tile plus model::stage_ext(s)
+// nodes.  Nothing of the TPU's ghost rows or (8,128) alignment is carried
+// over: any ny, nx, ragged edges masked.
 //
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
@@ -116,22 +118,54 @@ __host__ __device__ constexpr unsigned long long writes_before(int s) {
 }
 constexpr unsigned long long ALL_WRITES = writes_before(model::N_STAGES);
 // The ring form: two stages, the first computing a ring of at most two
-// nodes whose planes fit the static shared memory; any other plan runs as
-// passes, one launch a stage
+// nodes whose planes fit the static shared memory; any other plan of two
+// stages or more takes the staged form
 constexpr bool RING_FORM =
     model::N_STAGES == 2 && model::stage_ext(0) <= 2
     && model::N_STORAGE * BY * BX * sizeof(float) <= 40 * 1024;
-constexpr int PASSES = RING_FORM ? 1 : model::N_STAGES;
+constexpr bool STAGED_FORM = model::N_STAGES > 1 && !RING_FORM;
 constexpr int RING = RING_FORM ? model::stage_ext(0) : 0;
 constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
 constexpr int RESIDENT_THREADS = 256;
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
-// whether stages 1 .. LAST - 1 each write planes no earlier stage wrote
-constexpr bool earlier_stages_disjoint() {
-  for (int s = 1; s < LAST; ++s)
-    if (writes_before(s) & (unsigned long long)model::stage_writes(s))
-      return false;
+// A staged plan's header declares model::REACH, the rows of input its
+// plan reads beyond the output (generic_kernels.action_plan's reach); a
+// header that declares none finds this -1 through the using-directive
+// (qualified lookup reads a namespace's own declaration first).
+namespace model {
+namespace plan_defaults {
+constexpr int REACH = -1;
+}
+using namespace plan_defaults;
+}  // namespace model
+
+// The staged form's tile (generic_kernels.staged_tile mirrors it): a
+// 32-wide output tile 16 rows high where two blocks' shared memory fits an
+// SM, else 8; the input staged over the tile plus the reach SH, the
+// earlier stages' planes over the tile plus stage_ext(0) = SE (every plane
+// of both stacks in f32); 512 threads a block, so two blocks an SM give
+// each thread 64 registers.
+constexpr int STAGED_THREADS = 512;
+constexpr int SH = STAGED_FORM ? model::REACH : 0;
+constexpr int SE = STAGED_FORM ? model::stage_ext(0) : 0;
+constexpr int STX = 32;
+constexpr size_t staged_smem(int ty) {
+  return sizeof(float) * model::N_STORAGE
+         * ((size_t)(ty + 2 * SH) * (STX + 2 * SH)
+            + (size_t)(ty + 2 * SE) * (STX + 2 * SE));
+}
+constexpr size_t TWO_BLOCKS_SMEM = 113 * 1024;    // half an SM's 228 KB,
+                                                  // less 1 KB a block
+constexpr int STY = staged_smem(16) <= TWO_BLOCKS_SMEM ? 16 : 8;
+constexpr int SIW = STX + 2 * SH, SIH = STY + 2 * SH;   // staged input
+constexpr int SMW = STX + 2 * SE, SMH = STY + 2 * SE;   // earlier stages'
+constexpr size_t STAGED_SMEM = staged_smem(STY);
+
+// whether each stage reads no further than the stage before it computed
+constexpr bool rings_shrink() {
+  for (int s = 1; s < model::N_STAGES; ++s)
+    if (model::stage_ext(s) > model::stage_ext(s - 1)) return false;
   return true;
 }
 
@@ -141,6 +175,21 @@ static_assert(!RING_FORM
                   || (model::stage_writes(0) & model::stage_writes(1)) == 0,
               "the f32 resident kernel's stage 1 writes the buffer it reads "
               "stage 0's planes from: the two write sets must be disjoint");
+static_assert(!STAGED_FORM
+                  || (model::REACH > model::stage_ext(0) && rings_shrink()),
+              "a staged plan's header declares its reach (model::REACH), "
+              "beyond its first stage's ring");
+static_assert(STAGED_SMEM <= 227 * 1024,
+              "the staged tile's planes fit a block's shared memory");
+
+// whether stages 1 .. LAST - 1 each write planes no earlier stage wrote
+constexpr bool earlier_stages_disjoint() {
+  for (int s = 1; s < LAST; ++s)
+    if (writes_before(s) & (unsigned long long)model::stage_writes(s))
+      return false;
+  return true;
+}
+
 static_assert(earlier_stages_disjoint(),
               "the earlier stages' planes share one scratch stack: no two "
               "stages before the last may write the same plane");
@@ -176,9 +225,8 @@ struct TileStorage {
   }
 };
 
-// stage s of the passes or the resident kernel: a plane an earlier stage
-// of the step wrote from the f32 scratch stack `mid`, any other from the
-// step's input
+// stage s of the resident kernel: a plane an earlier stage of the step
+// wrote from the f32 scratch stack `mid`, any other from the step's input
 template <int s, bool kCoherent, class S>
 struct PassStorage {
   DeviceStorage<kCoherent> mid;
@@ -186,6 +234,21 @@ struct PassStorage {
   __device__ float get(int k, int y, int x) const {
     return ((writes_before(s) >> k) & 1ull) ? mid.get(k, y, x)
                                             : in.get(k, y, x);
+  }
+};
+
+// stage s of the staged form: a plane an earlier stage wrote from the
+// block's stack of them (origin at unwrapped (my0, mx0)), any other from
+// the staged input (origin at (iy0, ix0))
+template <int s>
+struct StagedStorage {
+  const float* in;         // [N_STORAGE][SIH][SIW]
+  const float* mid;        // [N_STORAGE][SMH][SMW]
+  int iy0, ix0, my0, mx0;
+  __device__ float get(int k, int y, int x) const {
+    if ((writes_before(s) >> k) & 1ull)
+      return mid[(k * SMH + (y - my0)) * SMW + (x - mx0)];
+    return in[(k * SIH + (y - iy0)) * SIW + (x - ix0)];
   }
 };
 
@@ -198,6 +261,14 @@ struct TileOut {          // a plane of the shared tile
   int ly, lx;
   __device__ void operator()(int k, float v) const {
     tile[(k * BY + ly) * BX + lx] = v;
+  }
+};
+
+struct StackOut {         // a plane of the staged form's earlier stages
+  float* mid;
+  int my, mx;
+  __device__ void operator()(int k, float v) const {
+    mid[(k * SMH + my) * SMW + mx] = v;
   }
 };
 
@@ -315,17 +386,13 @@ generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
-// generic2d_step's passes: stage kStage of the plan over the whole lattice,
-// one node a thread, no ring.  An earlier stage writes its planes
-// to `mid` (f32), the last writes the output and copies the planes it
-// leaves: an earlier stage's from `mid`, the others from the input.  The
-// globals flavour sums each pass's output nodes and carries the running
-// totals in the row after the partials (`carry`); the last pass writes
-// them out.
-template <int kStage, class S, bool kGlobals, bool kSeries>
+// generic2d_step's one-stage form: the plan's stage over the whole
+// lattice, one node a thread, no ring; the planes it leaves are copied
+// from the input.  The globals flavour sums the nodes.
+template <class S, bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
 generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
-                      float* mid, const int* __restrict__ flags,
+                      const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
                       const SeriesArgs ser, double* partials, float* gout,
                       const __grid_constant__ Shift sh) {
@@ -338,82 +405,137 @@ generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
   if (y < a.ny && x < a.nx) {
     const size_t idx = (size_t)y * a.nx + x;
     const int flag = __ldg(flags + idx);
-    const PassStorage<kStage, false, S> st{
-        DeviceStorage<false>{mid, a.ny, a.nx},
-        DeviceStorage<false, S>{fin, a.ny, a.nx, sh.w}};
-    if constexpr (kStage < LAST) {
-      run_stage<kStage, kGlobals, kSeries>(a, st,
-                                           DeviceOut<float>{mid, idx, n},
-                                           ztab, ser, acc, y, x, flag, true);
-    } else {
-      run_stage<kStage, kGlobals, kSeries>(
-          a, st, DeviceOut<S>{fout, idx, n, sh.w}, ztab, ser, acc, y, x,
-          flag, true);
+    run_stage<0, kGlobals, kSeries>(
+        a, DeviceStorage<false, S>{fin, a.ny, a.nx, sh.w},
+        DeviceOut<S>{fout, idx, n, sh.w}, ztab, ser, acc, y, x, flag, true);
 #pragma unroll
-      for (int k = 0; k < model::N_STORAGE; ++k) {
-        if (writes(LAST, k)) continue;
-        if ((writes_before(LAST) >> k) & 1ull)
-          store_plane(fout + k * n + idx, __ldg(mid + k * n + idx), sh.w,
-                      k);
-        else
-          store_plane(fout + k * n + idx,
-                      load_plane<false>(fin + k * n + idx, sh.w, k), sh.w,
-                      k);
-      }
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      if (!writes(0, k))
+        store_plane(fout + k * n + idx,
+                    load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
+  }
+  if constexpr (kGlobals)
+    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
+                    [gout](int g, double t) { gout[g] = (float)t; });
+}
+
+// Stage s of the staged form on the block's tile plus stage_ext(s) nodes
+// (nodes i of that region in row order, a stride of STAGED_THREADS), then
+// the stages after it, a block barrier between two.  An earlier stage
+// writes the block's stack `mid`; the last writes the output nodes inside
+// the lattice and the planes the step leaves (an earlier stage's from
+// `mid`, any other from the staged input).  A node's globals count where
+// it is an output node.  rows/cols: the staged input's wrapped rows (as
+// offsets) and columns.
+template <int s, class S, bool kGlobals, bool kSeries>
+__device__ __forceinline__ void staged_stages(
+    const GenericArgs& a, const float* in, float* mid, S* __restrict__ fout,
+    const int* __restrict__ flags, const float* __restrict__ ztab,
+    const SeriesArgs& ser, const Shift& sh, const size_t* rows,
+    const int* cols, int ty0, int tx0, double* acc) {
+  constexpr int e = model::stage_ext(s);
+  constexpr int W = STX + 2 * e, H = STY + 2 * e;
+  const StagedStorage<s> st{in, mid, ty0 - SH, tx0 - SH, ty0 - SE,
+                            tx0 - SE};
+  for (int i = threadIdx.x; i < W * H; i += STAGED_THREADS) {
+    const int ly = i / W, lx = i - ly * W;
+    const int y = ty0 - e + ly, x = tx0 - e + lx;      // unwrapped
+    const bool inside = y < a.ny && x < a.nx;
+    const int flag = __ldg(flags + rows[ly + SH - e] + cols[lx + SH - e]);
+    if constexpr (s < LAST) {
+      const bool counts = ly >= e && ly < e + STY && lx >= e
+                          && lx < e + STX && inside;
+      run_stage<s, kGlobals, kSeries>(
+          a, st, StackOut{mid, y - (ty0 - SE), x - (tx0 - SE)}, ztab, ser,
+          acc, y, x, flag, counts);
+    } else if (inside) {
+      const size_t n = (size_t)a.ny * a.nx;
+      const size_t idx = (size_t)y * a.nx + x;
+      run_stage<s, kGlobals, kSeries>(a, st, DeviceOut<S>{fout, idx, n, sh.w},
+                                      ztab, ser, acc, y, x, flag, true);
+#pragma unroll
+      for (int k = 0; k < model::N_STORAGE; ++k)
+        if (!writes(LAST, k))
+          store_plane(fout + k * n + idx, st.get(k, y, x), sh.w, k);
     }
   }
-  if constexpr (kGlobals) {
-    double* carry = partials + (size_t)gridDim.x * gridDim.y * NG;
-    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
-                    [carry, gout](int g, double t) {
-                      const double c = kStage == 0 ? t : carry[g] + t;
-                      if (kStage == LAST) gout[g] = (float)c;
-                      else carry[g] = c;
-                    });
-  }
-}
-
-// the passes of stages s .. LAST on `stream`, in order; stops at the first
-// launch that fails
-template <int s, class S, bool kGlobals, bool kSeries>
-static cudaError_t launch_passes(dim3 grid, cudaStream_t stream,
-                                 const S* fin, S* fout, float* mid,
-                                 const int* flags, const float* ztab,
-                                 const GenericArgs& a, const SeriesArgs& ser,
-                                 double* partials, float* gout,
-                                 const Shift& sh) {
-  generic2d_pass_kernel<s, S, kGlobals, kSeries>
-      <<<grid, dim3(BX, BY), 0, stream>>>(fin, fout, mid, flags, ztab, a,
-                                          ser, partials, gout, sh);
-  const cudaError_t e = cudaGetLastError();
   if constexpr (s < LAST) {
-    if (e != cudaSuccess) return e;
-    return launch_passes<s + 1, S, kGlobals, kSeries>(
-        grid, stream, fin, fout, mid, flags, ztab, a, ser, partials, gout,
-        sh);
+    __syncthreads();
+    staged_stages<s + 1, S, kGlobals, kSeries>(a, in, mid, fout, flags,
+                                               ztab, ser, sh, rows, cols,
+                                               ty0, tx0, acc);
   }
-  return e;
 }
 
-// one Iteration: the ring form, or the plan's passes (more than one needs
-// the caller's scratch stack `mid`)
+// generic2d_step's staged form: the block's input planes over the tile
+// plus the reach into shared memory (widened to f32; each node's planes
+// loaded together), then every stage from there
 template <class S, bool kGlobals, bool kSeries>
-static int launch_step(const S* fin, S* fout, float* mid, const int* flags,
+__global__ void __launch_bounds__(STAGED_THREADS)
+generic2d_staged_kernel(const S* __restrict__ fin, S* __restrict__ fout,
+                        const int* __restrict__ flags,
+                        const float* __restrict__ ztab, const GenericArgs a,
+                        const SeriesArgs ser, double* partials, float* gout,
+                        const __grid_constant__ Shift sh) {
+  extern __shared__ float staged[];
+  float* in = staged;                                  // [N][SIH][SIW]
+  float* mid = staged + model::N_STORAGE * SIH * SIW;  // [N][SMH][SMW]
+  __shared__ size_t rows[SIH];
+  __shared__ int cols[SIW];
+  const size_t n = (size_t)a.ny * a.nx;
+  const int ty0 = blockIdx.y * STY, tx0 = blockIdx.x * STX;
+  for (int i = threadIdx.x; i < SIH + SIW; i += STAGED_THREADS) {
+    if (i < SIH) rows[i] = (size_t)wrap(ty0 - SH + i, a.ny) * a.nx;
+    else cols[i - SIH] = wrap(tx0 - SH + i - SIH, a.nx);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < SIH * SIW; i += STAGED_THREADS) {
+    const int ly = i / SIW, lx = i - ly * SIW;
+    const S* q = fin + rows[ly] + cols[lx];
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      in[k * SIH * SIW + i] = load_plane<false>(q + k * n, sh.w, k);
+  }
+  __syncthreads();
+  double acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g] = 0.0;
+  staged_stages<0, S, kGlobals, kSeries>(a, in, mid, fout, flags, ztab, ser,
+                                         sh, rows, cols, ty0, tx0, acc);
+  if constexpr (kGlobals)
+    finish_sums<NG, STAGED_THREADS>(acc, partials, &g_blocks_done,
+                    [gout](int g, double t) { gout[g] = (float)t; });
+}
+
+// one Iteration, in one launch
+template <class S, bool kGlobals, bool kSeries>
+static int launch_step(const S* fin, S* fout, const int* flags,
                        const float* ztab, const GenericArgs& a,
                        const SeriesArgs& ser, double* partials, float* gout,
                        const Shift& sh, void* stream) {
-  const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY);
   const cudaStream_t st = (cudaStream_t)stream;
   if constexpr (RING_FORM) {
+    const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY);
     generic2d_step_kernel<S, kGlobals, kSeries>
         <<<grid, dim3(BX, BY), 0, st>>>(fin, fout, flags, ztab, a, ser,
                                         partials, gout, sh);
-    return (int)cudaGetLastError();
+  } else if constexpr (STAGED_FORM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        generic2d_staged_kernel<S, kGlobals, kSeries>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STAGED_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.nx + STX - 1) / STX, (a.ny + STY - 1) / STY);
+    generic2d_staged_kernel<S, kGlobals, kSeries>
+        <<<grid, STAGED_THREADS, STAGED_SMEM, st>>>(fin, fout, flags, ztab,
+                                                    a, ser, partials, gout,
+                                                    sh);
   } else {
-    if (PASSES > 1 && !mid) return (int)cudaErrorInvalidValue;
-    return (int)launch_passes<0, S, kGlobals, kSeries>(
-        grid, st, fin, fout, mid, flags, ztab, a, ser, partials, gout, sh);
+    const dim3 grid((a.nx + BX - 1) / BX, (a.ny + BY - 1) / BY);
+    generic2d_pass_kernel<S, kGlobals, kSeries>
+        <<<grid, dim3(BX, BY), 0, st>>>(fin, fout, flags, ztab, a, ser,
+                                        partials, gout, sh);
   }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -530,8 +652,8 @@ extern "C" {
 void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
                       int* n_settings, int* n_types, int* n_groups,
                       int* n_zonal, int* n_globals) {
-  *tile_y = TY;
-  *tile_x = TX;
+  *tile_y = STAGED_FORM ? STY : TY;
+  *tile_x = STAGED_FORM ? STX : TX;
   *n_storage = model::N_STORAGE;
   *n_settings = model::N_SETTINGS;
   *n_types = model::N_TYPES;
@@ -540,39 +662,34 @@ void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
   *n_globals = model::N_GLOBALS;
 }
 
-// The plan this library runs: its stage count and the launches of one
-// generic2d_step (1, or one a stage: more than one needs `mid`).
-void generic2d_plan(int* n_stages, int* passes) {
-  *n_stages = model::N_STAGES;
-  *passes = PASSES;
-}
+// The plan this library runs: its stage count (generic2d_step runs it in
+// one launch, in the form generic_kernels.step_form names).
+void generic2d_plan(int* n_stages) { *n_stages = model::N_STAGES; }
 
 // `partials` null: the plain flavour; else the globals flavour, with
-// `partials` holding one double per block and global, and one more row
-// (the multi-pass carry), and `gout` the globals (n_globals floats).
-// `mid`: an f32 scratch stack of n_storage planes where generic2d_plan
-// gives more than one pass, may be null otherwise.
-int generic2d_step(const float* fin, float* fout, float* mid,
-                   const int* flags, const float* ztab, const GenericArgs* a,
-                   double* partials, float* gout, int device, void* stream) {
+// `partials` holding one double per block and global, and `gout` the
+// globals (n_globals floats).
+int generic2d_step(const float* fin, float* fout, const int* flags,
+                   const float* ztab, const GenericArgs* a, double* partials,
+                   float* gout, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const SeriesArgs none{};
   const Shift unused{};
   if (partials)
-    return launch_step<float, true, false>(fin, fout, mid, flags, ztab, *a,
+    return launch_step<float, true, false>(fin, fout, flags, ztab, *a,
                                            none, partials, gout, unused,
                                            stream);
-  return launch_step<float, false, false>(fin, fout, mid, flags, ztab, *a,
+  return launch_step<float, false, false>(fin, fout, flags, ztab, *a,
                                           none, nullptr, nullptr, unused,
                                           stream);
 }
 
 // generic2d_step on a bf16 stack at rest (`fin`, `fout`: n_storage bf16
-// planes), with the planes' shifts `shift` (null: raw); the flavours and
-// `mid` (f32) as generic2d_step's.
+// planes), with the planes' shifts `shift` (null: raw); the flavours as
+// generic2d_step's.
 int generic2d_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
-                        float* mid, const int* flags, const float* ztab,
+                        const int* flags, const float* ztab,
                         const GenericArgs* a, const float* shift,
                         double* partials, float* gout, int device,
                         void* stream) {
@@ -582,18 +699,18 @@ int generic2d_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
   const Shift sh = shift_arg<model::N_STORAGE>(shift);
   if (partials)
     return launch_step<__nv_bfloat16, true, false>(
-        fin, fout, mid, flags, ztab, *a, none, partials, gout, sh, stream);
+        fin, fout, flags, ztab, *a, none, partials, gout, sh, stream);
   return launch_step<__nv_bfloat16, false, false>(
-      fin, fout, mid, flags, ztab, *a, none, nullptr, nullptr, sh, stream);
+      fin, fout, flags, ztab, *a, none, nullptr, nullptr, sh, stream);
 }
 
 // The <Control> time series flavours (generic2d_step_series): as
 // generic2d_step, with zonal setting j in zone z read from ts[row[j][z]][t]
 // where row[j][z] >= 0 (SeriesArgs); `partials` null for the plain series
 // flavour, else the series + globals flavour.
-int generic2d_step_series(const float* fin, float* fout, float* mid,
-                          const int* flags, const float* ztab,
-                          const GenericArgs* a, const int* row,
+int generic2d_step_series(const float* fin, float* fout, const int* flags,
+                          const float* ztab, const GenericArgs* a,
+                          const int* row,
                           const float* ts, int len, int t, double* partials,
                           float* gout, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -601,10 +718,10 @@ int generic2d_step_series(const float* fin, float* fout, float* mid,
   const SeriesArgs ser{row, ts, len, t};
   const Shift unused{};
   if (partials)
-    return launch_step<float, true, true>(fin, fout, mid, flags, ztab, *a,
+    return launch_step<float, true, true>(fin, fout, flags, ztab, *a,
                                           ser, partials, gout, unused,
                                           stream);
-  return launch_step<float, false, true>(fin, fout, mid, flags, ztab, *a,
+  return launch_step<float, false, true>(fin, fout, flags, ztab, *a,
                                          ser, nullptr, nullptr, unused,
                                          stream);
 }

@@ -16,9 +16,9 @@
 //                           and pressure-face overrides.
 //   stage 2, CalcNu         nu = mu0(rho) - Kappa lap(rho) (no streaming).
 //
-// The plan [(BaseIteration, 4), (CalcRho, 2), (CalcNu, 0)] runs one pass a
-// stage.  Written against the template's node context (see
-// d2q9_heat_physics.cuh for the list).
+// The plan [(BaseIteration, 4), (CalcRho, 2), (CalcNu, 0)] runs in one
+// launch (generic2d.cu's staged form).  Written against the template's
+// node context (see d2q9_heat_physics.cuh for the list).
 //
 // The enums name the registry entries the kernels index by position;
 // tclb_tpu_torch/ops/generic_kernels.py lists the same names in the same
@@ -51,6 +51,9 @@ __host__ __device__ constexpr unsigned stage_writes(int s) {
 __host__ __device__ constexpr int stage_ext(int s) {
   return s == 0 ? 4 : (s == 1 ? 2 : 0);
 }
+// the rows of input the plan reads beyond its output (action_plan's
+// reach): the halo generic2d.cu's staged form stages
+constexpr int REACH = 6;
 
 enum Setting {
   S_omega, S_nu, S_InletVelocity, S_InletPressure, S_InletDensity,

@@ -12,9 +12,9 @@
 //   stage 1, CalcPsi        psi = the streamed g's potential.
 //   stage 2, CalcSubiter    subiter + 1 (no streaming).
 //
-// The plan [(BaseIteration, 2), (CalcPsi, 1), (CalcSubiter, 0)] runs one
-// pass a stage.  No globals.  Written against the template's node context
-// (see d2q9_heat_physics.cuh for the list).
+// The plan [(BaseIteration, 2), (CalcPsi, 1), (CalcSubiter, 0)] runs in
+// one launch (generic2d.cu's staged form).  No globals.  Written against
+// the template's node context (see d2q9_heat_physics.cuh for the list).
 //
 // The enums name the registry entries the kernels index by position;
 // tclb_tpu_torch/ops/generic_kernels.py lists the same names in the same
@@ -47,6 +47,9 @@ __host__ __device__ constexpr unsigned stage_writes(int s) {
 __host__ __device__ constexpr int stage_ext(int s) {
   return s == 0 ? 2 : (s == 1 ? 1 : 0);
 }
+// the rows of input the plan reads beyond its output (action_plan's
+// reach): the halo generic2d.cu's staged form stages
+constexpr int REACH = 3;
 
 enum Setting {
   S_tau_psi, S_n_inf, S_z, S_el, S_kb, S_T, S_epsilon, S_dt, S_psi_bc,

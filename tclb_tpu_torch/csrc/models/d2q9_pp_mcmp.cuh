@@ -17,9 +17,9 @@
 //   stage 2, CalcPsi_g      psi_g = the streamed g's density (Gad1/Gc on a
 //                           wall).
 //
-// The plan [(BaseIteration, 2), (CalcPsi_f, 1), (CalcPsi_g, 0)] runs one
-// pass a stage.  Written against the template's node context (see
-// d2q9_heat_physics.cuh for the list).
+// The plan [(BaseIteration, 2), (CalcPsi_f, 1), (CalcPsi_g, 0)] runs in
+// one launch (generic2d.cu's staged form).  Written against the template's
+// node context (see d2q9_heat_physics.cuh for the list).
 //
 // The enums name the registry entries the kernels index by position;
 // tclb_tpu_torch/ops/generic_kernels.py lists the same names in the same
@@ -52,6 +52,9 @@ __host__ __device__ constexpr unsigned stage_writes(int s) {
 __host__ __device__ constexpr int stage_ext(int s) {
   return s == 0 ? 2 : (s == 1 ? 1 : 0);
 }
+// the rows of input the plan reads beyond its output (action_plan's
+// reach): the halo generic2d.cu's staged form stages
+constexpr int REACH = 3;
 
 enum Setting {
   S_omega, S_omega_g, S_nu, S_nu_g, S_Velocity_f, S_Pressure_f,

@@ -14,12 +14,15 @@ version for a CPU tensor, and counts its launches in ``LAUNCHES``:
     planes and its flag and writes 34 planes (276 B) for about 540 flops
     (see ``node_step_flops``); neighbouring threads read neighbouring x.
 ``step2`` (``d3q27_step2``) replaces ``make_pallas_iterate``'s fused
-    kernel at K=2.  A block owns a 32x8 (x, y) column over a run of z
-    planes and marches up z, keeping a ring of three step-1 planes (the
-    column extended by one node in x and y) in shared memory; step 2 of
-    each plane reads that ring.  Bound by bytes, at the same bytes per
-    launch as ``step`` for two steps; it recomputes the one-node ring of
-    step 1 (34x10 for 32x8, 1.33x) and two extra planes per z run.
+    kernel at K=2.  A block owns a 32x12 (x, y) column, one block an SM
+    (32x8 and two blocks an SM for d3q27_BGK and d3q19_les; the library
+    reports its column, ``d3q27_step2_tile``, and the wrapper plans the z
+    runs from it), over a run of z planes and marches up z, keeping a
+    ring of three step-1 planes (the column extended by one node in x and
+    y) in shared memory; step 2 of each plane reads that ring.  Bound by
+    bytes, at the same bytes per launch as ``step`` for two steps; it
+    recomputes the one-node ring of step 1 (34x14 for 32x12, 1.24x; 34x10
+    for 32x8, 1.33x) and two extra planes per z run.
 
 The same two kernels run the reference's whole z-slab family
 (``MODELS``, the reference's ``_SUPPORTED``, ``pallas_d3q.py:58``):
@@ -502,6 +505,8 @@ def _lib(model: str = MODEL) -> ctypes.CDLL:
         ip = ctypes.POINTER(i)
         lib.d3q27_step2_config.argtypes = [i, i, ip, ip, ip, ip]
         lib.d3q27_step2_config.restype = i
+        lib.d3q27_step2_tile.argtypes = [ip, ip]
+        lib.d3q27_step2_tile.restype = None
         lib.d3q27_error_string.argtypes = [i]
         lib.d3q27_error_string.restype = ctypes.c_char_p
         lib.d3q27_model_info.argtypes = [ip] * 7
@@ -539,31 +544,50 @@ def _check(lib, rc: int, what: str) -> None:
 def step2_config(device: int, model: str = MODEL, bf16: bool = False
                  ) -> dict:
     """``d3q27_step2``'s (``bf16``: ``d3q27_step2_bf16``'s) dynamic shared
-    memory, threads per block, co-resident blocks per SM and the device's
-    SM count, for ``model``'s build."""
+    memory, threads per block, co-resident blocks per SM, the device's SM
+    count and the rows of a block's 32-wide column, for ``model``'s
+    build."""
     key = ("config", device, model, bf16)
     if key not in _LIB:
         lib = _lib(model)
-        vals = [ctypes.c_int(0) for _ in range(4)]
+        vals = [ctypes.c_int(0) for _ in range(6)]
         _check(lib, lib.d3q27_step2_config(
-            device, int(bf16), *[ctypes.byref(v) for v in vals]),
+            device, int(bf16), *[ctypes.byref(v) for v in vals[:4]]),
             "d3q27_step2 configuration query")
-        smem, threads, per_sm, sms = (v.value for v in vals)
+        lib.d3q27_step2_tile(ctypes.byref(vals[4]), ctypes.byref(vals[5]))
+        smem, threads, per_sm, sms, rows, cols = (v.value for v in vals)
         if per_sm < 1:
             raise RuntimeError(f"d3q27_step2 ({threads} threads, {smem} B "
                                f"shared) fits no block on device {device}")
+        if cols != 32:
+            raise RuntimeError(f"d3q27_step2 of {model} has {cols} columns "
+                               "a block; the z runs are planned for 32")
         _LIB[key] = {"smem": smem, "threads": threads,
-                     "blocks_per_sm": per_sm, "sms": sms}
+                     "blocks_per_sm": per_sm, "sms": sms, "rows": rows}
     return _LIB[key]
 
 
-def step2_planes(shape, slots: int) -> int:
-    """z planes per ``d3q27_step2`` block: a block runs step 1 on
-    ``zc + 2`` planes and step 2 on ``zc``, the blocks of one (x, y)
-    column split nz; take the ``zc`` with the fewest plane-passes over
-    the waves of ``slots`` co-resident blocks."""
+def step2_smem(model: str, rows: int) -> int:
+    """Dynamic shared memory of one ``d3q27_step2`` block of ``model``'s
+    build over 32 x ``rows`` columns (csrc/d3q27.cu ``STEP2_SMEM``): the
+    f32 ring of step-1 planes over the 34 x (rows + 2) extended column
+    (ez = -1 of one plane, ez = 0 of two, ez = +1 of three) and the
+    cumulant's step-1 increments of two planes; the same at either
+    storage width."""
+    ez = _SETS[model][0][:, 2]
+    ring = (int(np.sum(ez == -1)) + 2 * int(np.sum(ez == 0))
+            + 3 * int(np.sum(ez == 1)))
+    sinc = 2 * 4 * 32 * rows if model == MODEL else 0
+    return (ring * 34 * (rows + 2) + sinc) * 4
+
+
+def step2_planes(shape, slots: int, rows: int) -> int:
+    """z planes per ``d3q27_step2`` block over 32 x ``rows`` columns: a
+    block runs step 1 on ``zc + 2`` planes and step 2 on ``zc``, the
+    blocks of one (x, y) column split nz; take the ``zc`` with the fewest
+    plane-passes over the waves of ``slots`` co-resident blocks."""
     nz, ny, nx = (int(s) for s in shape)
-    columns = math.ceil(nx / 32) * math.ceil(ny / 8)
+    columns = math.ceil(nx / 32) * math.ceil(ny / rows)
 
     def cost(zc):
         return math.ceil(columns * math.ceil(nz / zc) / slots) * (2 * zc + 2)
@@ -600,7 +624,7 @@ def _launch(name: str, fields, flags, ztab, a: StepArgs) -> torch.Tensor:
     if name == "d3q27_step2":
         cfg = step2_config(dev, a.model, bf16)
         zc = step2_planes((a.nz, a.ny, a.nx),
-                          cfg["sms"] * cfg["blocks_per_sm"])
+                          cfg["sms"] * cfg["blocks_per_sm"], cfg["rows"])
     out = torch.empty_like(fields)
     head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
             ztab.data_ptr(), ctypes.byref(a.c_struct(zc)))

@@ -1,9 +1,11 @@
 """Hold this checkout's builds of ``csrc/generic2d.cu`` against another
 copy of ``csrc/`` (a parent commit's, say) on one CUDA card, bit for bit.
 
-    python -m tclb_tpu_torch.ops.generic2d_parity OTHER/tclb_tpu_torch/csrc
+    python -m tclb_tpu_torch.ops.generic2d_parity OTHER/tclb_tpu_torch/csrc \
+        [MODEL ...]
 
-For each 2D model with a device header in both copies, both copies are
+For each 2D model with a device header in both copies (or each ``MODEL``
+named), both copies are
 built alike (``ops/_cuda_build.py``: nvcc for sm_90a, ``--fmad=false``,
 the model's header pre-included, ``-Xptxas -v``; the other copy into a
 scratch directory).  The script prints both compiler reports (registers
@@ -11,17 +13,26 @@ and spills per kernel), runs each kernel of both libraries on the same
 inputs (every node type of the model's header painted, two zones, 1%
 noise on the initial populations, at 37x53 and 256x256):
 ``generic2d_step`` in both flavours, an 8-step ``generic2d_resident``,
-``generic2d_step_bf16`` on the shifted bf16 stack and, where the header
-defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
+``generic2d_step_bf16`` in both flavours on the shifted bf16 stack, the
+series flavours (a series on the model's first zonal setting) and, where
+the header defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
 cotangents, and exits nonzero unless every output is bit for bit the
-same.  A change to the model-independent templates (``generic2d.cu``,
+same, the globals within rtol 1e-4 / atol 1e-6 (a step that sums its
+stages in another order rounds its sums differently; each is also the
+same from run to run).  It then times ``generic2d_step`` of both
+libraries in each flavour at 1024x1024 (``time_steps``: CUDA events over
+``REPS`` calls, the libraries alternating in ``ROUNDS`` rounds, on
+chip_smoke's 1024x1024 lattice of a multi-stage model, else the painted
+one).  A change to the model-independent templates (``generic2d.cu``,
 ``generic_common.cuh``, ``storage.cuh``, ``generic2d_adjoint.cuh``) is
 held this way against the parent's builds.
 
 A copy of ``csrc/`` from before the backward read zonal settings (no
 ``generic2d_step_b_zonal`` export: its ``generic2d_step_b`` takes no zone
 table) is bound through :class:`NoZoneTableStepB`, which drops the zone
-table the wrapper passes.
+table the wrapper passes; a copy whose step entries take the scratch
+stack ``mid`` (the copies that ran a plan of three stages one launch a
+stage) through :class:`PassesAbi`.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import pathlib
+import re
+import statistics
 import sys
 import tempfile
 
@@ -41,6 +54,9 @@ from tclb_tpu_torch.ops import _cuda_build as cb
 from tclb_tpu_torch.ops import generic_kernels as gk
 
 SHAPES = ((37, 53), (256, 256))
+TIMED = (1024, 1024)      # the shape the step kernels are timed at
+REPS, ROUNDS = 100, 4     # calls a round, rounds a library (timing)
+GLOBALS_TOL = {"rtol": 1e-4, "atol": 1e-6}
 
 
 def paint(model, shape, seed: int = 5, device: str = "cuda",
@@ -81,19 +97,36 @@ def paint(model, shape, seed: int = 5, device: str = "cuda",
     return lat
 
 
-def run(lat) -> dict:
-    """Every kernel of the model's library on the lattice's state, as
-    int32 bits."""
+def with_series(lat, T: int = 16):
+    """``lat`` with a <Control> series on its model's first zonal setting
+    in zone 0 (a ramp of 1% over ``T`` iterations)."""
+    if not lat.model.zonal_settings:
+        return lat
+    name = lat.model.zonal_settings[0]
+    v = float(lat.params.settings[lat.model.setting_index[name]])
+    lat.set_setting_series(name, np.linspace(v, 1.01 * v + 1e-4, T), zone=0)
+    return lat
+
+
+def run(lat) -> tuple:
+    """Every kernel of the model's library on the lattice's state:
+    ``(outputs as integer bits, globals)``."""
     m = lat.model
     f, flags, ztab, a = gk.kernel_inputs(m, lat.state, lat.params)
-    g = gk.step_globals(f, flags, ztab, a)
-    out = {"step": gk.step(f, flags, ztab, a),
-           "step_globals": torch.cat([g[0].flatten(), g[1]]),
-           "resident": gk.resident(f, flags, ztab, a, 8)}
-    shift = ddf.kernel_shift(m, "shifted")
-    fb = ddf.narrow_stack(f, torch.bfloat16, ddf.stack_shift(m, "shifted"))
-    ab = dataclasses.replace(a, shift=shift)
-    out["step_bf16"] = gk.step(fb, flags, ztab, ab).view(torch.int16)
+    out, sums = {}, {}
+    out["step"] = gk.step(f, flags, ztab, a)
+    out["step_globals"], sums["step_globals"] = gk.step_globals(
+        f, flags, ztab, a)
+    out["resident"] = gk.resident(f, flags, ztab, a, 8)
+    fb, ab = bf16_inputs(lat, f, a)
+    out["step_bf16"] = gk.step(fb, flags, ztab, ab)
+    out["step_bf16_globals"], sums["step_bf16_globals"] = gk.step_globals(
+        fb, flags, ztab, ab)
+    series = gk.series_inputs(m, lat.params)
+    if series is not None:
+        out["step_series"] = gk.step_series(f, flags, ztab, a, series, 7)
+        out["step_series_globals"], sums["step_series_globals"] = \
+            gk.step_series_globals(f, flags, ztab, a, series, 7)
     if gk.DEVICE_MODELS[m.name].adjoint:
         from tclb_tpu_torch.ops import adjoint_kernels as ak
         gen = torch.Generator(device=f.device).manual_seed(11)
@@ -104,8 +137,94 @@ def run(lat) -> dict:
         out["step_b_settings"] = sett.view(torch.int64)
     if f.is_cuda:
         torch.cuda.synchronize()
-    return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
+    bits = {k: v.view(torch.int32) if v.dtype == torch.float32 else
+            v.view(torch.int16) if v.dtype == torch.bfloat16 else v
             for k, v in out.items()}
+    return bits, sums
+
+
+def bf16_inputs(lat, f, a) -> tuple:
+    """The lattice's state narrowed to the shifted bf16 stack, and the
+    step arguments with its shifts."""
+    fb = ddf.narrow_stack(f, torch.bfloat16,
+                          ddf.stack_shift(lat.model, "shifted"))
+    return fb, dataclasses.replace(
+        a, shift=ddf.kernel_shift(lat.model, "shifted"))
+
+
+def median_ms(launches: dict, reps: int = REPS,
+              rounds: int = ROUNDS) -> dict:
+    """Each tag's device ms a call: ``launches`` maps a tag to a function
+    that makes one call; in each of ``rounds`` rounds every tag in turn
+    runs ``reps`` calls between two CUDA events, queued behind a spin
+    kernel so that the calls run back to back (the host's time a call is
+    not timed); the median over the rounds."""
+    times = {tag: [] for tag in launches}
+    for fn in launches.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for tag, fn in launches.items():
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(reps * 50_000)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times[tag].append(t0.elapsed_time(t1) / reps)
+    return {tag: statistics.median(t) for tag, t in times.items()}
+
+
+def timed_lattice(model: str):
+    """The lattice a model's step kernels are timed on: chip_smoke's
+    1024x1024 lattice of a multi-stage model (painted as the reference's
+    tests paint it, initialised), the parity lattice for any other."""
+    root = pathlib.Path(__file__).resolve().parents[2]
+    for path in (root, root / "tests"):
+        if str(path) not in sys.path:
+            sys.path.insert(0, str(path))
+    import chip_smoke
+    if model in chip_smoke.MULTISTAGE_MODELS:
+        return chip_smoke.multistage_lattice(model, TIMED)
+    from tclb_tpu_torch.models import get_model
+    return paint(get_model(model), TIMED)
+
+
+def time_steps(lat, libs: dict) -> dict:
+    """``generic2d_step`` of each library (``libs``: tag -> its
+    ``gk._LIB`` entry) in each flavour on ``lat``'s state: the median ms a
+    call, the libraries alternating."""
+    m = lat.model.name
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    fb, ab = bf16_inputs(lat, f, a)
+    series = gk.series_inputs(lat.model, with_series(lat).params)
+    calls = {"plain": lambda: gk.step(f, flags, ztab, a),
+             "globals": lambda: gk.step_globals(f, flags, ztab, a),
+             "bf16": lambda: gk.step(fb, flags, ztab, ab),
+             "bf16 globals": lambda: gk.step_globals(fb, flags, ztab, ab),
+             "series": lambda: gk.step_series(f, flags, ztab, a, series, 7),
+             "series globals": lambda: gk.step_series_globals(
+                 f, flags, ztab, a, series, 7)}
+    if series is None:
+        del calls["series"], calls["series globals"]
+    out = {}
+    for flavour, call in calls.items():
+
+        def launch(entry, call=call):
+            gk._LIB[m] = entry
+            call()
+        ms = median_ms({tag: (lambda e=e: launch(e))
+                        for tag, e in libs.items()})
+        out[flavour] = ms
+        print(f"{m} generic2d_step {flavour} at {lat.shape}: " + ", ".join(
+            f"{tag} {v:.5f} ms" for tag, v in ms.items())
+            + " (a call: " + " / ".join(
+                str(getattr(e["lib"], "passes", 1)) for e in libs.values())
+            + " launches; medians of "
+            f"{ROUNDS}x{REPS} calls)")
+    return out
 
 
 class NoZoneTableStepB:
@@ -128,14 +247,88 @@ class NoZoneTableStepB:
         return fn
 
 
-def _entry(model: str) -> dict:
-    """``gk._LIB[model]`` for the library ``gk.lib`` builds, its
-    ``generic2d_step_b`` bound through :class:`NoZoneTableStepB` where the
+class PassesAbi:
+    """A library whose ``generic2d_step`` entries take an f32 scratch
+    stack ``mid`` after ``fout`` (the copies of ``csrc/`` that ran a plan
+    of three stages one launch a stage, carrying a step's globals from
+    pass to pass in a row of ``partials`` after the blocks', and whose
+    ``generic2d_plan`` also reports those launches).  The wrapper's calls
+    are passed on with a scratch stack and partials of that size;
+    ``passes`` is the launches of one step.  Every other entry is the
+    library's own."""
+
+    STEPS = ("generic2d_step", "generic2d_step_bf16",
+             "generic2d_step_series")
+
+    def __init__(self, lib: ctypes.CDLL, model: str):
+        self._lib = lib
+        dm = gk.DEVICE_MODELS[model]
+        self._planes, self._n_g = len(dm.storage), max(len(dm.globals_), 1)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip, fp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_float)
+        argp = ctypes.POINTER(gk.c_args_type(model))
+        lib.generic2d_plan.argtypes = [ip, ip]
+        lib.generic2d_layout.argtypes = [ip] * 8
+        for name, args in (
+                ("generic2d_step", [p, p, p, p, p, argp, p, p, i, p]),
+                ("generic2d_step_bf16", [p, p, p, p, p, argp, fp, p, p, i,
+                                         p]),
+                ("generic2d_step_series", [p, p, p, p, p, argp, p, p, i, i,
+                                           p, p, i, p])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
+        stages, passes = ctypes.c_int(0), ctypes.c_int(0)
+        lib.generic2d_plan(ctypes.byref(stages), ctypes.byref(passes))
+        self.stages, self.passes = stages.value, passes.value
+        vals = [ctypes.c_int(0) for _ in range(8)]
+        lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
+        self._tile = (vals[0].value, vals[1].value)
+        self._scratch = {}
+
+    def _buffers(self, ny: int, nx: int, device: int) -> tuple:
+        """The scratch stack and partials (a row more than the blocks)
+        for a ``ny`` x ``nx`` lattice on ``device``."""
+        key = (ny, nx, device)
+        if key not in self._scratch:
+            ty, tx = self._tile
+            blocks = -(-ny // ty) * -(-nx // tx)
+            dev = torch.device("cuda", device)
+            self._scratch[key] = (
+                torch.empty((self._planes, ny, nx), dtype=torch.float32,
+                            device=dev),
+                torch.empty((blocks + 1, self._n_g), dtype=torch.float64,
+                            device=dev))
+        return self._scratch[key]
+
+    def __getattr__(self, name):
+        if name == "generic2d_plan":
+            def plan(n_stages):
+                n_stages._obj.value = self.stages
+            return plan
+        fn = getattr(self._lib, name)
+        if name not in self.STEPS:
+            return fn
+
+        def call(fin, fout, flags, ztab, args, *rest):
+            # rest: [shift,] [series,] partials, gout, device, stream
+            mid, partials = self._buffers(args._obj.ny, args._obj.nx,
+                                          rest[-2])
+            rest = list(rest)
+            if rest[-4] is not None:
+                rest[-4] = partials.data_ptr()
+            return fn(fin, fout, mid.data_ptr(), flags, ztab, args, *rest)
+        return call
+
+
+def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
+    """``model``'s ``gk._LIB`` entry for the library at ``path``: bound
+    through :class:`PassesAbi` where ``passes_abi``, its
+    ``generic2d_step_b`` through :class:`NoZoneTableStepB` where the
     library has no ``generic2d_step_b_zonal``."""
-    gk.lib(model)
-    entry = dict(gk._LIB[model])
-    if "tile_b" in entry and not hasattr(entry["lib"],
-                                         "generic2d_step_b_zonal"):
+    raw = ctypes.CDLL(str(path))
+    entry = gk.bind(PassesAbi(raw, model) if passes_abi else raw, model,
+                    path.name)
+    if "tile_b" in entry and not hasattr(raw, "generic2d_step_b_zonal"):
         entry["lib"] = NoZoneTableStepB(entry["lib"], model)
     return entry
 
@@ -146,11 +339,15 @@ def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
     report."""
     cb.CSRC, cb.BUILD_DIR = csrc, build_dir
     gk._LIB.clear()
+    # a copy whose step entries still take the scratch stack `mid`
+    passes_abi = re.search(r"int generic2d_step\(const float\* fin, "
+                           r"float\* fout, float\* mid",
+                           (csrc / "generic2d.cu").read_text()) is not None
     with concurrent.futures.ThreadPoolExecutor(len(models)) as pool:
         built = list(pool.map(gk.build, models))
     out = {}
     for m, (path, report) in zip(models, built):
-        out[m] = _entry(m)
+        out[m] = _entry(m, path, passes_abi)
         print(f"{m} ({path.name} from {csrc}):")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -160,7 +357,7 @@ def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -169,7 +366,8 @@ def main(argv=None) -> int:
     from tclb_tpu_torch.models import get_model
     other = pathlib.Path(argv[0]).resolve()
     models = [m for m, dm in gk.DEVICE_MODELS.items()
-              if dm.ndim == 2 and (other / dm.header).is_file()]
+              if dm.ndim == 2 and (other / dm.header).is_file()
+              and (m in argv[1:] or len(argv) == 1)]
     this_csrc, this_build = cb.CSRC, cb.BUILD_DIR
     same = True
     try:
@@ -178,16 +376,34 @@ def main(argv=None) -> int:
                     "other": load(other, pathlib.Path(tmp), models)}
             for m in models:
                 for shape in SHAPES:
-                    lat = paint(get_model(m), shape)
+                    lat = with_series(paint(get_model(m), shape))
                     outs = {}
                     for tag, entries in libs.items():
                         gk._LIB[m] = entries[m]
                         outs[tag] = run(lat)
-                    for name, got in outs["this"].items():
-                        equal = torch.equal(got, outs["other"][name])
+                    for name, got in outs["this"][0].items():
+                        equal = torch.equal(got, outs["other"][0][name])
                         print(f"{m} {name} {shape}: "
                               f"{'bit-identical' if equal else 'DIFFERS'}")
                         same &= equal
+                    gk._LIB[m] = libs["this"][m]
+                    again = run(lat)[1]
+                    for name, got in outs["this"][1].items():
+                        want = outs["other"][1][name]
+                        close = torch.allclose(got, want, equal_nan=True,
+                                               **GLOBALS_TOL)
+                        rerun = torch.equal(got.view(torch.int32),
+                                            again[name].view(torch.int32))
+                        print(f"{m} {name} {shape} globals: "
+                              f"{got.tolist()} against {want.tolist()}: "
+                              f"{'within' if close else 'OUTSIDE'} rtol "
+                              f"1e-4 / atol 1e-6, "
+                              f"{'the same' if rerun else 'NOT the same'}"
+                              " run to run")
+                        same &= close and rerun
+                timed = timed_lattice(m)
+                time_steps(timed, {tag: entries[m]
+                                   for tag, entries in libs.items()})
     finally:
         gk._LIB.clear()
         cb.CSRC, cb.BUILD_DIR = this_csrc, this_build

@@ -33,10 +33,10 @@ series flavours in ``SERIES_LAUNCHES``):
     stage on the output tile in one launch, a two-stage action whose first
     stage computes a ring of at most two nodes runs it on the tile plus the
     ring into shared memory and stage 1 on the tile, in one launch; any
-    other plan (three stages, a wider ring) runs one launch per stage, the
-    earlier stages' planes in an f32 scratch stack the wrapper allocates
-    (the library reports its form: ``generic2d_plan``; a call counts
-    each of its launches).  Bound by bytes
+    other plan (three stages, a wider ring) runs in one launch too, the
+    staged form: a block stages its tile plus the plan's reach into shared
+    memory once and runs every stage from there (``step_form`` names the
+    form, ``staged_tile`` the staged tile).  Bound by bytes
     (see ``launch_bytes`` and ``node_step_flops``).  The globals flavour
     also returns the last step's SUM globals, reduced in a fixed order (no
     float atomics).
@@ -51,7 +51,7 @@ series flavours in ``SERIES_LAUNCHES``):
     device header, and no kernel computes them.
 ``resident`` (``generic2d_resident``) replaces ``make_resident_iterate``:
     an even number of Iterations in one cooperative launch, a grid barrier
-    after each stage, two ping-pong buffers (and a multi-pass plan's
+    after each stage, two ping-pong buffers (and a multi-stage plan's
     scratch stack) that stay in the L2 when the lattice fits half of it.
 
 The storage ladder: ``step``, ``step_globals`` and ``resident`` also take
@@ -246,8 +246,8 @@ DEVICE_MODELS = {
         groups=("COLLISION",), zonal=("rho_bc", "phi_bc", "psi_bc"),
         globals_=("TotalMomentum",),
         plan=(("BaseIteration", 0),)),
-    # the multi-stage 2D models: pressureEvolution's plan runs in one
-    # launch (a ring of two), the three-stage plans one launch a stage
+    # the multi-stage 2D models: pressureEvolution's plan runs in the ring
+    # form (a ring of two), the three-stage plans in the staged form
     "d2q9_pf_pressureEvolution": DeviceModel(
         header="models/d2q9_pf_pressure_evolution.cuh",
         storage=_d2q9_groups("f", "h") + ("PhaseF",),
@@ -485,6 +485,50 @@ def action_plan(model: Model, action: str = "Iteration", fuse: int = 1
     return plan, ext
 
 
+# generic2d_step's block shapes (csrc/generic2d.cu): the ring form's and
+# the one-stage form's 32x16 threads; the staged form's tile is 32 wide,
+# 16 rows high where two blocks' shared memory fits an SM
+# (TWO_BLOCKS_SMEM: half of 228 KB, less 1 KB a block), else 8
+BLOCK = (16, 32)
+TWO_BLOCKS_SMEM = 113 * 1024
+
+
+def step_form(model: Model) -> str:
+    """How ``generic2d_step`` runs ``model``'s Iteration in its one
+    launch: ``"pass"`` (one stage, a node a thread), ``"ring"`` (two
+    stages, stage 0's ring of at most two nodes and its planes in static
+    shared memory) or ``"staged"`` (any other plan: the tile plus the
+    plan's reach staged into shared memory, every stage from there)."""
+    plan, _ = action_plan(model)
+    if len(plan) == 1:
+        return "pass"
+    if len(plan) == 2 and plan[0][1] <= 2 \
+            and model.n_storage * BLOCK[0] * BLOCK[1] * 4 <= 40 * 1024:
+        return "ring"
+    return "staged"
+
+
+def staged_tile(model: Model) -> dict:
+    """The staged form's tile for ``model`` (csrc/generic2d.cu mirrors
+    it): the output tile ``(ty, tx)``, the input halo (the plan's reach),
+    each stage's ring (``action_plan``'s), the extents of the staged input
+    and of the earlier stages' stack (every storage plane of each, f32),
+    their shared memory, and the stage-0 nodes a block computes for each
+    output node."""
+    plan, reach = action_plan(model)
+    e0 = plan[0][1]
+
+    def smem(ty):
+        return 4 * model.n_storage * ((ty + 2 * reach) * (32 + 2 * reach)
+                                      + (ty + 2 * e0) * (32 + 2 * e0))
+    ty = 16 if smem(16) <= TWO_BLOCKS_SMEM else 8
+    return {"tile": (ty, 32), "halo": reach,
+            "rings": tuple(ext for _, ext in plan),
+            "input": (ty + 2 * reach, 32 + 2 * reach),
+            "stack": (ty + 2 * e0, 32 + 2 * e0), "smem": smem(ty),
+            "stage0_per_node": (ty + 2 * e0) * (32 + 2 * e0) / (ty * 32)}
+
+
 def check_layout(model: Model) -> None:
     """The model's registry layout and plan must be the ones its device
     header indexes by position (raises otherwise)."""
@@ -661,9 +705,8 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
 
 
 def stage_flops(model: Model, flags: np.ndarray) -> tuple:
-    """``node_step_flops`` of a model whose step runs one launch a stage
-    (d2q9_pp_MCMP, d2q9_lee, d2q9_poison_boltzmann), by stage of its
-    plan."""
+    """``node_step_flops`` of a three-stage model (d2q9_pp_MCMP,
+    d2q9_lee, d2q9_poison_boltzmann), by stage of its plan."""
     return {"d2q9_pp_MCMP": _mcmp_flops, "d2q9_lee": _lee_flops,
             "d2q9_poison_boltzmann": _pb_flops}[model.name](model, flags)
 
@@ -1105,70 +1148,65 @@ def build(model: str) -> tuple[pathlib.Path, str]:
 
 
 def lib(model: str) -> ctypes.CDLL:
-    """``model``'s generic library, built and bound at first use; its
-    layout sizes are checked against ``DEVICE_MODELS``."""
+    """``model``'s generic library, built and bound at first use (``bind``)."""
     entry = _LIB.setdefault(model, {})
     if "lib" not in entry:
-        dm = DEVICE_MODELS[model]
-        if dm.ndim != 2:
+        if DEVICE_MODELS[model].ndim != 2:
             raise ValueError(f"{model} is a 3D model: its kernels are "
                              "ops/generic3d_kernels.py's")
         path, _ = build(model)
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ip = ctypes.POINTER(i)
-        argp = ctypes.POINTER(c_args_type(model))
-        lib.generic2d_layout.argtypes = [ip] * 8
-        lib.generic2d_layout.restype = None
-        lib.generic2d_plan.argtypes = [ip, ip]
-        lib.generic2d_plan.restype = None
-        lib.generic2d_step.argtypes = [p, p, p, p, p, argp, p, p, i, p]
-        lib.generic2d_step.restype = i
-        lib.generic2d_step_series.argtypes = [p, p, p, p, p, argp, p, p, i,
-                                              i, p, p, i, p]
-        lib.generic2d_step_series.restype = i
-        lib.generic2d_resident.argtypes = [p, p, p, p, p, p, argp, i, i, i,
-                                           p]
-        lib.generic2d_resident.restype = i
-        fp = ctypes.POINTER(ctypes.c_float)
-        lib.generic2d_step_bf16.argtypes = [p, p, p, p, p, argp, fp, p, p, i,
-                                            p]
-        lib.generic2d_step_bf16.restype = i
-        lib.generic2d_resident_bf16.argtypes = [p, p, p, p, p, p, argp, fp,
-                                                i, i, i, p]
-        lib.generic2d_resident_bf16.restype = i
-        lib.generic2d_resident_capacity.argtypes = [i, i, ip, ip]
-        lib.generic2d_resident_capacity.restype = i
-        lib.generic_error_string.argtypes = [i]
-        lib.generic_error_string.restype = ctypes.c_char_p
-        if dm.adjoint:
-            lib.generic2d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p,
-                                             i, p]
-            lib.generic2d_step_b.restype = i
-            lib.generic2d_step_b_tile.argtypes = [ip, ip]
-            lib.generic2d_step_b_tile.restype = None
-            by, bx = ctypes.c_int(0), ctypes.c_int(0)
-            lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
-            entry["tile_b"] = (by.value, bx.value)
-        vals = [ctypes.c_int(0) for _ in range(8)]
-        lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
-        tile_y, tile_x, *sizes = (v.value for v in vals)
-        want = [len(dm.storage), len(dm.settings), len(dm.node_types),
-                len(dm.groups), len(dm.zonal), len(dm.globals_)]
-        if sizes != want:
-            raise RuntimeError(f"{path.name} was built with layout sizes "
-                               f"{sizes}, the wrapper expects {want}")
-        stages, passes = ctypes.c_int(0), ctypes.c_int(0)
-        lib.generic2d_plan(ctypes.byref(stages), ctypes.byref(passes))
-        if stages.value != len(dm.plan):
-            raise RuntimeError(f"{path.name} runs {stages.value} stages, "
-                               f"the wrapper expects {len(dm.plan)}")
-        # launches a step: 1, or one a stage (more than one with the
-        # scratch `mid`)
-        entry["passes"] = passes.value
-        entry["tile"] = (tile_y, tile_x)
-        entry["lib"] = lib
+        entry.update(bind(ctypes.CDLL(str(path)), model, path.name))
     return entry["lib"]
+
+
+def bind(lib, model: str, name: str) -> dict:
+    """Bind a library of ``model`` (``name``: its file, for errors): its
+    layout sizes and stage count are checked against ``DEVICE_MODELS``.
+    Returns its ``_LIB`` entry: the library, its step tile and, for an
+    adjoint model, its reverse tile."""
+    dm = DEVICE_MODELS[model]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(i)
+    argp = ctypes.POINTER(c_args_type(model))
+    fp = ctypes.POINTER(ctypes.c_float)
+    entry = {"lib": lib}
+    for fn, args, res in (
+            ("generic2d_layout", [ip] * 8, None),
+            ("generic2d_plan", [ip], None),
+            ("generic2d_step", [p, p, p, p, argp, p, p, i, p], i),
+            ("generic2d_step_series", [p, p, p, p, argp, p, p, i, i, p, p,
+                                       i, p], i),
+            ("generic2d_resident", [p, p, p, p, p, p, argp, i, i, i, p], i),
+            ("generic2d_step_bf16", [p, p, p, p, argp, fp, p, p, i, p], i),
+            ("generic2d_resident_bf16", [p, p, p, p, p, p, argp, fp, i, i,
+                                         i, p], i),
+            ("generic2d_resident_capacity", [i, i, ip, ip], i),
+            ("generic_error_string", [i], ctypes.c_char_p)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = res
+    if dm.adjoint:
+        lib.generic2d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p, i, p]
+        lib.generic2d_step_b.restype = i
+        lib.generic2d_step_b_tile.argtypes = [ip, ip]
+        lib.generic2d_step_b_tile.restype = None
+        by, bx = ctypes.c_int(0), ctypes.c_int(0)
+        lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
+        entry["tile_b"] = (by.value, bx.value)
+    vals = [ctypes.c_int(0) for _ in range(8)]
+    lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
+    tile_y, tile_x, *sizes = (v.value for v in vals)
+    want = [len(dm.storage), len(dm.settings), len(dm.node_types),
+            len(dm.groups), len(dm.zonal), len(dm.globals_)]
+    if sizes != want:
+        raise RuntimeError(f"{name} was built with layout sizes {sizes}, "
+                           f"the wrapper expects {want}")
+    stages = ctypes.c_int(0)
+    lib.generic2d_plan(ctypes.byref(stages))
+    if stages.value != len(dm.plan):
+        raise RuntimeError(f"{name} runs {stages.value} stages, the "
+                           f"wrapper expects {len(dm.plan)}")
+    entry["tile"] = (tile_y, tile_x)
+    return entry
 
 
 def check(lib, rc: int, what: str) -> None:
@@ -1232,8 +1270,8 @@ def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
 
 
 def _mid(fields, needed: bool):
-    """The f32 scratch stack a multi-pass step or resident launch hands
-    its earlier stages' planes in (``needed``), else None."""
+    """The f32 scratch stack a resident launch of a plan of two stages or
+    more hands its earlier stages' planes in (``needed``), else None."""
     return torch.empty(fields.shape, dtype=torch.float32,
                        device=fields.device) if needed else None
 
@@ -1246,8 +1284,7 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
                  series=None, it: int = 0):
     """One ``generic2d_step`` call (``generic2d_step_bf16`` for a bf16
     stack), or with :class:`SeriesInputs` ``series`` one
-    ``generic2d_step_series`` call at iteration ``it``: one launch, or one
-    a stage of a multi-pass plan (each counted)."""
+    ``generic2d_step_series`` call at iteration ``it``: one launch."""
     validate(fields, flags, ztab, a)
     bf16 = fields.dtype == torch.bfloat16
     if series is not None:
@@ -1257,20 +1294,16 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
     out = torch.empty_like(fields)
-    passes = _LIB[a.model]["passes"]
-    mid = _mid(fields, passes > 1)
     partials = gout = None
     n_g = len(DEVICE_MODELS[a.model].globals_)
     if with_globals:
         ty, tx = _LIB[a.model]["tile"]
         blocks = -(-a.ny // ty) * -(-a.nx // tx)
-        # one partial per block and global, and the row that carries a
-        # multi-pass step's sums between its passes
-        partials = torch.empty((blocks + 1, max(n_g, 1)),
-                               dtype=torch.float64, device=fields.device)
+        partials = torch.empty((blocks, max(n_g, 1)), dtype=torch.float64,
+                               device=fields.device)
         gout = torch.empty((max(n_g, 1),), dtype=torch.float32,
                            device=fields.device)
-    head = (fields.data_ptr(), out.data_ptr(), _ptr(mid), flags.data_ptr(),
+    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
             ztab.data_ptr(), ctypes.byref(a.c_struct))
     tail = (partials.data_ptr() if with_globals else None,
             gout.data_ptr() if with_globals else None, dev, stream)
@@ -1279,12 +1312,12 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
         fn = getattr(lb, name)
         check(lb, fn(*head, a.c_shift, *tail) if bf16 else fn(*head, *tail),
               name)
-        LAUNCHES[name] += passes
-        FLAVOUR_LAUNCHES[f"{name}/{STEP_FLAVOURS[with_globals]}"] += passes
+        LAUNCHES[name] += 1
+        FLAVOUR_LAUNCHES[f"{name}/{STEP_FLAVOURS[with_globals]}"] += 1
     else:
         check(lb, lb.generic2d_step_series(*head, *sargs, *tail),
               "generic2d_step_series")
-        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += passes
+        SERIES_LAUNCHES[SERIES_KERNELS[1 if with_globals else 0]] += 1
     return (out, gout[:n_g]) if with_globals else out
 
 
@@ -1352,7 +1385,7 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     """``nsteps`` Iterations (even, at least 2) in one cooperative launch
     (kernel ``generic2d_resident``; ``generic2d_resident_bf16`` for a bf16
     stack).  An f32 scratch stack carries the earlier stages' planes to the
-    later ones: a multi-pass plan's at either storage, a two-stage plan's
+    later ones: a staged-form plan's at either storage, a ring-form plan's
     on a bf16 stack."""
     if nsteps < 2 or nsteps % 2:
         raise ValueError(f"nsteps={nsteps}: the ping-pong needs an even "
@@ -1366,9 +1399,11 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     blocks = resident_grid(a.model, dev, a.ny * a.nx, bf16)
     out = torch.empty_like(fields)
     scratch = torch.empty_like(fields)
-    staged = len(DEVICE_MODELS[a.model].plan) > 1
+    # the earlier stages' planes: in `mid`, but for an f32 ring-form plan
+    # (stage 0 writes the step's output buffer)
+    mid = _mid(fields, len(DEVICE_MODELS[a.model].plan) > 1 and (
+        bf16 or step_form(_get_model(a.model)) != "ring"))
     if bf16:
-        mid = _mid(fields, staged)
         rc = lb.generic2d_resident_bf16(
             fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
             flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
@@ -1376,7 +1411,6 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
         check(lb, rc, "generic2d_resident_bf16")
         LAUNCHES["generic2d_resident_bf16"] += 1
         return out
-    mid = _mid(fields, _LIB[a.model]["passes"] > 1)
     rc = lb.generic2d_resident(
         fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
         flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),

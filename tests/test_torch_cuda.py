@@ -1088,8 +1088,8 @@ def card_multistage():
 @pytest.mark.parametrize("name", MULTISTAGE_MODELS)
 def test_multistage_kernels_match_plain(card_multistage, name, shape):
     """Each multi-stage model's build: every node type its header reads,
-    two zones, ragged 32x16 tiles (37x53).  generic2d_step (one launch, or
-    one a stage, each counted) in both flavours against the plain
+    two zones, ragged tiles (37x53).  generic2d_step (one launch, the
+    ring form or the staged form) in both flavours against the plain
     version (the globals at rtol 1e-4 / atol 1e-6), an 8-step
     generic2d_resident against it and, bit for bit, against eight
     generic2d_step calls."""
@@ -1108,12 +1108,10 @@ def test_multistage_kernels_match_plain(card_multistage, name, shape):
     torch.testing.assert_close(res, gk.plain_steps(f, flags, ztab, args, 8),
                                **FIELDS_TOL)
     torch.cuda.synchronize()
-    # a two-stage plan with a ring of two in one launch, three stages in
-    # one launch each
-    passes = 1 if name == "d2q9_pf_pressureEvolution" else 3
-    assert gk._LIB[name]["passes"] == passes
+    # a two-stage plan with a ring of two and three stages, each in one
+    # launch
     assert {k: v for k, v in gk.LAUNCHES.items() if v} == {
-        "generic2d_step": 2 * passes, "generic2d_resident": 1}
+        "generic2d_step": 2, "generic2d_resident": 1}
     steps = f
     for _ in range(8):
         steps = gk.step(steps, flags, ztab, args)
@@ -1139,7 +1137,7 @@ def test_multistage_lattice_engine_matches_eager(card_multistage, name,
     ref.state = ref._iterate(ref.state, ref.params, 12)
     torch.cuda.synchronize()
     assert lat.engine_name == engine.format(name) and lat.eager_steps == 0
-    assert gk.flavours()["globals"] == gk._LIB[name]["passes"]
+    assert gk.flavours()["globals"] == 1
     torch.testing.assert_close(lat.state.fields, ref.state.fields,
                                **FIELDS_TOL)
     got, want = lat.get_globals(), ref.get_globals()
@@ -1181,8 +1179,8 @@ def test_multistage_bf16_kernels_match_plain(card_multistage, name,
 def test_lee_series_flavours_match_plain(card_multistage):
     """d2q9_lee under a <Control> series of InletVelocity on zone 0 (its
     E velocity and W equilibrium faces; horizon 5): both series flavours
-    of the three-pass step against their plain versions, at an iteration
-    inside the horizon and one past it."""
+    of the three-stage step against their plain versions, at an iteration
+    inside the horizon and one past it, each in one launch."""
     lat = card_multistage("d2q9_lee", (37, 53), seed=4)
     lat.set_setting_series("InletVelocity", [0.01, 0.015, 0.02, 0.012,
                                              0.008], zone=0)
@@ -1200,9 +1198,63 @@ def test_lee_series_flavours_match_plain(card_multistage):
         torch.testing.assert_close(got, want, **FIELDS_TOL)
         torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
     torch.cuda.synchronize()
-    # two calls of each flavour, three launches a call
-    assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 6,
-                                  "generic2d_step_series_globals": 6}
+    # two calls of each flavour, one launch a call
+    assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 2,
+                                  "generic2d_step_series_globals": 2}
+
+
+STAGED_MODELS = ("d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
+STAGED_FLAVOURS = ("plain", "globals", "bf16", "bf16 globals", "series",
+                   "series globals")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 70)])
+@pytest.mark.parametrize("flavour", STAGED_FLAVOURS)
+@pytest.mark.parametrize("name", STAGED_MODELS)
+def test_staged_step_flavours_match_plain(card_multistage, name, flavour,
+                                          shape):
+    """The staged form (generic2d_staged_kernel) in each flavour against
+    its plain version, one launch a call and no scratch stack, on a
+    lattice fewer rows high than a tile plus its reach (16x64) and on
+    ragged tiles (37x70); the globals at rtol 1e-4 / atol 1e-6, the bf16
+    step within the f32 tolerance carried through its one narrowing."""
+    lat = card_multistage(name, shape, seed=7)
+    m = lat.model
+    name0 = m.zonal_settings[0]
+    v = float(lat.params.settings[m.setting_index[name0]])
+    lat.set_setting_series(name0, [v, 1.01 * v + 1e-4, v], zone=0)
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params)
+    series = gk.series_inputs(m, lat.params)
+    glob = flavour.endswith("globals")
+    gk.reset_launches()
+    if flavour.startswith("bf16"):
+        shift = ddf.kernel_shift(m, "shifted")
+        fb = ddf.narrow_stack(f, torch.bfloat16,
+                              ddf.stack_shift(m, "shifted"))
+        ab = dataclasses.replace(args, shift=shift)
+        got = (gk.step_globals if glob else gk.step)(fb, flags, ztab, ab)
+        want = gk.plain_steps(fb, flags, ztab, ab, 1, with_globals=glob)
+        wide = _wide_plain(gk, fb, flags, ztab, ab, 1, m, "shifted")
+        _assert_narrowed(got[0] if glob else got, wide, m, "shifted")
+    elif flavour.startswith("series"):
+        fn = gk.step_series_globals if glob else gk.step_series
+        got = fn(f, flags, ztab, args, series, 1)
+        want = gk.plain_steps(f, flags, ztab, args, 1, with_globals=glob,
+                              series=series, it=1)
+        torch.testing.assert_close(got[0] if glob else got,
+                                   want[0] if glob else want, **FIELDS_TOL)
+    else:
+        got = (gk.step_globals if glob else gk.step)(f, flags, ztab, args)
+        want = gk.plain_steps(f, flags, ztab, args, 1, with_globals=glob)
+        torch.testing.assert_close(got[0] if glob else got,
+                                   want[0] if glob else want, **FIELDS_TOL)
+    if glob:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    assert gk.step_form(m) == "staged"
+    assert sum(gk.LAUNCHES.values()) + sum(gk.SERIES_LAUNCHES.values()) \
+        == 1
 
 
 # --------------------------------------------------------------------------- #

@@ -123,10 +123,10 @@ def test_engine_choice(monkeypatch):
 def test_step2_planes():
     """z planes per d3q27_step2 block at 3d_channel's shape: 48 columns of
     32x8 on a 132-SM card, one block per SM."""
-    assert dk.step2_planes((48, 48, 256), 132) == 6
+    assert dk.step2_planes((48, 48, 256), 132, 8) == 6
     for shape, slots in (((12, 8, 64), 132), ((7, 9, 40), 4),
                          ((48, 48, 256), 264)):
-        zc = dk.step2_planes(shape, slots)
+        zc = dk.step2_planes(shape, slots, 8)
         assert 1 <= zc <= shape[0]
 
 

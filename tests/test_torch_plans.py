@@ -1,0 +1,301 @@
+"""The pure-Python planners that the two redesigned kernels rely on, on the
+CPU: ``d3q27_step2``'s columns by model (read from csrc/d3q27.cu, whose
+library reports them to the wrapper), its z runs and shared memory
+(``ops/d3q27_kernels.py``: ``step2_planes``, ``step2_smem``) at
+3d_channel's and channel48's shape, and ``generic2d_step``'s forms and the
+staged tile (``ops/generic_kernels.py``: ``step_form``, ``staged_tile``),
+each against the constants of the CUDA source it mirrors and, for the
+staged tile, against ``action_plan``'s rings; the step's arguments (no
+scratch stack ``mid``); the build digest over the headers that declare a
+plan's reach. The kernels themselves are held against their plain versions
+on the card by ``tests/test_torch_cuda.py``, and against the parent's
+builds bit for bit by ``d3q27_build_parity.py`` and ``generic2d_parity``.
+"""
+
+import ctypes
+import math
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from tclb_tpu_torch import get_model
+from tclb_tpu_torch.ops import _cuda_build
+from tclb_tpu_torch.ops import d3q27_kernels as dk3
+from tclb_tpu_torch.ops import generic_kernels as gk
+
+STAGED = ("d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
+RING = ("d2q9_kuper", "d2q9_pf_pressureEvolution")
+MODELS_2D = tuple(m for m, dm in gk.DEVICE_MODELS.items() if dm.ndim == 2)
+SMEM_LIMIT = 227 * 1024
+# 3d_channel.xml's lattice and bench.py's 48x48x256 channel (nz, ny, nx)
+CHANNEL3D = CHANNEL48 = (48, 48, 256)
+SMS = 132                       # an H100's SMs
+
+
+def _source(name: str) -> str:
+    return (_cuda_build.CSRC / name).read_text()
+
+
+# --------------------------------------------------------------------------- #
+# d3q27_step2
+# --------------------------------------------------------------------------- #
+
+
+def _step2_rows() -> dict:
+    """The rows of a d3q27_step2 column by model, as csrc/d3q27.cu sets TY
+    for each D3Q_MODEL id (8 for the two ids it names, else 12)."""
+    text = _source("d3q27.cu")
+    ids = re.search(r"#if D3Q_MODEL == (\d) \|\| D3Q_MODEL == (\d)\n"
+                    r"#define TY 8\n#define STEP2_BLOCKS_PER_SM 2\n#else\n"
+                    r"#define TY 12\n#define STEP2_BLOCKS_PER_SM 1\n", text)
+    eight = {dk3.MODELS[int(i)] for i in ids.groups()}
+    return {m: 8 if m in eight else 12 for m in dk3.MODELS}
+
+
+def test_step2_rows_match_the_source():
+    """csrc/d3q27.cu gives 8 rows (two blocks an SM) to d3q27_BGK and
+    d3q19_les and 12 (one) to the others, the cumulant's default build
+    among them, and bounds the kernel's launch by those blocks an SM."""
+    rows = _step2_rows()
+    assert {m for m, r in rows.items() if r == 8} == {"d3q27_BGK",
+                                                       "d3q19_les"}
+    assert rows[dk3.MODEL] == 12
+    assert "__launch_bounds__(STEP2_THREADS, STEP2_BLOCKS_PER_SM)" in \
+        _source("d3q27.cu")
+
+
+@pytest.mark.parametrize("shape", [CHANNEL3D, CHANNEL48])
+@pytest.mark.parametrize("model", dk3.MODELS)
+def test_step2_z_runs_at_the_channels(model, shape):
+    """At 48x48x256: 32 columns of 32x12 take z runs of 12 planes, 128
+    blocks on 132 SMs at one block an SM, step 1 on 14 planes of 34x14
+    for 12 of 32x12 (1.45 extended nodes an output node, against 1.59 for
+    32x8 columns); 48 columns of 32x8 at two blocks an SM take runs of
+    10 (240 blocks of 264)."""
+    rows = _step2_rows()[model]
+    per_sm = 1 if rows == 12 else 2
+    zc = dk3.step2_planes(shape, SMS * per_sm, rows)
+    nz, ny, nx = shape
+    columns = math.ceil(ny / rows) * math.ceil(nx / 32)
+    blocks = columns * math.ceil(nz / zc)
+    assert (zc, columns, blocks) == ((12, 32, 128) if rows == 12
+                                     else (10, 48, 240))
+    assert blocks <= SMS * per_sm
+    recompute = (zc + 2) / zc * (34 * (rows + 2)) / (32 * rows)
+    assert recompute == pytest.approx(1.4462 if rows == 12 else 1.59375,
+                                      abs=1e-4)
+
+
+@pytest.mark.parametrize("model", dk3.MODELS)
+def test_step2_shared_memory_budget(model):
+    """A block's ring of step-1 planes (ez = -1 of one plane, ez = 0 of
+    two, ez = +1 of three: 54 population planes for 27 velocities, 38 for
+    d3q19) over the extended column, and the cumulant's increments of two
+    planes, in f32: within 227 KB, and within 113 KB (two blocks an SM,
+    with a KB each reserved) where the build runs two blocks an SM."""
+    rows = _step2_rows()[model]
+    ring = 38 if model in ("d3q19", "d3q19_les") else 54
+    sinc = 2 * 4 * 32 * rows if model == dk3.MODEL else 0
+    smem = dk3.step2_smem(model, rows)
+    assert smem == (ring * 34 * (rows + 2) + sinc) * 4 <= SMEM_LIMIT
+    assert rows == 12 or smem <= 113 * 1024
+    assert dk3.step2_smem(dk3.MODEL, 12) == 115104
+
+
+# --------------------------------------------------------------------------- #
+# generic2d_step
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("name", MODELS_2D)
+def test_step_form(name):
+    """The staged form takes the three-stage plans; the one-stage plans
+    keep the one-node-a-thread pass, the two-stage plans with a ring of at
+    most two the ring form."""
+    want = ("staged" if name in STAGED else "ring" if name in RING
+            else "pass")
+    assert gk.step_form(get_model(name)) == want
+    assert (len(gk.DEVICE_MODELS[name].plan) == 1) == (want == "pass")
+
+
+@pytest.mark.parametrize("name,tile,halo,smem", [
+    ("d2q9_lee", (16, 32), 6, 96448),
+    ("d2q9_pp_MCMP", (8, 32), 3, 77120),
+    ("d2q9_poison_boltzmann", (16, 32), 3, 68464)])
+def test_staged_tile_against_the_plan(name, tile, halo, smem):
+    """The staged tile's extents are action_plan's: stage s runs on the
+    output tile plus its ring, reads no further than the stage before it
+    computed, and stage 0 no further than the staged input; two blocks an
+    SM where 16 rows fit (MCMP's 20 planes take 8 rows)."""
+    m = get_model(name)
+    plan, reach = gk.action_plan(m)
+    st = gk.staged_tile(m)
+    assert st["tile"] == tile and st["halo"] == halo == reach
+    assert st["rings"] == tuple(ext for _, ext in plan)
+    ty, tx = tile
+    assert st["input"] == (ty + 2 * halo, tx + 2 * halo)
+    assert st["stack"] == (ty + 2 * plan[0][1], tx + 2 * plan[0][1])
+    assert st["smem"] == smem == 4 * m.n_storage * (
+        st["input"][0] * st["input"][1] + st["stack"][0] * st["stack"][1])
+    assert smem <= gk.TWO_BLOCKS_SMEM <= SMEM_LIMIT // 2
+    assert plan[-1][1] == 0
+    for s in range(1, len(plan)):
+        assert plan[s][1] + gk.stage_reach(m, plan[s][0]) <= plan[s - 1][1]
+    assert plan[0][1] + gk.stage_reach(m, plan[0][0]) <= halo
+    assert st["stage0_per_node"] == pytest.approx(
+        st["stack"][0] * st["stack"][1] / (ty * tx))
+
+
+@pytest.mark.parametrize("name", MODELS_2D)
+def test_header_declares_the_reach_of_a_staged_plan(name):
+    """A staged plan's header declares model::REACH, action_plan's reach
+    (generic2d.cu stages its input with it); no other header does."""
+    text = _source(gk.DEVICE_MODELS[name].header)
+    hit = re.search(r"constexpr int REACH = (\d+);", text)
+    if name in STAGED:
+        assert int(hit.group(1)) == gk.action_plan(get_model(name))[1]
+    else:
+        assert hit is None
+
+
+def test_generic2d_constants_match_the_source():
+    """The planner's block shapes and budget are csrc/generic2d.cu's."""
+    text = _source("generic2d.cu")
+    assert "constexpr int BX = 32, BY = 16;" in text
+    assert gk.BLOCK == (16, 32)
+    assert "constexpr int STAGED_THREADS = 512;" in text
+    assert "constexpr size_t TWO_BLOCKS_SMEM = 113 * 1024;" in text
+    assert gk.TWO_BLOCKS_SMEM == 113 * 1024
+    assert "STY = staged_smem(16) <= TWO_BLOCKS_SMEM ? 16 : 8;" in text
+
+
+class _FakeLib:
+    """A library that records the arguments its step entries are handed
+    and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def generic2d_step(self, *args):
+        self.calls.append(args)
+        return 0
+
+    generic2d_step_bf16 = generic2d_step
+
+
+@pytest.mark.parametrize("name", STAGED + RING + ("d2q9_heat",))
+def test_mid_only_for_a_plan_run_as_passes(monkeypatch, name):
+    """No plan runs as passes any more, so a step hands its library no
+    scratch stack (``_mid`` is never asked for), and the partials and
+    globals buffers only in the globals flavour: every form runs in one
+    launch, the staged form's earlier stages in shared memory."""
+    m = get_model(name)
+    fake = _FakeLib()
+    monkeypatch.setitem(gk._LIB, name, {"lib": fake, "tile": (16, 32)})
+    monkeypatch.setattr(gk, "lib", lambda model: fake)
+    monkeypatch.setattr(gk, "device_and_stream", lambda t: (0, 0))
+    monkeypatch.setattr(gk, "_mid", lambda *a: pytest.fail("_mid asked"))
+    shape = (8, 40)
+    f = torch.zeros((m.n_storage,) + shape, dtype=torch.float32)
+    flags = torch.zeros(shape, dtype=torch.int32)
+    a = gk.step_args(m, shape, np.zeros(len(m.settings)))
+    ztab = torch.zeros((len(m.zonal_settings), a.zone_max))
+    gk._launch_step(f, flags, ztab, a, with_globals=False)
+    gk._launch_step(f, flags, ztab, a, with_globals=True)
+    plain, glob = fake.calls
+    assert len(plain) == len(glob) == 9
+    assert plain[2] == flags.data_ptr() and plain[5] is None
+    assert glob[5] is not None and glob[6] is not None
+
+
+def test_build_digest_covers_the_reach(tmp_path, monkeypatch):
+    """A staged plan's reach lives in its header: editing it rebuilds the
+    model's library (the digest covers the pre-included header) and no
+    other model's."""
+    import shutil
+    shutil.copytree(_cuda_build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(_cuda_build, "CSRC", tmp_path / "csrc")
+    lee, mcmp = (gk.DEVICE_MODELS[n].header
+                 for n in ("d2q9_lee", "d2q9_pp_MCMP"))
+    before = [_cuda_build.digest("generic2d", h) for h in (lee, mcmp)]
+    path = tmp_path / "csrc" / lee
+    path.write_text(path.read_text().replace("REACH = 6;", "REACH = 7;"))
+    after = [_cuda_build.digest("generic2d", h) for h in (lee, mcmp)]
+    assert after[0] != before[0] and after[1] == before[1]
+
+
+class _PassRouteLib:
+    """A library of the pass route's ABI that records its step calls: its
+    step entries take ``mid`` after ``fout``, its ``generic2d_plan``
+    reports 3 stages in 3 launches, its step tile is 16x32."""
+
+    class _Fn:
+        def __init__(self, body):
+            self.body = body
+
+        def __call__(self, *args):
+            return self.body(*args)
+
+    def __init__(self):
+        self.calls = []
+
+        def plan(stages, passes):
+            stages._obj.value, passes._obj.value = 3, 3
+
+        def layout(*vals):
+            for v, x in zip(vals, (16, 32, 11, 5, 4, 1, 2, 1)):
+                v._obj.value = x
+
+        def step(*args):
+            self.calls.append(args)
+            return 0
+        self.generic2d_plan = self._Fn(plan)
+        self.generic2d_layout = self._Fn(layout)
+        for name in ("generic2d_step", "generic2d_step_bf16",
+                     "generic2d_step_series", "generic2d_resident"):
+            setattr(self, name, self._Fn(step))
+
+
+@pytest.mark.parametrize("entry,extra", [
+    ("generic2d_step", ()), ("generic2d_step_bf16", ("shift",)),
+    ("generic2d_step_series", ("row", "ts", 5, 2))])
+@pytest.mark.parametrize("with_globals", [False, True])
+def test_parity_binds_the_pass_route(monkeypatch, entry, extra,
+                                     with_globals):
+    """generic2d_parity's adapter hands a pass-route library the scratch
+    stack after ``fout`` and, in the globals flavour, partials of its own
+    with the carry row (one row more than its 16x32 blocks); it reports
+    the library's launches a step and stages, and passes every other
+    entry through."""
+    from tclb_tpu_torch.ops import generic2d_parity as gp
+    raw = _PassRouteLib()
+    abi = gp.PassesAbi(raw, "d2q9_lee")
+    made = {}
+
+    def buffers(ny, nx, device):
+        made["shape"] = (ny, nx, device)
+        return (torch.zeros((11, ny, nx)),
+                torch.zeros((-(-ny // 16) * -(-nx // 32) + 1, 1),
+                            dtype=torch.float64))
+    monkeypatch.setattr(abi, "_buffers", buffers)
+    assert abi.passes == 3
+    stages = ctypes.c_int(0)
+    abi.generic2d_plan(ctypes.byref(stages))
+    assert stages.value == 3
+    assert abi.generic2d_resident is raw.generic2d_resident
+    m = get_model("d2q9_lee")
+    a = gk.step_args(m, (20, 70), np.zeros(len(m.settings)))
+    args = ctypes.byref(a.c_struct)
+    tail = ("partials" if with_globals else None, "gout", 0, "stream")
+    assert getattr(abi, entry)("fin", "fout", "flags", "ztab", args,
+                               *extra, *tail) == 0
+    (call,) = raw.calls
+    assert call[:2] == ("fin", "fout") and isinstance(call[2], int)
+    assert call[3:6] == ("flags", "ztab", args)
+    assert call[6:6 + len(extra)] == extra
+    assert made["shape"] == (20, 70, 0)
+    # its own partials, with the carry row, in the globals flavour
+    assert isinstance(call[-4], int) if with_globals else call[-4] is None
+    assert call[-3:] == ("gout", 0, "stream")
