@@ -5442,6 +5442,21 @@ def main() -> int:
             "shape": times[key]["shape"],
         })
     by_name = {k["name"]: k for k in kernels}
+    # the form each generic 2D step row runs (generic_kernels.step_form)
+    # and its __global__: the one-node-a-thread pass (in 32x16 blocks, or
+    # 32x8 at three an SM: the narrow pass), the tiled form, the ring form
+    # or the staged form
+    for key, k in by_name.items():
+        hit = re.match(r"generic2d_step(?:_bf16|_series\w*)?\[(\w+)\]$",
+                       key)
+        if hit:
+            form = gk.step_form(gk._get_model(hit.group(1)))
+            k["form"] = form
+            k["global"] = {"pass": "generic2d_pass_kernel",
+                           "narrow": "generic2d_narrow_kernel",
+                           "tiled": "generic2d_tiled_kernel",
+                           "ring": "generic2d_step_kernel",
+                           "staged": "generic2d_staged_kernel"}[form]
     for key, flavour_launches in (
             ("generic2d_step[d2q9_kuper]",
              {"drop": path_drop["flavours"]["globals"],

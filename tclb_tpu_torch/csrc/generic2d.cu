@@ -21,11 +21,15 @@
 //                       A two-stage action whose first stage computes a
 //                       ring of at most two nodes (d2q9_kuper: 1,
 //                       d2q9_pf_pressureEvolution: 2) runs in one launch
-//                       (the ring form): a 32x16 block runs stage 0 on its
-//                       output tile plus the ring, keeping stage 0's output
-//                       planes in shared memory (19 planes: 38.9 KB), then
-//                       stage 1 on the tile.  Any other plan of two stages
-//                       or more (d2q9_pp_MCMP, d2q9_lee,
+//                       (the ring form, generic2d_step_kernel): a block of
+//                       32x16 threads runs stage 0 on a 32x32 tile, two
+//                       rows a thread, into shared memory (pf's 19 planes:
+//                       77.8 KB), then stage 1 on the tile's inner nodes
+//                       (28x28 for pf, 30x30 for kuper), at two blocks an
+//                       SM (<= 64 registers): stage 0 runs 1.31 (pf) or
+//                       1.14 (kuper) times an output node, not the 1.52
+//                       or 1.22 of a 32x16 tile.  Any other plan of two
+//                       stages or more (d2q9_pp_MCMP, d2q9_lee,
 //                       d2q9_poison_boltzmann: three stages, reach 3 to 6)
 //                       runs in one launch too (the staged form,
 //                       generic2d_staged_kernel): a block stages, once,
@@ -39,8 +43,19 @@
 //                       recomputes the earlier stages' rings (lee's stage
 //                       0 on 40x24 nodes for a 32x16 tile) to move each
 //                       plane through device memory once.  A one-stage
-//                       plan runs its stage over the lattice, one node a
-//                       thread (generic2d_pass_kernel).
+//                       plan over many planes (TILED_MIN_PLANES:
+//                       d2q9_npe_guo's 45) takes the tiled form
+//                       (generic2d_tiled_kernel): its 32x8 tile's planes
+//                       plus the header's reach staged into shared memory
+//                       as f32, then the stage one node a thread from
+//                       there, so its second pass over the groups re-reads
+//                       shared memory, not L1 or L2.  Any other one-stage
+//                       plan runs its stage one node a thread, its pulls
+//                       from device memory (generic2d_pass_kernel), in
+//                       32x16 blocks, or in 32x8 blocks at three an SM for
+//                       a header of NARROW_MIN_PLANES planes or more
+//                       (d2q9_solid's 29: the narrow pass, so that its 79
+//                       registers a thread still leave 24 warps an SM).
 //                       Pulls and Field loads wrap periodically by index
 //                       arithmetic.  Bound by bytes: a d2q9_kuper node reads
 //                       its 10 planes and flag and writes 10 planes (84 B)
@@ -117,15 +132,36 @@ __host__ __device__ constexpr unsigned long long writes_before(int s) {
   return w;
 }
 constexpr unsigned long long ALL_WRITES = writes_before(model::N_STAGES);
+
+// The ring form's tile (generic_kernels.ring_tile mirrors it): RTY rows of
+// RTX nodes, stage 0 on all of them into shared memory, stage 1 on the
+// inner (RTX - 2 RING) x (RTY - 2 RING); a block of RBY rows of RTX
+// threads, RTY / RBY rows a thread; RING_BLOCKS blocks an SM at least.
+constexpr int RTX = 32, RTY = 32, RBY = 16, RING_BLOCKS = 2;
 // The ring form: two stages, the first computing a ring of at most two
-// nodes whose planes fit the static shared memory; any other plan of two
+// nodes whose planes over a 32x16 tile fit 40 KB; any other plan of two
 // stages or more takes the staged form
 constexpr bool RING_FORM =
     model::N_STAGES == 2 && model::stage_ext(0) <= 2
     && model::N_STORAGE * BY * BX * sizeof(float) <= 40 * 1024;
 constexpr bool STAGED_FORM = model::N_STAGES > 1 && !RING_FORM;
 constexpr int RING = RING_FORM ? model::stage_ext(0) : 0;
-constexpr int TX = BX - 2 * RING, TY = BY - 2 * RING;   // its output tile
+constexpr int TX = RTX - 2 * RING, TY = RTY - 2 * RING;  // its output tile
+constexpr size_t RING_SMEM = sizeof(float) * model::N_STORAGE * RTY * RTX;
+// The one-stage forms: a plan of one stage over at least TILED_MIN_PLANES
+// planes takes the tiled form (its block's planes staged in shared
+// memory); any other runs one node a thread, its pulls from device memory,
+// in 32x16 blocks, or, over at least NARROW_MIN_PLANES planes, in 32x8
+// blocks at three an SM (the narrow pass: <= 85 registers; such a header
+// takes more than 64 registers a thread, so 32x16 blocks would leave one
+// block, 16 warps, an SM)
+constexpr int TILED_MIN_PLANES = 40, NARROW_MIN_PLANES = 20;
+constexpr bool TILED_FORM =
+    model::N_STAGES == 1 && model::N_STORAGE >= TILED_MIN_PLANES;
+constexpr bool NARROW_FORM = model::N_STAGES == 1 && !TILED_FORM
+                             && model::N_STORAGE >= NARROW_MIN_PLANES;
+constexpr int NBY = 8, NARROW_BLOCKS = 3;         // the narrow pass's rows,
+                                                  // its blocks an SM
 constexpr int RESIDENT_THREADS = 256;
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
@@ -162,6 +198,16 @@ constexpr int SIW = STX + 2 * SH, SIH = STY + 2 * SH;   // staged input
 constexpr int SMW = STX + 2 * SE, SMH = STY + 2 * SE;   // earlier stages'
 constexpr size_t STAGED_SMEM = staged_smem(STY);
 
+// The tiled form's tile (generic_kernels.tiled_tile mirrors it): a 32x8
+// output tile, one node a thread, its planes staged over the tile plus
+// the header's reach TH (model::REACH) in f32; TILED_BLOCKS blocks an SM
+// at least.
+constexpr int TTX = 32, TTY = 8, TILED_THREADS = TTX * TTY;
+constexpr int TILED_BLOCKS = 2;
+constexpr int TH = TILED_FORM ? model::REACH : 0;
+constexpr int TIW = TTX + 2 * TH, TIH = TTY + 2 * TH;   // staged input
+constexpr size_t TILED_SMEM = sizeof(float) * model::N_STORAGE * TIH * TIW;
+
 // whether each stage reads no further than the stage before it computed
 constexpr bool rings_shrink() {
   for (int s = 1; s < model::N_STAGES; ++s)
@@ -181,6 +227,14 @@ static_assert(!STAGED_FORM
               "beyond its first stage's ring");
 static_assert(STAGED_SMEM <= 227 * 1024,
               "the staged tile's planes fit a block's shared memory");
+static_assert(!TILED_FORM || model::REACH >= 1,
+              "a tiled one-stage header declares its reach (model::REACH)");
+static_assert(!TILED_FORM || TILED_BLOCKS * (TILED_SMEM + 1024) <= 228 * 1024,
+              "TILED_BLOCKS tiles' planes fit an SM's shared memory");
+static_assert(RTY % RBY == 0 && RTY > 2 * RING && RTX > 2 * RING,
+              "the ring form's tile has inner nodes and whole rows a thread");
+static_assert(!RING_FORM || RING_BLOCKS * (RING_SMEM + 1024) <= 228 * 1024,
+              "RING_BLOCKS tiles' planes fit an SM's shared memory");
 
 // whether stages 1 .. LAST - 1 each write planes no earlier stage wrote
 constexpr bool earlier_stages_disjoint() {
@@ -212,16 +266,26 @@ struct DeviceStorage {
   }
 };
 
-// generic2d_step's stage 1: stage 0's planes from the block's shared tile
+// the ring form's stage 1: stage 0's planes from the block's shared tile
 // (origin at unwrapped (y0, x0)), the others from the launch's input
 template <class S>
 struct TileStorage {
-  const float* tile;       // [N_STORAGE][BY][BX]
+  const float* tile;       // [N_STORAGE][RTY][RTX]
   int y0, x0;
   DeviceStorage<false, S> rest;
   __device__ float get(int k, int y, int x) const {
-    if (writes(0, k)) return tile[(k * BY + (y - y0)) * BX + (x - x0)];
+    if (writes(0, k)) return tile[(k * RTY + (y - y0)) * RTX + (x - x0)];
     return rest.get(k, y, x);
+  }
+};
+
+// the tiled form's stage: every plane from the block's staged input
+// (origin at unwrapped (iy0, ix0))
+struct TiledStorage {
+  const float* in;         // [N_STORAGE][TIH][TIW]
+  int iy0, ix0;
+  __device__ float get(int k, int y, int x) const {
+    return in[(k * TIH + (y - iy0)) * TIW + (x - ix0)];
   }
 };
 
@@ -256,11 +320,11 @@ struct StagedStorage {
 // Where a stage writes
 // ---------------------------------------------------------------------------
 
-struct TileOut {          // a plane of the shared tile
+struct TileOut {          // a plane of the ring form's shared tile
   float* tile;
   int ly, lx;
   __device__ void operator()(int k, float v) const {
-    tile[(k * BY + ly) * BX + lx] = v;
+    tile[(k * RTY + ly) * RTX + lx] = v;
   }
 };
 
@@ -338,66 +402,75 @@ __device__ __forceinline__ void run_stage(const GenericArgs& a,
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavours, per launch
 
-// generic2d_step's ring form: stage 0 on the block's tile plus the ring
-// into shared memory, stage 1 on the tile
+// generic2d_step's ring form: stage 0 on the block's RTY x RTX tile (its
+// output tile plus the ring) into shared memory, RTY / RBY rows a thread,
+// then stage 1 on the output tile
 template <class S, bool kGlobals, bool kSeries>
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(RTX * RBY, RING_BLOCKS)
 generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                       const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
                       const SeriesArgs ser, double* partials, float* gout,
                       const __grid_constant__ Shift sh) {
+  extern __shared__ float tile[];                      // [N][RTY][RTX]
   const size_t n = (size_t)a.ny * a.nx;
-  const int ly = threadIdx.y, lx = threadIdx.x;
-  // this thread's stage-0 node, unwrapped: the block's ring starts RING
-  // nodes before its output tile
+  const int lx = threadIdx.x % RTX, ly0 = threadIdx.x / RTX;
+  // the block's ring starts RING nodes before its output tile (unwrapped)
   const int y0 = blockIdx.y * TY - RING, x0 = blockIdx.x * TX - RING;
-  const int y = y0 + ly, x = x0 + lx;
-  const bool out_node = ly >= RING && ly < BY - RING && lx >= RING
-                        && lx < BX - RING && y < a.ny && x < a.nx;
-  const int flag = __ldg(flags + (size_t)wrap(y, a.ny) * a.nx
-                         + wrap(x, a.nx));
+  const int x = x0 + lx, wx = wrap(x, a.nx);
+  const bool out_col = lx >= RING && lx < RTX - RING && x < a.nx;
   double acc[NG];
 #pragma unroll
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
-
   const DeviceStorage<false, S> in{fin, a.ny, a.nx, sh.w};
-  __shared__ float tile[model::N_STORAGE * BY * BX];
-  run_stage<0, kGlobals, kSeries>(a, in, TileOut{tile, ly, lx}, ztab, ser,
-                                  acc, y, x, flag, out_node);
+#pragma unroll 1
+  for (int ly = ly0; ly < RTY; ly += RBY) {
+    const int y = y0 + ly;
+    const bool out_node = out_col && ly >= RING && ly < RTY - RING
+                          && y < a.ny;
+    run_stage<0, kGlobals, kSeries>(
+        a, in, TileOut{tile, ly, lx}, ztab, ser, acc, y, x,
+        __ldg(flags + (size_t)wrap(y, a.ny) * a.nx + wx), out_node);
+  }
   __syncthreads();
-  if (out_node) {
+  const TileStorage<S> st{tile, y0, x0, in};
+#pragma unroll 1
+  for (int ly = ly0; ly < RTY; ly += RBY) {
+    const int y = y0 + ly;
+    if (!(out_col && ly >= RING && ly < RTY - RING && y < a.ny)) continue;
     const size_t idx = (size_t)y * a.nx + x;
-    run_stage<1, kGlobals, kSeries>(a, TileStorage<S>{tile, y0, x0, in},
-                                    DeviceOut<S>{fout, idx, n, sh.w}, ztab,
-                                    ser, acc, y, x, flag, true);
+    run_stage<1, kGlobals, kSeries>(a, st, DeviceOut<S>{fout, idx, n, sh.w},
+                                    ztab, ser, acc, y, x, __ldg(flags + idx),
+                                    true);
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k) {
       if (writes(0, k) && !writes(1, k))
-        store_plane(fout + k * n + idx, tile[(k * BY + ly) * BX + lx],
-                    sh.w, k);
+        store_plane(fout + k * n + idx, st.get(k, y, x), sh.w, k);
       else if (!((ALL_WRITES >> k) & 1ull))   // no stage writes it
         store_plane(fout + k * n + idx,
                     load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
     }
   }
   if constexpr (kGlobals)
-    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
+    finish_sums<NG, RTX * RBY>(acc, partials, &g_blocks_done,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
 // generic2d_step's one-stage form: the plan's stage over the whole
-// lattice, one node a thread, no ring; the planes it leaves are copied
-// from the input.  The globals flavour sums the nodes.
-template <class S, bool kGlobals, bool kSeries>
-__global__ void __launch_bounds__(BX * BY)
-generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
-                      const int* __restrict__ flags,
-                      const float* __restrict__ ztab, const GenericArgs a,
-                      const SeriesArgs ser, double* partials, float* gout,
-                      const __grid_constant__ Shift sh) {
+// lattice, one node a thread, no ring, in blocks of ROWS rows of BX; the
+// planes it leaves are copied from the input.  The globals flavour sums
+// the nodes.
+template <int ROWS, class S, bool kGlobals, bool kSeries>
+__device__ __forceinline__ void pass_nodes(const S* __restrict__ fin,
+                                           S* __restrict__ fout,
+                                           const int* __restrict__ flags,
+                                           const float* __restrict__ ztab,
+                                           const GenericArgs& a,
+                                           const SeriesArgs& ser,
+                                           double* partials, float* gout,
+                                           const Shift& sh) {
   const size_t n = (size_t)a.ny * a.nx;
-  const int y = blockIdx.y * BY + threadIdx.y;
+  const int y = blockIdx.y * ROWS + threadIdx.y;
   const int x = blockIdx.x * BX + threadIdx.x;
   double acc[NG];
 #pragma unroll
@@ -415,7 +488,81 @@ generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                     load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
   }
   if constexpr (kGlobals)
-    finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done,
+    finish_sums<NG, BX * ROWS>(acc, partials, &g_blocks_done,
+                    [gout](int g, double t) { gout[g] = (float)t; });
+}
+
+// the pass form: 32x16 blocks
+template <class S, bool kGlobals, bool kSeries>
+__global__ void __launch_bounds__(BX * BY)
+generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
+                      const int* __restrict__ flags,
+                      const float* __restrict__ ztab, const GenericArgs a,
+                      const SeriesArgs ser, double* partials, float* gout,
+                      const __grid_constant__ Shift sh) {
+  pass_nodes<BY, S, kGlobals, kSeries>(fin, fout, flags, ztab, a, ser,
+                                       partials, gout, sh);
+}
+
+// the narrow pass: 32x8 blocks, NARROW_BLOCKS an SM
+template <class S, bool kGlobals, bool kSeries>
+__global__ void __launch_bounds__(BX * NBY, NARROW_BLOCKS)
+generic2d_narrow_kernel(const S* __restrict__ fin, S* __restrict__ fout,
+                        const int* __restrict__ flags,
+                        const float* __restrict__ ztab, const GenericArgs a,
+                        const SeriesArgs ser, double* partials, float* gout,
+                        const __grid_constant__ Shift sh) {
+  pass_nodes<NBY, S, kGlobals, kSeries>(fin, fout, flags, ztab, a, ser,
+                                        partials, gout, sh);
+}
+
+// generic2d_step's tiled form: the block's planes over its 32x8 tile plus
+// the reach staged into shared memory, then the plan's one stage, one
+// node a thread, from there (a header that pulls a group of planes more
+// than once reads shared memory again, not L1 or L2)
+template <class S, bool kGlobals, bool kSeries>
+__global__ void __launch_bounds__(TILED_THREADS, TILED_BLOCKS)
+generic2d_tiled_kernel(const S* __restrict__ fin, S* __restrict__ fout,
+                       const int* __restrict__ flags,
+                       const float* __restrict__ ztab, const GenericArgs a,
+                       const SeriesArgs ser, double* partials, float* gout,
+                       const __grid_constant__ Shift sh) {
+  extern __shared__ float tiled[];                     // [N][TIH][TIW]
+  __shared__ size_t rows[TIH];
+  __shared__ int cols[TIW];
+  const size_t n = (size_t)a.ny * a.nx;
+  const int ty0 = blockIdx.y * TTY, tx0 = blockIdx.x * TTX;
+  for (int i = threadIdx.x; i < TIH + TIW; i += TILED_THREADS) {
+    if (i < TIH) rows[i] = (size_t)wrap(ty0 - TH + i, a.ny) * a.nx;
+    else cols[i - TIH] = wrap(tx0 - TH + i - TIH, a.nx);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TIH * TIW; i += TILED_THREADS) {
+    const int ly = i / TIW, lx = i - ly * TIW;
+    const S* q = fin + rows[ly] + cols[lx];
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      tiled[k * TIH * TIW + i] = load_plane<false>(q + k * n, sh.w, k);
+  }
+  __syncthreads();
+  const int y = ty0 + (int)threadIdx.x / TTX;
+  const int x = tx0 + (int)threadIdx.x % TTX;
+  double acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g] = 0.0;
+  if (y < a.ny && x < a.nx) {
+    const TiledStorage st{tiled, ty0 - TH, tx0 - TH};
+    const size_t idx = (size_t)y * a.nx + x;
+    run_stage<0, kGlobals, kSeries>(a, st, DeviceOut<S>{fout, idx, n, sh.w},
+                                    ztab, ser, acc, y, x, __ldg(flags + idx),
+                                    true);
+#pragma unroll
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      if (!writes(0, k))
+        store_plane(fout + k * n + idx, st.get(k, y, x), sh.w, k);
+  }
+  if constexpr (kGlobals)
+    finish_sums<NG, TILED_THREADS>(acc, partials, &g_blocks_done,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
@@ -507,7 +654,24 @@ generic2d_staged_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                     [gout](int g, double t) { gout[g] = (float)t; });
 }
 
-// one Iteration, in one launch
+// a launch of a form whose planes are staged in `smem` bytes of dynamic
+// shared memory, a ty x tx tile a block of `threads`
+template <class S, class Kernel>
+static int launch_tiles(Kernel kernel, int ty, int tx, int threads,
+                        size_t smem, const S* fin, S* fout, const int* flags,
+                        const float* ztab, const GenericArgs& a,
+                        const SeriesArgs& ser, double* partials, float* gout,
+                        const Shift& sh, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.nx + tx - 1) / tx, (a.ny + ty - 1) / ty);
+  kernel<<<grid, threads, smem, st>>>(fin, fout, flags, ztab, a, ser,
+                                      partials, gout, sh);
+  return (int)cudaGetLastError();
+}
+
+// one Iteration, in one launch, in the form the header's plan takes
 template <class S, bool kGlobals, bool kSeries>
 static int launch_step(const S* fin, S* fout, const int* flags,
                        const float* ztab, const GenericArgs& a,
@@ -515,20 +679,22 @@ static int launch_step(const S* fin, S* fout, const int* flags,
                        const Shift& sh, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if constexpr (RING_FORM) {
-    const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY);
-    generic2d_step_kernel<S, kGlobals, kSeries>
-        <<<grid, dim3(BX, BY), 0, st>>>(fin, fout, flags, ztab, a, ser,
-                                        partials, gout, sh);
+    return launch_tiles(generic2d_step_kernel<S, kGlobals, kSeries>, TY, TX,
+                        RTX * RBY, RING_SMEM, fin, fout, flags, ztab, a,
+                        ser, partials, gout, sh, st);
   } else if constexpr (STAGED_FORM) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        generic2d_staged_kernel<S, kGlobals, kSeries>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STAGED_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((a.nx + STX - 1) / STX, (a.ny + STY - 1) / STY);
-    generic2d_staged_kernel<S, kGlobals, kSeries>
-        <<<grid, STAGED_THREADS, STAGED_SMEM, st>>>(fin, fout, flags, ztab,
-                                                    a, ser, partials, gout,
-                                                    sh);
+    return launch_tiles(generic2d_staged_kernel<S, kGlobals, kSeries>, STY,
+                        STX, STAGED_THREADS, STAGED_SMEM, fin, fout, flags,
+                        ztab, a, ser, partials, gout, sh, st);
+  } else if constexpr (TILED_FORM) {
+    return launch_tiles(generic2d_tiled_kernel<S, kGlobals, kSeries>, TTY,
+                        TTX, TILED_THREADS, TILED_SMEM, fin, fout, flags,
+                        ztab, a, ser, partials, gout, sh, st);
+  } else if constexpr (NARROW_FORM) {
+    const dim3 grid((a.nx + BX - 1) / BX, (a.ny + NBY - 1) / NBY);
+    generic2d_narrow_kernel<S, kGlobals, kSeries>
+        <<<grid, dim3(BX, NBY), 0, st>>>(fin, fout, flags, ztab, a, ser,
+                                         partials, gout, sh);
   } else {
     const dim3 grid((a.nx + BX - 1) / BX, (a.ny + BY - 1) / BY);
     generic2d_pass_kernel<S, kGlobals, kSeries>
@@ -652,8 +818,12 @@ extern "C" {
 void generic2d_layout(int* tile_y, int* tile_x, int* n_storage,
                       int* n_settings, int* n_types, int* n_groups,
                       int* n_zonal, int* n_globals) {
-  *tile_y = STAGED_FORM ? STY : TY;
-  *tile_x = STAGED_FORM ? STX : TX;
+  *tile_y = RING_FORM    ? TY
+            : STAGED_FORM ? STY
+            : TILED_FORM  ? TTY
+            : NARROW_FORM ? NBY
+                          : BY;
+  *tile_x = RING_FORM ? TX : STAGED_FORM ? STX : TILED_FORM ? TTX : BX;
   *n_storage = model::N_STORAGE;
   *n_settings = model::N_SETTINGS;
   *n_types = model::N_TYPES;

@@ -47,6 +47,9 @@ __host__ __device__ constexpr unsigned long long stage_writes(int) {
   return all_planes();
 }
 __host__ __device__ constexpr int stage_ext(int) { return 0; }
+// the rows of input the plan reads beyond the output (action_plan's
+// reach: the pulls), which the tiled form stages
+constexpr int REACH = 1;
 
 enum Setting {
   S_n_inf_0, S_n_inf_1, S_el, S_el_kbT, S_epsilon, S_dt, S_psi0, S_phi0,

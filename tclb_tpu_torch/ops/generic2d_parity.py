@@ -19,13 +19,15 @@ the header defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
 cotangents, and exits nonzero unless every output is bit for bit the
 same, the globals within rtol 1e-4 / atol 1e-6 (a step that sums its
 stages in another order rounds its sums differently; each is also the
-same from run to run).  It then times ``generic2d_step`` of both
-libraries in each flavour at 1024x1024 (``time_steps``: CUDA events over
-``REPS`` calls, the libraries alternating in ``ROUNDS`` rounds, on
-chip_smoke's 1024x1024 lattice of a multi-stage model, else the painted
-one).  A change to the model-independent templates (``generic2d.cu``,
-``generic_common.cuh``, ``storage.cuh``, ``generic2d_adjoint.cuh``) is
-held this way against the parent's builds.
+same from run to run).  It then holds each flavour of
+``generic2d_step`` of both libraries alike at 1024x1024 (many tiles a
+side, where the small lattices have one or two) and times it there
+(``time_steps``: CUDA events over ``REPS`` calls, the libraries
+alternating in ``ROUNDS`` rounds, on chip_smoke's 1024x1024 lattice of a
+multi-stage model, else the painted one).  A change to the
+model-independent templates (``generic2d.cu``, ``generic_common.cuh``,
+``storage.cuh``, ``generic2d_adjoint.cuh``) is held this way against the
+parent's builds.
 
 A copy of ``csrc/`` from before the backward read zonal settings (no
 ``generic2d_step_b_zonal`` export: its ``generic2d_step_b`` takes no zone
@@ -33,6 +35,17 @@ table) is bound through :class:`NoZoneTableStepB`, which drops the zone
 table the wrapper passes; a copy whose step entries take the scratch
 stack ``mid`` (the copies that ran a plan of three stages one launch a
 stage) through :class:`PassesAbi`.
+
+    python -m tclb_tpu_torch.ops.generic2d_parity --cut SRC/csrc [MODEL ...]
+
+builds ``SRC``'s ``generic2d.cu`` for each ``MODEL`` (by default
+``CUT_MODELS``: the one-stage and ring-form headers that lose the most
+time) in the cut-down variants ``CUTS`` and times ``generic2d_step`` of
+each in the flavours ``CUT_FLAVOURS`` at 1024x1024, the variants of a
+model alternating in rounds: the instrument that shows what holds a form
+back.  A variant replaces the call of the header's stage in the
+template's ``run_stage`` (so it cuts any form that runs its stages
+through it) or, for ``d2q9_npe_guo``, the header's second pass.
 """
 
 from __future__ import annotations
@@ -42,7 +55,9 @@ import ctypes
 import dataclasses
 import pathlib
 import re
+import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 
@@ -192,10 +207,14 @@ def timed_lattice(model: str):
     return paint(get_model(model), TIMED)
 
 
-def time_steps(lat, libs: dict) -> dict:
+def time_steps(lat, libs: dict, flavours=None, compare: bool = False
+               ) -> tuple:
     """``generic2d_step`` of each library (``libs``: tag -> its
-    ``gk._LIB`` entry) in each flavour on ``lat``'s state: the median ms a
-    call, the libraries alternating."""
+    ``gk._LIB`` entry) in each flavour (or those named in ``flavours``)
+    on ``lat``'s state: the median ms a call, the libraries alternating.
+    With ``compare``, each flavour's output of every library is first held
+    against the first library's: fields bit for bit, globals within
+    ``GLOBALS_TOL``.  Returns the times and whether all agreed."""
     m = lat.model.name
     f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
     fb, ab = bf16_inputs(lat, f, a)
@@ -209,12 +228,30 @@ def time_steps(lat, libs: dict) -> dict:
                  f, flags, ztab, a, series, 7)}
     if series is None:
         del calls["series"], calls["series globals"]
-    out = {}
+    if flavours is not None:
+        calls = {k: v for k, v in calls.items() if k in flavours}
+    out, same = {}, True
     for flavour, call in calls.items():
 
         def launch(entry, call=call):
             gk._LIB[m] = entry
-            call()
+            return call()
+        if compare:
+            got = {tag: launch(e) for tag, e in libs.items()}
+            (tag0, ref), *rest = got.items()
+            for tag, res in rest:
+                fields, sums = (res, None) if torch.is_tensor(res) else res
+                want = ref if torch.is_tensor(ref) else ref[0]
+                equal = torch.equal(fields.view(torch.int16),
+                                    want.view(torch.int16))
+                close = sums is None or torch.allclose(
+                    sums, ref[1], equal_nan=True, **GLOBALS_TOL)
+                print(f"{m} generic2d_step {flavour} at {lat.shape}: {tag} "
+                      f"{'bit-identical' if equal else 'DIFFERS'} to {tag0}"
+                      + ("" if sums is None else
+                         f", globals {'within' if close else 'OUTSIDE'} "
+                         "rtol 1e-4 / atol 1e-6"))
+                same &= equal and close
         ms = median_ms({tag: (lambda e=e: launch(e))
                         for tag, e in libs.items()})
         out[flavour] = ms
@@ -224,7 +261,7 @@ def time_steps(lat, libs: dict) -> dict:
                 str(getattr(e["lib"], "passes", 1)) for e in libs.values())
             + " launches; medians of "
             f"{ROUNDS}x{REPS} calls)")
-    return out
+    return out, same
 
 
 class NoZoneTableStepB:
@@ -333,6 +370,35 @@ def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
     return entry
 
 
+_ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)(I.*)?' for")
+_FLAVOUR = re.compile(r"^I(?:f|13__nv_bfloat16)Lb([01])ELb([01])E")
+
+
+def ptxas_lines(report: str) -> list:
+    """The compiler report's registers, stack, spills and shared memory,
+    one line a kernel, named by its template (``generic2d_pass_kernel
+    bf16 globals``; a kernel's flavour: its storage, its globals and its
+    series)."""
+    out, name = [], None
+    for line in report.splitlines():
+        hit = _ENTRY.search(line)
+        if hit:
+            name, args = hit.group(1), hit.group(2) or ""
+            if args.startswith("I13__nv_bfloat16"):
+                name += " bf16"
+            fl = _FLAVOUR.match(args)
+            if fl:
+                name += (" globals" if fl.group(1) == "1" else "") + (
+                    " series" if fl.group(2) == "1" else "")
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
     """Each model's library entry (``gk._LIB[model]``) built from ``csrc``
     (one ``nvcc`` a model, started together), and print its compiler
@@ -349,20 +415,133 @@ def load(csrc: pathlib.Path, build_dir: pathlib.Path, models) -> dict:
     for m, (path, report) in zip(models, built):
         out[m] = _entry(m, path, passes_abi)
         print(f"{m} ({path.name} from {csrc}):")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for line in ptxas_lines(report):
+            print(f"  ptxas: {line}")
     return out
+
+
+# --cut: the cut-down variants.  Each replaces run_stage's call of the
+# header's stage (CUT_HOOK) with the body given, which sees the node
+# context `c` and the stage S: "loads and stores" moves what each stage
+# writes from its pulled neighbour (the form's data movement with no
+# physics), "stage 0 alone" replaces stage 1 by a copy of the node's own
+# planes, "stage 1 alone" stage 0.  "pass 1 alone" (d2q9_npe_guo) keeps
+# the header's first pass over the five groups and stores a sum of its
+# moments in place of the second.
+CUT_HOOK = "  model::stage<S>(c);\n"
+_COPY = ("#pragma unroll\n"
+         "  for (int k = 0; k < model::N_STORAGE; ++k)\n"
+         "    if (writes(S, k)) c.store(k, c.{get});\n")
+CUTS = {
+    "loads and stores": _COPY.format(get="pulled(k)"),
+    "stage 0 alone": ("  if constexpr (S == 0) model::stage<S>(c);\n"
+                      "  else {\n" + _COPY.format(get="load(k, 0, 0)")
+                      + "  }\n"),
+    "stage 1 alone": ("  if constexpr (S == 0) {\n"
+                      + _COPY.format(get="load(k, 0, 0)")
+                      + "  } else model::stage<S>(c);\n"),
+}
+NPE_PASS2 = "  // pass 2: collide each group and store it\n"
+NPE_PASS1_ONLY = (
+    "  const float m_ = pot + psi + rho + jx + jy + n0 + n1 + gphix + gphiy"
+    " + gpsix + gpsiy + umx + umy + bk + ez;\n"
+    "#pragma unroll\n"
+    "  for (int k = 0; k < N_STORAGE; ++k) c.store(k, m_);\n"
+    "}\n")
+CUT_MODELS = ("d2q9_npe_guo", "d2q9_solid", "d2q9_pf_pressureEvolution",
+              "d2q9_kuper")
+CUT_FLAVOURS = ("plain", "bf16")
+
+
+def cut_variants(model: str) -> list:
+    """The variants ``--cut`` builds for ``model``: ``"full"`` and those
+    of ``CUTS`` and ``"pass 1 alone"`` that apply to its plan."""
+    n_stages = len(gk.DEVICE_MODELS[model].plan)
+    out = ["full", "loads and stores"]
+    if n_stages == 2:
+        out += ["stage 0 alone", "stage 1 alone"]
+    if model == "d2q9_npe_guo":
+        out.append("pass 1 alone")
+    return out
+
+
+def cut_csrc(src: pathlib.Path, dst: pathlib.Path, model: str,
+             variant: str) -> None:
+    """A copy of the ``csrc/`` directory ``src`` at ``dst`` with
+    ``variant`` cut into it."""
+    shutil.copytree(src, dst)
+    if variant == "full":
+        return
+    if variant == "pass 1 alone":
+        path = dst / gk.DEVICE_MODELS[model].header
+        text = path.read_text()
+        start = text.index(NPE_PASS2)
+        end = text.index("\n}\n", start) + 3
+        path.write_text(text[:start] + NPE_PASS1_ONLY + text[end:])
+        return
+    path = dst / "generic2d.cu"
+    text = path.read_text()
+    if text.count(CUT_HOOK) != 1:
+        raise SystemExit("--cut: generic2d.cu has not the one call of the "
+                         "header's stage in run_stage it cuts")
+    path.write_text(text.replace(CUT_HOOK, CUTS[variant]))
+
+
+def build_cut(csrc: pathlib.Path, model: str) -> tuple:
+    """Compile ``csrc/generic2d.cu`` with ``model``'s header as the port
+    builds it, into ``csrc``: the library's path and the report."""
+    out = csrc / f"libcut_{model}.so"
+    flags = cb._flags("generic2d", str(csrc / gk.DEVICE_MODELS[model].header))
+    proc = subprocess.run([cb.nvcc(), *flags, "-o", str(out),
+                           str(csrc / "generic2d.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on {csrc}:\n{proc.stderr}")
+    return out, proc.stdout + proc.stderr
+
+
+def cut_main(src: pathlib.Path, models) -> int:
+    """Time ``generic2d_step`` of ``src``'s builds of ``models`` in the
+    variants ``cut_variants`` names (flavours ``CUT_FLAVOURS``, at
+    1024x1024)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(m, v, pathlib.Path(tmp) / f"{m}_{i}")
+                for m in models for i, v in enumerate(cut_variants(m))]
+        for m, v, dst in jobs:
+            cut_csrc(src, dst, m, v)
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            built = list(pool.map(lambda j: build_cut(j[2], j[0]), jobs))
+        libs = {}
+        try:
+            for (m, v, _), (path, report) in zip(jobs, built):
+                libs.setdefault(m, {})[v] = gk.bind(
+                    ctypes.CDLL(str(path)), m, path.name)
+                print(f"{m} {v} ({src}):")
+                for line in ptxas_lines(report):
+                    print(f"  ptxas: {line}")
+            for m in models:
+                time_steps(timed_lattice(m), libs[m], CUT_FLAVOURS)
+        finally:
+            gk._LIB.clear()
+    root = pathlib.Path(__file__).resolve().parents[2]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    import chip_smoke
+    print(chip_smoke.card_line())
+    return 0
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv:
+    if not argv or argv == ["--cut"]:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("generic2d_parity: needs a CUDA card", file=sys.stderr)
         return 2
+    if argv[0] == "--cut":
+        return cut_main(pathlib.Path(argv[1]).resolve(),
+                        list(argv[2:]) or list(CUT_MODELS))
     from tclb_tpu_torch.models import get_model
     other = pathlib.Path(argv[0]).resolve()
     models = [m for m, dm in gk.DEVICE_MODELS.items()
@@ -402,8 +581,8 @@ def main(argv=None) -> int:
                               " run to run")
                         same &= close and rerun
                 timed = timed_lattice(m)
-                time_steps(timed, {tag: entries[m]
-                                   for tag, entries in libs.items()})
+                same &= time_steps(timed, {tag: entries[m] for tag, entries
+                                           in libs.items()}, compare=True)[1]
     finally:
         gk._LIB.clear()
         cb.CSRC, cb.BUILD_DIR = this_csrc, this_build

@@ -29,14 +29,18 @@ series flavours in ``SERIES_LAUNCHES``):
 
 ``step`` / ``step_globals`` (``generic2d_step``) replace
     ``make_pallas_iterate``'s ``call`` and its in-kernel-globals flavour
-    ``call_g``: one whole Iteration per call.  A one-stage action runs its
-    stage on the output tile in one launch, a two-stage action whose first
-    stage computes a ring of at most two nodes runs it on the tile plus the
-    ring into shared memory and stage 1 on the tile, in one launch; any
-    other plan (three stages, a wider ring) runs in one launch too, the
-    staged form: a block stages its tile plus the plan's reach into shared
-    memory once and runs every stage from there (``step_form`` names the
-    form, ``staged_tile`` the staged tile).  Bound by bytes
+    ``call_g``: one whole Iteration per call, in one launch.  A one-stage
+    action runs its stage one node a thread, its pulls from device memory
+    (the pass form; for a mid-sized header in narrower blocks, three an
+    SM: the narrow pass), or, over many planes, from its tile's planes
+    staged in shared memory (the tiled form, ``tiled_tile``); a
+    two-stage action whose first stage computes a ring of at most two
+    nodes runs it on a 32x32 tile into shared memory and stage 1 on the
+    tile's inner nodes from there (the ring form, ``ring_tile``); any
+    other plan (three stages, a wider ring) takes the staged form: a
+    block stages its tile plus the plan's reach into shared memory once
+    and runs every stage from there (``staged_tile``).  ``step_form``
+    names the form.  Bound by bytes
     (see ``launch_bytes`` and ``node_step_flops``).  The globals flavour
     also returns the last step's SUM globals, reduced in a fixed order (no
     float atomics).
@@ -485,27 +489,78 @@ def action_plan(model: Model, action: str = "Iteration", fuse: int = 1
     return plan, ext
 
 
-# generic2d_step's block shapes (csrc/generic2d.cu): the ring form's and
-# the one-stage form's 32x16 threads; the staged form's tile is 32 wide,
-# 16 rows high where two blocks' shared memory fits an SM
-# (TWO_BLOCKS_SMEM: half of 228 KB, less 1 KB a block), else 8
+# generic2d_step's block shapes (csrc/generic2d.cu): the one-node-a-thread
+# pass form's 32x16 threads, 32x8 at NARROW_BLOCKS blocks an SM for a
+# one-stage plan of at least NARROW_MIN_PLANES planes (the narrow pass);
+# the tiled form's 32x8 tile, a node a thread, its planes staged over the
+# tile plus the reach, TILED_BLOCKS blocks an SM,
+# for a one-stage plan of at least TILED_MIN_PLANES planes; the ring
+# form's tile, RING_TILE (`rows` x `cols` nodes of stage 0, a block of
+# `thread_rows` rows of `cols` threads, at least `blocks` blocks an SM);
+# the staged form's tile, 32 wide, 16 rows high where two blocks' shared
+# memory fits an SM (TWO_BLOCKS_SMEM: half of 228 KB, less 1 KB a
+# block), else 8
 BLOCK = (16, 32)
+NARROW = (8, 32)
+NARROW_BLOCKS = 3
+NARROW_MIN_PLANES = 20
+TILED = (8, 32)
+TILED_BLOCKS = 2
+TILED_MIN_PLANES = 40
+RING_TILE = {"rows": 32, "cols": 32, "thread_rows": 16, "blocks": 2}
 TWO_BLOCKS_SMEM = 113 * 1024
+SMEM_PER_SM = 228 * 1024
 
 
 def step_form(model: Model) -> str:
     """How ``generic2d_step`` runs ``model``'s Iteration in its one
-    launch: ``"pass"`` (one stage, a node a thread), ``"ring"`` (two
-    stages, stage 0's ring of at most two nodes and its planes in static
-    shared memory) or ``"staged"`` (any other plan: the tile plus the
-    plan's reach staged into shared memory, every stage from there)."""
+    launch: ``"pass"`` (one stage, a node a thread, 32x16 blocks),
+    ``"narrow"`` (one stage over at least ``NARROW_MIN_PLANES`` planes: a
+    node a thread, 32x8 blocks at ``NARROW_BLOCKS`` an SM), ``"tiled"``
+    (one stage over at least ``TILED_MIN_PLANES`` planes: the tile's
+    planes staged in shared memory), ``"ring"`` (two stages, stage 0's
+    ring of at most two nodes, its planes over a 32x16 tile within 40 KB:
+    stage 0 on a tile plus the ring into shared memory, stage 1 from
+    there; ``ring_tile``) or ``"staged"`` (any other plan: the tile plus
+    the plan's reach staged into shared memory, every stage from
+    there)."""
     plan, _ = action_plan(model)
     if len(plan) == 1:
-        return "pass"
+        return ("tiled" if model.n_storage >= TILED_MIN_PLANES
+                else "narrow" if model.n_storage >= NARROW_MIN_PLANES
+                else "pass")
     if len(plan) == 2 and plan[0][1] <= 2 \
             and model.n_storage * BLOCK[0] * BLOCK[1] * 4 <= 40 * 1024:
         return "ring"
     return "staged"
+
+
+def ring_tile(model: Model) -> dict:
+    """The ring form's tile for ``model`` (csrc/generic2d.cu mirrors it):
+    stage 0's tile (``rows`` x ``cols``, its planes in f32 shared memory),
+    the output tile inside its ring, the block's threads, and the stage-0
+    nodes a block computes for each output node."""
+    ring = action_plan(model)[0][0][1]
+    rows, cols = RING_TILE["rows"], RING_TILE["cols"]
+    out = (rows - 2 * ring, cols - 2 * ring)
+    return {"ring": ring, "stage0": (rows, cols), "tile": out,
+            "threads": cols * RING_TILE["thread_rows"],
+            "blocks": RING_TILE["blocks"],
+            "smem": 4 * model.n_storage * rows * cols,
+            "stage0_per_node": rows * cols / (out[0] * out[1])}
+
+
+def tiled_tile(model: Model) -> dict:
+    """The tiled form's tile for ``model`` (csrc/generic2d.cu mirrors
+    it): the output tile ``(ty, tx)``, the input halo (the plan's reach),
+    the staged input's extents and its shared memory (every storage plane,
+    f32)."""
+    reach = action_plan(model)[1]
+    ty, tx = TILED
+    inp = (ty + 2 * reach, tx + 2 * reach)
+    return {"tile": TILED, "halo": reach, "input": inp,
+            "threads": ty * tx, "blocks": TILED_BLOCKS,
+            "smem": 4 * model.n_storage * inp[0] * inp[1]}
 
 
 def staged_tile(model: Model) -> dict:

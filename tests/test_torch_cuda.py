@@ -1208,18 +1208,12 @@ STAGED_FLAVOURS = ("plain", "globals", "bf16", "bf16 globals", "series",
                    "series globals")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 64), (37, 70)])
-@pytest.mark.parametrize("flavour", STAGED_FLAVOURS)
-@pytest.mark.parametrize("name", STAGED_MODELS)
-def test_staged_step_flavours_match_plain(card_multistage, name, flavour,
-                                          shape):
-    """The staged form (generic2d_staged_kernel) in each flavour against
-    its plain version, one launch a call and no scratch stack, on a
-    lattice fewer rows high than a tile plus its reach (16x64) and on
-    ragged tiles (37x70); the globals at rtol 1e-4 / atol 1e-6, the bf16
-    step within the f32 tolerance carried through its one narrowing."""
-    lat = card_multistage(name, shape, seed=7)
+def _step_flavour_matches_plain(lat, flavour: str) -> None:
+    """One ``generic2d_step`` call of ``flavour`` on ``lat``'s state
+    against its plain version (a series on the first zonal setting in
+    zone 0; bf16 on the shifted stack, within the f32 tolerance carried
+    through its one narrowing; globals at rtol 1e-4 / atol 1e-6), one
+    launch in all."""
     m = lat.model
     name0 = m.zonal_settings[0]
     v = float(lat.params.settings[m.setting_index[name0]])
@@ -1252,9 +1246,55 @@ def test_staged_step_flavours_match_plain(card_multistage, name, flavour,
     if glob:
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
     torch.cuda.synchronize()
-    assert gk.step_form(m) == "staged"
     assert sum(gk.LAUNCHES.values()) + sum(gk.SERIES_LAUNCHES.values()) \
         == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 70)])
+@pytest.mark.parametrize("flavour", STAGED_FLAVOURS)
+@pytest.mark.parametrize("name", STAGED_MODELS)
+def test_staged_step_flavours_match_plain(card_multistage, name, flavour,
+                                          shape):
+    """The staged form (generic2d_staged_kernel) in each flavour against
+    its plain version, one launch a call and no scratch stack, on a
+    lattice fewer rows high than a tile plus its reach (16x64) and on
+    ragged tiles (37x70); the globals at rtol 1e-4 / atol 1e-6, the bf16
+    step within the f32 tolerance carried through its one narrowing."""
+    lat = card_multistage(name, shape, seed=7)
+    _step_flavour_matches_plain(lat, flavour)
+    assert gk.step_form(lat.model) == "staged"
+
+
+# the headers of the tiled form (generic2d_tiled_kernel), the narrow pass
+# (generic2d_pass_kernel in 32x8 blocks) and the ring form
+# (generic2d_step_kernel)
+NEW_FORMS = {"d2q9_npe_guo": "tiled", "d2q9_solid": "narrow",
+             "d2q9_pf_pressureEvolution": "ring", "d2q9_kuper": "ring"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64), (37, 70), (100, 130)])
+@pytest.mark.parametrize("flavour", STAGED_FLAVOURS)
+@pytest.mark.parametrize("name", sorted(NEW_FORMS))
+def test_tiled_and_ring_step_flavours_match_plain(request, name, flavour,
+                                                  shape):
+    """The tiled form (npe_guo), the narrow pass (solid) and the ring
+    form's tile
+    (pf_pressureEvolution, kuper) in each flavour against the plain
+    version, one launch a call: on a lattice fewer rows high than a tile
+    and its ring (16x64), and on ragged tiles (37x70, 100x130: several
+    tiles a side, each thread's second row of the ring form's tile cut
+    by the edge); the globals at rtol 1e-4 / atol 1e-6, bf16 within the
+    f32 tolerance carried through its one narrowing."""
+    if name == "d2q9_kuper":
+        lat = request.getfixturevalue("card_lattice_kuper")(shape, seed=7)
+    else:
+        fixture = ("card_multistage" if NEW_FORMS[name] == "ring"
+                   else "card_onestage")
+        lat = request.getfixturevalue(fixture)(name, shape, seed=7)
+    _step_flavour_matches_plain(lat, flavour)
+    assert gk.step_form(lat.model) == NEW_FORMS[name]
 
 
 # --------------------------------------------------------------------------- #

@@ -27,6 +27,8 @@ from tclb_tpu_torch.ops import generic_kernels as gk
 
 STAGED = ("d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
 RING = ("d2q9_kuper", "d2q9_pf_pressureEvolution")
+TILED = ("d2q9_npe_guo",)
+NARROW = ("d2q9_solid",)
 MODELS_2D = tuple(m for m, dm in gk.DEVICE_MODELS.items() if dm.ndim == 2)
 SMEM_LIMIT = 227 * 1024
 # 3d_channel.xml's lattice and bench.py's 48x48x256 channel (nz, ny, nx)
@@ -111,13 +113,16 @@ def test_step2_shared_memory_budget(model):
 
 @pytest.mark.parametrize("name", MODELS_2D)
 def test_step_form(name):
-    """The staged form takes the three-stage plans; the one-stage plans
-    keep the one-node-a-thread pass, the two-stage plans with a ring of at
-    most two the ring form."""
+    """The staged form takes the three-stage plans, the two-stage plans
+    with a ring of at most two the ring form; of the one-stage plans,
+    npe_guo's 45 planes take the tiled form, solid's 29 the narrow pass,
+    the others (9-19 planes) keep the one-node-a-thread pass."""
     want = ("staged" if name in STAGED else "ring" if name in RING
+            else "tiled" if name in TILED else "narrow" if name in NARROW
             else "pass")
     assert gk.step_form(get_model(name)) == want
-    assert (len(gk.DEVICE_MODELS[name].plan) == 1) == (want == "pass")
+    assert (len(gk.DEVICE_MODELS[name].plan) == 1) == (
+        want in ("pass", "narrow", "tiled"))
 
 
 @pytest.mark.parametrize("name,tile,halo,smem", [
@@ -150,11 +155,12 @@ def test_staged_tile_against_the_plan(name, tile, halo, smem):
 
 @pytest.mark.parametrize("name", MODELS_2D)
 def test_header_declares_the_reach_of_a_staged_plan(name):
-    """A staged plan's header declares model::REACH, action_plan's reach
-    (generic2d.cu stages its input with it); no other header does."""
+    """A staged or tiled plan's header declares model::REACH,
+    action_plan's reach (generic2d.cu stages its input with it); no other
+    header does."""
     text = _source(gk.DEVICE_MODELS[name].header)
     hit = re.search(r"constexpr int REACH = (\d+);", text)
-    if name in STAGED:
+    if name in STAGED + TILED:
         assert int(hit.group(1)) == gk.action_plan(get_model(name))[1]
     else:
         assert hit is None
@@ -169,6 +175,118 @@ def test_generic2d_constants_match_the_source():
     assert "constexpr size_t TWO_BLOCKS_SMEM = 113 * 1024;" in text
     assert gk.TWO_BLOCKS_SMEM == 113 * 1024
     assert "STY = staged_smem(16) <= TWO_BLOCKS_SMEM ? 16 : 8;" in text
+
+
+def _int_constant(text: str, name: str) -> int:
+    return int(re.search(rf"\b{name} = (\d+)[;,]", text).group(1))
+
+
+def test_step_form_rule_matches_the_source():
+    """generic2d.cu's compile-time rule and ``step_form`` agree: the
+    source's constants are the planner's, and the rule as the source
+    writes it, on each 2D header's planes and plan, names the form
+    ``step_form`` names."""
+    text = _source("generic2d.cu")
+    consts = {n: _int_constant(text, n) for n in (
+        "RTX", "RTY", "RBY", "RING_BLOCKS", "TTX", "TTY", "TILED_BLOCKS",
+        "TILED_MIN_PLANES", "NARROW_MIN_PLANES")}
+    assert consts == {"RTX": gk.RING_TILE["cols"],
+                      "RTY": gk.RING_TILE["rows"],
+                      "RBY": gk.RING_TILE["thread_rows"],
+                      "RING_BLOCKS": gk.RING_TILE["blocks"],
+                      "TTX": gk.TILED[1], "TTY": gk.TILED[0],
+                      "TILED_BLOCKS": gk.TILED_BLOCKS,
+                      "TILED_MIN_PLANES": gk.TILED_MIN_PLANES,
+                      "NARROW_MIN_PLANES": gk.NARROW_MIN_PLANES}
+    assert "constexpr int NBY = 8, NARROW_BLOCKS = 3;" in text
+    assert "__launch_bounds__(BX * NBY, NARROW_BLOCKS)" in text
+    assert (gk.NARROW, gk.NARROW_BLOCKS) == ((8, 32), 3)
+    assert ("model::N_STAGES == 2 && model::stage_ext(0) <= 2\n"
+            "    && model::N_STORAGE * BY * BX * sizeof(float) <= "
+            "40 * 1024;") in text
+    assert ("model::N_STAGES == 1 && model::N_STORAGE >= "
+            "TILED_MIN_PLANES;") in text
+    assert ("model::N_STAGES == 1 && !TILED_FORM\n"
+            "                             && model::N_STORAGE >= "
+            "NARROW_MIN_PLANES;") in text
+    assert "constexpr bool STAGED_FORM = model::N_STAGES > 1 && " \
+        "!RING_FORM;" in text
+    for name in MODELS_2D:
+        m = get_model(name)
+        plan, _ = gk.action_plan(m)
+        ring = (len(plan) == 2 and plan[0][1] <= 2
+                and m.n_storage * 16 * 32 * 4 <= 40 * 1024)
+        tiled = len(plan) == 1 and m.n_storage >= consts["TILED_MIN_PLANES"]
+        narrow = (len(plan) == 1 and not tiled
+                  and m.n_storage >= consts["NARROW_MIN_PLANES"])
+        want = ("ring" if ring else "staged" if len(plan) > 1
+                else "tiled" if tiled else "narrow" if narrow else "pass")
+        assert gk.step_form(m) == want, name
+
+
+@pytest.mark.parametrize("name", TILED)
+def test_tiled_tile_shared_memory(name):
+    """The tiled form's 32x8 tile stages every plane over the tile plus
+    the reach (one node) in f32: npe_guo's 45 planes over 10x34 nodes take
+    61,200 B; two blocks an SM fit its 228 KB (a KB each reserved), one
+    block within 227 KB."""
+    m = get_model(name)
+    tt = gk.tiled_tile(m)
+    assert tt["tile"] == (8, 32) and tt["halo"] == 1 == gk.action_plan(m)[1]
+    assert tt["input"] == (10, 34) and tt["threads"] == 256
+    assert tt["smem"] == 4 * m.n_storage * 10 * 34 == 61200
+    assert tt["smem"] <= SMEM_LIMIT
+    assert tt["blocks"] * (tt["smem"] + 1024) <= gk.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("name", RING)
+def test_ring_tile_extents(name):
+    """The ring form's tile: stage 0 on 32x32 nodes, two rows a thread of
+    a 32x16 block, its planes in f32 shared memory (pf's 19: 77,824 B,
+    kuper's 10: 40,960 B), two blocks' within an SM's 228 KB; stage 1
+    on the inner 28x28 (pf, ring 2) or 30x30 (kuper, ring 1), so stage 0
+    runs 1.31 or 1.14 times an output node (a 32x16 tile: 1.52, 1.22)."""
+    m = get_model(name)
+    rt = gk.ring_tile(m)
+    ring = gk.action_plan(m)[0][0][1]
+    assert rt["ring"] == ring and rt["stage0"] == (32, 32)
+    assert rt["tile"] == (32 - 2 * ring, 32 - 2 * ring)
+    assert rt["threads"] == 512 and 32 % gk.RING_TILE["thread_rows"] == 0
+    assert rt["smem"] == 4 * m.n_storage * 32 * 32 == {
+        "d2q9_pf_pressureEvolution": 77824, "d2q9_kuper": 40960}[name]
+    assert rt["smem"] <= SMEM_LIMIT and rt["blocks"] == 2
+    assert rt["blocks"] * (rt["smem"] + 1024) <= gk.SMEM_PER_SM
+    assert rt["stage0_per_node"] == pytest.approx(
+        {"d2q9_pf_pressureEvolution": 1024 / 784,
+         "d2q9_kuper": 1024 / 900}[name])
+
+
+@pytest.mark.parametrize("model", ["d2q9_npe_guo", "d2q9_solid",
+                                   "d2q9_pf_pressureEvolution",
+                                   "d2q9_kuper", "d2q9_heat"])
+def test_parity_cut_variants_apply(tmp_path, model):
+    """``generic2d_parity --cut``'s variants apply to this source: each
+    replaces the one call of the header's stage in run_stage (or
+    npe_guo's second pass) and leaves the rest of the copy as it was."""
+    from tclb_tpu_torch.ops import generic2d_parity as gp
+    header = gk.DEVICE_MODELS[model].header
+    want = ["full", "loads and stores"] + (
+        ["stage 0 alone", "stage 1 alone"] if model in RING else []) + (
+        ["pass 1 alone"] if model == "d2q9_npe_guo" else [])
+    assert gp.cut_variants(model) == want
+    src = _cuda_build.CSRC
+    for i, variant in enumerate(want):
+        dst = tmp_path / str(i)
+        gp.cut_csrc(src, dst, model, variant)
+        cu, hd = ((dst / f).read_text() for f in ("generic2d.cu", header))
+        if variant == "full":
+            assert cu == _source("generic2d.cu") and hd == _source(header)
+        elif variant == "pass 1 alone":
+            assert cu == _source("generic2d.cu")
+            assert gp.NPE_PASS2 not in hd and gp.NPE_PASS1_ONLY in hd
+        else:
+            assert hd == _source(header)
+            assert gp.CUT_HOOK not in cu and gp.CUTS[variant] in cu
 
 
 class _FakeLib:
@@ -210,19 +328,25 @@ def test_mid_only_for_a_plan_run_as_passes(monkeypatch, name):
     assert glob[5] is not None and glob[6] is not None
 
 
-def test_build_digest_covers_the_reach(tmp_path, monkeypatch):
-    """A staged plan's reach lives in its header: editing it rebuilds the
-    model's library (the digest covers the pre-included header) and no
-    other model's."""
+@pytest.mark.parametrize("edited,other", [
+    ("d2q9_lee", "d2q9_pp_MCMP"), ("d2q9_npe_guo", "d2q9_solid")])
+def test_build_digest_covers_the_reach(tmp_path, monkeypatch, edited,
+                                       other):
+    """A staged or tiled plan's reach lives in its header: editing it
+    rebuilds the model's library (the digest covers the pre-included
+    header) and no other model's."""
     import shutil
     shutil.copytree(_cuda_build.CSRC, tmp_path / "csrc")
     monkeypatch.setattr(_cuda_build, "CSRC", tmp_path / "csrc")
-    lee, mcmp = (gk.DEVICE_MODELS[n].header
-                 for n in ("d2q9_lee", "d2q9_pp_MCMP"))
-    before = [_cuda_build.digest("generic2d", h) for h in (lee, mcmp)]
-    path = tmp_path / "csrc" / lee
-    path.write_text(path.read_text().replace("REACH = 6;", "REACH = 7;"))
-    after = [_cuda_build.digest("generic2d", h) for h in (lee, mcmp)]
+    heads = [gk.DEVICE_MODELS[n].header for n in (edited, other)]
+    before = [_cuda_build.digest("generic2d", h) for h in heads]
+    path = tmp_path / "csrc" / heads[0]
+    text = path.read_text()
+    reach = gk.action_plan(get_model(edited))[1]
+    assert text.count(f"REACH = {reach};") == 1
+    path.write_text(text.replace(f"REACH = {reach};",
+                                 f"REACH = {reach + 1};"))
+    after = [_cuda_build.digest("generic2d", h) for h in heads]
     assert after[0] != before[0] and after[1] == before[1]
 
 
