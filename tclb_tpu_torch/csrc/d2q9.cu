@@ -7,11 +7,14 @@
 //                   from global memory into a second buffer
 //                   (replaces tclb_tpu/ops/pallas_d2q9.py:make_pallas_iterate,
 //                   the single-step `call`);
-//   d2q9_step2      two fused steps per 32x8 tile: the tile plus a two-node
-//                   ring of all 9 populations and the statics of the one-node
-//                   ring are staged in shared memory; step 1 runs on the tile
-//                   extended by one node, step 2 on the tile
-//                   (replaces make_pallas_iterate's fused `call2`);
+//   d2q9_step2      two fused steps per tile: the tile plus a two-node
+//                   ring of all 9 populations is staged in shared memory;
+//                   step 1 runs on the tile extended by one node, step 2
+//                   on the tile.  A 32x8 tile of 256 threads (statics of
+//                   the one-node ring staged too) or, for d2q9,
+//                   d2q9_cumulant and d2q9_new, the node tile: one step-1
+//                   node a thread of a 32x16 block, the output its inner
+//                   30x14 (replaces make_pallas_iterate's fused `call2`);
 //   d2q9_resident8  a persistent cooperative kernel running 8 steps with a
 //                   grid-wide barrier between them; two global buffers
 //                   ping-pong and, for lattices the size of karman.xml, stay
@@ -53,7 +56,10 @@
 // with both modes) flops, far below the card's 20 flops a byte); the
 // design keeps the populations in registers, reads each plane with
 // neighbouring threads on neighbouring addresses, and in d2q9_step2 halves
-// the device-memory traffic a step.  d2q9_resident8's bound is set by one
+// the device-memory traffic a step; the node tile stages 1.46 input
+// nodes an output node (the 32x8 tile: 1.69), wraps its rows and columns
+// once a block, runs step 1 in one round of its threads and keeps a
+// node's statics in registers.  d2q9_resident8's bound is set by one
 // read and one write of the state for the family (8 steps of 118 to 243
 // flops against 84 B sit just under the card's 20 flops a byte) and by
 // operations for d2q9 (8 x 267 against 100 B, just over it); its time shows
@@ -682,6 +688,91 @@ d2q9_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   copy_static_planes(a, (size_t)y * a.nx + x, fin, fout);
 }
 
+// d2q9_step2 takes one of two tiles by build (ops/d2q9_kernels.py:
+// step2_tile mirrors them).  d2q9, d2q9_cumulant and d2q9_new, whose
+// collisions cost the most, take the node tile: step 1 on an S1Y x S1X
+// tile, one node a thread of an S1Y x S1X block, step 2 on its inner
+// (S1Y - 2) x (S1X - 2) nodes; the others keep the 32x8 output tile of
+// 256 threads, step 1 on 34x10 nodes in two rounds.
+#if D2Q9_MODEL == 0 || D2Q9_MODEL == 4 || D2Q9_MODEL == 5
+#define STEP2_NODE_TILE 1
+#else
+#define STEP2_NODE_TILE 0
+#endif
+
+#if STEP2_NODE_TILE
+constexpr int S1X = 32, S1Y = 16;
+constexpr int S2X = S1X - 2, S2Y = S1Y - 2;           // the output tile
+constexpr int SIX = S1X + 2, SIY = S1Y + 2;           // the staged input
+constexpr int STEP2_THREADS = S1X * S1Y;
+constexpr size_t STEP2_SMEM =
+    sizeof(float) * 9 * (SIX * SIY + S1X * S1Y);
+static_assert(STEP2_SMEM <= 48 * 1024,
+              "the node tile launches without an opt-in to more shared "
+              "memory");
+
+// Two steps: the block stages the input populations over SIY x SIX (each
+// row and column wrapped once, in rows[] and cols[]), each thread runs
+// step 1 on its node of the S1Y x S1X tile into a second buffer, then,
+// where its node is an inner one, step 2 from there: a thread's step-2
+// node is its own step-1 node, so it keeps the node's flag, zonal values
+// (and d2q9's BC planes) in registers across the barrier.
+__global__ void __launch_bounds__(STEP2_THREADS)
+d2q9_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
+                  const int* __restrict__ flags, const float* __restrict__ vel,
+                  const float* __restrict__ den, const D2q9Args a) {
+  extern __shared__ float smem[];
+  float* sf = smem;                          // [9][SIY][SIX] the input
+  float* s1 = sf + 9 * SIX * SIY;            // [9][S1Y][S1X] step 1's
+  __shared__ size_t rows[SIY];
+  __shared__ int cols[SIX];
+  const size_t n = (size_t)a.ny * a.nx;
+  // the output tile starts at (y0, x0); the staged input two nodes before
+  const int y0 = blockIdx.y * S2Y, x0 = blockIdx.x * S2X;
+  const int tid = threadIdx.x, lx = tid % S1X, ly = tid / S1X;
+
+  if (tid < SIY) rows[tid] = (size_t)wrap(y0 - 2 + tid, a.ny) * a.nx;
+  else if (tid < SIY + SIX) cols[tid - SIY] = wrap(x0 - 2 + tid - SIY, a.nx);
+  __syncthreads();
+  // this thread's step-1 node and its statics
+  const size_t g = rows[ly + 1] + cols[lx + 1];
+  const int flag = flags[g];
+  const float nvel = vel[g], nden = den[g];
+  const float bc0 = kFamily ? 0.f : fin[a.bc[0] * n + g];
+  const float bc1 = kFamily ? 0.f : fin[a.bc[1] * n + g];
+  for (int i = tid; i < SIX * SIY; i += STEP2_THREADS) {
+    const int iy = i / SIX, ix = i - iy * SIX;
+    const size_t gi = rows[iy] + cols[ix];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) sf[k * SIX * SIY + i] = fin[k * n + gi];
+  }
+  __syncthreads();
+
+  // step 1 on the S1Y x S1X tile
+  float f[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    f[k] = sf[(k * SIY + ly + 1 - ey_of(a, k)) * SIX + lx + 1 - ex_of(a, k)];
+  node_update(a, f, flag, nvel, nden, bc0, bc1);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) s1[(k * S1Y + ly) * S1X + lx] = f[k];
+  __syncthreads();
+
+  // step 2 on the inner nodes; the ragged edge is masked
+  const int y = y0 + ly - 1, x = x0 + lx - 1;
+  if (ly < 1 || ly > S2Y || lx < 1 || lx > S2X || y >= a.ny || x >= a.nx)
+    return;
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    f[k] = s1[(k * S1Y + ly - ey_of(a, k)) * S1X + lx - ex_of(a, k)];
+  node_update(a, f, flag, nvel, nden, bc0, bc1);
+  const size_t idx = (size_t)y * a.nx + x;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) fout[k * n + idx] = f[k];
+  copy_static_planes(a, idx, fin, fout);
+}
+
+#else
 #define TX 32
 #define TY 8
 #define RX (TX + 4)   // tile + two-node ring (step-1 pulls)
@@ -762,6 +853,8 @@ d2q9_step2_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   copy_static_planes(a, idx, fin, fout);
 }
 
+#endif  // STEP2_NODE_TILE
+
 #define RESIDENT_STEPS 8   // even: the ping-pong ends in fout
 
 __global__ void __launch_bounds__(256)
@@ -838,9 +931,16 @@ int d2q9_step2(const float* fin, float* fout, const int* flags,
                int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+#if STEP2_NODE_TILE
+  const dim3 grid((a->nx + S2X - 1) / S2X, (a->ny + S2Y - 1) / S2Y);
+  d2q9_step2_kernel<<<grid, STEP2_THREADS, STEP2_SMEM,
+                      (cudaStream_t)stream>>>(fin, fout, flags, vel, den,
+                                              *a);
+#else
   const dim3 grid((a->nx + TX - 1) / TX, (a->ny + TY - 1) / TY);
   d2q9_step2_kernel<<<grid, TX * TY, 0, (cudaStream_t)stream>>>(
       fin, fout, flags, vel, den, *a);
+#endif
   return (int)cudaGetLastError();
 }
 

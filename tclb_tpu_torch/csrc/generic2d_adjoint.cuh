@@ -13,27 +13,46 @@
 // transpose a gather: with q(x) = J(x)^T [lam_out(x), lam_g] over the
 // planes the stage pulls at node x (stage_b<0>), lam_in[k](y) =
 // q[k](y + e_k) with the forward's periodic wrap, plus lam_out[k](y) for a
-// plane the stage does not write (it passes through).  A 32x16 block
-// computes q on its 30x14 output tile and the one-node ring around it into
-// shared memory (19 planes x 512 nodes x 4 B = 38.9 KB for d2q9_heat_adj),
-// then each output node gathers.  The settings cotangent counts the output
-// nodes only, never the ring (the reference masks its band margins the
-// same way, pallas_adjoint.py:882-889): per-thread double sums, one
-// partial per block, the last block adds the partials in block order (no
-// float atomics).  Zonal and aux cotangents are not emitted (the
-// reference's aux_grad is false outside its series flavour).
+// plane the stage does not write (it passes through).  A block computes
+// q on a 32x32 tile into dynamic shared memory (19 planes x 1024 nodes x
+// 4 B = 77.8 KB for d2q9_heat_adj), then each of its 30x30 output nodes
+// (the tile inside the one-node ring) gathers, at two blocks an SM: 32x16
+// threads, two rows a thread (<= 64 registers), or, for a header of
+// B_NARROW_MIN_PLANES planes or more (d2q9_heat_adj's reverse spills 168
+// B at 64), 32x8 threads, four rows a thread (<= 128).  The settings
+// cotangent counts the output nodes only, never the ring (the reference
+// masks its band margins the same way, pallas_adjoint.py:882-889):
+// per-thread double sums over the thread's nodes, one partial per block,
+// the last block adds the partials in block order, all sums at once (no
+// float atomics; finish_sums' kAllSums: one sum at a time made the sums
+// cost more than the reverse physics).  Zonal and aux cotangents are not
+// emitted (the reference's aux_grad is false outside its series
+// flavour).
 //
 // Bound by bytes: a node reads the primal's 19 planes, its flag and
 // lam_out's 19 planes and writes lam_in's 19 (232 B); the recompute and
 // reverse are a few hundred flops.  The ring's q is computed twice where
-// blocks overlap (512 threads for 420 output nodes).
+// blocks overlap: 1024 nodes of q for 900 output nodes (1.14; a 32x16
+// tile: 1.22), and one block reduction for 900 (was 420).
 
 static_assert(model::N_STAGES == 1 && model::stage_ext(0) == 0,
               "generic2d_step_b reverses a one-stage action");
 
-constexpr int B_RING = 1;                        // the stage's pull reach
-constexpr int BTX = BX - 2 * B_RING, BTY = BY - 2 * B_RING;
+// The reverse tile (ops/generic_kernels.py:step_b_tile mirrors it): q on
+// BQ x BQ nodes, a block of BQ_ROWS rows of BQ threads, BQ / BQ_ROWS rows
+// a thread, at least B_BLOCKS blocks an SM; the output tile inside the
+// ring B_RING, the stage's pull reach.
+constexpr int B_NARROW_MIN_PLANES = 16;
+constexpr int BQ = 32, B_BLOCKS = 2;
+constexpr int BQ_ROWS = model::N_STORAGE >= B_NARROW_MIN_PLANES ? 8 : 16;
+constexpr int B_RING = 1;
+constexpr int BTX = BQ - 2 * B_RING, BTY = BQ - 2 * B_RING;
+constexpr int B_THREADS = BQ * BQ_ROWS;
+constexpr size_t B_SMEM = sizeof(float) * model::N_STORAGE * BQ * BQ;
 constexpr int NS_SETT = model::N_SETTINGS;
+static_assert(BQ % BQ_ROWS == 0, "whole rows a thread");
+static_assert(B_BLOCKS * (B_SMEM + 1024) <= 228 * 1024,
+              "B_BLOCKS tiles of q fit an SM's shared memory");
 
 // what stage_b<0> sees: the forward's node context, plus the cotangents
 // it reads and writes
@@ -74,7 +93,7 @@ struct NodeB {
 
 __device__ unsigned int g_blocks_done_b = 0;   // one launch at a time
 
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(B_THREADS, B_BLOCKS)
 generic2d_step_b_kernel(const float* __restrict__ fin,
                         const float* __restrict__ lam_out,
                         const int* __restrict__ flags,
@@ -82,38 +101,47 @@ generic2d_step_b_kernel(const float* __restrict__ fin,
                         const float* __restrict__ lam_g,
                         float* __restrict__ lam_in, double* partials,
                         double* sett_out) {
-  __shared__ float qtile[model::N_STORAGE][BY][BX];
+  extern __shared__ float qtile[];                 // [N_STORAGE][BQ][BQ]
   const size_t n = (size_t)a.ny * a.nx;
-  const int ly = threadIdx.y, lx = threadIdx.x;
-  const int y = blockIdx.y * BTY - B_RING + ly;
-  const int x = blockIdx.x * BTX - B_RING + lx;
-  const bool out_node = ly >= B_RING && ly < BY - B_RING && lx >= B_RING
-                        && lx < BX - B_RING && y < a.ny && x < a.nx;
-  const size_t node = (size_t)wrap(y, a.ny) * a.nx + wrap(x, a.nx);
-  const int flag = __ldg(flags + node);
+  const int lx = threadIdx.x % BQ, ly0 = threadIdx.x / BQ;
+  // the block's tile starts B_RING nodes before its output tile
+  const int y0 = blockIdx.y * BTY - B_RING, x0 = blockIdx.x * BTX - B_RING;
+  const int x = x0 + lx, wx = wrap(x, a.nx);
+  const bool out_col = lx >= B_RING && lx < BQ - B_RING && x < a.nx;
   double sacc[NS_SETT];
 #pragma unroll
   for (int i = 0; i < NS_SETT; ++i) sacc[i] = 0.0;
-  float q[model::N_STORAGE];
-
   const DeviceStorage<false> in{fin, a.ny, a.nx};
-  NodeB c{a, in, ztab, lam_out, lam_g, q, sacc, y, x, flag, node,
-          out_node};
-  model::stage_b<0>(c);
+#pragma unroll 1
+  for (int ly = ly0; ly < BQ; ly += BQ_ROWS) {
+    const int y = y0 + ly;
+    const bool out_node = out_col && ly >= B_RING && ly < BQ - B_RING
+                          && y < a.ny;
+    const size_t node = (size_t)wrap(y, a.ny) * a.nx + wx;
+    float q[model::N_STORAGE];
+    NodeB c{a, in, ztab, lam_out, lam_g, q, sacc, y, x,
+            __ldg(flags + node), node, out_node};
+    model::stage_b<0>(c);
 #pragma unroll
-  for (int k = 0; k < model::N_STORAGE; ++k) qtile[k][ly][lx] = q[k];
+    for (int k = 0; k < model::N_STORAGE; ++k)
+      qtile[(k * BQ + ly) * BQ + lx] = q[k];
+  }
   __syncthreads();
-  if (out_node) {
+#pragma unroll 1
+  for (int ly = ly0; ly < BQ; ly += BQ_ROWS) {
+    const int y = y0 + ly;
+    if (!(out_col && ly >= B_RING && ly < BQ - B_RING && y < a.ny)) continue;
     const size_t idx = (size_t)y * a.nx + x;
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k) {
-      float v = qtile[k][ly + model::ey(k)][lx + model::ex(k)];
+      float v = qtile[(k * BQ + ly + model::ey(k)) * BQ + lx + model::ex(k)];
       if (!writes(0, k)) v += lam_out[k * n + idx];
       lam_in[k * n + idx] = v;
     }
   }
-  finish_sums<NS_SETT, BX * BY>(sacc, partials, &g_blocks_done_b,
-                       [sett_out](int i, double t) { sett_out[i] = t; });
+  finish_sums<NS_SETT, B_THREADS, true>(
+      sacc, partials, &g_blocks_done_b,
+      [sett_out](int i, double t) { sett_out[i] = t; });
 }
 
 extern "C" {
@@ -140,8 +168,13 @@ int generic2d_step_b(const float* fin, const float* lam_out, const int* flags,
                      double* sett_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(generic2d_step_b_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)B_SMEM);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((a->nx + BTX - 1) / BTX, (a->ny + BTY - 1) / BTY);
-  generic2d_step_b_kernel<<<grid, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+  generic2d_step_b_kernel<<<grid, B_THREADS, B_SMEM,
+                            (cudaStream_t)stream>>>(
       fin, lam_out, flags, ztab, *a, lam_g, lam_in, partials, sett_out);
   return (int)cudaGetLastError();
 }

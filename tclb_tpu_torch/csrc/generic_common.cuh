@@ -69,11 +69,19 @@ __device__ __forceinline__ bool writes(int s, int k) {
 // `put(i, total)`.  No float atomics, so a run is deterministic.  NTHREADS
 // is the block's size (a multiple of 32); threads and blocks are numbered
 // x fastest.  One launch per arrival counter `done` at a time.
-template <int N, int NTHREADS, class Put>
+// kAllSums (generic2d_step_b's settings sums): thread i < N adds sum i
+// over the warps, and the last block gathers the partials of CHUNK sums
+// at a time, one barrier for all N; one sum at a time (the default) costs
+// a sum N x 16 adds in one thread and two barriers in the last block, a
+// serial tail of the launch that many sums make long.  Both add each sum
+// in the same order.
+template <int N, int NTHREADS, bool kAllSums = false, class Put>
 __device__ void finish_sums(const double* acc, double* partials,
                             unsigned int* done, Put put) {
   constexpr int WARPS = NTHREADS / 32;
+  static_assert(!kAllSums || N <= NTHREADS, "a thread for each sum");
   __shared__ double warp_sum[N][WARPS];
+  __shared__ double block_sum[kAllSums ? N : 1];
   __shared__ bool last;
   const int tid = threadIdx.x + blockDim.x * (threadIdx.y
                                               + blockDim.y * threadIdx.z);
@@ -90,10 +98,23 @@ __device__ void finish_sums(const double* acc, double* partials,
     if (lane == 0) warp_sum[g][warp] = v;
   }
   __syncthreads();
+  if constexpr (kAllSums) {
+    if (tid < N) {
+      double v = 0.0;
+      for (int w = 0; w < WARPS; ++w) v += warp_sum[tid][w];
+      block_sum[tid] = v;
+    }
+    __syncthreads();
+  }
   if (tid == 0) {
     for (int g = 0; g < N; ++g) {
-      double v = 0.0;
-      for (int w = 0; w < WARPS; ++w) v += warp_sum[g][w];
+      double v;
+      if constexpr (kAllSums) {
+        v = block_sum[g];
+      } else {
+        v = 0.0;
+        for (int w = 0; w < WARPS; ++w) v += warp_sum[g][w];
+      }
       partials[(size_t)block * N + g] = v;
     }
     __threadfence();
@@ -102,20 +123,48 @@ __device__ void finish_sums(const double* acc, double* partials,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int g = 0; g < N; ++g) {
-    double v = 0.0;
-    for (int b = tid; b < nblocks; b += NTHREADS)
-      v += __ldcg(partials + (size_t)b * N + g);
+  if constexpr (kAllSums) {
+    constexpr int CHUNK = N < 4 ? N : 4;
+#pragma unroll 1
+    for (int g0 = 0; g0 < N; g0 += CHUNK) {
+      double v[CHUNK];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
+      for (int j = 0; j < CHUNK; ++j) v[j] = 0.0;
+      for (int b = tid; b < nblocks; b += NTHREADS) {
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j)
+          if (g0 + j < N) v[j] += __ldcg(partials + (size_t)b * N + g0 + j);
+      }
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v[j] += __shfl_down_sync(0xffffffffu, v[j], off);
+        if (lane == 0 && g0 + j < N) warp_sum[g0 + j][warp] = v[j];
+      }
+    }
     __syncthreads();
-    if (lane == 0) warp_sum[g][warp] = v;
-    __syncthreads();
-    if (tid == 0) {
+    if (tid < N) {
       double t = 0.0;
-      for (int w = 0; w < WARPS; ++w) t += warp_sum[g][w];
-      put(g, t);
+      for (int w = 0; w < WARPS; ++w) t += warp_sum[tid][w];
+      put(tid, t);
+    }
+  } else {
+    for (int g = 0; g < N; ++g) {
+      double v = 0.0;
+      for (int b = tid; b < nblocks; b += NTHREADS)
+        v += __ldcg(partials + (size_t)b * N + g);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      __syncthreads();
+      if (lane == 0) warp_sum[g][warp] = v;
+      __syncthreads();
+      if (tid == 0) {
+        double t = 0.0;
+        for (int w = 0; w < WARPS; ++w) t += warp_sum[g][w];
+        put(g, t);
+      }
     }
   }
   if (tid == 0) *done = 0;

@@ -13,11 +13,14 @@ version for a CPU tensor, and counts its launches in ``LAUNCHES``:
     each plane with neighbouring threads on neighbouring addresses and
     keeps every population in registers.
 ``step2`` (``d2q9_step2``) replaces ``make_pallas_iterate``'s fused
-    ``call2``.  A 32x8 tile stages its populations plus a two-node ring and
-    its statics plus a one-node ring in shared memory and runs two steps:
-    step 1 on the tile extended by one node, step 2 on the tile.  Bound by
-    bytes; the design halves the device-memory traffic per step at the cost
-    of recomputing the ring (~27% more node updates at 32x8).
+    ``call2``.  A block stages the populations of its output tile plus a
+    two-node ring in shared memory and runs two steps:
+    step 1 on the tile extended by one node, step 2 on the tile: 32x8
+    tiles of 256 threads, or, for the models of ``STEP2_NODE``, one
+    step-1 node a thread of a 32x16 block and the output its inner 30x14
+    (``step2_tile``).  Bound by bytes; the design halves the device-memory
+    traffic per step at the cost of recomputing the ring (1.33 or 1.22
+    step-1 node updates an output node).
 ``resident8`` (``d2q9_resident8``) replaces ``make_resident_iterate``.  One
     cooperative launch runs 8 steps with a grid-wide barrier between them,
     ping-ponging two global buffers that, at karman.xml's 1024x100
@@ -78,6 +81,13 @@ def launch_key(name: str, model: str) -> str:
 # nowhere else
 LAUNCHES = {launch_key(name, m): 0 for m in MODEL_ID for name in KERNELS}
 
+# d2q9_step2's tiles (csrc/d2q9.cu: STEP2_NODE_TILE, S1X, S1Y; TX, TY):
+# the models of STEP2_NODE take the node tile (one step-1 node a thread of
+# a `step1` block, the output its inner nodes), the others the 32x8
+# output tile of 256 threads
+STEP2_NODE = ("d2q9", "d2q9_cumulant", "d2q9_new")
+STEP2_TILES = {"node": {"step1": (16, 32)},
+               "tile": {"tile": (8, 32), "threads": 256}}
 RESIDENT_FUSE = 8               # steps per d2q9_resident8 launch
 L2_BYTES = 50 * 1024 * 1024     # H100 L2
 # boundary cases (csrc/d2q9.cu CASE_*); a type the model lacks never
@@ -368,6 +378,32 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
     return per_node * coll + _nebb_flops() * faces
 
 
+def step2_tile(model: str) -> dict:
+    """``d2q9_step2``'s tile for ``model`` (csrc/d2q9.cu mirrors it): the
+    output tile ``(ty, tx)``, step 1's nodes (the tile plus a one-node
+    ring), the staged input (plus two), the block's threads, its shared
+    memory (the input's populations, and step 1's; the 32x8 tile also
+    stages the statics over step 1's nodes: flag, Velocity, Density, and
+    d2q9's two BC planes, 4 B each), and the staged input nodes and step-1
+    nodes an output node takes."""
+    if model in STEP2_NODE:
+        ext = STEP2_TILES["node"]["step1"]
+        ty, tx = ext[0] - 2, ext[1] - 2
+        threads, statics = ext[0] * ext[1], 0
+    else:
+        ty, tx = STEP2_TILES["tile"]["tile"]
+        ext = (ty + 2, tx + 2)
+        threads = STEP2_TILES["tile"]["threads"]
+        statics = 5 if model == "d2q9" else 3
+    inp = (ty + 4, tx + 4)
+    e, i = ext[0] * ext[1], inp[0] * inp[1]
+    return {"tile": (ty, tx), "step1": ext, "input": inp,
+            "threads": threads,
+            "smem": 4 * (9 * (i + e) + statics * e),
+            "staged_per_node": i / (ty * tx),
+            "step1_per_node": e / (ty * tx)}
+
+
 def launch_bytes(model: Model, shape) -> int:
     """Device-memory bytes one launch of any of the three kernels must
     move: the field stack, the int32 flags and the two zonal planes read
@@ -495,25 +531,31 @@ def build(model: str = "d2q9") -> tuple[pathlib.Path, str]:
 def _lib(model: str = "d2q9") -> ctypes.CDLL:
     if model not in _LIB:
         path, _ = build(model)
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        argp = ctypes.POINTER(_CArgs)
-        for name in ("d2q9_step", "d2q9_step2"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, argp, i, p]
-            fn.restype = i
-        lib.d2q9_resident8.argtypes = [p, p, p, p, p, p, argp, i, i, p]
-        lib.d2q9_resident8.restype = i
-        lib.d2q9_resident8_capacity.argtypes = [
-            i, ctypes.POINTER(i), ctypes.POINTER(i)]
-        lib.d2q9_resident8_capacity.restype = i
-        lib.d2q9_error_string.argtypes = [i]
-        lib.d2q9_error_string.restype = ctypes.c_char_p
-        lib.d2q9_velocity_set.argtypes = [ctypes.POINTER(i)] * 3
-        lib.d2q9_velocity_set.restype = None
-        _check_velocity_set(lib, model)
-        _LIB[model] = lib
+        _LIB[model] = bind(ctypes.CDLL(str(path)), model)
     return _LIB[model]
+
+
+def bind(lib: ctypes.CDLL, model: str) -> ctypes.CDLL:
+    """Bind a library of csrc/d2q9.cu built for ``model``: its entries'
+    argument types, and its model id and velocity order checked against
+    the registry."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argp = ctypes.POINTER(_CArgs)
+    for name in ("d2q9_step", "d2q9_step2"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, argp, i, p]
+        fn.restype = i
+    lib.d2q9_resident8.argtypes = [p, p, p, p, p, p, argp, i, i, p]
+    lib.d2q9_resident8.restype = i
+    lib.d2q9_resident8_capacity.argtypes = [
+        i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.d2q9_resident8_capacity.restype = i
+    lib.d2q9_error_string.argtypes = [i]
+    lib.d2q9_error_string.restype = ctypes.c_char_p
+    lib.d2q9_velocity_set.argtypes = [ctypes.POINTER(i)] * 3
+    lib.d2q9_velocity_set.restype = None
+    _check_velocity_set(lib, model)
+    return lib
 
 
 def _check_velocity_set(lib, model: str) -> None:

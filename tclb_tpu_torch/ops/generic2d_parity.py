@@ -45,7 +45,18 @@ each in the flavours ``CUT_FLAVOURS`` at 1024x1024, the variants of a
 model alternating in rounds: the instrument that shows what holds a form
 back.  A variant replaces the call of the header's stage in the
 template's ``run_stage`` (so it cuts any form that runs its stages
-through it) or, for ``d2q9_npe_guo``, the header's second pass.
+through it) or, for ``d2q9_npe_guo``, the header's second pass.  For an
+adjoint header (``d2q9_heat_adj``, ``d2q9_adj``, ``d2q9_optimalMixing``,
+``d2q9_plate``, named as ``MODEL``) it also times ``generic2d_step_b``
+whole and in the reverse variants ``REVERSE_CUTS`` (its data movement
+alone; its reverse stage without the settings sums) on the lattice of
+the model's gradient path.
+
+Where the header defines ``TCLB_MODEL_ADJOINT``, the first form also
+holds ``generic2d_step_b`` of both libraries on that lattice (512x1024
+for ``d2q9_heat_adj`` and ``d2q9_adj``, 1024x1024 for the other two:
+``lam_in`` bit for bit, the settings cotangent within rtol 1e-4 / atol
+1e-6 and the same from run to run) and times both (``time_step_b``).
 """
 
 from __future__ import annotations
@@ -125,7 +136,10 @@ def with_series(lat, T: int = 16):
 
 def run(lat) -> tuple:
     """Every kernel of the model's library on the lattice's state:
-    ``(outputs as integer bits, globals)``."""
+    ``(outputs as integer bits, sums)``: the sums are the globals
+    flavours' globals and ``generic2d_step_b``'s settings cotangent (each
+    a sum over the blocks' partials, whose order a change of tile
+    changes)."""
     m = lat.model
     f, flags, ztab, a = gk.kernel_inputs(m, lat.state, lat.params)
     out, sums = {}, {}
@@ -147,9 +161,9 @@ def run(lat) -> tuple:
         gen = torch.Generator(device=f.device).manual_seed(11)
         lam = torch.randn(f.shape, generator=gen, device=f.device)
         lam_g = torch.randn((m.n_globals,), generator=gen, device=f.device)
-        lam_in, sett = ak.step_b(f, flags, ztab, a, lam, lam_g)
+        lam_in, sums["step_b settings"] = ak.step_b(f, flags, ztab, a,
+                                                    lam, lam_g)
         out["step_b"] = lam_in
-        out["step_b_settings"] = sett.view(torch.int64)
     if f.is_cuda:
         torch.cuda.synchronize()
     bits = {k: v.view(torch.int32) if v.dtype == torch.float32 else
@@ -196,11 +210,7 @@ def timed_lattice(model: str):
     """The lattice a model's step kernels are timed on: chip_smoke's
     1024x1024 lattice of a multi-stage model (painted as the reference's
     tests paint it, initialised), the parity lattice for any other."""
-    root = pathlib.Path(__file__).resolve().parents[2]
-    for path in (root, root / "tests"):
-        if str(path) not in sys.path:
-            sys.path.insert(0, str(path))
-    import chip_smoke
+    chip_smoke = import_chip_smoke()
     if model in chip_smoke.MULTISTAGE_MODELS:
         return chip_smoke.multistage_lattice(model, TIMED)
     from tclb_tpu_torch.models import get_model
@@ -262,6 +272,74 @@ def time_steps(lat, libs: dict, flavours=None, compare: bool = False
             + " launches; medians of "
             f"{ROUNDS}x{REPS} calls)")
     return out, same
+
+
+def import_chip_smoke():
+    """chip_smoke.py at the checkout's root (its path lattices)."""
+    root = pathlib.Path(__file__).resolve().parents[2]
+    for path in (root, root / "tests"):
+        if str(path) not in sys.path:
+            sys.path.insert(0, str(path))
+    import chip_smoke
+    return chip_smoke
+
+
+def step_b_lattice(model: str):
+    """The lattice an adjoint header's ``generic2d_step_b`` runs on in
+    chip_smoke's phase 7 (the gradient paths): bench.py's heat_adj
+    channel and its d2q9_adj case at 512x1024, the 1024x1024 lattice of
+    the other two headers' sensitivity paths."""
+    cs = import_chip_smoke()
+    if model == "d2q9_heat_adj":
+        return cs.heat1024_lattice("cuda")
+    if model == "d2q9_adj":
+        return cs.adj_bench_lattice()
+    return cs.adj_lattice(model, (cs.ADJ_N, cs.ADJ_N))
+
+
+def time_step_b(lat, libs: dict, compare: bool = False) -> tuple:
+    """``generic2d_step_b`` of each library (``libs``: tag -> its
+    ``gk._LIB`` entry) on ``lat``'s state with seeded cotangents: the
+    median ms a call, the libraries alternating.  With ``compare``, each
+    library's ``lam_in`` is first held against the first library's bit
+    for bit and its settings cotangent within ``GLOBALS_TOL`` and the
+    same from run to run.  Returns the times and whether all agreed."""
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
+    m = lat.model.name
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    gen = torch.Generator(device=f.device).manual_seed(12)
+    lam = torch.randn(f.shape, generator=gen, device=f.device)
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device=f.device)
+
+    def launch(entry):
+        gk._LIB[m] = entry
+        return ak.step_b(f, flags, ztab, a, lam, lam_g)
+    same = True
+    if compare:
+        got = {tag: launch(e) for tag, e in libs.items()}
+        (tag0, (lam0, sett0)), *rest = got.items()
+        for tag, (lam_in, sett) in rest:
+            equal = torch.equal(lam_in.view(torch.int32),
+                                lam0.view(torch.int32))
+            close = torch.allclose(sett, sett0, equal_nan=True,
+                                   **GLOBALS_TOL)
+            again = launch(libs[tag])[1]
+            rerun = torch.equal(sett.view(torch.int64),
+                                again.view(torch.int64))
+            diff = float((sett - sett0).abs().max())
+            print(f"{m} generic2d_step_b at {lat.shape}: {tag} lam_in "
+                  f"{'bit-identical' if equal else 'DIFFERS'} to {tag0}, "
+                  f"settings {'within' if close else 'OUTSIDE'} rtol 1e-4"
+                  f" / atol 1e-6 (max abs diff {diff:.3e} of "
+                  f"{float(sett0.abs().max()):.3e}), "
+                  f"{'the same' if rerun else 'NOT the same'} run to run")
+            same &= equal and close and rerun
+    ms = median_ms({tag: (lambda e=e: launch(e)) for tag, e in libs.items()})
+    print(f"{m} generic2d_step_b at {lat.shape}: " + ", ".join(
+        f"{tag} {v:.5f} ms" for tag, v in ms.items())
+        + f" (medians of {ROUNDS}x{REPS} calls)")
+    return ms, same
 
 
 class NoZoneTableStepB:
@@ -370,7 +448,8 @@ def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
     return entry
 
 
-_ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)(I.*)?' for")
+_ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)(I.*|P\w*)?' "
+                    r"for")
 _FLAVOUR = re.compile(r"^I(?:f|13__nv_bfloat16)Lb([01])ELb([01])E")
 
 
@@ -378,7 +457,7 @@ def ptxas_lines(report: str) -> list:
     """The compiler report's registers, stack, spills and shared memory,
     one line a kernel, named by its template (``generic2d_pass_kernel
     bf16 globals``; a kernel's flavour: its storage, its globals and its
-    series)."""
+    series) or its name (a kernel that is no template)."""
     out, name = [], None
     for line in report.splitlines():
         hit = _ENTRY.search(line)
@@ -448,6 +527,19 @@ NPE_PASS1_ONLY = (
     "#pragma unroll\n"
     "  for (int k = 0; k < N_STORAGE; ++k) c.store(k, m_);\n"
     "}\n")
+# The reverse variants of an adjoint header (generic2d_adjoint.cuh):
+# "reverse loads and stores" replaces the call of its stage_b<0>
+# (B_STAGE_HOOK) by q = the pulled primal plus the node's lam_out, each
+# plane (the kernel's data movement with no reverse physics), "reverse
+# without settings sums" keeps stage_b<0>; both drop the settings sums
+# (add_setting's accumulation, B_SUM_HOOK, and the block reduction,
+# B_FINISH).
+B_STAGE_HOOK = "model::stage_b<0>(c);"
+B_SUM_HOOK = "if (counts) sacc[i] += (double)v;"
+B_FINISH = re.compile(r"finish_sums<.*?\}\);", re.DOTALL)
+B_COPY = ("for (int k_ = 0; k_ < model::N_STORAGE; ++k_) "
+          "c.set_q(k_, c.pulled(k_) + c.lam(k_));")
+REVERSE_CUTS = ("reverse loads and stores", "reverse without settings sums")
 CUT_MODELS = ("d2q9_npe_guo", "d2q9_solid", "d2q9_pf_pressureEvolution",
               "d2q9_kuper")
 CUT_FLAVOURS = ("plain", "bf16")
@@ -455,14 +547,32 @@ CUT_FLAVOURS = ("plain", "bf16")
 
 def cut_variants(model: str) -> list:
     """The variants ``--cut`` builds for ``model``: ``"full"`` and those
-    of ``CUTS`` and ``"pass 1 alone"`` that apply to its plan."""
-    n_stages = len(gk.DEVICE_MODELS[model].plan)
+    of ``CUTS``, ``"pass 1 alone"`` and ``REVERSE_CUTS`` that apply to its
+    plan and header."""
+    dm = gk.DEVICE_MODELS[model]
     out = ["full", "loads and stores"]
-    if n_stages == 2:
+    if len(dm.plan) == 2:
         out += ["stage 0 alone", "stage 1 alone"]
     if model == "d2q9_npe_guo":
         out.append("pass 1 alone")
+    if dm.adjoint:
+        out += list(REVERSE_CUTS)
     return out
+
+
+def _cut_reverse(path: pathlib.Path, variant: str) -> None:
+    """Cut the reverse variant ``variant`` into the reverse kernel's
+    source at ``path``."""
+    text = path.read_text()
+    if (text.count(B_STAGE_HOOK) != 1 or text.count(B_SUM_HOOK) != 1
+            or len(B_FINISH.findall(text)) != 1):
+        raise SystemExit("--cut: generic2d_adjoint.cuh has not the one "
+                         "call of stage_b<0>, settings sum and finish_sums "
+                         "it cuts")
+    text = B_FINISH.sub("", text.replace(B_SUM_HOOK, ""))
+    if variant == "reverse loads and stores":
+        text = text.replace(B_STAGE_HOOK, B_COPY)
+    path.write_text(text)
 
 
 def cut_csrc(src: pathlib.Path, dst: pathlib.Path, model: str,
@@ -471,6 +581,9 @@ def cut_csrc(src: pathlib.Path, dst: pathlib.Path, model: str,
     ``variant`` cut into it."""
     shutil.copytree(src, dst)
     if variant == "full":
+        return
+    if variant in REVERSE_CUTS:
+        _cut_reverse(dst / "generic2d_adjoint.cuh", variant)
         return
     if variant == "pass 1 alone":
         path = dst / gk.DEVICE_MODELS[model].header
@@ -502,8 +615,10 @@ def build_cut(csrc: pathlib.Path, model: str) -> tuple:
 
 def cut_main(src: pathlib.Path, models) -> int:
     """Time ``generic2d_step`` of ``src``'s builds of ``models`` in the
-    variants ``cut_variants`` names (flavours ``CUT_FLAVOURS``, at
-    1024x1024)."""
+    forward variants ``cut_variants`` names (flavours ``CUT_FLAVOURS``, at
+    1024x1024) and, for an adjoint header, ``generic2d_step_b`` in
+    ``"full"`` and the reverse variants on its path's lattice
+    (``step_b_lattice``)."""
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(m, v, pathlib.Path(tmp) / f"{m}_{i}")
                 for m in models for i, v in enumerate(cut_variants(m))]
@@ -520,14 +635,15 @@ def cut_main(src: pathlib.Path, models) -> int:
                 for line in ptxas_lines(report):
                     print(f"  ptxas: {line}")
             for m in models:
-                time_steps(timed_lattice(m), libs[m], CUT_FLAVOURS)
+                forward = {v: e for v, e in libs[m].items()
+                           if v not in REVERSE_CUTS}
+                time_steps(timed_lattice(m), forward, CUT_FLAVOURS)
+                if gk.DEVICE_MODELS[m].adjoint:
+                    time_step_b(step_b_lattice(m), {
+                        v: libs[m][v] for v in ("full",) + REVERSE_CUTS})
         finally:
             gk._LIB.clear()
-    root = pathlib.Path(__file__).resolve().parents[2]
-    if str(root) not in sys.path:
-        sys.path.insert(0, str(root))
-    import chip_smoke
-    print(chip_smoke.card_line())
+    print(import_chip_smoke().card_line())
     return 0
 
 
@@ -580,9 +696,11 @@ def main(argv=None) -> int:
                               f"{'the same' if rerun else 'NOT the same'}"
                               " run to run")
                         same &= close and rerun
-                timed = timed_lattice(m)
-                same &= time_steps(timed, {tag: entries[m] for tag, entries
-                                           in libs.items()}, compare=True)[1]
+                pair = {tag: entries[m] for tag, entries in libs.items()}
+                same &= time_steps(timed_lattice(m), pair, compare=True)[1]
+                if gk.DEVICE_MODELS[m].adjoint:
+                    same &= time_step_b(step_b_lattice(m), pair,
+                                        compare=True)[1]
     finally:
         gk._LIB.clear()
         cb.CSRC, cb.BUILD_DIR = this_csrc, this_build

@@ -508,6 +508,13 @@ TILED = (8, 32)
 TILED_BLOCKS = 2
 TILED_MIN_PLANES = 40
 RING_TILE = {"rows": 32, "cols": 32, "thread_rows": 16, "blocks": 2}
+# generic2d_step_b's tile (csrc/generic2d_adjoint.cuh: BQ, BQ_ROWS,
+# B_BLOCKS, B_NARROW_MIN_PLANES): q on `side` x `side` nodes, a block of
+# `rows` rows of `side` threads (`narrow_rows` for a header of at least
+# `narrow_min_planes` planes), at least `blocks` blocks an SM, the output
+# tile inside the one-node ring
+STEP_B_TILE = {"side": 32, "rows": 16, "narrow_rows": 8,
+               "narrow_min_planes": 16, "blocks": 2}
 TWO_BLOCKS_SMEM = 113 * 1024
 SMEM_PER_SM = 228 * 1024
 
@@ -548,6 +555,23 @@ def ring_tile(model: Model) -> dict:
             "blocks": RING_TILE["blocks"],
             "smem": 4 * model.n_storage * rows * cols,
             "stage0_per_node": rows * cols / (out[0] * out[1])}
+
+
+def step_b_tile(model: Model) -> dict:
+    """``generic2d_step_b``'s tile for ``model`` (csrc/generic2d_adjoint.cuh
+    mirrors it; the library reports the output tile as ``tile_b``, which
+    sizes the wrapper's partials): q's tile and its f32 shared memory, the
+    output tile, the block's threads, and the nodes of q a block computes
+    for each output node."""
+    side = STEP_B_TILE["side"]
+    out = side - 2
+    rows = STEP_B_TILE["narrow_rows" if model.n_storage
+                       >= STEP_B_TILE["narrow_min_planes"] else "rows"]
+    return {"q": (side, side), "tile": (out, out),
+            "threads": side * rows,
+            "blocks": STEP_B_TILE["blocks"],
+            "smem": 4 * model.n_storage * side * side,
+            "q_per_node": side * side / (out * out)}
 
 
 def tiled_tile(model: Model) -> dict:

@@ -261,29 +261,54 @@ def test_ring_tile_extents(name):
          "d2q9_kuper": 1024 / 900}[name])
 
 
+ADJOINT_2D = ("d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",
+              "d2q9_plate")
+
+
 @pytest.mark.parametrize("model", ["d2q9_npe_guo", "d2q9_solid",
                                    "d2q9_pf_pressureEvolution",
-                                   "d2q9_kuper", "d2q9_heat"])
+                                   "d2q9_kuper", "d2q9_heat"]
+                         + list(ADJOINT_2D))
 def test_parity_cut_variants_apply(tmp_path, model):
     """``generic2d_parity --cut``'s variants apply to this source: each
     replaces the one call of the header's stage in run_stage (or
-    npe_guo's second pass) and leaves the rest of the copy as it was."""
+    npe_guo's second pass) and leaves the rest of the copy as it was; an
+    adjoint header's reverse variants cut generic2d_adjoint.cuh alone
+    (its one call of stage_b<0>, its settings sum and its finish_sums)."""
     from tclb_tpu_torch.ops import generic2d_parity as gp
     header = gk.DEVICE_MODELS[model].header
     want = ["full", "loads and stores"] + (
         ["stage 0 alone", "stage 1 alone"] if model in RING else []) + (
-        ["pass 1 alone"] if model == "d2q9_npe_guo" else [])
+        ["pass 1 alone"] if model == "d2q9_npe_guo" else []) + (
+        list(gp.REVERSE_CUTS) if model in ADJOINT_2D else [])
     assert gp.cut_variants(model) == want
+    assert gk.DEVICE_MODELS[model].adjoint == (model in ADJOINT_2D)
     src = _cuda_build.CSRC
+    rev = "generic2d_adjoint.cuh"
     for i, variant in enumerate(want):
         dst = tmp_path / str(i)
         gp.cut_csrc(src, dst, model, variant)
-        cu, hd = ((dst / f).read_text() for f in ("generic2d.cu", header))
+        cu, hd, b = ((dst / f).read_text()
+                     for f in ("generic2d.cu", header, rev))
+        if variant not in gp.REVERSE_CUTS:
+            assert b == _source(rev)
         if variant == "full":
             assert cu == _source("generic2d.cu") and hd == _source(header)
         elif variant == "pass 1 alone":
             assert cu == _source("generic2d.cu")
             assert gp.NPE_PASS2 not in hd and gp.NPE_PASS1_ONLY in hd
+        elif variant in gp.REVERSE_CUTS:
+            assert cu == _source("generic2d.cu") and hd == _source(header)
+            assert gp.B_SUM_HOOK not in b and "finish_sums<" not in b
+            assert "sacc[i] +=" not in b and "sett_out[i] = t;" not in b
+            # what is left of the kernel closes as it opened
+            kernel = b[b.index("generic2d_step_b_kernel("):
+                       b.index('extern "C"')]
+            assert kernel.count("{") == kernel.count("}")
+            assert kernel.count("(") == kernel.count(")")
+            copy = variant == "reverse loads and stores"
+            assert (gp.B_STAGE_HOOK in b) != copy
+            assert (gp.B_COPY in b) == copy
         else:
             assert hd == _source(header)
             assert gp.CUT_HOOK not in cu and gp.CUTS[variant] in cu
@@ -423,3 +448,175 @@ def test_parity_binds_the_pass_route(monkeypatch, entry, extra,
     # its own partials, with the carry row, in the globals flavour
     assert isinstance(call[-4], int) if with_globals else call[-4] is None
     assert call[-3:] == ("gout", 0, "stream")
+
+
+# --------------------------------------------------------------------------- #
+# d2q9_step2 and its instrument
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("variant", ["full", "loads and stores",
+                                     "step 1 alone"])
+def test_d2q9_parity_cut_variants_apply(variant):
+    """``d2q9_parity --cut``'s variants apply to csrc/d2q9.cu: in each
+    definition of d2q9_step2_kernel (a build compiles one) they drop
+    node_update calls only (all of them, or the second half: step 2's,
+    which follow the barrier that ends step 1), and leave the rest of the
+    source as it was."""
+    from tclb_tpu_torch.ops import d2q9_parity as dp
+    text = _source("d2q9.cu")
+    cut = dp.cut_source(text, variant)
+    bodies, cut_bodies = dp.kernel_bodies(text), dp.kernel_bodies(cut)
+    assert len(bodies) == len(cut_bodies) == 2
+    prev, cprev = 0, 0
+    for (start, end), (cstart, cend) in zip(bodies, cut_bodies):
+        assert cut[cprev:cstart] == text[prev:start]
+        body, cbody = text[start:end], cut[cstart:cend]
+        calls = len(dp._CALL.findall(body))
+        assert calls >= 2 and calls % 2 == 0
+        kept = {"full": calls, "loads and stores": 0,
+                "step 1 alone": calls // 2}[variant]
+        assert len(dp._CALL.findall(cbody)) == kept
+        assert cbody.count("(void)0") == calls - kept
+        if variant == "step 1 alone":
+            first_sync = cbody.index("__syncthreads();",
+                                     cbody.index("node_update(a, f, "))
+            assert all(m.start() < first_sync
+                       for m in dp._CALL.finditer(cbody))
+        prev, cprev = end, cend
+    assert cut[cprev:] == text[prev:]
+
+
+def test_d2q9_parity_arguments(capsys):
+    """``d2q9_parity``'s command line: an other ``csrc/`` and optional
+    models, or ``--cut`` and a source; no source, or a model that is not
+    a d2q9 build, prints the usage and exits 2; without a card ``main``
+    returns 2 after parsing."""
+    from tclb_tpu_torch.ops import d2q9_parity as dp
+    cut, path, models = dp.parse_args(["some/csrc"])
+    assert not cut and path.name == "csrc" and models == list(dp.MODELS)
+    assert dp.MODELS == ("d2q9", "d2q9_SRT", "d2q9_les", "d2q9_inc",
+                         "d2q9_cumulant", "d2q9_new")
+    cut, path, models = dp.parse_args(["--cut", "x/csrc", "d2q9_new"])
+    assert cut and path.is_absolute() and models == ["d2q9_new"]
+    for bad in ([], ["--cut"], ["x/csrc", "d2q9_kuper"]):
+        with pytest.raises(SystemExit) as hit:
+            dp.parse_args(bad)
+        assert hit.value.code == 2
+    err = capsys.readouterr().err
+    assert "d2q9_parity --cut SRC/csrc" in err
+    assert "not a d2q9 build: ['d2q9_kuper']" in err
+    if not torch.cuda.is_available():
+        assert dp.main(["x/csrc"]) == 2
+
+
+@pytest.mark.parametrize("model", ["d2q9", "d2q9_new"])
+def test_d2q9_parity_build_flags(model):
+    """The instrument builds each model as the port does: d2q9 without a
+    define, a family model with its id and --fmad=false."""
+    from tclb_tpu_torch.ops import d2q9_parity as dp
+    flags = dp.flags_of(model)
+    assert flags[:len(_cuda_build.NVCC_FLAGS)] == _cuda_build.NVCC_FLAGS
+    extra = flags[len(_cuda_build.NVCC_FLAGS):]
+    assert extra == (() if model == "d2q9" else
+                     ("-DD2Q9_MODEL=5", "--fmad=false"))
+
+
+def test_step2_tile_matches_the_source():
+    """``d2q9_kernels.STEP2_NODE`` and ``STEP2_TILES`` are csrc/d2q9.cu's
+    tiles: the node tile (a 32x16 block, one step-1 node a thread, the
+    output its inner 30x14) for the builds the preprocessor selects
+    (D2Q9_MODEL 0, 4, 5: d2q9, d2q9_cumulant, d2q9_new), the 32x8
+    output tile of 256 threads for the others, each with its grid."""
+    from tclb_tpu_torch.ops import d2q9_kernels as dk
+    text = _source("d2q9.cu")
+    ids = re.search(r"#if (D2Q9_MODEL == \d+(?: \|\| D2Q9_MODEL == \d+)*)"
+                    r"\n#define STEP2_NODE_TILE 1\n#else\n"
+                    r"#define STEP2_NODE_TILE 0\n#endif", text).group(1)
+    node = {int(i) for i in re.findall(r"== (\d+)", ids)}
+    assert {m for m, i in dk.MODEL_ID.items() if i in node} \
+        == set(dk.STEP2_NODE)
+    s1y, s1x = dk.STEP2_TILES["node"]["step1"]
+    assert f"constexpr int S1X = {s1x}, S1Y = {s1y};" in text
+    assert "constexpr int STEP2_THREADS = S1X * S1Y;" in text
+    assert ("const dim3 grid((a->nx + S2X - 1) / S2X, "
+            "(a->ny + S2Y - 1) / S2Y);") in text
+    ty, tx = dk.STEP2_TILES["tile"]["tile"]
+    assert f"#define TX {tx}\n#define TY {ty}\n" in text
+    assert dk.STEP2_TILES["tile"]["threads"] == tx * ty
+    assert ("d2q9_step2_kernel<<<grid, TX * TY, 0, "
+            "(cudaStream_t)stream>>>(") in text
+
+
+@pytest.mark.parametrize("model", ("d2q9",) + (
+    "d2q9_SRT", "d2q9_les", "d2q9_inc", "d2q9_cumulant", "d2q9_new"))
+def test_d2q9_step2_shared_memory_budget(model):
+    """d2q9_step2's shared memory: the node tile's 9 input planes over
+    34x18 and step 1's 9 over 32x16, 4 B each (40,464 B: no opt-in beyond
+    48 KB), stages 1.46 input nodes and updates 1.22 step-1 nodes an
+    output node, its 512 threads each one step-1 node; the 32x8 tile
+    also stages the statics over step 1's 34x10 (31,872 B, d2q9's two BC
+    planes too: 34,592 B) and stages 1.69 and updates 1.33."""
+    from tclb_tpu_torch.ops import d2q9_kernels as dk
+    st = dk.step2_tile(model)
+    ty, tx = st["tile"]
+    assert st["step1"] == (ty + 2, tx + 2)
+    assert st["input"] == (ty + 4, tx + 4)
+    if model in dk.STEP2_NODE:
+        assert st["tile"] == (14, 30) and st["threads"] == 512
+        assert st["smem"] == 4 * 9 * (34 * 18 + 32 * 16) == 40464
+        assert st["smem"] <= 48 * 1024
+        assert st["staged_per_node"] == pytest.approx(612 / 420)
+        assert st["step1_per_node"] == pytest.approx(512 / 420)
+    else:
+        assert st["tile"] == (8, 32) and st["threads"] == 256
+        assert st["smem"] == (34592 if model == "d2q9" else 31872)
+        assert st["staged_per_node"] == pytest.approx(432 / 256)
+        assert st["step1_per_node"] == pytest.approx(340 / 256)
+
+
+def test_step_b_tile_matches_the_source():
+    """``generic_kernels.STEP_B_TILE`` is csrc/generic2d_adjoint.cuh's
+    tile: q on 32x32, two blocks an SM in the launch bounds, 16 thread
+    rows (two rows a thread) or, for a header of ``narrow_min_planes`` or
+    more, 8 (four rows a thread), the output tile inside the one-node ring
+    (the library's ``tile_b`` export, which sizes the wrapper's
+    partials)."""
+    text = _source("generic2d_adjoint.cuh")
+    bt = gk.STEP_B_TILE
+    assert (f"constexpr int B_NARROW_MIN_PLANES = "
+            f"{bt['narrow_min_planes']};") in text
+    assert f"constexpr int BQ = {bt['side']}, B_BLOCKS = {bt['blocks']};" \
+        in text
+    assert ("constexpr int BQ_ROWS = model::N_STORAGE >= B_NARROW_MIN_PLANES"
+            f" ? {bt['narrow_rows']} : {bt['rows']};") in text
+    assert "constexpr int B_RING = 1;" in text
+    assert "constexpr int BTX = BQ - 2 * B_RING, BTY = BQ - 2 * B_RING;" \
+        in text
+    assert "__launch_bounds__(B_THREADS, B_BLOCKS)" in text
+    assert "finish_sums<NS_SETT, B_THREADS, true>(" in text
+    assert "*tile_y = BTY;" in text and "*tile_x = BTX;" in text
+    assert ("const dim3 grid((a->nx + BTX - 1) / BTX, "
+            "(a->ny + BTY - 1) / BTY);") in text
+
+
+@pytest.mark.parametrize("name,smem,threads", [
+    ("d2q9_heat_adj", 77824, 256), ("d2q9_adj", 40960, 512),
+    ("d2q9_optimalMixing", 57344, 512), ("d2q9_plate", 36864, 512)])
+def test_step_b_tile_shared_memory(name, smem, threads):
+    """The reverse tile's q over 32x32 nodes in f32 shared memory: two
+    blocks' within an SM's 228 KB; heat_adj's 19 planes on 256 threads
+    (<= 128 registers), the others' 9-14 on 512 (<= 64); 1024 nodes of q
+    for 900 output nodes (1.14; a 32x16 tile: 1.22), and at bench.py's
+    512x1024 a launch of 35 x 18 blocks, each one partial row."""
+    m = get_model(name)
+    bt = gk.step_b_tile(m)
+    assert bt["q"] == (32, 32) and bt["tile"] == (30, 30)
+    assert bt["threads"] == threads and bt["smem"] == smem
+    assert bt["blocks"] == 2
+    assert bt["blocks"] * (bt["smem"] + 1024) <= gk.SMEM_PER_SM
+    assert 65536 // (bt["blocks"] * bt["threads"]) == (
+        128 if threads == 256 else 64)
+    assert bt["q_per_node"] == pytest.approx(1024 / 900)
+    ty, tx = bt["tile"]
+    assert (math.ceil(512 / ty), math.ceil(1024 / tx)) == (18, 35)
