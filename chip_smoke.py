@@ -118,8 +118,10 @@ missing.  Phases, each of which fails the run on its own:
    ``iterate(2000)`` on the band engine, an 8-step kernel gradient
    against f32 eager autograd at rtol 1e-4 / atol 1e-7, the 200-step
    gradient's wall time and rate, and a 1000-step gradient at 64x128x256
-   with automatic checkpoint levels (2): its wall time, rate, ratio to
-   1000 primal steps, peak memory and launches.
+   with automatic checkpoint levels (2), run three times: each run's wall
+   time and their median, its rate, ratio to 1000 primal steps, peak
+   memory and launches (phase 8 traces a fourth run: its device-busy
+   time).
 
 15. ``example/cumulant2d.xml`` unchanged through ``run_config``
    (d2q9_cumulant, 1024x128, 8000 iterations, Log every 1000) on
@@ -380,6 +382,7 @@ import math
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -396,6 +399,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 # own launch (up to 3998 steps) the plain versions alone took some 170 s
 # of phase 7
 K5_TIMING_STEPS = 98
+# runs of phase 14's 1000-step 3D gradient (its median is kept)
+GRAD3D_RUNS = 3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-5, 2e-6        # kernel vs plain (tests/test_fastpath.py:69)
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-6
@@ -1387,7 +1392,8 @@ def run_bench_adjoint3d(g3, ak, lat) -> dict:
     cuda_adjoint3d against eager autograd on the card, f32; (c) the
     200-step gradient (bench.py:436-446), best of two timed runs; (d) a
     1000-step gradient at 64x128x256 with automatic checkpoint levels,
-    counted from 0."""
+    counted from 0, run ``GRAD3D_RUNS`` times: each run's wall and the
+    median (phase 8 adds a trace's device-busy time)."""
     from tclb_tpu_torch.adjoint import (InternalTopology, auto_levels,
                                         make_unsteady_gradient)
     say("phase 14: bench.py's 3D adjoint case: the band primal and "
@@ -1470,20 +1476,25 @@ def run_bench_adjoint3d(g3, ak, lat) -> dict:
     theta_big = design.get(big0, big.params)
     grad_fn = make_unsteady_gradient(m, design, horizon, shape=big.shape,
                                      device=DEVICE)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    g3.reset_launches()
-    ak.reset_launches()
-    t0 = time.perf_counter()
-    obj, g, _ = grad_fn(theta_big, big0, big.params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    grad_launches = {**g3.LAUNCHES, **ak.LAUNCHES}
-    grad_flavours = dict(g3.FLAVOUR_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    runs = []
+    for i in range(GRAD3D_RUNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g3.reset_launches()
+        ak.reset_launches()
+        t0 = time.perf_counter()
+        obj, g, _ = grad_fn(theta_big, big0, big.params)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            grad_launches = {**g3.LAUNCHES, **ak.LAUNCHES}
+            grad_flavours = dict(g3.FLAVOUR_LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(runs)
     rate = nodes_big * horizon / wall / 1e6
     say(f"  (d) 64x128x256: 1000 primal steps {primal_s:.4f} s "
         f"({mlups_big:.1f} MLUPS); 1000-step gradient, levels {levels}: "
+        f"runs {', '.join(f'{r:.4f}' for r in runs)} s, median "
         f"{wall:.3f} s wall, {rate:.1f} primal-equivalent MLUPS, "
         f"{wall / primal_s:.2f}x the wall of 1000 primal steps, peak memory "
         f"{peak / 2**30:.2f} GiB, launches {grad_launches}, objective "
@@ -1499,7 +1510,8 @@ def run_bench_adjoint3d(g3, ak, lat) -> dict:
                         "launches": g200_launches,
                         "flavours": g200_flavours},
             "grad1000": {"shape": list(big.shape), "levels": levels,
-                         "wall_s": wall, "primal_1000_s": primal_s,
+                         "wall_s": wall, "runs_s": runs,
+                         "primal_1000_s": primal_s,
                          "primal_mlups": mlups_big,
                          "mlups_primal_equivalent": rate,
                          "wall_over_primal": wall / primal_s,
@@ -5302,6 +5314,11 @@ def main() -> int:
                             "the 1000-step 512x1024 heat_adj gradient")
     busy_grad3d = device_busy(bench_adj3d.pop("grad_fn"),
                               "the 1000-step 64x128x256 d3q19_adj gradient")
+    grad3d = bench_adj3d["grad1000"]
+    grad3d["device_busy_us"] = busy_grad3d["device_busy_us"]
+    say(f"  the 1000-step 64x128x256 d3q19_adj gradient: median of "
+        f"{GRAD3D_RUNS} runs {grad3d['wall_s']:.4f} s (phase 14d), device "
+        f"busy {busy_grad3d['device_busy_us']} us in a traced run")
     busy_adj_grad = device_busy(adj.pop("grad_fn"),
                                 "the 1000-step 512x1024 d2q9_adj gradient")
     cum2d = family["resident_lattice"]["d2q9_cumulant"]

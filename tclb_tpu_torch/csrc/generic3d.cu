@@ -19,21 +19,24 @@
 //                       the node's flag read from device memory through the
 //                       read-only path with a periodic wrap on all three
 //                       axes by index arithmetic; neighbouring blocks' reads
-//                       overlap in L1/L2.  Stage s reads a plane an earlier
-//                       stage of the step wrote from the f32 scratch stack
-//                       `mid` (the caller's), any other from the step's
-//                       input, and writes `mid`; the last stage writes the
-//                       output and copies the planes it leaves.  A one-stage
-//                       plan (d3q19_adj, d3q19_heat, d3q27,
+//                       overlap in L1/L2.  Every stage writes its planes
+//                       straight into the step's output: no two stages
+//                       write one plane (a static_assert below), so a
+//                       later stage reads an earlier stage's planes from
+//                       the output, which no launch of its own writes, and
+//                       any other plane from the step's input; the last
+//                       pass also copies the planes no stage writes.  A
+//                       one-stage plan (d3q19_adj, d3q19_heat, d3q27,
 //                       d3q27_viscoplastic, d3q27_cumulant_qibb_small) is
-//                       one pass that writes the output itself; a longer
-//                       one (d3q19_kuper: Run, then CalcPhi) computes no
-//                       node twice, whatever the reach, and moves one more
-//                       write and read of the earlier stages' planes.
-//                       Bound by bytes: a d3q19_adj node reads its 20
-//                       planes and int32 flag and writes 20 planes (164 B)
-//                       for a few hundred flops, a d3q27_cumulant_qibb_small
-//                       node 53 planes each way (428 B).  The globals
+//                       one pass; a longer one (d3q19_kuper: Run, then
+//                       CalcPhi) computes no node twice, whatever the
+//                       reach, and moves one more read of the earlier
+//                       stages' planes (d3q19_kuper: Run's 160 B a node,
+//                       then CalcPhi's 84 B: 244 B).  Bound by bytes: a
+//                       d3q19_adj node reads its 20 planes and int32 flag
+//                       and writes 20 planes (164 B) for a few hundred
+//                       flops, a d3q27_cumulant_qibb_small node 53 planes
+//                       each way (428 B).  The globals
 //                       flavour (kGlobals) also sums each SUM global:
 //                       per-thread double sums, a fixed-order block
 //                       reduction into one partial per block, and the last
@@ -50,8 +53,10 @@
 // Any plan whose last stage computes no ring runs (the passes need no ring:
 // the reach the JAX engine caps at 8 does not bound them).  Nothing of the
 // TPU's z-slab bands or (8,128) alignment is carried over: any nz, ny, nx,
-// ragged edges masked.  Marching up z with the planes in shared memory, as
-// csrc/d3q27.cu does, and several steps a launch are later work.
+// ragged edges masked.  Several steps a launch are later work.  One launch
+// a step for d3q19_kuper (Run on a tile and its ring up a chunk of
+// z-planes into shared memory, CalcPhi a plane behind: 164 B a node, Run
+// computed 1.75 times a node) took twice the passes' time on an H100.
 //
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
@@ -74,9 +79,9 @@ __host__ __device__ constexpr unsigned long long writes_before(int s) {
   return w;
 }
 
-// whether stages 1 .. LAST - 1 each write planes no earlier stage wrote
-constexpr bool earlier_stages_disjoint() {
-  for (int s = 1; s < LAST; ++s)
+// whether each stage writes planes no earlier stage wrote
+constexpr bool stages_disjoint() {
+  for (int s = 1; s <= LAST; ++s)
     if (writes_before(s) & (unsigned long long)model::stage_writes(s))
       return false;
   return true;
@@ -84,9 +89,9 @@ constexpr bool earlier_stages_disjoint() {
 
 static_assert(model::N_STAGES >= 1 && model::stage_ext(LAST) == 0,
               "the last stage of the plan writes the output");
-static_assert(earlier_stages_disjoint(),
-              "the earlier stages' planes share one scratch stack: no two "
-              "stages before the last may write the same plane");
+static_assert(stages_disjoint(),
+              "the stages hand their planes on in the step's output: no "
+              "two stages may write the same plane");
 
 // plane k at an unwrapped (z, y, x) of one buffer in device memory
 struct Storage3 {
@@ -99,12 +104,13 @@ struct Storage3 {
 };
 
 // stage s of the passes: a plane an earlier stage of the step wrote from
-// the scratch stack `mid`, any other from the step's input
+// the step's output (an earlier launch wrote it), any other from the
+// step's input
 template <int s>
 struct PassStorage3 {
-  Storage3 mid, in;
+  Storage3 out, in;
   __device__ float get(int k, int z, int y, int x) const {
-    return ((writes_before(s) >> k) & 1ull) ? mid.get(k, z, y, x)
+    return ((writes_before(s) >> k) & 1ull) ? out.get(k, z, y, x)
                                             : in.get(k, z, y, x);
   }
 };
@@ -147,16 +153,15 @@ struct Node3 {
 
 __device__ unsigned int g_blocks_done3 = 0;   // globals flavours, per launch
 
-// Stage kStage of the plan over the whole lattice, one node a thread.  An
-// earlier stage writes its planes to `mid`, the last writes the output and
-// copies the planes it leaves: an earlier stage's from `mid`, the others
-// from the input.  The globals flavour sums each pass's nodes and carries
-// the running totals in the row after the partials (`carry`); the last
-// pass writes them out.
+// Stage kStage of the plan over the whole lattice, one node a thread: it
+// writes its planes to the output, and the last stage also copies the
+// planes no stage writes from the input.  The globals flavour sums each
+// pass's nodes and carries the running totals in the row after the
+// partials (`carry`); the last pass writes them out.
 template <int kStage, bool kGlobals, bool kSeries>
 __global__ void __launch_bounds__(BX * BY)
 generic3d_pass_kernel(const float* __restrict__ fin, float* __restrict__ fout,
-                      float* mid, const int* __restrict__ flags,
+                      const int* __restrict__ flags,
                       const float* __restrict__ ztab, const GenericArgs a,
                       const SeriesArgs ser, double* partials, float* gout) {
   const size_t n = (size_t)a.nz * a.ny * a.nx;
@@ -168,23 +173,21 @@ generic3d_pass_kernel(const float* __restrict__ fin, float* __restrict__ fout,
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
   if (x < a.nx && y < a.ny) {
     const size_t idx = ((size_t)z * a.ny + y) * a.nx + x;
-    const PassStorage3<kStage> st{Storage3{mid, a.nz, a.ny, a.nx},
+    const PassStorage3<kStage> st{Storage3{fout, a.nz, a.ny, a.nx},
                                   Storage3{fin, a.nz, a.ny, a.nx}};
     Node3<PassStorage3<kStage>, kGlobals, kSeries> c{
-        a, st, kStage < LAST ? mid : fout, ztab, ser, acc, idx, n, z, y, x,
-        __ldg(flags + idx)};
+        a, st, fout, ztab, ser, acc, idx, n, z, y, x, __ldg(flags + idx)};
     model::stage<kStage>(c);
     if constexpr (kStage == LAST) {
 #pragma unroll
-      for (int k = 0; k < model::N_STORAGE; ++k) {
-        if (writes(LAST, k)) continue;
-        fout[k * n + idx] = ((writes_before(LAST) >> k) & 1ull)
-                                ? __ldg(mid + k * n + idx)
-                                : __ldg(fin + k * n + idx);
-      }
+      for (int k = 0; k < model::N_STORAGE; ++k)
+        if (!(((writes_before(LAST) >> k) & 1ull) || writes(LAST, k)))
+          fout[k * n + idx] = __ldg(fin + k * n + idx);
     }
   }
-  if constexpr (kGlobals) {
+  // a plan without globals has nothing to sum (its globals flavour's
+  // output is empty)
+  if constexpr (kGlobals && model::N_GLOBALS > 0) {
     double* carry =
         partials + (size_t)gridDim.x * gridDim.y * gridDim.z * NG;
     finish_sums<NG, BX * BY>(acc, partials, &g_blocks_done3,
@@ -201,37 +204,35 @@ generic3d_pass_kernel(const float* __restrict__ fin, float* __restrict__ fout,
 // launch that fails
 template <int s, bool kGlobals, bool kSeries>
 static cudaError_t launch_passes(dim3 grid, cudaStream_t stream,
-                                 const float* fin, float* fout, float* mid,
+                                 const float* fin, float* fout,
                                  const int* flags, const float* ztab,
                                  const GenericArgs& a, const SeriesArgs& ser,
                                  double* partials, float* gout) {
   generic3d_pass_kernel<s, kGlobals, kSeries>
-      <<<grid, dim3(BX, BY), 0, stream>>>(fin, fout, mid, flags, ztab, a,
-                                          ser, partials, gout);
+      <<<grid, dim3(BX, BY), 0, stream>>>(fin, fout, flags, ztab, a, ser,
+                                          partials, gout);
   const cudaError_t e = cudaGetLastError();
   if constexpr (s < LAST) {
     if (e != cudaSuccess) return e;
     return launch_passes<s + 1, kGlobals, kSeries>(
-        grid, stream, fin, fout, mid, flags, ztab, a, ser, partials, gout);
+        grid, stream, fin, fout, flags, ztab, a, ser, partials, gout);
   }
   return e;
 }
 
-// one Iteration: the plan's passes (more than one needs the caller's
-// scratch stack `mid`)
+// one Iteration: the plan's passes
 template <bool kGlobals, bool kSeries>
-static int launch_step(const float* fin, float* fout, float* mid,
-                       const int* flags, const float* ztab,
+static int launch_step(const float* fin, float* fout, const int* flags,
+                       const float* ztab,
                        const GenericArgs& a, const SeriesArgs& ser,
                        double* partials, float* gout, int device,
                        void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (LAST > 0 && !mid) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.nx + BX - 1) / BX, (a.ny + BY - 1) / BY, a.nz);
   return (int)launch_passes<0, kGlobals, kSeries>(
-      grid, (cudaStream_t)stream, fin, fout, mid, flags, ztab, a, ser,
-      partials, gout);
+      grid, (cudaStream_t)stream, fin, fout, flags, ztab, a, ser, partials,
+      gout);
 }
 
 extern "C" {
@@ -253,22 +254,20 @@ void generic3d_layout(int* block_y, int* block_x, int* n_storage,
 }
 
 // The plan this library runs: its stage count, which is the launches of
-// one generic3d_step (more than one needs `mid`).
+// one generic3d_step.
 void generic3d_plan(int* n_stages) { *n_stages = model::N_STAGES; }
 
 // `partials` null: the plain flavour; else the globals flavour, with
 // `partials` holding one double per block and global, and one more row
 // (the multi-pass carry), and `gout` the globals (n_globals floats).
-// `mid`: an f32 scratch stack of n_storage planes where the plan has more
-// than one stage, may be null otherwise.
-int generic3d_step(const float* fin, float* fout, float* mid,
-                   const int* flags, const float* ztab, const GenericArgs* a,
-                   double* partials, float* gout, int device, void* stream) {
+int generic3d_step(const float* fin, float* fout, const int* flags,
+                   const float* ztab, const GenericArgs* a, double* partials,
+                   float* gout, int device, void* stream) {
   const SeriesArgs none{};
   if (partials)
-    return launch_step<true, false>(fin, fout, mid, flags, ztab, *a, none,
+    return launch_step<true, false>(fin, fout, flags, ztab, *a, none,
                                     partials, gout, device, stream);
-  return launch_step<false, false>(fin, fout, mid, flags, ztab, *a, none,
+  return launch_step<false, false>(fin, fout, flags, ztab, *a, none,
                                    nullptr, nullptr, device, stream);
 }
 
@@ -276,17 +275,17 @@ int generic3d_step(const float* fin, float* fout, float* mid,
 // generic3d_step, with zonal setting j in zone z read from ts[row[j][z]][t]
 // where row[j][z] >= 0 (SeriesArgs); `partials` null for the plain series
 // flavour, else the series + globals flavour.
-int generic3d_step_series(const float* fin, float* fout, float* mid,
-                          const int* flags, const float* ztab,
-                          const GenericArgs* a, const int* row,
-                          const float* ts, int len, int t, double* partials,
-                          float* gout, int device, void* stream) {
+int generic3d_step_series(const float* fin, float* fout, const int* flags,
+                          const float* ztab, const GenericArgs* a,
+                          const int* row, const float* ts, int len, int t,
+                          double* partials, float* gout, int device,
+                          void* stream) {
   const SeriesArgs ser{row, ts, len, t};
   if (partials)
-    return launch_step<true, true>(fin, fout, mid, flags, ztab, *a, ser,
+    return launch_step<true, true>(fin, fout, flags, ztab, *a, ser,
                                    partials, gout, device, stream);
-  return launch_step<false, true>(fin, fout, mid, flags, ztab, *a, ser,
-                                  nullptr, nullptr, device, stream);
+  return launch_step<false, true>(fin, fout, flags, ztab, *a, ser, nullptr,
+                                  nullptr, device, stream);
 }
 
 }  // extern "C"

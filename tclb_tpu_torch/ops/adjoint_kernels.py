@@ -19,7 +19,8 @@ cotangent written once (``launch_bytes_b``).
 For a 3D model the same wrapper launches ``generic3d_step_b``
 (``csrc/generic3d_adjoint.cuh``), which replaces the fused 3D backward
 (``pallas_adjoint.py:_mk_call_bwd_3d`` for ``_make_diff_step_3d``) at
-k = 1: the node cotangents q through a device scratch, then the gather.
+k = 1 in one launch: each node's cotangents q pushed to the nodes that
+pull them.
 
 The wrapper launches the kernel for a CUDA tensor (or raises) and runs
 ``step_b_plain`` for a CPU tensor; it counts its launches in
@@ -83,8 +84,7 @@ def supports_diff(model: Model, shape, dtype, storage_dtype=None) -> bool:
 def launch_bytes_b(model: Model, shape) -> int:
     """Device-memory bytes one ``generic2d_step_b`` or ``generic3d_step_b``
     call must move: the primal fields, the output cotangent and the int32
-    flags read once, the input cotangent written once (the 3D kernel's
-    scratch is its own choice, not the function's)."""
+    flags read once, the input cotangent written once."""
     n = int(np.prod(shape))
     return (3 * model.n_storage + 1) * 4 * n
 
@@ -269,21 +269,20 @@ def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
 
 
 def _launch_step_b_3d(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
-    """``generic3d_step_b``: the node cotangents into a scratch stack, then
-    the gather into lam_in (two kernels, one call)."""
+    """``generic3d_step_b``: one launch, its partials one row per block of
+    its grid (``g3.n_blocks_b``)."""
     lb = g3.lib(a.model)
     dev, stream = gk.device_and_stream(fields)
     n_sett = len(a.settings)
     lam_in = torch.empty_like(fields)
-    q = torch.empty_like(fields)
-    partials = torch.empty((g3.n_blocks(a), n_sett), dtype=torch.float64,
+    partials = torch.empty((g3.n_blocks_b(a), n_sett), dtype=torch.float64,
                            device=fields.device)
     sett = torch.empty((n_sett,), dtype=torch.float64, device=fields.device)
     rc = lb.generic3d_step_b(
         fields.data_ptr(), lam_out.data_ptr(), flags.data_ptr(),
         ztab.data_ptr(), ctypes.byref(a.c_struct), lam_g.data_ptr(),
-        lam_in.data_ptr(), q.data_ptr(), partials.data_ptr(),
-        sett.data_ptr(), dev, stream)
+        lam_in.data_ptr(), partials.data_ptr(), sett.data_ptr(), dev,
+        stream)
     gk.check(lb, rc, "generic3d_step_b")
     LAUNCHES["generic3d_step_b"] += 1
     return lam_in, sett

@@ -11,9 +11,9 @@ and the byte count are the 2D module's.
 ``step`` / ``step_globals`` (``generic3d_step``) replace the JAX package's
 ``pallas_generic.py:make_pallas_iterate_3d`` (``call`` and its
 in-kernel-globals flavour ``call_g``) at fuse = 1: one whole Iteration per
-call, one launch a stage of the plan (a multi-stage plan hands its earlier
-stages' planes on in an f32 scratch stack the wrapper allocates; each
-launch counts), one thread per node.  Bound by bytes (``launch_bytes``,
+call, one launch a stage of the plan (each stage writes its planes into
+the step's output, where a later stage reads them; each launch counts),
+one thread per node.  Bound by bytes (``launch_bytes``,
 ``node_step_flops``).  The globals flavour also returns the step's SUM
 globals, reduced in a fixed order (no float atomics).
 ``step_series`` / ``step_series_globals`` (``generic3d_step_series``)
@@ -303,57 +303,75 @@ _LIB: dict = {}
 
 
 def lib(model: str) -> ctypes.CDLL:
-    """``model``'s generic 3D library, built and bound at first use; its
-    layout sizes are checked against ``DEVICE_MODELS``."""
+    """``model``'s generic 3D library, built and bound at first use
+    (:func:`bind`)."""
     entry = _LIB.setdefault(model, {})
     if "lib" not in entry:
-        dm = DEVICE_MODELS[model]
         path, _ = build(model)
-        lb = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ip = ctypes.POINTER(i)
-        argp = ctypes.POINTER(gk.c_args_type(model))
-        lb.generic3d_layout.argtypes = [ip] * 8
-        lb.generic3d_layout.restype = None
-        lb.generic3d_plan.argtypes = [ip]
-        lb.generic3d_plan.restype = None
-        lb.generic3d_step.argtypes = [p, p, p, p, p, argp, p, p, i, p]
-        lb.generic3d_step.restype = i
-        lb.generic3d_step_series.argtypes = [p, p, p, p, p, argp, p, p, i,
-                                             i, p, p, i, p]
-        lb.generic3d_step_series.restype = i
-        lb.generic_error_string.argtypes = [i]
-        lb.generic_error_string.restype = ctypes.c_char_p
-        if dm.adjoint:
-            lb.generic3d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p, p,
-                                            i, p]
-            lb.generic3d_step_b.restype = i
-        vals = [ctypes.c_int(0) for _ in range(8)]
-        lb.generic3d_layout(*[ctypes.byref(v) for v in vals])
-        block_y, block_x, *sizes = (v.value for v in vals)
-        want = [len(dm.storage), len(dm.settings), len(dm.node_types),
-                len(dm.groups), len(dm.zonal), len(dm.globals_)]
-        if sizes != want:
-            raise RuntimeError(f"{path.name} was built with layout sizes "
-                               f"{sizes}, the wrapper expects {want}")
-        stages = ctypes.c_int(0)
-        lb.generic3d_plan(ctypes.byref(stages))
-        if stages.value != len(dm.plan):
-            raise RuntimeError(f"{path.name} runs {stages.value} stages, "
-                               f"the wrapper expects {len(dm.plan)}")
-        # launches a step: one a stage (more than one with the scratch
-        # `mid`)
-        entry["passes"] = stages.value
-        entry["block"] = (block_y, block_x)
-        entry["lib"] = lb
+        entry.update(bind(ctypes.CDLL(str(path)), model, path.name))
     return entry["lib"]
 
 
+def bind(lb, model: str, name: str) -> dict:
+    """Bind a generic 3D library of ``model`` (``name``: its file, for
+    errors): its layout sizes and stage count are checked against
+    ``DEVICE_MODELS``.  Returns its ``_LIB`` entry: the library, its step
+    block, its launches a step and, for an adjoint model, the grid of its
+    reverse (``tile_b``: a block's z-planes, rows and columns)."""
+    dm = DEVICE_MODELS[model]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(i)
+    argp = ctypes.POINTER(gk.c_args_type(model))
+    lb.generic3d_layout.argtypes = [ip] * 8
+    lb.generic3d_layout.restype = None
+    lb.generic3d_plan.argtypes = [ip]
+    lb.generic3d_plan.restype = None
+    lb.generic3d_step.argtypes = [p, p, p, p, argp, p, p, i, p]
+    lb.generic3d_step.restype = i
+    lb.generic3d_step_series.argtypes = [p, p, p, p, argp, p, p, i, i, p,
+                                         p, i, p]
+    lb.generic3d_step_series.restype = i
+    lb.generic_error_string.argtypes = [i]
+    lb.generic_error_string.restype = ctypes.c_char_p
+    entry = {"lib": lb}
+    if dm.adjoint:
+        lb.generic3d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p, i, p]
+        lb.generic3d_step_b.restype = i
+        lb.generic3d_step_b_tile.argtypes = [ip] * 3
+        lb.generic3d_step_b_tile.restype = None
+        tile = [ctypes.c_int(0) for _ in range(3)]
+        lb.generic3d_step_b_tile(*[ctypes.byref(v) for v in tile])
+        entry["tile_b"] = tuple(v.value for v in tile)
+    vals = [ctypes.c_int(0) for _ in range(8)]
+    lb.generic3d_layout(*[ctypes.byref(v) for v in vals])
+    block_y, block_x, *sizes = (v.value for v in vals)
+    want = [len(dm.storage), len(dm.settings), len(dm.node_types),
+            len(dm.groups), len(dm.zonal), len(dm.globals_)]
+    if sizes != want:
+        raise RuntimeError(f"{name} was built with layout sizes "
+                           f"{sizes}, the wrapper expects {want}")
+    stages = ctypes.c_int(0)
+    lb.generic3d_plan(ctypes.byref(stages))
+    if stages.value != len(dm.plan):
+        raise RuntimeError(f"{name} runs {stages.value} stages, "
+                           f"the wrapper expects {len(dm.plan)}")
+    # launches a step: one a stage
+    entry.update(block=(block_y, block_x), passes=stages.value)
+    return entry
+
+
 def n_blocks(a: gk.StepArgs) -> int:
-    """Blocks of one ``generic3d_step`` (or ``generic3d_step_b``) launch:
-    the length of its partials (the multi-pass carry row aside)."""
+    """Blocks of one ``generic3d_step`` launch: the length of its
+    partials (the multi-pass carry row aside)."""
     by, bx = _LIB[a.model]["block"]
     return -(-a.ny // by) * -(-a.nx // bx) * a.nz
+
+
+def n_blocks_b(a: gk.StepArgs) -> int:
+    """Blocks of one ``generic3d_step_b`` launch (its grid, ``tile_b``):
+    the length of its partials."""
+    tz, ty, tx = _LIB[a.model]["tile_b"]
+    return -(-a.nz // tz) * -(-a.ny // ty) * -(-a.nx // tx)
 
 
 def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool,
@@ -372,7 +390,6 @@ def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool,
     dev, stream = gk.device_and_stream(fields)
     out = torch.empty_like(fields)
     passes = _LIB[a.model]["passes"]
-    mid = gk._mid(fields, passes > 1)
     partials = gout = None
     if with_globals:
         n_g = len(DEVICE_MODELS[a.model].globals_)
@@ -382,8 +399,8 @@ def _launch_step(fields, flags, ztab, a: gk.StepArgs, with_globals: bool,
                                dtype=torch.float64, device=fields.device)
         gout = torch.empty((max(n_g, 1),), dtype=torch.float32,
                            device=fields.device)
-    head = (fields.data_ptr(), out.data_ptr(), gk._ptr(mid),
-            flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct))
+    head = (fields.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            ztab.data_ptr(), ctypes.byref(a.c_struct))
     tail = (gk._ptr(partials), gk._ptr(gout), dev, stream)
     if series is None:
         gk.check(lb, lb.generic3d_step(*head, *tail), "generic3d_step")

@@ -620,3 +620,335 @@ def test_step_b_tile_shared_memory(name, smem, threads):
     assert bt["q_per_node"] == pytest.approx(1024 / 900)
     ty, tx = bt["tile"]
     assert (math.ceil(512 / ty), math.ceil(1024 / tx)) == (18, 35)
+
+
+# --------------------------------------------------------------------------- #
+# generic3d_step's passes, generic3d_step_b's push and their instrument
+# --------------------------------------------------------------------------- #
+
+ADJOINT_3D = ("d3q19_adj",)
+
+
+def _step_b3_tile() -> dict:
+    """generic3d_step_b's grid as csrc/ lays it: ``B_PLANES`` and
+    ``B_BLOCKS`` of generic3d_adjoint.cuh, ``BX`` and ``BY`` of
+    generic3d.cu."""
+    planes, blocks = map(int, re.search(
+        r"constexpr int B_PLANES = (\d+), B_BLOCKS = (\d+);",
+        _source("generic3d_adjoint.cuh")).groups())
+    cols, rows = map(int, re.search(r"constexpr int BX = (\d+), BY = (\d+);",
+                                    _source("generic3d.cu")).groups())
+    return {"planes": planes, "blocks": blocks, "rows": rows, "cols": cols}
+
+
+def _flat(text: str) -> str:
+    """``text`` with every run of white space one blank."""
+    return " ".join(text.split())
+
+
+def test_step_b3_tile_matches_the_source():
+    """csrc/generic3d_adjoint.cuh's reverse grid: a 32x8 block whose
+    threads each walk eight z-planes, two blocks an SM in the launch
+    bounds, the settings sums reduced all at once; the one launch's grid
+    and the ``generic3d_step_b_tile`` export (which sizes the wrapper's
+    partials) are both that tile; the reverse pushes each q to the node
+    that pulls it, with no scratch and no gather kernel."""
+    t = _step_b3_tile()
+    assert t == {"planes": 8, "blocks": 2, "rows": 8, "cols": 32}
+    text = _flat(_source("generic3d_adjoint.cuh"))
+    assert "__launch_bounds__(BX * BY, B_BLOCKS)" in text
+    assert "finish_sums<NS_SETT, BX * BY, true>(" in text
+    assert ("grid((a->nx + BX - 1) / BX, (a->ny + BY - 1) / BY, "
+            "(a->nz + B_PLANES - 1) / B_PLANES)") in text
+    export = text[text.index("void generic3d_step_b_tile("):]
+    export = export[:export.index("}")]
+    assert re.findall(r"\*tile_(\w) = (\w+);", export) == [
+        ("z", "B_PLANES"), ("y", "BY"), ("x", "BX")]
+    assert text.count("<<<") == 1 and "gather_kernel" not in text
+    assert "lam_in[to] = v;" in text and "float* q," not in text
+
+
+@pytest.mark.parametrize("shape,blocks", [((32, 64, 256), (4, 8, 8)),
+                                          ((64, 128, 256), (8, 16, 8)),
+                                          ((9, 13, 37), (2, 2, 2))])
+def test_step_b3_grid(monkeypatch, shape, blocks):
+    """The reverse grid at the gradient paths' shapes, as the wrapper
+    counts it from a library that exports the source's tile: bench.py's
+    case at 32x64x256 in 256 blocks (one wave of two blocks on each of an
+    H100's 132 SMs), 64x128x256 in 1024; every thread's registers within
+    65536 / (2 x 256) = 128; a block's static shared memory each thread's
+    17 settings sums (doubles, a column a thread: 34,816 B) and the
+    reduction's warp and block sums, under the 48 KB a block may hold
+    without opting in, two blocks within an SM's 227 KB."""
+    t = _step_b3_tile()
+    fake = _FakeLib3("d3q19_adj", tile_b=(t["planes"], t["rows"], t["cols"]))
+    g3, _ = _bind3(monkeypatch, "d3q19_adj", fake)
+    a = _inputs3("d3q19_adj", shape)[-1]
+    assert g3.n_blocks_b(a) == math.prod(blocks)
+    nz, ny, nx = shape
+    assert blocks == (-(-nz // t["planes"]), -(-ny // t["rows"]),
+                      -(-nx // t["cols"]))
+    threads = t["rows"] * t["cols"]
+    assert threads == 256 and 65536 // (t["blocks"] * threads) == 128
+    n_sett = len(gk.DEVICE_MODELS["d3q19_adj"].settings)
+    assert n_sett == 17
+    text = _flat(_source("generic3d_adjoint.cuh"))
+    assert "__shared__ double ssum[NS_SETT][BX * BY];" in text
+    assert "sacc[i * (BX * BY)] += (double)v;" in text
+    smem = 8 * n_sett * threads + 8 * n_sett * (threads // 32 + 1) + 1
+    assert smem == 36041 <= 48 * 1024
+    assert t["blocks"] * smem <= SMEM_LIMIT
+    if shape == (32, 64, 256):
+        assert math.prod(blocks) == 256 <= 2 * SMS
+
+
+class _FakeLib3:
+    """A generic 3D library that records the arguments its step entries are
+    handed and launches nothing; its reverse grid is ``tile_b``.  Its
+    entries are plain functions, so that a binder can set their ctypes
+    attributes."""
+
+    def __init__(self, model, tile_b=(8, 8, 32)):
+        self.calls = []
+        dm = gk.DEVICE_MODELS[model]
+        sizes = [8, 32, len(dm.storage), len(dm.settings),
+                 len(dm.node_types), len(dm.groups), len(dm.zonal),
+                 len(dm.globals_)]
+
+        def fill(values):
+            def fn(*out):
+                for ref, v in zip(out, values):
+                    ref._obj.value = v
+            return fn
+        self.generic3d_layout = fill(sizes)
+        self.generic3d_plan = fill([len(dm.plan)])
+        self.generic3d_step_b_tile = fill(tile_b)
+        self.generic_error_string = lambda code: b"fake"
+        for name in ("generic3d_step", "generic3d_step_series",
+                     "generic3d_step_b"):
+            setattr(self, name, self._record(name))
+
+    def _record(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+def _bind3(monkeypatch, model, lib):
+    """``g3``'s entry for ``model`` bound to ``lib`` (no build)."""
+    from tclb_tpu_torch.ops import generic3d_kernels as g3
+    entry = g3.bind(lib, model, "fake.so")
+    monkeypatch.setitem(g3._LIB, model, entry)
+    monkeypatch.setattr(gk, "device_and_stream", lambda t: (0, 0))
+    return g3, entry
+
+
+def _inputs3(model, shape):
+    m = get_model(model)
+    f = torch.zeros((m.n_storage,) + shape, dtype=torch.float32)
+    flags = torch.zeros(shape, dtype=torch.int32)
+    a = gk.step_args(m, shape, np.zeros(len(m.settings)))
+    ztab = torch.zeros((len(m.zonal_settings), a.zone_max))
+    return m, f, flags, ztab, a
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 256), (9, 13, 37)])
+def test_step_b3_partials_sized_by_the_grid(monkeypatch, shape):
+    """The wrapper reads the reverse grid from the library (``tile_b``)
+    and hands ``generic3d_step_b`` one partial row per block of it, no
+    scratch stack, in one launch."""
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
+    fake = _FakeLib3("d3q19_adj")
+    g3, entry = _bind3(monkeypatch, "d3q19_adj", fake)
+    assert entry["tile_b"] == (8, 8, 32) and entry["passes"] == 1
+    m, f, flags, ztab, a = _inputs3("d3q19_adj", shape)
+    made = []
+    real_empty = torch.empty
+
+    def empty(*args, **kw):
+        t = real_empty(*args, **kw)
+        made.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(torch, "empty", empty)
+    ak.reset_launches()
+    lam_g = torch.zeros((m.n_globals,))
+    ak._launch_step_b_3d(f, flags, ztab, a, torch.zeros_like(f), lam_g)
+    (name, args), = fake.calls
+    assert name == "generic3d_step_b" and len(args) == 11
+    tz, ty, tx = entry["tile_b"]
+    nz, ny, nx = shape
+    blocks = -(-nz // tz) * -(-ny // ty) * -(-nx // tx)
+    assert g3.n_blocks_b(a) == blocks
+    assert (blocks, len(m.settings)) in made
+    assert made.count(f.shape) == 0          # lam_in: empty_like
+    assert ak.LAUNCHES["generic3d_step_b"] == 1
+
+
+@pytest.mark.parametrize("name", ["d3q19_kuper", "d3q19_adj",
+                                  "d3q19_heat"])
+def test_generic3d_step_takes_no_scratch(monkeypatch, name):
+    """No 3D plan hands its stages' planes on through a scratch stack: the
+    step entries take none (``_mid`` is never asked for), a call counts
+    one launch a stage (d3q19_kuper: two), and the partials (with the
+    carry row) and globals only in the globals flavour."""
+    fake = _FakeLib3(name)
+    g3, entry = _bind3(monkeypatch, name, fake)
+    monkeypatch.setattr(gk, "_mid", lambda *a: pytest.fail("_mid asked"))
+    m, f, flags, ztab, a = _inputs3(name, (4, 8, 40))
+    g3.reset_launches()
+    g3._launch_step(f, flags, ztab, a, with_globals=False)
+    g3._launch_step(f, flags, ztab, a, with_globals=True)
+    (_, plain), (_, glob) = fake.calls
+    assert len(plain) == len(glob) == 9
+    assert plain[:4] == (f.data_ptr(), plain[1], flags.data_ptr(),
+                         ztab.data_ptr())
+    assert plain[5] is None and glob[5] is not None and glob[6] is not None
+    passes = len(gk.DEVICE_MODELS[name].plan)
+    assert entry["passes"] == passes == (2 if name == "d3q19_kuper" else 1)
+    assert g3.LAUNCHES == {"generic3d_step": 2 * passes}
+
+
+def test_generic3d_passes_hand_planes_on_in_the_output():
+    """csrc/generic3d.cu: a stage reads an earlier stage's planes from the
+    step's output (no scratch stack), requires every stage's write set
+    disjoint from the earlier ones', and the last pass copies only the
+    planes no stage writes; d3q19_kuper's two write sets are disjoint and
+    cover its 20 planes."""
+    text = _source("generic3d.cu")
+    assert "mid" not in re.sub(r"//.*", "", text)
+    assert "static_assert(stages_disjoint()," in text
+    assert "for (int s = 1; s <= LAST; ++s)" in text
+    assert "Storage3{fout, a.nz, a.ny, a.nx}" in text
+    assert ("if (!(((writes_before(LAST) >> k) & 1ull) || writes(LAST, k)))"
+            in text)
+    header = (_cuda_build.CSRC / "models" / "d3q19_kuper.cuh").read_text()
+    run, phi = (int(v, 16) for v in re.search(
+        r"stage_writes\(int s\) \{\s*return s == 0 \? (0x[0-9a-fA-F]+)u"
+        r" : (0x[0-9a-fA-F]+)u;", header).groups())
+    storage = gk.DEVICE_MODELS["d3q19_kuper"].storage
+    assert [k for k in range(len(storage)) if run >> k & 1] == [
+        k for k, name in enumerate(storage) if name.startswith("f[")]
+    assert phi == 1 << storage.index("phi")
+    assert run & phi == 0 and run | phi == (1 << len(storage)) - 1
+
+
+def test_generic3d_parity_cut_variants_apply(tmp_path):
+    """``generic3d_parity --cut``'s variants apply to this source: the
+    forward ones replace the one call of the header's stage in
+    generic3d.cu, keeping its template argument; the reverse ones cut
+    generic3d_adjoint.cuh alone (its one call of stage_b<0>, settings sum
+    and finish_sums); "q kernel alone" is offered only for a source with
+    a gather kernel, applies to one (a copy of this csrc/ with a gather
+    launch written in) and fails loudly on this source, which has none."""
+    from tclb_tpu_torch.ops import generic3d_parity as gp
+    src = _cuda_build.CSRC
+    assert gp.cut_variants("d3q19_kuper") == [
+        "full", "loads and stores", "stage 0 alone", "stage 1 alone"]
+    assert gp.cut_variants("d3q19_adj") == [
+        "full", "loads and stores", "reverse loads and stores",
+        "reverse without settings sums"]
+    rev = "generic3d_adjoint.cuh"
+    for model in ("d3q19_kuper", "d3q19_adj"):
+        for i, variant in enumerate(gp.cut_variants(model)):
+            dst = tmp_path / f"{model}_{i}"
+            gp.cut_csrc(src, dst, model, variant)
+            cu, b = ((dst / f).read_text() for f in ("generic3d.cu", rev))
+            if variant == "full":
+                assert cu == _source("generic3d.cu") and b == _source(rev)
+            elif variant in gp.REVERSE_CUTS:
+                assert cu == _source("generic3d.cu")
+                assert not gp.B_SUM_HOOK.search(b)
+                assert "finish_sums<" not in b
+                kernel = b[b.index("generic3d_step_b_kernel("):
+                           b.index('extern "C"')]
+                assert kernel.count("{") == kernel.count("}")
+                assert kernel.count("(") == kernel.count(")")
+                copy = variant == "reverse loads and stores"
+                assert (gp.B_STAGE_HOOK in b) != copy
+                assert (gp.B_COPY in b) == copy
+            else:
+                assert b == _source(rev)
+                assert not gp.CUT_HOOK.search(cu) or variant != \
+                    "loads and stores"
+                assert gp.CUTS[variant].replace("{S}", "kStage") in cu
+    with pytest.raises(SystemExit):
+        gp.cut_csrc(src, tmp_path / "q", "d3q19_adj", "q kernel alone")
+    two = tmp_path / "two"
+    import shutil
+    shutil.copytree(src, two)
+    path = two / rev
+    path.write_text(path.read_text().replace(
+        "  return (int)cudaGetLastError();\n}\n\n}  // extern",
+        "  generic3d_step_b_gather_kernel<<<grid, block, 0, s>>>(\n"
+        "      q, lam_out, *a, lam_in);\n"
+        "  return (int)cudaGetLastError();\n}\n\n}  // extern"))
+    assert "q kernel alone" in gp.cut_variants("d3q19_adj", two)
+    gp.cut_csrc(two, tmp_path / "two_cut", "d3q19_adj", "q kernel alone")
+    assert "gather_kernel<<<" not in (tmp_path / "two_cut" / rev).read_text()
+
+
+def test_generic3d_parity_arguments(capsys):
+    """``generic3d_parity``'s command line: an other ``csrc/`` and
+    optional models, or ``--cut`` and a source; nothing, or ``--cut``
+    alone, prints the usage and exits 2; without a card each form returns
+    2 after parsing."""
+    from tclb_tpu_torch.ops import generic3d_parity as gp
+    for bad in ([], ["--cut"]):
+        assert gp.main(bad) == 2
+    assert "generic3d_parity --cut SRC/csrc" in capsys.readouterr().err
+    assert gp.CUT_MODELS == ("d3q19_kuper", "d3q19_adj")
+    assert gp.STEP_B_SHAPES == ((32, 64, 256), (64, 128, 256))
+    if not torch.cuda.is_available():
+        for good in (["x/csrc"], ["--cut", "x/csrc", "d3q19_kuper"]):
+            assert gp.main(good) == 2
+
+
+@pytest.mark.parametrize("with_globals", [False, True])
+def test_parity_binds_the_scratch_abi(monkeypatch, with_globals):
+    """``generic3d_parity`` binds a copy whose step entries take the
+    scratch stack ``mid`` and whose ``generic3d_step_b`` takes ``q``
+    through ``ScratchAbi3``: the wrapper's calls reach it with those
+    stacks and partials of its own grid (a 32x8 block a z-plane, the
+    carry row after the forward's), and its reverse grid reads as one
+    z-plane a block."""
+    from tclb_tpu_torch.ops import generic3d_parity as gp
+    made = {}
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        made.setdefault("shapes", []).append(tuple(shape))
+        return real_empty(shape)
+    monkeypatch.setattr(torch, "empty", empty)
+
+    raw = _FakeLib3("d3q19_adj")
+    abi = gp.ScratchAbi3(raw, "d3q19_adj")
+    entry = gp.g3.bind(abi, "d3q19_adj", "old.so")
+    assert entry["tile_b"] == (1, 8, 32)
+
+    class _Args:
+        nz, ny, nx = 4, 10, 40
+
+    class _Ref:
+        _obj = _Args()
+    args = _Ref()
+    tail = ("partials" if with_globals else None, "gout", 0, "stream")
+    monkeypatch.setattr(torch, "device", lambda *a: "cpu")
+    assert abi.generic3d_step("fin", "fout", "flags", "ztab", args,
+                              *tail) == 0
+    assert abi.generic3d_step_b("fin", "lam", "flags", "ztab", args, "lg",
+                                "lam_in", "part", "sett", 0, "s") == 0
+    (n1, step), (n2, back) = raw.calls
+    assert n1 == "generic3d_step" and n2 == "generic3d_step_b"
+    assert step[:2] == ("fin", "fout") and isinstance(step[2], int)
+    assert step[3:6] == ("flags", "ztab", args)
+    assert isinstance(step[6], int) if with_globals else step[6] is None
+    assert step[7:] == ("gout", 0, "stream")
+    assert back[:7] == ("fin", "lam", "flags", "ztab", args, "lg", "lam_in")
+    assert isinstance(back[7], int) and isinstance(back[8], int)
+    assert back[9:] == ("sett", 0, "s")
+    blocks = 4 * 2 * 2
+    dm = gk.DEVICE_MODELS["d3q19_adj"]
+    assert made["shapes"] == [(20, 4, 10, 40),
+                              (blocks + 1, len(dm.globals_)),
+                              (blocks, len(dm.settings))]
