@@ -79,7 +79,10 @@ missing.  Phases, each of which fails the run on its own:
    times, each kernel's bound on this card, and the host time one call of
    each wrapper takes;
 8. torch.profiler traces of a karman, a 3d_channel and a drop ``iterate``
-   window: the card's busy and idle share and its time by kernel; then,
+   window: the card's busy and idle share and its time by kernel; the
+   split of karman.xml's and drop.xml's windows (an ``iterate`` of one Log
+   interval: the resident kernel's device time and its wrapper's host
+   time a launch, the eager globals step, the idle share); then,
    a trace each, the launch of each three-stage ``generic2d_step`` (the
    staged form) at 1024x1024 against the step's bound;
 9. the generic main path: ``example/drop.xml`` unchanged through
@@ -2436,6 +2439,49 @@ def device_busy(run, what: str) -> dict:
         f"device busy {busy:.0f} us, idle share {share}")
     for k, v in out["device_us_by_kernel"].items():
         say(f"    {v:10.1f} us  {k[:90]}")
+    return out
+
+
+def window_split(lat, niter: int, what: str, kernel: str, count,
+                 launch) -> dict:
+    """Phase 8's split of an ``iterate(niter)`` window on a resident
+    engine: a torch.profiler trace of the window (``device_busy``) gives
+    the resident kernel's device time a launch (``kernel``: a part of its
+    name in the trace; ``count()`` its launch count) and the idle share;
+    ``launch()`` (one call of its wrapper) its host time a launch
+    (``wrapper_host_ms``); the eager globals step that ``Lattice.iterate``
+    runs after the engine is timed alone (host clock, synchronized; the
+    median of 5), where the engine leaves one."""
+    n0, e0 = count(), lat.eager_steps
+    busy = device_busy(lambda: lat.iterate(niter), what)
+    launches = (count() - n0) // 2            # the warm run and the trace
+    eager = (lat.eager_steps - e0) // 2
+    dev_us = sum(us for name, us in busy["device_us_by_kernel"].items()
+                 if kernel in name)
+    eager_ms = None
+    if eager:
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat.state = lat._iterate(lat.state, lat.params, eager)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        eager_ms = sorted(times)[2]
+    out = {"window": what, "launches": launches,
+           "kernel_us_per_launch": dev_us / launches if launches else None,
+           "kernel_us_per_call": dev_us,
+           "wrapper_host_ms_per_launch": wrapper_host_ms(launch, 50),
+           "eager_steps_per_call": eager, "eager_step_ms": eager_ms,
+           "wall_us": busy["wall_us"],
+           "device_busy_us": busy["device_busy_us"],
+           "idle_share": busy["idle_share"]}
+    say(f"  split of {what}: {kernel} {launches} launches, "
+        f"{out['kernel_us_per_launch']} us of device time each "
+        f"({dev_us:.1f} us a call), wrapper "
+        f"{out['wrapper_host_ms_per_launch']:.4f} ms of host time a launch, "
+        f"eager globals step {eager_ms} ms ({eager} a call), idle share "
+        f"{busy['idle_share']}")
     return out
 
 
@@ -5306,6 +5352,21 @@ def main() -> int:
         + [(dk3, name, channel48[m], reps) for m in D3Q_FAMILY
            for name, reps in (("d3q27_step", 400), ("d3q27_step2", 200))]))
     busy = device_busy(lambda: karman.iterate(400), "a karman iterate(400)")
+    # karman.xml's and drop.xml's windows, split: the resident kernel's
+    # device time and its wrapper's host time a launch, the eager globals
+    # step, the idle share (an iterate of one Log interval each)
+    k_inputs = dk.kernel_inputs(karman.model, karman.state, karman.params)
+    d_inputs = gk.kernel_inputs(drop_dev.model, drop_dev.state,
+                                drop_dev.params)
+    splits = {
+        "karman": window_split(
+            karman, 1000, "a karman iterate(1000)", "d2q9_resident8",
+            lambda: dk.LAUNCHES["d2q9_resident8"],
+            lambda: dk.resident8(*k_inputs)),
+        "drop": window_split(
+            drop_dev, log_every, f"a drop iterate({log_every})",
+            "generic2d_resident", lambda: gk.LAUNCHES["generic2d_resident"],
+            lambda: gk.resident(*d_inputs, (log_every - 1) // 2 * 2))}
     busy3d = device_busy(lambda: channel3d.iterate(200),
                          "a 3d_channel iterate(200)")
     busy_drop = device_busy(lambda: drop_dev.iterate(2000),
@@ -5637,6 +5698,7 @@ def main() -> int:
         "cumulant2d_iterate_profile": busy_cum2d,
         "d2q9_cumulant1024_iterate_profile": busy_cum1024,
         "karman_iterate_profile": busy,
+        "resident_window_split": splits,
         "3d_channel_iterate_profile": busy3d,
         "drop_iterate_profile": busy_drop,
         "heat_adj1024_gradient_profile": busy_grad,

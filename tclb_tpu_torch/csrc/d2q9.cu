@@ -63,7 +63,12 @@
 // read and one write of the state for the family (8 steps of 118 to 243
 // flops against 84 B sit just under the card's 20 flops a byte) and by
 // operations for d2q9 (8 x 267 against 100 B, just over it); its time shows
-// the grid barriers and the L2 bandwidth, far above either bound.
+// the grid barriers, the L2 bandwidth and the node updates' instructions,
+// far above either bound.  Four designs without a grid barrier a step were
+// held bit for bit and timed against it and lost at every path lattice
+// (overlapped 8-step tiles in shared memory, tiles that wait for their
+// neighbours only, a two-step tile between two waits, the state kept in
+// shared memory with only the tiles' edges exchanged; PERF.md §6).
 //
 // Plain C interface (loaded with ctypes); every entry returns the CUDA error
 // code of its launch.
@@ -166,6 +171,12 @@ __device__ __forceinline__ int ey_of(const D2q9Args& a, int k) {
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
+}
+
+// wrap(i, n) for i in [-1, n] (a pull of reach 1 from a node of the
+// lattice) by a compare, not a division
+__device__ __forceinline__ int wrap_one(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
 __device__ __forceinline__ bool is_type(const D2q9Args& a, int flag, int c) {
@@ -638,7 +649,10 @@ __device__ __forceinline__ void node_update(const D2q9Args& a, float* f,
 // One node of one step from global memory (periodic pulls).  `src` is
 // written by other blocks between the steps of the resident kernel, so there
 // (kCoherent) it is read through L2 only (__ldcg), never through the
-// read-only path that assumes the data cannot change during the kernel.
+// read-only path that assumes the data cannot change during the kernel; and
+// there a pull wraps by a compare (wrap_one), not the two divisions of
+// wrap(): 18 a node a step, a tenth of the resident kernel's time at
+// karman.xml's 1024x100.
 template <bool kCoherent>
 __device__ __forceinline__ void step_node(const D2q9Args& a, int y, int x,
                                           const float* src, float* dst,
@@ -651,8 +665,10 @@ __device__ __forceinline__ void step_node(const D2q9Args& a, int y, int x,
   float f[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const float* p = src + k * n + (size_t)wrap(y - ey_of(a, k), a.ny) * a.nx
-                     + wrap(x - ex_of(a, k), a.nx);
+    const int yk = y - ey_of(a, k), xk = x - ex_of(a, k);
+    const int row = kCoherent ? wrap_one(yk, a.ny) : wrap(yk, a.ny);
+    const int col = kCoherent ? wrap_one(xk, a.nx) : wrap(xk, a.nx);
+    const float* p = src + k * n + (size_t)row * a.nx + col;
     f[k] = kCoherent ? __ldcg(p) : __ldg(p);
   }
   if constexpr (kFamily)

@@ -72,19 +72,22 @@
 //                       per-thread sums (its order of the sums differs from
 //                       a launch a stage's: globals agree to rounding).
 //   generic2d_resident  an even number of Iterations in one cooperative
-//                       launch (replaces make_resident_iterate): every
-//                       thread walks the lattice with a grid stride, a
-//                       grid-wide barrier after each stage, and two global
-//                       buffers ping-pong (the earlier stages of a plan
-//                       write the f32 scratch stack `mid`, but for an f32
-//                       ring-form plan's stage 0, which writes the step's
-//                       output buffer).  For lattices that fit
-//                       half the 50 MB L2 (drop.xml's 128x128 is 1.4 MB)
-//                       the planes stay in L2: device memory sees one read
-//                       and one write per launch, and the barriers set its
-//                       time.
-//                       Planes written during the launch are read through
-//                       L2 only (__ldcg), never through the read-only path.
+//                       launch (replaces make_resident_iterate): each block
+//                       owns its tiles for the whole launch and runs a
+//                       step's stages on them as the staged form does (stage
+//                       s on the tile plus stage_ext(s), the earlier
+//                       stages' planes in shared memory, KRX x KRY threads,
+//                       one stage-0 node each), reading the step's input
+//                       from device memory through L2 only (__ldcg) and
+//                       writing the other of two buffers.  In place of a
+//                       grid barrier a stage, a block publishes each step in
+//                       a counter (a release store) and, before the next,
+//                       waits with acquire loads for the blocks that own
+//                       the nodes within HALO of its tiles: one exchange a
+//                       step, with its neighbours only.  For lattices that
+//                       fit half the 50 MB L2 (drop.xml's 128x128 is 1.4 MB)
+//                       the buffers stay in L2; the waits and the dependent
+//                       round trips to L2 set its time.
 //   generic2d_step_b    the reverse of one generic2d_step for models with a
 //                       hand-written reverse stage (csrc/generic2d_adjoint.cuh,
 //                       built where the header defines TCLB_MODEL_ADJOINT).
@@ -97,7 +100,7 @@
 // stages compute in f32 and the shared tile stays f32, so a step narrows
 // once, after its last stage, as the narrowed eager engine does.  The
 // staged tile and the resident kernel keep the earlier stages' planes in
-// f32 (shared memory, the scratch stack `mid`) for the same reason.  A
+// f32 shared memory for the same reason.  A
 // bf16 node moves half the bytes of an f32 one (d2q9: 48 B against 92 B).
 // f32 storage runs the same code as before the ladder (S = float: plain
 // loads and stores).
@@ -114,6 +117,7 @@
 #include <cuda_runtime.h>
 
 #include "generic_common.cuh"
+#include "resident_sync.cuh"
 #include "storage.cuh"
 
 namespace cg = cooperative_groups;
@@ -162,7 +166,6 @@ constexpr bool NARROW_FORM = model::N_STAGES == 1 && !TILED_FORM
                              && model::N_STORAGE >= NARROW_MIN_PLANES;
 constexpr int NBY = 8, NARROW_BLOCKS = 3;         // the narrow pass's rows,
                                                   // its blocks an SM
-constexpr int RESIDENT_THREADS = 256;
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
 // A staged plan's header declares model::REACH, the rows of input its
@@ -208,6 +211,24 @@ constexpr int TH = TILED_FORM ? model::REACH : 0;
 constexpr int TIW = TTX + 2 * TH, TIH = TTY + 2 * TH;   // staged input
 constexpr size_t TILED_SMEM = sizeof(float) * model::N_STORAGE * TIH * TIW;
 
+// The resident kernel's tile (generic_kernels.resident_tile mirrors it):
+// the first stage of a group's first step on a KRX x KRY region, one node
+// a thread of a block of as many threads (8 rows for a one-stage plan:
+// more blocks, fewer nodes an SM), the output tile the region less the
+// ring the group's steps compute (resident_plan); the earlier stages'
+// planes and a step's result over the region in shared memory (f32).  A
+// block waits for the owners of the nodes within the group's reach (at
+// most 2 HALO; generic_kernels.HALO) of its tiles.
+constexpr int KE = model::stage_ext(0);
+constexpr int KRX = 32, KRY = model::N_STAGES > 1 ? 16 : 8;
+constexpr int RESIDENT_THREADS = KRX * KRY;
+constexpr int HALO = 8;
+// floats of the stack of the earlier stages' planes and of the state a
+// step of a group hands the next (both over the region)
+constexpr int RESIDENT_STACK =
+    model::N_STAGES > 1 ? model::N_STORAGE * KRY * KRX : 0;
+constexpr int RESIDENT_STATE = model::N_STORAGE * KRY * KRX;
+
 // whether each stage reads no further than the stage before it computed
 constexpr bool rings_shrink() {
   for (int s = 1; s < model::N_STAGES; ++s)
@@ -231,6 +252,14 @@ static_assert(!TILED_FORM || model::REACH >= 1,
               "a tiled one-stage header declares its reach (model::REACH)");
 static_assert(!TILED_FORM || TILED_BLOCKS * (TILED_SMEM + 1024) <= 228 * 1024,
               "TILED_BLOCKS tiles' planes fit an SM's shared memory");
+static_assert(KRY - 2 * KE >= 2,
+              "the resident tile has output nodes inside stage 0's ring");
+static_assert(rings_shrink(),
+              "each stage's ring lies inside the one before");
+static_assert(sizeof(float) * (RESIDENT_STACK + RESIDENT_STATE)
+                  <= 227 * 1024,
+              "the resident region's stack and state fit a block's shared "
+              "memory");
 static_assert(RTY % RBY == 0 && RTY > 2 * RING && RTX > 2 * RING,
               "the ring form's tile has inner nodes and whole rows a thread");
 static_assert(!RING_FORM || RING_BLOCKS * (RING_SMEM + 1024) <= 228 * 1024,
@@ -286,18 +315,6 @@ struct TiledStorage {
   int iy0, ix0;
   __device__ float get(int k, int y, int x) const {
     return in[(k * TIH + (y - iy0)) * TIW + (x - ix0)];
-  }
-};
-
-// stage s of the resident kernel: a plane an earlier stage of the step
-// wrote from the f32 scratch stack `mid`, any other from the step's input
-template <int s, bool kCoherent, class S>
-struct PassStorage {
-  DeviceStorage<kCoherent> mid;
-  DeviceStorage<kCoherent, S> in;
-  __device__ float get(int k, int y, int x) const {
-    return ((writes_before(s) >> k) & 1ull) ? mid.get(k, y, x)
-                                            : in.get(k, y, x);
   }
 };
 
@@ -708,105 +725,217 @@ static int launch_step(const S* fin, S* fout, const int* flags,
 // generic2d_resident
 // ---------------------------------------------------------------------------
 
-// Stages s .. LAST of one step, each over the lattice with the grid stride
-// and then a grid barrier: an earlier stage writes `mid` (f32), the last
-// writes `dst` and the planes an earlier stage wrote and it leaves (the
-// planes no stage writes are in both buffers already).  kInPlace: `mid` is
-// `dst` itself, which holds those planes already.
-template <int s, bool kInPlace, class S>
+// Stage s of a step of the resident kernel's tile: a plane an earlier
+// stage of the step wrote from the block's stack, a plane some stage writes
+// from the step's input -- the block's state of the step before (kIn), or
+// the buffer other blocks wrote (read through L2 only) -- any other from
+// the launch's input (it never changes).  The stack and the state share
+// the region's layout, origin at unwrapped (sy0, sx0).
+template <int s, class S, bool kIn>
+struct ResidentStorage {
+  const float* stack;      // [N_STORAGE][KRY][KRX]
+  const float* state;      // [N_STORAGE][KRY][KRX] (kIn)
+  int sy0, sx0;
+  DeviceStorage<true, S> src;
+  DeviceStorage<false, S> fin;
+  __device__ float get(int k, int y, int x) const {
+    const int at = (k * KRY + (y - sy0)) * KRX + (x - sx0);
+    if ((writes_before(s) >> k) & 1ull) return stack[at];
+    if ((ALL_WRITES >> k) & 1ull) return kIn ? state[at] : src.get(k, y, x);
+    return fin.get(k, y, x);
+  }
+};
+
+// a plane of the block's stack (an earlier stage) or state (a step's
+// result the next step of the launch reads; stored as the stack at rest
+// rounds it, so a bf16 step narrows once, as chained launches do)
+template <class S, bool kState>
+struct ResidentOut {
+  float* buf;              // [N_STORAGE][KRY][KRX]
+  int at;                  // the node's offset in a plane
+  const float* w;
+  __device__ void operator()(int k, float v) const {
+    if constexpr (kState && sizeof(S) != sizeof(float))
+      v = widen(narrow<S>(v, w[k]), w[k]);
+    buf[k * KRY * KRX + at] = v;
+  }
+};
+
+// Stages s .. LAST of one step on the tile at (ty0, tx0), on the tile plus
+// `ring` nodes (the steps after it in the group read them) plus
+// stage_ext(s): an earlier stage into the stack; the last into `dst` at
+// the lattice's nodes (kOut false) or into the state over the whole region
+// (kOut), with the planes an earlier stage wrote and it leaves.  The
+// region's origin (sy0, sx0); a block barrier between two stages.
+template <int s, class S, bool kIn, bool kOut>
 __device__ __forceinline__ void resident_stages(
-    const GenericArgs& a, const DeviceStorage<true, S>& in, float* mid,
-    S* dst, const int* __restrict__ flags, const float* __restrict__ ztab,
-    const Shift& sh, size_t n, int first, int stride,
-    cg::grid_group& grid) {
+    const GenericArgs& a, const S* src, const S* __restrict__ fin, S* dst,
+    float* stack, float* state, const int* __restrict__ flags,
+    const float* __restrict__ ztab, const Shift& sh, int ty0, int tx0,
+    int ty, int tx, int ring, int sy0, int sx0) {
+  constexpr int e0 = model::stage_ext(s);
+  const int e = ring + e0, W = tx + 2 * e, H = ty + 2 * e;
   const SeriesArgs none{};
-  const PassStorage<s, true, S> st{DeviceStorage<true>{mid, a.ny, a.nx}, in};
-  for (int idx = first; idx < (int)n; idx += stride) {
-    const int y = idx / a.nx, x = idx - y * a.nx;
-    if constexpr (s < LAST) {
-      run_stage<s, false>(a, st, DeviceOut<float>{mid, (size_t)idx, n},
-                          ztab, none, nullptr, y, x, __ldg(flags + idx),
-                          false);
-    } else {
-      run_stage<s, false>(a, st, DeviceOut<S>{dst, (size_t)idx, n, sh.w},
-                          ztab, none, nullptr, y, x, __ldg(flags + idx),
-                          false);
-      if constexpr (!kInPlace) {
+  const ResidentStorage<s, S, kIn> st{stack, state, sy0, sx0,
+                                      {src, a.ny, a.nx, sh.w},
+                                      {fin, a.ny, a.nx, sh.w}};
+  for (int i = threadIdx.x; i < W * H; i += RESIDENT_THREADS) {
+    const int ly = i / W, lx = i - ly * W;
+    const int y = ty0 - e + ly, x = tx0 - e + lx;     // unwrapped
+    const int at = (y - sy0) * KRX + (x - sx0);
+    if constexpr (s < LAST || kOut) {
+      const int flag =
+          __ldg(flags + (size_t)wrap(y, a.ny) * a.nx + wrap(x, a.nx));
+      if constexpr (s < LAST) {
+        run_stage<s, false>(a, st, ResidentOut<S, false>{stack, at, sh.w},
+                            ztab, none, nullptr, y, x, flag, false);
+      } else {
+        const ResidentOut<S, true> out{state, at, sh.w};
+        run_stage<s, false>(a, st, out, ztab, none, nullptr, y, x, flag,
+                            false);
 #pragma unroll
         for (int k = 0; k < model::N_STORAGE; ++k)
           if (!writes(LAST, k) && ((writes_before(LAST) >> k) & 1ull))
-            store_plane(dst + k * n + idx, __ldcg(mid + k * n + idx), sh.w,
-                        k);
+            out(k, st.get(k, y, x));
       }
+    } else if (y < a.ny && x < a.nx) {
+      const size_t n = (size_t)a.ny * a.nx;
+      const size_t idx = (size_t)y * a.nx + x;
+      run_stage<s, false>(a, st, DeviceOut<S>{dst, idx, n, sh.w}, ztab, none,
+                          nullptr, y, x, __ldg(flags + idx), false);
+#pragma unroll
+      for (int k = 0; k < model::N_STORAGE; ++k)
+        if (!writes(LAST, k) && ((writes_before(LAST) >> k) & 1ull))
+          store_plane(dst + k * n + idx, st.get(k, y, x), sh.w, k);
     }
   }
-  grid.sync();
+  __syncthreads();
   if constexpr (s < LAST)
-    resident_stages<s + 1, kInPlace, S>(a, in, mid, dst, flags, ztab, sh, n,
-                                        first, stride, grid);
+    resident_stages<s + 1, S, kIn, kOut>(a, src, fin, dst, stack, state,
+                                         flags, ztab, sh, ty0, tx0, ty, tx,
+                                         ring, sy0, sx0);
 }
 
-// The earlier stages' planes go to `mid` (f32, n_storage planes), so the
-// later stages read them unrounded and a bf16 step narrows once; but f32
-// storage in the ring form runs in place (kInPlace: stage 0 writes the
-// step's output buffer, stage 1 reads them there; their write sets are
-// disjoint), and `mid` is unused.
+// An even number of steps in one cooperative launch, `fuse` (1 or 2) steps
+// between two waits.  Block b owns the tiles t = b, b + gridDim.x, ...
+// (row-major, ty x tx nodes each: the region less ring0 = (fuse - 1) *
+// reach + stage_ext(0) a side) for the whole launch.  A group of `fuse`
+// steps reads the launch's input (the first group) or the buffer the group
+// before wrote and writes the other (the last group fout); its first step
+// runs on the tile plus `reach` nodes into the block's state, its second
+// from there on the tile.  After its group the block publishes the steps
+// done in its counter; before the next it waits for every block owning a
+// node within fuse * reach of its tiles (csrc/resident_sync.cuh).  A
+// neighbour has then written the group's input and read the buffer the
+// group overwrites, so two buffers suffice.
 template <class S>
 __global__ void __launch_bounds__(RESIDENT_THREADS)
 generic2d_resident_kernel(const S* __restrict__ fin, S* fout, S* scratch,
-                          float* mid, const int* __restrict__ flags,
+                          int* counters, const int* __restrict__ flags,
                           const float* __restrict__ ztab,
-                          const GenericArgs a, int nsteps,
-                          const __grid_constant__ Shift sh) {
-  constexpr bool kInPlace = RING_FORM && sizeof(S) == sizeof(float);
-  cg::grid_group grid = cg::this_grid();
+                          const GenericArgs a, int nsteps, int reach,
+                          int fuse, const __grid_constant__ Shift sh) {
+  extern __shared__ float resident_smem[];
+  float* stack = resident_smem;                    // [N][KRY][KRX]
+  float* state = resident_smem + RESIDENT_STACK;   // [N][KRY][KRX]
+  __shared__ unsigned int waits[RESIDENT_MAX_BLOCKS / 32];
+  const int nb = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
+  const int ring0 = (fuse - 1) * reach + KE;
+  const int ty = KRY - 2 * ring0, tx = KRX - 2 * ring0;
+  const int ntx = (a.nx + tx - 1) / tx;
+  const int ntiles = ntx * ((a.ny + ty - 1) / ty);
   const size_t n = (size_t)a.ny * a.nx;
-  const int stride = gridDim.x * blockDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  // planes no stage writes are the same in both buffers
-  for (int idx = first; idx < (int)n; idx += stride) {
+  reset_waits<RESIDENT_THREADS>(waits, counters, b);
+  // the blocks to wait for, and the planes no stage writes, to fout once
+  for (int t = b; t < ntiles; t += nb) {
+    const int ty0 = t / ntx * ty, tx0 = t % ntx * tx;
+    mark_waits<RESIDENT_THREADS>(waits, ty0, tx0, ty, tx, ntx, nb, a.ny,
+                                 a.nx, fuse * reach);
+    for (int i = tid; i < ty * tx; i += RESIDENT_THREADS) {
+      const int y = ty0 + i / tx, x = tx0 + i % tx;
+      if (y >= a.ny || x >= a.nx) continue;
+      const size_t idx = (size_t)y * a.nx + x;
 #pragma unroll
-    for (int k = 0; k < model::N_STORAGE; ++k)
-      if (!((ALL_WRITES >> k) & 1ull)) {
-        const float v = load_plane<false>(fin + k * n + idx, sh.w, k);
-        store_plane(scratch + k * n + idx, v, sh.w, k);
-        store_plane(fout + k * n + idx, v, sh.w, k);
-      }
+      for (int k = 0; k < model::N_STORAGE; ++k)
+        if (!((ALL_WRITES >> k) & 1ull))
+          store_plane(fout + k * n + idx,
+                      load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
+    }
   }
-  // step 0 reads fin and writes scratch, odd steps write fout, even steps
-  // scratch: an even nsteps ends in fout
-  const S* src = fin;
-  S* dst = scratch;
-  for (int s = 0; s < nsteps; ++s) {
-    float* stack;
-    if constexpr (kInPlace) stack = dst;
-    else stack = mid;
-    resident_stages<0, kInPlace, S>(a,
-                                    DeviceStorage<true, S>{src, a.ny, a.nx,
-                                                           sh.w},
-                                    stack, dst, flags, ztab, sh, n, first,
-                                    stride, grid);
-    src = dst;
-    dst = (dst == scratch) ? fout : scratch;
+  cg::this_grid().sync();            // every counter is 0
+  const int groups = nsteps / fuse;
+  for (int g = 0; g < groups; ++g) {
+    const S* src = g == 0 ? fin : ((groups - g) % 2 ? scratch : fout);
+    S* dst = (groups - 1 - g) % 2 ? scratch : fout;
+    if (g > 0) wait_for<RESIDENT_THREADS>(waits, counters, nb, g * fuse);
+    for (int t = b; t < ntiles; t += nb) {
+      const int ty0 = t / ntx * ty, tx0 = t % ntx * tx;
+      const int sy0 = ty0 - ring0, sx0 = tx0 - ring0;
+      if (fuse == 1) {
+        resident_stages<0, S, false, false>(a, src, fin, dst, stack, state,
+                                            flags, ztab, sh, ty0, tx0, ty,
+                                            tx, 0, sy0, sx0);
+      } else {
+        resident_stages<0, S, false, true>(a, src, fin, dst, stack, state,
+                                           flags, ztab, sh, ty0, tx0, ty,
+                                           tx, reach, sy0, sx0);
+        resident_stages<0, S, true, false>(a, src, fin, dst, stack, state,
+                                           flags, ztab, sh, ty0, tx0, ty,
+                                           tx, 0, sy0, sx0);
+      }
+    }
+    publish(counters, b, (g + 1) * fuse);
   }
 }
 
+// The resident tile for a plan of `reach` (at most HALO): two steps a wait
+// where the tile that leaves (the region less reach + stage_ext(0) a side)
+// keeps at least half of the region's nodes, else one
+// (generic_kernels.resident_tile mirrors it).
+static void resident_plan(int reach, int* fuse, int* ty, int* tx) {
+  *fuse = 2;
+  int ring0 = reach + KE;
+  if (KRY - 2 * ring0 < 2
+      || 2 * (KRY - 2 * ring0) * (KRX - 2 * ring0) < KRY * KRX) {
+    *fuse = 1;
+    ring0 = KE;
+  }
+  *ty = KRY - 2 * ring0;
+  *tx = KRX - 2 * ring0;
+}
+
 template <class S>
-static int launch_resident(const S* fin, S* fout, S* scratch, float* mid,
+static int launch_resident(const S* fin, S* fout, S* scratch, int* counters,
                            const int* flags, const float* ztab,
                            const GenericArgs* a, const Shift& shift,
-                           int nsteps, int blocks, int device,
-                           void* stream) {
+                           int nsteps, int reach, int device, void* stream) {
+  if (nsteps < 2 || nsteps % 2 || reach < 0 || reach > HALO)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  int fuse, ty, tx;
+  resident_plan(reach, &fuse, &ty, &tx);
+  const size_t smem = sizeof(float)
+                      * (RESIDENT_STACK + (fuse > 1 ? RESIDENT_STATE : 0));
+  const void* kernel = (const void*)generic2d_resident_kernel<S>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((a->nx + tx - 1) / tx) * ((a->ny + ty - 1) / ty);
+  const int blocks = resident_blocks(kernel, RESIDENT_THREADS, smem, tiles,
+                                     device);
+  if (blocks < 0) return -blocks;
+  if (blocks == 0) return (int)cudaErrorNotSupported;
   GenericArgs args = *a;
   Shift sh = shift;
   void* params[] = {(void*)&fin, (void*)&fout, (void*)&scratch,
-                    (void*)&mid, (void*)&flags, (void*)&ztab,
-                    (void*)&args, (void*)&nsteps, (void*)&sh};
-  e = cudaLaunchCooperativeKernel((const void*)generic2d_resident_kernel<S>,
-                                  dim3(blocks), dim3(RESIDENT_THREADS),
-                                  params, 0, (cudaStream_t)stream);
+                    (void*)&counters, (void*)&flags, (void*)&ztab,
+                    (void*)&args, (void*)&nsteps, (void*)&reach,
+                    (void*)&fuse, (void*)&sh};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                  dim3(RESIDENT_THREADS), params, smem,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -896,56 +1025,36 @@ int generic2d_step_series(const float* fin, float* fout, const int* flags,
                                          stream);
 }
 
-// Whether the device can launch cooperative kernels, and how many blocks of
-// generic2d_resident (`bf16` != 0: generic2d_resident_bf16) can be resident
-// at once (the largest cooperative grid).
-int generic2d_resident_capacity(int device, int bf16, int* cooperative,
-                                int* max_blocks) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(cooperative, cudaDevAttrCooperativeLaunch,
-                             device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  if (bf16)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, generic2d_resident_kernel<__nv_bfloat16>, RESIDENT_THREADS,
-        0);
-  else
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, generic2d_resident_kernel<float>, RESIDENT_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  *max_blocks = per_sm * sms;
-  return 0;
+// The resident kernel's tile (rows, columns) and the steps between two
+// waits for a plan of `reach`, and its threads a block.
+void generic2d_resident_tile(int reach, int* ty, int* tx, int* fuse,
+                             int* threads) {
+  resident_plan(reach, fuse, ty, tx);
+  *threads = RESIDENT_THREADS;
 }
 
-// `mid`: an f32 scratch stack of n_storage planes for a plan of more than
-// one stage that is not in the ring form, may be null otherwise.
+// `nsteps` (even, at least 2) Iterations in one cooperative launch;
+// `scratch` is a second field stack, `counters` one int a tile (the
+// kernel resets those it uses), `reach` the plan's (at most HALO).
 int generic2d_resident(const float* fin, float* fout, float* scratch,
-                       float* mid, const int* flags, const float* ztab,
-                       const GenericArgs* a, int nsteps, int blocks,
+                       int* counters, const int* flags, const float* ztab,
+                       const GenericArgs* a, int nsteps, int reach,
                        int device, void* stream) {
-  if (model::N_STAGES > 1 && !RING_FORM && !mid)
-    return (int)cudaErrorInvalidValue;
-  return launch_resident<float>(fin, fout, scratch, mid, flags, ztab, a,
-                                Shift{}, nsteps, blocks, device, stream);
+  return launch_resident<float>(fin, fout, scratch, counters, flags, ztab,
+                                a, Shift{}, nsteps, reach, device, stream);
 }
 
 // generic2d_resident on a bf16 stack at rest, with the planes' shifts
-// `shift` (null: raw); `mid` is an f32 scratch of n_storage planes (read by
-// a plan of two stages or more, may be null for a one-stage one).
+// `shift` (null: raw).
 int generic2d_resident_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
-                            __nv_bfloat16* scratch, float* mid,
+                            __nv_bfloat16* scratch, int* counters,
                             const int* flags, const float* ztab,
                             const GenericArgs* a, const float* shift,
-                            int nsteps, int blocks, int device,
+                            int nsteps, int reach, int device,
                             void* stream) {
-  if (model::N_STAGES > 1 && !mid) return (int)cudaErrorInvalidValue;
   return launch_resident<__nv_bfloat16>(
-      fin, fout, scratch, mid, flags, ztab, a,
-      shift_arg<model::N_STORAGE>(shift), nsteps, blocks, device, stream);
+      fin, fout, scratch, counters, flags, ztab, a,
+      shift_arg<model::N_STORAGE>(shift), nsteps, reach, device, stream);
 }
 
 }  // extern "C"

@@ -25,10 +25,11 @@ version for a CPU tensor, and counts its launches in ``LAUNCHES``:
     cooperative launch runs 8 steps with a grid-wide barrier between them,
     ping-ponging two global buffers that, at karman.xml's 1024x100
     (~10 MB), stay in the 50 MB L2: device memory sees one read and one
-    write per 8 steps.  Its bound is set by operations, by a few percent
-    (8 x 267 flops per MRT node against 100 bytes, just above the card's
-    20 flops a byte); the grid barriers and the L2 bandwidth are what its
-    time shows.
+    write per 8 steps; a pull wraps by a compare, not a division.  Its
+    bound is set by operations, by a few percent (8 x 267 flops per MRT
+    node against 100 bytes, just above the card's 20 flops a byte); the
+    grid barriers, the L2 bandwidth and the node updates are what its time
+    shows.
 
 The same three kernels run the d2q9 family (``FAMILY``: ``d2q9_SRT``,
 ``d2q9_les``, ``d2q9_inc``, ``d2q9_cumulant``, ``d2q9_new``; the

@@ -19,7 +19,10 @@ d2q9's own build (multiply-add contraction on) is reported bit for bit
 or else by its count of differing values, and must then agree within the
 forward tolerance (``FORWARD_TOL``).  It then times ``d2q9_step2`` of
 both on the channel (``generic2d_parity.median_ms``: CUDA events over
-100 calls, the libraries alternating in 4 rounds).
+100 calls, the libraries alternating in 4 rounds), and holds and times
+``d2q9_resident8`` of both on the model's resident path state
+(``resident_lattice``), beside four ``d2q9_step2`` calls; last, karman.xml's
+``iterate(1000)`` window split with each library (``split_karman``).
 
     python -m tclb_tpu_torch.ops.d2q9_parity --cut SRC/csrc [MODEL ...]
 
@@ -27,6 +30,17 @@ builds ``SRC``'s ``d2q9.cu`` for each model in the cut-down variants of
 ``d2q9_step2`` that ``CUTS`` names and times each on the channel, the
 variants of a model alternating in rounds: the instrument that shows
 what holds the kernel back.
+
+    python -m tclb_tpu_torch.ops.d2q9_parity --cut --resident SRC/csrc \
+        [MODEL ...]
+
+does the same for ``d2q9_resident8`` in the variants ``RESIDENT_CUTS``
+(whole; the grid barriers alone; no barrier, its output wrong; loads and
+stores alone), each timed at the model's resident path lattice
+(``RESIDENT_PATHS``) beside four ``d2q9_step2`` calls of the whole build
+on the same state (the eight steps a band engine would take).  A variant
+whose code a source lacks (a design without grid barriers) is skipped
+with a note.
 """
 
 from __future__ import annotations
@@ -58,14 +72,38 @@ KERNELS = ("d2q9_step", "d2q9_step2", "d2q9_resident8")
 # come before those of step 2, as many of each.
 CUTS = ("full", "loads and stores", "step 1 alone")
 _CALL = re.compile(r"node_update\(a, f, ")
+# each model's resident path lattice (ny, nx): karman.xml, the SRT
+# Poiseuille, les_channel.xml, bench.py's 128x1024 channel (d2q9_inc,
+# d2q9_new) and cumulant2d.xml
+RESIDENT_PATHS = {"d2q9": (100, 1024), "d2q9_SRT": (21, 40),
+                  "d2q9_les": (96, 512), "d2q9_inc": (128, 1024),
+                  "d2q9_cumulant": (128, 1024), "d2q9_new": (128, 1024)}
+# --cut --resident: the variants of d2q9_resident8 as edits of the source
+# (pattern, replacement) inside the resident kernel and step_node:
+# "barriers alone" runs no node loop (the grid stride's loops end at
+# once), "no barrier" drops every grid.sync(), "loads and stores" drops
+# every node update (the pulled populations pass through)
+RESIDENT_CUTS = {
+    "whole": (),
+    "barriers alone": ((re.compile(r"idx < n; idx \+= stride"),
+                        "idx < 0; idx += stride"),),
+    "no barrier": ((re.compile(r"grid\.sync\(\);"), "(void)0;"),),
+    "loads and stores": ((_CALL, None),),
+}
+RESIDENT_SPANS = ("d2q9_resident8_kernel(", "step_node(")
 
 
 def parse_args(argv) -> tuple:
     """``(cut, csrc, models)`` from the command line, or raise
-    ``SystemExit(2)`` with the usage; ``models`` defaults to ``MODELS``
-    and every name must be one of them."""
-    cut = bool(argv) and argv[0] == "--cut"
-    rest = list(argv[1:] if cut else argv)
+    ``SystemExit(2)`` with the usage; ``cut`` is False, ``"step2"`` or
+    ``"resident"``; ``models`` defaults to ``MODELS`` and every name must
+    be one of them."""
+    rest = list(argv)
+    cut = False
+    if rest[:2] == ["--cut", "--resident"]:
+        cut, rest = "resident", rest[2:]
+    elif rest[:1] == ["--cut"]:
+        cut, rest = "step2", rest[1:]
     if not rest:
         print(__doc__, file=sys.stderr)
         raise SystemExit(2)
@@ -110,6 +148,26 @@ def cut_source(text: str, variant: str) -> str:
     return text
 
 
+def cut_resident(text: str, variant: str):
+    """``text`` (a d2q9.cu) with the resident variant ``variant`` cut into
+    the resident kernel and ``step_node``, or None where the source has
+    none of the code that variant removes."""
+    hit = False
+    for start, end in sorted(gp._spans(text, RESIDENT_SPANS), reverse=True):
+        body = text[start:end]
+        for pattern, repl in RESIDENT_CUTS[variant]:
+            if repl is not None:
+                body, n = pattern.subn(repl, body)
+                hit |= n > 0
+                continue
+            for m in sorted(pattern.finditer(body), key=lambda m: -m.start()):
+                stop = body.index(");", m.start()) + 1
+                body = body[:m.start()] + "(void)0" + body[stop:]
+                hit = True
+        text = text[:start] + body + text[end:]
+    return text if hit or not RESIDENT_CUTS[variant] else None
+
+
 def flags_of(model: str) -> tuple:
     """The compiler flags the port builds ``model``'s library with."""
     extra = () if model == "d2q9" else (
@@ -147,6 +205,18 @@ def rich_lattice(model: str, shape):
     return paint_rich_family(Lattice(m, shape, dtype=torch.float32,
                                      device="cuda",
                                      settings=family_settings(m)), 5)
+
+
+def resident_lattice(model: str):
+    """``model``'s resident path state at its lattice (``RESIDENT_PATHS``):
+    karman.xml's state after 200 eager steps for d2q9, a painted state
+    (``rich_lattice``) for a family model."""
+    if model != "d2q9":
+        return rich_lattice(model, RESIDENT_PATHS[model])
+    cs = gp.import_chip_smoke()
+    lat = cs.case_lattice(cs.KARMAN_XML, torch.float32, "cuda")
+    cs.eager_warm(lat, 200)
+    return lat
 
 
 def channel_lattice(model: str):
@@ -213,6 +283,86 @@ def time_step2(model: str, libs: dict, lat) -> dict:
     return ms
 
 
+def time_resident(model: str, libs: dict, lat) -> dict:
+    """``d2q9_resident8`` of each library (``libs``: tag -> library) on
+    ``lat``'s state beside four ``d2q9_step2`` calls of the first: the
+    median ms a call (eight steps), the libraries alternating."""
+    f, flags, vel, den, a = dk.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+
+    def launch(lib, fn):
+        _use(model, lib)
+        return fn(f, flags, vel, den, a)
+    calls = {tag: (lambda lib=lib: launch(lib, dk.resident8))
+             for tag, lib in libs.items()}
+    first = next(iter(libs.values()))
+
+    def four():
+        _use(model, first)
+        g = f
+        for _ in range(dk.RESIDENT_FUSE // 2):
+            g = dk.step2(g, flags, vel, den, a)
+        return g
+    calls["d2q9_step2 x4"] = four
+    ms = gp.median_ms(calls)
+    print(f"{model} d2q9_resident8 at {tuple(lat.shape)}: " + ", ".join(
+        f"{tag} {v:.5f} ms ({v / dk.RESIDENT_FUSE * 1e3:.2f} us a step)"
+        for tag, v in ms.items())
+        + f" (medians of {gp.ROUNDS}x{gp.REPS} calls)")
+    return ms
+
+
+def split_karman(libs: dict) -> dict:
+    """karman.xml's window split (chip_smoke's ``window_split``: an
+    ``iterate(1000)`` on its state, K2's device time and its wrapper's host
+    time a launch, the eager globals step, the idle share) with each
+    library (``libs``: tag -> d2q9's library) in turn."""
+    cs = gp.import_chip_smoke()
+    lat = resident_lattice("d2q9")
+    out = {}
+    for tag, lib in libs.items():
+        _use("d2q9", lib)
+        inputs = dk.kernel_inputs(lat.model, lat.state, lat.params)
+        out[tag] = cs.window_split(
+            lat, 1000, f"a karman iterate(1000), {tag}", "d2q9_resident8",
+            lambda: dk.LAUNCHES["d2q9_resident8"],
+            lambda: dk.resident8(*inputs))
+    return out
+
+
+def cut_resident_main(src: pathlib.Path, models) -> int:
+    """Time ``d2q9_resident8`` of ``src``'s builds of ``models`` in the
+    variants ``RESIDENT_CUTS`` at each model's resident path lattice."""
+    text = (src / "d2q9.cu").read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, names = [], []
+        for m in models:
+            for i, variant in enumerate(RESIDENT_CUTS):
+                cut = cut_resident(text, variant)
+                if cut is None:
+                    print(f"{m} {variant}: not in {src}'s d2q9_resident8, "
+                          "skipped")
+                    continue
+                path = pathlib.Path(tmp) / f"res_{m}_{i}.cu"
+                path.write_text(cut)
+                jobs.append((path, path.with_suffix(".so"), m))
+                names.append(variant)
+        libs = {}
+        for (_, _, m), variant, (lib, report) in zip(jobs, names,
+                                                      build_all(jobs)):
+            libs.setdefault(m, {})[variant] = lib
+            print(f"{m} {variant} ({src}):")
+            for line in gp.ptxas_lines(report):
+                print(f"  ptxas: {line}")
+        try:
+            for m in models:
+                time_resident(m, libs[m], rich_lattice(m, RESIDENT_PATHS[m]))
+        finally:
+            dk._LIB.clear()
+    print(gp.import_chip_smoke().card_line())
+    return 0
+
+
 def cut_main(src: pathlib.Path, models) -> int:
     """Time ``d2q9_step2`` of ``src``'s builds of ``models`` in the
     variants ``CUTS``."""
@@ -246,6 +396,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("d2q9_parity: needs a CUDA card", file=sys.stderr)
         return 2
+    if cut == "resident":
+        return cut_resident_main(csrc, models)
     if cut:
         return cut_main(csrc, models)
     srcs = {"this": cb.CSRC / "d2q9.cu", "other": csrc / "d2q9.cu"}
@@ -270,6 +422,11 @@ def main(argv=None) -> int:
                         ("the channel", channel_lattice(m))):
                     same &= compare(m, libs[m], lat, what)
                 time_step2(m, libs[m], lat)
+                lat = resident_lattice(m)
+                same &= compare(m, libs[m], lat, "its resident path")
+                time_resident(m, libs[m], lat)
+            if "d2q9" in models:
+                split_karman(libs["d2q9"])
     finally:
         dk._LIB.clear()
     print(gp.import_chip_smoke().card_line())

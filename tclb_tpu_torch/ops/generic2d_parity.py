@@ -19,7 +19,13 @@ the header defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
 cotangents, and exits nonzero unless every output is bit for bit the
 same, the globals within rtol 1e-4 / atol 1e-6 (a step that sums its
 stages in another order rounds its sums differently; each is also the
-same from run to run).  It then holds each flavour of
+same from run to run).  It also holds ``generic2d_resident`` and
+``generic2d_resident_bf16`` of both bit for bit at 8, 98 and 498 steps
+on both painted lattices and on the model's resident path
+(``RESIDENT_PATHS``), the bf16 launch against as many chained
+``generic2d_step_bf16`` launches, and times both flavours of both there
+(``time_resident``); for d2q9_kuper, drop.xml's window split with each
+library (``split_drop``).  It then holds each flavour of
 ``generic2d_step`` of both libraries alike at 1024x1024 (many tiles a
 side, where the small lattices have one or two) and times it there
 (``time_steps``: CUDA events over ``REPS`` calls, the libraries
@@ -29,6 +35,8 @@ model-independent templates (``generic2d.cu``, ``generic_common.cuh``,
 ``storage.cuh``, ``generic2d_adjoint.cuh``) is held this way against the
 parent's builds.
 
+A copy whose resident kernel runs a grid barrier a stage (exports
+``generic2d_resident_capacity``) is bound through :class:`GridBarrierAbi`.
 A copy of ``csrc/`` from before the backward read zonal settings (no
 ``generic2d_step_b_zonal`` export: its ``generic2d_step_b`` takes no zone
 table) is bound through :class:`NoZoneTableStepB`, which drops the zone
@@ -51,6 +59,17 @@ adjoint header (``d2q9_heat_adj``, ``d2q9_adj``, ``d2q9_optimalMixing``,
 whole and in the reverse variants ``REVERSE_CUTS`` (its data movement
 alone; its reverse stage without the settings sums) on the lattice of
 the model's gradient path.
+
+    python -m tclb_tpu_torch.ops.generic2d_parity --cut --resident \
+        SRC/csrc [MODEL ...]
+
+builds ``SRC``'s ``generic2d.cu`` for each ``MODEL`` (by default
+``RESIDENT_CUT_MODELS``) in the variants ``RESIDENT_CUTS`` of
+``generic2d_resident`` (whole; the grid barriers alone; no barrier, its
+output wrong; loads and stores alone) and times each at the model's
+resident path lattice and step count (``RESIDENT_PATHS``) beside one
+``generic2d_step`` of the whole build on the same state (a band engine's
+step); a variant whose code the source lacks is skipped with a note.
 
 Where the header defines ``TCLB_MODEL_ADJOINT``, the first form also
 holds ``generic2d_step_b`` of both libraries on that lattice (512x1024
@@ -80,6 +99,24 @@ from tclb_tpu_torch.ops import _cuda_build as cb
 from tclb_tpu_torch.ops import generic_kernels as gk
 
 SHAPES = ((37, 53), (256, 256))
+# each model's resident path: its lattice (ny, nx) and the steps one
+# generic2d_resident launch takes there (the even part of a Log
+# interval's niter - 1: 498 of 500, 198 of 200, heat_adj.xml's Solve
+# 3998, adj_drag.xml's 98); d2q9 at karman.xml's lattice (no path: d2q9
+# without a series takes its own kernels)
+RESIDENT_PATHS = {
+    "d2q9": ((100, 1024), 498), "d2q9_kuper": ((128, 128), 498),
+    "d2q9_heat_adj": ((32, 64), 3998), "d2q9_heat": ((64, 512), 498),
+    "d2q9_heat_conjugate": ((128, 128), 498), "d2q9_hb": ((128, 128), 498),
+    "sw": ((64, 256), 498), "d2q9_solid": ((128, 128), 198),
+    "d2q9_npe_guo": ((32, 64), 498),
+    "d2q9_pf_pressureEvolution": ((128, 64), 498),
+    "d2q9_pp_MCMP": ((64, 128), 498), "d2q9_lee": ((128, 128), 498),
+    "d2q9_poison_boltzmann": ((128, 128), 498),
+    "d2q9_adj": ((32, 64), 98), "d2q9_optimalMixing": ((128, 128), 198),
+    "d2q9_plate": ((128, 128), 198)}
+RESIDENT_STEPS = (8, 98, 498)   # the step counts held on the painted states
+RESIDENT_REPS = 10              # resident calls a round (timing)
 TIMED = (1024, 1024)      # the shape the step kernels are timed at
 REPS, ROUNDS = 100, 4     # calls a round, rounds a library (timing)
 GLOBALS_TOL = {"rtol": 1e-4, "atol": 1e-6}
@@ -435,14 +472,87 @@ class PassesAbi:
         return call
 
 
+class GridBarrierAbi:
+    """A library whose ``generic2d_resident`` is the grid-barrier kernel
+    (the copies of ``csrc/`` before the neighbour waits): its entries take
+    an f32 scratch stack ``mid`` where the counters go and the block count
+    where the reach goes, and it exports ``generic2d_resident_capacity``
+    instead of ``generic2d_resident_tile``.  The wrapper's calls are passed
+    on with ``mid`` where that kernel reads it (a plan of two stages or
+    more, but an f32 ring-form one) and as many blocks as the device holds
+    at once, no more than a block of 256 nodes a thread each (its own
+    rule).  Every other entry is the library's (or ``inner``'s) own."""
+
+    def __init__(self, inner, model: str):
+        self._inner = inner
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip, fp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_float)
+        argp = ctypes.POINTER(gk.c_args_type(model))
+        old = {"generic2d_resident": [p] * 6 + [argp, i, i, i, p],
+               "generic2d_resident_bf16": [p] * 6 + [argp, fp, i, i, i, p],
+               "generic2d_resident_capacity": [i, i, ip, ip]}
+        for name, args in old.items():
+            getattr(inner, name).argtypes = args
+            getattr(inner, name).restype = i
+        m = gk._get_model(model)
+        stages = len(gk.DEVICE_MODELS[model].plan)
+        ring = gk.step_form(m) == "ring"
+        self._capacity = {}
+
+        def launcher(name, bf16):
+            fn = getattr(inner, name)
+
+            def call(fin, fout, scratch, counters, flags, ztab, args, *rest):
+                # rest: [shift,] nsteps, reach, device, stream
+                a, dev = args._obj, rest[-2]
+                mid = None
+                if stages > 1 and (bf16 or not ring):
+                    mid = torch.empty((len(gk.DEVICE_MODELS[model].storage),
+                                       a.ny, a.nx), dtype=torch.float32,
+                                      device=torch.device("cuda", dev))
+                blocks = min(self.capacity(dev, bf16),
+                             (a.ny * a.nx + 255) // 256)
+                return fn(fin, fout, scratch,
+                          None if mid is None else mid.data_ptr(), flags,
+                          ztab, args, *rest[:-3], blocks, dev, rest[-1])
+            return call
+        self.generic2d_resident = launcher("generic2d_resident", False)
+        self.generic2d_resident_bf16 = launcher("generic2d_resident_bf16",
+                                                True)
+
+        def tile(reach, ty, tx, fuse, threads):
+            ty._obj.value, tx._obj.value = gk.BLOCK
+        self.generic2d_resident_tile = tile
+
+    def capacity(self, device: int, bf16: bool) -> int:
+        """Blocks of the cooperative kernel the device holds at once."""
+        key = (device, bf16)
+        if key not in self._capacity:
+            coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            gk.check(self._inner, self._inner.generic2d_resident_capacity(
+                device, int(bf16), ctypes.byref(coop),
+                ctypes.byref(blocks)), "generic2d_resident capacity query")
+            if not coop.value or blocks.value < 1:
+                raise RuntimeError(f"device {device} cannot run the "
+                                   "cooperative generic2d_resident")
+            self._capacity[key] = blocks.value
+        return self._capacity[key]
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
     """``model``'s ``gk._LIB`` entry for the library at ``path``: bound
-    through :class:`PassesAbi` where ``passes_abi``, its
-    ``generic2d_step_b`` through :class:`NoZoneTableStepB` where the
-    library has no ``generic2d_step_b_zonal``."""
+    through :class:`PassesAbi` where ``passes_abi``, through
+    :class:`GridBarrierAbi` where its resident kernel is the grid-barrier
+    one, its ``generic2d_step_b`` through :class:`NoZoneTableStepB` where
+    the library has no ``generic2d_step_b_zonal``."""
     raw = ctypes.CDLL(str(path))
-    entry = gk.bind(PassesAbi(raw, model) if passes_abi else raw, model,
-                    path.name)
+    lib = PassesAbi(raw, model) if passes_abi else raw
+    if hasattr(raw, "generic2d_resident_capacity"):
+        lib = GridBarrierAbi(lib, model)
+    entry = gk.bind(lib, model, path.name)
     if "tile_b" in entry and not hasattr(raw, "generic2d_step_b_zonal"):
         entry["lib"] = NoZoneTableStepB(entry["lib"], model)
     return entry
@@ -542,6 +652,21 @@ B_COPY = ("for (int k_ = 0; k_ < model::N_STORAGE; ++k_) "
 REVERSE_CUTS = ("reverse loads and stores", "reverse without settings sums")
 CUT_MODELS = ("d2q9_npe_guo", "d2q9_solid", "d2q9_pf_pressureEvolution",
               "d2q9_kuper")
+# --cut --resident: the variants of generic2d_resident as edits of its
+# source (pattern, replacement), inside RESIDENT_SPANS: "barriers alone"
+# runs no node loop (the grid stride's loops end at once), "no barrier"
+# drops every grid.sync(); "loads and stores" is CUTS' variant (in
+# run_stage, so in every form)
+RESIDENT_CUTS = {
+    "whole": (),
+    "barriers alone": ((re.compile(r"idx < \(int\)n; idx \+= stride"),
+                        "idx < 0; idx += stride"),),
+    "no barrier": ((re.compile(r"grid\.sync\(\);"), "(void)0;"),),
+    "loads and stores": (),
+}
+RESIDENT_SPANS = ("resident_stages(", "generic2d_resident_kernel(")
+RESIDENT_CUT_MODELS = ("d2q9_kuper", "d2q9_heat_adj", "d2q9_heat",
+                       "d2q9_npe_guo", "d2q9_solid", "d2q9_lee")
 CUT_FLAVOURS = ("plain", "bf16")
 
 
@@ -600,6 +725,43 @@ def cut_csrc(src: pathlib.Path, dst: pathlib.Path, model: str,
     path.write_text(text.replace(CUT_HOOK, CUTS[variant]))
 
 
+def _spans(text: str, names) -> list:
+    """The ``(start, end)`` of each definition of the functions ``names``
+    in ``text``: from the name to the ``}`` that closes its body."""
+    out = []
+    for name in names:
+        at = text.find(name)
+        while at >= 0:
+            end = text.index("\n}\n", at)
+            if text.find("{", at, end) >= 0:
+                out.append((at, end))
+            at = text.find(name, end)
+    return out
+
+
+def cut_resident_csrc(src: pathlib.Path, dst: pathlib.Path,
+                      variant: str) -> bool:
+    """A copy of ``src`` at ``dst`` with the resident variant ``variant``
+    cut into ``generic2d.cu``; False (and no copy) where the source has
+    none of the code that variant removes."""
+    if variant == "loads and stores":
+        cut_csrc(src, dst, "", variant)
+        return True
+    text = (src / "generic2d.cu").read_text()
+    hit = False
+    for start, end in sorted(_spans(text, RESIDENT_SPANS), reverse=True):
+        body = text[start:end]
+        for pattern, repl in RESIDENT_CUTS[variant]:
+            body, n = pattern.subn(repl, body)
+            hit |= n > 0
+        text = text[:start] + body + text[end:]
+    if RESIDENT_CUTS[variant] and not hit:
+        return False
+    shutil.copytree(src, dst)
+    (dst / "generic2d.cu").write_text(text)
+    return True
+
+
 def build_cut(csrc: pathlib.Path, model: str) -> tuple:
     """Compile ``csrc/generic2d.cu`` with ``model``'s header as the port
     builds it, into ``csrc``: the library's path and the report."""
@@ -611,6 +773,147 @@ def build_cut(csrc: pathlib.Path, model: str) -> tuple:
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {csrc}:\n{proc.stderr}")
     return out, proc.stdout + proc.stderr
+
+
+def resident_lattice(model: str):
+    """A painted state (``paint``) at ``model``'s resident path lattice
+    and the steps one launch takes there (``RESIDENT_PATHS``)."""
+    from tclb_tpu_torch.models import get_model
+    shape, steps = RESIDENT_PATHS[model]
+    return paint(get_model(model), shape), steps
+
+
+def time_resident(lat, libs: dict, nsteps: int, compare: bool = False,
+                  bf16: bool = False) -> tuple:
+    """``generic2d_resident`` (``bf16``: on the shifted bf16 stack,
+    ``generic2d_resident_bf16``) of each library (``libs``: tag -> its
+    ``gk._LIB`` entry) for ``nsteps`` steps on ``lat``'s state, and one
+    ``generic2d_step`` of the first library on the same stack: the median
+    ms a call, the libraries alternating.  With ``compare``, each
+    library's output is first held against the first library's bit for
+    bit.  Returns the times and whether all agreed."""
+    m = lat.model.name
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    if bf16:
+        f, a = bf16_inputs(lat, f, a)
+    what = (f"{m} generic2d_resident{'_bf16' if bf16 else ''} ({nsteps} "
+            f"steps) at {lat.shape}")
+
+    def launch(entry, call):
+        gk._LIB[m] = entry
+        return call()
+    res = (lambda: gk.resident(f, flags, ztab, a, nsteps))
+    same = True
+    if compare:
+        got = {tag: launch(e, res) for tag, e in libs.items()}
+        (tag0, ref), *rest = got.items()
+        for tag, out in rest:
+            equal = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+            print(f"{what}: {tag} {'bit-identical' if equal else 'DIFFERS'}"
+                  f" to {tag0}")
+            same &= equal
+    first = next(iter(libs.values()))
+    ms = median_ms({tag: (lambda e=e: launch(e, res))
+                    for tag, e in libs.items()}, reps=RESIDENT_REPS)
+    step = median_ms({"": lambda: launch(
+        first, lambda: gk.step(f, flags, ztab, a))})[""]
+    print(f"{what}: " + ", ".join(
+        f"{tag} {v:.5f} ms ({v / nsteps * 1e3:.2f} us a step)"
+        for tag, v in ms.items())
+        + f"; generic2d_step{'_bf16' if bf16 else ''} {step:.5f} ms a step"
+        f" (medians of {ROUNDS}x{RESIDENT_REPS} resident calls, "
+        f"{ROUNDS}x{REPS} steps)")
+    ms["generic2d_step"] = step
+    return ms, same
+
+
+def hold_resident(lat, libs: dict, nsteps: int) -> bool:
+    """``generic2d_resident`` and ``generic2d_resident_bf16`` of each
+    library for ``nsteps`` steps on ``lat``'s state, bit for bit against
+    the first library's, and the first library's bf16 launch bit for bit
+    against as many chained ``generic2d_step_bf16`` launches."""
+    m = lat.model.name
+    f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    fb, ab = bf16_inputs(lat, f, a)
+    same = True
+    for tag, (x, args) in (("", (f, a)), ("_bf16", (fb, ab))):
+        outs = {}
+        for lib_tag, entry in libs.items():
+            gk._LIB[m] = entry
+            outs[lib_tag] = gk.resident(x, flags, ztab, args, nsteps)
+        (tag0, ref), *rest = outs.items()
+        for lib_tag, out in rest:
+            equal = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+            print(f"{m} generic2d_resident{tag} ({nsteps} steps) "
+                  f"{lat.shape}: {lib_tag} "
+                  f"{'bit-identical' if equal else 'DIFFERS'} to {tag0}")
+            same &= equal
+    gk._LIB[m] = next(iter(libs.values()))
+    chain = fb
+    for _ in range(nsteps):
+        chain = gk.step(chain, flags, ztab, ab)
+    got = gk.resident(fb, flags, ztab, ab, nsteps)
+    equal = torch.equal(got.view(torch.int16), chain.view(torch.int16))
+    print(f"{m} generic2d_resident_bf16 ({nsteps} steps) {lat.shape}: "
+          f"{'bit-identical' if equal else 'DIFFERS'} to {nsteps} chained "
+          "generic2d_step_bf16 launches")
+    return same and equal
+
+
+def split_drop(libs: dict) -> dict:
+    """drop.xml's window split (chip_smoke's ``window_split``: an
+    ``iterate`` of one Log interval on its state after 100 eager steps,
+    K5's device time and its wrapper's host time a launch, the idle
+    share) with each library (``libs``: tag -> d2q9_kuper's entry) in
+    turn."""
+    import xml.etree.ElementTree as ET
+    cs = import_chip_smoke()
+    lat = cs.case_lattice(cs.DROP_XML, torch.float32, "cuda")
+    cs.eager_warm(lat, 100)
+    every = int(ET.parse(cs.DROP_XML).getroot().find("Log")
+                .get("Iterations"))
+    out = {}
+    for tag, entry in libs.items():
+        gk._LIB["d2q9_kuper"] = entry
+        f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state,
+                                             lat.params)
+        out[tag] = cs.window_split(
+            lat, every, f"a drop iterate({every}), {tag}",
+            "generic2d_resident", lambda: gk.LAUNCHES["generic2d_resident"],
+            lambda: gk.resident(f, flags, ztab, a, (every - 1) // 2 * 2))
+    return out
+
+
+def cut_resident_main(src: pathlib.Path, models) -> int:
+    """Time ``generic2d_resident`` of ``src``'s builds of ``models`` in the
+    variants ``RESIDENT_CUTS`` at each model's resident path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for m in models:
+            for i, v in enumerate(RESIDENT_CUTS):
+                dst = pathlib.Path(tmp) / f"{m}_{i}"
+                if cut_resident_csrc(src, dst, v):
+                    jobs.append((m, v, dst))
+                else:
+                    print(f"{m} {v}: not in {src}'s generic2d_resident, "
+                          "skipped")
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            built = list(pool.map(lambda j: build_cut(j[2], j[0]), jobs))
+        libs = {}
+        try:
+            for (m, v, _), (path, report) in zip(jobs, built):
+                libs.setdefault(m, {})[v] = _entry(m, path, False)
+                print(f"{m} {v} ({src}):")
+                for line in ptxas_lines(report):
+                    if "resident" in line:
+                        print(f"  ptxas: {line}")
+            for m in models:
+                lat, steps = resident_lattice(m)
+                time_resident(lat, libs[m], steps)
+        finally:
+            gk._LIB.clear()
+    print(import_chip_smoke().card_line())
+    return 0
 
 
 def cut_main(src: pathlib.Path, models) -> int:
@@ -629,8 +932,7 @@ def cut_main(src: pathlib.Path, models) -> int:
         libs = {}
         try:
             for (m, v, _), (path, report) in zip(jobs, built):
-                libs.setdefault(m, {})[v] = gk.bind(
-                    ctypes.CDLL(str(path)), m, path.name)
+                libs.setdefault(m, {})[v] = _entry(m, path, False)
                 print(f"{m} {v} ({src}):")
                 for line in ptxas_lines(report):
                     print(f"  ptxas: {line}")
@@ -655,6 +957,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("generic2d_parity: needs a CUDA card", file=sys.stderr)
         return 2
+    if argv[:2] == ["--cut", "--resident"] and len(argv) > 2:
+        return cut_resident_main(pathlib.Path(argv[2]).resolve(),
+                                 list(argv[3:]) or list(RESIDENT_CUT_MODELS))
     if argv[0] == "--cut":
         return cut_main(pathlib.Path(argv[1]).resolve(),
                         list(argv[2:]) or list(CUT_MODELS))
@@ -697,7 +1002,18 @@ def main(argv=None) -> int:
                               " run to run")
                         same &= close and rerun
                 pair = {tag: entries[m] for tag, entries in libs.items()}
+                for shape in SHAPES:
+                    lat = paint(get_model(m), shape)
+                    for nsteps in RESIDENT_STEPS:
+                        same &= hold_resident(lat, pair, nsteps)
+                lat, nsteps = resident_lattice(m)
+                same &= hold_resident(lat, pair, nsteps)
+                for bf16 in (False, True):
+                    same &= time_resident(lat, pair, nsteps, compare=True,
+                                          bf16=bf16)[1]
                 same &= time_steps(timed_lattice(m), pair, compare=True)[1]
+                if m == "d2q9_kuper":
+                    split_drop(pair)
                 if gk.DEVICE_MODELS[m].adjoint:
                     same &= time_step_b(step_b_lattice(m), pair,
                                         compare=True)[1]

@@ -54,9 +54,13 @@ series flavours in ``SERIES_LAUNCHES``):
     The reference's ``_DT`` planes have no reader among the models with a
     device header, and no kernel computes them.
 ``resident`` (``generic2d_resident``) replaces ``make_resident_iterate``:
-    an even number of Iterations in one cooperative launch, a grid barrier
-    after each stage, two ping-pong buffers (and a multi-stage plan's
-    scratch stack) that stay in the L2 when the lattice fits half of it.
+    an even number of Iterations in one cooperative launch.  Each block
+    owns its tiles (``resident_tile``) for the whole launch and runs a
+    step's stages on them as the staged form does, the earlier stages'
+    planes in shared memory; instead of a grid barrier a stage, it
+    publishes each step in a counter and waits only for the blocks whose
+    tiles lie within ``HALO`` of its own.  Two ping-pong buffers stay in
+    the L2 when the lattice fits half of it.
 
 The storage ladder: ``step``, ``step_globals`` and ``resident`` also take
 a bf16 stack at rest, launching ``generic2d_step_bf16`` and
@@ -508,6 +512,11 @@ TILED = (8, 32)
 TILED_BLOCKS = 2
 TILED_MIN_PLANES = 40
 RING_TILE = {"rows": 32, "cols": 32, "thread_rows": 16, "blocks": 2}
+# generic2d_resident's stage-0 region (csrc/generic2d.cu: KRX, KRY): one
+# node a thread, `one_stage_rows` for a plan of one stage; its blocks in a
+# launch at most (RESIDENT_MAX_BLOCKS)
+RESIDENT_REGION = {"cols": 32, "rows": 16, "one_stage_rows": 8}
+RESIDENT_MAX_BLOCKS = 2048      # csrc/resident_sync.cuh
 # generic2d_step_b's tile (csrc/generic2d_adjoint.cuh: BQ, BQ_ROWS,
 # B_BLOCKS, B_NARROW_MIN_PLANES): q on `side` x `side` nodes, a block of
 # `rows` rows of `side` threads (`narrow_rows` for a header of at least
@@ -555,6 +564,64 @@ def ring_tile(model: Model) -> dict:
             "blocks": RING_TILE["blocks"],
             "smem": 4 * model.n_storage * rows * cols,
             "stage0_per_node": rows * cols / (out[0] * out[1])}
+
+
+def resident_tile(model: Model, shape=None) -> dict:
+    """``generic2d_resident``'s tile for ``model`` (csrc/generic2d.cu
+    mirrors it: ``resident_plan``): the region of a group's first stage
+    (one node a thread of the block), the steps a group runs between two
+    waits (two where the tile that leaves, the region less the plan's
+    reach and stage 0's ring a side, keeps half of the region, else one),
+    the tile, each stage's ring, the f32 shared memory (the earlier
+    stages' planes, and a step's result where a group runs two), the
+    stage-0 nodes a block computes a group for each output node a step,
+    and, for a lattice of ``shape``, the tiles (row-major) and the blocks
+    that own them (block b the tiles b, b + blocks, ...: at most one a
+    tile and ``RESIDENT_MAX_BLOCKS``, the device's co-resident blocks
+    aside)."""
+    plan, reach = action_plan(model)
+    e0 = plan[0][1]
+    rr = RESIDENT_REGION
+    rows = rr["rows"] if len(plan) > 1 else rr["one_stage_rows"]
+    cols = rr["cols"]
+    fuse, ring0 = 2, reach + e0
+    if rows - 2 * ring0 < 2 \
+            or 2 * (rows - 2 * ring0) * (cols - 2 * ring0) < rows * cols:
+        fuse, ring0 = 1, e0
+    tile = (rows - 2 * ring0, cols - 2 * ring0)
+    planes = model.n_storage * rows * cols
+    stage0 = sum((tile[0] + 2 * (j * reach + e0))
+                 * (tile[1] + 2 * (j * reach + e0)) for j in range(fuse))
+    out = {"region": (rows, cols), "fuse": fuse, "tile": tile,
+           "ring": ring0, "reach": reach,
+           "rings": tuple(ext for _, ext in plan), "threads": rows * cols,
+           "smem": 4 * planes * ((len(plan) > 1) + (fuse > 1)),
+           "stage0_per_node": stage0 / (fuse * tile[0] * tile[1])}
+    if shape is not None:
+        grid = tuple(-(-int(n) // t) for n, t in zip(shape, tile))
+        out["tiles"] = grid
+        out["blocks"] = min(grid[0] * grid[1], RESIDENT_MAX_BLOCKS)
+    return out
+
+
+def resident_waits(shape, tile, reach: int, blocks: int) -> list:
+    """For each of ``blocks`` blocks of a resident launch (csrc/
+    resident_sync.cuh; ``generic2d_resident``, ``d2q9_resident8``) on a
+    lattice of ``shape`` cut into ``tile``-sized tiles, row-major, block
+    b owning the tiles b, b + blocks, ...: the set of blocks it waits for
+    before a step, the owners of every node within ``reach`` of its tiles
+    (wrapped)."""
+    ny, nx = (int(s) for s in shape)
+    ty, tx = tile
+    ntx = -(-nx // tx)
+    ntiles = ntx * -(-ny // ty)
+    out = [set() for _ in range(blocks)]
+    for t in range(ntiles):
+        y0, x0 = t // ntx * ty, t % ntx * tx
+        ys = {(y0 + d) % ny // ty for d in range(-reach, ty + reach)}
+        xs = {(x0 + d) % nx // tx for d in range(-reach, tx + reach)}
+        out[t % blocks].update((r * ntx + c) % blocks for r in ys for c in xs)
+    return out
 
 
 def step_b_tile(model: Model) -> dict:
@@ -1255,11 +1322,12 @@ def bind(lib, model: str, name: str) -> dict:
             ("generic2d_step", [p, p, p, p, argp, p, p, i, p], i),
             ("generic2d_step_series", [p, p, p, p, argp, p, p, i, i, p, p,
                                        i, p], i),
-            ("generic2d_resident", [p, p, p, p, p, p, argp, i, i, i, p], i),
+            ("generic2d_resident", [p, p, p, p, p, p, argp, i, i, i, p],
+             i),
             ("generic2d_step_bf16", [p, p, p, p, argp, fp, p, p, i, p], i),
             ("generic2d_resident_bf16", [p, p, p, p, p, p, argp, fp, i, i,
                                          i, p], i),
-            ("generic2d_resident_capacity", [i, i, ip, ip], i),
+            ("generic2d_resident_tile", [i] + [ip] * 4, None),
             ("generic_error_string", [i], ctypes.c_char_p)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
@@ -1285,6 +1353,10 @@ def bind(lib, model: str, name: str) -> dict:
         raise RuntimeError(f"{name} runs {stages.value} stages, the "
                            f"wrapper expects {len(dm.plan)}")
     entry["tile"] = (tile_y, tile_x)
+    res = [ctypes.c_int(0) for _ in range(4)]
+    lib.generic2d_resident_tile(action_plan(_get_model(model))[1],
+                                *[ctypes.byref(v) for v in res])
+    entry["resident_tile"] = (res[0].value, res[1].value)
     return entry
 
 
@@ -1346,13 +1418,6 @@ def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
-
-
-def _mid(fields, needed: bool):
-    """The f32 scratch stack a resident launch of a plan of two stages or
-    more hands its earlier stages' planes in (``needed``), else None."""
-    return torch.empty(fields.shape, dtype=torch.float32,
-                       device=fields.device) if needed else None
 
 
 def _ptr(t) -> Optional[int]:
@@ -1435,37 +1500,10 @@ def step_series_globals(fields, flags, ztab, a: StepArgs,
     return _launch_step(fields, flags, ztab, a, True, series, it)
 
 
-def resident_grid(model: str, device: int, nodes: int,
-                  bf16: bool = False) -> int:
-    """Blocks of one cooperative ``generic2d_resident`` (``bf16``:
-    ``generic2d_resident_bf16``) launch of ``model``'s library: as many as
-    the device holds at once, no more than the lattice needs.  Raises when
-    the device cannot launch cooperative kernels."""
-    lb = lib(model)
-    entry = _LIB[model]
-    key = ("capacity", device, bf16)
-    if key not in entry:
-        coop, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        check(lb, lb.generic2d_resident_capacity(
-            device, int(bf16), ctypes.byref(coop), ctypes.byref(blocks)),
-            "generic2d_resident capacity query")
-        if not coop.value:
-            raise RuntimeError(f"CUDA device {device} cannot launch "
-                               "cooperative kernels (cudaDevAttr"
-                               "CooperativeLaunch is 0)")
-        if blocks.value < 1:
-            raise RuntimeError("generic2d_resident fits no block on device "
-                               f"{device}")
-        entry[key] = blocks.value
-    return min(entry[key], (nodes + 255) // 256)
-
-
 def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     """``nsteps`` Iterations (even, at least 2) in one cooperative launch
     (kernel ``generic2d_resident``; ``generic2d_resident_bf16`` for a bf16
-    stack).  An f32 scratch stack carries the earlier stages' planes to the
-    later ones: a staged-form plan's at either storage, a ring-form plan's
-    on a bf16 stack."""
+    stack)."""
     if nsteps < 2 or nsteps % 2:
         raise ValueError(f"nsteps={nsteps}: the ping-pong needs an even "
                          "count of at least 2")
@@ -1474,28 +1512,24 @@ def resident(fields, flags, ztab, a: StepArgs, nsteps: int) -> torch.Tensor:
     validate(fields, flags, ztab, a)
     lb = lib(a.model)
     dev, stream = device_and_stream(fields)
-    bf16 = fields.dtype == torch.bfloat16
-    blocks = resident_grid(a.model, dev, a.ny * a.nx, bf16)
+    ty, tx = _LIB[a.model]["resident_tile"]
     out = torch.empty_like(fields)
     scratch = torch.empty_like(fields)
-    # the earlier stages' planes: in `mid`, but for an f32 ring-form plan
-    # (stage 0 writes the step's output buffer)
-    mid = _mid(fields, len(DEVICE_MODELS[a.model].plan) > 1 and (
-        bf16 or step_form(_get_model(a.model)) != "ring"))
-    if bf16:
-        rc = lb.generic2d_resident_bf16(
-            fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
-            flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
-            a.c_shift, nsteps, blocks, dev, stream)
-        check(lb, rc, "generic2d_resident_bf16")
-        LAUNCHES["generic2d_resident_bf16"] += 1
-        return out
-    rc = lb.generic2d_resident(
-        fields.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ptr(mid),
-        flags.data_ptr(), ztab.data_ptr(), ctypes.byref(a.c_struct),
-        nsteps, blocks, dev, stream)
-    check(lb, rc, "generic2d_resident")
-    LAUNCHES["generic2d_resident"] += 1
+    counters = torch.empty((-(-a.ny // ty) * -(-a.nx // tx),),
+                           dtype=torch.int32, device=fields.device)
+    head = (fields.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            counters.data_ptr(), flags.data_ptr(), ztab.data_ptr(),
+            ctypes.byref(a.c_struct))
+    reach = action_plan(_get_model(a.model))[1]
+    name = "generic2d_resident"
+    if fields.dtype == torch.bfloat16:
+        name = "generic2d_resident_bf16"
+        rc = lb.generic2d_resident_bf16(*head, a.c_shift, nsteps, reach,
+                                        dev, stream)
+    else:
+        rc = lb.generic2d_resident(*head, nsteps, reach, dev, stream)
+    check(lb, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 

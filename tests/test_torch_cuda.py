@@ -1531,3 +1531,57 @@ def test_generic3d_models_take_the_band_engine(card_lattice_generic3d,
     torch.testing.assert_close(lat.state.globals_, ref.state.globals_,
                                rtol=1e-4, atol=1e-6)
 
+
+
+# --------------------------------------------------------------------------- #
+# The resident kernels at tiny and ragged lattices: a tile (generic2d_
+# resident) or a block's nodes (d2q9_resident8) wrap onto themselves
+# --------------------------------------------------------------------------- #
+
+RESIDENT_SMALL = [(21, 40), (37, 53), (9, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RESIDENT_SMALL + [(5, 7)])
+@pytest.mark.parametrize("model", ("d2q9",) + FAMILY_MODELS)
+def test_resident8_small_lattices(card_lattice, card_lattice_family, model,
+                                  shape):
+    """d2q9_resident8 of every build against its plain version at the SRT
+    Poiseuille's 21x40, a ragged 37x53 and lattices smaller than a
+    block."""
+    lat = card_lattice(shape, seed=3) if model == "d2q9" else \
+        card_lattice_family(model, shape, seed=3)
+    f, flags, vel, den, args = dk.kernel_inputs(lat.model, lat.state,
+                                                lat.params)
+    dk.reset_launches()
+    got = dk.resident8(f, flags, vel, den, args)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES[dk.launch_key("d2q9_resident8", model)] == 1
+    want = dk.plain_steps(f, flags, vel, den, args, dk.RESIDENT_FUSE)
+    torch.testing.assert_close(got, want, **FIELDS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsteps", [2, 8, 98])
+@pytest.mark.parametrize("shape", RESIDENT_SMALL)
+@pytest.mark.parametrize("model", ["d2q9_heat", "d2q9_kuper",
+                                   "d2q9_pf_pressureEvolution", "d2q9_lee",
+                                   "d2q9_poison_boltzmann", "d2q9_npe_guo"])
+def test_resident_small_lattices(model, shape, nsteps):
+    """generic2d_resident (two steps a wait for the one-stage plans and
+    d2q9_kuper, one for the others) and its bf16 flavour bit for bit as
+    many chained generic2d_step and generic2d_step_bf16 launches, where a
+    tile's ring wraps onto the tile and onto one neighbour twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from tclb_tpu_torch.ops import generic2d_parity as gp
+    lat = gp.paint(get_model(model), shape, seed=4)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state, lat.params)
+    fb, ab = gp.bf16_inputs(lat, f, args)
+    for x, a in ((f, args), (fb, ab)):
+        chain = x
+        for _ in range(nsteps):
+            chain = gk.step(chain, flags, ztab, a)
+        got = gk.resident(x, flags, ztab, a, nsteps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), chain.view(torch.int16))

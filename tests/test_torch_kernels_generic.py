@@ -287,16 +287,16 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """generic2d.cu builds once per model, the model's header pre-included,
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
-    adjoint header or the storage seams generic2d.cu includes changes all
-    of them; editing the shared d2q9 blocks changes the fourteen
+    adjoint header, the storage seams or the resident kernel's waits
+    (resident_sync.cuh) generic2d.cu includes changes all of them; editing the shared d2q9 blocks changes the fourteen
     one-stage, multi-stage and adjoint models built on them; editing a
     file none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
     assert [p.name for p in _cuda_build.included(csrc / "generic2d.cu")] \
-        == ["generic2d.cu", "generic_common.cuh", "storage.cuh",
-            "generic2d_adjoint.cuh"]
+        == ["generic2d.cu", "generic_common.cuh", "resident_sync.cuh",
+            "storage.cuh", "generic2d_adjoint.cuh"]
     headers = {m: dm.header for m, dm in gk.DEVICE_MODELS.items()
                if dm.ndim == 2}
     onestage = {"d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "sw",
@@ -330,6 +330,10 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     again = digests()
     seams = csrc / "storage.cuh"
     seams.write_text(seams.read_text() + "\n// edited\n")
+    assert all(a != b for a, b in zip(digests().values(), again.values()))
+    again = digests()
+    sync = csrc / "resident_sync.cuh"
+    sync.write_text(sync.read_text() + "\n// edited\n")
     assert all(a != b for a, b in zip(digests().values(), again.values()))
     again = digests()
     common = csrc / "models" / "d2q9_common.cuh"

@@ -331,15 +331,17 @@ class _FakeLib:
 @pytest.mark.parametrize("name", STAGED + RING + ("d2q9_heat",))
 def test_mid_only_for_a_plan_run_as_passes(monkeypatch, name):
     """No plan runs as passes any more, so a step hands its library no
-    scratch stack (``_mid`` is never asked for), and the partials and
-    globals buffers only in the globals flavour: every form runs in one
-    launch, the staged form's earlier stages in shared memory."""
+    scratch stack (the wrapper has no ``_mid`` to ask for one: since the
+    resident kernel keeps the earlier stages in shared memory too, no
+    kernel takes one), and the partials and globals buffers only in the
+    globals flavour: every form runs in one launch, the staged form's
+    earlier stages in shared memory."""
     m = get_model(name)
     fake = _FakeLib()
     monkeypatch.setitem(gk._LIB, name, {"lib": fake, "tile": (16, 32)})
     monkeypatch.setattr(gk, "lib", lambda model: fake)
     monkeypatch.setattr(gk, "device_and_stream", lambda t: (0, 0))
-    monkeypatch.setattr(gk, "_mid", lambda *a: pytest.fail("_mid asked"))
+    assert not hasattr(gk, "_mid")
     shape = (8, 40)
     f = torch.zeros((m.n_storage,) + shape, dtype=torch.float32)
     flags = torch.zeros(shape, dtype=torch.int32)
@@ -789,12 +791,13 @@ def test_step_b3_partials_sized_by_the_grid(monkeypatch, shape):
                                   "d3q19_heat"])
 def test_generic3d_step_takes_no_scratch(monkeypatch, name):
     """No 3D plan hands its stages' planes on through a scratch stack: the
-    step entries take none (``_mid`` is never asked for), a call counts
-    one launch a stage (d3q19_kuper: two), and the partials (with the
-    carry row) and globals only in the globals flavour."""
+    step entries take none (the wrappers have no ``_mid`` to ask for
+    one), a call counts one launch a stage (d3q19_kuper: two), and the
+    partials (with the carry row) and globals only in the globals
+    flavour."""
     fake = _FakeLib3(name)
     g3, entry = _bind3(monkeypatch, name, fake)
-    monkeypatch.setattr(gk, "_mid", lambda *a: pytest.fail("_mid asked"))
+    assert not hasattr(gk, "_mid")
     m, f, flags, ztab, a = _inputs3(name, (4, 8, 40))
     g3.reset_launches()
     g3._launch_step(f, flags, ztab, a, with_globals=False)
