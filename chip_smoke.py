@@ -2492,6 +2492,11 @@ def window_split(lat, niter: int, what: str, kernel: str, count,
 BF16 = torch.bfloat16
 HARNESS_N, HARNESS_NITER = 64, 500     # tests/test_precision.py's size
 FLAGSHIP_N, FLAGSHIP_WINDOW = 1024, 2000
+# the bf16 flagship windows on the previous pass-form kernel, whose pulls
+# wrapped by integer modulo (MLUPS, PERF.md section 6: generic2d_parity's
+# flagship_windows, that library beside this one's in one call on NVIDIA
+# H100 80GB HBM3, 700.00 W), printed beside this run's
+FLAGSHIP_BEFORE_MLUPS = {"bf16_shifted": 30928.6, "bf16_raw": 32318.7}
 
 
 def bf16_key(mod, name: str, model: str) -> str:
@@ -2764,8 +2769,11 @@ def flagship_phase(gk) -> dict:
                            "globals": gk.flavours(
                                "generic2d_step_bf16")["globals"]},
                        "lattice": lat}
+        before = (f" (the previous kernel: "
+                  f"{FLAGSHIP_BEFORE_MLUPS[label]:.1f} MLUPS, PERF.md)"
+                  if label in FLAGSHIP_BEFORE_MLUPS else "")
         say(f"  {label}: engine {lat.engine_name}, {mlups:.1f} MLUPS "
-            f"({dt * 1e3:.2f} ms), bf16 launches "
+            f"({dt * 1e3:.2f} ms){before}, bf16 launches "
             f"{ {k: gk.LAUNCHES[k] for k in gk.BF16_KERNELS} }")
     want = {"f32": "cuda_d2q9_band[d2q9,fuse=2]",
             "f32_generic": "cuda_generic_band[d2q9,fuse=1]",

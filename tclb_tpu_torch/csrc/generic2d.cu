@@ -66,11 +66,20 @@
 //                       each SUM global over the output tiles: per-thread
 //                       double sums, a fixed-order block reduction into one
 //                       partial per block, and the last block to finish
-//                       adds the partials in block order -- no float
-//                       atomics, so a run is deterministic.  The staged
-//                       form sums each stage's output nodes in the same
-//                       per-thread sums (its order of the sums differs from
-//                       a launch a stage's: globals agree to rounding).
+//                       adds the partials, every global at once, in an
+//                       order the grid fixes (reduce_globals in
+//                       generic_common.cuh) -- no float atomics, so a run
+//                       is deterministic.  The pass form's globals flavours
+//                       run a persistent grid where a node moves few bytes
+//                       (persistent_globals, step_grid): a block keeps its
+//                       sums over several tiles and reduces once.  The
+//                       staged form sums each stage's output nodes in the
+//                       same per-thread sums (its order of the sums differs
+//                       from a launch a stage's: globals agree to rounding).
+//                       On a bf16 stack the pass form's node pulls from its
+//                       rows and columns wrapped once, by a compare
+//                       (NodeStorage): half the bytes no longer hide the
+//                       modulo wraps of a pull.
 //   generic2d_resident  an even number of Iterations in one cooperative
 //                       launch (replaces make_resident_iterate): each block
 //                       owns its tiles for the whole launch and runs a
@@ -166,6 +175,20 @@ constexpr bool NARROW_FORM = model::N_STAGES == 1 && !TILED_FORM
                              && model::N_STORAGE >= NARROW_MIN_PLANES;
 constexpr int NBY = 8, NARROW_BLOCKS = 3;         // the narrow pass's rows,
                                                   // its blocks an SM
+constexpr bool PASS_FORM = model::N_STAGES == 1 && !TILED_FORM && !NARROW_FORM;
+// The pass form's globals flavours run a persistent grid of blocks built
+// for PASS_GLOBALS_BLOCKS an SM (<= 64 registers: the cap the one-tile
+// flavour kept without one; uncapped, the tile loop's hoisted values took
+// 62-82) where a node moves fewer than PERSISTENT_MAX_BYTES of planes (in
+// and out): under that cap an f32 node of 18 planes or more (the heat
+// family) lost 2-6% to the grid, which every other pass-form flavour,
+// bf16 and f32, gained 6-38% from
+constexpr int PASS_GLOBALS_BLOCKS = 2, PERSISTENT_MAX_BYTES = 128;
+template <class S>
+constexpr bool persistent_globals() {
+  return PASS_FORM
+         && 2 * sizeof(S) * model::N_STORAGE < PERSISTENT_MAX_BYTES;
+}
 constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
 // A staged plan's header declares model::REACH, the rows of input its
@@ -333,6 +356,28 @@ struct StagedStorage {
   }
 };
 
+// a node's pulls from device memory (a bf16 stack), its three rows and
+// columns about (y, x) wrapped once, by a compare: plane k from row
+// 1 - ey_k and column 1 - ex_k (the offsets of y + dy, x + dx at dy + 1,
+// dx + 1).  A pull only.
+struct NodeStorage {
+  const __nv_bfloat16* p;
+  size_t n;
+  size_t row[3];
+  int col[3];
+  const float* w;
+  __device__ float get(int k, int, int) const {
+    return load_plane<false>(
+        p + k * n + row[1 - model::ey(k)] + col[1 - model::ex(k)], w, k);
+  }
+};
+
+// whether a stage reading through Storage may read a Field (c.load)
+template <class Storage>
+constexpr bool kFieldReads = true;
+template <>
+constexpr bool kFieldReads<NodeStorage> = false;
+
 // ---------------------------------------------------------------------------
 // Where a stage writes
 // ---------------------------------------------------------------------------
@@ -382,6 +427,8 @@ struct Node {
     return s.get(k, y - model::ey(k), x - model::ex(k));
   }
   __device__ float load(int k, int dx, int dy) const {
+    static_assert(kFieldReads<Storage>, "the bf16 pass form serves pulls "
+                                        "only");
     return s.get(k, y + dy, x + dx);
   }
   __device__ float setting(int i) const { return a.setting[i]; }
@@ -418,6 +465,33 @@ __device__ __forceinline__ void run_stage(const GenericArgs& a,
 // ---------------------------------------------------------------------------
 
 __device__ unsigned int g_blocks_done = 0;   // globals flavours, per launch
+
+// The tiles a step block runs, as body(tile row, tile column): its own
+// (blockIdx); on a persistent grid (kPersistent, step_grid) block b runs
+// the tiles b, b + gridDim.x, ... of the nty x ntx tiles (row-major) in
+// that order, keeping its sums over them, so that it reduces them once.
+template <bool kPersistent, class Body>
+__device__ __forceinline__ void for_tiles(int nty, int ntx, Body body) {
+  if constexpr (kPersistent) {
+    const int ntiles = nty * ntx;
+#pragma unroll 1
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int ty = t / ntx;
+      body(ty, t - ty * ntx);
+    }
+  } else {
+    body((int)blockIdx.y, (int)blockIdx.x);
+  }
+}
+
+// the globals flavours' end: the block's sums into the launch's globals
+template <int NTHREADS>
+__device__ __forceinline__ void reduce_step_globals(const double* acc,
+                                                    double* partials,
+                                                    float* gout) {
+  reduce_globals<NG, NTHREADS>(acc, partials, &g_blocks_done,
+                               [gout](int g, double t) { gout[g] = (float)t; });
+}
 
 // generic2d_step's ring form: stage 0 on the block's RTY x RTX tile (its
 // output tile plus the ring) into shared memory, RTY / RBY rows a thread,
@@ -468,16 +542,18 @@ generic2d_step_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                     load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
     }
   }
-  if constexpr (kGlobals)
-    finish_sums<NG, RTX * RBY>(acc, partials, &g_blocks_done,
-                    [gout](int g, double t) { gout[g] = (float)t; });
+  if constexpr (kGlobals) reduce_step_globals<RTX * RBY>(acc, partials, gout);
 }
 
 // generic2d_step's one-stage form: the plan's stage over the whole
 // lattice, one node a thread, no ring, in blocks of ROWS rows of BX; the
 // planes it leaves are copied from the input.  The globals flavour sums
-// the nodes.
-template <int ROWS, class S, bool kGlobals, bool kSeries>
+// the nodes, over the tiles of a persistent grid where kPersistent.  The
+// pass form on a bf16 stack pulls through NodeStorage: its node's rows and
+// columns wrapped once, by a compare (an f32 stack's bytes hide the
+// modulo wraps of DeviceStorage; half of them do not).
+template <int ROWS, class S, bool kGlobals, bool kSeries,
+          bool kPersistent = false>
 __device__ __forceinline__ void pass_nodes(const S* __restrict__ fin,
                                            S* __restrict__ fout,
                                            const int* __restrict__ flags,
@@ -487,26 +563,38 @@ __device__ __forceinline__ void pass_nodes(const S* __restrict__ fin,
                                            double* partials, float* gout,
                                            const Shift& sh) {
   const size_t n = (size_t)a.ny * a.nx;
-  const int y = blockIdx.y * ROWS + threadIdx.y;
-  const int x = blockIdx.x * BX + threadIdx.x;
   double acc[NG];
 #pragma unroll
   for (int g = 0; g < NG; ++g) acc[g] = 0.0;
-  if (y < a.ny && x < a.nx) {
+  for_tiles<kPersistent>(
+      (a.ny + ROWS - 1) / ROWS, (a.nx + BX - 1) / BX, [&](int by, int bx) {
+    const int y = by * ROWS + threadIdx.y;
+    const int x = bx * BX + threadIdx.x;
+    if (y >= a.ny || x >= a.nx) return;
     const size_t idx = (size_t)y * a.nx + x;
     const int flag = __ldg(flags + idx);
-    run_stage<0, kGlobals, kSeries>(
-        a, DeviceStorage<false, S>{fin, a.ny, a.nx, sh.w},
-        DeviceOut<S>{fout, idx, n, sh.w}, ztab, ser, acc, y, x, flag, true);
+    const DeviceOut<S> out{fout, idx, n, sh.w};
+    if constexpr (sizeof(S) != sizeof(float) && PASS_FORM) {
+      const int ym = y > 0 ? y - 1 : a.ny - 1, yp = y + 1 < a.ny ? y + 1 : 0;
+      const int xm = x > 0 ? x - 1 : a.nx - 1, xp = x + 1 < a.nx ? x + 1 : 0;
+      const NodeStorage st{fin, n,
+                           {(size_t)ym * a.nx, (size_t)y * a.nx,
+                            (size_t)yp * a.nx},
+                           {xm, x, xp}, sh.w};
+      run_stage<0, kGlobals, kSeries>(a, st, out, ztab, ser, acc, y, x, flag,
+                                      true);
+    } else {
+      run_stage<0, kGlobals, kSeries>(
+          a, DeviceStorage<false, S>{fin, a.ny, a.nx, sh.w}, out, ztab, ser,
+          acc, y, x, flag, true);
+    }
 #pragma unroll
     for (int k = 0; k < model::N_STORAGE; ++k)
       if (!writes(0, k))
         store_plane(fout + k * n + idx,
                     load_plane<false>(fin + k * n + idx, sh.w, k), sh.w, k);
-  }
-  if constexpr (kGlobals)
-    finish_sums<NG, BX * ROWS>(acc, partials, &g_blocks_done,
-                    [gout](int g, double t) { gout[g] = (float)t; });
+  });
+  if constexpr (kGlobals) reduce_step_globals<BX * ROWS>(acc, partials, gout);
 }
 
 // the pass form: 32x16 blocks
@@ -519,6 +607,21 @@ generic2d_pass_kernel(const S* __restrict__ fin, S* __restrict__ fout,
                       const __grid_constant__ Shift sh) {
   pass_nodes<BY, S, kGlobals, kSeries>(fin, fout, flags, ztab, a, ser,
                                        partials, gout, sh);
+}
+
+// the pass form's globals flavours where persistent_globals: 32x16 blocks
+// on a persistent grid, PASS_GLOBALS_BLOCKS an SM
+template <class S, bool kSeries>
+__global__ void __launch_bounds__(BX * BY, PASS_GLOBALS_BLOCKS)
+generic2d_pass_globals_kernel(const S* __restrict__ fin,
+                              S* __restrict__ fout,
+                              const int* __restrict__ flags,
+                              const float* __restrict__ ztab,
+                              const GenericArgs a, const SeriesArgs ser,
+                              double* partials, float* gout,
+                              const __grid_constant__ Shift sh) {
+  pass_nodes<BY, S, true, kSeries, true>(fin, fout, flags, ztab, a, ser,
+                                         partials, gout, sh);
 }
 
 // the narrow pass: 32x8 blocks, NARROW_BLOCKS an SM
@@ -579,8 +682,7 @@ generic2d_tiled_kernel(const S* __restrict__ fin, S* __restrict__ fout,
         store_plane(fout + k * n + idx, st.get(k, y, x), sh.w, k);
   }
   if constexpr (kGlobals)
-    finish_sums<NG, TILED_THREADS>(acc, partials, &g_blocks_done,
-                    [gout](int g, double t) { gout[g] = (float)t; });
+    reduce_step_globals<TILED_THREADS>(acc, partials, gout);
 }
 
 // Stage s of the staged form on the block's tile plus stage_ext(s) nodes
@@ -667,25 +769,80 @@ generic2d_staged_kernel(const S* __restrict__ fin, S* __restrict__ fout,
   staged_stages<0, S, kGlobals, kSeries>(a, in, mid, fout, flags, ztab, ser,
                                          sh, rows, cols, ty0, tx0, acc);
   if constexpr (kGlobals)
-    finish_sums<NG, STAGED_THREADS>(acc, partials, &g_blocks_done,
-                    [gout](int g, double t) { gout[g] = (float)t; });
+    reduce_step_globals<STAGED_THREADS>(acc, partials, gout);
 }
 
-// a launch of a form whose planes are staged in `smem` bytes of dynamic
-// shared memory, a ty x tx tile a block of `threads`
-template <class S, class Kernel>
-static int launch_tiles(Kernel kernel, int ty, int tx, int threads,
-                        size_t smem, const S* fin, S* fout, const int* flags,
-                        const float* ztab, const GenericArgs& a,
-                        const SeriesArgs& ser, double* partials, float* gout,
-                        const Shift& sh, cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.nx + tx - 1) / tx, (a.ny + ty - 1) / ty);
-  kernel<<<grid, threads, smem, st>>>(fin, fout, flags, ztab, a, ser,
-                                      partials, gout, sh);
-  return (int)cudaGetLastError();
+// A generic2d_step launch's geometry: its output tile (ty x tx nodes), its
+// block (bx x by threads) and its dynamic shared memory, in the form the
+// header's plan takes
+struct StepGeometry {
+  int ty, tx, bx, by;
+  size_t smem;
+};
+
+static StepGeometry step_geometry() {
+  if constexpr (RING_FORM) return {TY, TX, RTX * RBY, 1, RING_SMEM};
+  else if constexpr (STAGED_FORM)
+    return {STY, STX, STAGED_THREADS, 1, STAGED_SMEM};
+  else if constexpr (TILED_FORM)
+    return {TTY, TTX, TILED_THREADS, 1, TILED_SMEM};
+  else if constexpr (NARROW_FORM) return {NBY, BX, BX, NBY, 0};
+  else return {BY, BX, BX, BY, 0};
+}
+
+// the kernel of that form and flavour
+template <class S, bool kGlobals, bool kSeries>
+static auto step_kernel() {
+  if constexpr (RING_FORM) return generic2d_step_kernel<S, kGlobals, kSeries>;
+  else if constexpr (STAGED_FORM)
+    return generic2d_staged_kernel<S, kGlobals, kSeries>;
+  else if constexpr (TILED_FORM)
+    return generic2d_tiled_kernel<S, kGlobals, kSeries>;
+  else if constexpr (NARROW_FORM)
+    return generic2d_narrow_kernel<S, kGlobals, kSeries>;
+  else if constexpr (kGlobals && persistent_globals<S>())
+    return generic2d_pass_globals_kernel<S, kSeries>;
+  else return generic2d_pass_kernel<S, kGlobals, kSeries>;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The grid of a generic2d_step launch on `a`'s lattice: a block a tile,
+// but in the pass form's globals flavours (persistent_globals) a
+// persistent grid of as many blocks as the device holds at once (the
+// occupancy API, for this build's kernel), at most a tile each -- so a
+// block reduces its sums once, over several tiles at 1024x1024, and the
+// last block adds that many partials.  The wrapper sizes the globals'
+// partials from it (generic2d_step_blocks).
+template <class S, bool kGlobals, bool kSeries>
+static int step_grid(const GenericArgs& a, dim3* grid) {
+  const StepGeometry g = step_geometry();
+  const int nty = (a.ny + g.ty - 1) / g.ty, ntx = (a.nx + g.tx - 1) / g.tx;
+  if constexpr (!kGlobals || !persistent_globals<S>()) {
+    *grid = dim3(ntx, nty);
+    return 0;
+  } else {
+    static int capacity[MAX_DEVICES];     // blocks the device holds at once
+    int device;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return (int)e;
+    if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (capacity[device] == 0) {
+      const auto kernel = step_kernel<S, kGlobals, kSeries>();
+      int sms = 0, per_sm = 0;
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+      if (e != cudaSuccess) return (int)e;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, g.bx * g.by, 0);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      capacity[device] = sms * per_sm;
+    }
+    const int tiles = nty * ntx;
+    *grid = dim3(tiles < capacity[device] ? tiles : capacity[device]);
+    return 0;
+  }
 }
 
 // one Iteration, in one launch, in the form the header's plan takes
@@ -694,30 +851,18 @@ static int launch_step(const S* fin, S* fout, const int* flags,
                        const float* ztab, const GenericArgs& a,
                        const SeriesArgs& ser, double* partials, float* gout,
                        const Shift& sh, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (RING_FORM) {
-    return launch_tiles(generic2d_step_kernel<S, kGlobals, kSeries>, TY, TX,
-                        RTX * RBY, RING_SMEM, fin, fout, flags, ztab, a,
-                        ser, partials, gout, sh, st);
-  } else if constexpr (STAGED_FORM) {
-    return launch_tiles(generic2d_staged_kernel<S, kGlobals, kSeries>, STY,
-                        STX, STAGED_THREADS, STAGED_SMEM, fin, fout, flags,
-                        ztab, a, ser, partials, gout, sh, st);
-  } else if constexpr (TILED_FORM) {
-    return launch_tiles(generic2d_tiled_kernel<S, kGlobals, kSeries>, TTY,
-                        TTX, TILED_THREADS, TILED_SMEM, fin, fout, flags,
-                        ztab, a, ser, partials, gout, sh, st);
-  } else if constexpr (NARROW_FORM) {
-    const dim3 grid((a.nx + BX - 1) / BX, (a.ny + NBY - 1) / NBY);
-    generic2d_narrow_kernel<S, kGlobals, kSeries>
-        <<<grid, dim3(BX, NBY), 0, st>>>(fin, fout, flags, ztab, a, ser,
-                                         partials, gout, sh);
-  } else {
-    const dim3 grid((a.nx + BX - 1) / BX, (a.ny + BY - 1) / BY);
-    generic2d_pass_kernel<S, kGlobals, kSeries>
-        <<<grid, dim3(BX, BY), 0, st>>>(fin, fout, flags, ztab, a, ser,
-                                        partials, gout, sh);
+  const auto kernel = step_kernel<S, kGlobals, kSeries>();
+  const StepGeometry g = step_geometry();
+  if (g.smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  dim3 grid;
+  const int rc = step_grid<S, kGlobals, kSeries>(a, &grid);
+  if (rc) return rc;
+  kernel<<<grid, dim3(g.bx, g.by), g.smem, (cudaStream_t)stream>>>(
+      fin, fout, flags, ztab, a, ser, partials, gout, sh);
   return (int)cudaGetLastError();
 }
 
@@ -1001,6 +1146,26 @@ int generic2d_step_bf16(const __nv_bfloat16* fin, __nv_bfloat16* fout,
         fin, fout, flags, ztab, *a, none, partials, gout, sh, stream);
   return launch_step<__nv_bfloat16, false, false>(
       fin, fout, flags, ztab, *a, none, nullptr, nullptr, sh, stream);
+}
+
+// The blocks of a globals flavour's launch of generic2d_step on an ny x nx
+// lattice (`bf16`: generic2d_step_bf16; `series`: generic2d_step_series)
+// on `device`, in `blocks`: its partials hold a row of n_globals doubles
+// (at least one) a block.
+int generic2d_step_blocks(int ny, int nx, int bf16, int series, int device,
+                          int* blocks) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (bf16 && series) return (int)cudaErrorInvalidValue;
+  GenericArgs a{};
+  a.ny = ny;
+  a.nx = nx;
+  dim3 grid;
+  const int rc = bf16     ? step_grid<__nv_bfloat16, true, false>(a, &grid)
+                 : series ? step_grid<float, true, true>(a, &grid)
+                          : step_grid<float, true, false>(a, &grid);
+  *blocks = (int)(grid.x * grid.y * grid.z);
+  return rc;
 }
 
 // The <Control> time series flavours (generic2d_step_series): as

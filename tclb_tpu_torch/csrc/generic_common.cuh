@@ -169,3 +169,78 @@ __device__ void finish_sums(const double* acc, double* partials,
   }
   if (tid == 0) *done = 0;
 }
+
+// The generic 2D step's globals flavours' reduction (csrc/generic2d.cu):
+// finish_sums' fixed order without its serial tail.  Each block reduces
+// its threads' sums `acc[N]` once: each warp by shuffles, then thread g <
+// N sum g over the warps in order into partials[block]; the last block to
+// arrive adds every global at once: global g over WG of its warps (lane l
+// of warp s the blocks s * 32 + l, + WG * 32, ... in order, RUN of them
+// loaded at once; then shuffles), and thread g the WG warp sums in order,
+// handing each total to `put(g, total)`.  No float atomics, and every sum
+// is added in an order fixed by the grid, so a run is deterministic.  One
+// launch per arrival counter `done` at a time; the last block resets it.
+template <int N, int NTHREADS, class Put>
+__device__ void reduce_globals(const double* acc, double* partials,
+                               unsigned int* done, Put put) {
+  constexpr int WARPS = NTHREADS / 32, RUN = 8;
+  constexpr int WG = N <= WARPS ? WARPS / N : 1;   // warps a global
+  static_assert(N <= NTHREADS, "a thread for each sum");
+  __shared__ double warp_sum[N][WARPS];
+  __shared__ bool last;
+  const int tid = threadIdx.x + blockDim.x * (threadIdx.y
+                                              + blockDim.y * threadIdx.z);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const int block = blockIdx.x + gridDim.x * (blockIdx.y
+                                              + gridDim.y * blockIdx.z);
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+    double v = acc[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sum[g][warp] = v;
+  }
+  __syncthreads();
+  if (tid < N) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += warp_sum[tid][w];
+    partials[(size_t)block * N + tid] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(done, 1u) == (unsigned)nblocks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int s = warp % WG;
+#pragma unroll 1
+  for (int g = warp / WG; g < N; g += WARPS / WG) {
+    double v = 0.0;
+#pragma unroll 1
+    for (int b0 = s * 32 + lane; b0 < nblocks; b0 += WG * 32 * RUN) {
+      // RUN loads at constant offsets from one address
+      const double* q = partials + (size_t)b0 * N + g;
+      double p[RUN];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        if (b0 + WG * 32 * j < nblocks) p[j] = __ldcg(q + j * WG * 32 * N);
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+        if (b0 + WG * 32 * j < nblocks) v += p[j];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sum[g][s] = v;
+  }
+  __syncthreads();
+  if (tid < N) {
+    double t = 0.0;
+    for (int w = 0; w < WG; ++w) t += warp_sum[tid][w];
+    put(tid, t);
+  }
+  if (tid == 0) *done = 0;
+}

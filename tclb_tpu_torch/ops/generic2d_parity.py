@@ -11,26 +11,29 @@ the model's header pre-included, ``-Xptxas -v``; the other copy into a
 scratch directory).  The script prints both compiler reports (registers
 and spills per kernel), runs each kernel of both libraries on the same
 inputs (every node type of the model's header painted, two zones, 1%
-noise on the initial populations, at 37x53 and 256x256):
-``generic2d_step`` in both flavours, an 8-step ``generic2d_resident``,
-``generic2d_step_bf16`` in both flavours on the shifted bf16 stack, the
-series flavours (a series on the model's first zonal setting) and, where
-the header defines ``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded
-cotangents, and exits nonzero unless every output is bit for bit the
-same, the globals within rtol 1e-4 / atol 1e-6 (a step that sums its
-stages in another order rounds its sums differently; each is also the
-same from run to run).  It also holds ``generic2d_resident`` and
+noise on the initial populations, at 37x53, 256x256 and 40x203, an odd
+width several tiles wide): ``generic2d_step`` in both flavours, an
+8-step ``generic2d_resident``, ``generic2d_step_bf16`` in both flavours
+on the shifted and the raw bf16 stack, the series flavours (a series on
+the model's first zonal setting) and, where the header defines
+``TCLB_MODEL_ADJOINT``, ``generic2d_step_b`` on seeded cotangents, and
+exits nonzero unless every output is bit for bit the same, the globals
+within ``GLOBALS_TOL`` (rtol 1e-6 / atol 1e-6: a step that sums in
+another order rounds its double sums differently; each is also the same
+from run to run).  It also holds ``generic2d_resident`` and
 ``generic2d_resident_bf16`` of both bit for bit at 8, 98 and 498 steps
-on both painted lattices and on the model's resident path
+on the first two painted lattices and on the model's resident path
 (``RESIDENT_PATHS``), the bf16 launch against as many chained
 ``generic2d_step_bf16`` launches, and times both flavours of both there
 (``time_resident``); for d2q9_kuper, drop.xml's window split with each
-library (``split_drop``).  It then holds each flavour of
+library (``split_drop``); for d2q9, bench.py's bf16 flagship windows
+with each library (``flagship_windows``).  It then holds each flavour of
 ``generic2d_step`` of both libraries alike at 1024x1024 (many tiles a
-side, where the small lattices have one or two) and times it there
-(``time_steps``: CUDA events over ``REPS`` calls, the libraries
-alternating in ``ROUNDS`` rounds, on chip_smoke's 1024x1024 lattice of a
-multi-stage model, else the painted one).  A change to the
+side, where the small lattices have one or two; the globals also the
+same from run to run) and times it there (``time_steps``: CUDA events
+over ``REPS`` calls, the libraries alternating in ``ROUNDS`` rounds, on
+chip_smoke's 1024x1024 lattice of a multi-stage model, else the painted
+one).  A change to the
 model-independent templates (``generic2d.cu``, ``generic_common.cuh``,
 ``storage.cuh``, ``generic2d_adjoint.cuh``) is held this way against the
 parent's builds.
@@ -42,18 +45,23 @@ A copy of ``csrc/`` from before the backward read zonal settings (no
 table) is bound through :class:`NoZoneTableStepB`, which drops the zone
 table the wrapper passes; a copy whose step entries take the scratch
 stack ``mid`` (the copies that ran a plan of three stages one launch a
-stage) through :class:`PassesAbi`.
+stage) through :class:`PassesAbi`; a copy without
+``generic2d_step_blocks`` (its globals flavours a block a tile) through
+:class:`TileBlocksAbi`.
 
     python -m tclb_tpu_torch.ops.generic2d_parity --cut SRC/csrc [MODEL ...]
 
 builds ``SRC``'s ``generic2d.cu`` for each ``MODEL`` (by default
-``CUT_MODELS``: the one-stage and ring-form headers that lose the most
-time) in the cut-down variants ``CUTS`` and times ``generic2d_step`` of
-each in the flavours ``CUT_FLAVOURS`` at 1024x1024, the variants of a
-model alternating in rounds: the instrument that shows what holds a form
-back.  A variant replaces the call of the header's stage in the
-template's ``run_stage`` (so it cuts any form that runs its stages
-through it) or, for ``d2q9_npe_guo``, the header's second pass.  For an
+``CUT_MODELS``: the one-stage, ring-form and pass-form headers that lose
+the most time) in the cut-down variants ``CUTS`` and, for a header with
+globals, ``GLOBALS_CUTS``, and times ``generic2d_step`` of each in the
+flavours ``CUT_FLAVOURS`` (f32, bf16 shifted and raw, both globals
+flavours) at 1024x1024, the variants of a model alternating in rounds:
+the instrument that shows what holds a form back.  A variant replaces
+the call of the header's stage in the template's ``run_stage`` (so it
+cuts any form that runs its stages through it), for ``d2q9_npe_guo``
+the header's second pass, or a part of the globals flavours' sums and
+reduction (a variant a source has no code for is skipped).  For an
 adjoint header (``d2q9_heat_adj``, ``d2q9_adj``, ``d2q9_optimalMixing``,
 ``d2q9_plate``, named as ``MODEL``) it also times ``generic2d_step_b``
 whole and in the reverse variants ``REVERSE_CUTS`` (its data movement
@@ -98,7 +106,11 @@ from tclb_tpu_torch.core import shift as ddf
 from tclb_tpu_torch.ops import _cuda_build as cb
 from tclb_tpu_torch.ops import generic_kernels as gk
 
-SHAPES = ((37, 53), (256, 256))
+# the painted lattices: 37x53 (under a tile wide, odd nx), 256x256, and
+# 40x203 (several 64-wide pair tiles, odd nx: every other row's pairs
+# unaligned); the resident kernel is held on the first two
+SHAPES = ((37, 53), (256, 256), (40, 203))
+RESIDENT_SHAPES = SHAPES[:2]
 # each model's resident path: its lattice (ny, nx) and the steps one
 # generic2d_resident launch takes there (the even part of a Log
 # interval's niter - 1: 498 of 500, 198 of 200, heat_adj.xml's Solve
@@ -119,7 +131,8 @@ RESIDENT_STEPS = (8, 98, 498)   # the step counts held on the painted states
 RESIDENT_REPS = 10              # resident calls a round (timing)
 TIMED = (1024, 1024)      # the shape the step kernels are timed at
 REPS, ROUNDS = 100, 4     # calls a round, rounds a library (timing)
-GLOBALS_TOL = {"rtol": 1e-4, "atol": 1e-6}
+GLOBALS_TOL = {"rtol": 1e-6, "atol": 1e-6}
+TOL_TEXT = f"rtol {GLOBALS_TOL['rtol']:g} / atol {GLOBALS_TOL['atol']:g}"
 
 
 def paint(model, shape, seed: int = 5, device: str = "cuda",
@@ -184,10 +197,12 @@ def run(lat) -> tuple:
     out["step_globals"], sums["step_globals"] = gk.step_globals(
         f, flags, ztab, a)
     out["resident"] = gk.resident(f, flags, ztab, a, 8)
-    fb, ab = bf16_inputs(lat, f, a)
-    out["step_bf16"] = gk.step(fb, flags, ztab, ab)
-    out["step_bf16_globals"], sums["step_bf16_globals"] = gk.step_globals(
-        fb, flags, ztab, ab)
+    for rep_ in ("shifted", "raw"):
+        fb, ab = bf16_inputs(lat, f, a, rep_)
+        tag = "step_bf16" + ("_raw" if rep_ == "raw" else "")
+        out[tag] = gk.step(fb, flags, ztab, ab)
+        out[f"{tag}_globals"], sums[f"{tag}_globals"] = gk.step_globals(
+            fb, flags, ztab, ab)
     series = gk.series_inputs(m, lat.params)
     if series is not None:
         out["step_series"] = gk.step_series(f, flags, ztab, a, series, 7)
@@ -209,13 +224,14 @@ def run(lat) -> tuple:
     return bits, sums
 
 
-def bf16_inputs(lat, f, a) -> tuple:
-    """The lattice's state narrowed to the shifted bf16 stack, and the
-    step arguments with its shifts."""
+def bf16_inputs(lat, f, a, storage_repr: str = "shifted") -> tuple:
+    """The lattice's state narrowed to the bf16 stack in ``storage_repr``
+    (shifted, or raw: no shift), and the step arguments with its
+    shifts."""
     fb = ddf.narrow_stack(f, torch.bfloat16,
-                          ddf.stack_shift(lat.model, "shifted"))
+                          ddf.stack_shift(lat.model, storage_repr))
     return fb, dataclasses.replace(
-        a, shift=ddf.kernel_shift(lat.model, "shifted"))
+        a, shift=ddf.kernel_shift(lat.model, storage_repr))
 
 
 def median_ms(launches: dict, reps: int = REPS,
@@ -265,11 +281,14 @@ def time_steps(lat, libs: dict, flavours=None, compare: bool = False
     m = lat.model.name
     f, flags, ztab, a = gk.kernel_inputs(lat.model, lat.state, lat.params)
     fb, ab = bf16_inputs(lat, f, a)
+    fr, ar = bf16_inputs(lat, f, a, "raw")
     series = gk.series_inputs(lat.model, with_series(lat).params)
     calls = {"plain": lambda: gk.step(f, flags, ztab, a),
              "globals": lambda: gk.step_globals(f, flags, ztab, a),
              "bf16": lambda: gk.step(fb, flags, ztab, ab),
              "bf16 globals": lambda: gk.step_globals(fb, flags, ztab, ab),
+             "bf16 raw": lambda: gk.step(fr, flags, ztab, ar),
+             "bf16 raw globals": lambda: gk.step_globals(fr, flags, ztab, ar),
              "series": lambda: gk.step_series(f, flags, ztab, a, series, 7),
              "series globals": lambda: gk.step_series_globals(
                  f, flags, ztab, a, series, 7)}
@@ -291,14 +310,21 @@ def time_steps(lat, libs: dict, flavours=None, compare: bool = False
                 want = ref if torch.is_tensor(ref) else ref[0]
                 equal = torch.equal(fields.view(torch.int16),
                                     want.view(torch.int16))
-                close = sums is None or torch.allclose(
-                    sums, ref[1], equal_nan=True, **GLOBALS_TOL)
+                close = rerun = True
+                if sums is not None:
+                    close = torch.allclose(sums, ref[1], equal_nan=True,
+                                           **GLOBALS_TOL)
+                    rerun = torch.equal(sums.view(torch.int32),
+                                        launch(libs[tag])[1].view(
+                                            torch.int32))
                 print(f"{m} generic2d_step {flavour} at {lat.shape}: {tag} "
                       f"{'bit-identical' if equal else 'DIFFERS'} to {tag0}"
                       + ("" if sums is None else
                          f", globals {'within' if close else 'OUTSIDE'} "
-                         "rtol 1e-4 / atol 1e-6"))
-                same &= equal and close
+                         f"{TOL_TEXT}, "
+                         f"{'the same' if rerun else 'NOT the same'} run to "
+                         "run"))
+                same &= equal and close and rerun
         ms = median_ms({tag: (lambda e=e: launch(e))
                         for tag, e in libs.items()})
         out[flavour] = ms
@@ -367,8 +393,8 @@ def time_step_b(lat, libs: dict, compare: bool = False) -> tuple:
             diff = float((sett - sett0).abs().max())
             print(f"{m} generic2d_step_b at {lat.shape}: {tag} lam_in "
                   f"{'bit-identical' if equal else 'DIFFERS'} to {tag0}, "
-                  f"settings {'within' if close else 'OUTSIDE'} rtol 1e-4"
-                  f" / atol 1e-6 (max abs diff {diff:.3e} of "
+                  f"settings {'within' if close else 'OUTSIDE'} {TOL_TEXT}"
+                  f" (max abs diff {diff:.3e} of "
                   f"{float(sett0.abs().max()):.3e}), "
                   f"{'the same' if rerun else 'NOT the same'} run to run")
             same &= equal and close and rerun
@@ -542,16 +568,43 @@ class GridBarrierAbi:
         return getattr(self._inner, name)
 
 
+class TileBlocksAbi:
+    """A library without ``generic2d_step_blocks`` (the copies of
+    ``csrc/`` whose globals flavours launch a block a tile): that entry
+    is answered from the step tile ``generic2d_layout`` reports, the
+    partials' rows the tiles of the lattice.  Every other entry is the
+    library's (or ``inner``'s) own."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        ip = ctypes.POINTER(ctypes.c_int)
+        inner.generic2d_layout.argtypes = [ip] * 8
+        vals = [ctypes.c_int(0) for _ in range(8)]
+        inner.generic2d_layout(*[ctypes.byref(v) for v in vals])
+        ty, tx = vals[0].value, vals[1].value
+
+        def blocks(ny, nx, bf16, series, device, out):
+            out._obj.value = -(-ny // ty) * -(-nx // tx)
+            return 0
+        self.generic2d_step_blocks = blocks
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
     """``model``'s ``gk._LIB`` entry for the library at ``path``: bound
     through :class:`PassesAbi` where ``passes_abi``, through
     :class:`GridBarrierAbi` where its resident kernel is the grid-barrier
-    one, its ``generic2d_step_b`` through :class:`NoZoneTableStepB` where
-    the library has no ``generic2d_step_b_zonal``."""
+    one, through :class:`TileBlocksAbi` where it launches a globals block
+    a tile, its ``generic2d_step_b`` through :class:`NoZoneTableStepB`
+    where the library has no ``generic2d_step_b_zonal``."""
     raw = ctypes.CDLL(str(path))
     lib = PassesAbi(raw, model) if passes_abi else raw
     if hasattr(raw, "generic2d_resident_capacity"):
         lib = GridBarrierAbi(lib, model)
+    if not hasattr(raw, "generic2d_step_blocks"):
+        lib = TileBlocksAbi(lib)
     entry = gk.bind(lib, model, path.name)
     if "tile_b" in entry and not hasattr(raw, "generic2d_step_b_zonal"):
         entry["lib"] = NoZoneTableStepB(entry["lib"], model)
@@ -650,8 +703,46 @@ B_FINISH = re.compile(r"finish_sums<.*?\}\);", re.DOTALL)
 B_COPY = ("for (int k_ = 0; k_ < model::N_STORAGE; ++k_) "
           "c.set_q(k_, c.pulled(k_) + c.lam(k_));")
 REVERSE_CUTS = ("reverse loads and stores", "reverse without settings sums")
+# The globals variants, for a header with globals: "globals without sums"
+# drops the node's sums in add_global (GLOBALS_SUM_HOOK in generic2d.cu)
+# and keeps the reduction; the other two keep the sums and cut the
+# reduction after each block's partials (no fence, no arrival count, no
+# last block), the block's sums added by thread 0 alone ("block partials
+# alone") or by one thread a global ("partials a thread a global").  In a
+# source whose forward flavours reduce through finish_sums (a copy from
+# before reduce_globals) they insert the cut form of the forward reduction before the
+# reverse kernels' all-sums branch (FINISH_HOOK in generic_common.cuh),
+# so the forward flavours return after it and the reverse kernels keep
+# their own; in one that reduces through reduce_globals (a thread a global
+# already) "block partials alone" returns after the partials
+# (REDUCE_HOOK) and "partials a thread a global" has nothing to cut.
+GLOBALS_SUM_HOOK = "    if (kGlobals && counts) acc[g] += (double)v;\n"
+FINISH_HOOK = "  if constexpr (kAllSums) {\n    if (tid < N) {\n"
+REDUCE_HOOK = ("    __threadfence();\n  }\n  __syncthreads();\n"
+               "  if (tid == 0) last = atomicAdd(")
+REDUCE_CUT = ("  }\n  return;\n  __syncthreads();\n"
+              "  if (tid == 0) last = atomicAdd(")
+_BLOCK_PARTIALS = (
+    "  if constexpr (!kAllSums) {{\n"
+    "    if ({who}) {{\n"
+    "{loop}"
+    "      double v = 0.0;\n"
+    "      for (int w = 0; w < WARPS; ++w) v += warp_sum[{g}][w];\n"
+    "      partials[(size_t)block * N + {g}] = v;\n"
+    "{close}"
+    "    }}\n"
+    "    return;\n"
+    "  }}\n")
+GLOBALS_CUTS = {
+    "globals without sums": (GLOBALS_SUM_HOOK, "    (void)g; (void)v;\n"),
+    "block partials alone": (FINISH_HOOK, _BLOCK_PARTIALS.format(
+        who="tid == 0", loop="      for (int g = 0; g < N; ++g) {\n",
+        g="g", close="      }\n") + FINISH_HOOK),
+    "partials a thread a global": (FINISH_HOOK, _BLOCK_PARTIALS.format(
+        who="tid < N", loop="", g="tid", close="") + FINISH_HOOK),
+}
 CUT_MODELS = ("d2q9_npe_guo", "d2q9_solid", "d2q9_pf_pressureEvolution",
-              "d2q9_kuper")
+              "d2q9_kuper", "d2q9", "d2q9_adj", "d2q9_plate", "sw")
 # --cut --resident: the variants of generic2d_resident as edits of its
 # source (pattern, replacement), inside RESIDENT_SPANS: "barriers alone"
 # runs no node loop (the grid stride's loops end at once), "no barrier"
@@ -667,7 +758,7 @@ RESIDENT_CUTS = {
 RESIDENT_SPANS = ("resident_stages(", "generic2d_resident_kernel(")
 RESIDENT_CUT_MODELS = ("d2q9_kuper", "d2q9_heat_adj", "d2q9_heat",
                        "d2q9_npe_guo", "d2q9_solid", "d2q9_lee")
-CUT_FLAVOURS = ("plain", "bf16")
+CUT_FLAVOURS = ("plain", "bf16", "bf16 raw", "globals", "bf16 globals")
 
 
 def cut_variants(model: str) -> list:
@@ -680,6 +771,8 @@ def cut_variants(model: str) -> list:
         out += ["stage 0 alone", "stage 1 alone"]
     if model == "d2q9_npe_guo":
         out.append("pass 1 alone")
+    if dm.globals_:
+        out += list(GLOBALS_CUTS)
     if dm.adjoint:
         out += list(REVERSE_CUTS)
     return out
@@ -701,28 +794,47 @@ def _cut_reverse(path: pathlib.Path, variant: str) -> None:
 
 
 def cut_csrc(src: pathlib.Path, dst: pathlib.Path, model: str,
-             variant: str) -> None:
+             variant: str) -> bool:
     """A copy of the ``csrc/`` directory ``src`` at ``dst`` with
-    ``variant`` cut into it."""
+    ``variant`` cut into it; False (and no copy) where ``src`` has none
+    of the code a globals variant cuts."""
     shutil.copytree(src, dst)
     if variant == "full":
-        return
+        return True
     if variant in REVERSE_CUTS:
         _cut_reverse(dst / "generic2d_adjoint.cuh", variant)
-        return
+        return True
+    if variant in GLOBALS_CUTS:
+        hook, repl = GLOBALS_CUTS[variant]
+        forward = (dst / "generic2d.cu").read_text()
+        if hook != GLOBALS_SUM_HOOK and "finish_sums<NG" not in forward:
+            if variant != "block partials alone" \
+                    or "reduce_globals<NG" not in forward:
+                shutil.rmtree(dst)
+                return False
+            hook, repl = REDUCE_HOOK, REDUCE_CUT
+        path = dst / ("generic2d.cu" if hook == GLOBALS_SUM_HOOK
+                      else "generic_common.cuh")
+        text = path.read_text()
+        if text.count(hook) != 1:
+            raise SystemExit(f"--cut: {path.name} has not the one "
+                             f"{hook.strip()!r} the {variant!r} variant cuts")
+        path.write_text(text.replace(hook, repl))
+        return True
     if variant == "pass 1 alone":
         path = dst / gk.DEVICE_MODELS[model].header
         text = path.read_text()
         start = text.index(NPE_PASS2)
         end = text.index("\n}\n", start) + 3
         path.write_text(text[:start] + NPE_PASS1_ONLY + text[end:])
-        return
+        return True
     path = dst / "generic2d.cu"
     text = path.read_text()
     if text.count(CUT_HOOK) != 1:
         raise SystemExit("--cut: generic2d.cu has not the one call of the "
                          "header's stage in run_stage it cuts")
     path.write_text(text.replace(CUT_HOOK, CUTS[variant]))
+    return True
 
 
 def _spans(text: str, names) -> list:
@@ -884,6 +996,37 @@ def split_drop(libs: dict) -> dict:
     return out
 
 
+def flagship_windows(libs: dict, rounds: int = 2) -> dict:
+    """bench.py's flagship in bf16 (chip_smoke's phase 28: d2q9 at
+    1024x1024 on ``generic2d_step_bf16``), shifted and raw: the MLUPS of
+    an ``iterate`` window of ``FLAGSHIP_WINDOW`` steps fenced by
+    synchronize, with each library (``libs``: tag -> d2q9's entry) in
+    turn, ``rounds`` rounds; the median a library."""
+    import time
+    cs = import_chip_smoke()
+    out = {}
+    for storage_repr in ("shifted", "raw"):
+        lat = cs.flagship_lattice(cs.BF16, storage_repr)
+        lat.iterate(10)
+        lat.synchronize()
+        for _ in range(rounds):
+            for tag, entry in libs.items():
+                gk._LIB["d2q9"] = entry
+                t0 = time.perf_counter()
+                lat.iterate(cs.FLAGSHIP_WINDOW)
+                lat.synchronize()
+                dt = time.perf_counter() - t0
+                out.setdefault(f"bf16_{storage_repr} {tag}", []).append(
+                    cs.FLAGSHIP_N ** 2 * cs.FLAGSHIP_WINDOW / dt / 1e6)
+        mlups = {tag: statistics.median(out[f"bf16_{storage_repr} {tag}"])
+                 for tag in libs}
+        print(f"flagship bf16 {storage_repr} ({lat.engine_name}), "
+              f"iterate({cs.FLAGSHIP_WINDOW}): " + ", ".join(
+                  f"{tag} {v:.1f} MLUPS" for tag, v in mlups.items())
+              + f" (medians of {rounds} windows)")
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
 def cut_resident_main(src: pathlib.Path, models) -> int:
     """Time ``generic2d_resident`` of ``src``'s builds of ``models`` in the
     variants ``RESIDENT_CUTS`` at each model's resident path."""
@@ -923,10 +1066,14 @@ def cut_main(src: pathlib.Path, models) -> int:
     ``"full"`` and the reverse variants on its path's lattice
     (``step_b_lattice``)."""
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = [(m, v, pathlib.Path(tmp) / f"{m}_{i}")
-                for m in models for i, v in enumerate(cut_variants(m))]
-        for m, v, dst in jobs:
-            cut_csrc(src, dst, m, v)
+        jobs = []
+        for m in models:
+            for i, v in enumerate(cut_variants(m)):
+                dst = pathlib.Path(tmp) / f"{m}_{i}"
+                if cut_csrc(src, dst, m, v):
+                    jobs.append((m, v, dst))
+                else:
+                    print(f"{m} {v}: nothing in {src} to cut, skipped")
         with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
             built = list(pool.map(lambda j: build_cut(j[2], j[0]), jobs))
         libs = {}
@@ -939,7 +1086,9 @@ def cut_main(src: pathlib.Path, models) -> int:
             for m in models:
                 forward = {v: e for v, e in libs[m].items()
                            if v not in REVERSE_CUTS}
-                time_steps(timed_lattice(m), forward, CUT_FLAVOURS)
+                flavours = [f for f in CUT_FLAVOURS if "globals" not in f
+                            or gk.DEVICE_MODELS[m].globals_]
+                time_steps(timed_lattice(m), forward, flavours)
                 if gk.DEVICE_MODELS[m].adjoint:
                     time_step_b(step_b_lattice(m), {
                         v: libs[m][v] for v in ("full",) + REVERSE_CUTS})
@@ -996,13 +1145,13 @@ def main(argv=None) -> int:
                                             again[name].view(torch.int32))
                         print(f"{m} {name} {shape} globals: "
                               f"{got.tolist()} against {want.tolist()}: "
-                              f"{'within' if close else 'OUTSIDE'} rtol "
-                              f"1e-4 / atol 1e-6, "
+                              f"{'within' if close else 'OUTSIDE'} "
+                              f"{TOL_TEXT}, "
                               f"{'the same' if rerun else 'NOT the same'}"
                               " run to run")
                         same &= close and rerun
                 pair = {tag: entries[m] for tag, entries in libs.items()}
-                for shape in SHAPES:
+                for shape in RESIDENT_SHAPES:
                     lat = paint(get_model(m), shape)
                     for nsteps in RESIDENT_STEPS:
                         same &= hold_resident(lat, pair, nsteps)
@@ -1014,6 +1163,8 @@ def main(argv=None) -> int:
                 same &= time_steps(timed_lattice(m), pair, compare=True)[1]
                 if m == "d2q9_kuper":
                     split_drop(pair)
+                if m == "d2q9":
+                    flagship_windows(pair)
                 if gk.DEVICE_MODELS[m].adjoint:
                     same &= time_step_b(step_b_lattice(m), pair,
                                         compare=True)[1]

@@ -505,6 +505,15 @@ def action_plan(model: Model, action: str = "Iteration", fuse: int = 1
 # memory fits an SM (TWO_BLOCKS_SMEM: half of 228 KB, less 1 KB a
 # block), else 8
 BLOCK = (16, 32)
+# the pass form's globals flavours: a persistent grid of 32x16 blocks
+# built for PASS_GLOBALS_BLOCKS an SM where a node moves fewer than
+# PERSISTENT_MAX_BYTES (``persistent_globals``; ``globals_blocks`` asks
+# the library for the grid); the globals reduction's last block loads
+# REDUCE_RUN partials a lane at once (csrc/generic_common.cuh:
+# reduce_globals)
+PASS_GLOBALS_BLOCKS = 2
+PERSISTENT_MAX_BYTES = 128
+REDUCE_RUN = 8
 NARROW = (8, 32)
 NARROW_BLOCKS = 3
 NARROW_MIN_PLANES = 20
@@ -549,6 +558,15 @@ def step_form(model: Model) -> str:
             and model.n_storage * BLOCK[0] * BLOCK[1] * 4 <= 40 * 1024:
         return "ring"
     return "staged"
+
+
+def persistent_globals(model: Model, itemsize: int) -> bool:
+    """Whether ``generic2d_step``'s globals flavours run ``model`` on a
+    persistent grid (csrc/generic2d.cu mirrors it): the pass form, where a
+    node's planes in and out at ``itemsize`` bytes a value come to fewer
+    than ``PERSISTENT_MAX_BYTES``."""
+    return (step_form(model) == "pass"
+            and 2 * itemsize * model.n_storage < PERSISTENT_MAX_BYTES)
 
 
 def ring_tile(model: Model) -> dict:
@@ -1280,7 +1298,8 @@ def plain_steps(fields, flags, ztab, a: StepArgs, n: int,
 # Build and bind
 # --------------------------------------------------------------------------- #
 
-# model -> its loaded library, step tile and per-device resident grids
+# model -> its loaded library, resident tile, reverse tile and the globals
+# flavours' block counts by shape and flavour
 _LIB: dict = {}
 
 
@@ -1308,8 +1327,8 @@ def lib(model: str) -> ctypes.CDLL:
 def bind(lib, model: str, name: str) -> dict:
     """Bind a library of ``model`` (``name``: its file, for errors): its
     layout sizes and stage count are checked against ``DEVICE_MODELS``.
-    Returns its ``_LIB`` entry: the library, its step tile and, for an
-    adjoint model, its reverse tile."""
+    Returns its ``_LIB`` entry: the library, its resident tile and, for
+    an adjoint model, its reverse tile."""
     dm = DEVICE_MODELS[model]
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(i)
@@ -1328,6 +1347,7 @@ def bind(lib, model: str, name: str) -> dict:
             ("generic2d_resident_bf16", [p, p, p, p, p, p, argp, fp, i, i,
                                          i, p], i),
             ("generic2d_resident_tile", [i] + [ip] * 4, None),
+            ("generic2d_step_blocks", [i] * 5 + [ip], i),
             ("generic_error_string", [i], ctypes.c_char_p)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
@@ -1341,7 +1361,7 @@ def bind(lib, model: str, name: str) -> dict:
         entry["tile_b"] = (by.value, bx.value)
     vals = [ctypes.c_int(0) for _ in range(8)]
     lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
-    tile_y, tile_x, *sizes = (v.value for v in vals)
+    _, _, *sizes = (v.value for v in vals)
     want = [len(dm.storage), len(dm.settings), len(dm.node_types),
             len(dm.groups), len(dm.zonal), len(dm.globals_)]
     if sizes != want:
@@ -1352,7 +1372,6 @@ def bind(lib, model: str, name: str) -> dict:
     if stages.value != len(dm.plan):
         raise RuntimeError(f"{name} runs {stages.value} stages, the "
                            f"wrapper expects {len(dm.plan)}")
-    entry["tile"] = (tile_y, tile_x)
     res = [ctypes.c_int(0) for _ in range(4)]
     lib.generic2d_resident_tile(action_plan(_get_model(model))[1],
                                 *[ctypes.byref(v) for v in res])
@@ -1424,6 +1443,30 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def globals_blocks(a: StepArgs, bf16: bool, series: bool,
+                   device: int) -> int:
+    """The blocks of a globals flavour's ``generic2d_step`` launch on
+    ``a``'s lattice (``bf16``: the bf16 stack; ``series``: the series
+    flavour) on ``device``, as the library reports them
+    (``generic2d_step_blocks``: its persistent grid); its partials hold a
+    row a block.  Asked once per shape and flavour."""
+    entry = _LIB[a.model]
+    key = (a.shape, bool(bf16), bool(series), device)
+    cache = entry.setdefault("globals_blocks", {})
+    if key not in cache:
+        lb = entry["lib"]
+        blocks = ctypes.c_int(0)
+        check(lb, lb.generic2d_step_blocks(a.ny, a.nx, int(bf16),
+                                           int(series), device,
+                                           ctypes.byref(blocks)),
+              "generic2d_step_blocks")
+        if blocks.value < 1:
+            raise RuntimeError(f"{a.model}: generic2d_step_blocks reported "
+                               f"{blocks.value} blocks for {a.shape}")
+        cache[key] = blocks.value
+    return cache[key]
+
+
 def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
                  series=None, it: int = 0):
     """One ``generic2d_step`` call (``generic2d_step_bf16`` for a bf16
@@ -1441,8 +1484,7 @@ def _launch_step(fields, flags, ztab, a: StepArgs, with_globals: bool,
     partials = gout = None
     n_g = len(DEVICE_MODELS[a.model].globals_)
     if with_globals:
-        ty, tx = _LIB[a.model]["tile"]
-        blocks = -(-a.ny // ty) * -(-a.nx // tx)
+        blocks = globals_blocks(a, bf16, series is not None, dev)
         partials = torch.empty((blocks, max(n_g, 1)), dtype=torch.float64,
                                device=fields.device)
         gout = torch.empty((max(n_g, 1),), dtype=torch.float32,

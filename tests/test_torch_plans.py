@@ -267,32 +267,57 @@ ADJOINT_2D = ("d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",
 
 @pytest.mark.parametrize("model", ["d2q9_npe_guo", "d2q9_solid",
                                    "d2q9_pf_pressureEvolution",
-                                   "d2q9_kuper", "d2q9_heat"]
+                                   "d2q9_kuper", "d2q9_heat", "d2q9",
+                                   "sw", "d2q9_poison_boltzmann"]
                          + list(ADJOINT_2D))
 def test_parity_cut_variants_apply(tmp_path, model):
     """``generic2d_parity --cut``'s variants apply to this source: each
     replaces the one call of the header's stage in run_stage (or
     npe_guo's second pass) and leaves the rest of the copy as it was; an
     adjoint header's reverse variants cut generic2d_adjoint.cuh alone
-    (its one call of stage_b<0>, its settings sum and its finish_sums)."""
+    (its one call of stage_b<0>, its settings sum and its finish_sums); a
+    header with globals also takes the globals variants: the node sums
+    dropped from add_global, or reduce_globals returning after the
+    block's partials (the variant a thread a global has nothing to cut in
+    this source: its blocks already sum so, and the copy is not made)."""
     from tclb_tpu_torch.ops import generic2d_parity as gp
     header = gk.DEVICE_MODELS[model].header
+    has_globals = bool(gk.DEVICE_MODELS[model].globals_)
+    assert has_globals == (model != "d2q9_poison_boltzmann")
     want = ["full", "loads and stores"] + (
         ["stage 0 alone", "stage 1 alone"] if model in RING else []) + (
         ["pass 1 alone"] if model == "d2q9_npe_guo" else []) + (
+        list(gp.GLOBALS_CUTS) if has_globals else []) + (
         list(gp.REVERSE_CUTS) if model in ADJOINT_2D else [])
     assert gp.cut_variants(model) == want
     assert gk.DEVICE_MODELS[model].adjoint == (model in ADJOINT_2D)
     src = _cuda_build.CSRC
-    rev = "generic2d_adjoint.cuh"
+    rev, common = "generic2d_adjoint.cuh", "generic_common.cuh"
     for i, variant in enumerate(want):
         dst = tmp_path / str(i)
-        gp.cut_csrc(src, dst, model, variant)
-        cu, hd, b = ((dst / f).read_text()
-                     for f in ("generic2d.cu", header, rev))
+        made = gp.cut_csrc(src, dst, model, variant)
+        assert made == (variant != "partials a thread a global")
+        assert dst.exists() == made
+        if not made:
+            continue
+        cu, hd, b, cm = ((dst / f).read_text()
+                         for f in ("generic2d.cu", header, rev, common))
         if variant not in gp.REVERSE_CUTS:
             assert b == _source(rev)
-        if variant == "full":
+        if variant not in gp.GLOBALS_CUTS:
+            assert cm == _source(common)
+        if variant == "globals without sums":
+            assert hd == _source(header) and cm == _source(common)
+            assert gp.GLOBALS_SUM_HOOK not in cu
+            assert cu == _source("generic2d.cu").replace(
+                gp.GLOBALS_SUM_HOOK, gp.GLOBALS_CUTS[variant][1])
+        elif variant == "block partials alone":
+            assert cu == _source("generic2d.cu") and hd == _source(header)
+            assert cm == _source(common).replace(gp.REDUCE_HOOK,
+                                                 gp.REDUCE_CUT)
+            body = cm[cm.index("__device__ void reduce_globals("):]
+            assert body.index("return;") < body.index("atomicAdd(")
+        elif variant == "full":
             assert cu == _source("generic2d.cu") and hd == _source(header)
         elif variant == "pass 1 alone":
             assert cu == _source("generic2d.cu")
@@ -326,6 +351,10 @@ class _FakeLib:
         return 0
 
     generic2d_step_bf16 = generic2d_step
+
+    def generic2d_step_blocks(self, ny, nx, bf16, series, device, out):
+        out._obj.value = 4
+        return 0
 
 
 @pytest.mark.parametrize("name", STAGED + RING + ("d2q9_heat",))
