@@ -13,8 +13,11 @@ d2q9_heat_adj (with the backward kernel of ``generic2d_adjoint.cuh``),
 the six one-stage models (d2q9_heat, d2q9_heat_conjugate, d2q9_hb, sw,
 d2q9_solid, d2q9_npe_guo), the four multi-stage models
 (d2q9_pf_pressureEvolution, d2q9_pp_MCMP, d2q9_lee,
-d2q9_poison_boltzmann) and the three adjoint models (d2q9_adj,
-d2q9_optimalMixing, d2q9_plate, each with the backward kernel), and
+d2q9_poison_boltzmann), the three adjoint models (d2q9_adj,
+d2q9_optimalMixing, d2q9_plate, each with the backward kernel) and the
+six models of the phase-field, pseudopotential and design workflows
+(wave, wave2d and d2q9_diff, the last two with the backward kernel,
+d2q9_pf, d2q9_pp_LBL, d2q9_pf_curvature), and
 ``generic3d.cu`` for
 d3q19_adj with the backward kernel of ``generic3d_adjoint.cuh`` and for
 d3q19_heat, d3q27, d3q27_viscoplastic, d3q27_cumulant_qibb_small and
@@ -24,7 +27,7 @@ nonzero without printing a result when either the card or the package is
 missing.  Phases, each of which fails the run on its own:
 
 1. build the d2q9 library and the five family libraries, the five d3q27
-   libraries, the sixteen generic 2D and the six generic 3D libraries and
+   libraries, the twenty-two generic 2D and the six generic 3D libraries and
    print what ``ptxas`` reports;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (the Karman state for ``d2q9_resident8`` and
@@ -346,6 +349,49 @@ missing.  Phases, each of which fails the run on its own:
    two zones): its first 100 steps against eager f32, 2000 steps with the
    mass within 1e-4, both passes of each step counted.
 
+49. the reference's physics tests of wave, wave2d, d2q9_diff, d2q9_pf,
+   d2q9_pp_LBL and d2q9_pf_curvature on the kernels in f32, each at its
+   size and steps, counted from 0 on the engine the lattice picks:
+   tests/test_models.py's wave2d oscillation and wave Dirichlet row; its
+   d2q9_diff source gradient and a wave2d box with a design block through
+   ``make_unsteady_gradient`` (InternalTopology) on
+   ``cuda_adjoint[<model>,k=1]``, against eager f32 (rtol 1e-4 / atol
+   1e-7) and f64 (relative L2 1e-3) on the card; tests/test_pf.py's
+   d2q9_pf advection (the f64 eager run's PhaseField sum within 1e-12,
+   the kernels' f32 drift as the eager f32 engine's within 1e-6, the
+   centroid within 15% of u0 T) and Zou/He channel, pf_curvature's
+   curvature against 1/R (10%, then 50 steps against eager f32 at rtol
+   1e-4 / atol 1e-6) and its wall sentinel in f32 (-999) and in bf16 raw
+   and shifted (-1000); tests/test_pp.py's LBL phase separation (3000
+   steps: rho max/min above 2, psi finite and non-negative; the f64 eager
+   cut's mass within 1e-10, the kernels' drift as eager f32's) and its
+   walled duct (P against the Carnahan-Starling closed form: rtol 1e-4 on
+   the f32 kernels, 1e-12 on the f64 eager run);
+50. each model's 1024x1024 lattice (2048x2048 for wave, whose 1024x1024
+   stacks fit half the L2; ``torch_cases.paint_generic`` with
+   ``MODELS2D_SETTINGS``, zone 1's own zonal values, the design models'
+   DesignSpace block and objective) on K4: ``generic2d_step`` (both
+   flavours) against its plain version after 4 eager steps, the bf16
+   flavours (shifted; raw for wave and wave2d, which have no velocity set
+   to shift) within the f32 tolerance carried through the narrowing, and
+   ``iterate(2000)`` in f32 and bf16 on the band engine;
+51. K5 on each model's 128x128 lattice (``iterate(500)`` on the resident
+   engine) against its plain version and bit for bit against eight
+   chained K4 calls, its bf16 rung bit for bit against eight chained
+   ``generic2d_step_bf16`` calls each within its bound, and an
+   ``iterate(500)`` in bf16 on the resident engine;
+52. ``generic2d_step_b`` for d2q9_diff and wave2d against
+   ``step_b_plain`` on rich states (``torch_cases.paint_rich_models2d``:
+   every node type, zone 1 with other zonal values; 37x67 and 256x256),
+   then the sensitivity of each one's objective at 1024x1024 on
+   ``cuda_adjoint`` (8 steps against eager f32 and f64 autograd, then 200
+   steps, counted);
+53. ``example/cavity.xml`` (d2q9_kuper, its MovingWall lid on K4's ring
+   form and K5) unchanged through ``run_config`` on the resident engine,
+   counted from 0, then cut to 1000 iterations on the kernels and on the
+   eager f32 engine: every Log column and the fields at rtol 1e-4 / atol
+   1e-6.
+
 Phase 2 also holds both series flavours of ``generic2d_step`` and
 ``generic3d_step`` on rich states with series on two zones (horizon 5, at
 iterations inside, at the end of and past it) and on the paths' states,
@@ -368,8 +414,8 @@ window; likewise for the multi-stage kernels, and a drop_lee and a
 1024x1024 d2q9_lee window; likewise for the adjoint models' kernels
 (``generic2d_step_b`` at its gradient path's shape), and the 1000-step
 d2q9_adj gradient.  Phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 11,
-12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 39-43, 44-48, 7,
-8; phase 7 also times both flavours of each 3D model's ``generic3d_step``
+12, 13, 14, 15-19, 20-22, 23-25, 26-30, 31-34, 35-38, 39-43, 44-48,
+49-53, 7, 8; phase 7 also times both flavours of each 3D model's ``generic3d_step``
 at 48x48x256, phase 8 each pass of d3q19_kuper's and the heat case's
 ``iterate(200)``.
 
@@ -471,7 +517,9 @@ GENERIC_MODELS = ("d2q9", "d2q9_kuper", "d2q9_heat_adj", "d3q19_adj",
                   "d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann",
                   "d2q9_adj", "d2q9_optimalMixing", "d2q9_plate",
                   "d3q19_heat", "d3q27", "d3q27_viscoplastic",
-                  "d3q27_cumulant_qibb_small", "d3q19_kuper")
+                  "d3q27_cumulant_qibb_small", "d3q19_kuper", "wave",
+                  "wave2d", "d2q9_diff", "d2q9_pf", "d2q9_pp_LBL",
+                  "d2q9_pf_curvature")
 # the rest of the z-slab family on the d3q27 kernels (phases 20-22)
 D3Q_FAMILY = ("d3q27_BGK", "d3q27_BGK_galcor", "d3q19", "d3q19_les")
 CHANNEL48 = (48, 48, 256)      # bench.py:619-662's 3D channel
@@ -4191,7 +4239,7 @@ def sensitivity_fn(lat, niter: int, step, levels: int):
     return fn
 
 
-def run_sensitivity(gk, ak, lat, path: str) -> dict:
+def run_sensitivity(gk, ak, lat, path: str, phase: str = "41b") -> dict:
     """Phase 41b: the sensitivity of a model's objective to the initial
     populations and the settings on the kernel step, (a) over 8 steps
     against eager autograd on the card (the fields at rtol 1e-4 and an
@@ -4200,7 +4248,8 @@ def run_sensitivity(gk, ak, lat, path: str) -> dict:
     levels, counted from 0."""
     from tclb_tpu_torch.adjoint import auto_levels
     m = lat.model
-    say(f"phase 41b: {path}: the objective's sensitivity on cuda_adjoint")
+    say(f"phase {phase}: {path}: the objective's sensitivity on "
+        "cuda_adjoint")
     step = ak.make_diff_step(m, lat.shape)
     (oc, gc, sc), (oe, ge, se) = (sensitivity_fn(lat, 8, st, 1)()
                                   for st in (step, None))
@@ -4439,8 +4488,9 @@ F32_FORCED_REL = 2.7e-3
 # engine is launch-bound on these 192- and 864-node lattices (some 10-17 ms
 # a step), so both references over the cases' 32,000 steps would take
 # about 15 minutes; they cover each case's first PHYS_F64_CUT steps, the
-# kernels run each case in full
-PHYS_F64_CUT = 500
+# kernels run each case in full (250: 500 took about two minutes of the
+# script's 1200 s limit, which phases 49-53 need)
+PHYS_F64_CUT = 250
 # the reference's steps: tests/test_viscoplastic.py's Newtonian channel,
 # Bingham plug and Zou/He duct, tests/test_qibb.py's channels
 VP_STEPS = {"newtonian": 4000, "bingham": 8000, "duct": 2000}
@@ -5061,6 +5111,668 @@ def time_generic3d_models(g3, lats: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The phase-field, pseudopotential and design models on K4/K5 and K7
+# (phases 49-53)
+# --------------------------------------------------------------------------- #
+
+MODELS2D = ("wave", "wave2d", "d2q9_diff", "d2q9_pf", "d2q9_pp_LBL",
+            "d2q9_pf_curvature")
+DESIGN2D = ("d2q9_diff", "wave2d")    # a reverse stage each (K7)
+MODELS2D_N = 1024            # the full-width lattices
+# the band engine's lattice where it is not 1024x1024: wave's two planes
+# at 1024x1024 fit half the L2 (the resident engine takes them)
+MODELS2D_BAND = {"wave": (2048, 2048)}
+MODELS2D_SMALL = (128, 128)  # K5's path (no example runs these models)
+MODELS2D_WINDOW = 2000       # iterate() window of the MLUPS
+MODELS2D_SMALL_WINDOW = 500
+MODELS2D_CUT = 1000          # iterations of an eager comparison
+# the objective each design model's sensitivity differentiates
+MODELS2D_OBJECTIVE = {"d2q9_diff": {"TotalCInObj": 1.0, "OutCInObj": 0.5},
+                      "wave2d": {"TotalDiffInObj": 1.0}}
+# the long runs of phases 50-51 (2000 and 500 steps with an inlet and an
+# outlet): d2q9_pp_LBL at tests/test_pallas_generic.py's settings (T 0.35,
+# inside the spinodal) separates its phases, and with the open faces and
+# zone 1's inflowing block diverges within 600 steps in f64 as in f32 (a
+# CPU run of the eager engine at 128x128); above the critical temperature
+# (T 0.4, about 0.37) with zone 1 at rest it stays a single phase.  The
+# reference's separation is held in phase 49 at its own settings.
+MODELS2D_LONG = {"d2q9_pp_LBL": ({"T": 0.4},
+                                 {"Velocity": 0.0, "VelocityY": 0.0})}
+LBL_SEPARATION = 3000        # tests/test_pp.py:test_lbl_phase_separation
+CAVITY_XML = ROOT / "example" / "cavity.xml"
+
+
+def models2d_repr(m) -> str:
+    """The bf16 representation of a model's lattices: shifted where it has
+    a recognised velocity set (wave and wave2d have none: raw)."""
+    from tclb_tpu_torch.core import shift as ddf
+    return "shifted" if ddf.has_shift(m) else "raw"
+
+
+def models2d_lattice(model: str, shape):
+    """``torch_cases.paint_generic`` on the card with the reference's
+    settings (``MODELS2D_SETTINGS``; ``MODELS2D_LONG`` for pp_LBL), zone
+    1's own zonal values, and, for the design models, a DesignSpace
+    block, their objective's weights and (wave2d) a Solid source and an
+    Obj1 patch; initialised."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import (MODELS2D_SETTINGS, RICH_MODELS2D_ZONE1,
+                             paint_generic)
+    m = get_model(model)
+    ny, nx = shape
+    flags = paint_generic(m, ny, nx)
+    if model in DESIGN2D:
+        flags[ny // 4:ny // 2, nx // 2:3 * nx // 4] |= np.uint16(
+            m.flag_for("DesignSpace"))
+    if model == "wave2d":
+        flags[ny // 2 - 4:ny // 2 + 4, nx // 8:nx // 8 + 8] = \
+            m.flag_for("Solid")
+        flags[3 * ny // 4:7 * ny // 8, nx // 4:3 * nx // 4] |= np.uint16(
+            m.flag_for("Obj1"))
+    settings, zone1 = MODELS2D_LONG.get(model, ({}, {}))
+    lat = Lattice(m, shape, dtype=torch.float32, device=DEVICE,
+                  settings={**MODELS2D_SETTINGS[model],
+                            **MODELS2D_OBJECTIVE.get(model, {}),
+                            **settings})
+    lat.set_flags(flags)
+    for name in m.zonal_settings:
+        lat.set_setting(name, {**RICH_MODELS2D_ZONE1, **zone1}[name], zone=1)
+    lat.init()
+    return lat
+
+
+def rich_models2d_lattice(model: str, shape, seed: int = 5):
+    """``torch_cases.paint_rich_models2d`` on the card: every node type
+    the header reads, zone 1 with its own zonal values, each plane near
+    what the model's steps produce, with noise."""
+    from tclb_tpu_torch import Lattice, get_model
+    from torch_cases import RICH_MODELS2D_SETTINGS, paint_rich_models2d
+    return paint_rich_models2d(Lattice(
+        get_model(model), shape, dtype=torch.float32, device=DEVICE,
+        settings=RICH_MODELS2D_SETTINGS[model]), seed)
+
+
+def kernel_run(lat, n: int) -> dict:
+    """``iterate(n)`` on ``lat``'s kernel engine, counted from 0: its
+    engine, launches and whether any step ran eager."""
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    lat.synchronize()
+    gk.reset_launches()
+    ak.reset_launches()
+    lat.iterate(n)
+    lat.synchronize()
+    return {"engine": lat.engine_name, "eager_steps": lat.eager_steps,
+            "launches": {**gk.LAUNCHES, **ak.LAUNCHES},
+            "flavours": {k: gk.flavours(k) for k in ("generic2d_step",
+                                                     "generic2d_step_bf16")}}
+
+
+def eager_copy(lat, dtype=torch.float32):
+    """The same lattice at ``dtype`` for the eager engine (``_iterate``):
+    flags, settings and the state converted."""
+    import dataclasses
+    from tclb_tpu_torch import Lattice
+    e = Lattice(lat.model, lat.shape, dtype=dtype, device=DEVICE)
+    e.set_flags(lat.flags_numpy())
+    e.params = dataclasses.replace(
+        lat.params, settings=lat.params.settings.to(dtype),
+        zone_table=lat.params.zone_table.to(dtype))
+    e.state = dataclasses.replace(
+        lat.state, fields=lat.state.fields.to(dtype),
+        globals_=lat.state.globals_.to(dtype))
+    return e
+
+
+def design_gradient(m, lat, niter: int, what: str) -> dict:
+    """``make_unsteady_gradient`` with InternalTopology (w on the design
+    space) on the card: forward on K4, backward on K7
+    (``cuda_adjoint[<model>,k=1]``), counted from 0, against the f64 eager
+    gradient on the card (relative L2 within GRAD_F64_REL_L2) and the f32
+    eager one (rtol 1e-4 / atol 1e-7)."""
+    from tclb_tpu_torch.adjoint import InternalTopology, make_unsteady_gradient
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
+    from tclb_tpu_torch.ops import generic_kernels as gk
+    design = InternalTopology(m)
+    theta = design.get(lat.state, lat.params)
+    kern = make_unsteady_gradient(m, design, niter, levels=1,
+                                  shape=lat.shape, device=DEVICE)
+    gk.reset_launches()
+    ak.reset_launches()
+    obj, g, _ = kern(theta, lat.state, lat.params)
+    torch.cuda.synchronize()
+    launches = {**gk.LAUNCHES, **ak.LAUNCHES}
+    flavours = {k: gk.flavours(k) for k in ("generic2d_step",
+                                            "generic2d_step_bf16")}
+    e32 = make_unsteady_gradient(m, design, niter, levels=1, engine="eager",
+                                 device=DEVICE)
+    _, g32, _ = e32(theta, lat.state, lat.params)
+    state64, params64 = f64_copy(lat)
+    e64 = make_unsteady_gradient(m, design, niter, levels=1, engine="eager",
+                                 dtype=torch.float64, device=DEVICE)
+    obj64, g64, _ = e64(theta.double(), state64, params64)
+    rel = float((g.double() - g64).norm() / g64.norm())
+    ok32 = bool((g - g32).abs().le(GRAD_ATOL + GRAD_RTOL * g32.abs()).all())
+    say(f"  {what}: {kern.engine_name}, objective {float(obj):.9g} (f64 "
+        f"eager {float(obj64):.9g}), launches "
+        f"{ {k: v for k, v in launches.items() if v} }; the gradient "
+        f"against eager f32 within rtol {GRAD_RTOL} atol {GRAD_ATOL}: "
+        f"{ok32}, against f64 rel L2 {rel:.3e} (limit {GRAD_F64_REL_L2}), "
+        f"max |g| {float(g.abs().max()):.3e}")
+    if not (kern.engine_name == f"cuda_adjoint[{m.name},k=1]"
+            and launches["generic2d_step_b"] == niter and ok32
+            and rel <= GRAD_F64_REL_L2 and float(g.abs().max()) > 0
+            and math.isfinite(float(obj))):
+        fail(f"{what}: the design gradient on the kernels disagrees")
+    return {"launches": launches, "flavours": flavours,
+            "objective": float(obj), "grad_rel_l2_f64": rel,
+            "engine": kern.engine_name}
+
+
+def drift_like_eager(kern_sum, eager_sum, s0: float, what: str) -> dict:
+    """A conserved sum's relative drift on the kernels against the eager
+    f32 engine's over the same steps, within CONSERVED_F32."""
+    dk, de = abs(kern_sum - s0) / abs(s0), abs(eager_sum - s0) / abs(s0)
+    say(f"  {what}: drift on the kernels {dk:.3e}, on the eager f32 engine "
+        f"{de:.3e} (difference within {CONSERVED_F32})")
+    if abs(dk - de) > CONSERVED_F32:
+        fail(f"{what}: the kernels' drift differs from the eager run's")
+    return {"kernel_drift": dk, "eager_f32_drift": de}
+
+
+def run_models2d_physics(gk) -> dict:
+    """Phase 49: the reference's physics tests of the six models on the
+    kernels in f32, each at its size and steps, with the reference's
+    limits where f32 can hold them and an eager f64 run on the card where
+    only f64 can (the f32 kernels then drift as the eager f32 engine
+    does).  Returns the launches by path and the summary."""
+    from tclb_tpu_torch import Lattice, get_model
+    from tclb_tpu_torch.models import d2q9_pf_curvature as pfc
+    from tclb_tpu_torch.models.d2q9 import E
+    from tclb_tpu_torch.ops import lbm
+    from torch_cases import drop_profile
+    runs, summary = {}, {}
+
+    def h_planes(lat, pf, u=(0.0, 0.0)):
+        pf = torch.as_tensor(pf, dtype=torch.float64)
+        eq = lbm.equilibrium(E, lbm.weights(E), pf,
+                             (torch.full_like(pf, u[0]),
+                              torch.full_like(pf, u[1])))
+        lat.set_density_planes({f"h[{i}]": eq[i].numpy() for i in range(9)})
+
+    def expect(run, model, what, ok, engine=None):
+        engine = engine or f"cuda_generic_resident[{model},fuse=N]"
+        if not ok or run["engine"] != engine or run["eager_steps"]:
+            fail(f"{what}: {run['engine']}, {run['eager_steps']} eager "
+                 "steps, or its physics check failed")
+
+    # tests/test_models.py:test_wave2d_oscillates
+    say("phase 49: the reference's physics of the six models on the kernels")
+    m = get_model("wave2d")
+    lat = Lattice(m, (16, 16), dtype=torch.float32, device=DEVICE,
+                  settings={"WaveK": 0.1, "Loss": 1.0, "SolidH": 1.0})
+    flags = np.zeros((16, 16), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = flags[:, 0] = flags[:, -1] = \
+        m.flag_for("Wall")
+    flags[7:9, 7:9] = m.flag_for("Solid")
+    lat.set_flags(flags)
+    lat.init()
+    h0 = float(lat.get_quantity("H")[7, 7])
+    run = kernel_run(lat, 30)
+    h = lat.get_quantity("H").cpu().numpy()
+    ok = (h0 == 1.0 and np.isfinite(h).all() and abs(h[7, 7]) < 1.0
+          and np.abs(h[3, :]).max() > 1e-4)
+    say(f"  wave2d_oscillates: h[7,7] {h0} -> {h[7, 7]:.4g}, max |h[3,:]| "
+        f"{np.abs(h[3, :]).max():.3e}")
+    expect(run, "wave2d", "wave2d_oscillates", ok)
+    runs[("wave2d", "wave2d_oscillates")] = run
+    # tests/test_models.py:test_wave_fields_dirichlet
+    m = get_model("wave")
+    lat = Lattice(m, (12, 12), dtype=torch.float32, device=DEVICE,
+                  settings={"Speed": 0.2})
+    flags = np.zeros((12, 12), dtype=np.uint16)
+    flags[0, :] = m.flag_for("Dirichlet", zone=1)
+    lat.set_flags(flags)
+    lat.set_setting("Value", 1.0, zone=1)
+    lat.init()
+    run = kernel_run(lat, 40)
+    u = lat.get_quantity("U").cpu().numpy()
+    ok = (np.isfinite(u).all() and abs(u[0, 5] - 1.0) <= 1e-6
+          and np.abs(u[4, :]).max() > 1e-5)
+    say(f"  wave_fields_dirichlet: u[0,5] {u[0, 5]}, max |u[4,:]| "
+        f"{np.abs(u[4, :]).max():.3e}")
+    expect(run, "wave", "wave_fields_dirichlet", ok)
+    runs[("wave", "wave_fields_dirichlet")] = run
+    # tests/test_models.py:test_diff_source_gradient, and wave2d's box with
+    # a design block: make_unsteady_gradient on cuda_adjoint
+    m = get_model("d2q9_diff")
+    lat = Lattice(m, (10, 10), dtype=torch.float32, device=DEVICE,
+                  settings={"Diffusivity": 0.1, "UX": 0.02, "Source": 0.01,
+                            "TotalCInObj": 1.0})
+    flags = np.full((10, 10), m.flag_for("BGK"), dtype=np.uint16)
+    flags[4:6, 4:6] |= m.flag_for("DesignSpace")
+    lat.set_flags(flags)
+    lat.init()
+    runs[("d2q9_diff", "diff_source_gradient")] = design_gradient(
+        m, lat, 6, "diff_source_gradient (10x10, 6 steps)")
+    m = get_model("wave2d")
+    lat = Lattice(m, (16, 16), dtype=torch.float32, device=DEVICE,
+                  settings={"WaveK": 0.1, "Loss": 0.99, "SolidH": 1.0,
+                            "TotalDiffInObj": 1.0})
+    flags = np.zeros((16, 16), dtype=np.uint16)
+    flags[0, :] = flags[-1, :] = flags[:, 0] = flags[:, -1] = \
+        m.flag_for("Wall")
+    flags[7:9, 7:9] = m.flag_for("Solid")
+    flags[3:6, 3:13] |= np.uint16(m.flag_for("DesignSpace"))
+    flags[10:13, 4:12] |= np.uint16(m.flag_for("Obj1"))
+    lat.set_flags(flags)
+    lat.init()
+    runs[("wave2d", "wave2d_design_gradient")] = design_gradient(
+        m, lat, 8, "wave2d's box with a design block (16x16, 8 steps)")
+    # tests/test_pf.py:test_pf_mass_conservation_and_advection
+    m = get_model("d2q9_pf")
+    ny = nx = 48
+    u0, T = 0.05, 100
+    lats = []
+    for dt in (torch.float32, torch.float64):
+        lat = Lattice(m, (ny, nx), dtype=dt, device=DEVICE,
+                      settings={"nu": 0.1, "M": 0.05, "W": 0.5,
+                                "Velocity": u0, "PhaseField": -0.5})
+        lat.set_flags(np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16))
+        lat.init()
+        pf = drop_profile((ny, nx), 8.0)
+        h_planes(lat, pf, (u0, 0.0))
+        lats.append(lat)
+    kern, f64 = lats
+    eager = eager_copy(kern)
+    s0 = float(kern.get_quantity("PhaseField").double().sum())
+    s64 = float(f64.get_quantity("PhaseField").sum())
+    y, x = np.mgrid[0:ny, 0:nx]
+    w = pf + 0.5
+    cx0 = float((x * w).sum() / w.sum())
+    run = kernel_run(kern, T)
+    f64.state = f64._iterate(f64.state, f64.params, T)
+    eager.state = eager._iterate(eager.state, eager.params, T)
+    pf1 = kern.get_quantity("PhaseField").cpu().numpy()
+    d64 = abs(float(f64.get_quantity("PhaseField").sum()) - s64) / abs(s64)
+    ang = (x - cx0) * (2 * np.pi / nx)
+    shift = float(np.angle(np.sum((pf1 + 0.5) * np.exp(1j * ang))) * nx
+                  / (2 * np.pi))
+    say(f"  pf_mass_conservation_and_advection: the f64 eager run's "
+        f"PhaseField sum drifts {d64:.3e} (limit {PF_SUM_F64}); the "
+        f"kernels' centroid moved {shift:.4f} (u0 T {u0 * T}, rtol 0.15)")
+    drift = drift_like_eager(float(pf1.astype(np.float64).sum()),
+                             float(eager.get_quantity("PhaseField").double()
+                                   .sum()), s0, "the PhaseField sum")
+    ok = (np.isfinite(pf1).all() and d64 <= PF_SUM_F64
+          and abs(shift - u0 * T) <= 0.15 * u0 * T)
+    expect(run, "d2q9_pf", "pf_mass_conservation_and_advection", ok)
+    runs[("d2q9_pf", "pf_advection")] = run
+    summary["pf_advection"] = {"f64_drift": d64, "shift": shift, **drift}
+    # tests/test_pf.py:test_pf_walls_and_zouhe_channel
+    ny, nx = 24, 64
+    lat = Lattice(m, (ny, nx), dtype=torch.float32, device=DEVICE,
+                  settings={"nu": 0.1, "M": 0.05, "W": 0.5,
+                            "Velocity": 0.02, "PhaseField": -0.5})
+    flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+    flags[:, 0] = m.flag_for("WVelocity", "MRT")
+    flags[:, -1] = m.flag_for("EPressure", "MRT")
+    flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+    lat.set_flags(flags)
+    lat.init()
+    h_planes(lat, drop_profile((ny, nx), 5.0, center=(ny / 2, 20)),
+             (0.02, 0.0))
+    run = kernel_run(lat, 200)
+    ux = lat.get_quantity("U")[0, 1:-1, 1:-1]
+    ok = bool(torch.isfinite(lat.state.fields).all()) and \
+        float(ux.mean()) > 0.0
+    say(f"  pf_walls_and_zouhe_channel: mean ux {float(ux.mean()):.4e}")
+    expect(run, "d2q9_pf", "pf_walls_and_zouhe_channel", ok)
+    runs[("d2q9_pf", "pf_zouhe_channel")] = run
+    # tests/test_pf.py:test_pf_curvature_matches_drop_radius
+    m = get_model("d2q9_pf_curvature")
+    n, R, w = 64, 16.0, 0.25
+    lat = Lattice(m, (n, n), dtype=torch.float32, device=DEVICE,
+                  settings={"nu": 0.1, "omega_l": 1.0, "M": 0.05, "W": w,
+                            "PhaseField": -0.5, "SurfaceTensionRate": 0.0})
+    lat.set_flags(np.full((n, n), m.flag_for("MRT"), dtype=np.uint16))
+    lat.init()
+    pf = drop_profile((n, n), R, width=w)
+    h_planes(lat, pf)
+    lat.set_density("phi", pf)
+    curv = lat.get_quantity("Curvature").cpu().numpy()
+    band = np.abs(pf) < 0.3
+    mean = float(curv[band].mean())
+    lat.set_setting("SurfaceTensionRate", 0.1)
+    eager = eager_copy(lat)
+    run = kernel_run(lat, 50)
+    eager.state = eager._iterate(eager.state, eager.params, 50)
+    say(f"  pf_curvature_matches_drop_radius: mean curvature in the band "
+        f"{mean:.5f} against 1/R {1 / R} (rtol 0.1)")
+    fields = compare(lat.state.fields, eager.state.fields,
+                     "its 50 steps with surface tension on the kernels "
+                     "against the eager f32 engine", GOLDEN_RTOL,
+                     GOLDEN_ATOL)
+    expect(run, "d2q9_pf_curvature", "pf_curvature_matches_drop_radius",
+           abs(mean - 1 / R) <= 0.1 / R)
+    runs[("d2q9_pf_curvature", "pf_curvature_drop")] = run
+    summary["pf_curvature_drop"] = {"mean_curvature": mean,
+                                    "fields_vs_eager": fields}
+    # tests/test_pf.py:test_pf_curvature_wall_sentinel_stencil, in f32 and
+    # on both bf16 rungs (a Field: -999 narrows to -1000 unshifted)
+    sentinel = {}
+    for tag, kw in (("f32", {}),
+                    ("bf16 raw", {"storage_dtype": BF16,
+                                  "storage_repr": "raw"}),
+                    ("bf16 shifted", {"storage_dtype": BF16,
+                                      "storage_repr": "shifted"})):
+        lat = Lattice(m, (16, 32), dtype=torch.float32, device=DEVICE,
+                      settings={"nu": 0.1, "omega_l": 1.0, "M": 0.05,
+                                "W": 0.5, "PhaseField": -0.5,
+                                "SurfaceTensionRate": 0.05}, **kw)
+        flags = np.full((16, 32), m.flag_for("MRT"), dtype=np.uint16)
+        flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+        lat.set_flags(flags)
+        lat.init()
+        run = kernel_run(lat, 30)
+        phi = lat.get_density("phi")
+        wall = float(pfc.SENTINEL) if not kw else -1000.0
+        ok = (bool((phi[0] == wall).all() and (phi[-1] == wall).all())
+              and bool(torch.isfinite(lat.state.fields.float()).all())
+              and bool(torch.isfinite(lat.get_quantity("Curvature")).all()))
+        say(f"  pf_curvature_wall_sentinel_stencil ({tag}): walls' phi "
+            f"{float(phi[0, 0])}, finite: {ok}")
+        engine = "cuda_generic_resident[d2q9_pf_curvature,fuse=N" + (
+            f",bfloat16/{kw['storage_repr']}]" if kw else "]")
+        expect(run, "d2q9_pf_curvature", f"the wall sentinel ({tag})", ok,
+               engine)
+        runs[("d2q9_pf_curvature", f"pf_curvature_sentinel {tag}")] = run
+        sentinel[tag] = float(phi[0, 0])
+    summary["pf_curvature_sentinel"] = sentinel
+    # tests/test_pp.py:test_lbl_phase_separation
+    m = get_model("d2q9_pp_LBL")
+    n = 64
+    lats = []
+    for dt in (torch.float32, torch.float64):
+        lat = Lattice(m, (n, n), dtype=dt, device=DEVICE,
+                      settings={"Density": 0.5, "T": 0.35, "nu": 1 / 6})
+        lat.set_flags(np.full((n, n), m.flag_for("MRT"), dtype=np.uint16))
+        lat.init()
+        y, x = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        pert = 1.0 + 0.05 * np.sin(2 * np.pi * x / n) * np.sin(
+            2 * np.pi * y / n)
+        lat.set_density_planes({
+            f"f[{i}]": lat.get_density(f"f[{i}]").double().cpu().numpy()
+            * pert for i in range(9)})
+        lats.append(lat)
+    kern, f64 = lats
+    eager = eager_copy(kern)
+    mass0 = float(kern.get_quantity("Rho").double().sum())
+    m64 = float(f64.get_quantity("Rho").sum())
+    run = kernel_run(kern, MODELS2D_CUT)
+    f64.state = f64._iterate(f64.state, f64.params, MODELS2D_CUT)
+    eager.state = eager._iterate(eager.state, eager.params, MODELS2D_CUT)
+    d64 = abs(float(f64.get_quantity("Rho").sum()) - m64) / m64
+    drift = drift_like_eager(float(kern.get_quantity("Rho").double().sum()),
+                             float(eager.get_quantity("Rho").double().sum()),
+                             mass0, f"the mass after {MODELS2D_CUT} steps")
+    more = kernel_run(kern, LBL_SEPARATION - MODELS2D_CUT)
+    rho = kern.get_quantity("Rho").cpu().numpy()
+    psi = kern.get_quantity("Psi").cpu().numpy()
+    ratio = float(rho.max() / rho.min())
+    ok = (d64 <= MCMP_MASS_F64 and np.isfinite(rho).all()
+          and np.isfinite(psi).all() and psi.min() >= 0.0 and ratio > 2.0)
+    say(f"  lbl_phase_separation: the f64 eager cut's mass drifts "
+        f"{d64:.3e} (limit {MCMP_MASS_F64}); after {LBL_SEPARATION} steps "
+        f"on the kernels rho in [{rho.min():.4f}, {rho.max():.4f}] (ratio "
+        f"{ratio:.3f}, above 2), psi in [{psi.min():.4f}, {psi.max():.4f}]")
+    expect(run, "d2q9_pp_LBL", "lbl_phase_separation", ok)
+    for k, v in more["launches"].items():
+        run["launches"][k] += v
+    runs[("d2q9_pp_LBL", "lbl_phase_separation")] = run
+    summary["lbl_phase_separation"] = {"f64_drift": d64, "ratio": ratio,
+                                       **drift}
+    # tests/test_pp.py:test_lbl_quantities_and_walls
+    ny, nx = 32, 48
+    lats = []
+    for dt in (torch.float32, torch.float64):
+        lat = Lattice(m, (ny, nx), dtype=dt, device=DEVICE,
+                      settings={"Density": 0.35, "T": 0.35, "nu": 1 / 6})
+        flags = np.full((ny, nx), m.flag_for("MRT"), dtype=np.uint16)
+        flags[0, :] = flags[-1, :] = m.flag_for("Wall")
+        lat.set_flags(flags)
+        lat.init()
+        lats.append(lat)
+    kern, f64 = lats
+    run = kernel_run(kern, 300)
+    f64.state = f64._iterate(f64.state, f64.params, 300)
+    gaps, ok = [], True
+    for lat in (kern, f64):
+        rho = lat.get_quantity("Rho").double().cpu().numpy()
+        p = lat.get_quantity("P").double().cpu().numpy()
+        r = rho[ny // 2, nx // 2]
+        bp = r / 4.0
+        p_ref = r * 0.25 * 0.35 * (1 + bp + bp ** 2 - bp ** 3) \
+            / (1 - bp) ** 3 - 0.25 * r * r
+        gaps.append(abs(p[ny // 2, nx // 2] - p_ref) / abs(p_ref))
+        ok = ok and np.isfinite(rho).all() and np.isfinite(p).all()
+    say(f"  lbl_quantities_and_walls: P at the bulk node against the "
+        f"Carnahan-Starling closed form: relative gap {gaps[0]:.3e} on the "
+        f"f32 kernels (rtol {GOLDEN_RTOL}), {gaps[1]:.3e} on the f64 eager "
+        "run (rtol 1e-12)")
+    expect(run, "d2q9_pp_LBL", "lbl_quantities_and_walls",
+           ok and gaps[0] <= GOLDEN_RTOL and gaps[1] <= 1e-12)
+    runs[("d2q9_pp_LBL", "lbl_walls")] = run
+    summary["lbl_walls_p_gap"] = gaps
+    return {"runs": runs, "summary": summary}
+
+
+def run_cavity(gk) -> dict:
+    """Phase 53: ``example/cavity.xml`` (d2q9_kuper's MovingWall lid,
+    256x64, 4000 iterations) unchanged through ``run_config`` on
+    ``cuda_generic_resident[d2q9_kuper,fuse=N]``, counted from 0: no eager
+    step, both generic kernels, finite fields; then the example cut to
+    MODELS2D_CUT iterations on the kernels and on the eager f32 engine:
+    every Log column and the final fields at rtol 1e-4 / atol 1e-6."""
+    say(f"phase 53: {CAVITY_XML.name} end to end")
+    run = run_onestage_xml(gk, CAVITY_XML, True)
+    lat = run["solver"].lattice
+    engine = "cuda_generic_resident[d2q9_kuper,fuse=N]"
+    launches = {k: v for k, v in run["launches"].items() if v}
+    say(f"  engine {lat.engine_name}, {run['solver'].iter} iterations, "
+        f"{run['wall_s']:.3f} s wall, launches {launches}, eager steps "
+        f"{lat.eager_steps}")
+    if lat.engine_name != engine or lat.eager_steps \
+            or set(launches) != set(gk.KERNELS) \
+            or not bool(torch.isfinite(lat.state.fields).all()):
+        fail(f"{CAVITY_XML.name}: {lat.engine_name}, launches {launches}, "
+             f"{lat.eager_steps} eager steps, or non-finite fields")
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = cut_xml(CAVITY_XML, MODELS2D_CUT, tmp)
+        kern = run_onestage_xml(gk, cut, True)
+        eager = run_onestage_xml(gk, cut, False)
+    klat, elat = kern["solver"].lattice, eager["solver"].lattice
+    if klat.engine_name != engine or elat.engine_name != "eager":
+        fail(f"{CAVITY_XML.name} cut: engines {klat.engine_name}, "
+             f"{elat.engine_name}")
+    (head, rows), (ehead, erows) = kern["Log"], eager["Log"]
+    keep = [i for i, h in enumerate(head) if "Walltime" not in h]
+    if head != ehead or rows.shape != erows.shape or not (
+            np.isfinite(rows[:, keep]).all() and np.allclose(
+                rows[:, keep], erows[:, keep], rtol=GOLDEN_RTOL,
+                atol=GOLDEN_ATOL)):
+        fail(f"{CAVITY_XML.name}: the Log columns of the first "
+             f"{MODELS2D_CUT} iterations differ from the eager run's")
+    log_err = float(np.abs(rows[:, keep] - erows[:, keep]).max())
+    say(f"  the first {MODELS2D_CUT} iterations on the kernels against the "
+        f"eager f32 engine ({eager['wall_s']:.2f} s): every Log column "
+        f"({rows.shape[0]} rows of {len(keep)}) within {log_err:.3e}")
+    fields = compare(klat.state.fields, elat.state.fields,
+                     f"{CAVITY_XML.name}'s fields after {MODELS2D_CUT} "
+                     "against the eager run's", GOLDEN_RTOL, GOLDEN_ATOL)
+    niter = run["solver"].iter
+    return {"engine": lat.engine_name, "launches": run["launches"],
+            "flavours": run["flavours"], "wall_s": run["wall_s"],
+            "eager_wall_s": eager["wall_s"],
+            "mlups_end_to_end": float(np.prod(lat.shape)) * niter
+            / run["wall_s"] / 1e6,
+            "log_max_abs_err_vs_eager": log_err, "fields_vs_eager": fields}
+
+
+def sensitivity_f64(ak, lat, what: str) -> float:
+    """The 8-step kernel sensitivity of ``lat``'s objective to its
+    populations (f32, K4 and K7) against eager f64 autograd on the card:
+    the relative L2 error within GRAD_F64_REL_L2."""
+    step = ak.make_diff_step(lat.model, lat.shape)
+    _, gc, _ = sensitivity_fn(lat, 8, step, 1)()
+    _, g64, _ = sensitivity_fn(eager_copy(lat, torch.float64), 8, None, 1)()
+    rel = float((gc.double() - g64).norm() / g64.norm())
+    say(f"  {what}: the 8-step kernel sensitivity against eager f64: "
+        f"relative L2 {rel:.3e} (limit {GRAD_F64_REL_L2})")
+    if not rel <= GRAD_F64_REL_L2:
+        fail(f"{what}: the kernel sensitivity disagrees with f64")
+    return rel
+
+
+def run_models2d(gk, ak, errs: dict) -> dict:
+    """Phases 49-53 for the six models: the reference's physics on the
+    kernels (49), each model's 1024x1024 lattice on K4 in f32 and bf16
+    (50: wave's band path at 2048x2048), K5 and its bf16 rung on a
+    128x128 lattice (51), generic2d_step_b for d2q9_diff and wave2d on
+    rich states and their 1024x1024 sensitivities on cuda_adjoint (52),
+    and example/cavity.xml against the eager engine (53).  Returns the
+    launches by kernel and path (and of the step kernels' globals
+    flavour), the lattices phase 7 times and the summary."""
+    launches, glaunches, summary = {}, {}, {}
+    band, res, lats_b = {}, {}, {}
+
+    def count(into, key, path, n):
+        if n:
+            into.setdefault(key, {})[path] = into.get(key, {}).get(path,
+                                                                    0) + n
+
+    def record(model, path, run, kernels):
+        for k in kernels:
+            count(launches, f"{k}[{model}]", path, run["launches"][k])
+        for k in ("generic2d_step", "generic2d_step_bf16"):
+            count(glaunches, f"{k}[{model}]", path,
+                  run["flavours"][k]["globals"])
+        summary[path] = {k: v for k, v in run.items()
+                         if k not in ("launches", "flavours", "lattice")}
+
+    adjoint = gk.KERNELS + gk.BF16_KERNELS + ("generic2d_step_b",)
+    physics = run_models2d_physics(gk)
+    for (model, path), run in physics["runs"].items():
+        record(model, path, run, adjoint)
+    # phase 50: the full-width lattices on K4, f32 and bf16
+    for model in MODELS2D:
+        shape = MODELS2D_BAND.get(model, (MODELS2D_N, MODELS2D_N))
+        say(f"phase 50: {model} at {shape[0]}x{shape[1]} on K4")
+        what = f"phase 50, {model} {shape[0]}x{shape[1]}"
+        lat = models2d_lattice(model, shape)
+        eager_warm(lat, 4)
+        check_kernels([(gk, lat, "generic2d_step")], errs, what)
+        check_globals_flavour(gk, (lat,), errs, what)
+        rep = models2d_repr(lat.model)
+        bf = bf16_copy(lat, rep)
+        check_bf16_kernels([(gk, bf, "generic2d_step")], errs, what)
+        band[model], band[f"{model} bf16"] = lat, bf16_copy(lat, rep)
+        tag = f"{model}{shape[0]}"
+        for sfx, L, eng in (
+                ("", lat, f"cuda_generic_band[{model},fuse=1]"),
+                ("_bf16", bf,
+                 f"cuda_generic_band[{model},fuse=1,bfloat16/{rep}]")):
+            record(model, tag + sfx, iterate_window(gk, L, tag + sfx, eng,
+                                                    MODELS2D_WINDOW),
+                   [f"generic2d_step{sfx}"])
+        summary[tag]["bf16_over_f32"] = (
+            summary[f"{tag}_bf16"]["mlups_iterate"]
+            / summary[tag]["mlups_iterate"])
+    # phase 51: K5 and its bf16 rung on a 128x128 lattice each
+    for model in MODELS2D:
+        say(f"phase 51: {model} at {MODELS2D_SMALL} (K5's path)")
+        lat = models2d_lattice(model, MODELS2D_SMALL)
+        path = f"{model}128"
+        record(model, path, iterate_window(
+            gk, lat, path, f"cuda_generic_resident[{model},fuse=N]",
+            MODELS2D_SMALL_WINDOW), gk.KERNELS)
+        res[model] = lat
+        resident_chain(gk, lat, 8, errs, f"phase 51, {model}'s resident "
+                       "path")
+        rep = models2d_repr(lat.model)
+        bf = bf16_copy(lat, rep)
+        bf16_chain(gk, bf, 8, errs, f"phase 51, {model} in bf16 {rep}")
+        res[f"{model} bf16"] = bf16_copy(lat, rep)
+        path = f"{model}_bf16_resident"
+        record(model, path, iterate_window(
+            gk, bf, f"{path} at {lat.shape}",
+            f"cuda_generic_resident[{model},fuse=N,bfloat16/{rep}]",
+            MODELS2D_SMALL_WINDOW), gk.BF16_KERNELS)
+    # phase 52: K7 on rich states, then the 1024x1024 sensitivities
+    for model in DESIGN2D:
+        rich = [rich_models2d_lattice(model, shape)
+                for shape in ((37, 67), (256, 256))]
+        check_step_b(ak, gk, rich, errs, f"phase 52, {model}")
+        lat = band[model]
+        lats_b[model] = lat
+        path = f"{model}{MODELS2D_N}_sensitivity"
+        run = run_sensitivity(gk, ak, lat, path, "52")
+        run["grad8_rel_l2_f64"] = sensitivity_f64(ak, lat, path)
+        record(model, path, run, adjoint)
+    cavity = run_cavity(gk)
+    record("d2q9_kuper", "cavity", cavity, gk.KERNELS)
+    summary["physics"] = physics["summary"]
+    return {"launches": launches, "globals_launches": glaunches,
+            "summary": summary, "band": band, "resident": res,
+            "step_b": lats_b}
+
+
+def time_models2d(gk, ak, m2: dict) -> dict:
+    """Phase 7 for the six models: K4 (both flavours) on the band path's
+    lattice in f32 and bf16, K5 on the 128x128 path's state for
+    K5_TIMING_STEPS steps in f32 and bf16 (the plain version timed once),
+    and generic2d_step_b at 1024x1024 for the two design models."""
+    out = {}
+    for model in MODELS2D:
+        for tag, lat in (("", m2["band"][model]),
+                         ("_bf16", m2["band"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_step{tag}[{model}]"
+            for k, fn, g, reps in ((key, gk.step, False, 200),
+                                   (f"{key} globals", gk.step_globals,
+                                    True, 100)):
+                out[k] = time_one(
+                    k, lambda fn=fn: fn(f, flags, ztab, a),
+                    lambda g=g: gk.plain_steps(f, flags, ztab, a, 1,
+                                               with_globals=g),
+                    gk.launch_bytes(lat.model, lat.shape,
+                                    itemsize=2 if tag else 4),
+                    gk.node_step_flops(lat.model, lat.flags_numpy()),
+                    lat.shape, reps, plain_reps=3)
+        steps = K5_TIMING_STEPS
+        for tag, lat in (("", m2["resident"][model]),
+                         ("_bf16", m2["resident"][f"{model} bf16"])):
+            f, flags, ztab, a = (bf16_inputs(gk, lat) if tag else
+                                 gk.kernel_inputs(lat.model, lat.state,
+                                                  lat.params))
+            key = f"generic2d_resident{tag}[{model}]"
+            out[key] = time_one(
+                f"{key} ({steps} steps)",
+                lambda: gk.resident(f, flags, ztab, a, steps),
+                lambda: gk.plain_steps(f, flags, ztab, a, steps),
+                gk.launch_bytes(lat.model, lat.shape,
+                                itemsize=2 if tag else 4),
+                steps * gk.node_step_flops(lat.model, lat.flags_numpy()),
+                lat.shape, 20, plain_reps=1, plain_warm=0)
+            out[key]["steps"] = steps
+    for model in DESIGN2D:
+        out.update(time_step_b(ak, gk, m2["step_b"][model], plain_reps=3))
+    return out
+
+
 def ptxas_of(gk, builds, models) -> dict:
     """Registers, stack, spills and shared memory of each generic3d_pass_
     kernel instance in the model libraries' compiler reports: by model,
@@ -5318,6 +6030,7 @@ def main() -> int:
     g3models = run_generic3d_models(g3, errs)
     physics3d = run_generic3d_physics(g3)
     drop3d = run_kuper_drop(g3, errs)
+    m2 = run_models2d(gk, ak, errs)
     # one generic2d_resident launch of each path: the even part of
     # niter - 1 for drop.xml's Log interval of 500 iterations and for
     # heat_adj.xml's one Solve of 4000
@@ -5349,6 +6062,7 @@ def main() -> int:
     times.update(time_onestage(gk, one))
     times.update(time_multistage(gk, multi))
     times.update(time_adj(gk, ak, adj))
+    times.update(time_models2d(gk, ak, m2))
     times.update(time_generic3d_models(g3, g3models["lattices"]))
     # the family: d2q9_resident8 on each model's resident path, the
     # single and fused steps on its 1024x1024 band path
@@ -5474,6 +6188,11 @@ def main() -> int:
     launches.update(one["launches"])
     launches.update(multi["launches"])
     launches.update(adj["launches"])
+    # the six models' paths, and cavity.xml's for d2q9_kuper's kernels
+    for key, by_path in m2["launches"].items():
+        launches.setdefault(key, {}).update(by_path)
+    cavity_globals = m2["globals_launches"].pop(
+        "generic2d_step[d2q9_kuper]", {})
     # the 3D models of the generic engine: their paths' launches and the
     # globals flavour's
     g3_launches = dict(g3models["launches"])
@@ -5546,7 +6265,8 @@ def main() -> int:
     for key, flavour_launches in (
             ("generic2d_step[d2q9_kuper]",
              {"drop": path_drop["flavours"]["globals"],
-              "drop1024": band_drop["flavours"]["globals"]}),
+              "drop1024": band_drop["flavours"]["globals"],
+              **cavity_globals}),
             ("generic2d_step[d2q9_heat_adj]",
              {"heat_adj": path_heat["flavours"]["globals"],
               "heat_adj1024": heat_band["flavours"]["globals"],
@@ -5570,7 +6290,7 @@ def main() -> int:
             by_name[res]["steps"] = times[res]["steps"]
     for step_b in ["generic2d_step_b[d2q9_heat_adj]",
                    "generic3d_step_b[d3q19_adj]"] + [
-            f"generic2d_step_b[{m}]" for m in ADJ_MODELS]:
+            f"generic2d_step_b[{m}]" for m in ADJ_MODELS + DESIGN2D]:
         by_name[step_b]["settings_max_rel_err"] = \
             errs[f"{step_b} settings"]["max_rel_err"]
     for key in (f"{k}[{m}]" for mod, m in ((gk, "d2q9"), (g3, "d3q19_adj"),
@@ -5599,7 +6319,8 @@ def main() -> int:
     # kernels' globals flavour, K5's steps and its chain, the bf16 values a
     # step off
     for key in list(one["launches"]) + list(multi["launches"]) + list(
-            adj["launches"]):
+            adj["launches"]) + [k for k in m2["launches"]
+                                if k.split("[")[1].rstrip("]") in MODELS2D]:
         model = key.split("[")[1].rstrip("]")
         by_name[key]["header"] = ("tclb_tpu_torch/csrc/"
                                   + gk.DEVICE_MODELS[model].header)
@@ -5617,7 +6338,8 @@ def main() -> int:
                 by_name[key][k] = times[key][k]
     for key, by_path in list(one["globals_launches"].items()) + list(
             multi["globals_launches"].items()) + list(
-            adj["globals_launches"].items()):
+            adj["globals_launches"].items()) + list(
+            m2["globals_launches"].items()):
         by_name[key]["globals_flavour"] = {
             **{k: times[f"{key} globals"][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5688,6 +6410,7 @@ def main() -> int:
         "multistage": multi["summary"],
         "multistage_iterate_profile": busy_multi,
         "adjoint_models": adj["summary"],
+        "models2d": m2["summary"],
         "generic3d_models": {
             "heat_bench": {k: v for k, v in heat3d.items()
                            if k != "lattice"},

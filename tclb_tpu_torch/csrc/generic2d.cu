@@ -19,7 +19,8 @@
 //                       one overrides the node's zone, SeriesArgs in
 //                       generic_common.cuh).
 //                       A two-stage action whose first stage computes a
-//                       ring of at most two nodes (d2q9_kuper: 1,
+//                       ring of at most two nodes (d2q9_kuper,
+//                       d2q9_pp_LBL, d2q9_pf_curvature: 1,
 //                       d2q9_pf_pressureEvolution: 2) runs in one launch
 //                       (the ring form, generic2d_step_kernel): a block of
 //                       32x16 threads runs stage 0 on a 32x32 tile, two
@@ -79,7 +80,9 @@
 //                       On a bf16 stack the pass form's node pulls from its
 //                       rows and columns wrapped once, by a compare
 //                       (NodeStorage): half the bytes no longer hide the
-//                       modulo wraps of a pull.
+//                       modulo wraps of a pull; a header whose Field reads
+//                       reach one node (wave, model::FIELD_REACH) reads
+//                       them from the same rows and columns.
 //   generic2d_resident  an even number of Iterations in one cooperative
 //                       launch (replaces make_resident_iterate): each block
 //                       owns its tiles for the whole launch and runs a
@@ -193,11 +196,15 @@ constexpr int NG = model::N_GLOBALS > 0 ? model::N_GLOBALS : 1;
 
 // A staged plan's header declares model::REACH, the rows of input its
 // plan reads beyond the output (generic_kernels.action_plan's reach); a
-// header that declares none finds this -1 through the using-directive
+// pass-form header that reads a Field (c.load) declares
+// model::FIELD_REACH, the nodes its reads reach (at most 1: the bf16 pass
+// form serves them from its node's rows and columns).  A header that
+// declares neither finds these defaults through the using-directive
 // (qualified lookup reads a namespace's own declaration first).
 namespace model {
 namespace plan_defaults {
 constexpr int REACH = -1;
+constexpr int FIELD_REACH = 0;
 }
 using namespace plan_defaults;
 }  // namespace model
@@ -359,7 +366,7 @@ struct StagedStorage {
 // a node's pulls from device memory (a bf16 stack), its three rows and
 // columns about (y, x) wrapped once, by a compare: plane k from row
 // 1 - ey_k and column 1 - ex_k (the offsets of y + dy, x + dx at dy + 1,
-// dx + 1).  A pull only.
+// dx + 1).  A pull (get), or a Field read one node away at most (at).
 struct NodeStorage {
   const __nv_bfloat16* p;
   size_t n;
@@ -370,13 +377,16 @@ struct NodeStorage {
     return load_plane<false>(
         p + k * n + row[1 - model::ey(k)] + col[1 - model::ex(k)], w, k);
   }
+  __device__ float at(int k, int dx, int dy) const {
+    return load_plane<false>(p + k * n + row[1 + dy] + col[1 + dx], w, k);
+  }
 };
 
-// whether a stage reading through Storage may read a Field (c.load)
+// whether a stage reads through NodeStorage (its Field reads by `at`)
 template <class Storage>
-constexpr bool kFieldReads = true;
+constexpr bool kNodeStorage = false;
 template <>
-constexpr bool kFieldReads<NodeStorage> = false;
+constexpr bool kNodeStorage<NodeStorage> = true;
 
 // ---------------------------------------------------------------------------
 // Where a stage writes
@@ -427,9 +437,14 @@ struct Node {
     return s.get(k, y - model::ey(k), x - model::ex(k));
   }
   __device__ float load(int k, int dx, int dy) const {
-    static_assert(kFieldReads<Storage>, "the bf16 pass form serves pulls "
-                                        "only");
-    return s.get(k, y + dy, x + dx);
+    if constexpr (kNodeStorage<Storage>) {
+      static_assert(kNodeStorage<Storage> && model::FIELD_REACH == 1,
+                    "the bf16 pass form serves Field reads one node away "
+                    "at most: the header declares FIELD_REACH 1");
+      return s.at(k, dx, dy);
+    } else {
+      return s.get(k, y + dy, x + dx);
+    }
   }
   __device__ float setting(int i) const { return a.setting[i]; }
   __device__ float zonal(int j) const {

@@ -8,10 +8,13 @@ one-stage 2D models (``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``,
 (``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee``,
 ``d2q9_poison_boltzmann``), the adjoint models ``d2q9_heat_adj``,
 ``d2q9_adj``, ``d2q9_optimalMixing``, ``d2q9_plate`` and ``d3q19_adj``,
-and the 3D models of the generic engine (``d3q19_heat``, ``d3q27``,
-``d3q27_viscoplastic``, ``d3q27_cumulant_qibb_small``, ``d3q19_kuper``);
-the other models of the JAX package follow ROADMAP queue 1 items 10 and
-11."""
+the 3D models of the generic engine (``d3q19_heat``, ``d3q27``,
+``d3q27_viscoplastic``, ``d3q27_cumulant_qibb_small``, ``d3q19_kuper``),
+and the models of the phase-field, pseudopotential and design workflows
+(``wave``, ``wave2d``, ``d2q9_diff``, ``d2q9_pf``, ``d2q9_pp_LBL``,
+``d2q9_pf_curvature``); the other models of the JAX package
+(``d2q9_kuper_adj``, ``d3q19_heat_adj`` and its ``_art`` and ``_prop``
+variants) follow ROADMAP queue 1."""
 
 from __future__ import annotations
 
@@ -47,6 +50,12 @@ _REGISTRY: dict[str, str] = {
     "d2q9_pp_MCMP": "tclb_tpu_torch.models.d2q9_pp_mcmp",
     "d2q9_lee": "tclb_tpu_torch.models.d2q9_lee",
     "d2q9_poison_boltzmann": "tclb_tpu_torch.models.d2q9_poison_boltzmann",
+    "wave": "tclb_tpu_torch.models.wave",
+    "wave2d": "tclb_tpu_torch.models.wave2d",
+    "d2q9_diff": "tclb_tpu_torch.models.d2q9_diff",
+    "d2q9_pf": "tclb_tpu_torch.models.d2q9_pf",
+    "d2q9_pp_LBL": "tclb_tpu_torch.models.d2q9_pp_lbl",
+    "d2q9_pf_curvature": "tclb_tpu_torch.models.d2q9_pf_curvature",
     "d3q19": "tclb_tpu_torch.models.d3q19",
     "d3q19_les": "tclb_tpu_torch.models.d3q19_les",
     "d3q19_adj": "tclb_tpu_torch.models.d3q19_adj",

@@ -188,10 +188,35 @@ def _plate_b_flops(model: Model, flags: np.ndarray) -> int:
             + 40 * gk._faces(model, flags))
 
 
+def _wave2d_b_flops(model: Model, flags: np.ndarray) -> int:
+    """wave2d's reverse (``run_b`` in csrc/models/wave2d.cuh) on top of the
+    forward: every node the height copies' cotangent (4), Loss's (2), the
+    masked height's (1 + 3), u's (2), WaveK's (2), du's (1) and h's (2);
+    an Obj1 node TotalDiff's (3)."""
+    return (gk.node_step_flops(model, flags)
+            + 17 * int(np.asarray(flags).size)
+            + 3 * gk.count_types(model, flags, "Obj1"))
+
+
+def _diff_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_diff's reverse (``run_b`` in csrc/models/d2q9_diff.cuh) on
+    top of the forward: a collision node, per population the relaxation's
+    cotangents (the equilibrium again 7, 1 - omega and omega's 5, c's 8,
+    e.u's 3, UX's and UY's 4, the source's 2), and TotalC's (1); every
+    node c's cotangent on the nine populations (9); a DesignSpace node
+    Source's and w's (3); an Outlet node OutC's (1)."""
+    return (gk.node_step_flops(model, flags)
+            + (9 * 29 + 1) * gk.count_group(model, flags, "COLLISION")
+            + 9 * int(np.asarray(flags).size)
+            + 3 * gk.count_group(model, flags, "DESIGNSPACE")
+            + gk.count_types(model, flags, "Outlet"))
+
+
 _REVERSE_FLOPS = {"d2q9_heat_adj": _heat_adj_b_flops,
                   "d3q19_adj": _d3q19_adj_b_flops, "d2q9_adj": _adj_b_flops,
                   "d2q9_optimalMixing": _mixing_b_flops,
-                  "d2q9_plate": _plate_b_flops}
+                  "d2q9_plate": _plate_b_flops, "wave2d": _wave2d_b_flops,
+                  "d2q9_diff": _diff_b_flops}
 
 
 # --------------------------------------------------------------------------- #

@@ -13,7 +13,9 @@ models ``d2q9_heat``, ``d2q9_heat_conjugate``, ``d2q9_hb``, ``sw``,
 ``d2q9_solid`` and ``d2q9_npe_guo``, the multi-stage 2D models
 ``d2q9_pf_pressureEvolution``, ``d2q9_pp_MCMP``, ``d2q9_lee`` and
 ``d2q9_poison_boltzmann``, the 2D adjoint models ``d2q9_heat_adj``,
-``d2q9_adj``, ``d2q9_optimalMixing`` and ``d2q9_plate``, and the 3D
+``d2q9_adj``, ``d2q9_optimalMixing`` and ``d2q9_plate``, the phase-field,
+pseudopotential and design models ``wave``, ``wave2d``, ``d2q9_diff``,
+``d2q9_pf``, ``d2q9_pp_LBL`` and ``d2q9_pf_curvature``, and the 3D
 ``d3q19_adj``, ``d3q19_heat``, ``d3q27``, ``d3q27_viscoplastic``,
 ``d3q27_cumulant_qibb_small`` and ``d3q19_kuper``, whose kernels
 ``ops/generic3d_kernels.py`` binds) with the registry layout the header
@@ -358,6 +360,68 @@ DEVICE_MODELS = {
                   "ForceY", "Moment", "PowerX"),
         plan=(("BaseIteration", 0),),
         adjoint=True),
+    # the phase-field, pseudopotential and design models of the
+    # reference's workflows: wave, d2q9_diff and d2q9_pf in the pass form
+    # (wave2d and d2q9_diff with a reverse stage), the two-stage pp_LBL
+    # and pf_curvature in the ring form
+    "wave": DeviceModel(
+        header="models/wave.cuh", storage=("u", "v"),
+        settings=("Speed", "Value", "Viscosity"),
+        node_types=("Dirichlet",), groups=("BOUNDARY",), zonal=("Value",),
+        globals_=(), plan=(("BaseIteration", 0),)),
+    "wave2d": DeviceModel(
+        header="models/wave2d.cuh",
+        storage=("h", "u", "h1", "h2", "h3", "h4", "w"),
+        settings=("WaveK", "SolidH", "Loss", "TotalDiffInObj"),
+        node_types=("Obj1",), groups=("OBJECTIVE",), zonal=(),
+        globals_=("TotalDiff",), plan=(("BaseIteration", 0),),
+        adjoint=True),
+    "d2q9_diff": DeviceModel(
+        header="models/d2q9_diff.cuh",
+        storage=_d2q9_groups("f") + ("w",),
+        settings=("omega", "Diffusivity", "UX", "UY", "InitC", "Source",
+                  "TotalCInObj", "OutCInObj"),
+        node_types=("Wall", "Solid", "Outlet"),
+        groups=("COLLISION", "DESIGNSPACE"), zonal=("InitC",),
+        globals_=("TotalC", "OutC"), plan=(("BaseIteration", 0),),
+        adjoint=True),
+    "d2q9_pf": DeviceModel(
+        header="models/d2q9_pf.cuh", storage=_d2q9_groups("f", "h"),
+        settings=("omega", "nu", "Velocity", "Pressure", "W", "M",
+                  "PhaseField", "GravitationX", "GravitationY",
+                  "PressureLossInObj", "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "EVelocity", "WPressure", "WVelocity",
+                    "EPressure"),
+        groups=("COLLISION",), zonal=("Velocity", "Pressure", "PhaseField"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 0),)),
+    "d2q9_pp_LBL": DeviceModel(
+        header="models/d2q9_pp_lbl.cuh",
+        storage=_d2q9_groups("f") + ("psi",),
+        settings=("G", "T", "alpha", "R", "beta", "kappa", "eps_0",
+                  "betaforcing", "omega", "tempomega", "nu", "Velocity",
+                  "VelocityY", "Density", "GravitationY", "GravitationX")
+        + tuple(f"S{i}" for i in range(9))
+        + ("PressureLossInObj", "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "EVelocity", "WPressure", "WVelocity",
+                    "EPressure", "TopSymmetry", "BottomSymmetry"),
+        groups=("COLLISION",), zonal=("Velocity", "VelocityY", "Density"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 1), ("calcPsi", 0))),
+    "d2q9_pf_curvature": DeviceModel(
+        header="models/d2q9_pf_curvature.cuh",
+        storage=_d2q9_groups("f", "h") + ("phi",),
+        settings=("omega", "omega_l", "nu", "Velocity", "Pressure", "W", "M",
+                  "PhaseField", "GravitationX", "GravitationY",
+                  "GravitationX_l", "GravitationY_l", "SurfaceTensionDecay",
+                  "SurfaceTensionRate", "WettingAngle", "PressureLossInObj",
+                  "OutletFluxInObj", "InletFluxInObj"),
+        node_types=("Wall", "Solid", "EVelocity", "WPressure", "WVelocity",
+                    "EPressure", "NSymmetry", "SSymmetry"),
+        groups=("COLLISION",),
+        zonal=("Velocity", "Pressure", "PhaseField", "WettingAngle"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux"),
+        plan=(("BaseIteration", 1), ("CalcPhi", 0))),
     "d3q19_adj": DeviceModel(
         header="models/d3q19_adj.cuh",
         storage=tuple(f"f[{k}]" for k in range(19)) + ("w",),
@@ -865,7 +929,10 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
             "d2q9_pp_MCMP": _sum_stages, "d2q9_lee": _sum_stages,
             "d2q9_poison_boltzmann": _sum_stages, "d2q9_adj": _adj_flops,
             "d2q9_optimalMixing": _mixing_flops,
-            "d2q9_plate": _plate_flops}[model.name](model, flags)
+            "d2q9_plate": _plate_flops, "wave": _wave_flops,
+            "wave2d": _wave2d_flops, "d2q9_diff": _diff_flops,
+            "d2q9_pf": _pf_flops, "d2q9_pp_LBL": _lbl_flops,
+            "d2q9_pf_curvature": _curvature_flops}[model.name](model, flags)
 
 
 def stage_flops(model: Model, flags: np.ndarray) -> tuple:
@@ -1182,6 +1249,92 @@ def _plate_flops(model: Model, flags: np.ndarray) -> int:
     return (coll * int(coll_mask.sum()) + (MACRO + 10) * objective
             + 14 * count_types(model, flags, "Wall")
             + _nebb_flops() * _faces(model, flags))
+
+
+def _wave_flops(model: Model, flags: np.ndarray) -> int:
+    """wave (models/wave.py), every node: the laplacian (3 adds, 4 u and
+    the difference: 5), the damped rate (4) and u + v (1)."""
+    return 10 * int(np.asarray(flags).size)
+
+
+def _wave2d_flops(model: Model, flags: np.ndarray) -> int:
+    """wave2d (models/wave2d.py), every node: du (5), u + du WaveK (2),
+    (h + u) w (2), u Loss (1); an Obj1 node du^2 and its sum (2)."""
+    return (10 * int(np.asarray(flags).size)
+            + 2 * count_types(model, flags, "Obj1"))
+
+
+def _diff_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_diff (models/d2q9_diff.py).  Every node: the concentration
+    (8).  A collision node, per population: the equilibrium (e.u 3, 1 + 3
+    e.u 2, w c and the product 2), the relaxation (3) and the source's
+    equilibrium at 0 u and its add (8); 0 u (2), Source w (1) and TotalC
+    (1).  An Outlet node OutC (1)."""
+    return (SUM9 * int(np.asarray(flags).size)
+            + (9 * 18 + 4) * count_group(model, flags, "COLLISION")
+            + count_types(model, flags, "Outlet"))
+
+
+# the h equilibrium of the phase-field models (models/d2q9_pf.py:_heq):
+# the equilibrium, and per moving population bh w, e.n, the product and
+# the add (4, a diagonal's e.n one more)
+HEQ = 8 * 4 + 4
+
+
+def _pf_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_pf (models/d2q9_pf.py).  A collision node: rho and u (20), the
+    velocity with gravity (2), two equilibria, the relaxation toward feq2
+    (1 - omega and 3 a population: 28), the phase field (8), the normal
+    (h's first moments 10, their central parts 4, |k| 4, -k / |k| 4), the
+    mobility rate (3), bh (6), the h equilibrium (an equilibrium and HEQ)
+    and its relaxation (27).  A Zou/He face 22, a pressure face 2 more
+    for 1 + 3 Pressure."""
+    eq = _eq_flops()
+    coll = 20 + 2 + 2 * eq + 28 + 8 + 22 + 3 + 6 + eq + HEQ + 27
+    return (coll * count_group(model, flags, "COLLISION")
+            + ZOU * _faces(model, flags)
+            + 2 * count_types(model, flags, "WPressure", "EPressure"))
+
+
+def _lbl_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_pp_LBL (models/d2q9_pp_lbl.py).  A collision node: rho and u
+    (20), the Shan-Chen force with gravity (12 products and adds a
+    component, -G psi0 2, the scale and gravity 3 a component: 30), gamma
+    (9), the equilibrium, |F|^2 (3), gamma / (2 rho) (2), and per
+    population e.u and e.F (6), the two force terms (5 each), the gamma
+    term (4), their sum and scales (4) and the BGK update with the source
+    (4).  A Zou/He face 22, the equilibrium inlet an equilibrium.  Every
+    node runs calcPsi: rho (8), the Carnahan-Starling pressure (bp 2,
+    1 - bp 1, the polynomial 6, the cube 2, the rest 7) and psi (6)."""
+    eq = _eq_flops()
+    coll = 20 + 30 + 9 + eq + 3 + 2 + 9 * (6 + 10 + 4 + 4 + 4)
+    return (coll * count_group(model, flags, "COLLISION")
+            + ZOU * count_types(model, flags, "WPressure", "EVelocity",
+                                "EPressure")
+            + eq * count_types(model, flags, "WVelocity")
+            + (SUM9 + 2 + 1 + 6 + 2 + 7 + 6) * int(np.asarray(flags).size))
+
+
+def _curvature_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_pf_curvature (models/d2q9_pf_curvature.py).  A collision node:
+    the phase field (8), the repaired stencil's running mean (3 a link:
+    27), its unit gradient (the two sums 10, |g| 4, the quotients 2), the
+    curvature (the laplacian 11, the rest 13), the decay (4), the surface
+    tension (6) and the interpolated gravity (5 a component: 10), the
+    interpolated rate (3), rho and j (18), the velocities (6), two
+    equilibria, the relaxation toward feq2 (28), J + 1.5 F (4), the
+    mobility rate (3), bh (6), the h equilibrium (an equilibrium and HEQ)
+    and its relaxation (28).  A Zou/He face 22, a pressure face 2 more and
+    h pinned at the face's velocity (the sums 18, the quotients 2 and an
+    equilibrium).  Every node runs CalcPhi: h's sum (8)."""
+    eq = _eq_flops()
+    coll = (8 + 27 + 16 + 24 + 4 + 6 + 10 + 3 + 18 + 6 + 2 * eq + 28 + 4
+            + 3 + 6 + eq + HEQ + 28)
+    return (coll * count_group(model, flags, "COLLISION")
+            + ZOU * _faces(model, flags)
+            + (2 + 20 + eq) * count_types(model, flags, "WPressure",
+                                          "EPressure")
+            + SUM9 * int(np.asarray(flags).size))
 
 
 def _kuper_flops(model: Model, flags: np.ndarray) -> int:

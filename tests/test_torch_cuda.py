@@ -1,7 +1,8 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
 family's branches), generic (2D and 3D, with their <Control> series
 flavours; the 2D ones for every model with a device header, the one-stage,
-multi-stage and adjoint models among them) and adjoint CUDA kernels
+multi-stage and adjoint models and the phase-field, pseudopotential and
+design models among them) and adjoint CUDA kernels
 against their plain PyTorch versions on the card, and the storage
 ladder's bf16 flavours of the generic 2D and d3q27 kernels with the
 precision harness on them.
@@ -29,7 +30,9 @@ from torch_cases import (ADJ3D_SETTINGS, ADJ_MODELS, ADJ_SERIES,
                          D3Q_FAMILY, FAMILY_MODELS, GENERIC3D_MODELS,
                          HEAT_SETTINGS, RICH_GENERIC3D_SETTINGS,
                          paint_rich_generic3d,
-                         KUPER_SETTINGS, MULTISTAGE_MODELS, ONESTAGE_MODELS,
+                         KUPER_SETTINGS, MODELS2D, MULTISTAGE_MODELS,
+                         ONESTAGE_MODELS, RICH_MODELS2D_SETTINGS,
+                         paint_rich_models2d,
                          RICH3D_SETTINGS, RICH_ADJ_SETTINGS,
                          RICH_MULTISTAGE_SETTINGS, RICH_ONESTAGE_SETTINGS,
                          RICH_SERIES_T, RICH_SETTINGS, add_rich_series,
@@ -1585,3 +1588,135 @@ def test_resident_small_lattices(model, shape, nsteps):
         got = gk.resident(x, flags, ztab, a, nsteps)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int16), chain.view(torch.int16))
+
+
+# --------------------------------------------------------------------------- #
+# the phase-field, pseudopotential and design models
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def card_models2d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed, **kw):
+        lat = Lattice(get_model(name), shape, dtype=torch.float32,
+                      settings=RICH_MODELS2D_SETTINGS[name], device="cuda",
+                      **kw)
+        return paint_rich_models2d(lat, seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 67), (256, 256)])
+@pytest.mark.parametrize("name", MODELS2D)
+def test_models2d_kernels_match_plain(card_models2d, name, shape):
+    """Each model's build on its rich state (every node type its header
+    reads, two zones, pf_curvature's wall sentinel): generic2d_step in
+    both flavours against the plain version (the globals at rtol 1e-4 /
+    atol 1e-6), an 8-step generic2d_resident against it and, bit for bit,
+    against eight generic2d_step calls."""
+    lat = card_models2d(name, shape, seed=5)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    torch.testing.assert_close(gk.step(f, flags, ztab, args),
+                               gk.plain_steps(f, flags, ztab, args, 1),
+                               **FIELDS_TOL)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(gotg, want, **FIELDS_TOL)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    torch.testing.assert_close(res, gk.plain_steps(f, flags, ztab, args, 8),
+                               **FIELDS_TOL)
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert torch.equal(res, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_repr", ddf.STORAGE_REPRS)
+@pytest.mark.parametrize("name", MODELS2D)
+def test_models2d_bf16_kernels_match_plain(card_models2d, name,
+                                           storage_repr):
+    """generic2d_step_bf16 (both flavours) against the narrowed eager step
+    on the same bf16 stack (raw, and shifted where the model has a
+    velocity set), an 8-step generic2d_resident_bf16 bit for bit against
+    eight generic2d_step_bf16 calls."""
+    m = get_model(name)
+    if storage_repr == "shifted" and not ddf.has_shift(m):
+        pytest.skip(f"{name} has no velocity set to shift")
+    lat = card_models2d(name, (37, 67), seed=5,
+                        storage_dtype=torch.bfloat16,
+                        storage_repr=storage_repr)
+    shift = ddf.kernel_shift(m, storage_repr)
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params, shift)
+    wide = _wide_plain(gk, f, flags, ztab, args, 1, m, storage_repr)
+    _assert_narrowed(gk.step(f, flags, ztab, args), wide, m, storage_repr)
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    _assert_narrowed(gotg, wide, m, storage_repr)
+    _, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    res = gk.resident(f, flags, ztab, args, 8)
+    steps = f
+    for _ in range(8):
+        steps = gk.step(steps, flags, ztab, args)
+    torch.cuda.synchronize()
+    assert torch.equal(res.view(torch.int16), steps.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 67), (256, 256)])
+@pytest.mark.parametrize("name", ["d2q9_diff", "wave2d"])
+def test_models2d_step_b_matches_plain(card_models2d, name, shape):
+    """generic2d_step_b of the two design models against torch.func.vjp
+    of the plain step: lam_in at rtol 1e-4 / atol 1e-6, the settings
+    cotangent at rtol 1e-4."""
+    lat = card_models2d(name, shape, seed=6)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"generic2d_step_b": 1, "generic3d_step_b": 0}
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [m for m in MODELS2D
+                                  if get_model(m).zonal_settings])
+def test_models2d_series_flavours_match_plain(card_models2d, name):
+    """Both series flavours of each model with a zonal setting under a
+    series of its first one (horizon 5), at an iteration inside the
+    horizon and one past it (no path runs them: no example puts these
+    models under a <Control>)."""
+    lat = card_models2d(name, (37, 67), seed=4)
+    zonal = lat.model.zonal_settings[0]
+    v = float(lat.params.settings[lat.model.setting_index[zonal]])
+    lat.set_setting_series(zonal, [v, v + 0.01, v - 0.01, v + 0.02, v],
+                           zone=0)
+    f, flags, ztab, args = gk.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    series = gk.series_inputs(lat.model, lat.params)
+    gk.reset_launches()
+    for it in (2, 13):
+        got = gk.step_series(f, flags, ztab, args, series, it)
+        torch.testing.assert_close(got, gk.plain_steps(
+            f, flags, ztab, args, 1, series=series, it=it), **FIELDS_TOL)
+        got, g = gk.step_series_globals(f, flags, ztab, args, series, it)
+        want, wg = gk.plain_steps(f, flags, ztab, args, 1,
+                                  with_globals=True, series=series, it=it)
+        torch.testing.assert_close(got, want, **FIELDS_TOL)
+        torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 2,
+                                  "generic2d_step_series_globals": 2}

@@ -288,9 +288,10 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     each library with its own digest.  Editing a model's header changes
     that model's digest only (a stale build is never reused); editing the
     adjoint header, the storage seams or the resident kernel's waits
-    (resident_sync.cuh) generic2d.cu includes changes all of them; editing the shared d2q9 blocks changes the fourteen
-    one-stage, multi-stage and adjoint models built on them; editing a
-    file none includes changes none."""
+    (resident_sync.cuh) generic2d.cu includes changes all of them; editing the shared d2q9 blocks changes the eighteen
+    one-stage, multi-stage, adjoint and phase-field models built on them
+    (not wave and wave2d), the phase-field blocks the two models built on
+    those; editing a file none includes changes none."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda_build.CSRC, csrc)
     monkeypatch.setattr(_cuda_build, "CSRC", csrc)
@@ -305,15 +306,17 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
                   "d2q9_poison_boltzmann"}
     adjoint = {"d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",
                "d2q9_plate"}
-    assert set(headers) == {"d2q9", "d2q9_kuper"} | onestage | multistage \
-        | adjoint
+    phase = {"d2q9_pf", "d2q9_pf_curvature"}
+    common_too = {"d2q9_diff", "d2q9_pp_LBL"} | phase
+    assert set(headers) == {"d2q9", "d2q9_kuper", "wave", "wave2d"} \
+        | onestage | multistage | adjoint | common_too
 
     def digests():
         return {m: _cuda_build.digest("generic2d", h)
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 16
+    assert len(set(before.values())) == 22
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -339,7 +342,11 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     common = csrc / "models" / "d2q9_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")
     assert {m for m, d in digests().items() if d != again[m]} == \
-        onestage | multistage | adjoint
+        onestage | multistage | adjoint | common_too
+    again = digests()
+    pf = csrc / "models" / "d2q9_pf_common.cuh"
+    pf.write_text(pf.read_text() + "\n// edited\n")
+    assert {m for m, d in digests().items() if d != again[m]} == phase
 
 
 # --------------------------------------------------------------------------- #

@@ -41,21 +41,33 @@ def _source(name: str) -> str:
 
 
 def test_pass_form_headers():
-    """The pass form's headers: the one-stage plans under 20 planes, none
-    of which reads a Field (the bf16 pass form serves pulls only: its
-    node storage has no Field read, and Node::load refuses it at
-    compile time)."""
+    """The pass form's headers: the one-stage plans under 20 planes.  The
+    bf16 pass form serves pulls and Field reads one node away at most
+    (NodeStorage::at, from the node's three rows and columns): the one
+    header that reads a Field (wave) declares FIELD_REACH 1, no other
+    declares it, and Node::load refuses a NodeStorage read at compile
+    time unless the header does."""
     assert set(PASS_MODELS) == {
         "d2q9", "d2q9_adj", "d2q9_plate", "sw", "d2q9_optimalMixing",
-        "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "d2q9_heat_adj"}
+        "d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb", "d2q9_heat_adj",
+        "wave", "wave2d", "d2q9_diff", "d2q9_pf"}
     for name in PASS_MODELS:
         text = _source(gk.DEVICE_MODELS[name].header)
         if name.startswith("d2q9_heat") and name != "d2q9_heat_adj":
             text += _source("models/d2q9_heat_physics.cuh")
-        assert "c.load(" not in text, name
+        reach = re.search(r"constexpr int FIELD_REACH = (\d+);", text)
+        assert ("c.load(" in text) == (name == "wave") == bool(reach), name
+        if reach:
+            assert int(reach.group(1)) == 1 == get_model(name).max_stencil
+            loads = re.findall(r"c\.load\(\w+, (-?\d), (-?\d)\)", text)
+            assert loads and all(abs(int(d)) <= 1 for xy in loads
+                                 for d in xy)
     cu = _source("generic2d.cu")
-    assert "constexpr bool kFieldReads<NodeStorage> = false;" in cu
-    assert "static_assert(kFieldReads<Storage>," in cu
+    assert "constexpr bool kNodeStorage<NodeStorage> = true;" in cu
+    assert ("static_assert(kNodeStorage<Storage> && model::FIELD_REACH "
+            "== 1,") in cu
+    assert "return s.at(k, dx, dy);" in cu
+    assert "constexpr int FIELD_REACH = 0;" in cu
 
 
 def node_pull(ex, ey, shape):
@@ -71,6 +83,19 @@ def node_pull(ex, ey, shape):
                     np.where(x + 1 < nx, x + 1, 0)])
     return np.stack([k * n + row[1 - ey[k]] + col[1 - ex[k]]
                      for k in range(len(ex))])
+
+
+def node_load(dx, dy, shape):
+    """Emulate ``NodeStorage::at``: a Field read at (x + dx, y + dy),
+    |dx|, |dy| <= 1, from row 1 + dy and column 1 + dx of the node's
+    rows and columns (element offsets into the plane)."""
+    ny, nx = shape
+    y, x = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    row = np.stack([np.where(y > 0, y - 1, ny - 1), y,
+                    np.where(y + 1 < ny, y + 1, 0)]) * nx
+    col = np.stack([np.where(x > 0, x - 1, nx - 1), x,
+                    np.where(x + 1 < nx, x + 1, 0)])
+    return row[1 + dy] + col[1 + dx]
 
 
 def plain_pull(ex, ey, shape):
@@ -94,6 +119,21 @@ def test_node_pull_matches_the_plain_pull(name, shape):
     assert set(ex) <= {-1, 0, 1} and set(ey) <= {-1, 0, 1}
     np.testing.assert_array_equal(node_pull(ex, ey, shape),
                                   plain_pull(ex, ey, shape))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_node_load_matches_the_periodic_read(shape):
+    """Every Field read of the bf16 pass form (wave's stencil: the node
+    and its four axis neighbours, and the diagonals a FIELD_REACH of 1
+    allows) reads the element the periodic read at (x + dx, y + dy)
+    does, on lattices down to one node wide or high."""
+    ny, nx = shape
+    ids = np.arange(ny * nx).reshape(ny, nx)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            np.testing.assert_array_equal(
+                node_load(dx, dy, shape),
+                np.roll(ids, (-dy, -dx), axis=(0, 1)))
 
 
 # --------------------------------------------------------------------------- #
@@ -228,10 +268,10 @@ def test_pass_and_reduction_constants_match_the_source():
 def test_persistent_globals_rule(name):
     """The persistent grid takes the pass form's globals flavours in bf16
     and, in f32, those of the headers under 16 planes: not the heat
-    family's 18 and 19 (nor any other form)."""
+    family's 18 and 19 nor d2q9_pf's 18 (nor any other form)."""
     m = get_model(name)
     heavy = {"d2q9_heat", "d2q9_heat_conjugate", "d2q9_hb",
-             "d2q9_heat_adj"}
+             "d2q9_heat_adj", "d2q9_pf"}
     assert gk.persistent_globals(m, 2) == (name in PASS_MODELS)
     assert gk.persistent_globals(m, 4) == (name in PASS_MODELS
                                            and name not in heavy)

@@ -26,7 +26,8 @@ from tclb_tpu_torch.ops import d3q27_kernels as dk3
 from tclb_tpu_torch.ops import generic_kernels as gk
 
 STAGED = ("d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
-RING = ("d2q9_kuper", "d2q9_pf_pressureEvolution")
+RING = ("d2q9_kuper", "d2q9_pf_pressureEvolution", "d2q9_pp_LBL",
+        "d2q9_pf_curvature")
 TILED = ("d2q9_npe_guo",)
 NARROW = ("d2q9_solid",)
 MODELS_2D = tuple(m for m, dm in gk.DEVICE_MODELS.items() if dm.ndim == 2)
@@ -116,7 +117,7 @@ def test_step_form(name):
     """The staged form takes the three-stage plans, the two-stage plans
     with a ring of at most two the ring form; of the one-stage plans,
     npe_guo's 45 planes take the tiled form, solid's 29 the narrow pass,
-    the others (9-19 planes) keep the one-node-a-thread pass."""
+    the others (2-19 planes) keep the one-node-a-thread pass."""
     want = ("staged" if name in STAGED else "ring" if name in RING
             else "tiled" if name in TILED else "narrow" if name in NARROW
             else "pass")
@@ -242,10 +243,11 @@ def test_tiled_tile_shared_memory(name):
 @pytest.mark.parametrize("name", RING)
 def test_ring_tile_extents(name):
     """The ring form's tile: stage 0 on 32x32 nodes, two rows a thread of
-    a 32x16 block, its planes in f32 shared memory (pf's 19: 77,824 B,
-    kuper's 10: 40,960 B), two blocks' within an SM's 228 KB; stage 1
-    on the inner 28x28 (pf, ring 2) or 30x30 (kuper, ring 1), so stage 0
-    runs 1.31 or 1.14 times an output node (a 32x16 tile: 1.52, 1.22)."""
+    a 32x16 block, its planes in f32 shared memory (pf's and
+    pf_curvature's 19: 77,824 B, kuper's and pp_LBL's 10: 40,960 B), two
+    blocks' within an SM's 228 KB; stage 1 on the inner 28x28 (pf, ring
+    2) or 30x30 (kuper, pp_LBL, pf_curvature: ring 1), so stage 0 runs
+    1.31 or 1.14 times an output node (a 32x16 tile: 1.52, 1.22)."""
     m = get_model(name)
     rt = gk.ring_tile(m)
     ring = gk.action_plan(m)[0][0][1]
@@ -253,12 +255,14 @@ def test_ring_tile_extents(name):
     assert rt["tile"] == (32 - 2 * ring, 32 - 2 * ring)
     assert rt["threads"] == 512 and 32 % gk.RING_TILE["thread_rows"] == 0
     assert rt["smem"] == 4 * m.n_storage * 32 * 32 == {
-        "d2q9_pf_pressureEvolution": 77824, "d2q9_kuper": 40960}[name]
+        "d2q9_pf_pressureEvolution": 77824, "d2q9_kuper": 40960,
+        "d2q9_pp_LBL": 40960, "d2q9_pf_curvature": 77824}[name]
     assert rt["smem"] <= SMEM_LIMIT and rt["blocks"] == 2
     assert rt["blocks"] * (rt["smem"] + 1024) <= gk.SMEM_PER_SM
     assert rt["stage0_per_node"] == pytest.approx(
         {"d2q9_pf_pressureEvolution": 1024 / 784,
-         "d2q9_kuper": 1024 / 900}[name])
+         "d2q9_kuper": 1024 / 900, "d2q9_pp_LBL": 1024 / 900,
+         "d2q9_pf_curvature": 1024 / 900}[name])
 
 
 ADJOINT_2D = ("d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",

@@ -1330,3 +1330,180 @@ def parity3d_flags(m, shape):
     flags = np.full(shape, m.flag_for(generic3d_coll(m)), dtype=np.uint16)
     flags[:, 0, :] = flags[:, -1, :] = m.flag_for("Wall")
     return flags
+
+
+# --------------------------------------------------------------------------- #
+# the six 2D models of the phase-field, pseudopotential and design
+# workflows on the generic kernels
+# --------------------------------------------------------------------------- #
+
+MODELS2D = ("wave", "wave2d", "d2q9_diff", "d2q9_pf", "d2q9_pp_LBL",
+            "d2q9_pf_curvature")
+MODELS2D_SHAPE = (16, 128)     # nx a multiple of 128: the reference's call_g
+# the reference's own settings: tests/test_pallas_generic.py:_SETTINGS
+# where it names the model (d2q9_pf, d2q9_pp_LBL; d2q9_pf with
+# tests/test_pf.py's mobility, width and phase, without which the default
+# phase of 1 sharpens outside the [-0.5, 0.5] profile and a long run
+# diverges), else the model's case in tests/test_models.py (wave, wave2d,
+# d2q9_diff) or tests/test_pf.py (d2q9_pf_curvature's wall-sentinel case)
+MODELS2D_SETTINGS = {
+    "wave": {"Speed": 0.2},
+    "wave2d": {"WaveK": 0.1, "Loss": 1.0, "SolidH": 1.0},
+    "d2q9_diff": {"Diffusivity": 0.1, "UX": 0.02, "Source": 0.01,
+                  "TotalCInObj": 1.0},
+    "d2q9_pf": {"nu": 0.1, "Velocity": 0.01, "M": 0.05, "W": 0.5,
+                "PhaseField": -0.5},
+    "d2q9_pp_LBL": {"nu": 1 / 6, "Density": 0.5, "T": 0.35},
+    "d2q9_pf_curvature": {"nu": 0.1, "omega_l": 1.0, "M": 0.05, "W": 0.5,
+                          "PhaseField": -0.5, "SurfaceTensionRate": 0.05},
+}
+# the rich states: every term of each header switched on (damping, a
+# cross flow, gravity, two relaxation rates)
+RICH_MODELS2D_SETTINGS = {
+    "wave": {"Speed": 0.2, "Viscosity": 0.01},
+    "wave2d": {"WaveK": 0.1, "Loss": 0.995, "SolidH": 1.0,
+               "TotalDiffInObj": 1.0},
+    "d2q9_diff": {**MODELS2D_SETTINGS["d2q9_diff"], "UY": -0.01,
+                  "InitC": 1.0, "OutCInObj": 0.5},
+    "d2q9_pf": {"nu": 0.1, "Velocity": 0.01, "M": 0.05, "W": 0.5,
+                "PhaseField": -0.5, "GravitationX": 1e-5,
+                "GravitationY": -2e-5},
+    "d2q9_pp_LBL": {**MODELS2D_SETTINGS["d2q9_pp_LBL"], "tempomega": 0.9,
+                    "GravitationY": -1e-6, "GravitationX": 2e-6},
+    "d2q9_pf_curvature": {**MODELS2D_SETTINGS["d2q9_pf_curvature"],
+                          "omega_l": 0.8, "GravitationY": -1e-5,
+                          "GravitationY_l": -2e-5, "GravitationX_l": 1e-5},
+}
+# zone 1's value of each zonal setting on the rich states
+RICH_MODELS2D_ZONE1 = {"Value": 1.0, "InitC": 0.5, "Velocity": 0.02,
+                       "Pressure": 0.01, "PhaseField": 0.5,
+                       "VelocityY": 0.005, "Density": 0.52,
+                       "WettingAngle": 0.0}
+# the model's collision type on a painted lattice
+MODELS2D_COLL = {"wave": None, "wave2d": None, "d2q9_diff": "BGK",
+                 "d2q9_pf": "MRT", "d2q9_pp_LBL": "MRT",
+                 "d2q9_pf_curvature": "MRT"}
+
+
+def rich_flags_models2d(m, ny, nx):
+    """Every node type the model's header reads on a (ny, nx) field (ny >=
+    16, nx >= 64): the collision type inside, walls top and bottom, a Solid
+    block, split W and E faces where the model has Zou/He faces, its
+    symmetry rows, Obj1, Outlet and DesignSpace patches, wave's Dirichlet
+    row and patch, and a settings zone 1 block."""
+    f = m.flag_for
+    nt = m.node_types
+    coll = MODELS2D_COLL[m.name]
+    flags = np.full((ny, nx), f(coll) if coll else 0, dtype=np.uint16)
+    h = ny // 2
+    if m.name == "wave":
+        flags[0, :] = f("Dirichlet", zone=1)
+        flags[h - 2:h + 1, nx // 8:nx // 8 + 3] = f("Dirichlet")
+        flags[h:-1, nx // 2:] |= np.uint16(1 << m.zone_shift)
+        return flags
+    if m.name in ("d2q9_pf", "d2q9_pp_LBL", "d2q9_pf_curvature"):
+        for col, upper, lower in ((0, "WVelocity", "WPressure"),
+                                  (nx - 1, "EPressure", "EVelocity")):
+            flags[h:, col] = f(upper, coll)
+            flags[:h, col] = f(lower, coll)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[h - 2:h + 1, nx // 8:nx // 8 + 3] = f("Solid")
+    for low, high in (("BottomSymmetry", "TopSymmetry"),
+                      ("SSymmetry", "NSymmetry")):
+        if low in nt:
+            flags[1, nx // 2:3 * nx // 4] = f(low, coll)
+            flags[-2, nx // 2:3 * nx // 4] = f(high, coll)
+    if "Obj1" in nt:
+        flags[2:-2, nx // 4:nx // 4 + 4] |= np.uint16(f("Obj1"))
+    if m.name == "d2q9_diff":
+        flags[2:-2, nx - 4] |= np.uint16(f("Outlet"))
+        flags[3:h + 3, nx // 2 - 6:nx // 2 + 4] |= np.uint16(
+            f("DesignSpace"))
+    flags[h:-1, nx // 2:] |= np.uint16(1 << m.zone_shift)
+    return flags
+
+
+def drop_profile(shape, radius, width=0.5, center=None):
+    """The phase field of a drop: +0.5 inside, -0.5 outside, a tanh
+    interface of ``width`` (tests/test_pf.py's profile)."""
+    ny, nx = shape
+    cy, cx = center or (ny / 2, nx / 2)
+    y, x = np.mgrid[0:ny, 0:nx]
+    r = np.hypot(x - cx, y - cy)
+    return -np.tanh(2.0 * (r - radius) * width) / 2.0
+
+
+def models2d_planes(m, flags, seed):
+    """Each model's planes near what its steps produce, with noise: wave's
+    Fields small, wave2d's height with four copies near it and the design
+    w in [0.1, 1]; d2q9_diff's concentration near 1 at the advection
+    velocity and w in [0.1, 1]; the flowing f of the phase-field and
+    pseudopotential models near rho 1 (0.5 for LBL) with 2% noise, h
+    around a drop, psi near 0.5, and phi near the drop with the -999
+    sentinel on the walls (what CalcPhi writes there)."""
+    shape = flags.shape
+    rng = np.random.default_rng(seed)
+    E = np.array([(0, 0), (1, 0), (0, 1), (-1, 0), (0, -1), (1, 1),
+                  (-1, 1), (-1, -1), (1, -1)], dtype=np.float64)
+    wt = np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4)
+
+    def group(level, u, noise=0.02):
+        usq = (u * u).sum(0)
+        out = []
+        for k in range(9):
+            eu = E[k, 0] * u[0] + E[k, 1] * u[1]
+            eq = wt[k] * level * (1 + 3 * eu + 4.5 * eu * eu - 1.5 * usq)
+            out.append(eq + noise * wt[k] * rng.standard_normal(shape))
+        return out
+
+    planes = {}
+    if m.name == "wave":
+        planes["u"] = 0.1 * rng.standard_normal(shape)
+        planes["v"] = 0.01 * rng.standard_normal(shape)
+        return planes
+    if m.name == "wave2d":
+        hh = 0.1 * rng.standard_normal(shape)
+        planes.update(h=hh, u=0.01 * rng.standard_normal(shape),
+                      w=0.1 + 0.9 * rng.random(shape))
+        for k in range(1, 5):
+            planes[f"h{k}"] = hh + 0.01 * rng.standard_normal(shape)
+        return planes
+    u = 0.01 + 0.005 * rng.standard_normal((2,) + shape)
+    if m.name == "d2q9_diff":
+        c = 1.0 + 0.1 * rng.standard_normal(shape)
+        for k, v in enumerate(group(c, u)):
+            planes[f"f[{k}]"] = v
+        planes["w"] = 0.1 + 0.9 * rng.random(shape)
+        return planes
+    rho = (0.5 if m.name == "d2q9_pp_LBL" else 1.0) * (
+        1 + 0.01 * rng.standard_normal(shape))
+    for k, v in enumerate(group(rho, u)):
+        planes[f"f[{k}]"] = v
+    if "h" in m.groups:
+        pf = drop_profile(shape, shape[0] / 3) \
+            + 0.01 * rng.standard_normal(shape)
+        for k, v in enumerate(group(pf, u)):
+            planes[f"h[{k}]"] = v
+    if m.name == "d2q9_pp_LBL":
+        planes["psi"] = 0.5 * (1 + 0.02 * rng.standard_normal(shape))
+    if m.name == "d2q9_pf_curvature":
+        phi = drop_profile(shape, shape[0] / 3) \
+            + 0.01 * rng.standard_normal(shape)
+        wall = (flags.astype(np.int64) & m.node_types["Wall"].mask) \
+            == m.node_types["Wall"].value
+        planes["phi"] = np.where(wall, -999.0, phi)
+    return planes
+
+
+def paint_rich_models2d(lat, seed):
+    """``rich_flags_models2d``, zone 1's values of the zonal settings, Init
+    and ``models2d_planes`` on a Lattice of either package (settings from
+    ``RICH_MODELS2D_SETTINGS`` at its construction)."""
+    m = lat.model
+    flags = rich_flags_models2d(m, *lat.shape)
+    lat.set_flags(flags)
+    for name in m.zonal_settings:
+        lat.set_setting(name, RICH_MODELS2D_ZONE1[name], zone=1)
+    lat.init()
+    lat.set_density_planes(models2d_planes(m, flags, seed))
+    return lat
