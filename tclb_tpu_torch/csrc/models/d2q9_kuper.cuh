@@ -1,4 +1,5 @@
-// d2q9_kuper device physics for the generic 2D kernels (csrc/generic2d.cu).
+// d2q9_kuper device physics for the generic 2D kernels (csrc/generic2d.cu),
+// also the forward of d2q9_kuper_adj (csrc/models/d2q9_kuper_adj.cuh).
 //
 // The CUDA counterpart of tclb_tpu_torch/models/d2q9_kuper.py: one
 // __device__ function per stage of the Iteration action, written against
@@ -32,9 +33,17 @@ namespace model {
 // not index a namespace-scope constexpr array, and after unrolling every
 // index here is a constant, so each call folds to a literal.
 
-// storage planes: f[0..8] over the d2q9 velocity set, then the Field phi
+// storage planes: f[0..8] over the d2q9 velocity set, then the Field phi;
+// d2q9_kuper_adj.cuh defines KUPER_DESIGN for its design density wd, a
+// plane between them that does not stream (its table entries, and phi's,
+// are the zeros the tables end with)
+#ifdef KUPER_DESIGN
+constexpr int N_STORAGE = 11;
+constexpr int WD = 9, PHI = 10;
+#else
 constexpr int N_STORAGE = 10;
 constexpr int PHI = 9;
+#endif
 __host__ __device__ constexpr int ex(int k) {
   constexpr int t[N_STORAGE] = {0, 1, 0, -1, 0, 1, -1, -1, 1, 0};
   return t[k];
@@ -48,7 +57,7 @@ __host__ __device__ constexpr int ey(int k) {
 // phi; stage_ext is generic_kernels.action_plan's ring of each stage
 constexpr int N_STAGES = 2;
 __host__ __device__ constexpr unsigned stage_writes(int s) {
-  return s == 0 ? 0x1ffu : 0x200u;
+  return s == 0 ? 0x1ffu : 1u << PHI;
 }
 __host__ __device__ constexpr int stage_ext(int s) { return s == 0 ? 1 : 0; }
 
@@ -278,7 +287,12 @@ __device__ __forceinline__ void calc_phi(Ctx& c) {
                     / (om * om * om) - (float)A2 * rho * rho;
   const float p = c.setting(S_Magic) * eos;
   const float x = rho * (1.f / 3.f) - p;
-  c.store(PHI, c.setting(S_FAcc) * sqrtf(x > 0.f ? x : 0.f));
+  const float phi = c.setting(S_FAcc) * sqrtf(x > 0.f ? x : 0.f);
+#ifdef KUPER_DESIGN
+  c.store(PHI, phi * c.pulled(WD));
+#else
+  c.store(PHI, phi);
+#endif
 }
 
 template <int S, class Ctx>

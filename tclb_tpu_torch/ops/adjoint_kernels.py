@@ -16,6 +16,11 @@ adjoint``) build it into their generic library.  Bound by bytes: the
 primal, the output cotangent and the flags are read once and the input
 cotangent written once (``launch_bytes_b``).
 
+A two-stage 2D plan (``d2q9_kuper_adj``) reverses in two launches of
+``generic2d_step_b``'s kernel, one call of its entry: each stage's
+``stage_b``, last stage first, through a scratch stack of the state's
+size; the wrapper counts both launches.
+
 For a 3D model the same wrapper launches ``generic3d_step_b``
 (``csrc/generic3d_adjoint.cuh``), which replaces the fused 3D backward
 (``pallas_adjoint.py:_mk_call_bwd_3d`` for ``_make_diff_step_3d``) at
@@ -63,17 +68,25 @@ def reset_launches() -> None:
 def supports_diff(model: Model, shape, dtype, storage_dtype=None) -> bool:
     """Whether the differentiable kernel step covers this configuration:
     the forward kernels run it (``generic_kernels.supports`` or
-    ``generic3d_kernels.supports``), the model's header has a reverse
-    stage, and its Iteration is one stage pulling one node far (the
-    backward kernels' gather).  f32 storage only: the backward kernels have
-    no bf16 rung (a narrowed ``storage_dtype`` is rejected)."""
+    ``generic3d_kernels.supports``) and the model's header has a reverse
+    stage for every stage of its Iteration (``DeviceModel.adjoint``): one
+    stage pulling one node far, or in 2D two (two launches of
+    ``generic2d_step_b``'s kernel: the last stage computes no ring, the
+    first a ring of one, so that each reverse gathers from one node
+    away).  f32 storage only: the backward
+    kernels have no bf16 rung (a narrowed ``storage_dtype`` is
+    rejected)."""
     dm = gk.DEVICE_MODELS.get(model.name)
-    return (dm is not None and dm.adjoint
+    if not (dm is not None and dm.adjoint
             and storage_dtype in (None, dtype)
             and (gk.supports(model, shape, dtype)
-                 or g3.supports(model, shape, dtype))
-            and len(model.actions["Iteration"]) == 1
-            and gk.action_plan(model)[1] <= 1)
+                 or g3.supports(model, shape, dtype))):
+        return False
+    plan, reach = gk.action_plan(model)
+    if len(plan) == 1:
+        return reach <= 1
+    return (dm.ndim == 2 and len(plan) == 2 and plan[0][1] <= 1
+            and plan[1][1] == 0 and reach <= 2)
 
 
 # --------------------------------------------------------------------------- #
@@ -212,7 +225,65 @@ def _diff_b_flops(model: Model, flags: np.ndarray) -> int:
             + gk.count_types(model, flags, "Outlet"))
 
 
+def _heat_adj3d_b_flops(model: Model, flags: np.ndarray) -> int:
+    """The 3D heat design family's reverse (``run_b`` in
+    csrc/models/d3q19_heat_adj_common.cuh) on top of the forward it
+    recomputes: a collision node the flow's relaxation (omega's, the
+    populations' and the equilibria's, 5 x 19), two reverse equilibria
+    (2 x 276, as d3q19_adj's), the temperature's equilibrium again (25),
+    its relaxation, rate and equilibrium's cotangents (7 x 10 + 6 x 3),
+    alfa's chain and its settings (10) and Drag's (5); every node the
+    scaled velocity's (9), the temperature's sum (7), u = j / rho (13) and
+    the populations (19 x 3); a NEBB face its transpose (40); a
+    WVelocity node the inlet temperature's (14); an Outlet node the heat
+    flux's (3); a DesignSpace node the material globals' (1; _prop 4);
+    _prop's clip on every node (4) and a Propagate node its weight's
+    (4)."""
+    prop = model.name.endswith("_prop")
+    coll = gk.count_group(model, flags, "COLLISION")
+    n = int(np.asarray(flags).size)
+    return (g3.node_step_flops(model, flags)
+            + (95 + 552 + 25 + 88 + 10 + 5) * coll
+            + (9 + 7 + 13 + 57 + 4 * prop) * n
+            + 40 * gk.count_types(model, flags, "WVelocity", "WPressure",
+                                  "EVelocity", "EPressure")
+            + 14 * gk.count_types(model, flags, "WVelocity")
+            + 3 * gk.count_types(model, flags, "Outlet")
+            + (1 + 3 * prop) * gk.count_group(model, flags, "DESIGNSPACE")
+            + (4 * gk.count_types(model, flags, "Propagate") if prop
+               else 0))
+
+
+def _kuper_adj_b_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_kuper_adj's two reverse stages (``run_b`` and ``calc_phi_b``
+    in csrc/models/d2q9_kuper_adj.cuh) on top of the forward each
+    recomputes (both stages, ``node_step_flops``): a collision node the
+    transposes of the inverse basis and of ``M`` over their nonzeros, the
+    keep factors' cotangents (18), two reverse equilibria (2 x 110), the
+    forced velocity's (12), the force's (8 x 12 and 4), u = j / rho and
+    the populations (9 x 4 + 10); every node CalcPhi's reverse (the
+    equation of state's chain 30, the root, wd and FAcc 8); a Wall node
+    its globals' (18), a MovingWall node its velocity's (12)."""
+    from tclb_tpu_torch.models import d2q9_kuper as kuper
+    from tclb_tpu_torch.ops import lbm
+    from tclb_tpu_torch.ops.d2q9_kernels import _combo_flops
+    M = kuper.M
+    minv = lbm.inverse_basis(M)
+    bases = (sum(_combo_flops(row) for row in M)
+             + sum(_combo_flops(row) for row in minv.T))
+    coll = gk.count_group(model, flags, "COLLISION")
+    return (gk.node_step_flops(model, flags)
+            + (bases + 18 + 220 + 12 + 96 + 4 + 46) * coll
+            + 38 * int(np.asarray(flags).size)
+            + 18 * gk.count_types(model, flags, "Wall")
+            + 12 * gk.count_types(model, flags, "MovingWall"))
+
+
 _REVERSE_FLOPS = {"d2q9_heat_adj": _heat_adj_b_flops,
+                  "d3q19_heat_adj": _heat_adj3d_b_flops,
+                  "d3q19_heat_adj_art": _heat_adj3d_b_flops,
+                  "d3q19_heat_adj_prop": _heat_adj3d_b_flops,
+                  "d2q9_kuper_adj": _kuper_adj_b_flops,
                   "d3q19_adj": _d3q19_adj_b_flops, "d2q9_adj": _adj_b_flops,
                   "d2q9_optimalMixing": _mixing_b_flops,
                   "d2q9_plate": _plate_b_flops, "wave2d": _wave2d_b_flops,
@@ -254,10 +325,12 @@ def step_b_plain(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
 # --------------------------------------------------------------------------- #
 
 
-def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
+def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g, out=None):
     """The reverse of one Iteration (kernel ``generic2d_step_b``, or
     ``generic3d_step_b`` for a 3D model): ``(lam_in, settings
-    cotangent)``, the latter float64."""
+    cotangent)``, the latter float64.  A two-stage plan's reverse also
+    reads the step's primal output ``out``; without one the wrapper
+    computes it with ``generic_kernels.step``."""
     if fields.device.type == "cpu":
         return step_b_plain(fields, flags, ztab, a, lam_out, lam_g)
     gk.validate(fields, flags, ztab, a)
@@ -274,23 +347,48 @@ def step_b(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
                 f"{fields.device}")
     if dm.ndim == 3:
         return _launch_step_b_3d(fields, flags, ztab, a, lam_out, lam_g)
+    return _launch_step_b_2d(fields, flags, ztab, a, lam_out, lam_g, out)
+
+
+def _launch_step_b_2d(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g,
+                      out):
+    """``generic2d_step_b``: one launch a stage of the plan, each counted.
+    A two-stage plan's takes the step's primal output ``out`` and a
+    scratch stack of the state's size (stage 1's reverse into it, then
+    stage 0's from it); its partials one row per block of the grid, used
+    by each launch in turn."""
+    two = len(gk.DEVICE_MODELS[a.model].plan) == 2
+    n_sett = len(a.settings)
+    sett = torch.empty((1 + two, n_sett), dtype=torch.float64,
+                       device=fields.device)
+    fout = lam_mid = sett_mid = None
+    if two:
+        if out is None:
+            out = gk.step(fields, flags, ztab, a)
+        if out.device != fields.device or out.dtype != torch.float32 \
+                or out.shape != fields.shape or not out.is_contiguous():
+            raise ValueError(f"generic2d_step_b's primal output "
+                             f"{tuple(out.shape)} {out.dtype} on "
+                             f"{out.device}: needs the contiguous float32 "
+                             "stack of the step")
+        mid = torch.empty_like(fields)
+        fout, lam_mid, sett_mid = (out.data_ptr(), mid.data_ptr(),
+                                   sett[0].data_ptr())
     lb = gk.lib(a.model)
     dev, stream = gk.device_and_stream(fields)
     ty, tx = gk._LIB[a.model]["tile_b"]
     blocks = -(-a.ny // ty) * -(-a.nx // tx)
-    n_sett = len(dm.settings)
     lam_in = torch.empty_like(fields)
     partials = torch.empty((blocks, n_sett), dtype=torch.float64,
                            device=fields.device)
-    sett = torch.empty((n_sett,), dtype=torch.float64, device=fields.device)
     rc = lb.generic2d_step_b(
-        fields.data_ptr(), lam_out.data_ptr(), flags.data_ptr(),
+        fields.data_ptr(), fout, lam_out.data_ptr(), flags.data_ptr(),
         ztab.data_ptr(), ctypes.byref(a.c_struct), lam_g.data_ptr(),
-        lam_in.data_ptr(), partials.data_ptr(), sett.data_ptr(), dev,
-        stream)
+        lam_mid, lam_in.data_ptr(), partials.data_ptr(), sett_mid,
+        sett[-1].data_ptr(), dev, stream)
     gk.check(lb, rc, "generic2d_step_b")
-    LAUNCHES["generic2d_step_b"] += 1
-    return lam_in, sett
+    LAUNCHES["generic2d_step_b"] += 1 + two
+    return lam_in, sett[-1]
 
 
 def _launch_step_b_3d(fields, flags, ztab, a: gk.StepArgs, lam_out, lam_g):
@@ -327,16 +425,20 @@ class _KernelStep(torch.autograd.Function):
     def forward(ctx, fields, settings, flags, ztab, args):
         fwd = g3.step_globals if args.nz else gk.step_globals
         out, g = fwd(fields, flags, ztab, args)
-        ctx.save_for_backward(fields, flags, ztab)
+        # a two-stage reverse reads the step's output too (the next step's
+        # input: saving it keeps no more memory alive)
+        two = len(gk.DEVICE_MODELS[args.model].plan) == 2
+        ctx.save_for_backward(fields, flags, ztab, *((out,) if two else ()))
         ctx.args = args
         ctx.settings_dtype = settings.dtype
         return out, g
 
     @staticmethod
     def backward(ctx, lam_out, lam_g):
-        fields, flags, ztab = ctx.saved_tensors
+        fields, flags, ztab, *out = ctx.saved_tensors
         lam_in, lam_s = step_b(fields, flags, ztab, ctx.args,
-                               lam_out.contiguous(), lam_g.contiguous())
+                               lam_out.contiguous(), lam_g.contiguous(),
+                               *out)
         return lam_in, lam_s.to(ctx.settings_dtype), None, None, None
 
 

@@ -40,12 +40,14 @@ parent's builds.
 
 A copy whose resident kernel runs a grid barrier a stage (exports
 ``generic2d_resident_capacity``) is bound through :class:`GridBarrierAbi`.
-A copy of ``csrc/`` from before the backward read zonal settings (no
-``generic2d_step_b_zonal`` export: its ``generic2d_step_b`` takes no zone
-table) is bound through :class:`NoZoneTableStepB`, which drops the zone
-table the wrapper passes; a copy whose step entries take the scratch
-stack ``mid`` (the copies that ran a plan of three stages one launch a
-stage) through :class:`PassesAbi`; a copy without
+A copy of ``csrc/`` from before the reverse took two-stage plans (no
+``generic2d_step_b_slots`` export: its ``generic2d_step_b`` takes neither
+the step's output nor a scratch stack, and, without the
+``generic2d_step_b_zonal`` export, no zone table) is bound through
+:class:`OneStageStepB`, which drops what that entry does not take; a
+copy whose step entries take the scratch stack ``mid`` (the copies that
+ran a plan of three stages one launch a stage) through
+:class:`PassesAbi`; a copy without
 ``generic2d_step_blocks`` (its globals flavours a block a tile) through
 :class:`TileBlocksAbi`.
 
@@ -405,24 +407,35 @@ def time_step_b(lat, libs: dict, compare: bool = False) -> tuple:
     return ms, same
 
 
-class NoZoneTableStepB:
-    """A library whose ``generic2d_step_b`` predates the zone table (no
-    ``generic2d_step_b_zonal`` export): that entry takes the wrapper's
-    arguments without ``ztab``, which is dropped here; every other entry
-    is the library's own."""
+class OneStageStepB:
+    """A library whose ``generic2d_step_b`` reverses one stage only (no
+    ``generic2d_step_b_slots`` export): that entry takes the wrapper's
+    arguments without the step's output, the scratch stack and its
+    settings row, and without the zone table where the library has no
+    ``generic2d_step_b_zonal`` (the backward read no zonal settings),
+    which are dropped here; ``generic2d_step_b_slots`` answers a slot a
+    plane for stage 0.  Every other entry is the library's own."""
 
-    def __init__(self, lib: ctypes.CDLL, model: str):
+    def __init__(self, lib, model: str):
         self._lib = lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.generic2d_step_b.argtypes = [
-            p, p, p, ctypes.POINTER(gk.c_args_type(model)), p, p, p, p, i, p]
+        zonal = hasattr(lib, "generic2d_step_b_zonal")
+        fn = lib.generic2d_step_b
+        fn.argtypes = [p, p, p] + [p] * zonal + [
+            ctypes.POINTER(gk.c_args_type(model)), p, p, p, p, i, p]
+        fn.restype = i
+        planes = len(gk.DEVICE_MODELS[model].storage)
+
+        def step_b(fin, fout, lam, flags, ztab, a, lam_g, lam_mid, lam_in,
+                   partials, sett_mid, sett_out, device, stream):
+            return fn(fin, lam, flags, *[ztab] * zonal, a, lam_g, lam_in,
+                      partials, sett_out, device, stream)
+
+        self.generic2d_step_b = step_b
+        self.generic2d_step_b_slots = lambda s: planes if s == 0 else -1
 
     def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name == "generic2d_step_b":
-            return lambda fin, lam, flags, ztab, *rest: fn(fin, lam, flags,
-                                                           *rest)
-        return fn
+        return getattr(self._lib, name)
 
 
 class PassesAbi:
@@ -597,18 +610,18 @@ def _entry(model: str, path: pathlib.Path, passes_abi: bool) -> dict:
     through :class:`PassesAbi` where ``passes_abi``, through
     :class:`GridBarrierAbi` where its resident kernel is the grid-barrier
     one, through :class:`TileBlocksAbi` where it launches a globals block
-    a tile, its ``generic2d_step_b`` through :class:`NoZoneTableStepB`
-    where the library has no ``generic2d_step_b_zonal``."""
+    a tile, its ``generic2d_step_b`` through :class:`OneStageStepB`
+    where the library has no ``generic2d_step_b_slots``."""
     raw = ctypes.CDLL(str(path))
     lib = PassesAbi(raw, model) if passes_abi else raw
     if hasattr(raw, "generic2d_resident_capacity"):
         lib = GridBarrierAbi(lib, model)
     if not hasattr(raw, "generic2d_step_blocks"):
         lib = TileBlocksAbi(lib)
-    entry = gk.bind(lib, model, path.name)
-    if "tile_b" in entry and not hasattr(raw, "generic2d_step_b_zonal"):
-        entry["lib"] = NoZoneTableStepB(entry["lib"], model)
-    return entry
+    if hasattr(raw, "generic2d_step_b_tile") \
+            and not hasattr(raw, "generic2d_step_b_slots"):
+        lib = OneStageStepB(lib, model)
+    return gk.bind(lib, model, path.name)
 
 
 _ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)(I.*|P\w*)?' "
@@ -691,13 +704,15 @@ NPE_PASS1_ONLY = (
     "  for (int k = 0; k < N_STORAGE; ++k) c.store(k, m_);\n"
     "}\n")
 # The reverse variants of an adjoint header (generic2d_adjoint.cuh):
-# "reverse loads and stores" replaces the call of its stage_b<0>
+# "reverse loads and stores" replaces the call of its stage_b
 # (B_STAGE_HOOK) by q = the pulled primal plus the node's lam_out, each
 # plane (the kernel's data movement with no reverse physics), "reverse
 # without settings sums" keeps stage_b<0>; both drop the settings sums
 # (add_setting's accumulation, B_SUM_HOOK, and the block reduction,
 # B_FINISH).
-B_STAGE_HOOK = "model::stage_b<0>(c);"
+B_STAGE_HOOK = "model::stage_b<S>(c);"
+# the call in a source whose models all have one-stage reverses
+B_STAGE_HOOK_ONE = "model::stage_b<0>(c);"
 B_SUM_HOOK = "if (counts) sacc[i] += (double)v;"
 B_FINISH = re.compile(r"finish_sums<.*?\}\);", re.DOTALL)
 B_COPY = ("for (int k_ = 0; k_ < model::N_STORAGE; ++k_) "
@@ -782,14 +797,15 @@ def _cut_reverse(path: pathlib.Path, variant: str) -> None:
     """Cut the reverse variant ``variant`` into the reverse kernel's
     source at ``path``."""
     text = path.read_text()
-    if (text.count(B_STAGE_HOOK) != 1 or text.count(B_SUM_HOOK) != 1
+    hook = B_STAGE_HOOK if B_STAGE_HOOK in text else B_STAGE_HOOK_ONE
+    if (text.count(hook) != 1 or text.count(B_SUM_HOOK) != 1
             or len(B_FINISH.findall(text)) != 1):
         raise SystemExit("--cut: generic2d_adjoint.cuh has not the one "
                          "call of stage_b<0>, settings sum and finish_sums "
                          "it cuts")
     text = B_FINISH.sub("", text.replace(B_SUM_HOOK, ""))
     if variant == "reverse loads and stores":
-        text = text.replace(B_STAGE_HOOK, B_COPY)
+        text = text.replace(hook, B_COPY)
     path.write_text(text)
 
 

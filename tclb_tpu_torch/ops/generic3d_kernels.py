@@ -46,6 +46,10 @@ FLAVOUR_LAUNCHES = {"plain": 0, "globals": 0}
 SERIES_KERNELS = ("generic3d_step_series", "generic3d_step_series_globals")
 SERIES_LAUNCHES = {name: 0 for name in SERIES_KERNELS}
 
+# the 3D heat design family (one header each over
+# csrc/models/d3q19_heat_adj_common.cuh)
+HEAT_ADJ = ("d3q19_heat_adj", "d3q19_heat_adj_art", "d3q19_heat_adj_prop")
+
 # the 3D models with device physics
 DEVICE_MODELS = {name: dm for name, dm in gk.DEVICE_MODELS.items()
                  if dm.ndim == 3}
@@ -205,6 +209,15 @@ def stage_flops(model: Model, flags: np.ndarray, fields=None) -> tuple:
       with the Galilean correction, its rate (5) and force (3); a NEBB face
       its closure; each cut link of a QIBB node (its distance in
       ``fields`` at least 0) its blend (8);
+    * d3q19_heat_adj and its _art and _prop variants: every node rho and
+      u, the temperature's sum (6) and the scaled velocity (3; _art's
+      2 w - 1 two more, _prop's clip two); a collision node two equilibria,
+      the BGK relaxation with the equilibrium difference (5 x 19), Drag (3),
+      the diffusivity (4), its rate (3), the temperature's equilibrium (per
+      moving direction 4 and at rest 1) and relaxation (3 x 7); a NEBB
+      face its closure; an Outlet node its heat flux (1); a DesignSpace
+      node Material (1; _prop's MaterialPenalty two more); a Propagate
+      node the propagated weight (3);
     * d3q19_kuper: Run on a collision node: rho and u, the force (per
       moving direction 5 and the shell weight, the adds into the force),
       its scale and the forced velocity (12), two equilibria, and the BGK
@@ -224,7 +237,7 @@ def stage_flops(model: Model, flags: np.ndarray, fields=None) -> tuple:
         return gk.count_types(model, flags, *[t for t in names
                                               if t in model.node_types])
 
-    if name in ("d3q19_heat", "d3q19_kuper"):
+    if name in ("d3q19_heat", "d3q19_kuper") or name in HEAT_ADJ:
         from tclb_tpu_torch.models.d3q19 import E, M, STRESS, W
     else:
         E, W = get_model("d3q27").ei[:27], None
@@ -243,6 +256,19 @@ def stage_flops(model: Model, flags: np.ndarray, fields=None) -> tuple:
                                "EPressure")
                 + 7 * faces("WVelocity", "EPressure")
                 + faces("Outlet"),)
+    if name in HEAT_ADJ:
+        art, prop = name.endswith("_art"), name.endswith("_prop")
+        eq = equilibrium_flops(E, W)
+        every = (_macro_flops(E) + 6 + 3 + 2 * art
+                 + 2 * prop)
+        collide = 2 * eq + 5 * 19 + 3 + 4 + 3 + 25 + 21
+        return (every * n + collide * coll
+                + nebb * faces("WVelocity", "WPressure", "EVelocity",
+                               "EPressure")
+                + faces("Outlet")
+                + (1 + 2 * prop) * gk.count_group(model, flags,
+                                                  "DESIGNSPACE")
+                + 3 * (faces("Propagate") if prop else 0),)
     if name == "d3q27":
         flags64 = flags.astype(np.int64)
         cmask = (flags64 & model.group_masks["COLLISION"]) != 0

@@ -176,6 +176,23 @@ DEVICE_MODELS = {
         zonal=("Density",),
         globals_=("WallForceX", "WallForceY"),
         plan=(("BaseIteration", 1), ("CalcPhi", 0))),
+    # d2q9_kuper with the design density wd (d2q9_kuper.cuh built with
+    # KUPER_DESIGN) and the reverse of both stages
+    "d2q9_kuper_adj": DeviceModel(
+        header="models/d2q9_kuper_adj.cuh",
+        storage=tuple(f"f[{k}]" for k in range(9)) + ("wd", "phi"),
+        settings=("omega", "nu", "InletVelocity", "Temperature", "FAcc",
+                  "Magic", "MagicA", "MagicF", "GravitationX",
+                  "GravitationY", "MovingWallVelocity", "Density",
+                  "Wetting") + tuple(f"S{i}" for i in range(9))
+        + ("WallForceXInObj", "WallForceYInObj"),
+        node_types=("Wall", "Solid", "MovingWall", "NSymmetry",
+                    "SSymmetry"),
+        groups=("BOUNDARY", "COLLISION"),
+        zonal=("Density",),
+        globals_=("WallForceX", "WallForceY"),
+        plan=(("BaseIteration", 1), ("CalcPhi", 0)),
+        adjoint=True),
     "d2q9_heat_adj": DeviceModel(
         header="models/d2q9_heat_adj.cuh",
         storage=tuple(f"f[{k}]" for k in range(9))
@@ -439,6 +456,33 @@ DEVICE_MODELS = {
                   "Material", "MaterialPenalty"),
         plan=(("BaseIteration", 0),),
         adjoint=True, ndim=3),
+    # the 3D heat design family: one header each over
+    # d3q19_heat_adj_common.cuh, with the reverse K8 builds in
+    **{name: DeviceModel(
+        header=f"models/{name}.cuh",
+        storage=tuple(f"f[{k}]" for k in range(19))
+        + tuple(f"T[{k}]" for k in range(7)) + ("w",)
+        + (("w0", "w1") if prop else ()),
+        settings=("nu", "omega", "Velocity", "Density", "GravitationX",
+                  "GravitationY", "GravitationZ", "InletTemperature",
+                  "InitTemperature", "FluidAlfa", "SolidAlfa", "Porocity")
+        + (("PropagateX",) if prop else ())
+        + ("PressureLossInObj", "OutletFluxInObj", "InletFluxInObj",
+           "HeatFluxInObj", "MaterialInObj", "DragInObj")
+        + (("MaterialPenaltyInObj",) if prop else ()),
+        node_types=(("Propagate",) if prop else ())
+        + ("Wall", "Solid", "WVelocity", "WPressure", "EPressure",
+           "EVelocity", "NSymmetry", "SSymmetry", "Outlet"),
+        groups=("COLLISION", "DESIGNSPACE"),
+        zonal=("Velocity", "Density", "Porocity"),
+        globals_=("PressureLoss", "OutletFlux", "InletFlux", "HeatFlux",
+                  "Material", "Drag") + (("MaterialPenalty",) if prop
+                                         else ()),
+        plan=(("BaseIteration", 0),),
+        adjoint=True, ndim=3)
+       for name, prop in (("d3q19_heat_adj", False),
+                          ("d3q19_heat_adj_art", False),
+                          ("d3q19_heat_adj_prop", True))},
     # the 3D forward models of the generic engine: one stage each but
     # d3q19_kuper's two (Run, CalcPhi: one launch a stage)
     "d3q19_heat": DeviceModel(
@@ -590,11 +634,11 @@ RING_TILE = {"rows": 32, "cols": 32, "thread_rows": 16, "blocks": 2}
 # launch at most (RESIDENT_MAX_BLOCKS)
 RESIDENT_REGION = {"cols": 32, "rows": 16, "one_stage_rows": 8}
 RESIDENT_MAX_BLOCKS = 2048      # csrc/resident_sync.cuh
-# generic2d_step_b's tile (csrc/generic2d_adjoint.cuh: BQ, BQ_ROWS,
-# B_BLOCKS, B_NARROW_MIN_PLANES): q on `side` x `side` nodes, a block of
-# `rows` rows of `side` threads (`narrow_rows` for a header of at least
-# `narrow_min_planes` planes), at least `blocks` blocks an SM, the output
-# tile inside the one-node ring
+# generic2d_step_b's tile (csrc/generic2d_adjoint.cuh: BQ, B_BLOCKS,
+# B_NARROW_MIN_PLANES, b_rows): q on `side` x `side` nodes, a block of
+# `rows` rows of `side` threads (`narrow_rows` for a stage whose q has at
+# least `narrow_min_planes` slots), at least `blocks` blocks an SM, the
+# output tile inside the one-node ring
 STEP_B_TILE = {"side": 32, "rows": 16, "narrow_rows": 8,
                "narrow_min_planes": 16, "blocks": 2}
 TWO_BLOCKS_SMEM = 113 * 1024
@@ -706,20 +750,24 @@ def resident_waits(shape, tile, reach: int, blocks: int) -> list:
     return out
 
 
-def step_b_tile(model: Model) -> dict:
-    """``generic2d_step_b``'s tile for ``model`` (csrc/generic2d_adjoint.cuh
-    mirrors it; the library reports the output tile as ``tile_b``, which
-    sizes the wrapper's partials): q's tile and its f32 shared memory, the
-    output tile, the block's threads, and the nodes of q a block computes
-    for each output node."""
+def step_b_tile(model: Model, slots: int | None = None) -> dict:
+    """``generic2d_step_b``'s tile for a reverse stage of ``model`` whose
+    q has ``slots`` slots (a plane each and a Field read each of the
+    stage's reverse: the library's ``slots_b`` entry for the stage; by
+    default a plane each, a stage that reverses no Field read)
+    (csrc/generic2d_adjoint.cuh mirrors it; the library reports the output
+    tile as ``tile_b``, which sizes the wrapper's partials): q's tile and
+    its f32 shared memory, the output tile, the block's threads, and the
+    nodes of q a block computes for each output node."""
     side = STEP_B_TILE["side"]
     out = side - 2
-    rows = STEP_B_TILE["narrow_rows" if model.n_storage
+    nq = model.n_storage if slots is None else slots
+    rows = STEP_B_TILE["narrow_rows" if nq
                        >= STEP_B_TILE["narrow_min_planes"] else "rows"]
     return {"q": (side, side), "tile": (out, out),
             "threads": side * rows,
             "blocks": STEP_B_TILE["blocks"],
-            "smem": 4 * model.n_storage * side * side,
+            "smem": 4 * nq * side * side,
             "q_per_node": side * side / (out * out)}
 
 
@@ -921,6 +969,7 @@ def node_step_flops(model: Model, flags: np.ndarray) -> int:
     model needs over a flag field: what the function takes, not what
     csrc/generic2d.cu executes (it recomputes stage 0 on the ring)."""
     return {"d2q9": _d2q9_flops, "d2q9_kuper": _kuper_flops,
+            "d2q9_kuper_adj": _kuper_adj_flops,
             "d2q9_heat_adj": _heat_adj_flops, "d2q9_heat": _heat_flops,
             "d2q9_heat_conjugate": _heat_flops, "d2q9_hb": _heat_flops,
             "sw": _sw_flops, "d2q9_solid": _solid_flops,
@@ -1337,6 +1386,12 @@ def _curvature_flops(model: Model, flags: np.ndarray) -> int:
             + SUM9 * int(np.asarray(flags).size))
 
 
+def _kuper_adj_flops(model: Model, flags: np.ndarray) -> int:
+    """d2q9_kuper_adj (models/d2q9_kuper_adj.py): d2q9_kuper's, and on
+    every node CalcPhi's product with wd (1)."""
+    return _kuper_flops(model, flags) + int(np.asarray(flags).size)
+
+
 def _kuper_flops(model: Model, flags: np.ndarray) -> int:
     """d2q9_kuper (models/d2q9_kuper.py).
 
@@ -1505,13 +1560,18 @@ def bind(lib, model: str, name: str) -> dict:
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
     if dm.adjoint:
-        lib.generic2d_step_b.argtypes = [p, p, p, p, argp, p, p, p, p, i, p]
+        lib.generic2d_step_b.argtypes = [p, p, p, p, p, argp, p, p, p, p, p,
+                                         p, i, p]
         lib.generic2d_step_b.restype = i
         lib.generic2d_step_b_tile.argtypes = [ip, ip]
         lib.generic2d_step_b_tile.restype = None
+        lib.generic2d_step_b_slots.argtypes = [i]
+        lib.generic2d_step_b_slots.restype = i
         by, bx = ctypes.c_int(0), ctypes.c_int(0)
         lib.generic2d_step_b_tile(ctypes.byref(by), ctypes.byref(bx))
         entry["tile_b"] = (by.value, bx.value)
+        entry["slots_b"] = tuple(lib.generic2d_step_b_slots(s)
+                                 for s in range(len(dm.plan)))
     vals = [ctypes.c_int(0) for _ in range(8)]
     lib.generic2d_layout(*[ctypes.byref(v) for v in vals])
     _, _, *sizes = (v.value for v in vals)

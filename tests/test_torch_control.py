@@ -411,11 +411,12 @@ def test_cli(tmp_path, capsys):
     assert capsys.readouterr().out.split() == [
         "d2q9", "d2q9_SRT", "d2q9_adj", "d2q9_cumulant", "d2q9_diff",
         "d2q9_hb", "d2q9_heat", "d2q9_heat_adj", "d2q9_heat_conjugate",
-        "d2q9_inc", "d2q9_kuper", "d2q9_lee", "d2q9_les", "d2q9_new",
-        "d2q9_npe_guo", "d2q9_optimalMixing", "d2q9_pf",
+        "d2q9_inc", "d2q9_kuper", "d2q9_kuper_adj", "d2q9_lee", "d2q9_les",
+        "d2q9_new", "d2q9_npe_guo", "d2q9_optimalMixing", "d2q9_pf",
         "d2q9_pf_curvature", "d2q9_pf_pressureEvolution", "d2q9_plate",
         "d2q9_poison_boltzmann", "d2q9_pp_LBL", "d2q9_pp_MCMP",
-        "d2q9_solid", "d3q19", "d3q19_adj", "d3q19_heat", "d3q19_kuper",
+        "d2q9_solid", "d3q19", "d3q19_adj", "d3q19_heat", "d3q19_heat_adj",
+        "d3q19_heat_adj_art", "d3q19_heat_adj_prop", "d3q19_kuper",
         "d3q19_les", "d3q27", "d3q27_BGK", "d3q27_BGK_galcor",
         "d3q27_cumulant", "d3q27_cumulant_qibb_small", "d3q27_viscoplastic",
         "sw", "wave", "wave2d"]

@@ -1,8 +1,8 @@
 """The d2q9 (with the d2q9 family's branches), d3q27 (with the z-slab
 family's branches), generic (2D and 3D, with their <Control> series
 flavours; the 2D ones for every model with a device header, the one-stage,
-multi-stage and adjoint models and the phase-field, pseudopotential and
-design models among them) and adjoint CUDA kernels
+multi-stage and adjoint models, the phase-field, pseudopotential and
+design models and the last four among them) and adjoint CUDA kernels
 against their plain PyTorch versions on the card, and the storage
 ladder's bf16 flavours of the generic 2D and d3q27 kernels with the
 precision harness on them.
@@ -27,6 +27,8 @@ from tclb_tpu_torch.ops import adjoint_kernels as ak
 from tclb_tpu_torch.ops import generic3d_kernels as g3
 from tclb_tpu_torch.ops import generic_kernels as gk
 from torch_cases import (ADJ3D_SETTINGS, ADJ_MODELS, ADJ_SERIES,
+                         HEAT3D_MODELS, KUPER_ADJ_SETTINGS, heat3d_settings,
+                         paint_rich_heat3d, paint_rich_kuper_adj,
                          D3Q_FAMILY, FAMILY_MODELS, GENERIC3D_MODELS,
                          HEAT_SETTINGS, RICH_GENERIC3D_SETTINGS,
                          paint_rich_generic3d,
@@ -1720,3 +1722,99 @@ def test_models2d_series_flavours_match_plain(card_models2d, name):
     torch.cuda.synchronize()
     assert gk.SERIES_LAUNCHES == {"generic2d_step_series": 2,
                                   "generic2d_step_series_globals": 2}
+
+
+# --------------------------------------------------------------------------- #
+# The last four models: the 3D heat design family on K6 and K8,
+# d2q9_kuper_adj on K4/K5 and K7's two-stage reverse
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def card_last4():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+
+    def make(name, shape, seed):
+        m = get_model(name)
+        if m.ndim == 3:
+            return paint_rich_heat3d(Lattice(
+                m, shape, dtype=torch.float32, settings=heat3d_settings(m),
+                device="cuda"), seed)
+        return paint_rich_kuper_adj(Lattice(
+            m, shape, dtype=torch.float32, settings=KUPER_ADJ_SETTINGS,
+            device="cuda"), seed)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HEAT3D_MODELS)
+def test_heat3d_kernels_match_plain(card_last4, name):
+    """Each variant's generic3d_step (both flavours) on its rich 8x16x32
+    state against the plain version, the fields bit for bit, the globals
+    at rtol 1e-4 / atol 1e-6; generic3d_step_b against torch.func.vjp of
+    the plain step (lam_in at rtol 1e-4 / atol 1e-6, the settings at rtol
+    1e-4), one launch each."""
+    lat = card_last4(name, (8, 16, 32), seed=5)
+    f, flags, ztab, args = g3.kernel_inputs(lat.model, lat.state,
+                                            lat.params)
+    g3.reset_launches()
+    assert torch.equal(g3.step(f, flags, ztab, args),
+                       g3.plain_steps(f, flags, ztab, args, 1))
+    gotg, g = g3.step_globals(f, flags, ztab, args)
+    want, wg = g3.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    assert torch.equal(gotg, want)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((lat.model.n_globals,), generator=gen,
+                        device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert g3.LAUNCHES == {"generic3d_step": 2}
+    assert ak.LAUNCHES == {"generic2d_step_b": 0, "generic3d_step_b": 1}
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128), (37, 67)])
+def test_kuper_adj_kernels_match_plain(card_last4, shape):
+    """d2q9_kuper_adj on its rich state: generic2d_step (both flavours)
+    and an 8-step generic2d_resident bit for bit their plain versions;
+    generic2d_step_b's two-stage reverse (two launches, given the
+    step's output or not), against torch.func.vjp of the plain step:
+    lam_in at rtol 1e-4 and an absolute 1e-6 of its largest (the
+    vapour's 1 / rho makes it about 10), the settings at rtol 1e-4 but
+    S0-S2 (cotangents of moments that vanish in exact arithmetic: f32
+    rounding) within 1e-6 of the largest."""
+    lat = card_last4("d2q9_kuper_adj", shape, seed=5)
+    m = lat.model
+    f, flags, ztab, args = gk.kernel_inputs(m, lat.state, lat.params)
+    out = gk.step(f, flags, ztab, args)
+    assert torch.equal(out, gk.plain_steps(f, flags, ztab, args, 1))
+    gotg, g = gk.step_globals(f, flags, ztab, args)
+    want, wg = gk.plain_steps(f, flags, ztab, args, 1, with_globals=True)
+    assert torch.equal(gotg, want)
+    torch.testing.assert_close(g, wg, rtol=1e-4, atol=1e-6)
+    assert torch.equal(gk.resident(f, flags, ztab, args, 8),
+                       gk.plain_steps(f, flags, ztab, args, 8))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lam = torch.randn(f.shape, generator=gen, device="cuda")
+    lam_g = torch.randn((m.n_globals,), generator=gen, device="cuda")
+    ak.reset_launches()
+    got, gs = ak.step_b(f, flags, ztab, args, lam, lam_g, out)
+    again, _ = ak.step_b(f, flags, ztab, args, lam, lam_g)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"generic2d_step_b": 4, "generic3d_step_b": 0}
+    assert torch.equal(got, again)
+    want, ws = ak.step_b_plain(f, flags, ztab, args, lam, lam_g)
+    torch.testing.assert_close(
+        got, want, rtol=1e-4, atol=1e-6 * max(1.0, float(want.abs().max())))
+    cancel = [m.setting_index[f"S{i}"] for i in range(3)]
+    rest = [i for i in range(len(ws)) if i not in cancel]
+    torch.testing.assert_close(gs[rest], ws[rest], rtol=1e-4, atol=1e-9)
+    torch.testing.assert_close(gs[cancel], ws[cancel], rtol=0,
+                               atol=1e-6 * float(ws.abs().max()))

@@ -286,7 +286,9 @@ def test_device_header_matches_registry():
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """generic2d.cu builds once per model, the model's header pre-included,
     each library with its own digest.  Editing a model's header changes
-    that model's digest only (a stale build is never reused); editing the
+    that model's digest only, and those of the headers that include it
+    (d2q9_kuper_adj's includes d2q9_kuper.cuh; a stale build is never
+    reused); editing the
     adjoint header, the storage seams or the resident kernel's waits
     (resident_sync.cuh) generic2d.cu includes changes all of them; editing the shared d2q9 blocks changes the eighteen
     one-stage, multi-stage, adjoint and phase-field models built on them
@@ -308,7 +310,8 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
                "d2q9_plate"}
     phase = {"d2q9_pf", "d2q9_pf_curvature"}
     common_too = {"d2q9_diff", "d2q9_pp_LBL"} | phase
-    assert set(headers) == {"d2q9", "d2q9_kuper", "wave", "wave2d"} \
+    assert set(headers) == {"d2q9", "d2q9_kuper", "d2q9_kuper_adj", "wave",
+                            "wave2d"} \
         | onestage | multistage | adjoint | common_too
 
     def digests():
@@ -316,12 +319,14 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
                 for m, h in headers.items()}
 
     before = digests()
-    assert len(set(before.values())) == 22
+    assert len(set(before.values())) == 23
     d2q9 = _cuda_build.digest("d2q9")
     header = csrc / "models" / "d2q9_kuper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     edited = digests()
     assert edited["d2q9_kuper"] != before["d2q9_kuper"]
+    # d2q9_kuper_adj's header includes d2q9_kuper.cuh
+    assert edited["d2q9_kuper_adj"] != before["d2q9_kuper_adj"]
     assert edited["d2q9_heat_adj"] == before["d2q9_heat_adj"]
     assert edited["d2q9"] == before["d2q9"]
     assert _cuda_build.digest("d2q9") == d2q9

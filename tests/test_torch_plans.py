@@ -27,7 +27,7 @@ from tclb_tpu_torch.ops import generic_kernels as gk
 
 STAGED = ("d2q9_pp_MCMP", "d2q9_lee", "d2q9_poison_boltzmann")
 RING = ("d2q9_kuper", "d2q9_pf_pressureEvolution", "d2q9_pp_LBL",
-        "d2q9_pf_curvature")
+        "d2q9_pf_curvature", "d2q9_kuper_adj")
 TILED = ("d2q9_npe_guo",)
 NARROW = ("d2q9_solid",)
 MODELS_2D = tuple(m for m, dm in gk.DEVICE_MODELS.items() if dm.ndim == 2)
@@ -244,9 +244,11 @@ def test_tiled_tile_shared_memory(name):
 def test_ring_tile_extents(name):
     """The ring form's tile: stage 0 on 32x32 nodes, two rows a thread of
     a 32x16 block, its planes in f32 shared memory (pf's and
-    pf_curvature's 19: 77,824 B, kuper's and pp_LBL's 10: 40,960 B), two
+    pf_curvature's 19: 77,824 B, kuper's and pp_LBL's 10: 40,960 B,
+    kuper_adj's 11: 45,056 B), two
     blocks' within an SM's 228 KB; stage 1 on the inner 28x28 (pf, ring
-    2) or 30x30 (kuper, pp_LBL, pf_curvature: ring 1), so stage 0 runs
+    2) or 30x30 (kuper, kuper_adj, pp_LBL, pf_curvature: ring 1), so
+    stage 0 runs
     1.31 or 1.14 times an output node (a 32x16 tile: 1.52, 1.22)."""
     m = get_model(name)
     rt = gk.ring_tile(m)
@@ -256,13 +258,15 @@ def test_ring_tile_extents(name):
     assert rt["threads"] == 512 and 32 % gk.RING_TILE["thread_rows"] == 0
     assert rt["smem"] == 4 * m.n_storage * 32 * 32 == {
         "d2q9_pf_pressureEvolution": 77824, "d2q9_kuper": 40960,
-        "d2q9_pp_LBL": 40960, "d2q9_pf_curvature": 77824}[name]
+        "d2q9_pp_LBL": 40960, "d2q9_pf_curvature": 77824,
+        "d2q9_kuper_adj": 45056}[name]
     assert rt["smem"] <= SMEM_LIMIT and rt["blocks"] == 2
     assert rt["blocks"] * (rt["smem"] + 1024) <= gk.SMEM_PER_SM
     assert rt["stage0_per_node"] == pytest.approx(
         {"d2q9_pf_pressureEvolution": 1024 / 784,
          "d2q9_kuper": 1024 / 900, "d2q9_pp_LBL": 1024 / 900,
-         "d2q9_pf_curvature": 1024 / 900}[name])
+         "d2q9_pf_curvature": 1024 / 900,
+         "d2q9_kuper_adj": 1024 / 900}[name])
 
 
 ADJOINT_2D = ("d2q9_heat_adj", "d2q9_adj", "d2q9_optimalMixing",
@@ -613,26 +617,29 @@ def test_d2q9_step2_shared_memory_budget(model):
 def test_step_b_tile_matches_the_source():
     """``generic_kernels.STEP_B_TILE`` is csrc/generic2d_adjoint.cuh's
     tile: q on 32x32, two blocks an SM in the launch bounds, 16 thread
-    rows (two rows a thread) or, for a header of ``narrow_min_planes`` or
-    more, 8 (four rows a thread), the output tile inside the one-node ring
-    (the library's ``tile_b`` export, which sizes the wrapper's
-    partials)."""
+    rows (two rows a thread) or, for a stage whose q has
+    ``narrow_min_planes`` slots or more (a plane each, and a Field read
+    each of the stage's reverse), 8 (four rows a thread), the output tile
+    inside the one-node ring (the library's ``tile_b`` export, which sizes
+    the wrapper's partials), the same in each launch of a two-stage
+    reverse."""
     text = _source("generic2d_adjoint.cuh")
     bt = gk.STEP_B_TILE
     assert (f"constexpr int B_NARROW_MIN_PLANES = "
             f"{bt['narrow_min_planes']};") in text
     assert f"constexpr int BQ = {bt['side']}, B_BLOCKS = {bt['blocks']};" \
         in text
-    assert ("constexpr int BQ_ROWS = model::N_STORAGE >= B_NARROW_MIN_PLANES"
+    assert "return model::N_STORAGE + model::b_loads(S);" in text
+    assert ("return b_nq<S>() >= B_NARROW_MIN_PLANES"
             f" ? {bt['narrow_rows']} : {bt['rows']};") in text
     assert "constexpr int B_RING = 1;" in text
     assert "constexpr int BTX = BQ - 2 * B_RING, BTY = BQ - 2 * B_RING;" \
         in text
-    assert "__launch_bounds__(B_THREADS, B_BLOCKS)" in text
-    assert "finish_sums<NS_SETT, B_THREADS, true>(" in text
+    assert "__launch_bounds__(b_threads<S>(), B_BLOCKS)" in text
+    assert "finish_sums<NS_SETT, b_threads<S>(), true>(" in text
     assert "*tile_y = BTY;" in text and "*tile_x = BTX;" in text
-    assert ("const dim3 grid((a->nx + BTX - 1) / BTX, "
-            "(a->ny + BTY - 1) / BTY);") in text
+    assert ("const dim3 grid((a.nx + BTX - 1) / BTX, "
+            "(a.ny + BTY - 1) / BTY);") in text
 
 
 @pytest.mark.parametrize("name,smem,threads", [
@@ -655,6 +662,152 @@ def test_step_b_tile_shared_memory(name, smem, threads):
     assert bt["q_per_node"] == pytest.approx(1024 / 900)
     ty, tx = bt["tile"]
     assert (math.ceil(512 / ty), math.ceil(1024 / tx)) == (18, 35)
+
+
+class _StepBLib:
+    """A generic 2D library's reverse entries that record their calls and
+    launch nothing; ``zonal`` whether it exports
+    ``generic2d_step_b_zonal``."""
+
+    class _Fn:
+        def __init__(self, body):
+            self.body = body
+
+        def __call__(self, *args):
+            return self.body(*args)
+
+    def __init__(self, zonal=True):
+        self.calls = []
+
+        def step_b(*args):
+            self.calls.append(args)
+            return 0
+        self.generic2d_step_b = self._Fn(step_b)
+        if zonal:
+            self.generic2d_step_b_zonal = self._Fn(lambda: 3)
+
+
+class _BindLib:
+    """A generic 2D library of an adjoint model for ``gk.bind``: its layout
+    and plan are ``DEVICE_MODELS``', its reverse tile 30x30, its reverse
+    stages' q slots ``slots``, every other entry a no-op."""
+
+    class _Fn:
+        def __init__(self, body):
+            self.body = body
+
+        def __call__(self, *args):
+            return self.body(*args)
+
+    def __init__(self, model, slots):
+        dm = gk.DEVICE_MODELS[model]
+
+        def fill(values):
+            def fn(*out):
+                for ref, v in zip(out, values):
+                    ref._obj.value = v
+            return self._Fn(fn)
+        self.generic2d_layout = fill(
+            [8, 32, len(dm.storage), len(dm.settings), len(dm.node_types),
+             len(dm.groups), len(dm.zonal), len(dm.globals_)])
+        self.generic2d_plan = fill([len(dm.plan)])
+        self.generic2d_step_b_tile = fill([30, 30])
+        self.generic2d_resident_tile = self._Fn(
+            lambda reach, *out: fill([14, 30, 0, 0]).body(*out))
+        self.generic2d_step_b_slots = self._Fn(
+            lambda s: slots[s] if s < len(slots) else -1)
+
+    def __getattr__(self, name):
+        fn = self._Fn(lambda *args: 0)
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("name", ["d2q9_heat_adj", "d2q9_kuper_adj"])
+def test_step_b_launches_by_the_plan(monkeypatch, name):
+    """One entry, ``generic2d_step_b``, reverses either plan: a one-stage
+    plan's call passes no primal output, scratch stack or settings row
+    (NULL) and counts one launch; a two-stage plan's passes the step's
+    output, a scratch stack of the state's size and the first of two
+    settings rows, the second returned, and counts two.  The partials
+    are sized from the library's ``tile_b``."""
+    from tclb_tpu_torch.ops import adjoint_kernels as ak
+    m = get_model(name)
+    fake = _StepBLib()
+    monkeypatch.setitem(gk._LIB, name, {"lib": fake, "tile_b": (30, 30)})
+    monkeypatch.setattr(gk, "lib", lambda model: fake)
+    monkeypatch.setattr(gk, "device_and_stream", lambda t: (0, "stream"))
+    monkeypatch.setattr(ak, "LAUNCHES", dict.fromkeys(ak.KERNELS, 0))
+    shape = (40, 70)
+    f = torch.zeros((m.n_storage,) + shape, dtype=torch.float32)
+    out = torch.ones_like(f)
+    flags = torch.zeros(shape, dtype=torch.int32)
+    a = gk.step_args(m, shape, np.zeros(len(m.settings)))
+    ztab = torch.zeros((len(m.zonal_settings), a.zone_max))
+    lam = torch.zeros_like(f)
+    lam_g = torch.zeros((m.n_globals,))
+    lam_in, sett = ak._launch_step_b_2d(f, flags, ztab, a, lam, lam_g, out)
+    (call,) = fake.calls
+    assert len(call) == 14
+    assert call[0] == f.data_ptr() and call[2] == lam.data_ptr()
+    assert call[3:5] == (flags.data_ptr(), ztab.data_ptr())
+    assert call[6] == lam_g.data_ptr() and call[8] == lam_in.data_ptr()
+    assert call[11] == sett.data_ptr() and call[12:] == (0, "stream")
+    assert lam_in.shape == f.shape and sett.shape == (len(m.settings),)
+    assert sett.dtype == torch.float64
+    two = name == "d2q9_kuper_adj"
+    assert len(gk.DEVICE_MODELS[name].plan) == 1 + two
+    if two:
+        assert call[1] == out.data_ptr()
+        assert isinstance(call[7], int) and call[7] not in (
+            f.data_ptr(), lam_in.data_ptr(), out.data_ptr())
+        assert call[10] == sett.data_ptr() - 8 * len(m.settings)
+    else:
+        assert call[1] is None and call[7] is None and call[10] is None
+    assert ak.LAUNCHES["generic2d_step_b"] == 1 + two
+
+
+def test_step_b_slots_export():
+    """The library reports each reverse stage's q slots
+    (``generic2d_step_b_slots``: ``b_nq``, a plane each and a Field read
+    each), -1 past its plan, and ``gk.bind`` keeps them as ``slots_b``;
+    ``step_b_tile`` sizes q's shared memory from such a count."""
+    text = _source("generic2d_adjoint.cuh")
+    export = text[text.index("int generic2d_step_b_slots(int s) {"):]
+    export = export[:export.index("\n}\n")]
+    assert "if (s == 0) return b_nq<0>();" in export
+    assert ("if (s == 1 && model::N_STAGES == 2) return "
+            "b_nq<model::N_STAGES - 1>();") in export
+    assert "return -1;" in export
+    m = get_model("d2q9_kuper_adj")
+    entry = gk.bind(_BindLib("d2q9_kuper_adj", (19, 11)), "d2q9_kuper_adj",
+                    "fake")
+    assert entry["slots_b"] == (19, 11) and entry["tile_b"] == (30, 30)
+    assert gk.step_b_tile(m)["smem"] == 4 * 11 * 1024
+    assert gk.step_b_tile(m, 19)["smem"] == 4 * 19 * 1024
+
+
+@pytest.mark.parametrize("zonal", [True, False])
+def test_parity_binds_a_one_stage_reverse(zonal):
+    """generic2d_parity's adapter for a library from before the reverse
+    took two-stage plans (no ``generic2d_step_b_slots``): the wrapper's
+    call reaches its ``generic2d_step_b`` without the primal output, the
+    scratch stack and its settings row, and without the zone table where
+    the library has no ``generic2d_step_b_zonal``; the adapter answers a
+    slot a plane for stage 0 and -1 past it."""
+    from tclb_tpu_torch.ops import generic2d_parity as gp
+    raw = _StepBLib(zonal)
+    abi = gp.OneStageStepB(raw, "d2q9_heat_adj")
+    assert len(raw.generic2d_step_b.argtypes) == 10 + zonal
+    assert abi.generic2d_step_b_slots(0) == \
+        get_model("d2q9_heat_adj").n_storage
+    assert abi.generic2d_step_b_slots(1) == -1
+    assert abi.generic2d_step_b(
+        "fin", "fout", "lam", "flags", "ztab", "a", "lam_g", "mid",
+        "lam_in", "partials", "sett_mid", "sett", 0, "stream") == 0
+    (call,) = raw.calls
+    assert call == ("fin", "lam", "flags") + ("ztab",) * zonal + (
+        "a", "lam_g", "lam_in", "partials", "sett", 0, "stream")
 
 
 # --------------------------------------------------------------------------- #

@@ -263,8 +263,8 @@ def test_resident_tile_fits(model):
     """Each 2D header's tile: a group's first stage one node a thread of
     its region, the tile inside the ring the group computes (two steps a
     group where that leaves half of the region: every one-stage header
-    and the two-stage plans of ring 1, d2q9_kuper, d2q9_pp_LBL and
-    d2q9_pf_curvature), rings that shrink, the earlier stages' planes and a
+    and the two-stage plans of ring 1, d2q9_kuper, d2q9_kuper_adj,
+    d2q9_pp_LBL and d2q9_pf_curvature), rings that shrink, the earlier stages' planes and a
     step's result within a block's shared memory."""
     m = get_model(model)
     t = gk.resident_tile(m)
@@ -277,7 +277,7 @@ def test_resident_tile_fits(model):
     two = ry - 2 * r2 >= 2 and 2 * (ry - 2 * r2) * (rx - 2 * r2) >= ry * rx
     assert (t["fuse"] == 2) == two
     assert two == (len(plan) == 1 or model in (
-        "d2q9_kuper", "d2q9_pp_LBL", "d2q9_pf_curvature"))
+        "d2q9_kuper", "d2q9_kuper_adj", "d2q9_pp_LBL", "d2q9_pf_curvature"))
     assert list(t["rings"]) == sorted(t["rings"], reverse=True)
     assert t["rings"][-1] == 0 and t["smem"] <= SMEM_BLOCK
     assert t["smem"] == 4 * m.n_storage * ry * rx * (

@@ -1507,3 +1507,185 @@ def paint_rich_models2d(lat, seed):
     lat.init()
     lat.set_density_planes(models2d_planes(m, flags, seed))
     return lat
+
+
+# the 3D heat design family (d3q19_heat_adj, _art, _prop): every node type
+# the header reads, two zones (zone 1 a faster inlet and a lower Porocity,
+# zone 2 a denser outlet), both diffusivities, an inlet temperature above
+# the initial one and every global in the objective, so every term of the
+# step and its reverse counts; _prop with its propagation on
+HEAT3D_MODELS = ("d3q19_heat_adj", "d3q19_heat_adj_art",
+                 "d3q19_heat_adj_prop")
+HEAT3D_SHAPE = (8, 16, 32)     # nz, ny, nx
+HEAT3D_SETTINGS = {"nu": 0.05, "Velocity": 0.02, "FluidAlfa": 0.08,
+                   "SolidAlfa": 0.02, "InletTemperature": 1.3,
+                   "InitTemperature": 0.9, "HeatFluxInObj": 1.0,
+                   "MaterialInObj": 0.3, "DragInObj": 0.7,
+                   "PressureLossInObj": 0.2, "OutletFluxInObj": 0.3,
+                   "InletFluxInObj": 0.4, "PropagateX": 0.6,
+                   "MaterialPenaltyInObj": 0.4}
+
+
+def heat3d_settings(m, **extra):
+    """``HEAT3D_SETTINGS`` (and ``extra``) that ``m`` has."""
+    return {k: v for k, v in {**HEAT3D_SETTINGS, **extra}.items()
+            if k in m.setting_index}
+
+
+def rich_flags_heat3d(m, nz, ny, nx):
+    """Every node type the 3D heat design family reads on a (nz, ny, nx)
+    field: W velocity and pressure, E pressure and velocity, S and N
+    symmetry, walls, a solid node, BGK and MRT collision, an Outlet
+    column, a DesignSpace block half in Porocity zone 1, and for _prop
+    Propagate on the inner nodes."""
+    f = m.flag_for
+    flags = np.full((nz, ny, nx), f("MRT"), dtype=np.uint16)
+    h = nz // 2
+    flags[:h, :, 0] = f("WVelocity", "MRT", zone=1)
+    flags[h:, :, 0] = f("WPressure", "MRT", zone=2)
+    flags[:h, :, -1] = f("EPressure", "MRT", zone=2)
+    flags[h:, :, -1] = f("EVelocity", "MRT", zone=1)
+    flags[:, 0, 1:-1] = f("SSymmetry", "MRT")
+    flags[:, -1, 1:-1] = f("NSymmetry", "MRT")
+    flags[2:4, 5:8, 6:9] = f("Wall")
+    flags[h, ny // 2, 3 * nx // 4] = f("Solid")
+    flags[:, 2:-2, 3:5] = f("BGK")
+    flags[1:-1, 1:-1, -3] = f("MRT", "Outlet")
+    x0, x1 = nx // 3, 2 * nx // 3
+    flags[1:-1, 2:-2, x0:x1] = f("MRT", "DesignSpace")
+    flags[1:-1, 2:-2, x0:(x0 + x1) // 2] = f("MRT", "DesignSpace", zone=1)
+    if "Propagate" in m.node_types:
+        flags[:, 1:-1, 2:-2] |= np.uint16(f("Propagate"))
+    return flags
+
+
+def heat3d_planes(m, shape, seed):
+    """d3q19 populations near a flowing equilibrium with 2% noise, the
+    temperature near 1 with noise, and the design w in (0.1, 0.9) with
+    every fifth node at 1 and every seventh at 0 (the clip's bounds); for
+    _prop w0 in [0, 1) and w1 in (0.2, 1] with every third node at 1 (so
+    that x = w exactly on a Propagate node)."""
+    planes = adj3d_planes(m, shape, seed)
+    rng = np.random.default_rng(seed + 100)
+    t = 1.0 + 0.1 * rng.standard_normal(shape)
+    wt = [0.25] + [0.125] * 6
+    for k in range(7):
+        planes[f"T[{k}]"] = wt[k] * t * (1 + 0.02 * rng.standard_normal(shape))
+    w = planes["w"]
+    w.reshape(-1)[::5] = 1.0
+    w.reshape(-1)[::7] = 0.0
+    if "w0" in m.storage_index:
+        w1 = 0.2 + 0.8 * rng.random(shape)
+        w1.reshape(-1)[::3] = 1.0
+        planes.update(w0=rng.random(shape), w1=w1)
+    return planes
+
+
+def paint_rich_heat3d(lat, seed):
+    """``rich_flags_heat3d`` with its zones and ``heat3d_planes`` on a
+    Lattice of either package."""
+    lat.set_flags(rich_flags_heat3d(lat.model, *lat.shape))
+    lat.set_setting("Velocity", 0.03, zone=1)
+    lat.set_setting("Porocity", 0.2, zone=1)
+    lat.set_setting("Density", 1.002, zone=2)
+    lat.init()
+    lat.set_density_planes(heat3d_planes(lat.model, lat.shape, seed))
+    return lat
+
+
+def heat3d_design_lattice(lattice_cls, model, dtype, shape=(32, 64, 256),
+                          **kw):
+    """A heat design channel for the family at ``shape``: bench.py's 3D
+    adjoint geometry (MRT, walls on y, periodic z, the DesignSpace block:
+    the middle half in y and z, the middle third in x) with a W velocity
+    inlet at InletTemperature 1 into fluid at InitTemperature 0, an E
+    pressure outlet and an Outlet column before it, Porocity 0.5 in the
+    block (zone 1), HeatFlux and Material in the objective; _prop with
+    Propagate on the block's nodes and PropagateX 0.25: along the block
+    the weight tends to (w - PropagateX) / (1 - PropagateX) = 1/3, inside
+    the clip's bounds.  (A chain whose limit is a bound, as PropagateX
+    0.5 gives w = 0.5, or fluid at w = 1 downstream, reaches the bound by
+    rounding in f32 many columns before f64 does, and the two gradients
+    part where the clip's derivative drops to 0.5.)  Initialised."""
+    nz, ny, nx = shape
+    lat = lattice_cls(model, shape, dtype=dtype,
+                      settings=heat3d_settings(
+                          model, HeatFluxInObj=1.0, MaterialInObj=0.1,
+                          DragInObj=0.0, PressureLossInObj=0.0,
+                          OutletFluxInObj=0.0, InletFluxInObj=0.0,
+                          MaterialPenaltyInObj=0.0, PropagateX=0.25,
+                          InletTemperature=1.0, InitTemperature=0.0,
+                          FluidAlfa=0.05, SolidAlfa=0.01), **kw)
+    f = model.flag_for
+    prop = ("Propagate",) if "Propagate" in model.node_types else ()
+    flags = np.full(shape, f("MRT"), dtype=np.uint16)
+    flags[:, :, 0] = f("WVelocity", "MRT")
+    flags[:, :, -1] = f("EPressure", "MRT")
+    flags[:, :, -3] |= np.uint16(f("Outlet"))
+    flags[:, 0, :] = flags[:, -1, :] = f("Wall")
+    flags[nz // 4:3 * nz // 4, ny // 4:3 * ny // 4,
+          nx // 3:2 * nx // 3] |= np.uint16(f("DesignSpace", *prop, zone=1))
+    lat.set_flags(flags)
+    lat.set_setting("Porocity", 0.5, zone=1)
+    lat.init()
+    return lat
+
+
+# d2q9_kuper_adj: the kuper rich state (torch_cases.paint_rich_kuper) with
+# a DesignSpace block, the design wd in (0.5, 1.5) and both wall forces in
+# the objective
+KUPER_ADJ_SETTINGS = {**KUPER_SETTINGS, "WallForceXInObj": 1.0,
+                      "WallForceYInObj": 0.5}
+
+
+def paint_rich_kuper_adj(lat, seed):
+    """``paint_rich_kuper`` on a d2q9_kuper_adj Lattice of either package,
+    a DesignSpace block added (flags are painted first) and wd in (0.5,
+    1.5)."""
+    m = lat.model
+    ny, nx = lat.shape
+    flags = rich_flags_kuper(m, ny, nx)
+    flags[ny // 4:3 * ny // 4, nx // 2:5 * nx // 8] |= np.uint16(
+        m.flag_for("DesignSpace"))
+    lat.set_flags(flags)
+    lat.set_setting("Density", KUPER_VAPOUR, zone=1)
+    lat.set_setting("Density", KUPER_WALL_DENSITY, zone=2)
+    lat.init()
+    rng = np.random.default_rng(seed)
+    f = lat.fields_raw()
+    planes = {f"f[{k}]": f[k] * (1 + 0.01 * rng.standard_normal(lat.shape))
+              for k in range(9)}
+    planes["wd"] = 0.5 + rng.random(lat.shape)
+    lat.set_density_planes(planes)
+    return lat
+
+
+def kuper_adj_design_lattice(lattice_cls, model, dtype, shape=(16, 128),
+                             design_rows=None, **kw):
+    """tests/test_pallas_adjoint.py:test_pallas_kuper_gradient's case at
+    ``shape``: MRT, a vapour drop (zone 1) in the liquid, walls top and
+    bottom, the DesignSpace block (the middle half in y, or the rows
+    ``design_rows = (y0, y1)``; x from 5/16 to 5/8 of nx), WallForceX the
+    objective.  Initialised.  (On a tall lattice the middle half lies
+    further from the walls than a short run's cotangents reach, and the
+    design gradient is zero: pass rows by the walls.)"""
+    ny, nx = shape
+    y0, y1 = design_rows or (ny // 4, 3 * ny // 4)
+    lat = lattice_cls(model, shape, dtype=dtype,
+                      settings={"omega": 1.0, "Temperature": 0.56,
+                                "FAcc": 1.0, "Magic": 0.01,
+                                "MagicA": -0.152, "MagicF": -2.0 / 3.0,
+                                "Density": 3.26, "WallForceXInObj": 1.0},
+                      **kw)
+    lat.set_setting("Density", 0.0145, zone=1)
+    f = model.flag_for
+    flags = np.full(shape, f("MRT"), dtype=np.uint16)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    r = ny * 3 / 8
+    flags[((yy - ny / 2) ** 2 + (xx - nx * 50 / 128) ** 2) < r * r] = \
+        f("MRT", zone=1)
+    flags[0, :] = flags[-1, :] = f("Wall")
+    flags[y0:y1, nx * 5 // 16:nx * 5 // 8] |= np.uint16(f("DesignSpace"))
+    lat.set_flags(flags)
+    lat.init()
+    return lat
